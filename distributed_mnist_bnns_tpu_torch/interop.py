@@ -1,0 +1,93 @@
+"""Carry weights and frozen artifacts across from the JAX package.
+
+The JAX package's trees arrive as numpy arrays (``np.asarray`` of every
+leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
+
+  params_from_jax(variables)  {"params", "batch_stats"} -> the port's BnnMLP
+  frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
+                              port's frozen artifact (same keys)
+
+Flax names map as BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 ->
+bn1..bn3 (scale/bias -> weight/bias, mean/var -> running stats) and
+Dense_0 -> head, the names the JAX ``infer.py`` reads. Flax kernels are
+(in, out); the port's weights are (out, in), as ``nn.Linear``'s.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .models.mlp import BnnMLP
+
+_DENSE = ("BinarizedDense_0", "BinarizedDense_1", "BinarizedDense_2")
+_FCS = ("fc1", "fc2", "fc3")
+_BNS = (("BatchNorm_0", "bn1"), ("BatchNorm_1", "bn2"), ("BatchNorm_2", "bn3"))
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def params_from_jax(
+    variables: Dict[str, Any], model: Optional[BnnMLP] = None, **model_kw
+) -> BnnMLP:
+    """Load a JAX BnnMLP's ``{"params", "batch_stats"}`` (numpy leaves)
+    into ``model``, or into a new BnnMLP of the tree's widths built with
+    ``model_kw``. Returns the model in eval mode."""
+    p, s = variables["params"], variables["batch_stats"]
+    kernels = [np.asarray(p[name]["kernel"]) for name in _DENSE]
+    head = np.asarray(p["Dense_0"]["kernel"])
+    if model is None:
+        model = BnnMLP(
+            hidden=tuple(k.shape[1] for k in kernels),
+            num_classes=head.shape[1],
+            in_features=kernels[0].shape[0],
+            **model_kw,
+        )
+    state = {}
+    for name, fc, kern in zip(_DENSE, _FCS, kernels):
+        state[f"{fc}.weight"] = _t(kern.T)
+        state[f"{fc}.bias"] = _t(p[name]["bias"])
+    for flax_name, bn in _BNS:
+        state[f"{bn}.weight"] = _t(p[flax_name]["scale"])
+        state[f"{bn}.bias"] = _t(p[flax_name]["bias"])
+        state[f"{bn}.running_mean"] = _t(s[flax_name]["mean"])
+        state[f"{bn}.running_var"] = _t(s[flax_name]["var"])
+        state[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    state["head.weight"] = _t(head.T)
+    state["head.bias"] = _t(p["Dense_0"]["bias"])
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def frozen_from_jax(frozen: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's frozen artifact from the dict the JAX package's
+    ``infer._freeze_tensors`` returns (numpy leaves; ints, strings and
+    the ``info`` dict pass through). Array dtypes are kept: int32 packed
+    words stay int32, an int8 first layer stays int8."""
+    if isinstance(frozen, dict):
+        return {k: (dict(v) if k == "info" else frozen_from_jax(v))
+                for k, v in frozen.items()}
+    if isinstance(frozen, (list, tuple)):
+        return [frozen_from_jax(v) for v in frozen]
+    if isinstance(frozen, np.ndarray):
+        return torch.from_numpy(frozen.copy())
+    return frozen
+
+
+def variables_from_npz(path: str) -> Dict[str, Any]:
+    """Unflatten an ``.npz`` whose keys are '/'-joined tree paths
+    (``params/BinarizedDense_0/kernel``, ``batch_stats/BatchNorm_0/mean``)
+    into the nested variables dict ``params_from_jax`` takes."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[key]
+    return tree

@@ -1,0 +1,81 @@
+"""Binarized PyTorch layers with fp32 latent ("master") parameters.
+
+Counterpart of the JAX package's ``models/layers.py`` (``BinarizedDense``
+only). The fp32 latent weight is the only stored weight; its ±1 view is
+re-derived on every forward with ``binarize_ste``. Inputs are binarized
+before the GEMM unless ``binarize_input`` is False (first layers fed raw
+pixels). The fp32 bias is added after the binary GEMM.
+
+The weight is stored (out_features, in_features), as ``nn.Linear`` does;
+the JAX kernel is (in, out) (``interop.params_from_jax`` transposes).
+Parameters are made on the CPU from the given ``torch.Generator``; move
+the module with ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.binarize import STEMode, binarize_ste
+
+BACKENDS = ("xla", "bf16")
+
+
+def _binary_matmul(x: torch.Tensor, wb: torch.Tensor, backend: str):
+    """x (M, K) @ wb.T for a ±1 (N, K) weight.
+
+    "xla": the fp32 product. "bf16": operands rounded to bfloat16 and
+    multiplied with fp32 accumulation, as the JAX "bf16" backend's
+    ``preferred_element_type=float32`` does. Both are exact on ±1
+    operands; they differ only on a raw first-layer input that bf16
+    cannot hold."""
+    if backend == "xla":
+        return x @ wb.t()
+    if backend == "bf16":
+        return x.to(torch.bfloat16).to(torch.float32) @ (
+            wb.to(torch.bfloat16).to(torch.float32).t()
+        )
+    raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
+
+
+class BinarizedDense(nn.Module):
+    """y = binarize(x) @ binarize(W_latent).T + b_fp32."""
+
+    def __init__(
+        self, in_features: int, out_features: int, *,
+        binarize_input: bool = True, use_bias: bool = True,
+        ste: STEMode = "identity", backend: str = "bf16",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
+        self.in_features = in_features
+        self.out_features = out_features
+        self.binarize_input = binarize_input
+        self.ste = ste
+        self.backend = backend
+        # LeCun-uniform latent init kept inside [-1, 1], as the JAX
+        # package's _latent_init (bound = min(1, 1/sqrt(fan_in))).
+        bound = min(1.0, 1.0 / in_features ** 0.5)
+        w = torch.empty(out_features, in_features)
+        w.uniform_(-bound, bound, generator=generator)
+        self.weight = nn.Parameter(w)
+        self.bias = (
+            nn.Parameter(torch.zeros(out_features))
+            if use_bias else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.binarize_input:
+            x = binarize_ste(x, self.ste)
+        wb = binarize_ste(self.weight, self.ste)
+        lead = x.shape[:-1]
+        y = _binary_matmul(x.reshape(-1, x.shape[-1]), wb, self.backend)
+        y = y.reshape(*lead, self.out_features)
+        if self.bias is not None:
+            y = y + self.bias
+        return y

@@ -1,0 +1,200 @@
+"""Build, load and launch the package's CUDA kernels; count launches.
+
+The sources live in ``csrc/``. Each is compiled at first use by ``nvcc``
+into a shared library with a plain C interface, under ``_build/`` beside
+this package (listed in ``.gitignore``), and loaded with ``ctypes``. The
+library's file name carries a hash of the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Nothing
+here runs at import time: the CPU tests import every module, and this
+module must import on a machine that has no ``nvcc``.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made. It is
+incremented where a kernel is launched and nowhere else, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel name -> (C launcher symbol, source file). One source holds the
+# three epilogues of the packed GEMM.
+KERNELS = {
+    "xnor": ("xnor_gemm_none", "xnor_gemm.cu"),
+    "xnor_sign": ("xnor_gemm_sign", "xnor_gemm.cu"),
+    "xnor_affine": ("xnor_gemm_affine", "xnor_gemm.cu"),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()          # guards _libs and the builds it starts
+_count_lock = threading.Lock()    # guards LAUNCHES
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built "
+            "from source at first use"
+        )
+    return path
+
+
+def _lib_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
+def _compile(source: str, out: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {source} (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+
+
+def build(sources: Optional[list] = None) -> Dict[str, float]:
+    """Compile every source not built yet, one ``nvcc`` per source, all
+    started together. Returns {source: seconds} for the sources this
+    call compiled."""
+    todo = []
+    for source in sorted(set(sources or (s for _, s in KERNELS.values()))):
+        out = _lib_path(source)
+        if not os.path.exists(out):
+            todo.append((source, out))
+    threads, errors, seconds = [], [], {}
+
+    def run(source: str, out: str) -> None:
+        t0 = time.perf_counter()
+        try:
+            _compile(source, out)
+        except RuntimeError as e:
+            errors.append(e)
+            return
+        seconds[source] = time.perf_counter() - t0
+
+    for source, out in todo:
+        th = threading.Thread(target=run, args=(source, out))
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return seconds
+
+
+def _library(source: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source)
+        if lib is not None:
+            return lib
+        path = _lib_path(source)
+        if not os.path.exists(path):
+            build([source])
+        lib = ctypes.CDLL(path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.xnor_gemm_none.argtypes = [p, p, p, i, i, i, i, i, p]
+        for fn in (lib.xnor_gemm_sign, lib.xnor_gemm_affine):
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        for fn in (lib.xnor_gemm_none, lib.xnor_gemm_sign,
+                   lib.xnor_gemm_affine):
+            fn.restype = ctypes.c_int
+        _libs[source] = lib
+        return lib
+
+
+def _check(t: torch.Tensor, device: torch.device, dtype: torch.dtype,
+           shape: tuple, what: str) -> None:
+    if t.device != device or t.dtype != dtype \
+            or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: want contiguous {device} {dtype} of shape {shape}, got "
+            f"{t.device} {t.dtype} {tuple(t.shape)} "
+            f"contiguous={t.is_contiguous()}"
+        )
+
+
+def xnor_gemm(
+    name: str, xp: torch.Tensor, wp: torch.Tensor, k: int, n: int,
+    va: Optional[torch.Tensor] = None, vb: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch packed-GEMM kernel ``name`` ("xnor", "xnor_sign" or
+    "xnor_affine") on PyTorch's current stream.
+
+    xp: (M, KW) int32 packed activations; wp: (KW_p >= KW, N_p >= n)
+    int32 K-major packed weights; va/vb/bias: (n,) fp32 epilogue
+    vectors (a, t) for the sign epilogue, (a, c) for the affine one.
+    Returns (M, n) fp32. Does not synchronise."""
+    symbol, source = KERNELS[name]
+    m, kw = xp.shape
+    if not xp.is_cuda:
+        raise ValueError(f"packed x lies on {xp.device}, not on a CUDA device")
+    dev = xp.device
+    _check(xp, dev, torch.int32, (m, kw), "packed x")
+    if -(-k // 32) != kw:
+        raise ValueError(f"K={k} bits do not pack into {kw} words")
+    if wp.dim() != 2 or wp.shape[0] < kw or wp.shape[1] < n:
+        raise ValueError(
+            f"packed w {tuple(wp.shape)} does not cover ({kw} words, {n})"
+        )
+    _check(wp, dev, torch.int32, tuple(wp.shape), "packed w")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    vecs = []
+    if name != "xnor":
+        for v, what in ((va, "a"), (vb, "t/c"), (bias, "bias")):
+            _check(v, dev, torch.float32, (n,), what)
+            vecs.append(v.data_ptr())
+    lib = _library(source)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, symbol)(
+        xp.data_ptr(), wp.data_ptr(), *vecs, out.data_ptr(),
+        m, n, kw, wp.shape[1], k, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    with _count_lock:
+        LAUNCHES[name] += 1
+    return out

@@ -1,0 +1,207 @@
+"""Packed ±1 GEMM (XNOR-popcount), serving half.
+
+Counterpart of the JAX package's ``ops/xnor_gemm.py`` for frozen
+inference: ``prepack_weights`` and the three packed entry points
+
+  xnor_matmul_packed         o = K - 2 * sum_w popcount(x_w ^ w_w)
+  xnor_matmul_packed_sign    where(a * (o + bias) >= t, +1, -1)
+  xnor_matmul_packed_affine  clip(a * (o + bias) + c, -1, 1)
+
+with the JAX argument order ``(x_pm1, w_packed, k, n, avec, tvec|cvec,
+bias)``. Each entry packs x on x's device and dispatches on it: a CUDA
+tensor launches the hand-written kernel (``csrc/xnor_gemm.cu`` through
+``ops._kernels``) or raises; a CPU tensor takes the plain PyTorch
+version below. There is no fallback from the one to the other.
+
+Every GEMM result is exact: a ±1 dot product is an integer with
+|dot| <= K <= 2^24. The epilogues follow the JAX kernels' order of
+operations and rounding: the sign epilogue rounds after each operation,
+and the affine one rounds ``a * y + c`` once, as the fused multiply-add
+that XLA makes of it (``_fma_f32``). So the kernel, the plain version
+and the JAX Pallas kernels run in interpret mode agree bitwise.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _kernels
+from .bitpack import pack_bits, packed_dim, unpack_bits
+
+
+def prepack_weights(
+    w_pm1: torch.Tensor, block_n: int = 256
+) -> Tuple[torch.Tensor, int, int]:
+    """Pack a ±1 (K, N) weight matrix into the K-major bitplane layout,
+    word for word the JAX package's ``prepack_weights``: (KW_p, N_p)
+    int32 with K padded to 128-word multiples once KW > 128 and N padded
+    to ``min(block_n, max(128, n))`` column blocks. Returns
+    (packed, k, n)."""
+    k, n = w_pm1.shape
+    wtp = pack_bits(w_pm1.t()).t()
+    kw = wtp.shape[0]
+    kw_p = kw if kw <= 128 else -(-kw // 128) * 128
+    bn = min(block_n, max(128, n))
+    np_ = -(-n // bn) * bn
+    if (kw_p, np_) != tuple(wtp.shape):
+        wtp = torch.nn.functional.pad(wtp, (0, np_ - n, 0, kw_p - kw))
+    return wtp.contiguous(), k, n
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the kernels' reference)
+# ---------------------------------------------------------------------------
+
+_M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
+_CHUNK_ELEMS = 1 << 22  # bound on the (M, N, words) int64 temporary
+
+
+def _popcount32(v: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of the low 32 bits of an int64 tensor."""
+    v = v & 0xFFFFFFFF
+    v = v - ((v >> 1) & _M1)
+    v = (v & _M2) + ((v >> 2) & _M2)
+    v = (v + (v >> 4)) & _M4
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _mismatches(xp: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """(M, KW) x (KW, N) packed -> (M, N) int64 sum_w popcount(x ^ w),
+    chunked over the words so the (M, N, chunk) temporary stays small."""
+    m, kw = xp.shape
+    n = wt.shape[1]
+    x64 = xp.to(torch.int64)
+    w64 = wt[:kw].to(torch.int64)
+    step = max(1, _CHUNK_ELEMS // max(1, m * n))
+    mism = torch.zeros((m, n), dtype=torch.int64, device=xp.device)
+    for t0 in range(0, kw, step):
+        xc = x64[:, None, t0:t0 + step]           # (M, 1, c)
+        wc = w64[t0:t0 + step].t()[None]          # (1, N, c)
+        mism += _popcount32(xc ^ wc).sum(dim=-1)
+    return mism
+
+
+def _pad_cols(vec: torch.Tensor, np_: int, fill: float = 0.0) -> torch.Tensor:
+    """(N,) per-column epilogue vector -> (N_p,) padded fp32."""
+    vec = vec.to(torch.float32)
+    return torch.nn.functional.pad(vec, (0, np_ - vec.shape[0]), value=fill)
+
+
+def _fma_f32(a: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a * y + c`` rounded once, as a fused multiply-add.
+
+    In float64 the product of two fp32 values is exact; TwoSum then gives
+    the exact remainder of the float64 sum, and rounding that sum to odd
+    (a nonzero remainder forces the last bit to 1) makes the final
+    rounding to fp32 the only one that counts (53 >= 24 + 2 bits)."""
+    a64, y64, c64 = a.double(), y.double(), c.double()
+    p = a64 * y64
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def xnor_gemm_plain(xp: torch.Tensor, wp: torch.Tensor, k: int) -> torch.Tensor:
+    """K1's plain version: (M, KW) packed x against (KW_p, N_p) packed
+    weights -> (M, N_p) fp32 ``K - 2 * mismatches`` (exact integers)."""
+    return (k - 2 * _mismatches(xp, wp)).to(torch.float32)
+
+
+def xnor_sign_plain(xp, wp, k, avec, tvec, bias) -> torch.Tensor:
+    """K2's plain version over the padded (M, N_p) tile, in the JAX
+    kernel's order; padding columns use a=0, t=+1 (so they are -1)."""
+    o = xnor_gemm_plain(xp, wp, k)
+    np_ = o.shape[1]
+    y = o + _pad_cols(bias, np_)
+    pos = _pad_cols(avec, np_) * y >= _pad_cols(tvec, np_, fill=1.0)
+    return torch.where(pos, 1.0, -1.0).to(torch.float32)
+
+
+def xnor_affine_plain(xp, wp, k, avec, cvec, bias) -> torch.Tensor:
+    """K3's plain version over the padded (M, N_p) tile, in the JAX
+    kernel's order; padding columns use zeros."""
+    o = xnor_gemm_plain(xp, wp, k)
+    np_ = o.shape[1]
+    y = _fma_f32(
+        _pad_cols(avec, np_), o + _pad_cols(bias, np_), _pad_cols(cvec, np_)
+    )
+    return torch.clamp(y, -1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def _pack_x(x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int):
+    if x_pm1.dim() != 2 or x_pm1.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}), got {tuple(x_pm1.shape)}")
+    if w_packed.device != x_pm1.device:
+        raise ValueError(
+            f"x on {x_pm1.device} but packed weights on {w_packed.device}"
+        )
+    kw = packed_dim(k)
+    if w_packed.shape[0] < kw or w_packed.shape[1] < n:
+        raise ValueError(
+            f"packed weights {tuple(w_packed.shape)} do not cover K={k} "
+            f"({kw} words), N={n}"
+        )
+    return pack_bits(x_pm1)
+
+
+def _dispatch(name, plain, x_pm1, w_packed, k, n, va=None, vb=None, bias=None):
+    xp = _pack_x(x_pm1, w_packed, k, n)
+    if xp.is_cuda:
+        vecs = [
+            None if v is None else v.to(torch.float32).contiguous()
+            for v in (va, vb, bias)
+        ]
+        return _kernels.xnor_gemm(name, xp, w_packed, k, n, *vecs)
+    if xp.device.type != "cpu":
+        raise ValueError(f"no packed GEMM for device {xp.device}")
+    args = () if va is None else (va, vb, bias)
+    return plain(xp, w_packed, k, *args)[:, :n]
+
+
+def xnor_matmul_packed(
+    x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int
+) -> torch.Tensor:
+    """(M, K) ±1 activations @ pre-packed weights -> (M, N) fp32."""
+    return _dispatch("xnor", xnor_gemm_plain, x_pm1, w_packed, k, n)
+
+
+def xnor_matmul_packed_sign(
+    x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int,
+    avec: torch.Tensor, tvec: torch.Tensor, bias: torch.Tensor,
+) -> torch.Tensor:
+    """(M, K) ±1 @ pre-packed weights with the threshold-sign epilogue
+    fused: returns ±1 activations ready for the next packed layer.
+    ``avec``/``tvec``/``bias`` are (N,) per-column epilogue params
+    (``infer._bn_sign_epilogue``)."""
+    return _dispatch(
+        "xnor_sign", xnor_sign_plain, x_pm1, w_packed, k, n, avec, tvec, bias
+    )
+
+
+def xnor_matmul_packed_affine(
+    x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int,
+    avec: torch.Tensor, cvec: torch.Tensor, bias: torch.Tensor,
+) -> torch.Tensor:
+    """(M, K) ±1 @ pre-packed weights with the eval-BN affine + hardtanh
+    epilogue fused: returns ``clip(a*(y+bias)+c, -1, 1)``."""
+    return _dispatch(
+        "xnor_affine", xnor_affine_plain, x_pm1, w_packed, k, n,
+        avec, cvec, bias,
+    )
+
+
+def unpacked_pm1(w_packed: torch.Tensor, k: int, n: int,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (K, N) ±1 matrix a packed weight holds."""
+    return unpack_bits(w_packed.t().contiguous(), k, dtype).t()[:, :n]

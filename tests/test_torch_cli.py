@@ -1,0 +1,104 @@
+"""The PyTorch port's command line: ``export`` then ``infer`` on the CPU,
+and the default device that never falls back to it."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_mnist_bnns_tpu_torch import cli
+from distributed_mnist_bnns_tpu_torch.data import (
+    load_idx,
+    load_mnist,
+    synthetic_blobs,
+)
+from distributed_mnist_bnns_tpu_torch.infer import load_packed
+
+
+def test_export_then_infer_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "m.pt")
+    assert cli.main(["export", "--model", "bnn-mlp-small", "--infl-ratio",
+                     "1", "--seed", "3", "--out", out]) == 0
+    exported = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert exported["artifact"] == out and exported["family"] == "bnn-mlp"
+    fn, info = load_packed(out, device="cpu")
+    assert info["compression"] == exported["compression"]
+    assert cli.main(["infer", "--artifact", out, "--device", "cpu",
+                     "--batch-size", "16", "--synthetic-sizes", "8", "40",
+                     "--data-dir", str(tmp_path)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["n_examples"] == 40 and res["data_source"] == "synthetic"
+    assert res["device"] == "cpu" and 0.0 <= res["test_acc"] <= 100.0
+
+
+def test_export_from_jax_variables_npz(tmp_path, capsys):
+    """--jax-variables loads a '/'-keyed .npz of the JAX tree."""
+    rng = np.random.RandomState(0)
+    flat = {}
+    dims = (784, 64, 64, 64)
+    for i in range(3):
+        flat[f"params/BinarizedDense_{i}/kernel"] = rng.randn(
+            dims[i], dims[i + 1]).astype(np.float32)
+        flat[f"params/BinarizedDense_{i}/bias"] = np.zeros(64, np.float32)
+        flat[f"params/BatchNorm_{i}/scale"] = np.ones(64, np.float32)
+        flat[f"params/BatchNorm_{i}/bias"] = np.zeros(64, np.float32)
+        flat[f"batch_stats/BatchNorm_{i}/mean"] = np.zeros(64, np.float32)
+        flat[f"batch_stats/BatchNorm_{i}/var"] = np.ones(64, np.float32)
+    flat["params/Dense_0/kernel"] = rng.randn(64, 10).astype(np.float32)
+    flat["params/Dense_0/bias"] = np.zeros(10, np.float32)
+    npz = tmp_path / "vars.npz"
+    np.savez(npz, **flat)
+    out = str(tmp_path / "m.pt")
+    assert cli.main(["export", "--jax-variables", str(npz),
+                     "--out", out]) == 0
+    frozen = torch.load(out, weights_only=True)
+    np.testing.assert_array_equal(
+        frozen["w1"].numpy(),
+        np.where(flat["params/BinarizedDense_0/kernel"] >= 0, 1, -1),
+    )
+
+
+def test_device_defaults_to_cuda(tmp_path):
+    args = cli.build_parser().parse_args(["serve", "--artifact", "x"])
+    assert args.device == "cuda"
+    args = cli.build_parser().parse_args(["infer", "--artifact", "x"])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["infer", "--artifact", str(tmp_path / "absent.pt")])
+
+
+def test_mnist_loader_parses_idx_and_falls_back(tmp_path):
+    imgs = (np.arange(2 * 28 * 28) % 256).astype(np.uint8).reshape(2, 28, 28)
+    labels = np.array([3, 7], np.uint8)
+    for stem, arr, magic in (("t10k-images-idx3-ubyte", imgs, 0x0803),
+                             ("t10k-labels-idx1-ubyte", labels, 0x0801)):
+        with open(tmp_path / stem, "wb") as f:
+            f.write(magic.to_bytes(4, "big"))
+            for d in arr.shape:
+                f.write(int(d).to_bytes(4, "big"))
+            f.write(arr.tobytes())
+    np.testing.assert_array_equal(
+        load_idx(str(tmp_path / "t10k-images-idx3-ubyte")), imgs
+    )
+    data = load_mnist(str(tmp_path), norm="none")
+    assert data.source == "t10k-split" and data.test_images.shape[1:] == (
+        28, 28, 1)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    syn = load_mnist(str(empty), synthetic_sizes=(6, 4), seed=1)
+    assert syn.source == "synthetic" and syn.test_images.shape == (4, 28, 28, 1)
+    with pytest.raises(FileNotFoundError):
+        load_mnist(str(empty), synthetic_ok=False)
+
+
+def test_synthetic_blobs_match_the_jax_package():
+    from distributed_mnist_bnns_tpu.data.common import (
+        synthetic_blobs as jax_blobs,
+    )
+
+    for a, b in zip(synthetic_blobs((28, 28), 5, 3, seed=2),
+                    jax_blobs((28, 28), 5, 3, seed=2)):
+        np.testing.assert_array_equal(a, b)

@@ -1,0 +1,116 @@
+"""Import hygiene of the PyTorch port: no module of the port, and not
+``chip_smoke.py``, imports JAX, flax, optax or the JAX package; and the
+port's kernel build stays out of what git commits."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "distributed_mnist_bnns_tpu_torch"
+BANNED = {"jax", "jaxlib", "flax", "optax", "distributed_mnist_bnns_tpu"}
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+            node.func, "attr", getattr(node.func, "id", "")
+        ) in ("import_module", "__import__") and node.args and isinstance(
+            node.args[0], ast.Constant
+        ):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: str(p.relative_to(REPO))
+)
+def test_no_jax_imports(path):
+    bad = [(line, mod) for line, mod in _imported_roots(path)
+           if mod in BANNED]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(BANNED)!r})\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_load_packed_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from distributed_mnist_bnns_tpu_torch.infer import load_packed
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_packed(str(tmp_path / "absent.pt"), device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_packed(str(tmp_path / "absent.pt"))
+
+
+def test_kernel_build_dir_is_ignored_and_sources_ship():
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    assert (PORT / "csrc" / "xnor_gemm.cu").is_file()
+    assert {src for _, src in _kernels.KERNELS.values()} == {"xnor_gemm.cu"}
+    if shutil.which("git") is None:
+        pytest.skip("git not available")
+    probe = os.path.join(_kernels.BUILD_DIR, "libx.so")
+    out = subprocess.run(
+        ["git", "check-ignore", "-q", probe], cwd=REPO, timeout=60,
+    )
+    assert out.returncode == 0, "the kernel build directory is not ignored"
+
+
+def test_library_name_follows_source_and_flags(monkeypatch):
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    a = _kernels._lib_path("xnor_gemm.cu")
+    assert a == _kernels._lib_path("xnor_gemm.cu")
+    assert a.startswith(_kernels.BUILD_DIR) and a.endswith(".so")
+    monkeypatch.setattr(_kernels, "NVCC_FLAGS", _kernels.NVCC_FLAGS + ("-G",))
+    assert _kernels._lib_path("xnor_gemm.cu") != a
+    assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present")
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.build()
