@@ -6,25 +6,45 @@ Phases, each fatal on failure:
 
   1. the card: exit non-zero without CUDA; print the card's name and
      power limit as ``nvidia-smi`` reports them;
-  2. build: compile every kernel of the serving path from ``csrc/``
-     (one ``nvcc`` per source, all started together);
+  2. build: compile every kernel from ``csrc/`` (one ``nvcc`` per
+     source, all started together);
   3. kernels: each packed-GEMM kernel (K1 none, K2 sign, K3 affine
      epilogue) against its plain PyTorch version on the card,
-     ``torch.equal``, at the serving path's shapes (M in {1, 32, 256}),
-     at ragged and multi-chunk shapes, and with g < 0, g == 0 and exact
-     tie columns; then CUDA-graph timings of the kernel, its plain
-     version and ``torch.matmul`` on the unpacked ±1 bf16 operands;
-  4. slice: ``bnn-mlp-large`` at full width (784-3072-1536-768-10) from
-     a seeded ``torch.Generator`` with random BN statistics, frozen,
-     exported, ``load_packed`` on ``cuda``, checked against the live
-     eval model, then served by the port's HTTP server (batch 32) and
-     queried through the port's client; the launch counters are zeroed
-     just before this phase and read just after it. Then the frozen
-     predictor's time per batch of 32 on the host clock and, from
-     ``torch.profiler``, its device time and largest kernels.
+     ``torch.equal``, at the serving paths' shapes (K1 at every (K, N)
+     of the LM's projections and at the MLP's layer 2), at ragged and
+     multi-chunk shapes, and with g < 0, g == 0 and exact tie columns;
+     K7 (fused bitplane-unpack GEMM) the same way on ±1 x and to rtol
+     1e-5 on real x; K8 (paged attention) against the gather path to
+     atol = rtol = 1e-5 in decode, prefill and verify shapes over
+     scrambled, reused and null pages. Then CUDA-graph timings of each
+     kernel at its main path's shape, its plain version, one PyTorch
+     library call computing the same function, and the bound;
+  4. MLP slice: ``bnn-mlp-large`` at full width (784-3072-1536-768-10)
+     from a seeded ``torch.Generator`` with random BN statistics,
+     frozen, exported, ``load_packed`` on ``cuda``, checked against the
+     live eval model, then served by the port's HTTP server (batch 32)
+     and queried through the port's client; the launch counters are
+     zeroed just before this phase and read just after it. Then the
+     frozen predictor's time per batch of 32 on the host clock and, from
+     ``torch.profiler``, its device time and largest kernels;
+  5. LM slice: the ``BinarizedLM`` of ``bench.py --lm-serve-bench``
+     (vocab 256, max_len 256, embed 256, depth 4, 4 heads, MLP 512)
+     from a seeded ``torch.Generator`` with random biases and LayerNorm
+     parameters, frozen and exported; a 60-token
+     sequence teacher-forced through the paged decoder (K7 prefill, K1
+     decode projections, K8 attention) and the contiguous decoder on the
+     card; then the continuous-batching server (4 slots, pages of 16)
+     answers 6 concurrent greedy ``/generate`` requests (prompts of 5 to
+     150 tokens, 32 new tokens each, one sent as text), each stream
+     equal to the decoder driven directly for that prompt alone. The
+     counters are zeroed just before the requests and read just after:
+     K1, K7 and K8 must all have launched. Then decode-iteration and
+     prefill-chunk times, device time from ``torch.profiler``, and the
+     requests' time to first token and time per token.
 
-The last lines are the per-kernel JSON lines, the ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``.
+The last lines are the per-kernel JSON lines, the card's name and power
+limit, the ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -43,18 +64,37 @@ import torch
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, the lowest
 # precision the data sheet lists; a ±1 GEMM counts 2*M*N*K operations
+H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores (data sheet)
 
-MAIN_M = 32  # the server's micro-batch: the shape the main path runs
+MAIN_M = 32  # the MLP server's micro-batch: the shape its path runs
 LAYER2 = (3072, 1536)  # (K, N) of K2 in bnn-mlp-large
 LAYER3 = (1536, 768)   # (K, N) of K3
 
+LM_WIDTH = dict(vocab=256, max_len=256, embed_dim=256, depth=4,
+                num_heads=4, mlp_ratio=2)
+LM_SLOTS = 4           # decode rows: K1's M on the LM path
+LM_CHUNK = 16          # prefill rows: K7's M on the LM path
+LM_PAGE = 16
+LM_MLP1 = (256, 512)   # (K, N) of the LM's widest projection
+# (K, N) of every packed LM projection: q/k/v/out, mlp1, mlp2
+LM_PROJ = ((256, 256), LM_MLP1, (512, 256))
+LM_PROMPTS = (5, 16, 17, 40, 100, 150)
+LM_NEW_TOKENS = 32
+LM_TEXT = "chip_smoke: text!"   # 17 bytes: the request sent as "text"
+
+_SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
+_TPU = "distributed_mnist_bnns_tpu/ops/"
 KERNEL_ROWS = {
-    # name -> (TPU kernel it replaces, main-path (K, N), on the main path)
-    "xnor": ("distributed_mnist_bnns_tpu/ops/xnor_gemm.py:81", LAYER2, False),
-    "xnor_sign": ("distributed_mnist_bnns_tpu/ops/xnor_gemm.py:124",
-                  LAYER2, True),
-    "xnor_affine": ("distributed_mnist_bnns_tpu/ops/xnor_gemm.py:149",
-                    LAYER3, True),
+    # name -> (TPU kernel it replaces, source, timed (M, K, N))
+    "xnor": (_TPU + "xnor_gemm.py:81", _SRC + "xnor_gemm.cu",
+             (LM_SLOTS, *LM_MLP1)),
+    "xnor_sign": (_TPU + "xnor_gemm.py:124", _SRC + "xnor_gemm.cu",
+                  (MAIN_M, *LAYER2)),
+    "xnor_affine": (_TPU + "xnor_gemm.py:149", _SRC + "xnor_gemm.cu",
+                    (MAIN_M, *LAYER3)),
+    "xnor_unpack": (_TPU + "xnor_gemm.py:374", _SRC + "xnor_unpack.cu",
+                    (LM_CHUNK, *LM_MLP1)),
+    "paged_attn": (_TPU + "paged_kv.py:355", _SRC + "paged_attn.cu", None),
 }
 
 
@@ -136,15 +176,22 @@ def _bound(name: str, m: int, k: int, n: int):
 
 
 def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
-    """Compare kernel ``name`` with its plain version at every listed
-    shape; time it at the main path's shapes. Returns the timing rows
-    and the largest absolute difference seen."""
+    """Compare packed-GEMM kernel ``name`` (K1-K3) with its plain
+    version at every listed shape; time it at the main paths' (K, N).
+    Returns the timing rows and the largest absolute difference seen."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
     from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
 
-    _, main_kn, _ = KERNEL_ROWS[name]
-    shapes = [(m, *main_kn) for m in (1, MAIN_M, 256)]
+    main_m, *main_kn = KERNEL_ROWS[name][2]
+    main_kn = tuple(main_kn)
+    ms = sorted({1, main_m, MAIN_M, 256})
+    shapes = [(m, *main_kn) for m in ms]
+    if name == "xnor":
+        # every (K, N) the LM decode path gives K1, and the MLP's layer 2
+        shapes += [(m, k, n) for m in ms for k, n in LM_PROJ
+                   if (k, n) != main_kn]
+        shapes += [(m, *LAYER2) for m in (1, MAIN_M, 256)]
     shapes += [(17, 100, 130), (5, 31, 1), (3, 4160, 200), (9, 9000, 257)]
     max_err = 0.0
     rows = []
@@ -197,6 +244,169 @@ def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
         rows.append(row)
         print(json.dumps(row), flush=True)
     torch.cuda.synchronize()
+    return rows, max_err
+
+
+def unpack_phase(device: torch.device, gen: torch.Generator):
+    """K7 against its plain version: ``torch.equal`` on ±1 x at the LM
+    path's shapes, ragged and multi-chunk ones; rtol 1e-5 on real x.
+    Returns (timing row at the prefill shape, largest |diff| on ±1 x)."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+
+    shapes = [(m, k, n) for m in (1, LM_CHUNK, 64) for k, n in LM_PROJ]
+    shapes += [(17, 100, 130), (LM_CHUNK, 4160, 257)]
+    max_err = 0.0
+    for m, k, n in shapes:
+        wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+        x = _pm1(gen, m, k).to(device)
+        got = xg.xnor_matmul_fused_unpack(x, wp, k, n)
+        want = xg.fused_unpack_plain(x, wp, k, n)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"xnor_unpack at (M={m}, K={k}, N={n}) on ±1 x differs "
+                f"from its plain version: max |diff| = {err}"
+            )
+        # Real x: both sum in fp32 in other orders. An entry that cancels
+        # to near 0 keeps no relative precision, so the absolute term is
+        # rtol times the typical size of an entry (sqrt(K) for unit x).
+        xr = torch.randn(m, k, generator=gen).to(device)
+        got = xg.xnor_matmul_fused_unpack(xr, wp, k, n)
+        want = xg.fused_unpack_plain(xr, wp, k, n)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * k ** 0.5)
+    m, k, n = KERNEL_ROWS["xnor_unpack"][2]
+    wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+    x = _pm1(gen, m, k).to(device)
+    xb = x.to(torch.bfloat16)
+    wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
+    t_bytes = 4 * (m * k + -(-k // 32) * n + m * n) / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * n * k / H100_FP32_OPS_PER_S * 1e3
+    row = {
+        "kernel": "xnor_unpack", "m": m, "k": k, "n": n,
+        "kernel_ms": _graph_ms(lambda: _kernels.xnor_unpack(x, wp, k, n)),
+        "plain_ms": _graph_ms(lambda: xg.fused_unpack_plain(x, wp, k, n)),
+        "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    print(json.dumps(row), flush=True)
+    return row, max_err
+
+
+def _paged_case(gen, device, s, c, qpos, tables, num_pages, h=4, d=64):
+    """Pools full of random rows (every page, the null page included,
+    holds another sequence's old K/V), queries (S, C, H, D)."""
+    k_pool = torch.randn(num_pages, LM_PAGE, h, d, generator=gen)
+    v_pool = torch.randn(num_pages, LM_PAGE, h, d, generator=gen)
+    q = torch.randn(s, c, h, d, generator=gen)
+    return [t.to(device) for t in (
+        q, torch.as_tensor(qpos, dtype=torch.int32), k_pool, v_pool,
+        torch.as_tensor(tables, dtype=torch.int32))]
+
+
+def _paged_bound(qpos: torch.Tensor, n_table: int, h: int, d: int):
+    """Least time of one paged-attention call: q and the output once,
+    and each slot's K/V rows at positions <= its largest query position
+    (not the whole table); operations 4*H*D per (query, visible key)."""
+    s, c = qpos.shape
+    keys = (qpos.max(dim=1).values + 1).clamp(max=n_table * LM_PAGE)
+    nbytes = 4 * (2 * s * c * h * d + 2 * int(keys.sum()) * h * d)
+    visible = (qpos + 1).clamp(min=0, max=n_table * LM_PAGE)
+    flops = 4.0 * h * d * int(visible.sum())
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def paged_phase(device: torch.device, gen: torch.Generator):
+    """K8's three entries against the gather path (the plain versions)
+    on the card, atol = rtol = 1e-5, over page boundaries, scrambled
+    tables, reused pages, null pages and positions up to 255 with P = 16;
+    then decode timings at a full (qpos 255) and a short (qpos 20)
+    context. Returns (timing rows, largest |diff|)."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import paged_kv as pk
+
+    num_pages, n_table = LM_SLOTS * 16 + 1, 16
+    alloc = pk.PageAllocator(num_pages)
+    perm = torch.randperm(num_pages - 1, generator=gen) + 1
+    tables = torch.zeros(LM_SLOTS, n_table, dtype=torch.int32)
+    tables[0] = perm[:16]                         # full: positions 0..255
+    tables[1, :2] = perm[16:18]                   # 17 positions
+    tables[2, :1] = perm[18:19]                   # one page
+    # slot 3 stays all null: an inactive slot at position 0
+    first = alloc.alloc(5)
+    alloc.free(first)
+    reused = torch.as_tensor(alloc.alloc(5)[::-1], dtype=torch.int32)
+    max_err = 0.0
+
+    def check(what, got, want):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        if not (torch.isfinite(got).all() and torch.allclose(
+                got, want, atol=1e-5, rtol=1e-5)):
+            raise AssertionError(f"paged_attn {what}: max |diff| = {err}")
+
+    # decode, S = 4, C = 1, at page boundaries and the last position
+    for pos in ([255, 16, 15, 0], [15, 0, 3, 0], [128, 10, 0, 0]):
+        q, qpos, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 1,
+                                          [[p] for p in pos], tables,
+                                          num_pages)
+        check(f"decode {pos}",
+              pk.paged_attention_kernel(q[:, 0], kp, vp, tb, qpos[:, 0]),
+              pk.paged_attention(q[:, 0], kp, vp, tb, qpos[:, 0]))
+    # prefill, S = 1, C = 16: whole chunks, a ragged last chunk whose
+    # padding queries lie past the length, queries past the table's end
+    for start, table in ((240, tables[0]), (32, tables[0]), (0, reused),
+                         (72, reused)):
+        qp = list(range(start, start + LM_CHUNK))
+        q, qpos, kp, vp, tb = _paged_case(gen, device, 1, LM_CHUNK, [qp],
+                                          table[None], num_pages)
+        check(f"prefill start {start}",
+              pk.paged_prefill_attention_kernel(q[0], kp, vp, tb[0], qpos[0]),
+              pk.paged_prefill_attention(q[0], kp, vp, tb[0], qpos[0]))
+    # verify, S = 4, C = 4: windows straddling page boundaries
+    base = torch.as_tensor([252, 14, 13, 0], dtype=torch.int32)
+    q, _, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 4, [[0] * 4] * 4,
+                                   tables, num_pages)
+    base = base.to(device)
+    check("verify", pk.paged_verify_attention_kernel(q, kp, vp, tb, base),
+          pk.paged_verify_attention(q, kp, vp, tb, base))
+
+    rows = []
+    full = torch.zeros(LM_SLOTS, n_table, dtype=torch.int32)
+    for s_ in range(LM_SLOTS):
+        full[s_] = perm[16 * s_:16 * s_ + 16]
+    for pos in (255, 20):
+        q, qpos, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 1,
+                                          [[pos]] * LM_SLOTS, full, num_pages)
+        h, d = q.shape[2], q.shape[3]
+        kc, vc = pk.gather_kv(kp, tb), pk.gather_kv(vp, tb)  # (S, L, H, D)
+        mask = (torch.arange(kc.shape[1], device=device)[None, None, :]
+                <= qpos[:, :, None])[:, None]                # (S, 1, C, L)
+        qs, ks, vs = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        lib = torch.nn.functional.scaled_dot_product_attention
+        got = _kernels.paged_attn(q, qpos, kp, vp, tb)
+        yard = lib(qs, ks, vs, attn_mask=mask).transpose(1, 2)
+        log(f"paged_attn at qpos {pos}: max |diff| to the SDPA yardstick "
+            f"{(yard - got).abs().max().item():.3g}")
+        row = {
+            "kernel": "paged_attn", "s": LM_SLOTS, "c": 1, "p": n_table,
+            "qpos": pos,
+            "kernel_ms": _graph_ms(
+                lambda: _kernels.paged_attn(q, qpos, kp, vp, tb)),
+            "plain_ms": _graph_ms(
+                lambda: pk.paged_attn_plain(q, qpos, kp, vp, tb)),
+            "library_ms": _graph_ms(lambda: lib(qs, ks, vs, attn_mask=mask)),
+        }
+        row["bound_ms"], row["bound_by"] = _paged_bound(qpos, n_table, h, d)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
     return rows, max_err
 
 
@@ -351,6 +561,242 @@ def _profile_device_ms(fn, calls: int = 20):
     return total_us / calls / 1e3, top
 
 
+def _random_lm_params(model, gen) -> None:
+    """Non-zero biases and LayerNorm parameters. At init every bias is 0,
+    so every projection's output is an integer: attention scores are
+    multiples of 1/8 and tie exactly, a tied pair of opposite values
+    cancels to nearly 0, and the sign a binarized projection then takes
+    rests on rounding, which differs between any two attention codes.
+    A trained model (and this one) has no such ties."""
+    from distributed_mnist_bnns_tpu_torch.models.transformer import LayerNorm
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, LayerNorm):
+                mod.weight.copy_(1.0 + 0.2 * torch.randn(
+                    mod.weight.shape, generator=gen))
+                mod.bias.normal_(0.0, 0.2, generator=gen)
+            elif getattr(mod, "bias", None) is not None:
+                mod.bias.normal_(0.0, 0.5, generator=gen)
+
+
+def _drive_alone(dec, prompt, n_new: int, chunk_ms=None):
+    """Greedy tokens of ``prompt`` through the paged decoder ``dec``
+    driven as the engine drives it, with slot 0 active and the other
+    slots idle (all-null tables at position 0). ``chunk_ms`` collects
+    the host-clock time of each prefill chunk (synchronised)."""
+    from distributed_mnist_bnns_tpu_torch.ops.paged_kv import pages_needed
+
+    plen = len(prompt)
+    total = min(plen + n_new, dec.max_len)
+    table = np.zeros((dec.slots, dec.max_pages), np.int32)
+    table[0, :pages_needed(total, dec.page_size)] = np.arange(
+        1, 1 + pages_needed(total, dec.page_size))
+    pools = dec.init_pools()
+    padded = -(-plen // dec.prefill_chunk) * dec.prefill_chunk
+    toks = np.zeros(padded, np.int32)
+    toks[:plen] = prompt
+    for start in range(0, padded, dec.prefill_chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pools, lp = dec.prefill(pools, toks[start:start + dec.prefill_chunk],
+                                table[0], start, plen)
+        torch.cuda.synchronize()
+        if chunk_ms is not None:
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    out = [int(lp[plen - 1 - (padded - dec.prefill_chunk)].argmax())]
+    tokens = np.zeros(dec.slots, np.int32)
+    positions = np.zeros(dec.slots, np.int32)
+    pos = plen
+    while len(out) < n_new and pos + 1 <= total - 1:
+        tokens[0], positions[0] = out[-1], pos
+        pools, lp = dec.decode(pools, tokens, table, positions)
+        out.append(int(lp[0].argmax()))
+        pos += 1
+    return out
+
+
+def lm_slice_phase(device: torch.device, gen: torch.Generator):
+    """Freeze, export and serve the LM; check the paged decoder against
+    the contiguous one and every stream against the decoder driven
+    alone. Returns (launch counts of the requests, timing dict)."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_frozen,
+    )
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        make_lm_decoder,
+        make_paged_lm_decoder,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import BinarizedLM
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve.lm import (
+        LMServeConfig,
+        LMServer,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+
+    model = BinarizedLM(**LM_WIDTH, generator=gen).eval()
+    _random_lm_params(model, gen)
+    vocab = LM_WIDTH["vocab"]
+    prompts = [torch.randint(0, vocab, (n,), generator=gen).tolist()
+               for n in LM_PROMPTS]
+    text_i = LM_PROMPTS.index(len(LM_TEXT))
+    prompts[text_i] = [b % vocab for b in LM_TEXT.encode("utf-8")]
+    seq = torch.randint(0, vocab, (60,), generator=gen).numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm.pt")
+        info = export_packed(model, path)
+        frozen = load_frozen(path)
+        log(f"LM artifact: {info['frozen_weight_bytes']} packed bytes, "
+            f"compression {info['compression']}")
+
+        # Teacher forcing: 48 prompt positions in 3 prefill chunks, then
+        # 12 decode steps, against the contiguous decoder position by
+        # position (a reference, not the serving path).
+        dec = make_paged_lm_decoder(frozen, slots=LM_SLOTS,
+                                    page_size=LM_PAGE,
+                                    prefill_chunk=LM_CHUNK, device=device)
+        pools = dec.init_pools()
+        table = np.zeros((dec.slots, dec.max_pages), np.int32)
+        table[0, :4] = [7, 3, 11, 5]
+        paged = []
+        for start in range(0, 48, LM_CHUNK):
+            pools, lp = dec.prefill(pools, seq[start:start + LM_CHUNK],
+                                    table[0], start, 48)
+            paged.append(lp)
+        for t in range(48, 60):
+            toks = np.zeros(dec.slots, np.int32)
+            poss = np.zeros(dec.slots, np.int32)
+            toks[0], poss[0] = seq[t], t
+            pools, lp = dec.decode(pools, toks, table, poss)
+            paged.append(lp[:1])
+        paged = torch.cat(paged)
+        init, step = make_lm_decoder(frozen, device=device)
+        caches = init(1)
+        ref = []
+        for t in range(60):
+            caches, lp = step(caches, seq[None, t], t)
+            ref.append(lp)
+        ref = torch.cat(ref)
+        torch.cuda.synchronize()
+        per_pos = (paged - ref).abs().amax(dim=-1)
+        diff = per_pos.max().item()
+        agree = (paged.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        # A sign flipped by a last-ulp attention difference moves a whole
+        # position's log-probs, so the limit holds position by position,
+        # with the same room as the argmax: 95% of positions within 1e-3.
+        close = (per_pos <= 1e-3).float().mean().item()
+        print(json.dumps({"lm_teacher_forced": 60,
+                          "max_abs_logprob_diff": diff,
+                          "share_within_1e-3": close,
+                          "argmax_agreement": agree}), flush=True)
+        if not (bool(torch.isfinite(paged).all()) and agree >= 0.95
+                and close >= 0.95):
+            raise AssertionError(
+                f"paged vs contiguous decoder: argmax agreement {agree}, "
+                f"positions within 1e-3 {close}, max |diff| {diff}, "
+                f"finite {bool(torch.isfinite(paged).all())}"
+            )
+
+        srv = LMServer(LMServeConfig(
+            artifact=path, device=str(device), port=0, slots=LM_SLOTS,
+            page_size=LM_PAGE, prefill_chunk=LM_CHUNK,
+        ))
+        host, port = srv.start()
+        base = f"http://{host}:{port}"
+        results = [None] * len(prompts)
+
+        def ask(i):
+            body = LM_TEXT if i == text_i else prompts[i]
+            t0 = time.perf_counter()
+            code, resp = lc.open_stream(base, body,
+                                        max_new_tokens=LM_NEW_TOKENS,
+                                        deadline_ms=120000.0)
+            events, stamps = [], []
+            if code == 200:
+                for ev in lc.iter_lines(resp):
+                    events.append(ev)
+                    stamps.append(time.perf_counter())
+            results[i] = (code, events, t0, stamps)
+
+        try:
+            code, body = lc.healthz(base)
+            if code != 200 or json.loads(body)["status"] != "ok":
+                raise AssertionError(f"/healthz: {code} {body[:200]!r}")
+            threads = [threading.Thread(target=ask, args=(i,))
+                       for i in range(len(prompts))]
+            _kernels.reset_launches()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            counts = dict(_kernels.LAUNCHES)
+        finally:
+            srv.request_stop("smoke over")
+            stats = srv.drain_and_stop()
+        eng = srv.engine
+        if not stats["flushed"] or eng.allocator.free_count() \
+                != eng.allocator.capacity:
+            raise AssertionError(f"drain left pages in use: {stats}")
+        log(f"served {len(prompts)} concurrent streams; drain {stats}")
+
+        # Checked after the counts are read: these calls are the
+        # reference, not the path under test.
+        chunk_ms = []
+        ttft, per_token = [], []
+        for i, prompt in enumerate(prompts):
+            code, events, t0, stamps = results[i]
+            if code != 200 or not events or not events[-1].get("done") \
+                    or events[-1]["status"] != "ok":
+                raise AssertionError(f"stream {i}: {code} {events[-1:]}")
+            got = [ev["token"] for ev in events[:-1]]
+            want = _drive_alone(
+                dec, prompt, LM_NEW_TOKENS,
+                chunk_ms if len(prompt) == max(LM_PROMPTS) else None,
+            )
+            if got != want:
+                raise AssertionError(
+                    f"stream {i} (prompt {len(prompt)}) differs from the "
+                    f"decoder driven alone:\n{got}\n{want}"
+                )
+            ttft.append((stamps[0] - t0) * 1e3)
+            per_token.append((stamps[-2] - stamps[0]) * 1e3 / (len(got) - 1))
+        log("every stream equals the decoder driven alone")
+
+        # Device time of one decode iteration with every slot active and
+        # of one prefill chunk.
+        pools = dec.init_pools()
+        tables = np.zeros((dec.slots, dec.max_pages), np.int32)
+        tables[:, :8] = np.arange(1, 1 + 8 * dec.slots).reshape(dec.slots, 8)
+        toks = np.arange(dec.slots, dtype=np.int32)
+        poss = np.full(dec.slots, 100, np.int32)
+        decode_ms, decode_top = _profile_device_ms(
+            lambda: dec.decode(pools, toks, tables, poss))
+        chunk = np.arange(LM_CHUNK, dtype=np.int32)
+        prefill_ms, prefill_top = _profile_device_ms(
+            lambda: dec.prefill(pools, chunk, tables[0], 96, 112))
+    iter_ms = list(eng.iter_ms)
+    timing = {
+        "decode_iteration_ms_median": statistics.median(iter_ms),
+        "decode_iterations": len(iter_ms),
+        "decode_device_ms": decode_ms,
+        "decode_top_device_ms": decode_top,
+        "prefill_chunk_ms_median": statistics.median(chunk_ms),
+        "prefill_chunk_device_ms": prefill_ms,
+        "prefill_top_device_ms": prefill_top,
+        "ttft_ms_median": statistics.median(ttft),
+        "per_token_ms_median": statistics.median(per_token),
+    }
+    if decode_ms is not None:
+        timing["decode_device_busy_share"] = (
+            decode_ms / timing["decode_iteration_ms_median"])
+    if prefill_ms is not None:
+        timing["prefill_device_busy_share"] = (
+            prefill_ms / timing["prefill_chunk_ms_median"])
+    return counts, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -362,6 +808,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: fp32
+    torch.backends.cudnn.allow_tf32 = False
     print(json.dumps({"python": sys.version.split()[0],
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
@@ -375,31 +823,48 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     results = {}
-    for name in KERNEL_ROWS:
-        results[name] = kernel_phase(name, device, gen)
+    for name in ("xnor", "xnor_sign", "xnor_affine"):
+        rows, max_err = kernel_phase(name, device, gen)
+        m, k, n = KERNEL_ROWS[name][2]
+        results[name] = (next(r for r in rows if (r["m"], r["k"], r["n"])
+                              == (m, k, n)), max_err)
         torch.cuda.synchronize()
         log(f"{name}: equal to its plain version at every shape")
+    results["xnor_unpack"] = unpack_phase(device, gen)
+    log("xnor_unpack: equal to its plain version on ±1 x at every shape")
+    paged_rows, paged_err = paged_phase(device, gen)
+    results["paged_attn"] = (paged_rows[0], paged_err)
+    log("paged_attn: within 1e-5 of the gather path at every case")
 
-    counts, timing = slice_phase(device, gen)
-    print(json.dumps({"slice": "bnn-mlp-large", "launches": counts,
+    mlp_counts, timing = slice_phase(device, gen)
+    print(json.dumps({"slice": "bnn-mlp-large", "launches": mlp_counts,
                       **timing}), flush=True)
-    for name, (_, _, on_path) in KERNEL_ROWS.items():
-        if on_path and counts[name] == 0:
-            raise AssertionError(f"the main path never launched {name}")
+    for name in ("xnor_sign", "xnor_affine"):
+        if mlp_counts[name] == 0:
+            raise AssertionError(f"the MLP path never launched {name}")
+    lm_counts, lm_timing = lm_slice_phase(device, gen)
+    print(json.dumps({"slice": "bnn-lm", "launches": lm_counts,
+                      **lm_timing}), flush=True)
+    for name in ("xnor", "xnor_unpack", "paged_attn"):
+        if lm_counts[name] == 0:
+            raise AssertionError(f"the LM path never launched {name}")
 
     kernels = []
-    for name, (replaces, _, on_path) in KERNEL_ROWS.items():
-        rows, max_err = results[name]
-        row = next(r for r in rows if r["m"] == MAIN_M)
+    for name, (replaces, source, _) in KERNEL_ROWS.items():
+        row, max_err = results[name]
+        shape = ([row["s"], row["c"], row["p"], row["qpos"]]
+                 if name == "paged_attn" else [row["m"], row["k"], row["n"]])
         entry = {
-            "name": name, "route": "cuda",
-            "source": "distributed_mnist_bnns_tpu_torch/csrc/xnor_gemm.cu",
-            "replaces": replaces, "launches": counts[name],
-            "on_main_path": on_path, "max_abs_err": max_err,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": mlp_counts[name] + lm_counts[name],
+            "launches_mlp_path": mlp_counts[name],
+            "launches_lm_path": lm_counts[name],
+            "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "shape": [row["m"], row["k"], row["n"]],
+            "shape": shape,
         }
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],

@@ -1,15 +1,21 @@
-"""Command line for the port: ``export``, ``infer`` and ``serve``.
+"""Command line for the port: ``export``, ``infer``, ``serve`` and ``lm``.
 
   python -m distributed_mnist_bnns_tpu_torch.cli export --out m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.pt
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --export lm.pt
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.pt
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.pt --sample 32
 
 ``export`` freezes a ``bnn-mlp`` model (seeded init, or weights carried
 across from the JAX package with ``--jax-variables``) into the port's
 packed artifact; ``infer`` evaluates an artifact on the MNIST test split
 (synthetic data when no idx files are found); ``serve`` runs the HTTP
-server. ``--device`` defaults to ``cuda`` and never falls back to the
-CPU: pass ``--device cpu`` to run there.
+server (``--lm``: the continuous-batching LM server); ``lm --export``
+freezes a BinarizedLM (seeded init, or JAX weights with
+``--jax-variables``) into a packed LM artifact and ``lm --load --sample``
+generates from one greedily. ``--device`` defaults to ``cuda`` and never
+falls back to the CPU: pass ``--device cpu`` to run there.
 """
 
 from __future__ import annotations
@@ -62,6 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
         "serve", help="long-running HTTP server over a packed artifact",
     )
     sv.add_argument("--artifact", required=True)
+    sv.add_argument("--lm", action="store_true",
+                    help="serve a packed LM artifact (`lm --export`) "
+                         "through the continuous-batching engine: POST "
+                         "/generate streams tokens as ndjson")
+    sv.add_argument("--slots", type=int, default=4,
+                    help="--lm: decode batch width")
+    sv.add_argument("--page-size", type=int, default=16,
+                    help="--lm: tokens per KV page")
+    sv.add_argument("--num-pages", type=int, default=None,
+                    help="--lm: KV pool pages (default: every slot can "
+                         "reach max_len at once, plus the null page)")
+    sv.add_argument("--prefill-chunk", type=int, default=16,
+                    help="--lm: prompt positions per prefill call")
+    sv.add_argument("--max-len", type=int, default=None,
+                    help="--lm: cap sequences below the artifact's window")
     sv.add_argument("--device", default="cuda")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000,
@@ -70,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="micro-batch shape; queued requests coalesce up "
                          "to it and the remainder is padded")
     sv.add_argument("--queue-depth", type=int, default=64)
-    sv.add_argument("--deadline-ms", type=float, default=1000.0)
+    sv.add_argument("--deadline-ms", type=float, default=None,
+                    help="default request deadline (1000, or 30000 for "
+                         "--lm: a stream spans many iterations)")
     sv.add_argument("--linger-ms", type=float, default=2.0)
     sv.add_argument("--stall-timeout-s", type=float, default=1.0)
     sv.add_argument("--breaker-threshold", type=int, default=3)
@@ -79,6 +102,37 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--drain-timeout-s", type=float, default=30.0)
     sv.add_argument("--input-shape", type=int, nargs="+",
                     default=[28, 28, 1])
+
+    lm = sub.add_parser(
+        "lm", help="export a packed BinarizedLM artifact, or sample from one",
+    )
+    lm.add_argument("--export", default=None, metavar="PATH",
+                    help="freeze a BinarizedLM (seeded init, or "
+                         "--jax-variables) into a packed LM artifact")
+    lm.add_argument("--jax-variables", default=None, metavar="NPZ",
+                    help="with --export: the JAX BinarizedLM's params from "
+                         "an .npz with '/'-joined keys "
+                         "(params/tok_embed/embedding, ...)")
+    lm.add_argument("--steps", type=int, default=0,
+                    help="training steps before export (training is not "
+                         "ported yet: only 0)")
+    lm.add_argument("--vocab", type=int, default=256)
+    lm.add_argument("--max-len", type=int, default=256)
+    lm.add_argument("--embed-dim", type=int, default=256)
+    lm.add_argument("--depth", type=int, default=4)
+    lm.add_argument("--num-heads", type=int, default=4)
+    lm.add_argument("--mlp-ratio", type=int, default=2)
+    lm.add_argument("--scale", action="store_true",
+                    help="XNOR-Net per-output alpha on the projections")
+    lm.add_argument("--seed", type=int, default=0,
+                    help="seed of the torch.Generator of the weights")
+    lm.add_argument("--load", default=None, metavar="PATH",
+                    help="load a packed LM artifact and greedily generate "
+                         "--sample tokens through the KV-cache decoder")
+    lm.add_argument("--sample", type=int, default=64)
+    lm.add_argument("--prompt", default="\n",
+                    help="with --load: text prompt (UTF-8 bytes mod vocab)")
+    lm.add_argument("--device", default="cuda")
     return p
 
 
@@ -141,6 +195,24 @@ def _infer(args) -> int:
 
 
 def _serve(args) -> int:
+    if args.lm:
+        from .serve.lm import LMServeConfig, LMServer
+
+        return LMServer(LMServeConfig(
+            artifact=args.artifact,
+            device=args.device,
+            host=args.host,
+            port=args.port,
+            slots=args.slots,
+            page_size=args.page_size,
+            num_pages=args.num_pages,
+            prefill_chunk=args.prefill_chunk,
+            max_len=args.max_len,
+            queue_depth=args.queue_depth,
+            default_deadline_ms=(30000.0 if args.deadline_ms is None
+                                 else args.deadline_ms),
+            drain_timeout_s=args.drain_timeout_s,
+        )).run()
     from .serve import PackedInferenceServer, ServeConfig
 
     server = PackedInferenceServer(ServeConfig(
@@ -150,7 +222,8 @@ def _serve(args) -> int:
         port=args.port,
         batch_size=args.batch_size,
         queue_depth=args.queue_depth,
-        default_deadline_ms=args.deadline_ms,
+        default_deadline_ms=(1000.0 if args.deadline_ms is None
+                             else args.deadline_ms),
         linger_ms=args.linger_ms,
         stall_timeout_s=args.stall_timeout_s,
         breaker_threshold=args.breaker_threshold,
@@ -162,13 +235,65 @@ def _serve(args) -> int:
     return server.run()
 
 
+def _lm(args) -> int:
+    import torch
+
+    from .infer import export_packed, load_frozen
+    from .infer_transformer import generate, make_lm_decoder
+    from .models import BinarizedLM
+
+    if args.steps != 0:
+        raise SystemExit("lm: training is not ported yet (use --steps 0)")
+    if bool(args.export) == bool(args.load):
+        raise SystemExit("lm: give exactly one of --export and --load")
+    if args.export:
+        if args.jax_variables:
+            from .interop import lm_params_from_jax, variables_from_npz
+
+            model = lm_params_from_jax(
+                variables_from_npz(args.jax_variables)["params"],
+                num_heads=args.num_heads, scale=args.scale,
+            )
+        else:
+            model = BinarizedLM(
+                vocab=args.vocab, max_len=args.max_len,
+                embed_dim=args.embed_dim, depth=args.depth,
+                num_heads=args.num_heads, mlp_ratio=args.mlp_ratio,
+                scale=args.scale,
+                generator=torch.Generator().manual_seed(args.seed),
+            ).eval()
+        info = export_packed(model, args.export)
+        print(json.dumps({"artifact": args.export, **info}))
+        return 0
+    frozen = load_frozen(args.load)
+    if frozen.get("kind") != "lm":
+        raise SystemExit(f"lm: {args.load} is not a packed LM artifact")
+    if args.sample < 1:
+        raise SystemExit(f"lm: --sample must be >= 1, got {args.sample}")
+    vocab = int(frozen["tok_embed"].shape[0])
+    max_len = int(frozen["pos_embed"].shape[1])
+    prompt = [b % vocab for b in args.prompt.encode("utf-8")]
+    if len(prompt) >= max_len:
+        raise SystemExit(f"lm: the prompt fills the window ({max_len})")
+    n = min(args.sample, max_len - len(prompt))
+    toks = generate(frozen, [prompt], n,
+                    decoder=make_lm_decoder(frozen, device=args.device))
+    out = [int(t) for t in toks[0, len(prompt):]]
+    print(json.dumps({
+        "tokens": out,
+        "text": bytes(out).decode("utf-8", "replace") if vocab == 256 else None,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=args.log_level,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    return {"export": _export, "infer": _infer, "serve": _serve}[args.cmd](args)
+    return {"export": _export, "infer": _infer, "serve": _serve,
+            "lm": _lm}[args.cmd](args)
 
 
 if __name__ == "__main__":

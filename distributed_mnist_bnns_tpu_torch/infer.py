@@ -1,5 +1,7 @@
 """Frozen-model inference for the binarized MLP: the packed-bitplane
-serving path.
+serving path. ``export_packed`` and ``load_packed`` also take the
+binarized LM (``family="bnn-transformer"``, ``kind="lm"``), whose
+freezing and forward live in ``infer_transformer``.
 
 Counterpart of the JAX package's ``infer.py`` for the ``bnn-mlp`` family.
 Once training ends the fp32 latent weights are dead weight: serving needs
@@ -225,19 +227,36 @@ def _to_cpu(tree):
     return tree
 
 
-def export_packed(model: BnnMLP, path: str) -> Dict[str, Any]:
-    """Write the frozen artifact to ``path`` (``torch.save`` of plain
-    tensors). The ±1 first layer goes as int8 (4x smaller); the
-    predictor casts it back to fp32. Returns the size-info dict."""
-    frozen = _to_cpu(_freeze_tensors(model))
-    frozen["w1"] = frozen["w1"].to(torch.int8)
+def export_packed(model, path: str) -> Dict[str, Any]:
+    """Write the frozen artifact of a BnnMLP or a BinarizedLM to
+    ``path`` (``torch.save`` of plain tensors). The MLP's ±1 first layer
+    goes as int8 (4x smaller); the predictor casts it back to fp32.
+    Returns the size-info dict."""
+    from .infer_transformer import BinarizedLM, _freeze_lm_tensors
+
+    if isinstance(model, BinarizedLM):
+        frozen = _to_cpu(_freeze_lm_tensors(model))
+    else:
+        frozen = _to_cpu(_freeze_tensors(model))
+        frozen["w1"] = frozen["w1"].to(torch.int8)
     torch.save(frozen, path)
     return frozen["info"]
 
 
-def load_packed(path: str, *, device="cuda") -> Tuple[FrozenMLP, Dict[str, Any]]:
+def load_frozen(path: str) -> Dict[str, Any]:
+    """The frozen dict of an ``export_packed`` artifact, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_packed(path: str, *, device="cuda"):
     """Restore an ``export_packed`` artifact into a predictor on
-    ``device`` (None: "cuda"; raises without a card)."""
+    ``device`` (None: "cuda"; raises without a card): a FrozenMLP for a
+    ``bnn-mlp`` artifact, the LM's full-window ``FrozenLM`` for a
+    ``bnn-transformer`` one. Returns (predictor, info)."""
     dev = resolve_device(device)
-    frozen = torch.load(path, map_location="cpu", weights_only=True)
+    frozen = load_frozen(path)
+    if frozen.get("family") == "bnn-transformer":
+        from .infer_transformer import _build_transformer_apply
+
+        return _build_transformer_apply(frozen, dev), dict(frozen["info"])
     return _build_apply(frozen, dev), dict(frozen["info"])

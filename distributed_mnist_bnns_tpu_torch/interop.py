@@ -6,10 +6,18 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
   params_from_jax(variables)  {"params", "batch_stats"} -> the port's BnnMLP
   frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
                               port's frozen artifact (same keys)
+  lm_params_from_jax(params)  a JAX BinarizedLM's params -> the port's
+                              BinarizedLM
+  frozen_lm_from_jax(frozen)  JAX ``infer_transformer._freeze_lm_tensors``
+                              dict -> the port's frozen LM artifact
 
 Flax names map as BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 ->
 bn1..bn3 (scale/bias -> weight/bias, mean/var -> running stats) and
-Dense_0 -> head, the names the JAX ``infer.py`` reads. Flax kernels are
+Dense_0 -> head, the names the JAX ``infer.py`` reads. For the LM:
+tok_embed/embedding -> tok_embed, pos_embed, TransformerBlock_i ->
+blocks.i (ln_attn/ln_mlp scale -> weight; BinarizedSelfAttention_0/
+BinarizedDense_0..3, or Dense_0..3 for fp32 attention, -> attn.q, k, v,
+out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head. Flax kernels are
 (in, out); the port's weights are (out, in), as ``nn.Linear``'s.
 """
 
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 
 from .models.mlp import BnnMLP
+from .models.transformer import BinarizedLM
 
 _DENSE = ("BinarizedDense_0", "BinarizedDense_1", "BinarizedDense_2")
 _FCS = ("fc1", "fc2", "fc3")
@@ -61,6 +70,62 @@ def params_from_jax(
     state["head.bias"] = _t(p["Dense_0"]["bias"])
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def lm_params_from_jax(
+    params: Dict[str, Any], model: Optional[BinarizedLM] = None, **model_kw
+) -> BinarizedLM:
+    """Load a JAX BinarizedLM's ``params`` tree (numpy leaves) into
+    ``model``, or into a new BinarizedLM of the tree's widths built with
+    ``model_kw`` (``num_heads``, ``scale``, ``mlp_ratio`` are not in the
+    tree: pass them). Returns the model in eval mode."""
+    depth = sum(1 for key in params if key.startswith("TransformerBlock_"))
+    attn0 = params["TransformerBlock_0"]["BinarizedSelfAttention_0"]
+    fp32_attn = "Dense_0" in attn0
+    if model is None:
+        vocab, embed = np.asarray(params["tok_embed"]["embedding"]).shape
+        hidden = np.asarray(
+            params["TransformerBlock_0"]["BinarizedDense_0"]["kernel"]
+        ).shape[1]
+        model_kw.setdefault("mlp_ratio", hidden // embed)
+        model = BinarizedLM(
+            vocab=vocab, max_len=np.asarray(params["pos_embed"]).shape[1],
+            embed_dim=embed, depth=depth,
+            binarized_attention=not fp32_attn, **model_kw,
+        )
+    state = {
+        "tok_embed.weight": _t(params["tok_embed"]["embedding"]),
+        "pos_embed": _t(params["pos_embed"]),
+        "ln_head.weight": _t(params["ln_head"]["scale"]),
+        "ln_head.bias": _t(params["ln_head"]["bias"]),
+        "head.weight": _t(np.asarray(params["head"]["kernel"]).T),
+        "head.bias": _t(params["head"]["bias"]),
+    }
+    attn_name = "Dense" if fp32_attn else "BinarizedDense"
+    for i in range(depth):
+        bp = params[f"TransformerBlock_{i}"]
+        pre = f"blocks.{i}."
+        for ln in ("ln_attn", "ln_mlp"):
+            state[pre + ln + ".weight"] = _t(bp[ln]["scale"])
+            state[pre + ln + ".bias"] = _t(bp[ln]["bias"])
+        layers = [
+            (f"attn.{name}", bp["BinarizedSelfAttention_0"][f"{attn_name}_{j}"])
+            for j, name in enumerate(("q", "k", "v", "out"))
+        ] + [("mlp1", bp["BinarizedDense_0"]), ("mlp2", bp["BinarizedDense_1"])]
+        for name, p in layers:
+            state[pre + name + ".weight"] = _t(np.asarray(p["kernel"]).T)
+            state[pre + name + ".bias"] = _t(p["bias"])
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def frozen_lm_from_jax(frozen: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's frozen LM artifact from the dict the JAX package's
+    ``infer_transformer._freeze_lm_tensors`` returns (numpy leaves):
+    the same keys and layouts, as tensors."""
+    if frozen.get("kind") != "lm":
+        raise ValueError(f"not a frozen LM: kind {frozen.get('kind')!r}")
+    return frozen_from_jax(frozen)
 
 
 def frozen_from_jax(frozen: Dict[str, Any]) -> Dict[str, Any]:

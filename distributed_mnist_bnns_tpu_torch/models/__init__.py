@@ -1,9 +1,11 @@
 from .layers import BinarizedDense
 from .mlp import BnnMLP, bnn_mlp_large, bnn_mlp_small
 from .registry import get_model, list_models
+from .transformer import BinarizedLM
 
 __all__ = [
     "BinarizedDense",
+    "BinarizedLM",
     "BnnMLP",
     "bnn_mlp_large",
     "bnn_mlp_small",

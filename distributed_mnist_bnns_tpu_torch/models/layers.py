@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``models/layers.py`` (``BinarizedDense``
 only). The fp32 latent weight is the only stored weight; its ±1 view is
 re-derived on every forward with ``binarize_ste``. Inputs are binarized
 before the GEMM unless ``binarize_input`` is False (first layers fed raw
-pixels). The fp32 bias is added after the binary GEMM.
+pixels). With ``scale`` the ±1 GEMM is rescaled by the XNOR-Net
+per-output alpha = mean(|W_latent|) over the input axis, recomputed from
+the latents every forward. The fp32 bias is added last.
 
 The weight is stored (out_features, in_features), as ``nn.Linear`` does;
 the JAX kernel is (in, out) (``interop.params_from_jax`` transposes).
@@ -42,12 +44,13 @@ def _binary_matmul(x: torch.Tensor, wb: torch.Tensor, backend: str):
 
 
 class BinarizedDense(nn.Module):
-    """y = binarize(x) @ binarize(W_latent).T + b_fp32."""
+    """y = binarize(x) @ binarize(W_latent).T (* alpha) + b_fp32."""
 
     def __init__(
         self, in_features: int, out_features: int, *,
         binarize_input: bool = True, use_bias: bool = True,
         ste: STEMode = "identity", backend: str = "bf16",
+        scale: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -58,6 +61,7 @@ class BinarizedDense(nn.Module):
         self.binarize_input = binarize_input
         self.ste = ste
         self.backend = backend
+        self.scale = scale
         # LeCun-uniform latent init kept inside [-1, 1], as the JAX
         # package's _latent_init (bound = min(1, 1/sqrt(fan_in))).
         bound = min(1.0, 1.0 / in_features ** 0.5)
@@ -76,6 +80,8 @@ class BinarizedDense(nn.Module):
         lead = x.shape[:-1]
         y = _binary_matmul(x.reshape(-1, x.shape[-1]), wb, self.backend)
         y = y.reshape(*lead, self.out_features)
+        if self.scale:
+            y = y * self.weight.abs().mean(dim=1)
         if self.bias is not None:
             y = y + self.bias
         return y

@@ -1,0 +1,221 @@
+"""Binarized causal language model: the transformer family, LM half.
+
+Counterpart of the JAX package's ``models/transformer.py`` for
+``BinarizedLM`` and the pieces it is built from: every projection of a
+block (q, k, v, out and the two MLP layers) has binarized weights with
+fp32 latents and binarizes its input; the token and position
+embeddings, LayerNorm, the softmax attention core, the residual stream
+and the head stay fp32.
+
+Only ``attention="xla"``, the exact softmax, is here. ``"flash"`` is the
+JAX package's Pallas flash kernel (K4, with K5/K6 for its backward),
+which the port has not ported yet: asking for it raises. With
+``binarized_attention=False`` the q/k/v/out projections are fp32
+``nn.Linear``s (the JAX package's partial-binarization ablation).
+
+LayerNorm is flax's ``nn.LayerNorm`` written out (``layer_norm``):
+epsilon 1e-6 (PyTorch's default is 1e-5) and the fast variance
+``max(0, mean(x^2) - mean(x)^2)``, applied as
+``(x - mean) * (rsqrt(var + eps) * scale) + bias``. The parameter names
+(``ln_*.weight``, ``ln_*.bias``) map to flax's ``scale``/``bias`` in
+``interop.lm_params_from_jax``.
+
+Parameters are made on the CPU from the given ``torch.Generator``; move
+the module with ``.to(device)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.binarize import STEMode
+from .layers import BinarizedDense
+
+LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = LN_EPS) -> torch.Tensor:
+    """flax ``nn.LayerNorm`` over the last axis, in its order of
+    operations (``normalization._compute_stats`` and ``_normalize``)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    mean2 = (x * x).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale
+    return (x - mean) * mul + bias
+
+
+class LayerNorm(nn.Module):
+    """flax-convention LayerNorm with parameters ``weight`` (flax
+    ``scale``) and ``bias``."""
+
+    def __init__(self, features: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def _attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = False) -> torch.Tensor:
+    """Exact (B, T, H, D) softmax attention."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        t = scores.shape[-1]
+        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _check_attention(attention: str) -> None:
+    if attention == "flash":
+        raise NotImplementedError(
+            "attention='flash' runs the flash-attention kernel K4 "
+            "(ops/flash_attention.py), which the port has not ported yet; "
+            "use attention='xla'"
+        )
+    if attention != "xla":
+        raise ValueError(f"unknown attention {attention!r} (have: xla)")
+
+
+def _fp32_linear(fan_in: int, fan_out: int,
+                 generator: Optional[torch.Generator]) -> nn.Linear:
+    """nn.Linear with flax Dense's init: LeCun-normal kernel, zero bias."""
+    lin = nn.Linear(fan_in, fan_out)
+    with torch.no_grad():
+        lin.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+        lin.bias.zero_()
+    return lin
+
+
+class BinarizedSelfAttention(nn.Module):
+    """Multi-head self-attention with binarized q/k/v/out projections
+    (fp32 ``nn.Linear``s with ``binarized=False``)."""
+
+    def __init__(
+        self, embed_dim: int, num_heads: int, *, attention: str = "xla",
+        causal: bool = False, ste: STEMode = "identity", scale: bool = False,
+        backend: str = "bf16", binarized: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(
+                f"embed_dim {embed_dim} not divisible by num_heads "
+                f"{num_heads}"
+            )
+        _check_attention(attention)
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.causal = causal
+
+        def dense():
+            if not binarized:
+                return _fp32_linear(embed_dim, embed_dim, generator)
+            return BinarizedDense(embed_dim, embed_dim, ste=ste, scale=scale,
+                                  backend=backend, generator=generator)
+
+        self.q, self.k, self.v, self.out = dense(), dense(), dense(), dense()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, e = x.shape
+        h = self.num_heads
+        q = self.q(x).reshape(b, t, h, e // h)
+        k = self.k(x).reshape(b, t, h, e // h)
+        v = self.v(x).reshape(b, t, h, e // h)
+        core = _attend_xla(q, k, v, causal=self.causal)
+        return self.out(core.reshape(b, t, e))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: x += attn(LN(x)); x += mlp(LN(x)), the MLP as
+    BinarizedDense -> hardtanh -> BinarizedDense. Dropout, where set,
+    acts in training mode only."""
+
+    def __init__(
+        self, embed_dim: int, num_heads: int, *, mlp_ratio: int = 2,
+        dropout: float = 0.0, attention: str = "xla", causal: bool = False,
+        ste: STEMode = "identity", scale: bool = False,
+        backend: str = "bf16", binarized_attention: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        hidden = embed_dim * mlp_ratio
+        self.ln_attn = LayerNorm(embed_dim)
+        self.attn = BinarizedSelfAttention(
+            embed_dim, num_heads, attention=attention, causal=causal,
+            ste=ste, scale=scale, backend=backend,
+            binarized=binarized_attention, generator=generator,
+        )
+        self.ln_mlp = LayerNorm(embed_dim)
+        self.mlp1 = BinarizedDense(embed_dim, hidden, ste=ste, scale=scale,
+                                   backend=backend, generator=generator)
+        self.mlp2 = BinarizedDense(hidden, embed_dim, ste=ste, scale=scale,
+                                   backend=backend, generator=generator)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop(self.attn(self.ln_attn(x)))
+        y = torch.nn.functional.hardtanh(self.mlp1(self.ln_mlp(x)))
+        return x + self.drop(self.mlp2(y))
+
+
+class BinarizedLM(nn.Module):
+    """Causal binarized language model: fp32 token and position
+    embeddings, ``depth`` pre-norm causal blocks, fp32 LN and head over
+    the vocabulary. ``forward(tokens (B, T))`` returns (B, T, vocab)
+    next-token log-probs (position t predicts token t + 1)."""
+
+    def __init__(
+        self, vocab: int = 256, max_len: int = 256, embed_dim: int = 128,
+        depth: int = 2, num_heads: int = 4, mlp_ratio: int = 2,
+        dropout: float = 0.0, attention: str = "xla",
+        ste: STEMode = "identity", scale: bool = False,
+        backend: str = "bf16", binarized_attention: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        _check_attention(attention)
+        self.vocab = vocab
+        self.max_len = max_len
+        self.embed_dim = embed_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.scale = scale
+        self.tok_embed = nn.Embedding(vocab, embed_dim)
+        self.pos_embed = nn.Parameter(torch.empty(1, max_len, embed_dim))
+        with torch.no_grad():
+            # flax nn.Embed's default (variance scaling, fan-in normal)
+            # and the JAX model's normal(0.02) position embedding
+            self.tok_embed.weight.normal_(0.0, embed_dim ** -0.5,
+                                          generator=generator)
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(
+                embed_dim, num_heads, mlp_ratio=mlp_ratio, dropout=dropout,
+                attention=attention, causal=True, ste=ste, scale=scale,
+                backend=backend, binarized_attention=binarized_attention,
+                generator=generator,
+            )
+            for _ in range(depth)
+        )
+        self.ln_head = LayerNorm(embed_dim)
+        self.head = _fp32_linear(embed_dim, vocab, generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        t = tokens.shape[1]
+        if t > self.max_len:
+            raise ValueError(f"sequence length {t} > max_len {self.max_len}")
+        x = self.tok_embed(tokens) + self.pos_embed[:, :t]
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.ln_head(x)
+        return torch.log_softmax(self.head(x), dim=-1)

@@ -2,6 +2,7 @@ from .binarize import binarize_ste, quantize
 from .bitpack import pack_bits, pack_bits_np, packed_dim, unpack_bits
 from .xnor_gemm import (
     prepack_weights,
+    xnor_matmul_fused_unpack,
     xnor_matmul_packed,
     xnor_matmul_packed_affine,
     xnor_matmul_packed_sign,
@@ -15,6 +16,7 @@ __all__ = [
     "packed_dim",
     "unpack_bits",
     "prepack_weights",
+    "xnor_matmul_fused_unpack",
     "xnor_matmul_packed",
     "xnor_matmul_packed_affine",
     "xnor_matmul_packed_sign",

@@ -41,6 +41,33 @@ KERNELS = {
     "xnor": ("xnor_gemm_none", "xnor_gemm.cu"),
     "xnor_sign": ("xnor_gemm_sign", "xnor_gemm.cu"),
     "xnor_affine": ("xnor_gemm_affine", "xnor_gemm.cu"),
+    "xnor_unpack": ("xnor_unpack", "xnor_unpack.cu"),
+    "paged_attn": ("paged_attn", "paged_attn.cu"),
+}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# Source file -> {C launcher symbol: argtypes}. Pointers and the stream are
+# c_void_p (a bare Python int would be cut to 32 bits); every launcher
+# returns a cudaError_t as int.
+SIGNATURES = {
+    "xnor_gemm.cu": {
+        # x, w, out, m, n, kw, ldw, k, stream
+        "xnor_gemm_none": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, w, a, t, bias, out, m, n, kw, ldw, k, stream
+        "xnor_gemm_sign": [_P] * 6 + [_I] * 5 + [_P],
+        # x, w, a, c, bias, out, m, n, kw, ldw, k, stream
+        "xnor_gemm_affine": [_P] * 6 + [_I] * 5 + [_P],
+    },
+    "xnor_unpack.cu": {
+        # x, w, out, m, n, ldw, k, stream
+        "xnor_unpack": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "paged_attn.cu": {
+        # q, qpos, k_pool, v_pool, tables, out, S, C, H, D, page_size, P,
+        # num_pages, scale, stream
+        "paged_attn": [_P] * 6 + [_I] * 7 + [_F, _P],
+    },
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -132,12 +159,9 @@ def _library(source: str) -> ctypes.CDLL:
         if not os.path.exists(path):
             build([source])
         lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.xnor_gemm_none.argtypes = [p, p, p, i, i, i, i, i, p]
-        for fn in (lib.xnor_gemm_sign, lib.xnor_gemm_affine):
-            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.xnor_gemm_none, lib.xnor_gemm_sign,
-                   lib.xnor_gemm_affine):
+        for symbol, argtypes in SIGNATURES[source].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _libs[source] = lib
         return lib
@@ -154,6 +178,19 @@ def _check(t: torch.Tensor, device: torch.device, dtype: torch.dtype,
         )
 
 
+def _launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C launcher on PyTorch's current stream of
+    the device of the tensors it was given, raise on a launch error, and
+    count the launch."""
+    symbol, source = KERNELS[name]
+    lib = _library(source)
+    err = getattr(lib, symbol)(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def xnor_gemm(
     name: str, xp: torch.Tensor, wp: torch.Tensor, k: int, n: int,
     va: Optional[torch.Tensor] = None, vb: Optional[torch.Tensor] = None,
@@ -166,7 +203,6 @@ def xnor_gemm(
     int32 K-major packed weights; va/vb/bias: (n,) fp32 epilogue
     vectors (a, t) for the sign epilogue, (a, c) for the affine one.
     Returns (M, n) fp32. Does not synchronise."""
-    symbol, source = KERNELS[name]
     m, kw = xp.shape
     if not xp.is_cuda:
         raise ValueError(f"packed x lies on {xp.device}, not on a CUDA device")
@@ -187,14 +223,60 @@ def xnor_gemm(
         for v, what in ((va, "a"), (vb, "t/c"), (bias, "bias")):
             _check(v, dev, torch.float32, (n,), what)
             vecs.append(v.data_ptr())
-    lib = _library(source)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, symbol)(
-        xp.data_ptr(), wp.data_ptr(), *vecs, out.data_ptr(),
-        m, n, kw, wp.shape[1], k, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
-    with _count_lock:
-        LAUNCHES[name] += 1
+    _launch(name, xp.data_ptr(), wp.data_ptr(), *vecs, out.data_ptr(),
+            m, n, kw, wp.shape[1], k, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def xnor_unpack(x: torch.Tensor, wp: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Launch K7 on PyTorch's current stream: (M, K) fp32 x times the
+    ±1 weights packed in ``wp`` ((KW_p >= KW, N_p >= n) int32, K-major)
+    -> (M, n) fp32. Does not synchronise."""
+    if not x.is_cuda:
+        raise ValueError(f"x lies on {x.device}, not on a CUDA device")
+    dev = x.device
+    m = x.shape[0]
+    _check(x, dev, torch.float32, (m, k), "x")
+    kw = -(-k // 32)
+    if wp.dim() != 2 or wp.shape[0] < kw or wp.shape[1] < n:
+        raise ValueError(
+            f"packed w {tuple(wp.shape)} does not cover ({kw} words, {n})"
+        )
+    _check(wp, dev, torch.int32, tuple(wp.shape), "packed w")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    _launch("xnor_unpack", x.data_ptr(), wp.data_ptr(), out.data_ptr(),
+            m, n, wp.shape[1], k, torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def paged_attn(q4: torch.Tensor, qpos: torch.Tensor, k_pool: torch.Tensor,
+               v_pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Launch K8 on PyTorch's current stream: queries (S, C, H, D) fp32
+    at positions ``qpos`` (S, C) int32 attend through page ``tables``
+    (S, P) int32 over the (num_pages, page_size, H, D) fp32 pools ->
+    (S, C, H, D) fp32. Does not synchronise; the K/V writes this step
+    made on the same stream are ordered before it."""
+    if not q4.is_cuda:
+        raise ValueError(f"q lies on {q4.device}, not on a CUDA device")
+    dev = q4.device
+    s, c, h, d = q4.shape
+    num_pages, ps = k_pool.shape[0], k_pool.shape[1]
+    if d > 128:
+        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    _check(q4, dev, torch.float32, (s, c, h, d), "q")
+    _check(qpos, dev, torch.int32, (s, c), "qpos")
+    _check(k_pool, dev, torch.float32, (num_pages, ps, h, d), "k pool")
+    _check(v_pool, dev, torch.float32, (num_pages, ps, h, d), "v pool")
+    if tables.dim() != 2 or tables.shape[0] != s:
+        raise ValueError(f"tables must be ({s}, P), got {tuple(tables.shape)}")
+    _check(tables, dev, torch.int32, tuple(tables.shape), "tables")
+    out = torch.empty_like(q4)
+    if q4.numel() == 0:
+        return out
+    _launch("paged_attn", q4.data_ptr(), qpos.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), tables.data_ptr(), out.data_ptr(),
+            s, c, h, d, ps, tables.shape[1], num_pages, d ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
     return out

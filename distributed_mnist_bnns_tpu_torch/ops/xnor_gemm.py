@@ -1,17 +1,19 @@
-"""Packed ±1 GEMM (XNOR-popcount), serving half.
+"""Packed ±1 GEMMs, serving half.
 
 Counterpart of the JAX package's ``ops/xnor_gemm.py`` for frozen
-inference: ``prepack_weights`` and the three packed entry points
+inference: ``prepack_weights``, the three packed entry points
 
   xnor_matmul_packed         o = K - 2 * sum_w popcount(x_w ^ w_w)
   xnor_matmul_packed_sign    where(a * (o + bias) >= t, +1, -1)
   xnor_matmul_packed_affine  clip(a * (o + bias) + c, -1, 1)
 
 with the JAX argument order ``(x_pm1, w_packed, k, n, avec, tvec|cvec,
-bias)``. Each entry packs x on x's device and dispatches on it: a CUDA
-tensor launches the hand-written kernel (``csrc/xnor_gemm.cu`` through
-``ops._kernels``) or raises; a CPU tensor takes the plain PyTorch
-version below. There is no fallback from the one to the other.
+bias)``, and ``xnor_matmul_fused_unpack``: fp32 x times the packed
+weights, unpacked inside the GEMM (K7, the LM's prefill projections).
+Each entry dispatches on x's device: a CUDA tensor launches the
+hand-written kernel (``csrc/xnor_gemm.cu`` or ``csrc/xnor_unpack.cu``
+through ``ops._kernels``) or raises; a CPU tensor takes the plain
+PyTorch version below. There is no fallback from the one to the other.
 
 Every GEMM result is exact: a ±1 dot product is an integer with
 |dot| <= K <= 2^24. The epilogues follow the JAX kernels' order of
@@ -199,6 +201,41 @@ def xnor_matmul_packed_affine(
         "xnor_affine", xnor_affine_plain, x_pm1, w_packed, k, n,
         avec, cvec, bias,
     )
+
+
+def fused_unpack_plain(x: torch.Tensor, w_packed: torch.Tensor, k: int,
+                       n: int) -> torch.Tensor:
+    """K7's plain version: unpack the ±1 (K, N) weights, then one fp32
+    product (TF32 must be off on a card: the caller's job, as for every
+    fp32 product of the port). Exact on ±1 x."""
+    return x.to(torch.float32) @ unpacked_pm1(w_packed, k, n)
+
+
+def xnor_matmul_fused_unpack(
+    x: torch.Tensor, w_packed: torch.Tensor, k: int, n: int
+) -> torch.Tensor:
+    """(M, K) fp32 activations @ pre-packed ±1 weights -> (M, N) fp32,
+    the bitplanes unpacked inside the GEMM (``prepack_weights`` layout,
+    read as it is). On ±1 x the result equals ``xnor_matmul_packed``
+    bitwise: both are exact integer sums. x may be any real fp32."""
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}), got {tuple(x.shape)}")
+    if w_packed.device != x.device:
+        raise ValueError(
+            f"x on {x.device} but packed weights on {w_packed.device}"
+        )
+    if w_packed.shape[0] < packed_dim(k) or w_packed.shape[1] < n:
+        raise ValueError(
+            f"packed weights {tuple(w_packed.shape)} do not cover K={k} "
+            f"({packed_dim(k)} words), N={n}"
+        )
+    if x.is_cuda:
+        return _kernels.xnor_unpack(
+            x.to(torch.float32).contiguous(), w_packed, k, n
+        )
+    if x.device.type != "cpu":
+        raise ValueError(f"no fused-unpack GEMM for device {x.device}")
+    return fused_unpack_plain(x, w_packed, k, n)
 
 
 def unpacked_pm1(w_packed: torch.Tensor, k: int, n: int,

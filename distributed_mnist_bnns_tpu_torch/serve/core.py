@@ -66,6 +66,23 @@ class Counter:
             }
 
 
+class Gauge:
+    """Thread-safe last-value gauge."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
 class Request:
     """One admitted prediction request.
 

@@ -102,3 +102,63 @@ def test_synthetic_blobs_match_the_jax_package():
     for a, b in zip(synthetic_blobs((28, 28), 5, 3, seed=2),
                     jax_blobs((28, 28), 5, 3, seed=2)):
         np.testing.assert_array_equal(a, b)
+
+
+_TINY_LM = ["--vocab", "32", "--max-len", "32", "--embed-dim", "32",
+            "--depth", "2", "--num-heads", "2"]
+
+
+def test_lm_export_then_sample_on_cpu(tmp_path, capsys):
+    from distributed_mnist_bnns_tpu_torch.infer import load_frozen
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import generate
+
+    out = str(tmp_path / "lm.pt")
+    assert cli.main(["lm", "--export", out, "--seed", "1", *_TINY_LM]) == 0
+    info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert info["kind"] == "lm" and info["family"] == "bnn-transformer"
+    assert cli.main(["lm", "--load", out, "--sample", "6", "--prompt", "ab",
+                     "--device", "cpu"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = generate(load_frozen(out), [[97 % 32, 98 % 32]], 6, device="cpu")
+    assert res["tokens"] == want[0, 2:].tolist()
+
+
+def test_lm_export_from_jax_variables_npz(tmp_path, capsys):
+    """--jax-variables loads a '/'-keyed .npz of the JAX LM's params; the
+    packed words equal the JAX package's freeze of the same tree."""
+    import jax
+
+    from distributed_mnist_bnns_tpu.infer_transformer import (
+        _freeze_lm_tensors,
+    )
+    from tests.torch_lm_util import jax_lm, numpy_params
+
+    jm = jax_lm()
+    params = numpy_params(jm, seed=4)
+    flat = {
+        "params/" + "/".join(p.key for p in path): np.asarray(leaf)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
+    }
+    npz = tmp_path / "lm.npz"
+    np.savez(npz, **flat)
+    out = str(tmp_path / "lm.pt")
+    assert cli.main(["lm", "--export", out, "--jax-variables", str(npz),
+                     "--num-heads", "2"]) == 0
+    frozen = torch.load(out, weights_only=True)
+    want = _freeze_lm_tensors(jm, {"params": params})
+    np.testing.assert_array_equal(frozen["blocks"][1]["mlp2"]["wp"].numpy(),
+                                  np.asarray(want["blocks"][1]["mlp2"]["wp"]))
+    assert frozen["info"] == want["info"]
+
+
+def test_lm_refuses_training_and_serve_lm_defaults_to_cuda(tmp_path):
+    with pytest.raises(SystemExit, match="training is not ported"):
+        cli.main(["lm", "--export", str(tmp_path / "x.pt"), "--steps", "5"])
+    args = cli.build_parser().parse_args(
+        ["serve", "--lm", "--artifact", "x"])
+    assert args.lm and args.device == "cuda" and args.slots == 4
+    assert (args.page_size, args.prefill_chunk) == (16, 16)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--lm", "--artifact", str(tmp_path / "x.pt")])

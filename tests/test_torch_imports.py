@@ -84,7 +84,9 @@ def test_kernel_build_dir_is_ignored_and_sources_ship():
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
 
     assert (PORT / "csrc" / "xnor_gemm.cu").is_file()
-    assert {src for _, src in _kernels.KERNELS.values()} == {"xnor_gemm.cu"}
+    assert {src for _, src in _kernels.KERNELS.values()} == {
+        "xnor_gemm.cu", "xnor_unpack.cu", "paged_attn.cu",
+    }
     if shutil.which("git") is None:
         pytest.skip("git not available")
     probe = os.path.join(_kernels.BUILD_DIR, "libx.so")
@@ -92,6 +94,24 @@ def test_kernel_build_dir_is_ignored_and_sources_ship():
         ["git", "check-ignore", "-q", probe], cwd=REPO, timeout=60,
     )
     assert out.returncode == 0, "the kernel build directory is not ignored"
+
+
+def test_signature_table_covers_every_kernel_and_source():
+    """Every kernel's symbol has argtypes under its own source, the table
+    names no symbol that no kernel uses, and every source exists and
+    defines its symbols with C linkage."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    by_source = {}
+    for symbol, source in _kernels.KERNELS.values():
+        by_source.setdefault(source, set()).add(symbol)
+    assert {s: set(t) for s, t in _kernels.SIGNATURES.items()} == by_source
+    for source, symbols in by_source.items():
+        text = (PORT / "csrc" / source).read_text()
+        assert 'extern "C"' in text
+        for symbol in symbols:
+            assert f"int {symbol}(" in text, (source, symbol)
+    assert set(_kernels.LAUNCHES) == set(_kernels.KERNELS)
 
 
 def test_library_name_follows_source_and_flags(monkeypatch):

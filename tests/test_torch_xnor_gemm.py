@@ -2,8 +2,10 @@
 
 The JAX entry points run their Pallas kernels with ``interpret=True``;
 the port runs its plain PyTorch versions (the CPU path of each entry).
-Every comparison is bitwise: the GEMM is an exact integer, and the
-epilogues round as the JAX kernels do.
+Every comparison on ±1 inputs is bitwise: the GEMM is an exact integer,
+and the epilogues round as the JAX kernels do. The fused-unpack GEMM
+(K7) on real-valued x sums in another order than the Pallas kernel, so
+it is held to rtol 1e-5 there.
 """
 
 import jax.numpy as jnp
@@ -167,6 +169,52 @@ def test_plain_mismatches_chunked_equals_unchunked(monkeypatch):
     np.testing.assert_array_equal(txg.xnor_gemm_plain(xp, wp, k), whole)
 
 
+def _fused(x, w, k, n, jax_layout=None):
+    wp_t, _, _ = txg.prepack_weights(torch.from_numpy(w))
+    wp_j, _, _ = jxg.prepack_weights(jnp.asarray(w))
+    want = np.asarray(jxg.xnor_matmul_fused_unpack(
+        jnp.asarray(x), wp_j, k, n, interpret=True))
+    got = txg.xnor_matmul_fused_unpack(torch.from_numpy(x), wp_t, k, n)
+    return got.numpy(), want, wp_t
+
+
+@pytest.mark.parametrize("n", [1, 130, 256])
+@pytest.mark.parametrize("k", [32, 100, 256, 300])
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_fused_unpack_bitwise_on_pm1(m, k, n):
+    rng = np.random.RandomState(m * 1000 + k + n)
+    x, w = _pm1(rng, m, k), _pm1(rng, k, n)
+    got, want, wp = _fused(x, w, k, n)
+    assert got.shape == (m, n) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, x @ w)
+    packed = txg.xnor_matmul_packed(torch.from_numpy(x), wp, k, n).numpy()
+    np.testing.assert_array_equal(got, packed)
+
+
+def test_fused_unpack_reads_the_wide_prepacked_layout():
+    """KW = 131 > 128 words: prepack_weights pads K to 256 words, and
+    the zero words (which unpack to -1) must not reach the sum."""
+    rng = np.random.RandomState(7)
+    m, k, n = 5, 4170, 140
+    x, w = _pm1(rng, m, k), _pm1(rng, k, n)
+    got, want, wp = _fused(x, w, k, n)
+    assert wp.shape[0] == 256
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, x @ w)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 256, 512), (17, 300, 130)])
+def test_fused_unpack_real_valued_x(m, k, n):
+    rng = np.random.RandomState(m + k)
+    x = rng.randn(m, k).astype(np.float32)
+    w = _pm1(rng, k, n)
+    got, want, _ = _fused(x, w, k, n)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, x.astype(np.float64) @ w, rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the CUDA kernel path was entered")
@@ -178,6 +226,9 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     _port(txg.xnor_matmul_packed, x, w, 64, 20)
     _port(txg.xnor_matmul_packed_sign, x, w, 64, 20, a, b, bias)
     _port(txg.xnor_matmul_packed_affine, x, w, 64, 20, a, b, bias)
+    monkeypatch.setattr(_kernels, "xnor_unpack", refuse)
+    wp, _, _ = txg.prepack_weights(torch.from_numpy(w))
+    txg.xnor_matmul_fused_unpack(torch.from_numpy(x), wp, 64, 20)
     assert all(v == 0 for v in _kernels.LAUNCHES.values())
 
 
@@ -188,7 +239,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     wp = torch.zeros((3, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         _kernels.xnor_gemm("xnor", xp, wp, 96, 10)
-    assert _kernels.LAUNCHES["xnor"] == 0
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        _kernels.xnor_unpack(torch.zeros((2, 96)), wp, 96, 10)
+    assert _kernels.LAUNCHES["xnor"] == _kernels.LAUNCHES["xnor_unpack"] == 0
 
 
 def test_entry_rejects_bad_shapes_and_other_devices():
@@ -201,5 +254,13 @@ def test_entry_rejects_bad_shapes_and_other_devices():
         txg.xnor_matmul_packed(torch.ones(2, 64, device="meta"), wp, k, n)
     with pytest.raises(ValueError, match="no packed GEMM for device meta"):
         txg.xnor_matmul_packed(
+            torch.ones(2, 64, device="meta"), wp.to("meta"), k, n
+        )
+    with pytest.raises(ValueError, match="x must be"):
+        txg.xnor_matmul_fused_unpack(torch.ones(2, 63), wp, k, n)
+    with pytest.raises(ValueError, match="do not cover"):
+        txg.xnor_matmul_fused_unpack(torch.ones(2, 64), wp[:, :5], k, n)
+    with pytest.raises(ValueError, match="no fused-unpack GEMM"):
+        txg.xnor_matmul_fused_unpack(
             torch.ones(2, 64, device="meta"), wp.to("meta"), k, n
         )
