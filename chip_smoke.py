@@ -40,7 +40,27 @@ Phases, each fatal on failure:
      counters are zeroed just before the requests and read just after:
      K1, K7 and K8 must all have launched. Then decode-iteration and
      prefill-chunk times, device time from ``torch.profiler``, and the
-     requests' time to first token and time per token.
+     requests' time to first token and time per token;
+  6. flash attention: K4 (forward), K5 (dq) and K6 (dk, dv) against
+     their plain versions on the card at the six shapes of
+     ``tests_tpu/test_hardware_kernels.py`` and at the training width
+     (B, H, L, D) = (8, 4, 1024, 64), causal: out and lse to atol = rtol
+     = 2e-5, the gradients (g_lse != 0) to ``FLASH_GRAD_TOL``; two runs
+     of each kernel bitwise equal. Then CUDA-graph timings at the
+     training width against the plain versions, SDPA (forward for K4,
+     its backward for K5 and K6) and the bound;
+  7. LM training: the ``bench.py --lm-bench`` step (vocab 256, max_len
+     1024, embed 256, depth 4, 4 heads, MLP 512, batch 8 x 1024, Adam
+     1e-3, latent clamp). One step with flash attention against one with
+     the exact softmax from the same seeded weights (random biases and
+     LayerNorm parameters) and batch: losses within 1e-4 relative. Then
+     ``examples/lm_demo.py::run`` trains 20 steps on the periodic corpus
+     with flash attention and exports the model, the counters zeroed
+     just before and read just after: each flash kernel launched
+     depth x steps times, every loss finite, the last below the first.
+     The artifact's full forward is held against the trained model.
+     Then step time on the host clock and device time from
+     ``torch.profiler``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -82,6 +102,22 @@ LM_PROMPTS = (5, 16, 17, 40, 100, 150)
 LM_NEW_TOKENS = 32
 LM_TEXT = "chip_smoke: text!"   # 17 bytes: the request sent as "text"
 
+# (B, H, Lq, Lk, D, causal): the six shapes tests_tpu holds the Pallas
+# kernels to on the TPU, then the training width, which is timed.
+FLASH_SHAPES = (
+    (2, 4, 256, 256, 64, False), (2, 4, 256, 256, 64, True),
+    (1, 2, 512, 512, 128, True), (1, 1, 7, 7, 16, False),
+    (1, 2, 200, 333, 64, False), (1, 2, 96, 128, 64, True),
+    (8, 4, 1024, 1024, 64, True),
+)
+# The gradients sum up to 1024 products of O(1) terms in another order
+# than the plain version's einsums, so they agree to fp32 rounding of
+# such sums, not bitwise.
+FLASH_GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+# bench.py --lm-bench (_bench_lm, bench.py:840-909; widths :1739-1743)
+LM_TRAIN = dict(vocab=256, embed_dim=256, depth=4, num_heads=4, mlp_ratio=2)
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STEPS = 1024, 8, 1e-3, 20
+
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
 _TPU = "distributed_mnist_bnns_tpu/ops/"
 KERNEL_ROWS = {
@@ -95,7 +131,14 @@ KERNEL_ROWS = {
     "xnor_unpack": (_TPU + "xnor_gemm.py:374", _SRC + "xnor_unpack.cu",
                     (LM_CHUNK, *LM_MLP1)),
     "paged_attn": (_TPU + "paged_kv.py:355", _SRC + "paged_attn.cu", None),
+    "flash_fwd": (_TPU + "flash_attention.py:53", _SRC + "flash_attn.cu",
+                  None),
+    "flash_bwd_dq": (_TPU + "flash_attention.py:307",
+                     _SRC + "flash_attn.cu", None),
+    "flash_bwd_dkv": (_TPU + "flash_attention.py:353",
+                      _SRC + "flash_attn.cu", None),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -520,7 +563,7 @@ def slice_phase(device: torch.device, gen: torch.Generator,
         fn(x32)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    device_ms, top = _profile_device_ms(lambda: fn(x32))
+    device_ms, top, _ = _profile_device_ms(lambda: fn(x32))
     t0 = time.perf_counter()
     json.dumps({"images": imgs.tolist()})
     timing = {
@@ -536,29 +579,37 @@ def slice_phase(device: torch.device, gen: torch.Generator,
     return counts, timing
 
 
-def _profile_device_ms(fn, calls: int = 20):
+def _profile_device_ms(fn, calls: int = 20, top: int = 6):
     """Device time of one ``fn()`` from ``torch.profiler``: the sum of
-    the CUDA kernels' own times over ``calls`` calls, and the six
-    largest kernels (name, ms per call, launches per call). None when
-    the profiler reports no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    the CUDA kernels' own times over ``calls`` calls, the ``top``
+    largest kernels (name, ms per call, launches per call) and the
+    kernels launched per call. A ``record_function`` range mirrored on
+    the device timeline (the optimizer's step) is no kernel and is left
+    out. (None, [], 0) when the profiler reports no device activity."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    # One warm-up call inside the profiler, not counted: the device trace
+    # starts late and would lose the first kernels of the window.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(calls + 1):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        return None, []
+        return None, [], 0
     kernels.sort(key=lambda e: -e.self_device_time_total)
     total_us = sum(e.self_device_time_total for e in kernels)
-    top = [[e.key[:70], e.self_device_time_total / calls / 1e3,
-            e.count / calls] for e in kernels[:6]]
-    return total_us / calls / 1e3, top
+    largest = [[e.key[:70], e.self_device_time_total / calls / 1e3,
+                e.count / calls] for e in kernels[:top]]
+    return (total_us / calls / 1e3, largest,
+            sum(e.count for e in kernels) / calls)
 
 
 def _random_lm_params(model, gen) -> None:
@@ -771,10 +822,10 @@ def lm_slice_phase(device: torch.device, gen: torch.Generator):
         tables[:, :8] = np.arange(1, 1 + 8 * dec.slots).reshape(dec.slots, 8)
         toks = np.arange(dec.slots, dtype=np.int32)
         poss = np.full(dec.slots, 100, np.int32)
-        decode_ms, decode_top = _profile_device_ms(
+        decode_ms, decode_top, _ = _profile_device_ms(
             lambda: dec.decode(pools, toks, tables, poss))
         chunk = np.arange(LM_CHUNK, dtype=np.int32)
-        prefill_ms, prefill_top = _profile_device_ms(
+        prefill_ms, prefill_top, _ = _profile_device_ms(
             lambda: dec.prefill(pools, chunk, tables[0], 96, 112))
     iter_ms = list(eng.iter_ms)
     timing = {
@@ -794,6 +845,266 @@ def lm_slice_phase(device: torch.device, gen: torch.Generator):
     if prefill_ms is not None:
         timing["prefill_device_busy_share"] = (
             prefill_ms / timing["prefill_chunk_ms_median"])
+    return counts, timing
+
+
+def _event_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one ``fn()`` between CUDA events over
+    ``iters`` back-to-back calls after a warm-up (for calls that a CUDA
+    graph does not capture: autograd's backward of SDPA)."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
+                 causal: bool):
+    """Least time (ms) of one flash kernel: its operands read once and
+    its outputs written once against HBM bandwidth, and 4D (K4), 6D (K5)
+    or 8D (K6) fp32 operations per unmasked (query, key) pair against
+    the fp32 peak."""
+    if causal:
+        pairs = sum(min(lk, i + lk - lq + 1) for i in range(lq))
+    else:
+        pairs = lq * lk
+    pairs *= b * h
+    qd, kd, rows = b * h * lq * d, b * h * lk * d, b * h * lq
+    words, per_pair = {
+        "flash_fwd": (2 * qd + 2 * kd + rows, 4),          # q k v -> out lse
+        "flash_bwd_dq": (3 * qd + 2 * kd + 2 * rows, 6),   # q do k v lse c -> dq
+        "flash_bwd_dkv": (2 * qd + 4 * kd + 2 * rows, 8),  # -> dk dv
+    }[name]
+    t_bytes = 4 * words / H100_BYTES_PER_S * 1e3
+    t_ops = per_pair * d * pairs / H100_FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _sdpa_kernels(qs, ks, vs) -> list:
+    """Names of the largest CUDA kernels of one causal SDPA forward and
+    backward: which of PyTorch's attention backends ran."""
+    qs, ks, vs = (x.detach().requires_grad_() for x in (qs, ks, vs))
+    lib = torch.nn.functional.scaled_dot_product_attention
+    _, top, _ = _profile_device_ms(
+        lambda: lib(qs, ks, vs, is_causal=True).sum().backward(), calls=1,
+        top=3)
+    return [name for name, _, _ in top]
+
+
+def flash_phase(device: torch.device, gen: torch.Generator):
+    """K4, K5 and K6 against their plain versions at ``FLASH_SHAPES``;
+    two runs bitwise equal; timings at the training width. Returns
+    ({kernel: timing row}, {kernel: largest |diff|})."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import flash_attention as fa
+
+    max_err = dict.fromkeys(FLASH, 0.0)
+
+    def check(name, got, want, tol):
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        max_err[name] = max(max_err[name], err)
+        for g, w in zip(got, want):
+            if not (bool(torch.isfinite(g).all())
+                    and torch.allclose(g, w, **tol)):
+                raise AssertionError(
+                    f"{name} at {shape} differs from its plain version: "
+                    f"max |diff| = {err}")
+
+    for shape in FLASH_SHAPES:
+        b, h, lq, lk, d, causal = shape
+        q, k, v, g_out = (torch.randn(b, n, h, d, generator=gen).to(device)
+                          for n in (lq, lk, lk, lq))
+        g_lse = (0.5 * torch.randn(b, lq, h, generator=gen)).to(device)
+        out, lse = _kernels.flash_fwd(q, k, v, causal)
+        check("flash_fwd", (out, lse), fa.flash_fwd_plain(q, k, v, causal),
+              dict(atol=2e-5, rtol=2e-5))
+        coeff = (g_lse - (g_out * out).sum(dim=-1)).contiguous()
+        args = (q, k, v, g_out, lse, coeff, causal)
+        dq = _kernels.flash_bwd_dq(*args)
+        dk, dv = _kernels.flash_bwd_dkv(*args)
+        check("flash_bwd_dq", (dq,), (fa.flash_bwd_dq_plain(*args),),
+              FLASH_GRAD_TOL)
+        check("flash_bwd_dkv", (dk, dv), fa.flash_bwd_dkv_plain(*args),
+              FLASH_GRAD_TOL)
+        again = (*_kernels.flash_fwd(q, k, v, causal),
+                 _kernels.flash_bwd_dq(*args), *_kernels.flash_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y)
+                   for x, y in zip((out, lse, dq, dk, dv), again)):
+            raise AssertionError(f"flash kernels at {shape}: two runs differ")
+        log(f"flash {shape}: K4/K5/K6 within tolerance of their plain "
+            f"versions, two runs bitwise equal")
+
+    # Timings at the training width (the last shape's tensors).
+    lib = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gos = g_out.transpose(1, 2).contiguous()
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qs, ks, vs))
+    out_lib = lib(qg, kg, vg, is_causal=True)
+    lib_bwd_ms = _event_ms(lambda: torch.autograd.grad(
+        out_lib, (qg, kg, vg), gos, retain_graph=True))
+    sdpa = _sdpa_kernels(qs, ks, vs)
+    log(f"SDPA (fp32, causal) ran: {sdpa}")
+    plain = {
+        "flash_fwd": lambda: fa.flash_fwd_plain(q, k, v, causal),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq_plain(*args),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(*args),
+    }
+    kernel = {
+        "flash_fwd": lambda: _kernels.flash_fwd(q, k, v, causal),
+        "flash_bwd_dq": lambda: _kernels.flash_bwd_dq(*args),
+        "flash_bwd_dkv": lambda: _kernels.flash_bwd_dkv(*args),
+    }
+    rows = {}
+    for name in FLASH:
+        row = {
+            "kernel": name, "b": b, "h": h, "lq": lq, "lk": lk, "d": d,
+            "causal": causal,
+            "kernel_ms": _graph_ms(kernel[name], iters=20, reps=10),
+            "plain_ms": _graph_ms(plain[name], iters=5, reps=5),
+            "library_ms": (_graph_ms(lambda: lib(qs, ks, vs, is_causal=True),
+                                     iters=20, reps=10)
+                           if name == "flash_fwd" else lib_bwd_ms),
+            "library": ("scaled_dot_product_attention forward"
+                        if name == "flash_fwd" else
+                        "scaled_dot_product_attention backward (dq, dk, dv)"),
+            "sdpa_kernels": sdpa,
+        }
+        row["bound_ms"], row["bound_by"] = _flash_bound(name, *shape)
+        rows[name] = row
+        print(json.dumps(row), flush=True)
+    return rows, max_err
+
+
+def lm_train_phase(device: torch.device, gen: torch.Generator):
+    """Flash vs exact-softmax step parity, then 20 steps through
+    ``examples.lm_demo.run`` with export, its artifact against the
+    trained model, and step timings. Returns (launch counts of the run,
+    timing dict)."""
+    import copy
+
+    from distributed_mnist_bnns_tpu_torch.examples import lm_demo
+    from distributed_mnist_bnns_tpu_torch.infer import load_packed
+    from distributed_mnist_bnns_tpu_torch.models import (
+        BinarizedLM,
+        latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    vocab, draw = lm_demo.token_stream(LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                       LM_TRAIN["vocab"], seed=0)
+    toks = torch.from_numpy(draw()).to(device)
+
+    # One step with each attention from the same weights and batch.
+    models = {}
+    for att in ("flash", "xla"):
+        if not models:
+            m = BinarizedLM(**LM_TRAIN, max_len=LM_TRAIN_SEQ, attention=att,
+                            generator=gen)
+            _random_lm_params(m, gen)
+            state = copy.deepcopy(m.state_dict())
+        else:
+            m = BinarizedLM(**LM_TRAIN, max_len=LM_TRAIN_SEQ, attention=att)
+            m.load_state_dict(state)
+        models[att] = m.to(device)
+    losses = {}
+    for att, m in models.items():
+        opt = lm_demo.make_optimizer(m, LM_TRAIN_LR)
+        losses[att] = float(lm_demo.train_step(
+            m, opt, list(latent_clamp_mask(m).values()), toks))
+    pf = dict(models["flash"].named_parameters())
+    n_far = n_all = 0
+    for name, p in models["xla"].named_parameters():
+        n_far += int(((p - pf[name]).abs() > 1e-5).sum())
+        n_all += p.numel()
+    rel = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    print(json.dumps({"lm_train_step_parity": losses, "loss_rel_diff": rel,
+                      "share_params_over_1e-5": n_far / n_all}), flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError(f"flash vs xla step: losses {losses}")
+    del models
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm_trained.pt")
+        _kernels.reset_launches()
+        res = lm_demo.run(
+            steps=LM_TRAIN_STEPS, seq_len=LM_TRAIN_SEQ,
+            batch=LM_TRAIN_BATCH, lr=LM_TRAIN_LR, seed=0, attention="flash",
+            log_every=1, export=path, device=device, **LM_TRAIN,
+        )
+        torch.cuda.synchronize()
+        counts = dict(_kernels.LAUNCHES)
+        hist = res.history
+        if not (len(hist) == LM_TRAIN_STEPS and all(np.isfinite(hist))
+                and hist[-1] < hist[0]):
+            raise AssertionError(f"training losses: {hist}")
+        want = LM_TRAIN["depth"] * LM_TRAIN_STEPS
+        if any(counts[name] != want for name in FLASH):
+            raise AssertionError(
+                f"flash launches {[counts[n] for n in FLASH]}, want {want}")
+        log(f"trained {LM_TRAIN_STEPS} steps: loss {hist[0]:.4f} -> "
+            f"{hist[-1]:.4f}; flash launches {want} each")
+
+        # The artifact against the trained model in eval mode: the twin
+        # with exact-softmax attention runs the frozen forward's own
+        # attention code, so it agrees everywhere; the flash model only
+        # where no binarized input sits within rounding of 0.
+        fn, _ = load_packed(path, device=device)
+        model = res.model.eval()
+        twin = BinarizedLM(**LM_TRAIN, max_len=LM_TRAIN_SEQ, attention="xla")
+        twin.load_state_dict(model.state_dict())
+        twin = twin.to(device).eval()
+        x = toks[:2]
+        with torch.no_grad():
+            frozen, live, live_x = fn(x), model(x), twin(x)
+        torch.cuda.synchronize()
+        d_x = (frozen - live_x).abs().max().item()
+        per_pos = (frozen - live).abs().amax(dim=-1)
+        close = (per_pos <= 1e-4).float().mean().item()
+        agree = (frozen.argmax(-1) == live.argmax(-1)).float().mean().item()
+        print(json.dumps({"export_vs_live_xla_max_abs": d_x,
+                          "export_vs_live_flash_max_abs":
+                              per_pos.max().item(),
+                          "export_vs_live_flash_share_within_1e-4": close,
+                          "export_vs_live_flash_argmax_agreement": agree}),
+              flush=True)
+        if not (d_x <= 1e-4 and close >= 0.99 and agree >= 0.99
+                and bool(torch.isfinite(frozen).all())):
+            raise AssertionError(
+                f"exported LM vs the trained model: {d_x}, {close}, {agree}")
+
+    # Step time and device time, continuing from the trained model.
+    model = res.model.train()
+    opt = lm_demo.make_optimizer(model, LM_TRAIN_LR)
+    latents = list(latent_clamp_mask(model).values())
+    step = lambda: lm_demo.train_step(model, opt, latents, toks)  # noqa: E731
+    ms = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i >= 3:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    device_ms, top, n_kernels = _profile_device_ms(step, calls=5, top=12)
+    step_ms = statistics.median(ms)
+    timing = {
+        "train_step_ms_median": step_ms,
+        "train_tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / step_ms * 1e3,
+        "train_step_device_ms": device_ms,
+        "train_step_device_busy_share": (
+            None if device_ms is None else device_ms / step_ms),
+        "train_step_top_device_ms": top,
+        "train_step_kernels": n_kernels,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_history": hist,
+    }
     return counts, timing
 
 
@@ -849,17 +1160,33 @@ def main() -> int:
         if lm_counts[name] == 0:
             raise AssertionError(f"the LM path never launched {name}")
 
+    flash_rows, flash_err = flash_phase(device, gen)
+    for name in FLASH:
+        results[name] = (flash_rows[name], flash_err[name])
+    log("flash: K4/K5/K6 within tolerance of their plain versions at "
+        "every shape")
+    train_counts, train_timing = lm_train_phase(device, gen)
+    print(json.dumps({"slice": "bnn-lm-train", "launches": train_counts,
+                      **train_timing}), flush=True)
+
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
         row, max_err = results[name]
-        shape = ([row["s"], row["c"], row["p"], row["qpos"]]
-                 if name == "paged_attn" else [row["m"], row["k"], row["n"]])
+        if name == "paged_attn":
+            shape = [row["s"], row["c"], row["p"], row["qpos"]]
+        elif name in FLASH:
+            shape = [row["b"], row["h"], row["lq"], row["lk"], row["d"],
+                     row["causal"]]
+        else:
+            shape = [row["m"], row["k"], row["n"]]
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": mlp_counts[name] + lm_counts[name],
+            "launches": (mlp_counts[name] + lm_counts[name]
+                         + train_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
+            "launches_train_path": train_counts[name],
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

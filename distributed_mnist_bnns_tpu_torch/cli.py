@@ -4,6 +4,7 @@
   python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli lm --export lm.pt
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --export lm.pt
   python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.pt
   python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.pt --sample 32
 
@@ -13,7 +14,9 @@ packed artifact; ``infer`` evaluates an artifact on the MNIST test split
 (synthetic data when no idx files are found); ``serve`` runs the HTTP
 server (``--lm``: the continuous-batching LM server); ``lm --export``
 freezes a BinarizedLM (seeded init, or JAX weights with
-``--jax-variables``) into a packed LM artifact and ``lm --load --sample``
+``--jax-variables``) into a packed LM artifact, ``lm --steps N`` first
+trains it N steps (``examples/lm_demo.py::run``; flash attention by
+default) and exports the trained model, and ``lm --load --sample``
 generates from one greedily. ``--device`` defaults to ``cuda`` and never
 falls back to the CPU: pass ``--device cpu`` to run there.
 """
@@ -104,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[28, 28, 1])
 
     lm = sub.add_parser(
-        "lm", help="export a packed BinarizedLM artifact, or sample from one",
+        "lm", help="train and/or export a packed BinarizedLM artifact, or "
+                   "sample from one",
     )
     lm.add_argument("--export", default=None, metavar="PATH",
                     help="freeze a BinarizedLM (seeded init, or "
@@ -114,10 +118,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "an .npz with '/'-joined keys "
                          "(params/tok_embed/embedding, ...)")
     lm.add_argument("--steps", type=int, default=0,
-                    help="training steps before export (training is not "
-                         "ported yet: only 0)")
+                    help="train this many steps (examples/lm_demo.py) "
+                         "before --export; 0: export the seeded init")
+    lm.add_argument("--seq-len", type=int, default=32,
+                    help="training sequence length (the model's max_len "
+                         "when training)")
+    lm.add_argument("--batch-size", type=int, default=16)
+    lm.add_argument("--lr", type=float, default=3e-3)
+    lm.add_argument("--attention", default="flash", choices=["xla", "flash"],
+                    help="training attention: flash runs the kernels K4-K6 "
+                         "on a card")
+    lm.add_argument("--corpus", default=None,
+                    help="train byte-level (vocab 256) on random windows of "
+                         "this file (default: a periodic synthetic corpus)")
     lm.add_argument("--vocab", type=int, default=256)
-    lm.add_argument("--max-len", type=int, default=256)
+    lm.add_argument("--max-len", type=int, default=256,
+                    help="with --export and no --steps: the position window")
     lm.add_argument("--embed-dim", type=int, default=256)
     lm.add_argument("--depth", type=int, default=4)
     lm.add_argument("--num-heads", type=int, default=4)
@@ -242,8 +258,26 @@ def _lm(args) -> int:
     from .infer_transformer import generate, make_lm_decoder
     from .models import BinarizedLM
 
-    if args.steps != 0:
-        raise SystemExit("lm: training is not ported yet (use --steps 0)")
+    if args.steps < 0:
+        raise SystemExit(f"lm: --steps must be >= 0, got {args.steps}")
+    if args.steps and (args.load or args.jax_variables):
+        raise SystemExit("lm: --steps trains a seeded init; it takes "
+                         "neither --load nor --jax-variables")
+    if args.steps:
+        from .examples.lm_demo import run
+
+        res = run(
+            steps=args.steps, seq_len=args.seq_len, batch=args.batch_size,
+            vocab=args.vocab, embed_dim=args.embed_dim, depth=args.depth,
+            num_heads=args.num_heads, mlp_ratio=args.mlp_ratio,
+            scale=args.scale, lr=args.lr, seed=args.seed,
+            attention=args.attention, corpus=args.corpus,
+            export=args.export, device=args.device,
+        )
+        print(json.dumps({"steps": args.steps, "loss_history": res.history,
+                          **({"artifact": args.export, **res.export}
+                             if args.export else {})}))
+        return 0
     if bool(args.export) == bool(args.load):
         raise SystemExit("lm: give exactly one of --export and --load")
     if args.export:

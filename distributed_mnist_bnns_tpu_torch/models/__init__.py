@@ -1,7 +1,7 @@
 from .layers import BinarizedDense
 from .mlp import BnnMLP, bnn_mlp_large, bnn_mlp_small
-from .registry import get_model, list_models
-from .transformer import BinarizedLM
+from .registry import get_model, latent_clamp_mask, list_models
+from .transformer import BinarizedLM, lm_loss
 
 __all__ = [
     "BinarizedDense",
@@ -10,5 +10,7 @@ __all__ = [
     "bnn_mlp_large",
     "bnn_mlp_small",
     "get_model",
+    "latent_clamp_mask",
     "list_models",
+    "lm_loss",
 ]

@@ -10,6 +10,8 @@ the latents every forward. The fp32 bias is added last.
 
 The weight is stored (out_features, in_features), as ``nn.Linear`` does;
 the JAX kernel is (in, out) (``interop.params_from_jax`` transposes).
+The ±1 product is ``ops.xnor_gemm.binary_matmul``, whose backward keeps
+the cotangent in fp32 on every backend.
 Parameters are made on the CPU from the given ``torch.Generator``; move
 the module with ``.to(device)``.
 """
@@ -22,25 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.binarize import STEMode, binarize_ste
-
-BACKENDS = ("xla", "bf16")
-
-
-def _binary_matmul(x: torch.Tensor, wb: torch.Tensor, backend: str):
-    """x (M, K) @ wb.T for a ±1 (N, K) weight.
-
-    "xla": the fp32 product. "bf16": operands rounded to bfloat16 and
-    multiplied with fp32 accumulation, as the JAX "bf16" backend's
-    ``preferred_element_type=float32`` does. Both are exact on ±1
-    operands; they differ only on a raw first-layer input that bf16
-    cannot hold."""
-    if backend == "xla":
-        return x @ wb.t()
-    if backend == "bf16":
-        return x.to(torch.bfloat16).to(torch.float32) @ (
-            wb.to(torch.bfloat16).to(torch.float32).t()
-        )
-    raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
+from ..ops.xnor_gemm import BACKENDS, binary_matmul
 
 
 class BinarizedDense(nn.Module):
@@ -78,7 +62,7 @@ class BinarizedDense(nn.Module):
             x = binarize_ste(x, self.ste)
         wb = binarize_ste(self.weight, self.ste)
         lead = x.shape[:-1]
-        y = _binary_matmul(x.reshape(-1, x.shape[-1]), wb, self.backend)
+        y = binary_matmul(x.reshape(-1, x.shape[-1]), wb, self.backend)
         y = y.reshape(*lead, self.out_features)
         if self.scale:
             y = y * self.weight.abs().mean(dim=1)

@@ -7,11 +7,15 @@ fp32 latents and binarizes its input; the token and position
 embeddings, LayerNorm, the softmax attention core, the residual stream
 and the head stay fp32.
 
-Only ``attention="xla"``, the exact softmax, is here. ``"flash"`` is the
-JAX package's Pallas flash kernel (K4, with K5/K6 for its backward),
-which the port has not ported yet: asking for it raises. With
-``binarized_attention=False`` the q/k/v/out projections are fp32
-``nn.Linear``s (the JAX package's partial-binarization ablation).
+``attention="xla"`` is the exact softmax; ``"flash"`` runs
+``ops.flash_attention`` (the CUDA kernels K4, K5 and K6 on a card, their
+plain versions on the CPU; the JAX package's ``"flash_interpret"`` has
+no counterpart). With ``binarized_attention=False`` the q/k/v/out
+projections are fp32 ``nn.Linear``s (the JAX package's
+partial-binarization ablation).
+
+The MLP's activation is ``hard_tanh``, flax's ``nn.hard_tanh``: it
+passes the gradient at exactly +-1, where ``F.hardtanh``'s is 0.
 
 LayerNorm is flax's ``nn.LayerNorm`` written out (``layer_norm``):
 epsilon 1e-6 (PyTorch's default is 1e-5) and the fast variance
@@ -32,6 +36,7 @@ import torch
 from torch import nn
 
 from ..ops.binarize import STEMode
+from ..ops.flash_attention import flash_attention
 from .layers import BinarizedDense
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
@@ -62,6 +67,14 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def hard_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.hard_tanh``: clamp to [-1, 1], gradient 1 on [-1, 1]
+    including both ends (``torch.nn.functional.hardtanh`` gives 0 at
+    exactly +-1, which a pre-activation can reach: an integer ±1 sum
+    plus a bias)."""
+    return torch.clamp(x, -1.0, 1.0)
+
+
 def _attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool = False) -> torch.Tensor:
     """Exact (B, T, H, D) softmax attention."""
@@ -75,15 +88,14 @@ def _attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+ATTENTIONS = ("xla", "flash")
+
+
 def _check_attention(attention: str) -> None:
-    if attention == "flash":
-        raise NotImplementedError(
-            "attention='flash' runs the flash-attention kernel K4 "
-            "(ops/flash_attention.py), which the port has not ported yet; "
-            "use attention='xla'"
+    if attention not in ATTENTIONS:
+        raise ValueError(
+            f"unknown attention {attention!r} (have: {', '.join(ATTENTIONS)})"
         )
-    if attention != "xla":
-        raise ValueError(f"unknown attention {attention!r} (have: xla)")
 
 
 def _fp32_linear(fan_in: int, fan_out: int,
@@ -115,6 +127,7 @@ class BinarizedSelfAttention(nn.Module):
         _check_attention(attention)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.attention = attention
         self.causal = causal
 
         def dense():
@@ -131,13 +144,16 @@ class BinarizedSelfAttention(nn.Module):
         q = self.q(x).reshape(b, t, h, e // h)
         k = self.k(x).reshape(b, t, h, e // h)
         v = self.v(x).reshape(b, t, h, e // h)
-        core = _attend_xla(q, k, v, causal=self.causal)
+        if self.attention == "flash":
+            core = flash_attention(q, k, v, causal=self.causal)
+        else:
+            core = _attend_xla(q, k, v, causal=self.causal)
         return self.out(core.reshape(b, t, e))
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: x += attn(LN(x)); x += mlp(LN(x)), the MLP as
-    BinarizedDense -> hardtanh -> BinarizedDense. Dropout, where set,
+    BinarizedDense -> hard_tanh -> BinarizedDense. Dropout, where set,
     acts in training mode only."""
 
     def __init__(
@@ -164,7 +180,7 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop(self.attn(self.ln_attn(x)))
-        y = torch.nn.functional.hardtanh(self.mlp1(self.ln_mlp(x)))
+        y = hard_tanh(self.mlp1(self.ln_mlp(x)))
         return x + self.drop(self.mlp2(y))
 
 
@@ -219,3 +235,11 @@ class BinarizedLM(nn.Module):
             x = blk(x)
         x = self.ln_head(x)
         return torch.log_softmax(self.head(x), dim=-1)
+
+
+def lm_loss(log_probs: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy: position t's log-probs score token t+1
+    (the final position has no target and is dropped)."""
+    targets = tokens[:, 1:].long()
+    lp = log_probs[:, :-1]
+    return -lp.gather(-1, targets[..., None]).mean()

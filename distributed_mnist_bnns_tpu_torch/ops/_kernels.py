@@ -36,13 +36,16 @@ NVCC_FLAGS = (
 )
 
 # Kernel name -> (C launcher symbol, source file). One source holds the
-# three epilogues of the packed GEMM.
+# three epilogues of the packed GEMM, one the three flash-attention kernels.
 KERNELS = {
     "xnor": ("xnor_gemm_none", "xnor_gemm.cu"),
     "xnor_sign": ("xnor_gemm_sign", "xnor_gemm.cu"),
     "xnor_affine": ("xnor_gemm_affine", "xnor_gemm.cu"),
     "xnor_unpack": ("xnor_unpack", "xnor_unpack.cu"),
     "paged_attn": ("paged_attn", "paged_attn.cu"),
+    "flash_fwd": ("flash_fwd", "flash_attn.cu"),
+    "flash_bwd_dq": ("flash_bwd_dq", "flash_attn.cu"),
+    "flash_bwd_dkv": ("flash_bwd_dkv", "flash_attn.cu"),
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,6 +70,16 @@ SIGNATURES = {
         # q, qpos, k_pool, v_pool, tables, out, S, C, H, D, page_size, P,
         # num_pages, scale, stream
         "paged_attn": [_P] * 6 + [_I] * 7 + [_F, _P],
+    },
+    "flash_attn.cu": {
+        # q, k, v, out, lse, B, H, Lq, Lk, D, causal, scale, stream
+        "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+        # q, k, v, dout, lse, coeff, dq, B, H, Lq, Lk, D, causal, scale,
+        # stream
+        "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
+        # q, k, v, dout, lse, coeff, dk, dv, B, H, Lq, Lk, D, causal,
+        # scale, stream
+        "flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
     },
 }
 
@@ -280,3 +293,75 @@ def paged_attn(q4: torch.Tensor, qpos: torch.Tensor, k_pool: torch.Tensor,
             s, c, h, d, ps, tables.shape[1], num_pages, d ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def _flash_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Check (B, Lq, H, D) q and (B, Lk, H, D) k, v for the flash kernels;
+    return (device, B, Lq, Lk, H, D)."""
+    if not q.is_cuda:
+        raise ValueError(f"q lies on {q.device}, not on a CUDA device")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(
+            f"q, k, v must be (B, L, H, D), got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}"
+        )
+    dev = q.device
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    if d > 128 or min(b, lq, lk, h, d) == 0:
+        raise ValueError(
+            f"the flash kernels take 1 <= head_dim <= 128 and non-empty "
+            f"operands, got q {tuple(q.shape)}, k {tuple(k.shape)}"
+        )
+    _check(q, dev, torch.float32, (b, lq, h, d), "q")
+    _check(k, dev, torch.float32, (b, lk, h, d), "k")
+    _check(v, dev, torch.float32, (b, lk, h, d), "v")
+    return dev, b, lq, lk, h, d
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool):
+    """Launch K4 on PyTorch's current stream: (B, Lq, H, D) fp32 q
+    against (B, Lk, H, D) k, v -> out (B, Lq, H, D) and lse (B, Lq, H),
+    both fp32. Does not synchronise."""
+    dev, b, lq, lk, h, d = _flash_operands(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, lq, h), dtype=torch.float32, device=dev)
+    _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, h, lq, lk, d, int(causal),
+            d ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    return out, lse
+
+
+def _flash_bwd_operands(q, k, v, dout, lse, coeff):
+    dev, b, lq, lk, h, d = _flash_operands(q, k, v)
+    _check(dout, dev, torch.float32, (b, lq, h, d), "dout")
+    _check(lse, dev, torch.float32, (b, lq, h), "lse")
+    _check(coeff, dev, torch.float32, (b, lq, h), "coeff")
+    return dev, b, lq, lk, h, d
+
+
+def flash_bwd_dq(q, k, v, dout, lse, coeff, causal: bool) -> torch.Tensor:
+    """Launch K5 on PyTorch's current stream: dq (B, Lq, H, D) fp32 from
+    the forward's operands, the cotangent ``dout`` of out, its ``lse``
+    and ``coeff = g_lse - rowsum(dout * out)`` ((B, Lq, H) fp32 each).
+    Does not synchronise."""
+    dev, b, lq, lk, h, d = _flash_bwd_operands(q, k, v, dout, lse, coeff)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), coeff.data_ptr(), dq.data_ptr(),
+            b, h, lq, lk, d, int(causal), d ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, coeff, causal: bool):
+    """Launch K6 on PyTorch's current stream: (dk, dv), each (B, Lk, H,
+    D) fp32, from the operands K5 takes. Does not synchronise."""
+    dev, b, lq, lk, h, d = _flash_bwd_operands(q, k, v, dout, lse, coeff)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), coeff.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, lq, lk, d, int(causal), d ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return dk, dv

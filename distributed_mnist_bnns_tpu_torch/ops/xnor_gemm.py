@@ -1,7 +1,9 @@
-"""Packed ±1 GEMMs, serving half.
+"""Packed ±1 GEMMs, and the differentiable ±1 product of training.
 
-Counterpart of the JAX package's ``ops/xnor_gemm.py`` for frozen
-inference: ``prepack_weights``, the three packed entry points
+Counterpart of the JAX package's ``ops/xnor_gemm.py``. For training,
+``binary_matmul``: the ±1 product on the "xla" or "bf16" backend, with
+the JAX package's fp32 backward. For frozen inference:
+``prepack_weights``, the three packed entry points
 
   xnor_matmul_packed         o = K - 2 * sum_w popcount(x_w ^ w_w)
   xnor_matmul_packed_sign    where(a * (o + bias) >= t, +1, -1)
@@ -50,6 +52,54 @@ def prepack_weights(
     if (kw_p, np_) != tuple(wtp.shape):
         wtp = torch.nn.functional.pad(wtp, (0, np_ - n, 0, kw_p - kw))
     return wtp.contiguous(), k, n
+
+
+# ---------------------------------------------------------------------------
+# Training: the differentiable ±1 product
+# ---------------------------------------------------------------------------
+
+BACKENDS = ("xla", "bf16")
+
+
+def _bmm_forward(x: torch.Tensor, w: torch.Tensor, backend: str):
+    """x (M, K) @ w.T for a ±1 (N, K) weight. "xla": the fp32 product.
+    "bf16": operands rounded to bfloat16 and multiplied with fp32
+    accumulation, as the JAX "bf16" backend's
+    ``preferred_element_type=float32`` does. Both are exact on ±1
+    operands; they differ only on a raw first-layer input that bf16
+    cannot hold."""
+    if backend == "xla":
+        return x @ w.t()
+    if backend == "bf16":
+        return x.to(torch.bfloat16).to(torch.float32) @ (
+            w.to(torch.bfloat16).to(torch.float32).t()
+        )
+    raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
+
+
+class _BinaryMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, backend: str):
+        ctx.save_for_backward(x, w)
+        return _bmm_forward(x, w, backend)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # The JAX _bmm_bwd: fp32 products of the cotangent with the ±1
+        # operands, whatever the forward's backend (autograd through the
+        # bf16 casts would round the cotangent to bf16).
+        x, w = ctx.saved_tensors
+        return g @ w.to(g.dtype), g.t() @ x.to(g.dtype), None
+
+
+def binary_matmul(x_pm1: torch.Tensor, w_pm1: torch.Tensor,
+                  backend: str = "bf16") -> torch.Tensor:
+    """Differentiable (M, K) x (N, K) ±1 product -> (M, N) fp32, the
+    weight in ``nn.Linear``'s (out, in) layout. Backward: gx = g @ w,
+    gw = g^T @ x, in fp32."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
+    return _BinaryMatmul.apply(x_pm1, w_pm1, backend)
 
 
 # ---------------------------------------------------------------------------

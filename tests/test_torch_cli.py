@@ -151,9 +151,47 @@ def test_lm_export_from_jax_variables_npz(tmp_path, capsys):
     assert frozen["info"] == want["info"]
 
 
+def test_lm_train_then_export_then_sample_on_cpu(tmp_path, capsys):
+    """``lm --steps N --export`` trains (flash attention by default) and
+    freezes the trained model; ``lm --load`` samples from it."""
+    from distributed_mnist_bnns_tpu_torch.infer import load_frozen
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import generate
+
+    out = str(tmp_path / "lm.pt")
+    assert cli.main(["lm", "--steps", "2", "--export", out, "--seq-len",
+                     "16", "--batch-size", "2", "--device", "cpu",
+                     *_TINY_LM]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["steps"] == 2 and len(res["loss_history"]) == 2
+    assert res["artifact"] == out and res["kind"] == "lm"
+    frozen = load_frozen(out)
+    assert frozen["pos_embed"].shape[1] == 16   # max_len = seq_len
+    untrained = str(tmp_path / "init.pt")
+    assert cli.main(["lm", "--export", untrained, "--max-len", "16",
+                     *_TINY_LM]) == 0
+    capsys.readouterr()
+    assert not torch.equal(load_frozen(untrained)["head_w"],
+                           frozen["head_w"])
+    assert cli.main(["lm", "--load", out, "--sample", "4", "--prompt", "ab",
+                     "--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = generate(frozen, [[97 % 32, 98 % 32]], 4, device="cpu")
+    assert got["tokens"] == want[0, 2:].tolist()
+
+
 def test_lm_refuses_training_and_serve_lm_defaults_to_cuda(tmp_path):
-    with pytest.raises(SystemExit, match="training is not ported"):
-        cli.main(["lm", "--export", str(tmp_path / "x.pt"), "--steps", "5"])
+    """Training refuses what it cannot do (a negative count, --load or
+    --jax-variables with --steps) and, without a card, the default
+    device; ``serve --lm`` defaults to cuda too."""
+    with pytest.raises(SystemExit, match="--steps must be"):
+        cli.main(["lm", "--steps", "-1"])
+    with pytest.raises(SystemExit, match="neither --load"):
+        cli.main(["lm", "--steps", "2", "--load", str(tmp_path / "x.pt")])
+    args = cli.build_parser().parse_args(["lm", "--steps", "3"])
+    assert args.device == "cuda" and args.attention == "flash"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["lm", "--steps", "1", *_TINY_LM])
     args = cli.build_parser().parse_args(
         ["serve", "--lm", "--artifact", "x"])
     assert args.lm and args.device == "cuda" and args.slots == 4

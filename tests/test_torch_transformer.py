@@ -8,6 +8,7 @@ bitwise, and a last-ulp difference just before a binarized projection
 could flip a sign.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from distributed_mnist_bnns_tpu_torch.models import BinarizedLM
 from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
 from distributed_mnist_bnns_tpu_torch.models.transformer import (
     BinarizedSelfAttention,
+    TransformerBlock,
+    hard_tanh,
     layer_norm,
 )
 from tests.torch_lm_util import TINY, lm_pair, tokens
@@ -25,8 +28,11 @@ from tests.torch_lm_util import TINY, lm_pair, tokens
 
 @pytest.mark.parametrize("kw", [
     {}, {"scale": True}, {"binarized_attention": False},
-], ids=["binarized", "scale", "fp32-attention"])
+    {"attention": "flash"},
+], ids=["binarized", "scale", "fp32-attention", "flash"])
 def test_live_model_matches_jax(kw):
+    """``attention="flash"``: the port's flash plain versions against the
+    JAX model's ``"flash_interpret"`` (the Pallas kernels interpreted)."""
     jm, params, tm = lm_pair(seed=0, **kw)
     toks = np.stack([tokens(1, 20), tokens(2, 20)])
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks),
@@ -87,12 +93,46 @@ def test_scale_is_the_mean_absolute_latent():
 
 
 def test_flash_attention_raises_naming_the_kernel():
-    with pytest.raises(NotImplementedError, match="K4"):
-        BinarizedLM(**TINY, attention="flash")
-    with pytest.raises(NotImplementedError, match="K4"):
-        BinarizedSelfAttention(32, 2, attention="flash")
+    """``"flash"`` builds and runs the flash kernels' entry: a CPU tensor
+    takes the plain versions, any other non-CUDA device raises (no
+    silent fallback); an unknown attention raises at construction."""
+    attn = BinarizedSelfAttention(32, 2, attention="flash", causal=True)
+    assert BinarizedLM(**TINY, attention="flash").blocks[0].attn.attention \
+        == "flash"
+    x = torch.randn(2, 5, 32, generator=torch.Generator().manual_seed(0))
+    assert attn(x).shape == (2, 5, 32)
+    with pytest.raises(ValueError, match="no flash attention for device meta"):
+        attn.to("meta")(x.to("meta"))
     with pytest.raises(ValueError, match="unknown attention"):
         BinarizedLM(**TINY, attention="ring")
+    with pytest.raises(ValueError, match="unknown attention"):
+        BinarizedSelfAttention(32, 2, attention="flash_interpret")
+
+
+def test_mlp_activation_passes_the_gradient_at_plus_minus_one():
+    """flax's nn.hard_tanh has gradient 1 at exactly ±1 (F.hardtanh has
+    0 there); the block's activation follows flax."""
+    pts = np.array([-1.5, -1.0, -0.25, 0.0, 0.5, 1.0, 2.0, 1.0], np.float32)
+    want = np.asarray(jax.grad(lambda v: fnn.hard_tanh(v).sum())(
+        jnp.asarray(pts)))
+    np.testing.assert_array_equal(want, [0, 1, 1, 1, 1, 1, 0, 1])
+    y = torch.from_numpy(pts.reshape(1, 1, 8)).requires_grad_()
+    hard_tanh(y).sum().backward()
+    np.testing.assert_array_equal(y.grad.numpy().ravel(), want)
+
+    class Fixed(torch.nn.Module):
+        def forward(self, _):
+            return y
+
+    # Inside the block: mlp1's output y feeds mlp2, whose ±1 weights
+    # (latents all +1) send a gradient of 4 (its outputs) to each input.
+    y.grad = None
+    block = TransformerBlock(4, 1, mlp_ratio=2, backend="xla")
+    block.mlp1 = Fixed()
+    with torch.no_grad():
+        block.mlp2.weight.fill_(1.0)
+    block(torch.zeros(1, 1, 4)).sum().backward()
+    np.testing.assert_array_equal(y.grad.numpy().ravel(), 4.0 * want)
 
 
 def test_dropout_is_inactive_in_eval_and_live_in_train():

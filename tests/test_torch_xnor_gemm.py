@@ -264,3 +264,74 @@ def test_entry_rejects_bad_shapes_and_other_devices():
         txg.xnor_matmul_fused_unpack(
             torch.ones(2, 64, device="meta"), wp.to("meta"), k, n
         )
+
+
+# ---------------------------------------------------------------------------
+# Training: binary_matmul's fp32 backward
+# ---------------------------------------------------------------------------
+
+BMM_SHAPES = [(4, 8, 3), (16, 64, 32), (33, 96, 20)]
+
+
+def _grid_cotangent(rng, m, n):
+    """A cotangent on the 2^-12 grid in (-1, 1): 12 significant bits, so
+    a bf16 rounding (8 bits) shows, while every partial sum of up to
+    2^11 such terms times ±1 is exact in fp32: the sums agree bitwise in
+    whatever order XLA and PyTorch take them."""
+    return (rng.randint(-4095, 4096, (m, n)) / 4096.0).astype(np.float32)
+
+
+def _bmm_grads_jax(x, w, g, backend):
+    """JAX binary_matmul's VJP; w is the port's (N, K), JAX's is (K, N)."""
+    import jax
+
+    _, vjp = jax.vjp(lambda a, b: jxg.binary_matmul(a, b, backend),
+                     jnp.asarray(x), jnp.asarray(w.T))
+    gx, gw = vjp(jnp.asarray(g))
+    return np.asarray(gx), np.asarray(gw).T
+
+
+@pytest.mark.parametrize("backend", ["xla", "bf16"])
+@pytest.mark.parametrize("m,k,n", BMM_SHAPES)
+def test_binary_matmul_matches_jax_bitwise(backend, m, k, n):
+    """Forward and both gradients equal the JAX binary_matmul's bitwise:
+    the backward multiplies the fp32 cotangent by the ±1 operands in
+    fp32 for either backend."""
+    rng = np.random.RandomState(m + k + n)
+    x, w = _pm1(rng, m, k), _pm1(rng, n, k)
+    g = _grid_cotangent(rng, m, n)
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y = txg.binary_matmul(xt, wt, backend)
+    want_y = np.asarray(jxg.binary_matmul(jnp.asarray(x), jnp.asarray(w.T),
+                                          backend))
+    np.testing.assert_array_equal(y.detach().numpy(), want_y)
+    y.backward(torch.from_numpy(g))
+    want_gx, want_gw = _bmm_grads_jax(x, w, g, backend)
+    np.testing.assert_array_equal(xt.grad.numpy(), want_gx)
+    np.testing.assert_array_equal(wt.grad.numpy(), want_gw)
+
+
+def test_bf16_binarized_dense_keeps_the_cotangent_in_fp32():
+    """Through BinarizedDense(backend="bf16") the input's gradient is
+    g @ w in fp32, as JAX's: autograd through bf16 casts of the operands
+    would round the cotangent to bf16."""
+    from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
+
+    rng = np.random.RandomState(0)
+    layer = BinarizedDense(8, 3, backend="bf16")
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(_pm1(rng, 3, 8)))
+    x = torch.from_numpy(_pm1(rng, 4, 8)).requires_grad_()
+    g = _grid_cotangent(rng, 4, 3)
+    layer(x).backward(torch.from_numpy(g))
+    want_gx, want_gw = _bmm_grads_jax(x.detach().numpy(),
+                                      layer.weight.detach().numpy(), g,
+                                      "bf16")
+    np.testing.assert_array_equal(x.grad.numpy(), want_gx)
+    np.testing.assert_array_equal(layer.weight.grad.numpy(), want_gw)
+
+
+def test_binary_matmul_rejects_unknown_backends():
+    with pytest.raises(ValueError, match="unknown backend"):
+        txg.binary_matmul(torch.ones(2, 4), torch.ones(3, 4), "int8")

@@ -17,9 +17,10 @@ from distributed_mnist_bnns_tpu_torch.interop import (
 TINY = dict(vocab=32, max_len=32, embed_dim=32, depth=2, num_heads=2)
 
 
-def jax_lm(scale=False, binarized_attention=None, **kw):
-    return JLM(**{**TINY, **kw}, attention="xla", backend="xla", scale=scale,
-               binarized_attention=binarized_attention)
+def jax_lm(scale=False, binarized_attention=None, attention="xla",
+           backend="xla", **kw):
+    return JLM(**{**TINY, **kw}, attention=attention, backend=backend,
+               scale=scale, binarized_attention=binarized_attention)
 
 
 def numpy_params(model, seed=0):
@@ -52,12 +53,16 @@ def numpy_params(model, seed=0):
     )
 
 
-def lm_pair(seed=0, scale=False, binarized_attention=None, **kw):
-    """(jax model, numpy params, port model in eval) on the same weights."""
-    jm = jax_lm(scale=scale, binarized_attention=binarized_attention, **kw)
+def lm_pair(seed=0, scale=False, binarized_attention=None, attention="xla",
+            **kw):
+    """(jax model, numpy params, port model in eval) on the same weights.
+    ``attention="flash"`` is the JAX model's ``"flash_interpret"``."""
+    jm = jax_lm(scale=scale, binarized_attention=binarized_attention,
+                attention="flash_interpret" if attention == "flash"
+                else attention, **kw)
     params = numpy_params(jm, seed)
     tm = lm_params_from_jax(params, num_heads=TINY["num_heads"], scale=scale,
-                            backend="xla")
+                            backend="xla", attention=attention)
     return jm, params, tm
 
 
