@@ -41,14 +41,17 @@ Phases, each fatal on failure:
      K1, K7 and K8 must all have launched. Then decode-iteration and
      prefill-chunk times, device time from ``torch.profiler``, and the
      requests' time to first token and time per token;
-  6. flash attention: K4 (forward), K5 (dq) and K6 (dk, dv) against
-     their plain versions on the card at the six shapes of
-     ``tests_tpu/test_hardware_kernels.py`` and at the training width
-     (B, H, L, D) = (8, 4, 1024, 64), causal: out and lse to atol = rtol
-     = 2e-5, the gradients (g_lse != 0) to ``FLASH_GRAD_TOL``; two runs
-     of each kernel bitwise equal. Then CUDA-graph timings at the
-     training width against the plain versions, SDPA (forward for K4,
-     its backward for K5 and K6) and the bound;
+  6. flash attention: K4 (forward), K5 (dq) and K6 (dk, dv; both 3xTF32
+     on the tensor cores) against their plain versions on the card at
+     the six shapes of ``tests_tpu/test_hardware_kernels.py``, at the
+     training width (B, H, L, D) = (8, 4, 1024, 64), causal, and at two
+     ragged head dims: out and lse to atol = rtol = 2e-5, the gradients
+     (g_lse != 0) to ``FLASH_GRAD_TOL``; two runs of each kernel bitwise
+     equal. Then CUDA-graph timings at the training width against the
+     plain versions, PyTorch's fp32 memory-efficient attention (SDPA's
+     forward for K4; its backward kernel, also in a CUDA graph, for K5,
+     K6 and the port's whole backward, ``flash_bwd_total``) and the
+     bound;
   7. LM training: the ``bench.py --lm-bench`` step (vocab 256, max_len
      1024, embed 256, depth 4, 4 heads, MLP 512, batch 8 x 1024, Adam
      1e-3, latent clamp). One step with flash attention against one with
@@ -85,6 +88,8 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, the lowest
 # precision the data sheet lists; a ±1 GEMM counts 2*M*N*K operations
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores (data sheet)
+H100_TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core peak (data sheet);
+# an fp32-accurate product in 3xTF32 takes three TF32 products
 
 MAIN_M = 32  # the MLP server's micro-batch: the shape its path runs
 LAYER2 = (3072, 1536)  # (K, N) of K2 in bnn-mlp-large
@@ -110,6 +115,9 @@ FLASH_SHAPES = (
     (1, 2, 200, 333, 64, False), (1, 2, 96, 128, 64, True),
     (8, 4, 1024, 1024, 64, True),
 )
+# Head dims that are no multiple of 8 (D = 36: 16-byte copies, a zero-filled
+# tail) and of 4 (D = 7: 4-byte copies), checked before FLASH_SHAPES.
+FLASH_EDGE_SHAPES = ((1, 2, 33, 40, 36, False), (1, 3, 70, 99, 7, True))
 # The gradients sum up to 1024 products of O(1) terms in another order
 # than the plain version's einsums, so they agree to fp32 rounding of
 # such sums, not bitwise.
@@ -134,9 +142,9 @@ KERNEL_ROWS = {
     "flash_fwd": (_TPU + "flash_attention.py:53", _SRC + "flash_attn.cu",
                   None),
     "flash_bwd_dq": (_TPU + "flash_attention.py:307",
-                     _SRC + "flash_attn.cu", None),
+                     _SRC + "flash_bwd.cu", None),
     "flash_bwd_dkv": (_TPU + "flash_attention.py:353",
-                      _SRC + "flash_attn.cu", None),
+                      _SRC + "flash_bwd.cu", None),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -848,28 +856,14 @@ def lm_slice_phase(device: torch.device, gen: torch.Generator):
     return counts, timing
 
 
-def _event_ms(fn, iters: int = 10) -> float:
-    """Mean device time of one ``fn()`` between CUDA events over
-    ``iters`` back-to-back calls after a warm-up (for calls that a CUDA
-    graph does not capture: autograd's backward of SDPA)."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
                  causal: bool):
-    """Least time (ms) of one flash kernel: its operands read once and
-    its outputs written once against HBM bandwidth, and 4D (K4), 6D (K5)
-    or 8D (K6) fp32 operations per unmasked (query, key) pair against
-    the fp32 peak."""
+    """Least time (ms) of one flash kernel's work: its operands read once
+    and its outputs written once against HBM bandwidth, and 4D (K4), 6D
+    (K5) or 8D (K6) fp32-accurate operations per unmasked (query, key)
+    pair at the faster of the card's two rates for them: fp32 on the
+    CUDA cores, or TF32 on the tensor cores over three (3xTF32). Returns
+    (ms, "bytes" or "operations", the peak that bounds)."""
     if causal:
         pairs = sum(min(lk, i + lk - lq + 1) for i in range(lq))
     else:
@@ -882,8 +876,28 @@ def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
         "flash_bwd_dkv": (2 * qd + 4 * kd + 2 * rows, 8),  # -> dk dv
     }[name]
     t_bytes = 4 * words / H100_BYTES_PER_S * 1e3
-    t_ops = per_pair * d * pairs / H100_FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    rates = {"fp32 CUDA cores": H100_FP32_OPS_PER_S,
+             "3xTF32 tensor cores": H100_TF32_OPS_PER_S / 3}
+    peak = max(rates, key=rates.get)
+    t_ops = per_pair * d * pairs / rates[peak] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "HBM"
+    return t_ops, "operations", peak
+
+
+def _library_bwd(q, k, v, g_out):
+    """A call of the kernel SDPA's autograd runs for an fp32 causal
+    backward (PyTorch's memory-efficient attention, CUTLASS) on
+    (B, L, H, D) q, k, v, from its own forward's out and lse; it returns
+    (dq, dk, dv). Called directly so that a CUDA graph captures it."""
+    ops = torch.ops.aten
+    lq, lk = q.shape[1], k.shape[1]
+    causal_top_left = 1  # equal to bottom-right alignment at Lq == Lk
+    out, lse, seed, offset, _, _ = ops._efficient_attention_forward(
+        q, k, v, None, None, None, None, None, 0.0, causal_top_left, True)
+    return lambda: ops._efficient_attention_backward(
+        g_out, q, k, v, None, out, None, None, lq, lk, lse, 0.0, seed,
+        offset, causal_top_left, False)[:3]
 
 
 def _sdpa_kernels(qs, ks, vs) -> list:
@@ -898,9 +912,10 @@ def _sdpa_kernels(qs, ks, vs) -> list:
 
 
 def flash_phase(device: torch.device, gen: torch.Generator):
-    """K4, K5 and K6 against their plain versions at ``FLASH_SHAPES``;
-    two runs bitwise equal; timings at the training width. Returns
-    ({kernel: timing row}, {kernel: largest |diff|})."""
+    """K4, K5 and K6 against their plain versions at
+    ``FLASH_EDGE_SHAPES`` and ``FLASH_SHAPES``; two runs bitwise equal;
+    timings at the training width. Returns ({kernel: timing row},
+    {kernel: largest |diff|})."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.ops import flash_attention as fa
 
@@ -916,7 +931,7 @@ def flash_phase(device: torch.device, gen: torch.Generator):
                     f"{name} at {shape} differs from its plain version: "
                     f"max |diff| = {err}")
 
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_EDGE_SHAPES + FLASH_SHAPES:
         b, h, lq, lk, d, causal = shape
         q, k, v, g_out = (torch.randn(b, n, h, d, generator=gen).to(device)
                           for n in (lq, lk, lk, lq))
@@ -941,14 +956,28 @@ def flash_phase(device: torch.device, gen: torch.Generator):
         log(f"flash {shape}: K4/K5/K6 within tolerance of their plain "
             f"versions, two runs bitwise equal")
 
-    # Timings at the training width (the last shape's tensors).
+    # Timings at the training width (the last shape's tensors). The
+    # library backward is the call SDPA's autograd makes, checked against
+    # autograd's gradients so that the graph times the same work.
     lib = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     gos = g_out.transpose(1, 2).contiguous()
     qg, kg, vg = (x.detach().requires_grad_() for x in (qs, ks, vs))
-    out_lib = lib(qg, kg, vg, is_causal=True)
-    lib_bwd_ms = _event_ms(lambda: torch.autograd.grad(
-        out_lib, (qg, kg, vg), gos, retain_graph=True))
+    want = torch.autograd.grad(lib(qg, kg, vg, is_causal=True),
+                               (qg, kg, vg), gos)
+    lib_bwd = _library_bwd(q, k, v, g_out)
+    got = lib_bwd()
+    lib_err = max((g.transpose(1, 2) - w).abs().max().item()
+                  for g, w in zip(got, want))
+    port_err = max((g - w).abs().max().item() for g, w in zip(
+        got, fa._backward(q, k, v, out, lse, g_out, torch.zeros_like(lse),
+                          causal)))
+    log(f"library backward: max |diff| {lib_err:.3g} to SDPA's autograd, "
+        f"{port_err:.3g} to the port's (g_lse = 0)")
+    if not all(torch.allclose(g.transpose(1, 2), w, **FLASH_GRAD_TOL)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"the library backward is not SDPA's: {lib_err}")
+    lib_bwd_ms = _graph_ms(lib_bwd, iters=20, reps=10)
     sdpa = _sdpa_kernels(qs, ks, vs)
     log(f"SDPA (fp32, causal) ran: {sdpa}")
     plain = {
@@ -973,12 +1002,26 @@ def flash_phase(device: torch.device, gen: torch.Generator):
                            if name == "flash_fwd" else lib_bwd_ms),
             "library": ("scaled_dot_product_attention forward"
                         if name == "flash_fwd" else
-                        "scaled_dot_product_attention backward (dq, dk, dv)"),
+                        "memory-efficient attention backward (dq, dk, dv)"),
             "sdpa_kernels": sdpa,
         }
-        row["bound_ms"], row["bound_by"] = _flash_bound(name, *shape)
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _flash_bound(
+            name, *shape)
         rows[name] = row
         print(json.dumps(row), flush=True)
+    # The port's whole backward as the training step runs it: coeff, K5
+    # and K6, against the library's.
+    total = {
+        "kernel": "flash_bwd_total", "b": b, "h": h, "lq": lq, "lk": lk,
+        "d": d, "causal": causal,
+        "kernel_ms": _graph_ms(lambda: fa._backward(
+            q, k, v, out, lse, g_out, g_lse, causal), iters=20, reps=10),
+        "library_ms": lib_bwd_ms,
+        "library": "memory-efficient attention backward (dq, dk, dv)",
+        "bound_ms": sum(rows[n]["bound_ms"] for n in FLASH[1:]),
+    }
+    total["vs_library"] = total["kernel_ms"] / total["library_ms"]
+    print(json.dumps(total), flush=True)
     return rows, max_err
 
 
@@ -1193,6 +1236,8 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "shape": shape,
         }
+        if "bound_peak" in row:
+            entry["bound_peak"] = row["bound_peak"]
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],
                           "library_ms": entry["library_ms"],

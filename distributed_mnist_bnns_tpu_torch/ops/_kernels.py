@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 # Kernel name -> (C launcher symbol, source file). One source holds the
-# three epilogues of the packed GEMM, one the three flash-attention kernels.
+# three epilogues of the packed GEMM, one the flash-attention forward and
+# one its two backward kernels.
 KERNELS = {
     "xnor": ("xnor_gemm_none", "xnor_gemm.cu"),
     "xnor_sign": ("xnor_gemm_sign", "xnor_gemm.cu"),
@@ -44,8 +45,8 @@ KERNELS = {
     "xnor_unpack": ("xnor_unpack", "xnor_unpack.cu"),
     "paged_attn": ("paged_attn", "paged_attn.cu"),
     "flash_fwd": ("flash_fwd", "flash_attn.cu"),
-    "flash_bwd_dq": ("flash_bwd_dq", "flash_attn.cu"),
-    "flash_bwd_dkv": ("flash_bwd_dkv", "flash_attn.cu"),
+    "flash_bwd_dq": ("flash_bwd_dq", "flash_bwd.cu"),
+    "flash_bwd_dkv": ("flash_bwd_dkv", "flash_bwd.cu"),
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,6 +75,8 @@ SIGNATURES = {
     "flash_attn.cu": {
         # q, k, v, out, lse, B, H, Lq, Lk, D, causal, scale, stream
         "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+    },
+    "flash_bwd.cu": {
         # q, k, v, dout, lse, coeff, dq, B, H, Lq, Lk, D, causal, scale,
         # stream
         "flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],

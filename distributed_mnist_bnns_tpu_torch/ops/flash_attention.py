@@ -15,10 +15,14 @@ here, outside the kernels)
     ds_ij = p_ij * (g_out_i . v_j + coeff_i) * d^-0.5
     dq_i  = sum_j ds_ij k_j    dk_j = sum_i ds_ij q_i    dv_j = sum_i p_ij g_out_i
 
-A CUDA tensor launches the hand-written kernels of ``csrc/flash_attn.cu``
-(K4 forward, K5 dq, K6 dk/dv, through ``ops._kernels``) or raises; a CPU
-tensor takes the plain PyTorch versions below. There is no fallback from
-the one to the other, and no switch between backward implementations.
+A CUDA tensor launches the hand-written kernels (through ``ops._kernels``)
+or raises: K4, the forward, of ``csrc/flash_attn.cu`` (exact fp32 on the
+CUDA cores), and K5 (dq) and K6 (dk, dv) of ``csrc/flash_bwd.cu``, whose
+every matrix product runs on the tensor cores in 3xTF32 (each fp32 operand
+split into two TF32 parts, three TF32 products summed in fp32: about 2^-21
+relative per product, fp32's accuracy class). A CPU tensor takes the
+plain PyTorch versions below. There is no fallback from the one to the
+other, and no switch between backward implementations.
 
 The conventions are the JAX package's: ``NEG_INF = -1e30`` for masked
 scores, ``p`` only where ``s > NEG_INF / 2``, a correction of 0 while the
@@ -41,7 +45,7 @@ NEG_INF = -1e30  # finite stand-in for -inf (keeps exp() NaN-free)
 # Key-block lengths of the plain versions: the forward's online softmax
 # (K4's) and the chunked backward (K5/K6's) walk keys this many at a time.
 # Module-level so tests can force several blocks at small L. The kernels
-# use their own 64-row tiles (csrc/flash_attn.cu).
+# use their own tiles of 64 (or 32) rows (csrc/flash_attn.cu, flash_bwd.cu).
 FWD_BLOCK_K = 512
 BWD_BLOCK_K = 512
 
@@ -169,16 +173,23 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        do = _c32(g_out)
-        coeff = _c32(g_lse - (do * out).sum(dim=-1))
-        if _device_of(q) == "cuda":
-            dq = _kernels.flash_bwd_dq(q, k, v, do, lse, coeff, ctx.causal)
-            dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, coeff,
-                                            ctx.causal)
-        else:
-            dq = flash_bwd_dq_plain(q, k, v, do, lse, coeff, ctx.causal)
-            dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, coeff, ctx.causal)
+        dq, dk, dv = _backward(q, k, v, out, lse, g_out, g_lse, ctx.causal)
         return dq, dk, dv, None
+
+
+def _backward(q, k, v, out, lse, g_out, g_lse, causal: bool):
+    """(dq, dk, dv) from the forward's operands and outputs and the
+    cotangents of both outputs: ``coeff`` here, then K5 and K6 (or their
+    plain versions on the CPU)."""
+    do = _c32(g_out)
+    coeff = _c32(g_lse - (do * out).sum(dim=-1))
+    if _device_of(q) == "cuda":
+        dq = _kernels.flash_bwd_dq(q, k, v, do, lse, coeff, causal)
+        dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, coeff, causal)
+    else:
+        dq = flash_bwd_dq_plain(q, k, v, do, lse, coeff, causal)
+        dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, coeff, causal)
+    return dq, dk, dv
 
 
 def flash_attention_with_lse(

@@ -7,6 +7,10 @@ Backward: the gradients of ``sum(out * g_out) + sum(lse * g_lse)``, both
 cotangents non-zero, against ``jax.vjp`` under both JAX backward
 implementations (the Pallas kernel pair and the chunked scan), within
 atol = rtol = 1e-5.
+
+The card's backward kernels (K5, K6) run every matrix product in 3xTF32;
+the last tests emulate that arithmetic here and hold it to the tolerance
+``chip_smoke.py`` holds the kernels to.
 """
 
 import importlib
@@ -192,3 +196,88 @@ def test_row_with_no_key_gives_zero_and_neg_inf():
     assert torch.equal(lse, torch.full((1, 3, 1), tfa.NEG_INF))
     (out.sum() + lse.sum()).backward()
     assert torch.equal(q.grad, torch.zeros_like(q))
+
+
+# chip_smoke.FLASH_GRAD_TOL: what the card's K5 and K6 are held to against
+# the plain versions.
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+# The six shapes tests_tpu holds the Pallas kernels to, then a causal head
+# at the training length: (B, H, Lq, Lk, D, causal).
+TF32_SHAPES = [
+    (2, 4, 256, 256, 64, False), (2, 4, 256, 256, 64, True),
+    (1, 2, 512, 512, 128, True), (1, 1, 7, 7, 16, False),
+    (1, 2, 200, 333, 64, False), (1, 2, 96, 128, 64, True),
+    (1, 4, 1024, 1024, 64, True),
+]
+
+_einsum = torch.einsum
+
+
+def _tf32(x):
+    """fp32 -> TF32 (10 mantissa bits) rounded to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """A product as the kernels compute it: each operand split into big =
+    tf32(x) and small = tf32(x - big), small*big + big*small + big*big
+    summed in fp32 (each TF32 product is exact in fp32)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return (_einsum(eq, a_small, b_big) + _einsum(eq, a_big, b_small)
+            + _einsum(eq, a_big, b_big))
+
+
+def _einsum_1xtf32(eq, a, b):
+    return _einsum(eq, _tf32(a), _tf32(b))
+
+
+def _chunked_backward(shape, product=None, monkeypatch=None):
+    """dq, dk, dv of the plain chunked backward at ``shape``, from the
+    fp32 forward's lse, with every einsum replaced by ``product``."""
+    b, h, lq, lk, d, causal = shape
+    q, k, v, g_out, g_lse = map(torch.from_numpy,
+                                _inputs(lq + lk + d, b, h, lq, lk, d))
+    out, lse = tfa.flash_fwd_plain(q, k, v, causal)
+    coeff = (g_lse - (g_out * out).sum(dim=-1)).contiguous()
+    args = (q, k, v, g_out, lse.contiguous(), coeff, causal)
+    if product is not None:
+        monkeypatch.setattr(torch, "einsum", product)
+    dq = tfa.flash_bwd_dq_plain(*args)
+    dk, dv = tfa.flash_bwd_dkv_plain(*args)
+    if product is not None:
+        monkeypatch.setattr(torch, "einsum", _einsum)
+    return dq, dk, dv
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                   # a TF32 value: kept
+    x = torch.tensor([1.0, one, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -12],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0, one, one, 1.0, -one, one], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=str)
+def test_3xtf32_backward_within_the_kernels_tolerance(monkeypatch, shape):
+    """The split arithmetic of K5 and K6 meets FLASH_GRAD_TOL against the
+    fp32 plain versions at every shape the card checks the kernels at."""
+    want = _chunked_backward(shape)
+    got = _chunked_backward(shape, _einsum_3xtf32, monkeypatch)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, **GRAD_TOL, msg=name)
+
+
+def test_1xtf32_backward_misses_the_tolerance(monkeypatch):
+    """One TF32 product (no split) is not accurate enough: the 3xTF32
+    split is what meets the tolerance."""
+    shape = TF32_SHAPES[-1]
+    want = _chunked_backward(shape)
+    got = _chunked_backward(shape, _einsum_1xtf32, monkeypatch)
+    assert not all(torch.allclose(g, w, **GRAD_TOL)
+                   for g, w in zip(got, want))

@@ -86,6 +86,7 @@ def test_kernel_build_dir_is_ignored_and_sources_ship():
     assert (PORT / "csrc" / "xnor_gemm.cu").is_file()
     assert {src for _, src in _kernels.KERNELS.values()} == {
         "xnor_gemm.cu", "xnor_unpack.cu", "paged_attn.cu", "flash_attn.cu",
+        "flash_bwd.cu",
     }
     if shutil.which("git") is None:
         pytest.skip("git not available")
