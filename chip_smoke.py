@@ -13,12 +13,14 @@ Phases, each fatal on failure:
      ``torch.equal``, at the serving paths' shapes (K1 at every (K, N)
      of the LM's projections and at the MLP's layer 2), at ragged and
      multi-chunk shapes, and with g < 0, g == 0 and exact tie columns;
-     K7 (fused bitplane-unpack GEMM) the same way on ±1 x and to rtol
-     1e-5 on real x; K8 (paged attention) against the gather path to
-     atol = rtol = 1e-5 in decode, prefill and verify shapes over
-     scrambled, reused and null pages. Then CUDA-graph timings of each
-     kernel at its main path's shape, its plain version, one PyTorch
-     library call computing the same function, and the bound;
+     K7 (fused bitplane-unpack GEMM, bf16 ``mma.sync`` on an exact
+     three-piece split of x) the same way on ±1 x and to rtol 1e-5 on
+     real x, two runs bitwise equal; K8 (paged attention) against the
+     gather path to atol = rtol = 1e-5 in decode, prefill and verify
+     shapes over scrambled, reused and null pages. Then CUDA-graph
+     timings of each kernel at its main path's shape (K7 also at M = 1
+     and 64), its plain version, one PyTorch library call computing the
+     same function, and the bound;
   4. MLP slice: ``bnn-mlp-large`` at full width (784-3072-1536-768-10)
      from a seeded ``torch.Generator`` with random BN statistics,
      frozen, exported, ``load_packed`` on ``cuda``, checked against the
@@ -38,11 +40,13 @@ Phases, each fatal on failure:
      150 tokens, 32 new tokens each, one sent as text), each stream
      equal to the decoder driven directly for that prompt alone. The
      counters are zeroed just before the requests and read just after:
-     K1, K7 and K8 must all have launched. Then decode-iteration and
+     K1 and K8 must have launched, and K7 24 times (4 blocks x 6
+     projections) per prefill chunk. Then decode-iteration and
      prefill-chunk times, device time from ``torch.profiler``, and the
      requests' time to first token and time per token;
-  6. flash attention: K4 (forward), K5 (dq) and K6 (dk, dv; both 3xTF32
-     on the tensor cores) against their plain versions on the card at
+  6. flash attention: K4 (forward: exact fp32 scores, P V in 3xTF32 on
+     the tensor cores), K5 (dq) and K6 (dk, dv; 3xTF32) against their
+     plain versions on the card at
      the six shapes of ``tests_tpu/test_hardware_kernels.py``, at the
      training width (B, H, L, D) = (8, 4, 1024, 64), causal, and at two
      ragged head dims: out and lse to atol = rtol = 2e-5, the gradients
@@ -56,11 +60,17 @@ Phases, each fatal on failure:
      1024, embed 256, depth 4, 4 heads, MLP 512, batch 8 x 1024, Adam
      1e-3, latent clamp). One step with flash attention against one with
      the exact softmax from the same seeded weights (random biases and
-     LayerNorm parameters) and batch: losses within 1e-4 relative. Then
+     LayerNorm parameters) and batch: losses within 1e-4 relative, each
+     parameter's gradient within ``LM_GRAD_RTOL`` in relative L2 norm
+     (the key bias's, exactly 0 in exact arithmetic, printed). Then
      ``examples/lm_demo.py::run`` trains 20 steps on the periodic corpus
      with flash attention and exports the model, the counters zeroed
      just before and read just after: each flash kernel launched
      depth x steps times, every loss finite, the last below the first.
+     A second run from the same seed must give a bitwise-equal loss
+     history, as the JAX package's training does; the token embedding's
+     one-hot weight gradient, which makes it so, is timed against
+     PyTorch's embedding backward.
      The artifact's full forward is held against the trained model.
      Then step time on the host clock and device time from
      ``torch.profiler``.
@@ -90,6 +100,13 @@ H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, the lowest
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores (data sheet)
 H100_TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core peak (data sheet);
 # an fp32-accurate product in 3xTF32 takes three TF32 products
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak (data sheet);
+# fp32 x times a ±1 weight is exact in three bf16 products (x in three
+# pieces, ±1 exact in bf16)
+# The card's rates for fp32-accurate products of fp32 operands: fp32 on
+# the CUDA cores, or TF32 on the tensor cores over three (3xTF32).
+FP32_RATES = {"fp32 CUDA cores": H100_FP32_OPS_PER_S,
+              "3xTF32 tensor cores": H100_TF32_OPS_PER_S / 3}
 
 MAIN_M = 32  # the MLP server's micro-batch: the shape its path runs
 LAYER2 = (3072, 1536)  # (K, N) of K2 in bnn-mlp-large
@@ -122,6 +139,10 @@ FLASH_EDGE_SHAPES = ((1, 2, 33, 40, 36, False), (1, 3, 70, 99, 7, True))
 # than the plain version's einsums, so they agree to fp32 rounding of
 # such sums, not bitwise.
 FLASH_GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+# The flash LM step's gradients against the exact-softmax step's, each
+# parameter in relative L2 norm: ten times the kernels' own gradient
+# tolerance, for four blocks of attention backward stacked.
+LM_GRAD_RTOL = 1e-3
 # bench.py --lm-bench (_bench_lm, bench.py:840-909; widths :1739-1743)
 LM_TRAIN = dict(vocab=256, embed_dim=256, depth=4, num_heads=4, mlp_ratio=2)
 LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STEPS = 1024, 8, 1e-3, 20
@@ -213,17 +234,46 @@ def _graph_ms(fn, iters: int = 50, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def _events_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Median time of one ``fn()``: ``iters`` eager calls between CUDA
+    events, ``reps`` times (for a call a CUDA graph may not capture)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def _roofline(nbytes: float, ops: float, rates: dict):
+    """Least time (ms) of a function that moves ``nbytes`` and does
+    ``ops`` operations: the larger of the bytes against HBM bandwidth and
+    the operations at the fastest of ``rates`` (name -> per second).
+    Returns (ms, "bytes" or "operations", the peak that bounds)."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    peak = max(rates, key=rates.get)
+    t_ops = ops / rates[peak] * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "HBM"
+    return t_ops, "operations", peak
+
+
 def _bound(name: str, m: int, k: int, n: int):
-    """Least time (ms) the card could take for the kernel's function:
-    packed x and the real weight words read once, the epilogue vectors
-    read once, the fp32 output written once, against HBM bandwidth; and
-    2*M*N*K ±1 operations against the int8 tensor-core peak."""
+    """K1-K3's bound: packed x and the real weight words read once, the
+    epilogue vectors read once, the fp32 output written once; 2*M*N*K ±1
+    operations at the int8 tensor-core peak."""
     kw = -(-k // 32)
     vecs = 0 if name == "xnor" else 3
     nbytes = 4 * (m * kw + kw * n + vecs * n + m * n)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * m * n * k / H100_INT8_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _roofline(nbytes, 2.0 * m * n * k,
+                     {"int8 tensor cores": H100_INT8_OPS_PER_S})
 
 
 def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
@@ -291,17 +341,28 @@ def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
             "plain_ms": _graph_ms(lambda: plain(xp, wp, k, *vecs)),
             "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
         }
-        row["bound_ms"], row["bound_by"] = _bound(name, m, k, n)
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            name, m, k, n)
         rows.append(row)
         print(json.dumps(row), flush=True)
     torch.cuda.synchronize()
     return rows, max_err
 
 
+def _unpack_bound(m: int, k: int, n: int):
+    """K7's bound: fp32 x, the real weight words and the fp32 output moved
+    once; 2*M*N*K fp32-accurate operations at the fastest rate for them,
+    which with ±1 weights includes bf16 on the tensor cores over three."""
+    nbytes = 4 * (m * k + -(-k // 32) * n + m * n)
+    return _roofline(nbytes, 2.0 * m * n * k, {
+        **FP32_RATES, "3xbf16 tensor cores": H100_BF16_OPS_PER_S / 3})
+
+
 def unpack_phase(device: torch.device, gen: torch.Generator):
     """K7 against its plain version: ``torch.equal`` on ±1 x at the LM
-    path's shapes, ragged and multi-chunk ones; rtol 1e-5 on real x.
-    Returns (timing row at the prefill shape, largest |diff| on ±1 x)."""
+    path's shapes, ragged and multi-chunk ones; rtol 1e-5 on real x; two
+    runs bitwise equal. Returns (timing rows at the prefill shape and at
+    M = 1 and 64, the prefill row first; largest |diff| on ±1 x)."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
 
@@ -325,26 +386,34 @@ def unpack_phase(device: torch.device, gen: torch.Generator):
         # to near 0 keeps no relative precision, so the absolute term is
         # rtol times the typical size of an entry (sqrt(K) for unit x).
         xr = torch.randn(m, k, generator=gen).to(device)
-        got = xg.xnor_matmul_fused_unpack(xr, wp, k, n)
+        got_r = xg.xnor_matmul_fused_unpack(xr, wp, k, n)
         want = xg.fused_unpack_plain(xr, wp, k, n)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * k ** 0.5)
-    m, k, n = KERNEL_ROWS["xnor_unpack"][2]
-    wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
-    x = _pm1(gen, m, k).to(device)
-    xb = x.to(torch.bfloat16)
-    wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
-    t_bytes = 4 * (m * k + -(-k // 32) * n + m * n) / H100_BYTES_PER_S * 1e3
-    t_ops = 2.0 * m * n * k / H100_FP32_OPS_PER_S * 1e3
-    row = {
-        "kernel": "xnor_unpack", "m": m, "k": k, "n": n,
-        "kernel_ms": _graph_ms(lambda: _kernels.xnor_unpack(x, wp, k, n)),
-        "plain_ms": _graph_ms(lambda: xg.fused_unpack_plain(x, wp, k, n)),
-        "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    print(json.dumps(row), flush=True)
-    return row, max_err
+        torch.testing.assert_close(got_r, want, rtol=1e-5,
+                                   atol=1e-5 * k ** 0.5)
+        again = (xg.xnor_matmul_fused_unpack(x, wp, k, n),
+                 xg.xnor_matmul_fused_unpack(xr, wp, k, n))
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], got) and torch.equal(again[1], got_r)):
+            raise AssertionError(
+                f"xnor_unpack at (M={m}, K={k}, N={n}): two runs differ")
+    rows = []
+    _, k, n = KERNEL_ROWS["xnor_unpack"][2]
+    for m in (LM_CHUNK, 1, 64):
+        wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+        x = _pm1(gen, m, k).to(device)
+        xb = x.to(torch.bfloat16)
+        wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
+        row = {
+            "kernel": "xnor_unpack", "m": m, "k": k, "n": n,
+            "kernel_ms": _graph_ms(lambda: _kernels.xnor_unpack(x, wp, k, n)),
+            "plain_ms": _graph_ms(lambda: xg.fused_unpack_plain(x, wp, k, n)),
+            "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+        }
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _unpack_bound(
+            m, k, n)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows, max_err
 
 
 def _paged_case(gen, device, s, c, qpos, tables, num_pages, h=4, d=64):
@@ -361,15 +430,14 @@ def _paged_case(gen, device, s, c, qpos, tables, num_pages, h=4, d=64):
 def _paged_bound(qpos: torch.Tensor, n_table: int, h: int, d: int):
     """Least time of one paged-attention call: q and the output once,
     and each slot's K/V rows at positions <= its largest query position
-    (not the whole table); operations 4*H*D per (query, visible key)."""
+    (not the whole table); 4*H*D fp32-accurate operations per (query,
+    visible key)."""
     s, c = qpos.shape
     keys = (qpos.max(dim=1).values + 1).clamp(max=n_table * LM_PAGE)
     nbytes = 4 * (2 * s * c * h * d + 2 * int(keys.sum()) * h * d)
     visible = (qpos + 1).clamp(min=0, max=n_table * LM_PAGE)
     flops = 4.0 * h * d * int(visible.sum())
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _roofline(nbytes, flops, FP32_RATES)
 
 
 def paged_phase(device: torch.device, gen: torch.Generator):
@@ -455,7 +523,8 @@ def paged_phase(device: torch.device, gen: torch.Generator):
                 lambda: pk.paged_attn_plain(q, qpos, kp, vp, tb)),
             "library_ms": _graph_ms(lambda: lib(qs, ks, vs, attn_mask=mask)),
         }
-        row["bound_ms"], row["bound_by"] = _paged_bound(qpos, n_table, h, d)
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _paged_bound(
+            qpos, n_table, h, d)
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows, max_err
@@ -861,9 +930,7 @@ def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
     """Least time (ms) of one flash kernel's work: its operands read once
     and its outputs written once against HBM bandwidth, and 4D (K4), 6D
     (K5) or 8D (K6) fp32-accurate operations per unmasked (query, key)
-    pair at the faster of the card's two rates for them: fp32 on the
-    CUDA cores, or TF32 on the tensor cores over three (3xTF32). Returns
-    (ms, "bytes" or "operations", the peak that bounds)."""
+    pair at the faster of ``FP32_RATES``."""
     if causal:
         pairs = sum(min(lk, i + lk - lq + 1) for i in range(lq))
     else:
@@ -875,14 +942,7 @@ def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
         "flash_bwd_dq": (3 * qd + 2 * kd + 2 * rows, 6),   # q do k v lse c -> dq
         "flash_bwd_dkv": (2 * qd + 4 * kd + 2 * rows, 8),  # -> dk dv
     }[name]
-    t_bytes = 4 * words / H100_BYTES_PER_S * 1e3
-    rates = {"fp32 CUDA cores": H100_FP32_OPS_PER_S,
-             "3xTF32 tensor cores": H100_TF32_OPS_PER_S / 3}
-    peak = max(rates, key=rates.get)
-    t_ops = per_pair * d * pairs / rates[peak] * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", "HBM"
-    return t_ops, "operations", peak
+    return _roofline(4 * words, per_pair * d * pairs, FP32_RATES)
 
 
 def _library_bwd(q, k, v, g_out):
@@ -1026,9 +1086,9 @@ def flash_phase(device: torch.device, gen: torch.Generator):
 
 
 def lm_train_phase(device: torch.device, gen: torch.Generator):
-    """Flash vs exact-softmax step parity, then 20 steps through
-    ``examples.lm_demo.run`` with export, its artifact against the
-    trained model, and step timings. Returns (launch counts of the run,
+    """Flash vs exact-softmax step parity (loss and gradients), then 20
+    steps through ``examples.lm_demo.run`` with export, twice from one
+    seed, its artifact against the trained model, and step timings. Returns (launch counts of the run,
     timing dict)."""
     import copy
 
@@ -1037,6 +1097,9 @@ def lm_train_phase(device: torch.device, gen: torch.Generator):
     from distributed_mnist_bnns_tpu_torch.models import (
         BinarizedLM,
         latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.models.transformer import (
+        embed_weight_grad,
     )
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
 
@@ -1056,22 +1119,48 @@ def lm_train_phase(device: torch.device, gen: torch.Generator):
             m = BinarizedLM(**LM_TRAIN, max_len=LM_TRAIN_SEQ, attention=att)
             m.load_state_dict(state)
         models[att] = m.to(device)
-    losses = {}
+    losses, grads = {}, {}
     for att, m in models.items():
         opt = lm_demo.make_optimizer(m, LM_TRAIN_LR)
         losses[att] = float(lm_demo.train_step(
             m, opt, list(latent_clamp_mask(m).values()), toks))
+        grads[att] = {n: p.grad for n, p in m.named_parameters()}
     pf = dict(models["flash"].named_parameters())
     n_far = n_all = 0
     for name, p in models["xla"].named_parameters():
         n_far += int(((p - pf[name]).abs() > 1e-5).sum())
         n_all += p.numel()
     rel = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
-    print(json.dumps({"lm_train_step_parity": losses, "loss_rel_diff": rel,
-                      "share_params_over_1e-5": n_far / n_all}), flush=True)
+    # The gradients of that step: K5 and K6 recompute the scores in 3xTF32
+    # against K4's lse of exact fp32 scores, autograd differentiates the
+    # exact softmax. Each parameter's gradient is held to LM_GRAD_RTOL in
+    # relative L2 norm, except the key bias's: adding a vector to every
+    # key moves each query row's scores by one constant, so its exact
+    # gradient is 0 and both sides give rounding noise (printed).
+    grad_rel = {n: ((grads["flash"][n] - g).norm() / g.norm()).item()
+                for n, g in grads["xla"].items()}
+    held = {n: r for n, r in grad_rel.items()
+            if not n.endswith("attn.k.bias")}
+    worst = max(held, key=held.get)
+    flat = {att: torch.cat([g.flatten() for g in gs.values()])
+            for att, gs in grads.items()}
+    key_bias = {att: sum(g.norm().item() for n, g in gs.items()
+                         if n.endswith("attn.k.bias"))
+                for att, gs in grads.items()}
+    print(json.dumps({
+        "lm_train_step_parity": losses, "loss_rel_diff": rel,
+        "share_params_over_1e-5": n_far / n_all,
+        "grad_rel_l2_worst": [worst, held[worst]],
+        "grad_rel_l2_all": ((flat["flash"] - flat["xla"]).norm()
+                            / flat["xla"].norm()).item(),
+        "key_bias_grad_l2": key_bias}), flush=True)
     if not rel <= 1e-4:
         raise AssertionError(f"flash vs xla step: losses {losses}")
-    del models
+    if not held[worst] <= LM_GRAD_RTOL:
+        raise AssertionError(
+            f"flash vs xla step: {worst}'s gradient differs by "
+            f"{held[worst]} (relative L2) > {LM_GRAD_RTOL}")
+    del models, grads, flat
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "lm_trained.pt")
@@ -1093,6 +1182,31 @@ def lm_train_phase(device: torch.device, gen: torch.Generator):
                 f"flash launches {[counts[n] for n in FLASH]}, want {want}")
         log(f"trained {LM_TRAIN_STEPS} steps: loss {hist[0]:.4f} -> "
             f"{hist[-1]:.4f}; flash launches {want} each")
+        again = lm_demo.run(
+            steps=LM_TRAIN_STEPS, seq_len=LM_TRAIN_SEQ,
+            batch=LM_TRAIN_BATCH, lr=LM_TRAIN_LR, seed=0, attention="flash",
+            log_every=1, device=device, **LM_TRAIN,
+        ).history
+        print(json.dumps({"lm_train_runs_bitwise_equal": again == hist,
+                          "loss_history_second_run": again}), flush=True)
+        if again != hist:
+            raise AssertionError(
+                f"two training runs from seed 0 differ:\n{hist}\n{again}")
+        log("a second run from seed 0 gave a bitwise-equal loss history")
+
+        # What the bitwise-equal runs cost: the token embedding's weight
+        # gradient as the model computes it (one-hot product) against
+        # PyTorch's embedding backward, which is not bitwise equal from run
+        # to run, at the step's shape.
+        g = torch.randn(*toks.shape, LM_TRAIN["embed_dim"],
+                        generator=gen).to(device)
+        n_vocab = LM_TRAIN["vocab"]
+        print(json.dumps({"embed_weight_grad_ms": {
+            "one_hot": _events_ms(
+                lambda: embed_weight_grad(toks, g, n_vocab)),
+            "embedding_backward": _events_ms(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    g, toks, n_vocab, -1, False))}}), flush=True)
 
         # The artifact against the trained model in eval mode: the twin
         # with exact-softmax attention runs the frozen forward's own
@@ -1184,8 +1298,10 @@ def main() -> int:
                               == (m, k, n)), max_err)
         torch.cuda.synchronize()
         log(f"{name}: equal to its plain version at every shape")
-    results["xnor_unpack"] = unpack_phase(device, gen)
-    log("xnor_unpack: equal to its plain version on ±1 x at every shape")
+    unpack_rows, unpack_err = unpack_phase(device, gen)
+    results["xnor_unpack"] = (unpack_rows[0], unpack_err)
+    log("xnor_unpack: equal to its plain version on ±1 x at every shape, "
+        "two runs bitwise equal")
     paged_rows, paged_err = paged_phase(device, gen)
     results["paged_attn"] = (paged_rows[0], paged_err)
     log("paged_attn: within 1e-5 of the gather path at every case")
@@ -1202,6 +1318,14 @@ def main() -> int:
     for name in ("xnor", "xnor_unpack", "paged_attn"):
         if lm_counts[name] == 0:
             raise AssertionError(f"the LM path never launched {name}")
+    # Prompts of M >= FUSED_UNPACK_MIN_M rows go to K7: every prefill
+    # chunk, once per packed projection (4 a block, 2 in its MLP).
+    chunks = sum(-(-n // LM_CHUNK) for n in LM_PROMPTS)
+    want = chunks * LM_WIDTH["depth"] * 6
+    if lm_counts["xnor_unpack"] != want:
+        raise AssertionError(
+            f"K7 launched {lm_counts['xnor_unpack']} times on the LM path, "
+            f"want {want} ({chunks} prefill chunks)")
 
     flash_rows, flash_err = flash_phase(device, gen)
     for name in FLASH:
@@ -1233,11 +1357,10 @@ def main() -> int:
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_peak": row["bound_peak"],
             "library_ms": row["library_ms"],
             "shape": shape,
         }
-        if "bound_peak" in row:
-            entry["bound_peak"] = row["bound_peak"]
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],
                           "library_ms": entry["library_ms"],

@@ -1,5 +1,6 @@
-// Flash attention backward, K5 (dq) and K6 (dk and dv), for Hopper (sm_90a),
-// on the tensor cores in 3xTF32.
+// Flash attention backward, K5 (dq) and K6 (dk and dv), for Hopper (sm_90a):
+// the scores recomputed as K4 computes them, every other product on the
+// tensor cores in 3xTF32.
 //
 // Replaces the TPU Pallas kernels of distributed_mnist_bnns_tpu/ops/
 // flash_attention.py: _flash_bwd_dq_kernel (K5, :307) and
@@ -26,28 +27,17 @@
 // tensor cores multiply TF32 at 495 TFLOP/s; an fp32-accurate product in
 // 3xTF32 takes three TF32 products, so 165 TFLOP/s: 39 and 52 us.
 //
-// The design:
-// - Every product runs on the tensor cores as mma.sync m16n8k8 with TF32
-//   operands and fp32 accumulation, three of them for each 16 x 8 x 8 step:
-//   each operand x is split into big = tf32(x) and small = tf32(x - big),
-//   both rounded to nearest with ties away from zero as cvt.rna.tf32.f32
-//   rounds, and the step adds small*big, big*small and big*big. A TF32
-//   product is exact in fp32; what the split drops (small*small and the
-//   rounding of small) is about 2^-21 of the product, fp32's accuracy class,
-//   as the JAX kernels compute at Precision.HIGHEST (on the TPU a multi-pass
-//   bf16 split). K5 has three products per key tile, S = Q K^T, dP = dO V^T
-//   and dQ += dS K; K6 four per query tile, S^T = K Q^T, dP^T = V dO^T,
-//   dV += P^T dO and dK += dS^T Q. P and dS are computed in fp32 registers
-//   and split like any operand.
-// - The split is the kernels' largest cost in instructions: every warp
-//   splits each operand it reads. It rounds by an integer add and mask
-//   (20% faster than cvt.rna at the training width, the same bits), and
-//   small is left unmasked: mma reads only the top 19 bits of a TF32
-//   operand (the outputs are bitwise those of masking it).
-// - The tensor cores truncate where they add; summed over a thousand keys
-//   into one accumulator, that drifts towards zero (7.8e-5 in dv at the
-//   training width). So each 8-deep step of dQ, dK and dV is summed from
-//   zero and added to its output's sum in fp32, rounded to nearest (1e-5).
+// The design (the scores, the 3xTF32 products, their summation, the tile
+// padding and the head-dim template are flash_common.cuh's, shared with K4):
+// - Three products per key tile in K5, S = Q K^T, dP = dO V^T and dQ += dS K;
+//   four per query tile in K6, S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
+//   dK += dS^T Q. S is K4's fmaf chains (fma_scores) on the CUDA cores, so
+//   p = exp(s - lse) is consistent with K4's lse bit for bit: the binarized
+//   LM's scores run to hundreds, and 3xTF32 scores here moved its gradients
+//   about 1e-3 (relative) from the exact softmax's on the H100. The other
+//   products run in 3xTF32; P and dS are computed in fp32 registers and
+//   split like any operand. The split is the kernels' largest cost in
+//   instructions: every warp splits each operand it reads.
 // - A block of 4 warps owns a 64-row tile, of queries (K5) or of keys (K6),
 //   and walks the other axis tile by tile, as the TPU kernels walk their
 //   sequential grid axis: K5 key tiles of 64 up to the causal diagonal, the
@@ -65,13 +55,10 @@
 //   operand is read from shared memory in the same order.
 // - The streamed tiles (K and V in K5; Q, dO and their lse and coeff rows in
 //   K6) are copied with cp.async into one of two buffers while the other is
-//   multiplied: one barrier per tile. Tile rows are padded to DP + 4
-//   floats, so both fragment patterns (8 rows x 4 columns, and 4 row pairs x
-//   8 columns) hit 32 different banks.
+//   multiplied: one barrier per tile.
 // - The head dim is a template parameter DP (16, 32, 64 or 128; D rounds up
 //   to the next of them): its loops unroll with no test of D, which took a
-//   fifth off K5. Columns past D and rows past L are zero-filled in shared
-//   memory; nothing is padded in device memory.
+//   fifth off K5.
 // - Everything that is not a matrix product stays exact fp32 (precise expf,
 //   no fast-math) and follows the JAX kernels (flash_attention.py:295-304):
 //   masked scores are NEG_INF = -1e30; p is 0 for padded rows and columns,
@@ -85,19 +72,10 @@
 // loads with mbarriers in place of cp.async; one fused dq/dk/dv kernel would
 // need atomics or a second pass for dq.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int TILE = 64;      // rows of a tile, of queries or of keys
-constexpr int THREADS = 128;  // 4 warps, 16 rows each
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
-
-// Row stride, in floats, of a tile with DP columns.
-template <int DP>
-__host__ __device__ constexpr int ld_of() { return DP + 4; }
 constexpr int BQ = 32;        // K6's streamed query tile
 
 template <int DP>
@@ -109,162 +87,22 @@ constexpr size_t smem_dkv() {  // K, V; Q, dO, lse, coeff in two stages
   return sizeof(float) * ((2 * TILE + 4 * BQ) * ld_of<DP>() + 4 * BQ);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ size_t row_of(int b, int l, int L, int H, int h) {
-  return (static_cast<size_t>(b) * L + l) * H + h;
-}
-
-// Rows [row0, row0 + rows) of head h of batch b of a (B, L, H, D) tensor into
-// dst[r * LD + d] for d < DP, zero past L and past D. `vec`: D % 4 == 0 and
-// the tensor 16-byte aligned, so rows go in 16-byte copies.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
-                                          int h, int row0, int rows, int L,
-                                          int H, int D, bool vec) {
-  constexpr int LD = ld_of<DP>();
-  if (vec) {
-    for (int idx = threadIdx.x; idx < rows * (DP / 4); idx += THREADS) {
-      const int r = idx / (DP / 4), c = 4 * (idx % (DP / 4)), l = row0 + r;
-      const bool ok = l < L && c < D;
-      cp_async16(dst + r * LD + c, ok ? src + row_of(b, l, L, H, h) * D + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * DP; idx += THREADS) {
-      const int r = idx / DP, c = idx % DP, l = row0 + r;
-      const bool ok = l < L && c < D;
-      cp_async4(dst + r * LD + c, ok ? src + row_of(b, l, L, H, h) * D + c : src,
-                ok ? 4 : 0);
-    }
-  }
-}
-
-// big = tf32(x), small = tf32(x - big), rounded to nearest, ties away from
-// zero; small's low 13 bits are left for mma to drop.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-struct FragA {  // a 16 x 8 A operand, split
-  uint32_t big[4], small[4];
-};
-struct FragB {  // an 8 x 8 B operand, split
-  uint32_t big[2], small[2];
-};
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32.
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-}
-
-// c += a b, the step summed from zero and added in fp32 (the output sums).
-__device__ __forceinline__ void mma3_add(float (&c)[4], const FragA& a, const FragB& b) {
-  float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma3(step, a, b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) c[e] += step[e];
-}
-
-// Fragment layouts of m16n8k8 (lane = 4 g + t): A (row, col) = (g, t),
-// (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k, n) = (t, g), (t + 4, g);
-// C (row, col) = (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-
-// A = rows r0.. and columns k0.. of a row-major tile.
-__device__ __forceinline__ FragA load_a(const float* s, int ld, int r0, int k0,
-                                        int g, int t) {
-  FragA a;
-  const float* p = s + (r0 + g) * ld + k0 + t;
-  split(p[0], a.big[0], a.small[0]);
-  split(p[8 * ld], a.big[1], a.small[1]);
-  split(p[4], a.big[2], a.small[2]);
-  split(p[8 * ld + 4], a.big[3], a.small[3]);
-  return a;
-}
-
-// B (k, n) = tile (n0 + n, k0 + k): the tile's rows are B's columns.
-__device__ __forceinline__ FragB load_b_rows(const float* s, int ld, int n0,
-                                             int k0, int g, int t) {
-  FragB b;
-  const float* p = s + (n0 + g) * ld + k0 + t;
-  split(p[0], b.big[0], b.small[0]);
-  split(p[4], b.big[1], b.small[1]);
-  return b;
-}
-
-// B (k, n) = tile (k0 + perm(k), n0 + n), perm(t) = 2t, perm(t + 4) = 2t + 1:
-// the order in which a_from_c relabels the summed index.
-__device__ __forceinline__ FragB load_b_cols(const float* s, int ld, int k0,
-                                             int n0, int g, int t) {
-  FragB b;
-  const float* p = s + (k0 + 2 * t) * ld + n0 + g;
-  split(p[0], b.big[0], b.small[0]);
-  split(p[ld], b.big[1], b.small[1]);
-  return b;
-}
-
-// The A operand of an accumulator fragment's 16 x 8 block, its columns
-// relabelled by perm (see load_b_cols).
-__device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
-  FragA a;
-  split(c[0], a.big[0], a.small[0]);  // (g, 2t)      -> (g, t)
-  split(c[2], a.big[1], a.small[1]);  // (g + 8, 2t)  -> (g + 8, t)
-  split(c[1], a.big[2], a.small[2]);  // (g, 2t + 1)  -> (g, t + 4)
-  split(c[3], a.big[3], a.small[3]);  // (g + 8, 2t + 1) -> (g + 8, t + 4)
-  return a;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[i][e] = 0.0f;
-}
-
-// s = A B^T and dp = C E^T over the head dim, for A, C rows r0..r0+15 of one
-// tile and B, E rows 0..8N-1 of another.
+// s = A B^T (fmaf chains) and dp = C E^T (3xTF32) over the head dim, for A,
+// C rows r0..r0+15 of one tile and B, E rows 0..8N-1 of another.
 template <int DP, int N>
 __device__ __forceinline__ void scores(float (&s)[N][4], float (&dp)[N][4],
                                        const float* A, const float* B,
                                        const float* C, const float* E, int r0,
                                        int g, int t) {
   constexpr int LD = ld_of<DP>();
-  zero(s);
+  fma_scores<DP>(s, A, B, r0, g, t);
   zero(dp);
 #pragma unroll
   for (int ks = 0; ks < DP / 8; ++ks) {
-    const FragA a = load_a(A, LD, r0, 8 * ks, g, t);
     const FragA c = load_a(C, LD, r0, 8 * ks, g, t);
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      mma3(s[n], a, load_b_rows(B, LD, 8 * n, 8 * ks, g, t));
+    for (int n = 0; n < N; ++n)
       mma3(dp[n], c, load_b_rows(E, LD, 8 * n, 8 * ks, g, t));
-    }
   }
 }
 
@@ -478,31 +316,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-}
-
-// Allow each instantiation its dynamic shared memory, once per process
-// (before any CUDA-graph capture: the wrappers' first launch).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
-bool shape_ok(int B, int H, int Lq, int Lk, int D) {
-  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && D >= 1 && D <= MAX_D &&
-         static_cast<long long>(B) * H <= 0x7fffffffLL &&
-         (Lq + TILE - 1) / TILE <= 65535 && (Lk + TILE - 1) / TILE <= 65535;
-}
-
-// 16-byte copies need D % 4 == 0 and every row 16-byte aligned.
-int vec_ok(int D, const float* q, const float* k, const float* v, const float* dout) {
-  const auto aligned = [](const float* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  return D % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(dout);
 }
 
 template <int DP>

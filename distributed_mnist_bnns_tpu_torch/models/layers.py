@@ -1,7 +1,8 @@
 """Binarized PyTorch layers with fp32 latent ("master") parameters.
 
 Counterpart of the JAX package's ``models/layers.py`` (``BinarizedDense``
-only). The fp32 latent weight is the only stored weight; its ±1 view is
+only), plus ``hard_tanh``, the activation both model families use.
+The fp32 latent weight is the only stored weight; its ±1 view is
 re-derived on every forward with ``binarize_ste``. Inputs are binarized
 before the GEMM unless ``binarize_input`` is False (first layers fed raw
 pixels). With ``scale`` the ±1 GEMM is rescaled by the XNOR-Net
@@ -25,6 +26,14 @@ from torch import nn
 
 from ..ops.binarize import STEMode, binarize_ste
 from ..ops.xnor_gemm import BACKENDS, binary_matmul
+
+
+def hard_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.hard_tanh``: clamp to [-1, 1], gradient 1 on [-1, 1]
+    including both ends (``torch.nn.functional.hardtanh`` gives 0 at
+    exactly +-1, which a pre-activation can reach: an integer ±1 sum
+    plus a bias)."""
+    return torch.clamp(x, -1.0, 1.0)
 
 
 class BinarizedDense(nn.Module):

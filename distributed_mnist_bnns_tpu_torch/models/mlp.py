@@ -9,7 +9,11 @@ Kept as the reference has it:
   * dropout sits *before* the third BatchNorm;
   * the first BinarizedDense consumes raw pixels un-binarized;
   * BatchNorm eps is 1e-5 and torch momentum 0.1 (flax momentum 0.9);
-    eval mode uses the running statistics.
+    eval mode uses the running statistics;
+  * the activation is flax's ``hard_tanh`` (gradient 1 at exactly +-1);
+  * train mode is flax's ``nn.BatchNorm`` (``BatchNorm`` below): the
+    fast variance ``max(0, mean(x^2) - mean(x)^2)``, and the running
+    variance updated with that biased batch variance.
 """
 
 from __future__ import annotations
@@ -19,7 +23,32 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import BinarizedDense
+from .layers import BinarizedDense, hard_tanh
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same state-dict keys) whose train mode is
+    flax's ``nn.BatchNorm`` (``normalization._compute_stats`` and
+    ``_normalize``, ``use_fast_variance=True``): the batch's mean and
+    ``var = max(0, mean(x^2) - mean(x)^2)`` normalise as ``(x - mean) *
+    (rsqrt(var + eps) * weight) + bias``, and the running statistics move
+    by ``momentum`` towards the mean and the biased ``var`` (flax's
+    momentum is the old value's weight, ``1 - momentum`` here). Eval mode
+    is ``nn.BatchNorm1d``'s, on the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=0)
+        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class BnnMLP(nn.Module):
@@ -51,7 +80,7 @@ class BnnMLP(nn.Module):
             )
 
         def bn(c):
-            return nn.BatchNorm1d(c, eps=1e-5, momentum=0.1)
+            return BatchNorm(c, eps=1e-5, momentum=0.1)
 
         self.fc1 = dense(in_features, h1, first=True)
         self.bn1 = bn(h1)
@@ -72,11 +101,11 @@ class BnnMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
-        x = nn.functional.hardtanh(self.bn1(self.fc1(x)))
-        x = nn.functional.hardtanh(self.bn2(self.fc2(x)))
+        x = hard_tanh(self.bn1(self.fc1(x)))
+        x = hard_tanh(self.bn2(self.fc2(x)))
         x = self.fc3(x)
         x = self.dropout(x)  # reference order: dropout THEN bn3
-        x = nn.functional.hardtanh(self.bn3(x))
+        x = hard_tanh(self.bn3(x))
         return nn.functional.log_softmax(self.head(x), dim=-1)
 
 

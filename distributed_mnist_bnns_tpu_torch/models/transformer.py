@@ -14,8 +14,13 @@ no counterpart). With ``binarized_attention=False`` the q/k/v/out
 projections are fp32 ``nn.Linear``s (the JAX package's
 partial-binarization ablation).
 
-The MLP's activation is ``hard_tanh``, flax's ``nn.hard_tanh``: it
-passes the gradient at exactly +-1, where ``F.hardtanh``'s is 0.
+The MLP's activation is ``layers.hard_tanh``, flax's ``nn.hard_tanh``:
+it passes the gradient at exactly +-1, where ``F.hardtanh``'s is 0.
+
+The token embedding is looked up by ``embed``, whose weight gradient is
+a one-hot matrix product: PyTorch's own embedding backward on a CUDA
+device is not bitwise equal from run to run, and the JAX package's
+training is.
 
 LayerNorm is flax's ``nn.LayerNorm`` written out (``layer_norm``):
 epsilon 1e-6 (PyTorch's default is 1e-5) and the fast variance
@@ -37,7 +42,7 @@ from torch import nn
 
 from ..ops.binarize import STEMode
 from ..ops.flash_attention import flash_attention
-from .layers import BinarizedDense
+from .layers import BinarizedDense, hard_tanh
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
 
@@ -67,12 +72,34 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
-def hard_tanh(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.hard_tanh``: clamp to [-1, 1], gradient 1 on [-1, 1]
-    including both ends (``torch.nn.functional.hardtanh`` gives 0 at
-    exactly +-1, which a pre-activation can reach: an integer ±1 sum
-    plus a bias)."""
-    return torch.clamp(x, -1.0, 1.0)
+def embed_weight_grad(tokens: torch.Tensor, g: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+    """The gradient of ``weight[tokens]`` with respect to a (vocab, E)
+    ``weight``, from the output's gradient ``g``: ``one_hot(tokens)^T @
+    g``, one fp32 matrix product."""
+    ids = torch.arange(vocab, device=tokens.device)
+    onehot = (tokens.reshape(-1, 1) == ids).to(g.dtype)
+    return onehot.t() @ g.reshape(-1, g.shape[-1])
+
+
+class _Embed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, weight):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = weight.shape[0]
+        return nn.functional.embedding(tokens, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        return None, embed_weight_grad(tokens, g, ctx.vocab)
+
+
+def embed(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``weight[tokens]``, as ``nn.functional.embedding``, with the weight
+    gradient of ``embed_weight_grad``: bitwise equal from run to run on a
+    card, where the lookup's own backward is not."""
+    return _Embed.apply(tokens, weight)
 
 
 def _attend_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -230,7 +257,7 @@ class BinarizedLM(nn.Module):
         t = tokens.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence length {t} > max_len {self.max_len}")
-        x = self.tok_embed(tokens) + self.pos_embed[:, :t]
+        x = embed(tokens, self.tok_embed.weight) + self.pos_embed[:, :t]
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_head(x)

@@ -3,8 +3,9 @@
 The sources live in ``csrc/``. Each is compiled at first use by ``nvcc``
 into a shared library with a plain C interface, under ``_build/`` beside
 this package (listed in ``.gitignore``), and loaded with ``ctypes``. The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing
+library's file name carries a hash of the source, of every header in
+``csrc/`` (a source may include any of them) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. Nothing
 here runs at import time: the CPU tests import every module, and this
 module must import on a machine that has no ``nvcc``.
 
@@ -115,9 +116,16 @@ def _nvcc() -> str:
     return path
 
 
+HEADER_SUFFIXES = (".cuh", ".h")
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR)
+                     if f.endswith(HEADER_SUFFIXES))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -16,11 +16,14 @@ here, outside the kernels)
     dq_i  = sum_j ds_ij k_j    dk_j = sum_i ds_ij q_i    dv_j = sum_i p_ij g_out_i
 
 A CUDA tensor launches the hand-written kernels (through ``ops._kernels``)
-or raises: K4, the forward, of ``csrc/flash_attn.cu`` (exact fp32 on the
-CUDA cores), and K5 (dq) and K6 (dk, dv) of ``csrc/flash_bwd.cu``, whose
-every matrix product runs on the tensor cores in 3xTF32 (each fp32 operand
-split into two TF32 parts, three TF32 products summed in fp32: about 2^-21
-relative per product, fp32's accuracy class). A CPU tensor takes the
+or raises: K4, the forward, of ``csrc/flash_attn.cu``, and K5 (dq) and K6
+(dk, dv) of ``csrc/flash_bwd.cu``. Their matrix products run on the tensor
+cores in 3xTF32 (each fp32 operand split into two TF32 parts, three TF32
+products summed in fp32: about 2^-21 relative per product, fp32's
+accuracy class), except K4's scores: those are exact fp32 on the CUDA
+cores, bitwise the scores of an fp32 GEMM, since the binarized LM's
+signs downstream of attention turn score differences of 1e-4 into other
+outputs. A CPU tensor takes the
 plain PyTorch versions below. There is no fallback from the one to the
 other, and no switch between backward implementations.
 

@@ -8,9 +8,10 @@ cotangents non-zero, against ``jax.vjp`` under both JAX backward
 implementations (the Pallas kernel pair and the chunked scan), within
 atol = rtol = 1e-5.
 
-The card's backward kernels (K5, K6) run every matrix product in 3xTF32;
-the last tests emulate that arithmetic here and hold it to the tolerance
-``chip_smoke.py`` holds the kernels to.
+The card's kernels (K4, K5, K6) compute the scores as exact fp32 fmaf
+chains and every other matrix product in 3xTF32; the last tests emulate
+that arithmetic here and hold it to the tolerances ``chip_smoke.py``
+holds the kernels to.
 """
 
 import importlib
@@ -235,9 +236,26 @@ def _einsum_1xtf32(eq, a, b):
     return _einsum(eq, _tf32(a), _tf32(b))
 
 
+def _fp32_scores(product):
+    """The backward's einsums as K5 and K6 compute them: the scores S =
+    Q K^T in fp32, every other product (dP = dO V^T, which has the same
+    equation and follows S in each key block, dQ, dK, dV) by
+    ``product``."""
+    calls = [0]
+
+    def einsum(eq, a, b):
+        if eq == "bhqd,bhkd->bhqk":
+            calls[0] += 1
+            if calls[0] % 2:
+                return _einsum(eq, a, b)
+        return product(eq, a, b)
+    return einsum
+
+
 def _chunked_backward(shape, product=None, monkeypatch=None):
     """dq, dk, dv of the plain chunked backward at ``shape``, from the
-    fp32 forward's lse, with every einsum replaced by ``product``."""
+    fp32 forward's lse, with every einsum but the scores' replaced by
+    ``product``."""
     b, h, lq, lk, d, causal = shape
     q, k, v, g_out, g_lse = map(torch.from_numpy,
                                 _inputs(lq + lk + d, b, h, lq, lk, d))
@@ -245,8 +263,10 @@ def _chunked_backward(shape, product=None, monkeypatch=None):
     coeff = (g_lse - (g_out * out).sum(dim=-1)).contiguous()
     args = (q, k, v, g_out, lse.contiguous(), coeff, causal)
     if product is not None:
-        monkeypatch.setattr(torch, "einsum", product)
+        monkeypatch.setattr(torch, "einsum", _fp32_scores(product))
     dq = tfa.flash_bwd_dq_plain(*args)
+    if product is not None:
+        monkeypatch.setattr(torch, "einsum", _fp32_scores(product))
     dk, dv = tfa.flash_bwd_dkv_plain(*args)
     if product is not None:
         monkeypatch.setattr(torch, "einsum", _einsum)
@@ -264,8 +284,9 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 @pytest.mark.parametrize("shape", TF32_SHAPES, ids=str)
 def test_3xtf32_backward_within_the_kernels_tolerance(monkeypatch, shape):
-    """The split arithmetic of K5 and K6 meets FLASH_GRAD_TOL against the
-    fp32 plain versions at every shape the card checks the kernels at."""
+    """The arithmetic of K5 and K6 (fp32 scores, the other products in
+    3xTF32) meets FLASH_GRAD_TOL against the fp32 plain versions at every
+    shape the card checks the kernels at."""
     want = _chunked_backward(shape)
     got = _chunked_backward(shape, _einsum_3xtf32, monkeypatch)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -281,3 +302,53 @@ def test_1xtf32_backward_misses_the_tolerance(monkeypatch):
     got = _chunked_backward(shape, _einsum_1xtf32, monkeypatch)
     assert not all(torch.allclose(g, w, **GRAD_TOL)
                    for g, w in zip(got, want))
+
+
+# chip_smoke.py holds K4's out and lse to this against the plain version.
+FWD_TOL = dict(atol=2e-5, rtol=2e-5)
+K4_TILE = 64   # K4's key tile: one online-softmax update per tile
+
+
+def _stepwise(product):
+    """K4's two einsums: S = Q K^T in fp32, and P V by ``product`` with
+    each 8-key step summed from zero and added in fp32."""
+    def einsum(eq, a, b):
+        if eq != "bhqk,bhkd->bhqd":
+            return _einsum(eq, a, b)
+        out = None
+        for k0 in range(0, a.shape[-1], 8):
+            part = product(eq, a[..., k0:k0 + 8], b[..., k0:k0 + 8, :])
+            out = part if out is None else out + part
+        return out
+    return einsum
+
+
+def _forward(shape, product=None, monkeypatch=None):
+    b, h, lq, lk, d, causal = shape
+    q, k, v, _, _ = map(torch.from_numpy,
+                        _inputs(lq + lk + d + 1, b, h, lq, lk, d))
+    if product is None:
+        return tfa.flash_fwd_plain(q, k, v, causal)
+    with monkeypatch.context() as mp:
+        mp.setattr(tfa, "FWD_BLOCK_K", K4_TILE)
+        mp.setattr(torch, "einsum", _stepwise(product))
+        return tfa.flash_fwd_plain(q, k, v, causal)
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=str)
+def test_k4_arithmetic_within_the_kernels_tolerance(monkeypatch, shape):
+    """K4 as built: scores in fp32, P V in 3xTF32 summed per 8-key step,
+    online softmax over 64-key tiles; within 2e-5 of the plain version."""
+    want = _forward(shape)
+    got = _forward(shape, _einsum_3xtf32, monkeypatch)
+    for name, g, w in zip(("out", "lse"), got, want):
+        torch.testing.assert_close(g, w, **FWD_TOL, msg=name)
+
+
+def test_1xtf32_forward_misses_the_tolerance(monkeypatch):
+    """P V in one TF32 product per step misses 2e-5: the forward needs
+    the split as much as the backward does."""
+    shape = TF32_SHAPES[-1]
+    want = _forward(shape)
+    got = _forward(shape, _einsum_1xtf32, monkeypatch)
+    assert not all(torch.allclose(g, w, **FWD_TOL) for g, w in zip(got, want))

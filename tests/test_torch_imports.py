@@ -126,6 +126,32 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
 
 
+def test_library_name_follows_every_header(monkeypatch, tmp_path):
+    """A source may include any header in csrc/: editing, adding or
+    removing one gives every source's library a new name, so a stale
+    build is never loaded."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no include\n")
+    header = tmp_path / "common.cuh"
+    header.write_text("constexpr int X = 1;\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", str(tmp_path))
+    before = {s: _kernels._lib_path(s) for s in ("a.cu", "b.cu")}
+    header.write_text("constexpr int X = 2;\n")
+    edited = {s: _kernels._lib_path(s) for s in ("a.cu", "b.cu")}
+    (tmp_path / "more.h").write_text("#pragma once\n")
+    added = {s: _kernels._lib_path(s) for s in ("a.cu", "b.cu")}
+    for s in ("a.cu", "b.cu"):
+        assert len({before[s], edited[s], added[s]}) == 3, s
+    assert _kernels._lib_path("a.cu") == added["a.cu"]
+    # the repository's own headers are hashed too
+    monkeypatch.undo()
+    headers = [f for f in os.listdir(_kernels.CSRC_DIR)
+               if f.endswith(_kernels.HEADER_SUFFIXES)]
+    assert headers, "csrc/ has no shared header"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
 

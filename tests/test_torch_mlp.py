@@ -151,3 +151,117 @@ def test_weight_gradient_is_straight_through():
     assert model.fc2.weight.grad is not None
     assert torch.isfinite(model.fc2.weight.grad).all()
     assert model.fc2.weight.grad.abs().sum() > 0
+
+
+@pytest.mark.parametrize("backend", ["bf16", "xla"])
+def test_train_mode_batch_norm_matches_flax(backend):
+    """Train mode: flax's BatchNorm normalises with the fast variance and
+    moves the running variance towards the biased one. The new running
+    statistics equal flax's ``batch_stats`` and the log-probs agree
+    (dropout off on both sides: it draws from different generators)."""
+    jmodel = jax_small(infl_ratio=1, backend=backend, dropout_rate=0.0)
+    variables = jax_variables(jmodel, seed=2)
+    x = pixels(32, seed=2)
+    want, upd = jmodel.apply(
+        jax.tree.map(jnp.asarray, variables), jnp.asarray(x), train=True,
+        mutable=["batch_stats"],
+    )
+    model = params_from_jax(variables, backend=backend,
+                            dropout_rate=0.0).train()
+    got = model(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=0)
+    for i, bn in enumerate((model.bn1, model.bn2, model.bn3)):
+        stats = upd["batch_stats"][f"BatchNorm_{i}"]
+        old = variables["batch_stats"][f"BatchNorm_{i}"]
+        assert not np.array_equal(bn.running_var.numpy(), old["var"])
+        np.testing.assert_allclose(bn.running_mean.numpy(),
+                                   np.asarray(stats["mean"]), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(bn.running_var.numpy(),
+                                   np.asarray(stats["var"]), rtol=1e-6)
+        assert int(bn.num_batches_tracked) == 1
+
+
+def test_train_mode_variance_is_the_biased_fast_one():
+    """The stored statistic is the biased batch variance (torch's
+    ``BatchNorm1d`` stores the unbiased one), computed as
+    ``max(0, mean(x^2) - mean(x)^2)``."""
+    from distributed_mnist_bnns_tpu_torch.models.mlp import BatchNorm
+
+    bn = BatchNorm(3, eps=1e-5, momentum=0.1).train()
+    x = torch.tensor([[1.0, 2.0, 5.0], [3.0, 2.0, -1.0]])
+    y = bn(x)
+    var = torch.clamp((x * x).mean(0) - x.mean(0) ** 2, min=0.0)
+    assert torch.equal(bn.running_var, 0.9 * torch.ones(3) + 0.1 * var)
+    assert torch.equal(bn.running_mean, 0.1 * x.mean(0))
+    assert torch.equal(y[:, 1], torch.zeros(2))  # a constant column
+    assert isinstance(bn, torch.nn.BatchNorm1d)
+    assert list(bn.state_dict()) == list(
+        torch.nn.BatchNorm1d(3).state_dict())
+
+
+def _exact_unit_preactivations(variables, x0, backend):
+    """Make sample ``x0``'s pre-activations exactly +-1 on 8 channels of
+    each BatchNorm: the dense bias there cancels the ±1 sum exactly (an
+    integer, or a multiple of 1/256 in the first layer), the running
+    mean is 0 and the BN bias +-1, with non-zero scales. Any order of BN
+    arithmetic then gives exactly the bias."""
+    ch = np.arange(8) * 7
+    for i in range(3):
+        model = params_from_jax(variables, backend=backend)
+        with torch.no_grad():
+            h = torch.from_numpy(x0).reshape(1, -1)
+            for j, (fc, bn) in enumerate(((model.fc1, model.bn1),
+                                          (model.fc2, model.bn2),
+                                          (model.fc3, model.bn3))):
+                if j == i:
+                    fc.bias.zero_()
+                    sums = fc(h)[0].numpy()
+                    break
+                h = torch.clamp(bn(fc(h)), -1.0, 1.0)
+        variables["params"][f"BinarizedDense_{i}"]["bias"][ch] = -sums[ch]
+        name = f"BatchNorm_{i}"
+        variables["batch_stats"][name]["mean"][ch] = 0.0
+        variables["params"][name]["scale"][ch] = np.float32(0.75)
+        variables["params"][name]["bias"][ch] = np.where(
+            ch % 2 == 0, 1.0, -1.0).astype(np.float32)
+    return variables
+
+
+@pytest.mark.parametrize("backend", ["bf16", "xla"])
+def test_input_gradient_at_exact_unit_preactivations(backend, monkeypatch):
+    """flax's hard_tanh passes the gradient at exactly +-1; the port's
+    activation does too, so its input gradient equals ``jax.grad``'s.
+    With ``F.hardtanh`` (gradient 0 there) it would not."""
+    import distributed_mnist_bnns_tpu_torch.models.mlp as tmlp
+
+    jmodel = jax_small(infl_ratio=1, backend=backend)
+    x = pixels(4, seed=5)
+    variables = _exact_unit_preactivations(
+        jax_variables(jmodel, seed=5), x[:1], backend)
+    gw = np.random.RandomState(6).randn(4, 10).astype(np.float32)
+    jv = jax.tree.map(jnp.asarray, variables)
+
+    def jloss(xx):
+        return (jmodel.apply(jv, xx, train=False) * gw).sum()
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    model = params_from_jax(variables, backend=backend)
+    hidden = {}
+    for name in ("bn1", "bn2", "bn3"):
+        getattr(model, name).register_forward_hook(
+            lambda mod, inp, out, name=name: hidden.__setitem__(name, out))
+
+    def grad():
+        xt = torch.from_numpy(x).requires_grad_()
+        (model(xt) * torch.from_numpy(gw)).sum().backward()
+        return xt.grad.numpy()
+
+    got = grad()
+    for name in ("bn1", "bn2", "bn3"):
+        pre = hidden[name][0, np.arange(8) * 7]
+        assert torch.equal(pre.abs(), torch.ones(8)), (name, pre)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(tmlp, "hard_tanh", torch.nn.functional.hardtanh)
+    assert not np.allclose(grad(), want, rtol=1e-5, atol=1e-6)

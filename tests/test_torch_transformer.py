@@ -153,3 +153,28 @@ def test_too_long_a_sequence_raises():
     lm = BinarizedLM(**TINY)
     with pytest.raises(ValueError, match="max_len"):
         lm(torch.zeros((1, TINY["max_len"] + 1), dtype=torch.long))
+
+
+def test_embed_matches_the_lookup_and_its_gradient():
+    """``embed`` is ``nn.functional.embedding`` forward; its one-hot
+    weight gradient sums each row's cotangents as the lookup's backward
+    does (bitwise on integer cotangents, where no order can round), and
+    tokens that never occur get a zero row."""
+    from distributed_mnist_bnns_tpu_torch.models.transformer import embed
+
+    rng = np.random.RandomState(4)
+    tokens = torch.from_numpy(rng.randint(0, 12, (3, 40)))
+    w = torch.from_numpy(rng.randn(16, 8).astype(np.float32))
+    g = torch.from_numpy(rng.randint(-4, 5, (3, 40, 8)).astype(np.float32))
+    wa, wb = w.clone().requires_grad_(), w.clone().requires_grad_()
+    ya, yb = embed(tokens, wa), torch.nn.functional.embedding(tokens, wb)
+    assert torch.equal(ya, yb)
+    (ya * g).sum().backward()
+    (yb * g).sum().backward()
+    assert torch.equal(wa.grad, wb.grad)
+    assert not wa.grad[12:].any()
+    gr = torch.from_numpy(rng.randn(3, 40, 8).astype(np.float32))
+    wa.grad = wb.grad = None
+    (embed(tokens, wa) * gr).sum().backward()
+    (torch.nn.functional.embedding(tokens, wb) * gr).sum().backward()
+    torch.testing.assert_close(wa.grad, wb.grad, rtol=1e-6, atol=1e-6)

@@ -5,7 +5,8 @@ the port runs its plain PyTorch versions (the CPU path of each entry).
 Every comparison on ±1 inputs is bitwise: the GEMM is an exact integer,
 and the epilogues round as the JAX kernels do. The fused-unpack GEMM
 (K7) on real-valued x sums in another order than the Pallas kernel, so
-it is held to rtol 1e-5 there.
+it is held to rtol 1e-5 there. The last tests emulate the card's K7
+(bf16 tensor-core products of an exact three-piece split of x).
 """
 
 import jax.numpy as jnp
@@ -335,3 +336,97 @@ def test_bf16_binarized_dense_keeps_the_cotangent_in_fp32():
 def test_binary_matmul_rejects_unknown_backends():
     with pytest.raises(ValueError, match="unknown backend"):
         txg.binary_matmul(torch.ones(2, 4), torch.ones(3, 4), "int8")
+
+
+# K7 on the card (csrc/xnor_unpack.cu) multiplies bf16 pieces of x on the
+# tensor cores. The tests below emulate its arithmetic at the shapes
+# chip_smoke.py checks the kernel at (the LM's projections at M = 1, 16, 64,
+# then ragged and multi-chunk shapes) and hold it to the smoke's limits.
+K7_SHAPES = [(m, k, n) for m in (1, 16, 64)
+             for k, n in ((256, 256), (256, 512), (512, 256))]
+K7_SHAPES += [(17, 100, 130), (16, 4160, 257)]
+K7_CHUNK, K7_WARPS = 256, 4   # the kernel's staged x chunk; warps a block
+
+
+def _bf16_pieces(x):
+    """hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+    rounded to nearest (even), as ``__floats2bfloat162_rn`` rounds."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    mid = (x - hi).to(torch.bfloat16).to(torch.float32)
+    lo = (x - hi - mid).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, lo
+
+
+def _k7_emulated(pieces, w_pm1):
+    """K7's order of summation: each k16 step's products of every piece,
+    summed exactly and rounded to fp32 (from a zero accumulator), added
+    in fp32 to the sum of the warp that owns the step (4 consecutive
+    steps of each chunk of 256 per warp); the warps' sums added in order
+    0, 1, 2, 3. x past K is zero."""
+    m, k = pieces[0].shape
+    steps = -(-k // 16)
+    pad = 16 * steps - k
+    xs = [torch.nn.functional.pad(p, (0, pad)).double() for p in pieces]
+    w = torch.nn.functional.pad(w_pm1, (0, 0, 0, pad), value=-1.0).double()
+    per_warp = K7_CHUNK // 16 // K7_WARPS
+    sums = [torch.zeros(m, w.shape[1]) for _ in range(K7_WARPS)]
+    for s in range(steps):
+        ks = slice(16 * s, 16 * s + 16)
+        step = sum(xp[:, ks] @ w[ks] for xp in xs).to(torch.float32)
+        warp = s % (K7_CHUNK // 16) // per_warp
+        sums[warp] = sums[warp] + step
+    out = sums[0]
+    for part in sums[1:]:
+        out = out + part
+    return out
+
+
+def _k7_operands(m, k, n, real):
+    rng = np.random.RandomState(m * 7 + k + n)
+    x = rng.randn(m, k).astype(np.float32) if real else _pm1(rng, m, k)
+    wp, _, _ = txg.prepack_weights(torch.from_numpy(_pm1(rng, k, n)))
+    return torch.from_numpy(x), wp
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 1e3, 1e30])
+def test_k7_three_bf16_pieces_are_exact(scale):
+    """hi + mid + lo == x bitwise for normal fp32 x: 3 x 8 significand
+    bits cover fp32's 24. Two pieces are not enough."""
+    x = torch.from_numpy(
+        (np.random.RandomState(3).randn(4096) * scale).astype(np.float32))
+    hi, mid, lo = _bf16_pieces(x)
+    assert torch.equal(hi + mid + lo, x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    assert not torch.equal(hi + mid, x)
+
+
+@pytest.mark.parametrize("m,k,n", K7_SHAPES)
+def test_k7_emulation_bitwise_on_pm1(m, k, n):
+    """On ±1 x every partial sum is an integer: the kernel's order gives
+    the plain version's result bitwise (mid = lo = 0)."""
+    x, wp = _k7_operands(m, k, n, real=False)
+    pieces = _bf16_pieces(x)
+    assert not pieces[1].any() and not pieces[2].any()
+    got = _k7_emulated(pieces, txg.unpacked_pm1(wp, k, n))
+    assert torch.equal(got, txg.fused_unpack_plain(x, wp, k, n))
+
+
+@pytest.mark.parametrize("m,k,n", K7_SHAPES)
+def test_k7_emulation_real_x_within_the_smokes_tolerance(m, k, n):
+    """On real x the three-piece products, summed in the kernel's order,
+    meet chip_smoke.py's rtol 1e-5, atol 1e-5 * sqrt(K)."""
+    x, wp = _k7_operands(m, k, n, real=True)
+    got = _k7_emulated(_bf16_pieces(x), txg.unpacked_pm1(wp, k, n))
+    torch.testing.assert_close(got, txg.fused_unpack_plain(x, wp, k, n),
+                               rtol=1e-5, atol=1e-5 * k ** 0.5)
+
+
+def test_k7_one_bf16_piece_misses_the_tolerance():
+    """x rounded once to bf16 (exact only on ±1 x) misses the limit: the
+    split is what lets the kernel take any real fp32 x."""
+    m, k, n = 16, 256, 512
+    x, wp = _k7_operands(m, k, n, real=True)
+    hi = _bf16_pieces(x)[0]
+    got = _k7_emulated((hi,), txg.unpacked_pm1(wp, k, n))
+    assert not torch.allclose(got, txg.fused_unpack_plain(x, wp, k, n),
+                              rtol=1e-5, atol=1e-5 * k ** 0.5)
