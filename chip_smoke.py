@@ -16,11 +16,16 @@ Phases, each fatal on failure:
      K7 (fused bitplane-unpack GEMM, bf16 ``mma.sync`` on an exact
      three-piece split of x) the same way on ±1 x and to rtol 1e-5 on
      real x, two runs bitwise equal; K8 (paged attention) against the
-     gather path to atol = rtol = 1e-5 in decode, prefill and verify
-     shapes over scrambled, reused and null pages. Then CUDA-graph
-     timings of each kernel at its main path's shape (K7 also at M = 1
-     and 64), its plain version, one PyTorch library call computing the
-     same function, and the bound;
+     gather path to atol = rtol = 1e-5 in decode, prefill (16 and 20
+     queries) and verify shapes over scrambled, reused and null pages,
+     at head dims 64, 36, 7 and 128, then every query of a 4-slot decode
+     call and of two 16-query prefill chunks against the same query
+     launched alone, and two runs, ``torch.equal``. Then CUDA-graph
+     timings of each kernel at its main path's shapes (K7 also at M = 1
+     and 64; K8 at decode, prefill and verify), its plain version, one
+     PyTorch library call computing the same function, and the bound;
+     and the floor under any launch, an in-place add on one element
+     (``launch_floor_ms``);
   4. MLP slice: ``bnn-mlp-large`` at full width (784-3072-1536-768-10)
      from a seeded ``torch.Generator`` with random BN statistics,
      frozen, exported, ``load_packed`` on ``cuda``, checked against the
@@ -40,8 +45,9 @@ Phases, each fatal on failure:
      150 tokens, 32 new tokens each, one sent as text), each stream
      equal to the decoder driven directly for that prompt alone. The
      counters are zeroed just before the requests and read just after:
-     K1 and K8 must have launched, and K7 24 times (4 blocks x 6
-     projections) per prefill chunk. Then decode-iteration and
+     K1 must have launched, K7 24 times (4 blocks x 6 projections) per
+     prefill chunk and K8 once a layer per decode iteration and per
+     prefill chunk. Then decode-iteration and
      prefill-chunk times, device time from ``torch.profiler``, and the
      requests' time to first token and time per token;
   6. flash attention: K4 (forward: exact fp32 scores, P V in 3xTF32 on
@@ -443,9 +449,15 @@ def _paged_bound(qpos: torch.Tensor, n_table: int, h: int, d: int):
 def paged_phase(device: torch.device, gen: torch.Generator):
     """K8's three entries against the gather path (the plain versions)
     on the card, atol = rtol = 1e-5, over page boundaries, scrambled
-    tables, reused pages, null pages and positions up to 255 with P = 16;
-    then decode timings at a full (qpos 255) and a short (qpos 20)
-    context. Returns (timing rows, largest |diff|)."""
+    tables, reused pages, null pages and positions up to 255 with P = 16,
+    at the LM's head dim and at D = 36, 7 and 128 (the kernel's other
+    instances and its 4-byte copies); then every query of a 4-slot decode
+    call and of a 16-query prefill chunk against the same query launched
+    alone, and two runs, bitwise; then timings at every shape the LM
+    path gives K8: decode at a full (qpos 255) and a short (qpos 20)
+    context, prefill chunks at positions 240-255 and 32-47, verify
+    windows of 4. Returns (timing rows, largest |diff|), the decode row
+    at qpos 255 first."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.ops import paged_kv as pk
 
@@ -460,6 +472,9 @@ def paged_phase(device: torch.device, gen: torch.Generator):
     first = alloc.alloc(5)
     alloc.free(first)
     reused = torch.as_tensor(alloc.alloc(5)[::-1], dtype=torch.int32)
+    full = torch.zeros(LM_SLOTS, n_table, dtype=torch.int32)
+    for s_ in range(LM_SLOTS):
+        full[s_] = perm[16 * s_:16 * s_ + 16]
     max_err = 0.0
 
     def check(what, got, want):
@@ -471,52 +486,93 @@ def paged_phase(device: torch.device, gen: torch.Generator):
                 got, want, atol=1e-5, rtol=1e-5)):
             raise AssertionError(f"paged_attn {what}: max |diff| = {err}")
 
-    # decode, S = 4, C = 1, at page boundaries and the last position
-    for pos in ([255, 16, 15, 0], [15, 0, 3, 0], [128, 10, 0, 0]):
-        q, qpos, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 1,
-                                          [[p] for p in pos], tables,
-                                          num_pages)
-        check(f"decode {pos}",
-              pk.paged_attention_kernel(q[:, 0], kp, vp, tb, qpos[:, 0]),
-              pk.paged_attention(q[:, 0], kp, vp, tb, qpos[:, 0]))
-    # prefill, S = 1, C = 16: whole chunks, a ragged last chunk whose
-    # padding queries lie past the length, queries past the table's end
-    for start, table in ((240, tables[0]), (32, tables[0]), (0, reused),
-                         (72, reused)):
-        qp = list(range(start, start + LM_CHUNK))
-        q, qpos, kp, vp, tb = _paged_case(gen, device, 1, LM_CHUNK, [qp],
-                                          table[None], num_pages)
-        check(f"prefill start {start}",
-              pk.paged_prefill_attention_kernel(q[0], kp, vp, tb[0], qpos[0]),
-              pk.paged_prefill_attention(q[0], kp, vp, tb[0], qpos[0]))
-    # verify, S = 4, C = 4: windows straddling page boundaries
-    base = torch.as_tensor([252, 14, 13, 0], dtype=torch.int32)
-    q, _, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 4, [[0] * 4] * 4,
-                                   tables, num_pages)
-    base = base.to(device)
-    check("verify", pk.paged_verify_attention_kernel(q, kp, vp, tb, base),
-          pk.paged_verify_attention(q, kp, vp, tb, base))
+    for d in (64, 36, 7, 128):
+        # decode, S = 4, C = 1, at page boundaries and the last position
+        for pos in ([255, 16, 15, 0], [15, 0, 3, 0], [128, 10, 0, 0]):
+            q, qpos, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 1,
+                                              [[p] for p in pos], tables,
+                                              num_pages, d=d)
+            check(f"decode {pos} D={d}",
+                  pk.paged_attention_kernel(q[:, 0], kp, vp, tb, qpos[:, 0]),
+                  pk.paged_attention(q[:, 0], kp, vp, tb, qpos[:, 0]))
+        # prefill, S = 1: whole chunks, a ragged last chunk whose padding
+        # queries lie past the length, queries past the table's end, and a
+        # call of 20 queries (two query blocks)
+        for start, table, c in ((240, tables[0], LM_CHUNK),
+                                (32, tables[0], LM_CHUNK),
+                                (0, reused, LM_CHUNK), (72, reused, LM_CHUNK),
+                                (100, tables[0], 20)):
+            qp = list(range(start, start + c))
+            q, qpos, kp, vp, tb = _paged_case(gen, device, 1, c, [qp],
+                                              table[None], num_pages, d=d)
+            check(f"prefill start {start} C={c} D={d}",
+                  pk.paged_prefill_attention_kernel(q[0], kp, vp, tb[0],
+                                                    qpos[0]),
+                  pk.paged_prefill_attention(q[0], kp, vp, tb[0], qpos[0]))
+        # verify, S = 4, C = 4: windows straddling page boundaries
+        base = torch.as_tensor([252, 14, 13, 0], dtype=torch.int32)
+        q, _, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 4,
+                                       [[0] * 4] * 4, tables, num_pages, d=d)
+        base = base.to(device)
+        check(f"verify D={d}",
+              pk.paged_verify_attention_kernel(q, kp, vp, tb, base),
+              pk.paged_verify_attention(q, kp, vp, tb, base))
+
+    # A query's bits depend on its own inputs alone: each query of a
+    # batched call equals the same query launched alone (S = 1, C = 1),
+    # and a second run equals the first.
+    n_alone = 0
+    for what, qpos_list, tb_cpu in (
+            ("decode", [[255], [100], [17], [0]], full),
+            ("prefill", [list(range(240, 256))], full[:1]),
+            ("prefill", [list(range(32, 48))], full[1:2])):
+        q, qpos, kp, vp, tb = _paged_case(gen, device, len(qpos_list),
+                                          len(qpos_list[0]), qpos_list,
+                                          tb_cpu, num_pages)
+        batched = _kernels.paged_attn(q, qpos, kp, vp, tb)
+        again = _kernels.paged_attn(q, qpos, kp, vp, tb)
+        for si in range(q.shape[0]):
+            for ci in range(q.shape[1]):
+                alone = _kernels.paged_attn(
+                    q[si:si + 1, ci:ci + 1].contiguous(),
+                    qpos[si:si + 1, ci:ci + 1].contiguous(), kp, vp,
+                    tb[si:si + 1].contiguous())
+                n_alone += 1
+                if not torch.equal(alone[0, 0], batched[si, ci]):
+                    raise AssertionError(
+                        f"paged_attn {what}: query ({si}, {ci}) at qpos "
+                        f"{qpos_list[si][ci]} differs launched alone")
+        if not torch.equal(batched, again):
+            raise AssertionError(f"paged_attn {what}: two runs differ")
+    print(json.dumps({"paged_attn_alone_vs_batched_bitwise": n_alone,
+                      "paged_attn_two_runs_bitwise": True}), flush=True)
 
     rows = []
-    full = torch.zeros(LM_SLOTS, n_table, dtype=torch.int32)
-    for s_ in range(LM_SLOTS):
-        full[s_] = perm[16 * s_:16 * s_ + 16]
-    for pos in (255, 20):
-        q, qpos, kp, vp, tb = _paged_case(gen, device, LM_SLOTS, 1,
-                                          [[pos]] * LM_SLOTS, full, num_pages)
+    lib = torch.nn.functional.scaled_dot_product_attention
+    shapes = (("decode", [[255]] * LM_SLOTS, full),
+              ("decode", [[20]] * LM_SLOTS, full),
+              ("prefill", [list(range(240, 256))], full[:1]),
+              ("prefill", [list(range(32, 48))], full[:1]),
+              ("verify", [list(range(252, 256))] * LM_SLOTS, full))
+    for what, qpos_list, tb_cpu in shapes:
+        s_, c_ = len(qpos_list), len(qpos_list[0])
+        q, qpos, kp, vp, tb = _paged_case(gen, device, s_, c_, qpos_list,
+                                          tb_cpu, num_pages)
         h, d = q.shape[2], q.shape[3]
         kc, vc = pk.gather_kv(kp, tb), pk.gather_kv(vp, tb)  # (S, L, H, D)
         mask = (torch.arange(kc.shape[1], device=device)[None, None, :]
                 <= qpos[:, :, None])[:, None]                # (S, 1, C, L)
         qs, ks, vs = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-        lib = torch.nn.functional.scaled_dot_product_attention
         got = _kernels.paged_attn(q, qpos, kp, vp, tb)
         yard = lib(qs, ks, vs, attn_mask=mask).transpose(1, 2)
-        log(f"paged_attn at qpos {pos}: max |diff| to the SDPA yardstick "
+        log(f"paged_attn {what} at qpos {qpos_list[0][0]}..{qpos_list[0][-1]}"
+            f": max |diff| to the SDPA yardstick "
             f"{(yard - got).abs().max().item():.3g}")
         row = {
-            "kernel": "paged_attn", "s": LM_SLOTS, "c": 1, "p": n_table,
-            "qpos": pos,
+            "kernel": "paged_attn", "call": what, "s": s_, "c": c_,
+            "p": n_table,
+            "qpos": (qpos_list[0][0] if c_ == 1
+                     else [qpos_list[0][0], qpos_list[0][-1]]),
             "kernel_ms": _graph_ms(
                 lambda: _kernels.paged_attn(q, qpos, kp, vp, tb)),
             "plain_ms": _graph_ms(
@@ -527,6 +583,12 @@ def paged_phase(device: torch.device, gen: torch.Generator):
             qpos, n_table, h, d)
         rows.append(row)
         print(json.dumps(row), flush=True)
+
+    # The floor under any launch: one in-place add on a one-element
+    # tensor, timed as the kernels are. Measurement only.
+    one = torch.zeros(1, device=device)
+    print(json.dumps({"launch_floor_ms": _graph_ms(lambda: one.add_(1.0))}),
+          flush=True)
     return rows, max_err
 
 
@@ -1326,6 +1388,13 @@ def main() -> int:
         raise AssertionError(
             f"K7 launched {lm_counts['xnor_unpack']} times on the LM path, "
             f"want {want} ({chunks} prefill chunks)")
+    # K8: one launch a layer per decode iteration and per prefill chunk.
+    want = LM_WIDTH["depth"] * (lm_timing["decode_iterations"] + chunks)
+    if lm_counts["paged_attn"] != want:
+        raise AssertionError(
+            f"K8 launched {lm_counts['paged_attn']} times on the LM path, "
+            f"want {want} ({lm_timing['decode_iterations']} decode "
+            f"iterations, {chunks} prefill chunks)")
 
     flash_rows, flash_err = flash_phase(device, gen)
     for name in FLASH:

@@ -275,13 +275,19 @@ def xnor_unpack(x: torch.Tensor, wp: torch.Tensor, k: int, n: int) -> torch.Tens
     return out
 
 
+# K8 keeps a block's table row in shared memory beside its staged K/V
+# tiles; 16384 ids fit at every head dim (csrc/paged_attn.cu, Layout).
+PAGED_MAX_TABLE = 16384
+
+
 def paged_attn(q4: torch.Tensor, qpos: torch.Tensor, k_pool: torch.Tensor,
                v_pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """Launch K8 on PyTorch's current stream: queries (S, C, H, D) fp32
     at positions ``qpos`` (S, C) int32 attend through page ``tables``
     (S, P) int32 over the (num_pages, page_size, H, D) fp32 pools ->
-    (S, C, H, D) fp32. Does not synchronise; the K/V writes this step
-    made on the same stream are ordered before it."""
+    (S, C, H, D) fp32. A cluster of 8 blocks serves up to 16 queries of
+    a (head, slot). Does not synchronise; the K/V writes this step made
+    on the same stream are ordered before it."""
     if not q4.is_cuda:
         raise ValueError(f"q lies on {q4.device}, not on a CUDA device")
     dev = q4.device
@@ -289,6 +295,11 @@ def paged_attn(q4: torch.Tensor, qpos: torch.Tensor, k_pool: torch.Tensor,
     num_pages, ps = k_pool.shape[0], k_pool.shape[1]
     if d > 128:
         raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
+    if tables.dim() == 2 and tables.shape[1] > PAGED_MAX_TABLE:
+        raise ValueError(
+            f"a table row of {tables.shape[1]} pages does not fit the "
+            f"kernel's shared memory (at most {PAGED_MAX_TABLE})"
+        )
     _check(q4, dev, torch.float32, (s, c, h, d), "q")
     _check(qpos, dev, torch.int32, (s, c), "qpos")
     _check(k_pool, dev, torch.float32, (num_pages, ps, h, d), "k pool")

@@ -32,7 +32,14 @@ strip and run a masked softmax; they are the CPU path and the reference.
 The **kernel entries** (``paged_attention_kernel`` and its verify and
 prefill twins) walk the page table inside kernel K8
 (``csrc/paged_attn.cu``) on a CUDA tensor, with no gather, and raise if
-the kernel cannot run; on a CPU tensor they take the plain version.
+the kernel cannot run; on a CPU tensor they take the plain version. K8
+serves all the queries of a (head, slot), up to 16 (a decode slot's
+one, a verify window, a prefill chunk), from one cluster of blocks that
+stages each tile of 16 key positions once for all of them, and each
+call is one launch.
+A query's output bits depend only on its own q, position, table row and
+the pools, not on the other queries of the call, so a stream decoded
+beside others equals the same stream decoded alone.
 """
 
 from __future__ import annotations

@@ -7,7 +7,17 @@ version) match both the JAX gather path and the JAX Pallas kernel run
 with ``interpret=True``, to atol = rtol = 1e-5 (the tolerance of
 ``tests/test_paged_kv.py``: the softmax sums run in other orders). The
 cases are those of ``tests/test_paged_kv.py``.
+
+K8 itself runs only on a card. ``k8_emulation`` repeats its arithmetic
+order in plain torch (tiles of 16 positions, tile j to partition j mod
+16, an online softmax per partition, the merge in partition order, every
+fp32 rounding where the kernel rounds), so its blocking and masking are
+held here to the JAX kernel and the gather path at 1e-5, and a query's
+bits are held equal whether it is launched alone or with others.
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -181,6 +191,206 @@ def test_kernel_wrapper_refuses_cpu_tensors():
             torch.zeros((1, 1), dtype=torch.int32, device="meta"),
             torch.zeros((1,), dtype=torch.int32, device="meta"),
         )
+
+
+# -- K8's arithmetic order, emulated ------------------------------------------
+
+K8_SRC = os.path.join(os.path.dirname(tpk.__file__), os.pardir, "csrc",
+                      "paged_attn.cu")
+K8_TILE = 16          # TK: logical positions of a key tile
+K8_PARTS = 16         # G = R * NK: 4 blocks of a cluster x 4 key slots
+NEG_INF = np.float32(-1e30)
+
+
+def _fma(a, b, c):
+    """fp32 fmaf: the product is exact in float64, the sum rounds there
+    and then to fp32 (a true fma rounds once; the two differ only on
+    rare double-rounding ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _exp(x):
+    return torch.exp(x.double()).float()
+
+
+def k8_emulation(q4, qpos, k_pool, v_pool, tables):
+    """K8's arithmetic in plain torch: q4 (S, C, H, D) at ``qpos`` (S, C)
+    through ``tables`` (S, P) -> (S, C, H, D) fp32.
+
+    Tile j (positions 16 j .. 16 j + 15) goes to partition j mod 16; a
+    partition updates a query's (m, l, acc) only on tiles that start at
+    or before its position; a score is an fmaf chain over d, the tile's
+    sum of p a left fold over k, P.V an fmaf chain over k; the
+    partitions' states merge in partition order. Every op is
+    elementwise or a max, so a query's bits cannot depend on the batch
+    it is in."""
+    s_, c_, h, d = q4.shape
+    num_pages, ps = k_pool.shape[0], k_pool.shape[1]
+    n_pos = tables.shape[1] * ps
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    tab = torch.where((tables >= 0) & (tables < num_pages), tables,
+                      torch.zeros_like(tables)).long()
+    n_keys = torch.clamp(qpos.long() + 1, max=n_pos)            # (S, C)
+    n_tiles = max(0, -(-int(n_keys.max()) // K8_TILE))
+    pos = torch.arange(n_tiles * K8_TILE)
+    in_table = pos < n_pos
+    page = tab[:, torch.clamp(pos // ps, max=tables.shape[1] - 1)]  # (S, L)
+    rows = torch.where(in_table[None, :, None, None],
+                       k_pool[page, pos % ps], torch.zeros(()))
+    vrows = torch.where(in_table[None, :, None, None],
+                        v_pool[page, pos % ps], torch.zeros(()))
+    neg = torch.tensor(NEG_INF)
+    m = [torch.full((s_, c_, h), NEG_INF) for _ in range(K8_PARTS)]
+    l = [torch.zeros(s_, c_, h) for _ in range(K8_PARTS)]
+    acc = [torch.zeros(s_, c_, h, d) for _ in range(K8_PARTS)]
+    qe = q4[:, :, :, None, :]                                   # (S,C,H,1,D)
+    for j in range(n_tiles):
+        w = j % K8_PARTS
+        sl = slice(j * K8_TILE, (j + 1) * K8_TILE)
+        kt = rows[:, sl].permute(0, 2, 1, 3)[:, None]           # (S,1,H,TK,D)
+        vt = vrows[:, sl].permute(0, 2, 1, 3)[:, None]
+        dot = torch.zeros(s_, c_, h, K8_TILE)
+        for dd in range(d):
+            dot = _fma(qe[..., dd], kt[..., dd], dot)
+        key = pos[sl]
+        sc = torch.where(key[None, None, None, :] < n_keys[:, :, None, None],
+                         dot * scale, neg)
+        m_new = torch.maximum(m[w], sc.amax(-1))
+        p = torch.where(sc > NEG_INF / 2, _exp(sc - m_new[..., None]),
+                        torch.zeros(()))
+        t = torch.zeros(s_, c_, h)                              # k fold
+        for k in range(K8_TILE):
+            t = t + p[..., k]
+        corr = torch.where(m[w] > NEG_INF / 2, _exp(m[w] - m_new),
+                           torch.zeros(()))
+        pv = torch.zeros(s_, c_, h, d)
+        for k in range(K8_TILE):
+            pv = _fma(p[..., k, None], vt[..., k, :], pv)
+        live = (j * K8_TILE < n_keys)[:, :, None]               # (S, C, 1)
+        l[w] = torch.where(live, _fma(corr, l[w], t), l[w])
+        acc[w] = torch.where(live[..., None],
+                             _fma(corr[..., None], acc[w], pv), acc[w])
+        m[w] = torch.where(live, m_new, m[w])
+    m_all = m[0]
+    for w in range(1, K8_PARTS):
+        m_all = torch.maximum(m_all, m[w])
+    l_all = torch.zeros(s_, c_, h)
+    a = torch.zeros(s_, c_, h, d)
+    for w in range(K8_PARTS):
+        f = torch.where(m[w] > NEG_INF / 2, _exp(m[w] - m_all),
+                        torch.zeros(()))
+        l_all = _fma(f, l[w], l_all)
+        a = _fma(f[..., None], acc[w], a)
+    return a / torch.where(l_all == 0, torch.ones(()), l_all)[..., None]
+
+
+def _k8_case(kind, d, seed):
+    """(q4, qpos, k_pool, v_pool, tables) of one call shape at head dim
+    ``d``: scrambled and reused tables, null pages, qpos 0 and a slot
+    whose last page is ragged. Pools are random everywhere (old rows,
+    garbage in the null page)."""
+    rng = np.random.RandomState(seed)
+    h = 2
+    if kind == "decode":      # pages of 16: the LM's; lengths 1..70
+        ps, num_pages = 16, 12
+        tables = np.zeros((4, 5), np.int32)
+        tables[0, :5] = [7, 3, 11, 5, 9]          # 70 positions, ragged
+        tables[1, :1] = [2]                        # one page
+        tables[2, :2] = [10, 1]                    # reused out of order
+        qpos = np.asarray([[69], [0], [16], [0]], np.int32)  # slot 3 null
+    elif kind == "verify":    # pages of 4: a tile spans four of them
+        ps, num_pages = 4, 20
+        tables = np.zeros((3, 9), np.int32)
+        tables[0, :9] = [19, 2, 17, 4, 15, 6, 13, 8, 11]
+        tables[1, :4] = [3, 18, 5, 16]
+        qpos = np.asarray([[30, 31, 32, 33], [12, 13, 14, 15],
+                           [0, 1, 2, 3]], np.int32)         # slot 2 null
+    else:                     # prefill: pages of 5, 18 queries, P * ps = 45
+        ps, num_pages = 5, 14
+        tables = np.asarray([[13, 2, 9, 4, 11, 6, 1, 8, 3]], np.int32)
+        qpos = np.arange(30, 48, dtype=np.int32)[None]       # past the table
+    q = rng.randn(tables.shape[0], qpos.shape[1], h, d).astype(np.float32)
+    kp = rng.randn(num_pages, ps, h, d).astype(np.float32)
+    vp = rng.randn(num_pages, ps, h, d).astype(np.float32)
+    return q, qpos, kp, vp, tables
+
+
+def _jax_kernel(kind, q, qpos, kp, vp, tables):
+    """The JAX Pallas kernel (interpret mode) through ``kind``'s entry,
+    as (S, C, H, D)."""
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables)]
+    if kind == "decode":
+        return np.asarray(jpk.paged_attention_kernel(
+            j[0][:, 0], j[1], j[2], j[3], jnp.asarray(qpos[:, 0]),
+            interpret=True))[:, None]
+    if kind == "verify":
+        return np.asarray(jpk.paged_verify_attention_kernel(
+            *j, jnp.asarray(qpos[:, 0]), interpret=True))
+    return np.asarray(jpk.paged_prefill_attention_kernel(
+        j[0][0], j[1], j[2], j[3][0], jnp.asarray(qpos[0]),
+        interpret=True))[None]
+
+
+_K8_CASES = [(kind, d) for kind in ("decode", "verify", "prefill")
+             for d in (64, 36, 7)]
+
+
+@pytest.mark.parametrize("kind,d", _K8_CASES)
+def test_k8_emulation_matches_the_jax_kernel(kind, d):
+    q, qpos, kp, vp, tables = _k8_case(kind, d, seed=20 + d)
+    got = k8_emulation(*map(torch.from_numpy, (q, qpos, kp, vp, tables)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(),
+                               _jax_kernel(kind, q, qpos, kp, vp, tables),
+                               **TOL)
+
+
+@pytest.mark.parametrize("kind,d", _K8_CASES)
+def test_k8_emulation_matches_the_gather_path(kind, d):
+    args = list(map(torch.from_numpy, _k8_case(kind, d, seed=40 + d)))
+    np.testing.assert_allclose(k8_emulation(*args).numpy(),
+                               tpk.paged_attn_plain(*args).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("kind,d", _K8_CASES)
+def test_k8_emulation_query_bits_do_not_depend_on_the_batch(kind, d):
+    """Each query equals itself launched alone (S = 1, C = 1, its own
+    table row), bit for bit, and two runs are equal."""
+    q, qpos, kp, vp, tables = map(torch.from_numpy,
+                                  _k8_case(kind, d, seed=60 + d))
+    batched = k8_emulation(q, qpos, kp, vp, tables)
+    assert torch.equal(batched, k8_emulation(q, qpos, kp, vp, tables))
+    for si in range(q.shape[0]):
+        for ci in range(q.shape[1]):
+            alone = k8_emulation(q[si:si + 1, ci:ci + 1],
+                                 qpos[si:si + 1, ci:ci + 1], kp, vp,
+                                 tables[si:si + 1])
+            assert torch.equal(alone[0, 0], batched[si, ci]), (si, ci)
+
+
+def test_k8_emulation_out_of_range_page_ids_read_the_null_page():
+    q, qpos, kp, vp, tables = map(torch.from_numpy,
+                                  _k8_case("decode", 64, seed=80))
+    bad = tables.clone()
+    bad[0, 1], bad[1, 3] = 99, -5          # a live and an unused entry
+    fixed = tables.clone()
+    fixed[0, 1], fixed[1, 3] = 0, 0
+    assert torch.equal(k8_emulation(q, qpos, kp, vp, bad),
+                       k8_emulation(q, qpos, kp, vp, fixed))
+
+
+def test_k8_emulation_follows_the_kernel_source():
+    """The emulation's tile and partition count are the ones
+    ``csrc/paged_attn.cu`` compiles, for every head dim."""
+    src = open(K8_SRC).read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("TK") == K8_TILE
+    assert const("R") * const("NK") == K8_PARTS
+    assert "constexpr int G = R * NK;" in src
+    assert const("MAX_CQ") == 16
 
 
 # -- indices and the in-place write --------------------------------------------
