@@ -9,10 +9,15 @@ Phases, each fatal on failure:
   2. build: compile every kernel from ``csrc/`` (one ``nvcc`` per
      source, all started together);
   3. kernels: each packed-GEMM kernel (K1 none, K2 sign, K3 affine
-     epilogue) against its plain PyTorch version on the card,
-     ``torch.equal``, at the serving paths' shapes (K1 at every (K, N)
-     of the LM's projections and at the MLP's layer 2), at ragged and
-     multi-chunk shapes, and with g < 0, g == 0 and exact tie columns;
+     epilogue; each packs fp32 x itself) against its plain PyTorch
+     version (``pack_bits`` then the GEMM) on the card, ``torch.equal``,
+     at the serving paths' shapes (K1 at every (K, N) of the LM's
+     projections and at the MLP's layer 2), at ragged and multi-chunk
+     shapes, and with g < 0, g == 0 and exact tie columns: on ±1 x, and
+     on raw x with zeros, -0.0, NaN, ±inf and subnormals under both pack
+     rules (x > 0; x >= 0, the LM's binarizing K1 entry), two runs
+     ``torch.equal``; K1 is timed at M = 1, 4, 16, 32, 64 and 256, each
+     row with its entry's time (``entry_ms``);
      K7 (fused bitplane-unpack GEMM, bf16 ``mma.sync`` on an exact
      three-piece split of x) the same way on ±1 x and to rtol 1e-5 on
      real x, two runs bitwise equal; K8 (paged attention) against the
@@ -33,7 +38,8 @@ Phases, each fatal on failure:
      and queried through the port's client; the launch counters are
      zeroed just before this phase and read just after it. Then the
      frozen predictor's time per batch of 32 on the host clock and, from
-     ``torch.profiler``, its device time and largest kernels;
+     ``torch.profiler``, its device time, kernel launches and largest
+     kernels;
   5. LM slice: the ``BinarizedLM`` of ``bench.py --lm-serve-bench``
      (vocab 256, max_len 256, embed 256, depth 4, 4 heads, MLP 512)
      from a seeded ``torch.Generator`` with random biases and LayerNorm
@@ -45,10 +51,10 @@ Phases, each fatal on failure:
      150 tokens, 32 new tokens each, one sent as text), each stream
      equal to the decoder driven directly for that prompt alone. The
      counters are zeroed just before the requests and read just after:
-     K1 must have launched, K7 24 times (4 blocks x 6 projections) per
-     prefill chunk and K8 once a layer per decode iteration and per
-     prefill chunk. Then decode-iteration and
-     prefill-chunk times, device time from ``torch.profiler``, and the
+     K1 24 times (4 blocks x 6 projections) per decode iteration, K7 24
+     times per prefill chunk and K8 once a layer per decode iteration and
+     per prefill chunk. Then decode-iteration and prefill-chunk times,
+     device time and kernel launches from ``torch.profiler``, and the
      requests' time to first token and time per token;
   6. flash attention: K4 (forward: exact fp32 scores, P V in 3xTF32 on
      the tensor cores), K5 (dq) and K6 (dk, dv; 3xTF32) against their
@@ -272,27 +278,43 @@ def _roofline(nbytes: float, ops: float, rates: dict):
 
 
 def _bound(name: str, m: int, k: int, n: int):
-    """K1-K3's bound: packed x and the real weight words read once, the
-    epilogue vectors read once, the fp32 output written once; 2*M*N*K ±1
+    """K1-K3's bound: the fp32 x (4*M*K bytes: the kernels take the
+    activations as they are and pack them themselves, so the bits are not
+    an input any more) and the real weight words read once, the epilogue
+    vectors read once, the fp32 output written once; 2*M*N*K ±1
     operations at the int8 tensor-core peak."""
     kw = -(-k // 32)
     vecs = 0 if name == "xnor" else 3
-    nbytes = 4 * (m * kw + kw * n + vecs * n + m * n)
+    nbytes = 4 * (m * k + kw * n + vecs * n + m * n)
     return _roofline(nbytes, 2.0 * m * n * k,
                      {"int8 tensor cores": H100_INT8_OPS_PER_S})
 
 
+def _raw_x(gen: torch.Generator, m: int, k: int) -> torch.Tensor:
+    """Real x holding exact zeros, -0.0, NaN, ±inf and ±subnormals: where
+    the two pack rules and the sign of zero differ."""
+    x = torch.randn(m, k, generator=gen)
+    flat = x.view(-1)
+    for i, val in enumerate((0.0, -0.0, float("nan"), float("inf"),
+                             -float("inf"), 1e-40, -1e-40)):
+        flat[i::7 + 2 * i] = val
+    return x
+
+
 def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
     """Compare packed-GEMM kernel ``name`` (K1-K3) with its plain
-    version at every listed shape; time it at the main paths' (K, N).
-    Returns the timing rows and the largest absolute difference seen."""
+    version at every listed shape, on ±1 x and on raw x under both pack
+    rules, two runs each; time it at the main paths' (K, N). Returns the
+    timing rows and the largest absolute difference seen."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.binarize import _sign_pm1
     from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
 
     main_m, *main_kn = KERNEL_ROWS[name][2]
     main_kn = tuple(main_kn)
-    ms = sorted({1, main_m, MAIN_M, 256})
+    ms = sorted({1, main_m, MAIN_M, 256} | ({16, 64} if name == "xnor"
+                                            else set()))
     shapes = [(m, *main_kn) for m in ms]
     if name == "xnor":
         # every (K, N) the LM decode path gives K1, and the MLP's layer 2
@@ -320,33 +342,61 @@ def kernel_phase(name: str, device: torch.device, gen: torch.Generator):
             entry = xg.xnor_matmul_packed_affine
             plain = xg.xnor_affine_plain
         vecs = tuple(v.to(device) for v in vecs)
-        got = entry(x, wp, k, n, *vecs)
-        want = plain(xp, wp, k, *vecs)[:, :n]
+        vf = tuple(v.to(torch.float32).contiguous() for v in vecs)
+        xr = _raw_x(gen, m, k).to(device)
+        # (what, the kernel's output, its plain version's): the entry on
+        # ±1 x, then the kernel on raw x under each pack rule
+        cases = [("±1 x", entry(x, wp, k, n, *vecs),
+                  plain(xp, wp, k, *vecs)[:, :n])]
+        for rule, bits in ((_kernels.PACK_GT0, xr),
+                           (_kernels.PACK_GE0, _sign_pm1(xr))):
+            cases.append((f"raw x, rule {rule}",
+                          _kernels.xnor_gemm(name, xr, wp, k, n, *vf,
+                                             rule=rule),
+                          plain(pack_bits(bits), wp, k, *vecs)[:, :n]))
+        if name == "xnor":   # the LM decoder's entry: x >= 0 packed in K1
+            cases.append(("raw x, binarizing entry",
+                          xg._xnor_matmul_binarize(xr, wp, k, n),
+                          plain(pack_bits(_sign_pm1(xr)), wp, k)[:, :n]))
+        again = [entry(x, wp, k, n, *vecs)] + [
+            _kernels.xnor_gemm(name, xr, wp, k, n, *vf, rule=rule)
+            for rule in (_kernels.PACK_GT0, _kernels.PACK_GE0)]
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"{name} at (M={m}, K={k}, N={n}) differs from its plain "
-                f"version: max |diff| = {err}"
-            )
+        for what, got_c, want in cases:
+            err = (got_c - want).abs().nan_to_num(0.0).max().item()
+            max_err = max(max_err, err)
+            if not torch.equal(got_c, want):
+                raise AssertionError(
+                    f"{name} at (M={m}, K={k}, N={n}) on {what} differs "
+                    f"from its plain version: max |diff| = {err}"
+                )
+        for (what, first, _), second in zip(cases, again):
+            if not torch.equal(first, second):
+                raise AssertionError(
+                    f"{name} at (M={m}, K={k}, N={n}) on {what}: two runs "
+                    f"differ")
+        got = cases[0][1]
         if name == "xnor_sign":
             ties = (torch.arange(n, device=device) % 4 == 0)
             if not bool((got[0][ties] == 1.0).all()):
                 raise AssertionError(f"{name}: an exact tie did not give +1")
         if (k, n) != main_kn:
             continue
-        vf = tuple(v.to(torch.float32).contiguous() for v in vecs)
         xb = x.to(torch.bfloat16)
         wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
         row = {
             "kernel": name, "m": m, "k": k, "n": n,
             "kernel_ms": _graph_ms(
-                lambda: _kernels.xnor_gemm(name, xp, wp, k, n, *vf)),
+                lambda: _kernels.xnor_gemm(name, x, wp, k, n, *vf)),
             "entry_ms": _graph_ms(lambda: entry(x, wp, k, n, *vecs)),
-            "plain_ms": _graph_ms(lambda: plain(xp, wp, k, *vecs)),
+            "plain_ms": _graph_ms(
+                lambda: plain(pack_bits(x), wp, k, *vecs)),
             "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
         }
+        if name == "xnor":
+            row["binarize_entry_ms"] = _graph_ms(
+                lambda: xg._xnor_matmul_binarize(x, wp, k, n))
+        row["tiling"] = list(_kernels.xnor_tiling(m, k, n))
         row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
             name, m, k, n)
         rows.append(row)
@@ -702,12 +752,13 @@ def slice_phase(device: torch.device, gen: torch.Generator,
         fn(x32)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    device_ms, top, _ = _profile_device_ms(lambda: fn(x32))
+    device_ms, top, n_kernels = _profile_device_ms(lambda: fn(x32))
     t0 = time.perf_counter()
     json.dumps({"images": imgs.tolist()})
     timing = {
         "predict_ms_batch": statistics.median(ms),
         "predict_device_ms_batch": device_ms,
+        "predict_kernels_per_batch": n_kernels,
         "predict_device_busy_share": (
             None if device_ms is None else device_ms / statistics.median(ms)
         ),
@@ -961,19 +1012,21 @@ def lm_slice_phase(device: torch.device, gen: torch.Generator):
         tables[:, :8] = np.arange(1, 1 + 8 * dec.slots).reshape(dec.slots, 8)
         toks = np.arange(dec.slots, dtype=np.int32)
         poss = np.full(dec.slots, 100, np.int32)
-        decode_ms, decode_top, _ = _profile_device_ms(
+        decode_ms, decode_top, decode_kernels = _profile_device_ms(
             lambda: dec.decode(pools, toks, tables, poss))
         chunk = np.arange(LM_CHUNK, dtype=np.int32)
-        prefill_ms, prefill_top, _ = _profile_device_ms(
+        prefill_ms, prefill_top, prefill_kernels = _profile_device_ms(
             lambda: dec.prefill(pools, chunk, tables[0], 96, 112))
     iter_ms = list(eng.iter_ms)
     timing = {
         "decode_iteration_ms_median": statistics.median(iter_ms),
         "decode_iterations": len(iter_ms),
         "decode_device_ms": decode_ms,
+        "decode_kernels_per_iteration": decode_kernels,
         "decode_top_device_ms": decode_top,
         "prefill_chunk_ms_median": statistics.median(chunk_ms),
         "prefill_chunk_device_ms": prefill_ms,
+        "prefill_kernels_per_chunk": prefill_kernels,
         "prefill_top_device_ms": prefill_top,
         "ttft_ms_median": statistics.median(ttft),
         "per_token_ms_median": statistics.median(per_token),
@@ -1388,6 +1441,13 @@ def main() -> int:
         raise AssertionError(
             f"K7 launched {lm_counts['xnor_unpack']} times on the LM path, "
             f"want {want} ({chunks} prefill chunks)")
+    # K1: every packed projection of a decode iteration (M = slots rows,
+    # below FUSED_UNPACK_MIN_M), 6 a block, and nothing else.
+    want = LM_WIDTH["depth"] * 6 * lm_timing["decode_iterations"]
+    if lm_counts["xnor"] != want:
+        raise AssertionError(
+            f"K1 launched {lm_counts['xnor']} times on the LM path, want "
+            f"{want} ({lm_timing['decode_iterations']} decode iterations)")
     # K8: one launch a layer per decode iteration and per prefill chunk.
     want = LM_WIDTH["depth"] * (lm_timing["decode_iterations"] + chunks)
     if lm_counts["paged_attn"] != want:

@@ -43,9 +43,9 @@ from .models.transformer import BinarizedLM, _attend_xla, layer_norm
 from .ops import paged_kv
 from .ops.binarize import binarize_ste
 from .ops.xnor_gemm import (
+    _xnor_matmul_binarize,
     prepack_weights,
     xnor_matmul_fused_unpack,
-    xnor_matmul_packed,
 )
 
 FAMILY = "bnn-transformer"
@@ -192,13 +192,14 @@ def _packed_dense_fn(layer: Dict[str, Any], fused: bool = False) -> Callable:
     k, n = int(layer["k"]), int(layer["n"])
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        bits = binarize_ste(x)
-        lead = bits.shape[:-1]
-        flat = bits.reshape(-1, k)
+        lead = x.shape[:-1]
+        flat = x.reshape(-1, k)
         if fused and flat.shape[0] >= FUSED_UNPACK_MIN_M:
-            y = xnor_matmul_fused_unpack(flat, wp, k, n)
+            y = xnor_matmul_fused_unpack(binarize_ste(flat), wp, k, n)
         else:
-            y = xnor_matmul_packed(flat, wp, k, n)
+            # binarize_ste then xnor_matmul_packed, bit for bit: K1 packs
+            # the signs itself
+            y = _xnor_matmul_binarize(flat, wp, k, n)
         y = y.reshape(*lead, n)
         if alpha is not None:
             y = y * alpha

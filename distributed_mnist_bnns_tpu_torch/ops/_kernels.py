@@ -57,12 +57,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # returns a cudaError_t as int.
 SIGNATURES = {
     "xnor_gemm.cu": {
-        # x, w, out, m, n, kw, ldw, k, stream
-        "xnor_gemm_none": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, w, a, t, bias, out, m, n, kw, ldw, k, stream
-        "xnor_gemm_sign": [_P] * 6 + [_I] * 5 + [_P],
-        # x, w, a, c, bias, out, m, n, kw, ldw, k, stream
-        "xnor_gemm_affine": [_P] * 6 + [_I] * 5 + [_P],
+        # x, w, out, m, n, k, ldw, bn, share, rule, stream
+        "xnor_gemm_none": [_P] * 3 + [_I] * 7 + [_P],
+        # x, w, a, t, bias, out, m, n, k, ldw, bn, share, rule, stream
+        "xnor_gemm_sign": [_P] * 6 + [_I] * 7 + [_P],
+        # x, w, a, c, bias, out, m, n, k, ldw, bn, share, rule, stream
+        "xnor_gemm_affine": [_P] * 6 + [_I] * 7 + [_P],
     },
     "xnor_unpack.cu": {
         # x, w, out, m, n, ldw, k, stream
@@ -215,25 +215,69 @@ def _launch(name: str, *args) -> None:
         LAUNCHES[name] += 1
 
 
+# How K1-K3 pack x (csrc/xnor_gemm.cu): bit = x > 0, pack_bits(x) bit for
+# bit; or bit = x >= 0, pack_bits(binarize_ste(x)) bit for bit (-0.0 gives
+# 1, NaN 0). Either reads a subnormal x as 0, as pack_bits does.
+PACK_GT0, PACK_GE0 = 0, 1
+
+XNOR_BLOCK_M = 16        # rows a block (one m16 tile)
+XNOR_BLOCK_NS = (128, 64, 32)   # columns a block (one n8 tile per warp)
+XNOR_MIN_BLOCKS = 48     # the widest tile that still gives this many blocks
+XNOR_MAX_SHARE = 8       # blocks of a cluster sharing x (the portable limit)
+XNOR_SHARE_BYTES = 8192  # fp32 x a block loads, about, where sharing allows
+
+
+def xnor_tiling(m: int, k: int, n: int, block_n: int = 0,
+                max_share: int = XNOR_MAX_SHARE):
+    """(block_n, share) of K1-K3 at (M, K, N).
+
+    ``block_n`` is the widest of ``XNOR_BLOCK_NS`` that still gives
+    ``XNOR_MIN_BLOCKS`` blocks, else the narrowest; a non-zero
+    ``block_n`` is taken as it is (scripts/torch_xnor_variants.py
+    compares tiles).
+    ``share`` consecutive column tiles form a cluster that packs each row
+    of x once: each block loads and packs 1/share of it (about
+    ``XNOR_SHARE_BYTES`` of fp32) and stores the words into every block
+    of the cluster. It is the largest divisor of the tile count (no idle
+    block) that is at most ``max_share`` and K's words. A cluster's blocks
+    run on one GPC, about 16 SMs of the H100 at one block each: clusters of
+    12 left the 96 blocks of (32, 3072, 1536) at block_n 32 two waves
+    (10.0 us, against 5.9 at 8; scripts/torch_xnor_variants.py)."""
+    tiles_m = -(-m // XNOR_BLOCK_M)
+    if not block_n:
+        block_n = next((bn for bn in XNOR_BLOCK_NS[:-1]
+                        if -(-n // bn) * tiles_m >= XNOR_MIN_BLOCKS),
+                       XNOR_BLOCK_NS[-1])
+    if block_n not in XNOR_BLOCK_NS:
+        raise ValueError(f"block_n {block_n} not in {XNOR_BLOCK_NS}")
+    tiles = -(-n // block_n)
+    want = -(-4 * min(m, XNOR_BLOCK_M) * k // XNOR_SHARE_BYTES)
+    most = max(1, min(want, max_share, -(-k // 32)))
+    share = max(d for d in range(1, min(most, tiles) + 1) if tiles % d == 0)
+    return block_n, share
+
+
 def xnor_gemm(
-    name: str, xp: torch.Tensor, wp: torch.Tensor, k: int, n: int,
+    name: str, x: torch.Tensor, wp: torch.Tensor, k: int, n: int,
     va: Optional[torch.Tensor] = None, vb: Optional[torch.Tensor] = None,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None, *, rule: int = PACK_GT0,
 ) -> torch.Tensor:
     """Launch packed-GEMM kernel ``name`` ("xnor", "xnor_sign" or
     "xnor_affine") on PyTorch's current stream.
 
-    xp: (M, KW) int32 packed activations; wp: (KW_p >= KW, N_p >= n)
-    int32 K-major packed weights; va/vb/bias: (n,) fp32 epilogue
-    vectors (a, t) for the sign epilogue, (a, c) for the affine one.
-    Returns (M, n) fp32. Does not synchronise."""
-    m, kw = xp.shape
-    if not xp.is_cuda:
-        raise ValueError(f"packed x lies on {xp.device}, not on a CUDA device")
-    dev = xp.device
-    _check(xp, dev, torch.int32, (m, kw), "packed x")
-    if -(-k // 32) != kw:
-        raise ValueError(f"K={k} bits do not pack into {kw} words")
+    x: (M, K) contiguous fp32 activations, packed inside the kernel by
+    ``rule`` (``PACK_GT0`` or ``PACK_GE0``); wp: (KW_p >= KW, N_p >= n)
+    int32 K-major packed weights; va/vb/bias: (n,) fp32 epilogue vectors
+    (a, t) for the sign epilogue, (a, c) for the affine one. Returns
+    (M, n) fp32. Does not synchronise."""
+    if not x.is_cuda:
+        raise ValueError(f"x lies on {x.device}, not on a CUDA device")
+    dev = x.device
+    m = x.shape[0] if x.dim() == 2 else -1
+    _check(x, dev, torch.float32, (m, k), "x")
+    if rule not in (PACK_GT0, PACK_GE0):
+        raise ValueError(f"unknown pack rule {rule}")
+    kw = -(-k // 32)
     if wp.dim() != 2 or wp.shape[0] < kw or wp.shape[1] < n:
         raise ValueError(
             f"packed w {tuple(wp.shape)} does not cover ({kw} words, {n})"
@@ -247,8 +291,10 @@ def xnor_gemm(
         for v, what in ((va, "a"), (vb, "t/c"), (bias, "bias")):
             _check(v, dev, torch.float32, (n,), what)
             vecs.append(v.data_ptr())
-    _launch(name, xp.data_ptr(), wp.data_ptr(), *vecs, out.data_ptr(),
-            m, n, kw, wp.shape[1], k, torch.cuda.current_stream(dev).cuda_stream)
+    bn, share = xnor_tiling(m, k, n)
+    _launch(name, x.data_ptr(), wp.data_ptr(), *vecs, out.data_ptr(),
+            m, n, k, wp.shape[1], bn, share, rule,
+            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

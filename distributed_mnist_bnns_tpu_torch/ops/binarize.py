@@ -15,12 +15,16 @@ from typing import Literal
 
 import torch
 
+from .bitpack import TINY
+
 STEMode = Literal["identity", "hardtanh"]
 
 
 def _sign_pm1(x: torch.Tensor) -> torch.Tensor:
-    """sign() with outputs in {-1, +1} (0 -> +1), dtype preserved."""
-    return torch.where(x >= 0, torch.ones_like(x), -torch.ones_like(x))
+    """sign() with outputs in {-1, +1} (0 -> +1), dtype preserved. A
+    subnormal x reads as 0 (so -1e-40 -> +1), as XLA reads it on the CPU;
+    NaN -> -1."""
+    return torch.where(x > -TINY, torch.ones_like(x), -torch.ones_like(x))
 
 
 class _BinarizeSTE(torch.autograd.Function):

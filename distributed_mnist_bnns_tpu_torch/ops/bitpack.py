@@ -3,7 +3,9 @@
 The storage format of the XNOR-popcount GEMM (``ops/xnor_gemm.py``).
 Convention, shared bit for bit with the JAX package's ``ops/bitpack.py``:
 words are LSB-first int32, bit = 1 ⟺ x > 0, so bit 31 set makes the
-word negative. For two packed words a, b covering 32 positions:
+word negative. A subnormal x counts as 0, as XLA reads it on the CPU:
+bit = 1 ⟺ x >= 2^-126 (``TINY``).
+For two packed words a, b covering 32 positions:
 
     mismatches = popcount(a XOR b)
     dot        = matches - mismatches = 32 - 2 * mismatches
@@ -19,6 +21,9 @@ import numpy as np
 import torch
 
 WORD_BITS = 32
+#: The smallest normal fp32 value, 2^-126: x > 0 with subnormals read as 0
+#: is x >= TINY.
+TINY = float(np.finfo(np.float32).tiny)
 
 
 def packed_dim(k: int, multiple: int = 1) -> int:
@@ -34,16 +39,17 @@ def _shifts(device: torch.device) -> torch.Tensor:
 def pack_bits(x: torch.Tensor, pad_words_to: int = 1) -> torch.Tensor:
     """Pack ±1 values along the last axis into int32 bitplanes.
 
-    x: (..., K) tensor of ±1 (any dtype; > 0 is treated as +1), on any
-    device. Returns (..., packed_dim(K, pad_words_to)) int32 on the same
-    device. Words are summed in int64 and values >= 2^31 are mapped down
-    by 2^32 before the cast, so bit 31 wraps to a negative int32 exactly
-    as the JAX package's uint32 -> int32 cast does.
+    x: (..., K) tensor of ±1 (any dtype; > 0 is treated as +1, a
+    subnormal as 0), on any device. Returns (..., packed_dim(K,
+    pad_words_to)) int32 on the same device. Words are summed in int64
+    and values >= 2^31 are mapped down by 2^32 before the cast, so bit 31
+    wraps to a negative int32 exactly as the JAX package's uint32 -> int32
+    cast does.
     """
     k = x.shape[-1]
     kw = packed_dim(k, pad_words_to)
     pad = kw * WORD_BITS - k
-    bits = (x > 0).to(torch.int64)
+    bits = (x >= TINY).to(torch.int64)
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
     bits = bits.reshape(*bits.shape[:-1], kw, WORD_BITS)
@@ -63,7 +69,8 @@ def unpack_bits(
 
 
 def pack_bits_np(x: np.ndarray, pad_words_to: int = 1) -> np.ndarray:
-    """NumPy host-side variant of pack_bits."""
+    """NumPy host-side variant of pack_bits, as the JAX package's: x > 0
+    as NumPy compares, so a subnormal x counts as positive here."""
     k = x.shape[-1]
     kw = packed_dim(k, pad_words_to)
     pad = kw * WORD_BITS - k

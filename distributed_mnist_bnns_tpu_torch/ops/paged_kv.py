@@ -49,6 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..infer import resolve_device
 from . import _kernels
 
 NULL_PAGE = 0
@@ -154,10 +155,13 @@ class PageAllocator:
 
 def init_pools(
     num_blocks: int, num_pages: int, page_size: int,
-    num_heads: int, head_dim: int, *, device="cpu",
+    num_heads: int, head_dim: int, *, device=None,
 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
     """Zeroed per-block (K, V) page pools ``((k0, v0), (k1, v1), ...)``,
-    each ``(num_pages, page_size, H, D)`` fp32 on ``device``."""
+    each ``(num_pages, page_size, H, D)`` fp32 on ``device``: ``None``
+    means ``"cuda"``, and a CUDA device without a card raises
+    (``infer.resolve_device``); pass ``device="cpu"`` for CPU pools."""
+    device = resolve_device(device)
     shape = (int(num_pages), int(page_size), int(num_heads), int(head_dim))
     return tuple(
         (torch.zeros(shape, device=device), torch.zeros(shape, device=device))

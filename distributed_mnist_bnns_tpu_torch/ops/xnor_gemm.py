@@ -17,6 +17,13 @@ hand-written kernel (``csrc/xnor_gemm.cu`` or ``csrc/xnor_unpack.cu``
 through ``ops._kernels``) or raises; a CPU tensor takes the plain
 PyTorch version below. There is no fallback from the one to the other.
 
+K1-K3 take x as it is and pack its signs on chip, bit = x > 0, which is
+``pack_bits(x)`` bit for bit. The private ``_xnor_matmul_binarize`` packs
+x >= 0 instead, which is ``pack_bits(binarize_ste(x))`` bit for bit for
+every fp32 x: the LM decoder's K1 projections run it, with no separate
+sign or pack launches. On the CPU each entry packs with ``pack_bits``
+(after ``_sign_pm1`` for the latter) and runs the plain version.
+
 Every GEMM result is exact: a ±1 dot product is an integer with
 |dot| <= K <= 2^24. The epilogues follow the JAX kernels' order of
 operations and rounding: the sign epilogue rounds after each operation,
@@ -32,6 +39,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
+from .binarize import _sign_pm1
 from .bitpack import pack_bits, packed_dim, unpack_bits
 
 
@@ -191,12 +199,12 @@ def xnor_affine_plain(xp, wp, k, avec, cvec, bias) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _pack_x(x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int):
-    if x_pm1.dim() != 2 or x_pm1.shape[1] != k:
-        raise ValueError(f"x must be (M, {k}), got {tuple(x_pm1.shape)}")
-    if w_packed.device != x_pm1.device:
+def _check_operands(x: torch.Tensor, w_packed: torch.Tensor, k: int, n: int):
+    if x.dim() != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}), got {tuple(x.shape)}")
+    if w_packed.device != x.device:
         raise ValueError(
-            f"x on {x_pm1.device} but packed weights on {w_packed.device}"
+            f"x on {x.device} but packed weights on {w_packed.device}"
         )
     kw = packed_dim(k)
     if w_packed.shape[0] < kw or w_packed.shape[1] < n:
@@ -204,19 +212,24 @@ def _pack_x(x_pm1: torch.Tensor, w_packed: torch.Tensor, k: int, n: int):
             f"packed weights {tuple(w_packed.shape)} do not cover K={k} "
             f"({kw} words), N={n}"
         )
-    return pack_bits(x_pm1)
 
 
-def _dispatch(name, plain, x_pm1, w_packed, k, n, va=None, vb=None, bias=None):
-    xp = _pack_x(x_pm1, w_packed, k, n)
-    if xp.is_cuda:
+def _dispatch(name, plain, x, w_packed, k, n, va=None, vb=None, bias=None,
+              rule=_kernels.PACK_GT0):
+    _check_operands(x, w_packed, k, n)
+    if x.is_cuda:
         vecs = [
             None if v is None else v.to(torch.float32).contiguous()
             for v in (va, vb, bias)
         ]
-        return _kernels.xnor_gemm(name, xp, w_packed, k, n, *vecs)
-    if xp.device.type != "cpu":
-        raise ValueError(f"no packed GEMM for device {xp.device}")
+        # The rules' bits survive the cast: fp16, bf16 and integer values
+        # keep their side of ±2^-126, and a float64 x can round across it
+        # only from within 2^-150 of it.
+        return _kernels.xnor_gemm(name, x.to(torch.float32).contiguous(),
+                                  w_packed, k, n, *vecs, rule=rule)
+    if x.device.type != "cpu":
+        raise ValueError(f"no packed GEMM for device {x.device}")
+    xp = pack_bits(_sign_pm1(x) if rule == _kernels.PACK_GE0 else x)
     args = () if va is None else (va, vb, bias)
     return plain(xp, w_packed, k, *args)[:, :n]
 
@@ -251,6 +264,17 @@ def xnor_matmul_packed_affine(
         "xnor_affine", xnor_affine_plain, x_pm1, w_packed, k, n,
         avec, cvec, bias,
     )
+
+
+def _xnor_matmul_binarize(
+    x: torch.Tensor, w_packed: torch.Tensor, k: int, n: int
+) -> torch.Tensor:
+    """``xnor_matmul_packed(binarize_ste(x), w_packed, k, n)`` bit for bit,
+    for any real (M, K) x, in one launch on a card: K1 packs x >= 0 on
+    chip (0 and -0.0 give +1, NaN gives -1, as ``binarize_ste``). No
+    gradient: the frozen decoder's K1 projections."""
+    return _dispatch("xnor", xnor_gemm_plain, x, w_packed, k, n,
+                     rule=_kernels.PACK_GE0)
 
 
 def fused_unpack_plain(x: torch.Tensor, w_packed: torch.Tensor, k: int,

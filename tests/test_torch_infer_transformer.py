@@ -141,11 +141,12 @@ def test_paged_decoder_matches_jax_kernels_across_page_boundaries(pair, chunk):
 
 def test_prefill_and_decode_route_k7_and_k1_by_rows(pair, monkeypatch):
     """M = prefill_chunk = 16 rows reach K7's entry, M = slots = 2 rows
-    K1's; attention goes through K8's entry. On the CPU each entry runs
-    its plain version and the loader is never touched."""
+    K1's (the entry that binarizes inside the kernel); attention goes
+    through K8's entry. On the CPU each entry runs its plain version and
+    the loader is never touched."""
     _, tf = pair
     calls = []
-    for name in ("xnor_matmul_fused_unpack", "xnor_matmul_packed"):
+    for name in ("xnor_matmul_fused_unpack", "_xnor_matmul_binarize"):
         inner = getattr(T, name)
         monkeypatch.setattr(T, name, lambda x, *a, _n=name, _f=inner: (
             calls.append((_n, x.shape[0])) or _f(x, *a)))
@@ -164,7 +165,7 @@ def test_prefill_and_decode_route_k7_and_k1_by_rows(pair, monkeypatch):
     _teacher_force(dec, np.asarray, tokens(8, 18), table, 16, chunk=16)
     n_proj = 6 * dec.num_blocks
     assert calls[:n_proj] == [("xnor_matmul_fused_unpack", 16)] * n_proj
-    assert set(calls[n_proj:]) == {("xnor_matmul_packed", 2)}
+    assert set(calls[n_proj:]) == {("_xnor_matmul_binarize", 2)}
     assert seen == [(1, 16)] * dec.num_blocks + [(2, 1)] * 2 * dec.num_blocks
 
 

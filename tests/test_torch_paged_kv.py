@@ -427,7 +427,7 @@ def test_write_kv_bitwise_and_in_place():
                                       jnp.asarray(positions), ps),
         jnp.asarray(rows),
     ))
-    tpool = tpk.init_pools(1, 6, ps, h, d)[0][0]
+    tpool = tpk.init_pools(1, 6, ps, h, d, device="cpu")[0][0]
     idx = tpk.flat_write_indices(torch.from_numpy(table),
                                  torch.from_numpy(positions), ps)
     out = tpk.write_kv(tpool, idx, torch.from_numpy(rows))
@@ -437,9 +437,23 @@ def test_write_kv_bitwise_and_in_place():
     np.testing.assert_array_equal(strip[:10], rows)
 
 
+def test_init_pools_defaults_to_the_card_not_the_cpu(monkeypatch):
+    """Without a device, init_pools means "cuda", as every entry point of
+    the port does: with no card it raises, it never falls back to CPU
+    pools. ``device="cpu"`` asks for them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpk.init_pools(1, 4, 4, 1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpk.init_pools(1, 4, 4, 1, 2, device="cuda")
+    ((k, v),) = tpk.init_pools(1, 4, 4, 1, 2, device="cpu")
+    assert k.device.type == v.device.type == "cpu"
+    assert k.shape == v.shape == (4, 4, 1, 2) and not k.any()
+
+
 def test_null_page_absorbs_inactive_slot_writes():
     ps, h, d = 4, 1, 2
-    pool = tpk.init_pools(1, 4, ps, h, d)[0][0]
+    pool = tpk.init_pools(1, 4, ps, h, d, device="cpu")[0][0]
     table = torch.tensor([2], dtype=torch.int32)
     tpk.write_kv(pool, tpk.flat_write_indices(
         table, torch.tensor([0]), ps), torch.ones(1, h, d))

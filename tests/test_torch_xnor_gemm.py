@@ -3,10 +3,14 @@
 The JAX entry points run their Pallas kernels with ``interpret=True``;
 the port runs its plain PyTorch versions (the CPU path of each entry).
 Every comparison on ±1 inputs is bitwise: the GEMM is an exact integer,
-and the epilogues round as the JAX kernels do. The fused-unpack GEMM
-(K7) on real-valued x sums in another order than the Pallas kernel, so
-it is held to rtol 1e-5 there. The last tests emulate the card's K7
-(bf16 tensor-core products of an exact three-piece split of x).
+and the epilogues round as the JAX kernels do. K1-K3 take x as it is and
+pack its signs themselves, so they are also held bitwise to JAX on raw x
+with zeros, -0.0, NaN, ±inf and subnormals, under both pack rules. The
+fused-unpack GEMM (K7) on real-valued x sums in another order than the
+Pallas kernel, so it is held to rtol 1e-5 there. Emulations of the
+card's arithmetic close the file: K1-K3's ballot pack and AND-popcount
+identity, and K7's bf16 tensor-core products of an exact three-piece
+split of x.
 """
 
 import jax.numpy as jnp
@@ -16,10 +20,13 @@ import torch
 
 from distributed_mnist_bnns_tpu import infer as jinfer
 from distributed_mnist_bnns_tpu.ops import xnor_gemm as jxg
+from distributed_mnist_bnns_tpu.ops.binarize import binarize as jbinarize
 from distributed_mnist_bnns_tpu_torch import infer as tinfer
+from distributed_mnist_bnns_tpu_torch import infer_transformer as tit
 from distributed_mnist_bnns_tpu_torch.ops import _kernels
 from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as txg
-from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+from distributed_mnist_bnns_tpu_torch.ops.binarize import _sign_pm1, binarize_ste
+from distributed_mnist_bnns_tpu_torch.ops.bitpack import TINY, pack_bits
 
 SHAPES = [(1, 100, 130), (8, 256, 200), (17, 3072, 96)]
 
@@ -227,6 +234,7 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
     _port(txg.xnor_matmul_packed, x, w, 64, 20)
     _port(txg.xnor_matmul_packed_sign, x, w, 64, 20, a, b, bias)
     _port(txg.xnor_matmul_packed_affine, x, w, 64, 20, a, b, bias)
+    _port(txg._xnor_matmul_binarize, x, w, 64, 20)
     monkeypatch.setattr(_kernels, "xnor_unpack", refuse)
     wp, _, _ = txg.prepack_weights(torch.from_numpy(w))
     txg.xnor_matmul_fused_unpack(torch.from_numpy(x), wp, 64, 20)
@@ -234,14 +242,16 @@ def test_cpu_tensors_never_touch_the_kernel_loader(monkeypatch):
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The kernel wrapper takes only CUDA tensors: no plain fallback."""
+    """The kernel wrappers take only CUDA tensors: no plain fallback. K1-K3
+    take the fp32 (M, K) activations as they are (the kernel packs them)."""
     _kernels.reset_launches()
-    xp = torch.zeros((2, 3), dtype=torch.int32)
+    x = torch.zeros((2, 96))
     wp = torch.zeros((3, 128), dtype=torch.int32)
+    for rule in (_kernels.PACK_GT0, _kernels.PACK_GE0):
+        with pytest.raises(ValueError, match="not on a CUDA device"):
+            _kernels.xnor_gemm("xnor", x, wp, 96, 10, rule=rule)
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        _kernels.xnor_gemm("xnor", xp, wp, 96, 10)
-    with pytest.raises(ValueError, match="not on a CUDA device"):
-        _kernels.xnor_unpack(torch.zeros((2, 96)), wp, 96, 10)
+        _kernels.xnor_unpack(x, wp, 96, 10)
     assert _kernels.LAUNCHES["xnor"] == _kernels.LAUNCHES["xnor_unpack"] == 0
 
 
@@ -265,6 +275,235 @@ def test_entry_rejects_bad_shapes_and_other_devices():
         txg.xnor_matmul_fused_unpack(
             torch.ones(2, 64, device="meta"), wp.to("meta"), k, n
         )
+
+
+# ---------------------------------------------------------------------------
+# K1-K3 take x as it is: the pack rules against JAX on raw x
+# ---------------------------------------------------------------------------
+
+SPECIAL_K = (31, 100, 4160, 9000)   # ragged, and past 128 words (KW_p > KW)
+_F32_TINY = np.float32(TINY)
+
+
+def _special_x(rng, m, k):
+    """Real x holding exact zeros, -0.0, NaN, ±inf, ±subnormals and ±2^-126
+    (the smallest normal) among normal values of both signs."""
+    x = (rng.randn(m, k) * 3.0).astype(np.float32)
+    flat = x.reshape(-1)
+    specials = (0.0, -0.0, np.nan, np.inf, -np.inf, 1e-40, -1e-40,
+                _F32_TINY, -_F32_TINY, 1e-45, -1e-45)
+    for i, val in enumerate(specials):
+        flat[i::len(specials) + 2] = val
+    return x
+
+
+def _special_operands(k, m=3, n=40, seed=0):
+    rng = np.random.RandomState(k + seed)
+    x, w = _special_x(rng, m, k), _pm1(rng, k, n)
+    vecs = [rng.randn(n).astype(np.float32) for _ in range(3)]
+    return x, w, vecs
+
+
+@pytest.mark.parametrize("k", SPECIAL_K)
+def test_ge0_entry_is_jax_binarize_then_packed_gemm(k):
+    """The LM's K1 entry packs x >= 0 itself: bit for bit JAX's binarize
+    (sign, 0 -> +1, a subnormal read as 0, NaN -> -1) followed by its packed
+    GEMM in interpret mode, and the port's own two-step composition."""
+    x, w, _ = _special_operands(k)
+    n = w.shape[1]
+    got = _port(txg._xnor_matmul_binarize, x, w, k, n)
+    want = _jax(jxg.xnor_matmul_packed,
+                np.asarray(jbinarize(jnp.asarray(x))), w, k, n)
+    np.testing.assert_array_equal(got, want)
+    two_step = _port(txg.xnor_matmul_packed,
+                     binarize_ste(torch.from_numpy(x)).numpy(), w, k, n)
+    np.testing.assert_array_equal(got, two_step)
+
+
+@pytest.mark.parametrize("k", SPECIAL_K)
+@pytest.mark.parametrize("entry", ["packed", "sign", "affine"])
+def test_gt0_entries_match_jax_on_raw_x(entry, k):
+    """The public entries pack x > 0 (pack_bits' rule): on raw x with every
+    special value they equal the JAX packed entries bitwise."""
+    x, w, (a, b, bias) = _special_operands(k, seed=1)
+    n = w.shape[1]
+    fns = {"packed": (txg.xnor_matmul_packed, jxg.xnor_matmul_packed, ()),
+           "sign": (txg.xnor_matmul_packed_sign, jxg.xnor_matmul_packed_sign,
+                    (np.sign(a).astype(np.float32), b * 8, bias)),
+           "affine": (txg.xnor_matmul_packed_affine,
+                      jxg.xnor_matmul_packed_affine, (a / 7, b / 9, bias))}
+    port_fn, jax_fn, vecs = fns[entry]
+    got = _port(port_fn, x, w, k, n, *vecs)
+    np.testing.assert_array_equal(got, _jax(jax_fn, x, w, k, n, *vecs))
+
+
+def test_pack_rules_read_subnormals_as_zero_like_xla():
+    """XLA on the CPU reads a subnormal as 0, so JAX's
+    x > 0 is false and x >= 0 true for -1e-40: the port's pack and sign
+    follow it, where IEEE comparisons would not."""
+    x = np.array([[1e-40, -1e-40, 1e-45, -1e-45, 0.0, -0.0, np.nan,
+                   _F32_TINY, -_F32_TINY, np.inf, -np.inf, 1.0]], np.float32)
+    from distributed_mnist_bnns_tpu.ops.bitpack import pack_bits as jpack
+    np.testing.assert_array_equal(pack_bits(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jpack(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        binarize_ste(torch.from_numpy(x)).numpy(),
+        np.asarray(jbinarize(jnp.asarray(x))))
+    assert (torch.from_numpy(x)[0, 0] > 0).item()   # IEEE would say +
+
+
+# ---------------------------------------------------------------------------
+# Emulations of K1-K3 on the card (csrc/xnor_gemm.cu)
+# ---------------------------------------------------------------------------
+
+
+def _ballot_pack(x, rule, share=1, chunk_words=128):
+    """The kernel's pack: for each chunk of words, block q of a cluster of
+    ``share`` packs words [q * per, (q + 1) * per) of every row, per =
+    ceil(words / share); word j of a row is the ballot of its 32 lanes,
+    lane i reading x[32 j + i] (NaN past K) and giving bit i by the rule
+    (x >= 2^-126, or x > -2^-126). Returns (M, KW) int32 and how many times
+    each word was packed."""
+    m, k = x.shape
+    kw = -(-k // 32)
+    flat = np.full((m, kw * 32), np.nan, np.float32)
+    flat[:, :k] = x
+    if rule == _kernels.PACK_GE0:
+        bits = flat > -_F32_TINY
+    else:
+        bits = flat >= _F32_TINY
+    words = np.zeros((m, kw), np.uint32)
+    packed = np.zeros(kw, np.int64)
+    for c0 in range(0, kw, chunk_words):
+        cwp = -(-min(chunk_words, kw - c0) // 8) * 8
+        per = -(-cwp // share)
+        for q in range(share):
+            for j in range(q * per, min(cwp, (q + 1) * per)):
+                if c0 + j >= kw:
+                    continue          # a zero pad word of the k256 step
+                lanes = bits[:, 32 * (c0 + j):32 * (c0 + j + 1)]
+                words[:, c0 + j] = (lanes.astype(np.uint32)
+                                    << np.arange(32, dtype=np.uint32)).sum(
+                                        axis=1, dtype=np.uint32)
+                packed[c0 + j] += 1
+    return words.view(np.int32), packed
+
+
+@pytest.mark.parametrize("share", [1, 3, 8])
+@pytest.mark.parametrize("k", (1, 32, 33, *SPECIAL_K))
+def test_ballot_pack_emulation_equals_pack_bits(k, share):
+    """Lane i -> bit i, lanes past K -> 0: the kernel's words under either
+    rule equal pack_bits (after _sign_pm1 for x >= 0), every word packed by
+    exactly one block of the cluster."""
+    x = _special_x(np.random.RandomState(k), 5, k)
+    xt = torch.from_numpy(x)
+    for rule, want in ((_kernels.PACK_GT0, pack_bits(xt)),
+                       (_kernels.PACK_GE0, pack_bits(_sign_pm1(xt)))):
+        got, packed = _ballot_pack(x, rule, share)
+        np.testing.assert_array_equal(got, want.numpy())
+        assert (packed == 1).all()
+
+
+def _popc(v):
+    return np.unpackbits(v.astype(np.uint32).view(np.uint8)).reshape(
+        *v.shape, 32).sum(axis=-1)
+
+
+def _and_popc_mismatches(xp, wp, k, chunk_words=128):
+    """The kernel's count: in chunks of k256 steps (8 words, zero past the
+    first KW rows of w and past KW for x), per step popc(x) + popc(w) -
+    2 popc(x & w) summed in int32, one sum per output."""
+    xp = xp.numpy().view(np.uint32)
+    m, kw = xp.shape
+    wr = wp.numpy().view(np.uint32)
+    n = wr.shape[1]
+    mism = np.zeros((m, n), np.int32)
+    for c0 in range(0, max(kw, 1), chunk_words):
+        cw = min(chunk_words, kw - c0)
+        for s0 in range(0, cw, 8):
+            xa = np.zeros((m, 8), np.uint32)
+            wb = np.zeros((8, n), np.uint32)
+            hi = min(8, cw - s0)
+            xa[:, :hi] = xp[:, c0 + s0:c0 + s0 + hi]
+            wb[:hi] = wr[c0 + s0:c0 + s0 + hi]
+            and_ = _popc(xa[:, :, None] & wb[None]).sum(axis=1)
+            mism += (_popc(xa).sum(axis=1)[:, None] + _popc(wb).sum(axis=0)
+                     - 2 * and_).astype(np.int32)
+    return mism
+
+
+@pytest.mark.parametrize("k", SPECIAL_K)
+def test_and_popc_identity_emulation_equals_mismatches(k):
+    """popc(x ^ w) = popc(x) + popc(w) - 2 popc(x & w) over k256-padded
+    words gives _mismatches exactly; at K = 4160 and 9000 prepack_weights
+    pads K to 256 and 384 words (KW_p > KW), rows the kernel never reads."""
+    rng = np.random.RandomState(k)
+    x, w = _special_x(rng, 6, k), _pm1(rng, k, 50)
+    wp, _, n = txg.prepack_weights(torch.from_numpy(w))
+    xp = pack_bits(torch.from_numpy(x))
+    assert wp.shape[0] >= xp.shape[1]
+    got = _and_popc_mismatches(xp, wp, k)
+    np.testing.assert_array_equal(got, txg._mismatches(xp, wp).numpy())
+    np.testing.assert_array_equal(
+        (k - 2 * got[:, :n]).astype(np.float32),
+        txg.xnor_gemm_plain(xp, wp, k)[:, :n].numpy())
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 256, 512), (32, 1)),       # K1, the LM's decode projections
+    ((1, 256, 512), (32, 1)),
+    ((32, 3072, 1536), (64, 8)),    # K2, the MLP's layer 2
+    ((32, 1536, 768), (32, 8)),     # K3, the MLP's layer 3
+    ((256, 3072, 1536), (128, 6)),
+    ((9, 9000, 257), (32, 3)),
+    ((5, 31, 1), (32, 1)),
+])
+def test_xnor_tiling_at_the_smokes_shapes(shape, want):
+    """The tile width and x-sharing cluster K1-K3 launch with: a cluster
+    divides the column tiles (no idle block), holds at most 8 blocks (the
+    portable limit) and no more blocks than K has words."""
+    m, k, n = shape
+    bn, share = _kernels.xnor_tiling(m, k, n)
+    assert (bn, share) == want
+    assert -(-n // bn) % share == 0 and 1 <= share <= 8
+    assert share <= -(-k // 32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("alpha", [False, True])
+def test_packed_dense_fn_k1_route_is_binarize_then_packed(fused, alpha):
+    """The decoder's K1 projection (M below FUSED_UNPACK_MIN_M, or no
+    fusion) gives bitwise what binarize_ste then xnor_matmul_packed gave:
+    the sign is now packed inside K1."""
+    rng = np.random.RandomState(int(fused) * 2 + int(alpha))
+    k, n = 100, 24
+    x = torch.from_numpy(_special_x(rng, 2 * 3, k).reshape(2, 3, k))
+    wp, _, _ = txg.prepack_weights(torch.from_numpy(_pm1(rng, k, n)))
+    layer = {"wp": wp, "k": k, "n": n,
+             "bias": torch.from_numpy(rng.randn(n).astype(np.float32))}
+    if alpha:
+        layer["alpha"] = torch.from_numpy(
+            np.abs(rng.randn(n)).astype(np.float32))
+    got = tit._packed_dense_fn(layer, fused)(x)
+    want = txg.xnor_matmul_packed(binarize_ste(x).reshape(-1, k), wp, k, n)
+    want = want.reshape(2, 3, n)
+    if alpha:
+        want = want * layer["alpha"]
+    want = want + layer["bias"]
+    assert torch.equal(got, want)
+
+
+def test_packed_dense_fn_k7_route_keeps_binarize_ste():
+    """At FUSED_UNPACK_MIN_M rows the fused route still binarizes first and
+    runs K7's entry: unchanged by the K1 entry's own pack."""
+    rng = np.random.RandomState(11)
+    k, n, m = 64, 16, tit.FUSED_UNPACK_MIN_M
+    x = torch.from_numpy(_special_x(rng, m, k))
+    wp, _, _ = txg.prepack_weights(torch.from_numpy(_pm1(rng, k, n)))
+    layer = {"wp": wp, "k": k, "n": n, "bias": torch.zeros(n)}
+    got = tit._packed_dense_fn(layer, True)(x)
+    want = txg.xnor_matmul_fused_unpack(binarize_ste(x), wp, k, n)
+    assert torch.equal(got, want + layer["bias"])
 
 
 # ---------------------------------------------------------------------------
