@@ -85,7 +85,32 @@ Phases, each fatal on failure:
      PyTorch's embedding backward.
      The artifact's full forward is held against the trained model.
      Then step time on the host clock and device time from
-     ``torch.profiler``.
+     ``torch.profiler``;
+  8. MLP training: ``train.Trainer`` trains ``bnn-mlp-large`` (Adam
+     0.01, batch 64, seed 0, backend bf16, dropout 0.3) one epoch of the
+     synthetic 60,000/10,000 split (937 steps), evaluated before and
+     after: every logged loss finite, the epoch's train loss below the
+     first logged one, test accuracy above 55 and up by 20 points (the
+     JAX package's convergence test). The trained model is checkpointed,
+     exported through ``cli export --checkpoint-dir`` and served by
+     ``load_packed`` on a batch of 32 (K2 and K3, counted) against the
+     live eval model: argmax equal, log-probs within 1e-4. Two runs of 50
+     steps from one seed with dropout give bitwise-equal loss histories
+     and parameters. 20 steps on each of the xla, int8, xnor and
+     pallas_xnor backends (dropout 0) give bitwise-equal loss histories
+     and parameters, and the pallas_xnor run launches K1 exactly 40
+     times (layers 2 and 3; layer 1 runs xla). Then the step time and
+     examples per second on the host clock twice: of the epoch above,
+     in this process after phases 1-7, and of the same training (seed
+     0, one epoch) run through ``cli train`` in a process of its own,
+     which must also converge; and the device time, kernels per step and
+     busy share (against both step times) of a bf16 and a pallas_xnor
+     step from ``torch.profiler``, K1's share beside the cuBLAS GEMMs.
+     The first is the step in a process that has run phases 1-7
+     (``torch.profiler`` sessions, objects left alive); the second is
+     the step a user of ``cli train`` sees
+     (``scripts/torch_mlp_train_timing.py`` times the step before and
+     after each earlier phase).
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -158,6 +183,17 @@ LM_GRAD_RTOL = 1e-3
 # bench.py --lm-bench (_bench_lm, bench.py:840-909; widths :1739-1743)
 LM_TRAIN = dict(vocab=256, embed_dim=256, depth=4, num_heads=4, mlp_ratio=2)
 LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STEPS = 1024, 8, 1e-3, 20
+# MLP training: the flagship's MIGRATION.md recipe, one epoch of the
+# synthetic 60,000/10,000 split (937 steps of 64).
+MLP_TRAIN = dict(model="bnn-mlp-large", batch_size=64, optimizer="adam",
+                 learning_rate=0.01, seed=0)
+MLP_SYNTH = (60000, 10000)
+MLP_DET_STEPS = 50          # two runs from one seed, dropout on
+MLP_BACKEND_STEPS = 20      # per backend, dropout 0, deterministic signs
+MLP_TRAIN_BACKENDS = ("xla", "int8", "xnor", "pallas_xnor")
+# the JAX test_trainer_end_to_end_convergence thresholds
+MLP_MIN_ACC, MLP_MIN_GAIN = 55.0, 20.0
+_GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
 _TPU = "distributed_mnist_bnns_tpu/ops/"
@@ -1380,6 +1416,230 @@ def lm_train_phase(device: torch.device, gen: torch.Generator):
     return counts, timing
 
 
+def _mlp_trainer(device, **kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(MLP_TRAIN, epochs=1, device=str(device))
+    cfg.update(kw)
+    return Trainer(TrainConfig(**cfg))
+
+
+def _first_steps(data, steps: int, batch: int):
+    """``data`` cut to ``steps`` whole training batches (test set kept)."""
+    from distributed_mnist_bnns_tpu_torch.data import ImageClassData
+
+    n = steps * batch
+    return ImageClassData(data.train_images[:n], data.train_labels[:n],
+                          data.test_images, data.test_labels,
+                          source=data.source)
+
+
+def _state(trainer):
+    return {k: v.detach().clone()
+            for k, v in trainer.model.state_dict().items()}
+
+
+def _states_equal(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _cli_train_row() -> dict:
+    """The flagship's epoch (``MLP_TRAIN``, synthetic data) through
+    ``cli train`` in a process of its own: its JSON line."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", MLP_TRAIN["model"],
+            "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
+            "--optimizer", MLP_TRAIN["optimizer"],
+            "--lr", str(MLP_TRAIN["learning_rate"]),
+            "--seed", str(MLP_TRAIN["seed"]),
+            "--synthetic-sizes", *map(str, MLP_SYNTH)]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def mlp_train_phase(device: torch.device, gen: torch.Generator):
+    """Train ``bnn-mlp-large`` one epoch through ``train.Trainer``
+    (convergence), twice 50 steps from one seed (bitwise equal), 20 steps
+    on each ±1 backend (bitwise equal; K1 launched 2 x 20 times on
+    ``pallas_xnor``), export the trained model through ``cli export
+    --checkpoint-dir`` and serve a batch through K2/K3 against the live
+    eval model; then step times. Returns (launch counts, timing dict)."""
+    from distributed_mnist_bnns_tpu_torch import cli
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.infer import load_packed
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    # The step's fp32 products (the first layer on "xla", the head, the
+    # backward pair) must be fp32 ones, not TF32.
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the MLP step is fp32")
+    torch.cuda.init()      # the allocator's stats exist from here on
+    torch.cuda.reset_peak_memory_stats(device)
+    held_at_start = torch.cuda.memory_allocated(device)  # earlier phases'
+    bs = MLP_TRAIN["batch_size"]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=MLP_SYNTH, seed=0)
+
+        # 1. The flagship: one epoch at full width, evaluated before and
+        # after.
+        tr = _mlp_trainer(device)
+        before = tr.evaluate(data)
+        row = tr.fit(data)[-1]
+        losses = tr.loss_history
+        print(json.dumps({"mlp_train_epoch": row, "test_before": before,
+                          "logged_losses": losses}), flush=True)
+        if not (losses and all(np.isfinite(losses))
+                and row["train_loss"] < losses[0]):
+            raise AssertionError(f"flagship losses: {losses}, {row}")
+        if not (row["test_acc"] > MLP_MIN_ACC and row["test_acc"]
+                >= before["test_acc"] + MLP_MIN_GAIN):
+            raise AssertionError(
+                f"flagship test_acc {before['test_acc']} -> "
+                f"{row['test_acc']}: want > {MLP_MIN_ACC} and a gain of "
+                f"{MLP_MIN_GAIN}")
+        log(f"bnn-mlp-large: {row['steps']} steps, test_acc "
+            f"{before['test_acc']:.2f} -> {row['test_acc']:.2f}")
+
+        # 4. The trained model through the CLI's export into the packed
+        # artifact, served on the card through K2 and K3, against the live
+        # eval model (first layer in fp32, as the artifact's).
+        ckpt = os.path.join(tmp, "ckpt")
+        tr.save_checkpoint(ckpt)
+        path = os.path.join(tmp, "trained.pt")
+        if cli.main(["--log-level", "WARNING", "export", "--model",
+                     MLP_TRAIN["model"], "--checkpoint-dir", ckpt,
+                     "--out", path]) != 0:
+            raise AssertionError("cli export --checkpoint-dir failed")
+        fn, _ = load_packed(path, device=device)
+        x = torch.from_numpy(data.test_images[:MAIN_M]).to(device)
+        fn(x)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        frozen = fn(x)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.LAUNCHES)
+        live = get_model(MLP_TRAIN["model"], backend="xla")
+        live.load_state_dict(tr.model.state_dict())
+        with torch.no_grad():
+            want = live.to(device).eval()(x)
+        diff = (frozen - want).abs().max().item()
+        print(json.dumps({"mlp_trained_export_vs_live_max_abs": diff,
+                          "serve_launches": counts}), flush=True)
+        if not (torch.equal(frozen.argmax(-1), want.argmax(-1))
+                and diff <= 1e-4 and bool(torch.isfinite(frozen).all())):
+            raise AssertionError(f"trained artifact vs live model: {diff}")
+        for name in ("xnor_sign", "xnor_affine"):
+            if counts[name] == 0:
+                raise AssertionError(f"the trained artifact never launched "
+                                     f"{name}")
+        log(f"trained model exported and served: max |diff| {diff:.3g}")
+
+    # 2. Determinism: two runs of 50 steps from one seed, dropout on.
+    det_data = _first_steps(data, MLP_DET_STEPS, bs)
+    runs = []
+    for _ in range(2):
+        t = _mlp_trainer(device, log_interval=1)
+        t.train_epoch(det_data, 0)
+        runs.append((t.loss_history, _state(t)))
+    same = runs[0][0] == runs[1][0] and _states_equal(runs[0][1], runs[1][1])
+    print(json.dumps({"mlp_train_runs_bitwise_equal": same,
+                      "loss_history": runs[0][0]}), flush=True)
+    if not same:
+        raise AssertionError("two MLP training runs from seed 0 differ")
+    del runs
+
+    # 3. The four ±1 backends from one seed and one batch order, dropout
+    # 0: equal loss histories and parameters; K1 twice a step.
+    be_data = _first_steps(data, MLP_BACKEND_STEPS, bs)
+    ref = None
+    be_trainers = {}
+    for backend in MLP_TRAIN_BACKENDS:
+        t = _mlp_trainer(device, log_interval=1, backend=backend,
+                         model_kwargs={"dropout_rate": 0.0})
+        _kernels.reset_launches()
+        t.train_epoch(be_data, 0)
+        torch.cuda.synchronize()
+        got = (t.loss_history, _state(t))
+        if backend == "pallas_xnor":
+            k1 = dict(_kernels.LAUNCHES)
+        if ref is None:
+            ref = got
+        elif not (got[0] == ref[0] and _states_equal(got[1], ref[1])):
+            raise AssertionError(f"backend {backend} differs from xla")
+        be_trainers[backend] = t
+    want = 2 * MLP_BACKEND_STEPS
+    others = {n: c for n, c in k1.items() if n != "xnor" and c}
+    print(json.dumps({"mlp_train_backends_bitwise_equal":
+                      list(MLP_TRAIN_BACKENDS),
+                      "pallas_xnor_launches": k1}), flush=True)
+    if k1["xnor"] != want or others:
+        raise AssertionError(f"pallas_xnor run: K1 {k1['xnor']} launches, "
+                             f"want {want}; others {others}")
+    counts["xnor"] = k1["xnor"]
+    log(f"{MLP_BACKEND_STEPS} steps equal on {MLP_TRAIN_BACKENDS}; K1 "
+        f"launched {want} times")
+
+    # 5. Step time on the host clock (the epoch's, ending in a
+    # synchronize) in this process and in a fresh one through the CLI,
+    # device time from torch.profiler on one batch.
+    cli_row = _cli_train_row()
+    print(json.dumps({"mlp_cli_train": cli_row}), flush=True)
+    if not (np.isfinite(cli_row["train_loss"])
+            and cli_row["test_acc"] > MLP_MIN_ACC
+            and cli_row["steps"] == row["steps"]):
+        raise AssertionError(f"cli train of the flagship: {cli_row}")
+    xb = torch.from_numpy(data.train_images[:bs]).to(device)
+    yb = torch.from_numpy(data.train_labels[:bs].astype(np.int64)).to(device)
+
+    def step_of(t):
+        return lambda: t.train_step(t.model, t.optimizer, xb, yb)
+
+    dev_ms, top, n_kernels = _profile_device_ms(step_of(tr), calls=20,
+                                                top=1000)
+    gemm = lambda ks: sum(k[1] for k in ks  # noqa: E731
+                          if any(g in k[0].lower() for g in _GEMM_NAMES))
+    p_ms, p_top, p_kernels = _profile_device_ms(
+        step_of(be_trainers["pallas_xnor"]), calls=20, top=1000)
+    k1_ms = sum(k[1] for k in p_top if "xnor_gemm" in k[0])
+    step_ms = row["epoch_time_s"] / row["steps"] * 1e3
+    cli_ms = cli_row["batch_time_s"] * 1e3
+    timing = {
+        "train_steps": row["steps"],
+        "train_step_ms": step_ms,
+        "train_examples_per_s": bs / step_ms * 1e3,
+        "cli_train_step_ms": cli_ms,
+        "cli_train_examples_per_s": bs / cli_ms * 1e3,
+        "cli_train_test_acc": cli_row["test_acc"],
+        "cli_train_equals_in_process": (
+            cli_row["train_loss"] == row["train_loss"]
+            and cli_row["test_acc"] == row["test_acc"]),
+        "train_step_device_ms": dev_ms,
+        "train_step_device_busy_share": (
+            None if dev_ms is None else dev_ms / step_ms),
+        "cli_train_step_device_busy_share": (
+            None if dev_ms is None else dev_ms / cli_ms),
+        "train_step_kernels": n_kernels,
+        "train_step_top_device_ms": top[:10],
+        "bf16_step_gemm_ms": None if dev_ms is None else gemm(top),
+        "pallas_xnor_step_device_ms": p_ms,
+        "pallas_xnor_step_kernels": p_kernels,
+        "pallas_xnor_step_k1_ms": k1_ms,
+        "pallas_xnor_step_other_gemm_ms": None if p_ms is None else gemm(p_top),
+        "test_acc_before": before["test_acc"],
+        "test_acc_after": row["test_acc"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        "peak_memory_above_start_gb": (
+            torch.cuda.max_memory_allocated(device) - held_at_start) / 1e9,
+    }
+    return counts, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1464,6 +1724,10 @@ def main() -> int:
     train_counts, train_timing = lm_train_phase(device, gen)
     print(json.dumps({"slice": "bnn-lm-train", "launches": train_counts,
                       **train_timing}), flush=True)
+    mlp_train_counts, mlp_train_timing = mlp_train_phase(device, gen)
+    print(json.dumps({"slice": "bnn-mlp-train",
+                      "launches": mlp_train_counts, **mlp_train_timing}),
+          flush=True)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -1479,10 +1743,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (mlp_counts[name] + lm_counts[name]
-                         + train_counts[name]),
+                         + train_counts[name] + mlp_train_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
-            "launches_train_path": train_counts[name],
+            "launches_train_path": (train_counts[name]
+                                    + mlp_train_counts[name]),
+            "launches_lm_train_path": train_counts[name],
+            "launches_mlp_train_path": mlp_train_counts[name],
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -1,5 +1,11 @@
-"""Command line for the port: ``export``, ``infer``, ``serve`` and ``lm``.
+"""Command line for the port: ``train``, ``eval``, ``export``, ``infer``,
+``serve`` and ``lm``.
 
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-mlp-large \
+      --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
+  python -m distributed_mnist_bnns_tpu_torch.cli eval --checkpoint-dir ckpt
+  python -m distributed_mnist_bnns_tpu_torch.cli export --checkpoint-dir ckpt \
+      --out m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli export --out m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact m.pt
   python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.pt
@@ -8,9 +14,13 @@
   python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.pt
   python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.pt --sample 32
 
-``export`` freezes a ``bnn-mlp`` model (seeded init, or weights carried
-across from the JAX package with ``--jax-variables``) into the port's
-packed artifact; ``infer`` evaluates an artifact on the MNIST test split
+``train`` trains a ``bnn-mlp`` model (``train.Trainer``; MNIST, or
+synthetic data when no idx files are found) and prints its final
+metrics as one JSON line; ``eval`` evaluates the latest (``--best``: the
+best) checkpoint of a ``train --checkpoint-dir`` run. ``export`` freezes
+a ``bnn-mlp`` model (a trained checkpoint with ``--checkpoint-dir``, a
+seeded init, or weights carried across from the JAX package with
+``--jax-variables``) into the port's packed artifact; ``infer`` evaluates an artifact on the MNIST test split
 (synthetic data when no idx files are found); ``serve`` runs the HTTP
 server (``--lm``: the continuous-batching LM server); ``lm --export``
 freezes a BinarizedLM (seeded init, or JAX weights with
@@ -37,12 +47,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-level", default="INFO")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    for cmd, what in (("train", "train a bnn-mlp model"),
+                      ("eval", "evaluate a train run's checkpoint")):
+        _train_flags(sub.add_parser(cmd, help=what))
+
     x = sub.add_parser(
         "export", help="freeze a bnn-mlp model into a packed artifact",
     )
     x.add_argument("--model", default="bnn-mlp-large",
                    choices=["bnn-mlp-large", "bnn-mlp-small"])
     x.add_argument("--infl-ratio", type=int, default=3)
+    x.add_argument("--checkpoint-dir", default=None,
+                   help="freeze the latest checkpoint of a train run "
+                        "(its --model and --infl-ratio)")
+    x.add_argument("--best", action="store_true",
+                   help="with --checkpoint-dir: the best checkpoint")
     x.add_argument("--seed", type=int, default=0,
                    help="seed of the torch.Generator the weights are "
                         "drawn from (ignored with --jax-variables)")
@@ -152,13 +171,127 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _train_flags(sp: argparse.ArgumentParser) -> None:
+    """The flags of ``train`` and ``eval``, with the JAX CLI's defaults."""
+    from .ops.losses import LOSSES
+    from .ops.xnor_gemm import BACKENDS
+
+    sp.add_argument("--model", default="bnn-mlp-large",
+                    choices=["bnn-mlp-large", "bnn-mlp-small"])
+    sp.add_argument("--infl-ratio", type=int, default=3,
+                    help="width multiplier of the BNN MLPs")
+    sp.add_argument("--epochs", type=int, default=5)
+    sp.add_argument("--batch-size", type=int, default=64)
+    sp.add_argument("--optimizer", default="adam")
+    sp.add_argument("--lr", type=float, default=0.01)
+    sp.add_argument("--lr-schedule", default="step",
+                    choices=["step", "cosine"],
+                    help="step: x0.1 every 40 epochs; cosine anneals to 0 "
+                         "over --epochs")
+    sp.add_argument("--warmup-epochs", type=int, default=0)
+    sp.add_argument("--clip-grad-norm", type=float, default=None,
+                    help="global-norm gradient clipping threshold")
+    sp.add_argument("--seed", type=int, default=42,
+                    help="seeds the weights, the dropout and stochastic "
+                         "draws and the data order")
+    sp.add_argument("--log-interval", type=int, default=100)
+    sp.add_argument("--backend", default=None, choices=list(BACKENDS),
+                    help="GEMM backend of the binarized layers (default "
+                         "bf16; pallas_xnor runs K1)")
+    sp.add_argument("--stochastic", action="store_true",
+                    help="stochastic activation binarization in training")
+    sp.add_argument("--dropout", type=float, default=None,
+                    help="dropout rate before the third BatchNorm "
+                         "(default: the model's 0.3)")
+    sp.add_argument("--loss", default="ce", choices=list(LOSSES))
+    sp.add_argument("--label-smoothing", type=float, default=0.0,
+                    help="uniform target mixing for the ce loss")
+    sp.add_argument("--data-dir", default=None)
+    sp.add_argument("--norm", default="mnist",
+                    choices=["mnist", "half", "none"])
+    sp.add_argument("--synthetic-sizes", type=int, nargs=2,
+                    default=[60000, 10000], metavar=("TRAIN", "TEST"),
+                    help="sizes of the synthetic fallback dataset")
+    sp.add_argument("--checkpoint-dir", default=None)
+    sp.add_argument("--best", action="store_true",
+                    help="eval: the best checkpoint instead of the latest")
+    sp.add_argument("--device", default="cuda")
+
+
+def _trainer(args):
+    from .train import TrainConfig, Trainer
+
+    mk = {"infl_ratio": args.infl_ratio, "stochastic": args.stochastic}
+    if args.dropout is not None:
+        mk["dropout_rate"] = args.dropout
+    return Trainer(TrainConfig(
+        model=args.model, model_kwargs=mk, epochs=args.epochs,
+        batch_size=args.batch_size, optimizer=args.optimizer,
+        learning_rate=args.lr, lr_schedule=args.lr_schedule,
+        warmup_epochs=args.warmup_epochs, clip_grad_norm=args.clip_grad_norm,
+        seed=args.seed, log_interval=args.log_interval, loss=args.loss,
+        label_smoothing=args.label_smoothing, backend=args.backend,
+        checkpoint_dir=args.checkpoint_dir, device=args.device,
+    ))
+
+
+def _train_data(args):
+    from .data import load_mnist
+
+    # The synthetic fallback is seed 0's whatever --seed says, as in the
+    # JAX CLI, so train, eval and infer see the same data.
+    return load_mnist(args.data_dir, norm=args.norm,
+                      synthetic_sizes=tuple(args.synthetic_sizes))
+
+
+def _train(args) -> int:
+    trainer = _trainer(args)
+    data = _train_data(args)
+    history = trainer.fit(data)
+    print(json.dumps({
+        "model": args.model, "device": str(trainer.device),
+        "data_source": data.source, **history[-1],
+        "total_steps": trainer.step, "best_acc": trainer.best_acc,
+        "checkpoint_dir": args.checkpoint_dir,
+    }))
+    return 0
+
+
+def _eval(args) -> int:
+    if not args.checkpoint_dir:
+        raise SystemExit("eval requires --checkpoint-dir")
+    trainer = _trainer(args)
+    payload = trainer.restore(args.checkpoint_dir, best=args.best)
+    data = _train_data(args)
+    print(json.dumps({
+        "model": args.model, "device": str(trainer.device),
+        "data_source": data.source, "checkpoint_epoch": payload["epoch"],
+        "checkpoint_step": payload["step"], **trainer.evaluate(data),
+    }))
+    return 0
+
+
 def _export(args) -> int:
     import torch
 
     from .infer import export_packed
     from .models import get_model
 
-    if args.jax_variables:
+    if args.checkpoint_dir and args.jax_variables:
+        raise SystemExit("export: give at most one of --checkpoint-dir and "
+                         "--jax-variables")
+    if args.checkpoint_dir:
+        from .train import load_checkpoint
+
+        try:
+            payload = load_checkpoint(args.checkpoint_dir, best=args.best,
+                                      model=args.model)
+        except ValueError as e:
+            raise SystemExit(f"export: {e}") from None
+        model = get_model(args.model, infl_ratio=args.infl_ratio)
+        model.load_state_dict(payload["state_dict"])
+        model.eval()
+    elif args.jax_variables:
         from .interop import params_from_jax, variables_from_npz
 
         model = params_from_jax(variables_from_npz(args.jax_variables))
@@ -326,8 +459,8 @@ def main(argv=None) -> int:
         level=args.log_level,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    return {"export": _export, "infer": _infer, "serve": _serve,
-            "lm": _lm}[args.cmd](args)
+    return {"train": _train, "eval": _eval, "export": _export,
+            "infer": _infer, "serve": _serve, "lm": _lm}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 """MNIST loading: idx parsing, normalization, synthetic fallback.
 
 Counterpart of the JAX package's ``data/mnist.py`` (``load_idx``,
-``load_mnist``). idx ubyte files (optionally gzipped) are parsed in pure
-Python/numpy; the native C++ decoder is not part of this package yet.
+``load_mnist``, ``shard_indices``, ``batch_iterator``). idx ubyte files
+(optionally gzipped) are parsed in pure Python/numpy; the native C++
+decoder and batch gather are not part of this package yet. The batch
+order is the JAX package's: the same seed and epoch give the same
+batches in the same order.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import gzip
 import logging
 import os
 import struct
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -107,3 +110,47 @@ def load_mnist(
         _normalize(tr_x, norm), tr_y, _normalize(te_x, norm), te_y,
         source="synthetic",
     )
+
+
+def shard_indices(
+    n: int, *, epoch: int, seed: int, host_id: int = 0, num_hosts: int = 1,
+    shuffle: bool = True,
+) -> np.ndarray:
+    """DistributedSampler-equivalent index shard: the permutation of
+    ``RandomState(seed + epoch)``, padded by wraparound to a multiple of
+    ``num_hosts``, rank-strided so every host gets the same count."""
+    if shuffle:
+        idx = np.random.RandomState(seed + epoch).permutation(n)
+    else:
+        idx = np.arange(n)
+    total = -(-n // num_hosts) * num_hosts
+    if total > n:
+        idx = np.concatenate([idx, idx[: total - n]])
+    return idx[host_id::num_hosts]
+
+
+def batch_iterator(
+    images: np.ndarray,
+    labels: np.ndarray,
+    batch_size: int,
+    *,
+    epoch: int = 0,
+    seed: int = 0,
+    host_id: int = 0,
+    num_hosts: int = 1,
+    shuffle: bool = True,
+    drop_last: bool = True,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Batches of ``shard_indices``' order as numpy arrays; with
+    ``drop_last`` every batch has ``batch_size`` rows."""
+    idx = shard_indices(
+        len(images), epoch=epoch, seed=seed, host_id=host_id,
+        num_hosts=num_hosts, shuffle=shuffle,
+    )
+    n_full = len(idx) // batch_size
+    for b in range(n_full):
+        sel = idx[b * batch_size:(b + 1) * batch_size]
+        yield images[sel], labels[sel]
+    if not drop_last and len(idx) % batch_size:
+        sel = idx[n_full * batch_size:]
+        yield images[sel], labels[sel]

@@ -5,9 +5,12 @@ only), plus ``hard_tanh``, the activation both model families use.
 The fp32 latent weight is the only stored weight; its ±1 view is
 re-derived on every forward with ``binarize_ste``. Inputs are binarized
 before the GEMM unless ``binarize_input`` is False (first layers fed raw
-pixels). With ``scale`` the ±1 GEMM is rescaled by the XNOR-Net
-per-output alpha = mean(|W_latent|) over the input axis, recomputed from
-the latents every forward. The fp32 bias is added last.
+pixels); with ``stochastic`` they are binarized stochastically (the
+reference's ``quant_mode="stoch"``) whenever the forward is given a
+generator, as the JAX layer is whenever a "binarize" rng is threaded.
+With ``scale`` the ±1 GEMM is rescaled by the XNOR-Net per-output
+alpha = mean(|W_latent|) over the input axis, recomputed from the
+latents every forward. The fp32 bias is added last.
 
 The weight is stored (out_features, in_features), as ``nn.Linear`` does;
 the JAX kernel is (in, out) (``interop.params_from_jax`` transposes).
@@ -24,7 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.binarize import STEMode, binarize_ste
+from ..ops.binarize import STEMode, binarize, binarize_ste
 from ..ops.xnor_gemm import BACKENDS, binary_matmul
 
 
@@ -43,7 +46,7 @@ class BinarizedDense(nn.Module):
         self, in_features: int, out_features: int, *,
         binarize_input: bool = True, use_bias: bool = True,
         ste: STEMode = "identity", backend: str = "bf16",
-        scale: bool = False,
+        scale: bool = False, stochastic: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -55,6 +58,7 @@ class BinarizedDense(nn.Module):
         self.ste = ste
         self.backend = backend
         self.scale = scale
+        self.stochastic = stochastic
         # LeCun-uniform latent init kept inside [-1, 1], as the JAX
         # package's _latent_init (bound = min(1, 1/sqrt(fan_in))).
         bound = min(1.0, 1.0 / in_features ** 0.5)
@@ -66,12 +70,30 @@ class BinarizedDense(nn.Module):
             if use_bias else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def gemm_backend(self) -> str:
+        """This layer's backend (the JAX ``_layer_backend``): the int8,
+        xnor and pallas_xnor products assume ±1 operands, so a layer fed
+        raw activations runs "xla" under them, the reference's fp32 first
+        layer. "bf16" stays: exact on ±1, a deliberate rounding of raw
+        inputs otherwise."""
+        if not self.binarize_input and self.backend in ("int8", "xnor",
+                                                        "pallas_xnor"):
+            return "xla"
+        return self.backend
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: draws the stochastic signs of a ``stochastic``
+        layer (on x's device); without one the signs are deterministic."""
         if self.binarize_input:
-            x = binarize_ste(x, self.ste)
+            if self.stochastic and generator is not None:
+                x = binarize(x, "stoch", ste=self.ste, generator=generator)
+            else:
+                x = binarize_ste(x, self.ste)
         wb = binarize_ste(self.weight, self.ste)
         lead = x.shape[:-1]
-        y = binary_matmul(x.reshape(-1, x.shape[-1]), wb, self.backend)
+        y = binary_matmul(x.reshape(-1, x.shape[-1]), wb,
+                          self.gemm_backend())
         y = y.reshape(*lead, self.out_features)
         if self.scale:
             y = y * self.weight.abs().mean(dim=1)

@@ -13,7 +13,15 @@ Kept as the reference has it:
   * the activation is flax's ``hard_tanh`` (gradient 1 at exactly +-1);
   * train mode is flax's ``nn.BatchNorm`` (``BatchNorm`` below): the
     fast variance ``max(0, mean(x^2) - mean(x)^2)``, and the running
-    variance updated with that biased batch variance.
+    variance updated with that biased batch variance;
+  * dropout is flax's ``nn.Dropout`` (``Dropout`` below): keep with
+    probability 1 - rate, divide the kept units by 1 - rate.
+
+Train-mode randomness (the dropout mask, and with ``stochastic`` the
+signs of the activations entering layers 2 and 3) comes from the model's
+own generator, ``train_generator(device)``: a ``torch.Generator`` on the
+input's device seeded with ``rng_seed``, so two models of one seed drop
+the same units. Eval mode draws nothing.
 """
 
 from __future__ import annotations
@@ -51,6 +59,34 @@ class BatchNorm(nn.BatchNorm1d):
         return (x - mean) * mul + self.bias
 
 
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout`` with an explicit generator: in train mode
+    ``where(u < 1 - rate, x / (1 - rate), 0)`` for u ~ U[0, 1) drawn from
+    the given generator; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1], got {rate}")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("train-mode dropout needs an explicit generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
 class BnnMLP(nn.Module):
     """Binarized MLP with fp32 first-layer input and fp32 head.
 
@@ -66,17 +102,26 @@ class BnnMLP(nn.Module):
         in_features: int = 784,
         backend: str = "bf16",
         ste: str = "identity",
+        stochastic: bool = False,
+        rng_seed: int = 0,
         generator: Optional[torch.Generator] = None,
     ):
+        """``backend``: the binarized layers' GEMM backend.
+        ``stochastic``: stochastic signs into layers 2 and 3 in train
+        mode. ``rng_seed``: seeds the train-time generator.
+        ``generator``: the CPU generator the initial weights are drawn
+        from."""
         super().__init__()
         h1, h2, h3 = hidden
         self.hidden = (h1, h2, h3)
         self.num_classes = num_classes
+        self.rng_seed = rng_seed
+        self._train_gen: Optional[torch.Generator] = None
 
         def dense(i, o, first=False):
             return BinarizedDense(
                 i, o, binarize_input=not first, ste=ste, backend=backend,
-                generator=generator,
+                stochastic=stochastic and not first, generator=generator,
             )
 
         def bn(c):
@@ -87,7 +132,7 @@ class BnnMLP(nn.Module):
         self.fc2 = dense(h1, h2)
         self.bn2 = bn(h2)
         self.fc3 = dense(h2, h3)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.bn3 = bn(h3)
         self.head = nn.Linear(h3, num_classes)
         # flax Dense init: lecun-normal kernel (a normal truncated at two
@@ -99,12 +144,25 @@ class BnnMLP(nn.Module):
         )
         nn.init.zeros_(self.head.bias)
 
+    def train_generator(self, device: torch.device) -> torch.Generator:
+        """The generator of this model's train-mode draws, on ``device``:
+        made from ``rng_seed`` at the first draw there, then advanced by
+        every draw."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self._train_gen is None or self._train_gen.device != device:
+            self._train_gen = torch.Generator(device=device).manual_seed(
+                self.rng_seed)
+        return self._train_gen
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
+        gen = self.train_generator(x.device) if self.training else None
         x = hard_tanh(self.bn1(self.fc1(x)))
-        x = hard_tanh(self.bn2(self.fc2(x)))
-        x = self.fc3(x)
-        x = self.dropout(x)  # reference order: dropout THEN bn3
+        x = hard_tanh(self.bn2(self.fc2(x, gen)))
+        x = self.fc3(x, gen)
+        x = self.dropout(x, gen)  # reference order: dropout THEN bn3
         x = hard_tanh(self.bn3(x))
         return nn.functional.log_softmax(self.head(x), dim=-1)
 

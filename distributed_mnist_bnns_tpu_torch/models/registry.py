@@ -22,6 +22,9 @@ def list_models():
 
 
 def get_model(name: str, **kwargs: Any) -> nn.Module:
+    """The model ``name``; ``kwargs`` (``infl_ratio``, ``backend``,
+    ``ste``, ``stochastic``, ``dropout_rate``, ``rng_seed``,
+    ``generator``) go to its constructor."""
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {list_models()}")
     return _REGISTRY[name](**kwargs)

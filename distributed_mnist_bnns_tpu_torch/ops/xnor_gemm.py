@@ -1,8 +1,9 @@
 """Packed ±1 GEMMs, and the differentiable ±1 product of training.
 
 Counterpart of the JAX package's ``ops/xnor_gemm.py``. For training,
-``binary_matmul``: the ±1 product on the "xla" or "bf16" backend, with
-the JAX package's fp32 backward. For frozen inference:
+``binary_matmul``: the ±1 product on one of the five backends of the JAX
+package ("xla", "bf16", "int8", "xnor", "pallas_xnor"; the last runs K1),
+with the JAX package's fp32 backward. For frozen inference:
 ``prepack_weights``, the three packed entry points
 
   xnor_matmul_packed         o = K - 2 * sum_w popcount(x_w ^ w_w)
@@ -66,22 +67,55 @@ def prepack_weights(
 # Training: the differentiable ±1 product
 # ---------------------------------------------------------------------------
 
-BACKENDS = ("xla", "bf16")
+BACKENDS = ("xla", "bf16", "int8", "xnor", "pallas_xnor")
+
+def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w.T for ±1 operands as int8 with int32 accumulation,
+    then fp32 (the JAX "int8" backend). On a card ``torch._int_mm`` (cuBLAS)
+    takes M > 16 and K, N multiples of 8: the operands are padded with
+    zero rows and columns, which add nothing, and the result sliced."""
+    m, k = x.shape
+    n = w.shape[0]
+    a, b = x.to(torch.int8), w.to(torch.int8)
+    if x.is_cuda:
+        kp = -(-k // 8) * 8
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, max(m, 17) - m))
+        b = torch.nn.functional.pad(b, (0, kp - k, 0, -(-n // 8) * 8 - n))
+    return torch._int_mm(a, b.t())[:m, :n].to(torch.float32)
+
+
+def _xnor_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w.T for ±1 operands through bitplanes, in plain
+    PyTorch: K - 2 * sum popcount(x ^ w) (the JAX ``_xnor_matmul_jnp``)."""
+    k = x.shape[-1]
+    mism = _mismatches(pack_bits(x), pack_bits(w).t())
+    return (k - 2 * mism).to(torch.float32)
 
 
 def _bmm_forward(x: torch.Tensor, w: torch.Tensor, backend: str):
     """x (M, K) @ w.T for a ±1 (N, K) weight. "xla": the fp32 product.
     "bf16": operands rounded to bfloat16 and multiplied with fp32
     accumulation, as the JAX "bf16" backend's
-    ``preferred_element_type=float32`` does. Both are exact on ±1
-    operands; they differ only on a raw first-layer input that bf16
-    cannot hold."""
+    ``preferred_element_type=float32`` does. "int8": ``_int8_matmul``.
+    "xnor": ``_xnor_matmul_plain``. "pallas_xnor": the weights packed
+    (``prepack_weights``) and K1 (``xnor_matmul_packed``), as the JAX
+    ``xnor_matmul``. All are exact on ±1 operands; "xla" and "bf16"
+    differ only on a raw first-layer input that bf16 cannot hold, and
+    the last three assume ±1 x (``BinarizedDense`` reroutes raw inputs
+    to "xla")."""
     if backend == "xla":
         return x @ w.t()
     if backend == "bf16":
         return x.to(torch.bfloat16).to(torch.float32) @ (
             w.to(torch.bfloat16).to(torch.float32).t()
         )
+    if backend == "int8":
+        return _int8_matmul(x, w)
+    if backend == "xnor":
+        return _xnor_matmul_plain(x, w)
+    if backend == "pallas_xnor":
+        wp, k, n = prepack_weights(w.t())
+        return xnor_matmul_packed(x, wp, k, n)
     raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
 
 
@@ -103,8 +137,8 @@ class _BinaryMatmul(torch.autograd.Function):
 def binary_matmul(x_pm1: torch.Tensor, w_pm1: torch.Tensor,
                   backend: str = "bf16") -> torch.Tensor:
     """Differentiable (M, K) x (N, K) ±1 product -> (M, N) fp32, the
-    weight in ``nn.Linear``'s (out, in) layout. Backward: gx = g @ w,
-    gw = g^T @ x, in fp32."""
+    weight in ``nn.Linear``'s (out, in) layout, on ``backend``. Backward
+    on every backend: gx = g @ w, gw = g^T @ x, in fp32."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (have {BACKENDS})")
     return _BinaryMatmul.apply(x_pm1, w_pm1, backend)

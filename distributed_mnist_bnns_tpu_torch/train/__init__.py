@@ -1,3 +1,27 @@
-from .trainer import clamp_latent
+from .optim import (
+    OPTIMIZER_REGISTRY,
+    RegimeSchedule,
+    make_optimizer,
+    regime_hp_kwargs,
+)
+from .trainer import (
+    TrainConfig,
+    Trainer,
+    clamp_latent,
+    load_checkpoint,
+    make_eval_step,
+    make_step_body,
+)
 
-__all__ = ["clamp_latent"]
+__all__ = [
+    "OPTIMIZER_REGISTRY",
+    "RegimeSchedule",
+    "TrainConfig",
+    "Trainer",
+    "clamp_latent",
+    "load_checkpoint",
+    "make_eval_step",
+    "make_optimizer",
+    "make_step_body",
+    "regime_hp_kwargs",
+]

@@ -1,0 +1,467 @@
+"""Optimizer registry + epoch-indexed "regime" scheduling.
+
+Counterpart of the JAX package's ``train/optim.py`` (``OPTIMIZER_REGISTRY``,
+``make_optimizer``, ``regime_hp_kwargs``, ``RegimeSchedule``). The JAX
+package builds every optimizer from optax; ``torch.optim``'s classes of
+the same names compute other updates (rmsprop's decay and eps placement,
+adagrad's initial accumulator and eps, torch ASGD, gradient clipping's
+``norm + 1e-6``), and lars and lamb have none. So each optimizer here is
+a ``torch.optim.Optimizer`` whose update is written out from optax's
+source (optax 0.2), transform by transform in optax's order:
+
+  sgd       trace(momentum, nesterov) -> scale(-lr)
+  asgd      sgd, plus the Polyak average of the iterates in state
+  adam      scale_by_adam(b1, b2, eps, eps_root) -> scale(-lr)
+  adamax    scale_by_adamax(b1, b2, eps) -> scale(-lr)
+  adagrad   scale_by_rss(initial_accumulator_value, eps) -> scale(-lr)
+  adadelta  add_decayed_weights -> scale_by_adadelta(rho, eps) -> scale(-lr)
+  rprop     scale_by_rprop(lr, eta_minus, eta_plus, min/max step) -> scale(-1)
+  rmsprop   scale_by_rms(decay, eps, initial_scale, eps_in_sqrt)
+            -> scale(-lr) -> trace(momentum, nesterov)
+  lars      add_decayed_weights -> scale_by_trust_ratio(trust_coefficient,
+            eps) -> scale(-lr) -> trace(momentum, nesterov)
+  lamb      scale_by_adam -> add_decayed_weights -> scale_by_trust_ratio
+            -> scale(-lr)
+
+then ``p += update``. With ``clip_grad_norm`` the gradients first go
+through optax's ``clip_by_global_norm``: scaled by ``max_norm / norm``
+only where ``norm >= max_norm``. The per-parameter tensors are optax's
+leaves, so the layerwise trust ratios of lars and lamb take the same
+norms.
+
+Hyperparameters live in ``param_groups`` under optax's names
+(``learning_rate``, ``momentum``, ``b1``, ...): a regime retunes them in
+place and the next step reads them, with no reset of the moments, as
+optax's ``inject_hyperparams`` does. A hyperparameter read only at
+initialisation in optax (rprop's step sizes from the learning rate,
+adagrad's and rmsprop's initial accumulators) is read at construction
+here too. As the JAX ``make_optimizer`` materialises ``momentum=0.0``
+where optax's default is None (sgd, rmsprop), the classes here default
+to 0.0, so a regime can retune it. Hyperparameter arithmetic (``1 - b1``,
+``b1 ** count``) is done in float32, as on optax's float32 hyperparams.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+_HP_KEYS = ("learning_rate", "momentum", "b1", "b2", "eps", "weight_decay")
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float (exact in float32)."""
+    return float(np.float32(x))
+
+
+def _one_minus(x: float) -> float:
+    """``1 - x`` in float32, as optax computes it on a float32 hyperparam."""
+    return float(np.float32(1.0) - np.float32(x))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay ** count`` in float32."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor],
+                        max_norm: float) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: every tensor scaled by
+    ``max_norm / norm`` when the global norm is >= max_norm, unchanged
+    otherwise. No host sync: the choice is a ``torch.where``."""
+    if not grads:
+        return grads
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
+
+
+def _trace(u: torch.Tensor, state: Dict[str, Any], momentum: float,
+           nesterov: bool) -> torch.Tensor:
+    """optax ``trace``: t = u + momentum * t; u + momentum * t under
+    nesterov, else t."""
+    t = u + _f32(momentum) * state["trace"]
+    state["trace"] = t
+    return u + _f32(momentum) * t if nesterov else t
+
+
+def _trust_ratio(u: torch.Tensor, p: torch.Tensor, trust_coefficient: float,
+                 eps: float) -> torch.Tensor:
+    """optax ``scale_by_trust_ratio`` (min_norm 0): u * tc * |p| / (|u| +
+    eps), or u where either norm is 0."""
+    p_norm = torch.linalg.vector_norm(p)
+    u_norm = torch.linalg.vector_norm(u)
+    ratio = _f32(trust_coefficient) * p_norm / (u_norm + _f32(eps))
+    zero = (p_norm == 0.0) | (u_norm == 0.0)
+    return u * torch.where(zero, torch.ones_like(ratio), ratio)
+
+
+def _adam_direction(g: torch.Tensor, state: Dict[str, Any],
+                    group: Dict[str, Any]) -> torch.Tensor:
+    """optax ``scale_by_adam`` (no nesterov): bias-corrected mu / (sqrt(nu
+    + eps_root) + eps)."""
+    b1, b2 = group["b1"], group["b2"]
+    state["mu"] = _one_minus(b1) * g + _f32(b1) * state["mu"]
+    state["nu"] = _one_minus(b2) * (g * g) + _f32(b2) * state["nu"]
+    state["count"] += 1
+    mu_hat = state["mu"] / _bias_correction(b1, state["count"])
+    nu_hat = state["nu"] / _bias_correction(b2, state["count"])
+    return mu_hat / (torch.sqrt(nu_hat + _f32(group["eps_root"]))
+                     + _f32(group["eps"]))
+
+
+class OptaxOptimizer(torch.optim.Optimizer):
+    """Base: ``step()`` clips the gradients by global norm (if set), asks
+    ``_update`` for each parameter's optax update and adds it. State is
+    made at construction, as ``tx.init(params)`` makes it."""
+
+    def __init__(self, params: Iterable, defaults: Dict[str, Any],
+                 clip_grad_norm: Optional[float] = None):
+        super().__init__(params, defaults)
+        if clip_grad_norm is not None and clip_grad_norm <= 0:
+            raise ValueError(
+                f"clip_grad_norm must be > 0, got {clip_grad_norm}")
+        self.clip_grad_norm = clip_grad_norm
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._init_state(p, self.state[p], group)
+
+    def _init_state(self, p: torch.Tensor, state: Dict[str, Any],
+                    group: Dict[str, Any]) -> None:
+        raise NotImplementedError
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor,
+                state: Dict[str, Any], group: Dict[str, Any]) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure: Optional[Callable] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        pairs = [(p, group) for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        grads = [p.grad for p, _ in pairs]
+        if self.clip_grad_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+        for (p, group), g in zip(pairs, grads):
+            p.add_(self._update(p, g, self.state[p], group))
+        return loss
+
+
+class SGD(OptaxOptimizer):
+    def __init__(self, params, learning_rate: float, momentum: float = 0.0,
+                 nesterov: bool = False, clip_grad_norm=None):
+        super().__init__(params, dict(learning_rate=learning_rate,
+                                      momentum=momentum, nesterov=nesterov),
+                         clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["trace"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        u = _trace(g, state, group["momentum"], group["nesterov"])
+        return u * -_f32(group["learning_rate"])
+
+
+class ASGD(OptaxOptimizer):
+    """SGD with the Polyak average of the iterates in state (``avg``),
+    the JAX package's ``_asgd``; it steps as plain SGD."""
+
+    def __init__(self, params, learning_rate: float = 0.01,
+                 clip_grad_norm=None):
+        super().__init__(params, dict(learning_rate=learning_rate),
+                         clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["avg"] = p.detach().clone()
+        state["count"] = 0
+
+    def _update(self, p, g, state, group):
+        u = g * -_f32(group["learning_rate"])
+        state["count"] += 1
+        state["avg"] = state["avg"] + ((p + u) - state["avg"]) / float(
+            state["count"])
+        return u
+
+
+class Adam(OptaxOptimizer):
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+                 clip_grad_norm=None):
+        super().__init__(params, dict(learning_rate=learning_rate, b1=b1,
+                                      b2=b2, eps=eps, eps_root=eps_root),
+                         clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+        state["count"] = 0
+
+    def _update(self, p, g, state, group):
+        return _adam_direction(g, state, group) * -_f32(group["learning_rate"])
+
+
+class Adamax(OptaxOptimizer):
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, clip_grad_norm=None):
+        super().__init__(params, dict(learning_rate=learning_rate, b1=b1,
+                                      b2=b2, eps=eps), clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+        state["count"] = 0
+
+    def _update(self, p, g, state, group):
+        b1 = group["b1"]
+        state["count"] += 1
+        state["mu"] = _one_minus(b1) * g + _f32(b1) * state["mu"]
+        state["nu"] = torch.maximum(g.abs() + _f32(group["eps"]),
+                                    _f32(group["b2"]) * state["nu"])
+        mu_hat = state["mu"] / _bias_correction(b1, state["count"])
+        return (mu_hat / state["nu"]) * -_f32(group["learning_rate"])
+
+
+class Adagrad(OptaxOptimizer):
+    def __init__(self, params, learning_rate: float,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7,
+                 clip_grad_norm=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate,
+            initial_accumulator_value=initial_accumulator_value, eps=eps),
+            clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["sum_of_squares"] = torch.full_like(
+            p, _f32(group["initial_accumulator_value"]))
+
+    def _update(self, p, g, state, group):
+        s = g * g + state["sum_of_squares"]
+        state["sum_of_squares"] = s
+        inv = torch.where(s > 0, torch.rsqrt(s + _f32(group["eps"])),
+                          torch.zeros_like(s))
+        return (inv * g) * -_f32(group["learning_rate"])
+
+
+class Adadelta(OptaxOptimizer):
+    def __init__(self, params, learning_rate: float, rho: float = 0.9,
+                 eps: float = 1e-6, weight_decay: float = 0.0,
+                 clip_grad_norm=None):
+        super().__init__(params, dict(learning_rate=learning_rate, rho=rho,
+                                      eps=eps, weight_decay=weight_decay),
+                         clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["e_g"] = torch.zeros_like(p)
+        state["e_x"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        rho, eps = group["rho"], _f32(group["eps"])
+        u = g + _f32(group["weight_decay"]) * p
+        state["e_g"] = _one_minus(rho) * (u * u) + _f32(rho) * state["e_g"]
+        u = (torch.sqrt(state["e_x"] + eps)
+             / torch.sqrt(state["e_g"] + eps)) * u
+        state["e_x"] = _one_minus(rho) * (u * u) + _f32(rho) * state["e_x"]
+        return u * -_f32(group["learning_rate"])
+
+
+class Rprop(OptaxOptimizer):
+    """optax ``rprop``. As optax 0.2 writes it, the update a step applies
+    is the previous step's stored ``step_size * sign(g)`` (zero where the
+    gradient's sign flipped), so the first step applies zero."""
+
+    def __init__(self, params, learning_rate: float, eta_minus: float = 0.5,
+                 eta_plus: float = 1.2, min_step_size: float = 1e-6,
+                 max_step_size: float = 50.0, clip_grad_norm=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, eta_minus=eta_minus,
+            eta_plus=eta_plus, min_step_size=min_step_size,
+            max_step_size=max_step_size), clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["step_sizes"] = torch.full_like(p, _f32(group["learning_rate"]))
+        state["prev_updates"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        s = g * state["prev_updates"]
+        step = state["step_sizes"]
+        factor = torch.where(s > 0, _f32(group["eta_plus"]),
+                             _f32(group["eta_minus"]))
+        step = torch.where(
+            s == 0, step,
+            torch.clamp(step * factor, min=_f32(group["min_step_size"]),
+                        max=_f32(group["max_step_size"])))
+        zeros = torch.zeros_like(g)
+        new_prev = torch.where(s < 0, zeros, step * torch.sign(g))
+        u = torch.where(s < 0, zeros, state["prev_updates"])
+        state["step_sizes"], state["prev_updates"] = step, new_prev
+        return u * -1.0
+
+
+class RMSprop(OptaxOptimizer):
+    """optax ``rmsprop`` (not centered, no bias correction)."""
+
+    def __init__(self, params, learning_rate: float, decay: float = 0.9,
+                 eps: float = 1e-8, initial_scale: float = 0.0,
+                 eps_in_sqrt: bool = True, momentum: float = 0.0,
+                 nesterov: bool = False, clip_grad_norm=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, decay=decay, eps=eps,
+            initial_scale=initial_scale, eps_in_sqrt=eps_in_sqrt,
+            momentum=momentum, nesterov=nesterov), clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["nu"] = torch.full_like(p, _f32(group["initial_scale"]))
+        state["trace"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        decay, eps = group["decay"], _f32(group["eps"])
+        nu = _one_minus(decay) * (g * g) + _f32(decay) * state["nu"]
+        state["nu"] = nu
+        if group["eps_in_sqrt"]:
+            scaling = torch.rsqrt(nu + eps)
+        else:
+            scaling = 1.0 / (torch.sqrt(nu) + eps)
+        u = (scaling * g) * -_f32(group["learning_rate"])
+        return _trace(u, state, group["momentum"], group["nesterov"])
+
+
+class LARS(OptaxOptimizer):
+    """optax ``lars`` with its default masks (weight decay and trust
+    ratio on every parameter)."""
+
+    def __init__(self, params, learning_rate: float,
+                 weight_decay: float = 0.0, trust_coefficient: float = 0.001,
+                 eps: float = 0.0, momentum: float = 0.9,
+                 nesterov: bool = False, clip_grad_norm=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, weight_decay=weight_decay,
+            trust_coefficient=trust_coefficient, eps=eps, momentum=momentum,
+            nesterov=nesterov), clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["trace"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        u = g + _f32(group["weight_decay"]) * p
+        u = _trust_ratio(u, p, group["trust_coefficient"], group["eps"])
+        u = u * -_f32(group["learning_rate"])
+        return _trace(u, state, group["momentum"], group["nesterov"])
+
+
+class LAMB(OptaxOptimizer):
+    """optax ``lamb`` (weight decay on every parameter)."""
+
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6, eps_root: float = 0.0,
+                 weight_decay: float = 0.0, clip_grad_norm=None):
+        super().__init__(params, dict(
+            learning_rate=learning_rate, b1=b1, b2=b2, eps=eps,
+            eps_root=eps_root, weight_decay=weight_decay), clip_grad_norm)
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+        state["count"] = 0
+
+    def _update(self, p, g, state, group):
+        u = _adam_direction(g, state, group)
+        u = u + _f32(group["weight_decay"]) * p
+        u = _trust_ratio(u, p, 1.0, 0.0)
+        return u * -_f32(group["learning_rate"])
+
+
+OPTIMIZER_REGISTRY: Dict[str, type] = {
+    "sgd": SGD,
+    "asgd": ASGD,
+    "adam": Adam,
+    "adamax": Adamax,
+    "adagrad": Adagrad,
+    "adadelta": Adadelta,
+    "rprop": Rprop,
+    "rmsprop": RMSprop,
+    "lars": LARS,
+    "lamb": LAMB,
+}
+
+
+def _optimizer_class(name: str) -> type:
+    try:
+        return OPTIMIZER_REGISTRY[name.lower()]
+    except KeyError:
+        raise ValueError(
+            f"unknown optimizer {name!r}; available: "
+            f"{sorted(OPTIMIZER_REGISTRY)}"
+        ) from None
+
+
+def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
+                   clip_grad_norm: Optional[float] = None,
+                   **kwargs: Any) -> OptaxOptimizer:
+    """The registry optimizer ``name`` over ``params`` (torch optimizers
+    take their parameters at construction; the JAX ``make_optimizer``
+    returns a transform that ``init`` gives them), with ``learning_rate``
+    and any other hyperparameter in ``param_groups``, optionally behind
+    global-norm clipping."""
+    return _optimizer_class(name)(params, learning_rate=learning_rate,
+                                  clip_grad_norm=clip_grad_norm, **kwargs)
+
+
+def _hyperparams(name: str) -> set:
+    import inspect
+
+    sig = inspect.signature(_optimizer_class(name).__init__)
+    return set(sig.parameters) - {"self", "params", "clip_grad_norm"}
+
+
+def regime_hp_kwargs(name: str, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The hyperparameters of a regime config that optimizer ``name``
+    takes (the learning rate excepted); others are ignored, as torch
+    ignores unknown param-group keys."""
+    accepted = _hyperparams(name)
+    return {k: cfg[k] for k in _HP_KEYS
+            if k != "learning_rate" and k in cfg and k in accepted}
+
+
+class RegimeSchedule:
+    """Epoch-indexed optimizer regime with sticky replay: ``regime`` is
+    {epoch: {"optimizer": name, "learning_rate": f, ...}} or a callable
+    epoch -> dict, and ``config_at(epoch)`` merges entries 0..epoch."""
+
+    def __init__(self, regime):
+        self.regime = regime
+
+    def config_at(self, epoch: int) -> Dict[str, Any]:
+        if self.regime is None:
+            return {}
+        merged: Dict[str, Any] = {}
+        if callable(self.regime):
+            for e in range(epoch + 1):
+                merged.update(self.regime(e) or {})
+            return merged
+        for e in sorted(self.regime):
+            if e <= epoch:
+                merged.update(self.regime[e])
+        return merged
+
+    def optimizer_changed(self, epoch: int) -> bool:
+        """Did the optimizer *class* change exactly at this epoch?"""
+        if epoch == 0:
+            return False
+        prev = self.config_at(epoch - 1).get("optimizer")
+        now = self.config_at(epoch).get("optimizer")
+        return now is not None and now != prev
+
+    def apply_hyperparams(self, optimizer: torch.optim.Optimizer,
+                          epoch: int) -> None:
+        """Write the regime's hyperparameters for this epoch into every
+        param group that has them (no moment reset)."""
+        cfg = self.config_at(epoch)
+        for group in optimizer.param_groups:
+            for k in _HP_KEYS:
+                if k in cfg and k in group:
+                    group[k] = cfg[k]

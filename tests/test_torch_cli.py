@@ -1,5 +1,6 @@
 """The PyTorch port's command line: ``export`` then ``infer`` on the CPU,
-and the default device that never falls back to it."""
+``train`` -> ``eval`` -> ``export --checkpoint-dir`` -> ``infer``, and
+the default device that never falls back to it."""
 
 import json
 
@@ -200,3 +201,76 @@ def test_lm_refuses_training_and_serve_lm_defaults_to_cuda(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["serve", "--lm", "--artifact", str(tmp_path / "x.pt")])
+
+
+_TRAIN_SMALL = ["--model", "bnn-mlp-small", "--infl-ratio", "1",
+                "--synthetic-sizes", "512", "128", "--seed", "3"]
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_train_eval_export_infer_on_cpu(tmp_path, capsys):
+    """``train --checkpoint-dir`` prints its final metrics as one JSON
+    line; ``eval`` reads the same checkpoint back to the same metrics;
+    ``export --checkpoint-dir`` freezes the trained model into the
+    packed artifact, which ``infer`` serves to the same accuracy."""
+    ckpt = str(tmp_path / "ckpt")
+    data_dir = str(tmp_path / "no-idx")
+    assert cli.main(["train", *_TRAIN_SMALL, "--epochs", "2",
+                     "--batch-size", "64", "--device", "cpu",
+                     "--log-interval", "4", "--checkpoint-dir", ckpt,
+                     "--data-dir", data_dir]) == 0
+    trained = _last_json(capsys)
+    assert trained["total_steps"] == 2 * (512 // 64) == 2 * trained["steps"]
+    assert trained["epoch"] == 1
+    assert trained["device"] == "cpu" and trained["data_source"] == \
+        "synthetic"
+    assert np.isfinite(trained["train_loss"]) and trained["test_acc"] > 50
+    assert cli.main(["eval", *_TRAIN_SMALL, "--device", "cpu",
+                     "--checkpoint-dir", ckpt, "--data-dir", data_dir]) == 0
+    evaluated = _last_json(capsys)
+    for k in ("test_loss", "test_acc", "test_acc_top5"):
+        assert evaluated[k] == trained[k], k
+    assert evaluated["checkpoint_step"] == trained["total_steps"]
+    out = str(tmp_path / "trained.pt")
+    assert cli.main(["export", "--model", "bnn-mlp-small", "--infl-ratio",
+                     "1", "--checkpoint-dir", ckpt, "--best",
+                     "--out", out]) == 0
+    assert _last_json(capsys)["family"] == "bnn-mlp"
+    assert cli.main(["infer", "--artifact", out, "--device", "cpu",
+                     "--synthetic-sizes", "512", "128",
+                     "--data-dir", data_dir]) == 0
+    served = _last_json(capsys)
+    assert served["n_examples"] == 128
+    assert abs(served["test_acc"] - trained["best_acc"]) <= 100.0 / 128
+
+
+def test_train_defaults_and_refusals(tmp_path):
+    """The JAX CLI's defaults; without a card the default device
+    raises; ``eval`` needs a checkpoint and ``export`` takes one source
+    of weights, of the model it names."""
+    args = cli.build_parser().parse_args(["train"])
+    assert (args.model, args.epochs, args.batch_size, args.lr) == (
+        "bnn-mlp-large", 5, 64, 0.01)
+    assert (args.optimizer, args.seed, args.loss, args.device) == (
+        "adam", 42, "ce", "cuda")
+    assert args.backend is None and args.dropout is None
+    with pytest.raises(SystemExit, match="requires --checkpoint-dir"):
+        cli.main(["eval", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="at most one"):
+        cli.main(["export", "--checkpoint-dir", str(tmp_path),
+                  "--jax-variables", "x.npz"])
+    ckpt = str(tmp_path / "ckpt")
+    assert cli.main(["train", *_TRAIN_SMALL, "--epochs", "1",
+                     "--synthetic-sizes", "64", "64", "--device", "cpu",
+                     "--checkpoint-dir", ckpt,
+                     "--data-dir", str(tmp_path / "none")]) == 0
+    with pytest.raises(SystemExit, match="holds a"):
+        cli.main(["export", "--checkpoint-dir", ckpt, "--out",
+                  str(tmp_path / "m.pt")])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", *_TRAIN_SMALL, "--epochs", "1"])

@@ -265,3 +265,39 @@ def test_input_gradient_at_exact_unit_preactivations(backend, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     monkeypatch.setattr(tmlp, "hard_tanh", torch.nn.functional.hardtanh)
     assert not np.allclose(grad(), want, rtol=1e-5, atol=1e-6)
+
+
+def _dropout_io(rng_seed, calls=1):
+    """(input, output) of the MLP's dropout on its last train forward."""
+    model = bnn_mlp_small(infl_ratio=1, rng_seed=rng_seed,
+                          generator=torch.Generator().manual_seed(0))
+    seen = {}
+    model.dropout.register_forward_hook(
+        lambda mod, args, out: seen.update(x=args[0], y=out))
+    x = torch.from_numpy(pixels(16))
+    for _ in range(calls):
+        torch.manual_seed(np.random.randint(1 << 30))  # the global RNG
+        model.train()(x)
+    return seen["x"].detach(), seen["y"].detach()
+
+
+def test_dropout_draws_from_the_models_seeded_generator():
+    """Dropout (rate 0.3, before bn3) draws its mask from the model's own
+    generator, seeded with ``rng_seed``: two models of one seed drop the
+    same units whatever the global RNG does, another seed drops others,
+    and successive forwards draw new masks. Kept units are divided by
+    0.7, as flax's ``nn.Dropout`` does."""
+    x_a, y_a = _dropout_io(5)
+    x_b, y_b = _dropout_io(5)
+    assert torch.equal(x_a, x_b) and torch.equal(y_a, y_b)
+    dropped = (y_a == 0) & (x_a != 0)
+    assert 0.2 < dropped.float().mean().item() < 0.4
+    kept = ~dropped & (x_a != 0)
+    assert torch.equal(y_a[kept], x_a[kept] / 0.7)
+    _, y_c = _dropout_io(6)
+    assert not torch.equal(y_a == 0, y_c == 0)
+    _, y_twice = _dropout_io(5, calls=2)
+    assert not torch.equal(y_a == 0, y_twice == 0)
+    model = bnn_mlp_small(infl_ratio=1, rng_seed=5).eval()
+    x = torch.from_numpy(pixels(4))
+    assert torch.equal(model(x), model(x))

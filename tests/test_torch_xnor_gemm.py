@@ -574,7 +574,104 @@ def test_bf16_binarized_dense_keeps_the_cotangent_in_fp32():
 
 def test_binary_matmul_rejects_unknown_backends():
     with pytest.raises(ValueError, match="unknown backend"):
-        txg.binary_matmul(torch.ones(2, 4), torch.ones(3, 4), "int8")
+        txg.binary_matmul(torch.ones(2, 4), torch.ones(3, 4), "fp8")
+    from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
+
+    with pytest.raises(ValueError, match="unknown backend"):
+        BinarizedDense(4, 3, backend="fp8")
+
+
+@pytest.mark.parametrize("k", [31, 100, 3072])
+@pytest.mark.parametrize("backend", txg.BACKENDS)
+def test_every_backend_is_the_exact_pm1_product(backend, k):
+    """All five backends give the xla product bitwise on ±1 operands
+    (every sum is an integer), as JAX's binary_matmul does on the same
+    backend (pallas_xnor: the Pallas kernel in interpret mode; here K1's
+    plain version), and the gradients are the fp32 pair on every
+    backend, bitwise."""
+    m, n = 9, 40
+    rng = np.random.RandomState(k)
+    x, w = _pm1(rng, m, k), _pm1(rng, n, k)
+    g = _grid_cotangent(rng, m, n)
+    grads = {}
+    for b in (backend, "xla"):
+        xt = torch.from_numpy(x).requires_grad_()
+        wt = torch.from_numpy(w).requires_grad_()
+        y = txg.binary_matmul(xt, wt, b)
+        y.backward(torch.from_numpy(g))
+        grads[b] = (y.detach().numpy(), xt.grad.numpy(), wt.grad.numpy())
+    for got, want in zip(grads[backend], grads["xla"]):
+        np.testing.assert_array_equal(got, want)
+    want_y = jxg.binary_matmul(jnp.asarray(x), jnp.asarray(w.T), backend,
+                               backend == "pallas_xnor")
+    np.testing.assert_array_equal(grads[backend][0], np.asarray(want_y))
+    np.testing.assert_array_equal(grads[backend][1], g @ w)
+    np.testing.assert_array_equal(grads[backend][2], g.T @ x)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 100, 130), (64, 3072, 40)])
+def test_pallas_xnor_backend_is_jax_xnor_matmul(m, k, n):
+    """The pallas_xnor backend packs the weights (``prepack_weights``) and
+    runs K1's entry, as the JAX ``xnor_matmul`` runs its Pallas kernel."""
+    rng = np.random.RandomState(m)
+    x, w = _pm1(rng, m, k), _pm1(rng, n, k)
+    want = jxg.xnor_matmul(jnp.asarray(x), jnp.asarray(w.T), interpret=True)
+    got = txg.binary_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                            "pallas_xnor")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_default_backend_is_bf16():
+    """The JAX package's default backend, bf16, is the default of
+    ``binary_matmul``, ``BinarizedDense``, ``BnnMLP`` and the trainer: on
+    a raw input that bf16 cannot hold, the default product is the bf16
+    one, not the fp32 one."""
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    assert jxg.get_default_backend() == "bf16"
+    x = torch.tensor([[1.0 + 2.0 ** -10, 1.0]])
+    w = torch.ones(1, 2)
+    assert txg.binary_matmul(x, w).item() == 2.0
+    assert torch.equal(txg.binary_matmul(x, w),
+                       txg.binary_matmul(x, w, "bf16"))
+    assert txg.binary_matmul(x, w, "xla").item() == 2.0 + 2.0 ** -10
+    assert BinarizedDense(8, 3).gemm_backend() == "bf16"
+    mlp = get_model("bnn-mlp-small", infl_ratio=1)
+    assert {m.backend for m in (mlp.fc1, mlp.fc2, mlp.fc3)} == {"bf16"}
+    tr = Trainer(TrainConfig(model="bnn-mlp-small", device="cpu"))
+    assert {m.backend for m in (tr.model.fc1, tr.model.fc3)} == {"bf16"}
+
+
+@pytest.mark.parametrize("backend", ["int8", "xnor", "pallas_xnor"])
+def test_first_layer_raw_inputs_reroute_to_xla(backend):
+    """A layer fed raw activations (``binarize_input=False``) runs the
+    exact fp32 product under the backends that assume ±1 x, as the JAX
+    layer's ``_layer_backend`` rule does; the port's counterpart of the
+    JAX package's ``test_first_layer_raw_inputs_exact_for_all_backends``."""
+    import jax
+
+    from distributed_mnist_bnns_tpu.models import BinarizedDense as JDense
+    from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
+
+    x = np.array(jax.random.normal(jax.random.PRNGKey(0), (4, 32)) * 2.0)
+    jlayer = JDense(8, binarize_input=False, backend=backend)
+    variables = jlayer.init({"params": jax.random.PRNGKey(1)}, x)
+    kernel = np.array(variables["params"]["kernel"])
+    want = np.asarray(jlayer.apply(variables, x))
+    outs = {}
+    for b in (backend, "xla"):
+        layer = BinarizedDense(32, 8, binarize_input=False, backend=b)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(kernel.T))
+        outs[b] = layer(torch.from_numpy(x)).detach().numpy()
+        assert layer.gemm_backend() == "xla"
+    np.testing.assert_array_equal(outs[backend], outs["xla"])
+    np.testing.assert_allclose(outs[backend], want, rtol=1e-5, atol=1e-5)
+    signed = np.where(x >= 0, 1.0, -1.0).astype(np.float32) @ np.where(
+        kernel >= 0, 1.0, -1.0)
+    assert not np.allclose(signed, want, atol=1e-3)
 
 
 # K7 on the card (csrc/xnor_unpack.cu) multiplies bf16 pieces of x on the
