@@ -110,7 +110,32 @@ Phases, each fatal on failure:
      (``torch.profiler`` sessions, objects left alive); the second is
      the step a user of ``cli train`` sees
      (``scripts/torch_mlp_train_timing.py`` times the step before and
-     after each earlier phase).
+     after each earlier phase);
+  9. data-parallel MLP training (``parallel/``, ``train.Trainer`` with
+     ``data_parallel``; ``MLP_TRAIN`` with dropout 0): (a) one NCCL rank
+     a card, 50 steps of the 1-bit exchange with error feedback
+     (``sign_ef``): every rank's state bitwise equal, and at world 1
+     equal to a single-process ``Trainer(grad_compress="sign_ef")``;
+     then ``cli train --dp auto --grad-compress sign_ef`` one epoch in a
+     process of its own, which must converge; (b) 4 gloo ranks sharing
+     card 0 (16 rows each of the global batch of 64): the first 300
+     steps of the epoch (``DP_EPOCH_STEPS``) uncompressed (global-batch
+     BatchNorm, DDP) and again with ``sign_ef``, each passing phase 8's
+     convergence thresholds (which 300 steps in one process meet too,
+     checked beside), ``sign_ef`` within 2 points of the uncompressed
+     run, then 200 steps of ``sign`` (majority vote, lr 0.001); (c) 20
+     steps of (b)'s ``sign_ef`` on pallas_xnor and on xla (bf16 rounds
+     layer 1's raw pixels, which the ±1 backends take in fp32), bitwise
+     equal, K1 launched exactly 2 x 20 times in every rank (counted in
+     each rank, zeroed just before the run); (d) 20 steps of the
+     two-level exchange (2 hosts x 2). In every run the ranks end
+     bitwise equal, every logged loss is finite, and each rank's wire
+     bytes per step, measured from the buffers its collectives were
+     handed, equal ``CommPlan.wire_bytes_per_step`` (the fp32 plan
+     uncompressed; ``HierPlan``'s intra and inter bytes in (d)). Each
+     run prints its step time on the host clock, examples per second,
+     the exchange's time per step from CUDA events around the
+     optimizer's transform and the wire bytes.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -193,6 +218,18 @@ MLP_BACKEND_STEPS = 20      # per backend, dropout 0, deterministic signs
 MLP_TRAIN_BACKENDS = ("xla", "int8", "xnor", "pallas_xnor")
 # the JAX test_trainer_end_to_end_convergence thresholds
 MLP_MIN_ACC, MLP_MIN_GAIN = 55.0, 20.0
+# Data-parallel training (phase 9): MLP_TRAIN, dropout 0.
+DP_NCCL_STEPS = 50          # (a) sign_ef, one NCCL rank a card
+DP_GLOO_RANKS = 4           # (b)-(d) gloo ranks sharing card 0: 16 rows each
+# (b) the epoch cut to its first 300 steps: the whole 937 took phase 9
+# to 366 s on an H100 80GB HBM3 at 700 W (gloo moves each collective
+# through the host; the uncompressed step took 130 ms, the sign_ef one
+# 107). Phase 8's convergence thresholds hold, and 300 single-process
+# steps must meet them too (checked beside).
+DP_EPOCH_STEPS = 300
+DP_SIGN_STEPS, DP_SIGN_LR = 200, 0.001   # (b) majority vote (JAX's lr)
+DP_SHORT_STEPS = 20         # (c) K1 under DP, (d) two-level
+DP_HOSTS = 2                # (d) 2 hosts x 2 local ranks
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
@@ -1640,6 +1677,269 @@ def mlp_train_phase(device: torch.device, gen: torch.Generator):
     return counts, timing
 
 
+# -- phase 9: data-parallel MLP training ------------------------------------
+
+
+class _ExchangeTimer:
+    """The optimizer's 1-bit exchange (``SignCompress``) with CUDA events
+    around each call: compression, collectives and decoding."""
+
+    def __init__(self, transform):
+        self.transform = transform
+        self.events = []
+
+    def __call__(self, params, grads):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.transform(params, grads)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.transform, name)
+
+    def ms_per_call(self):
+        torch.cuda.synchronize()
+        if not self.events:
+            return None
+        return sum(s.elapsed_time(e) for s, e in self.events) / len(
+            self.events)
+
+
+def _digest(model) -> str:
+    """sha256 of every tensor of the model's state dict, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_data(tmp: str, steps=None):
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                      synthetic_sizes=MLP_SYNTH, seed=0)
+    return data if steps is None else _first_steps(data, steps,
+                                                   MLP_TRAIN["batch_size"])
+
+
+def _dp_run(device, data, evaluate: bool = False, **cfg) -> dict:
+    """One data-parallel run of ``MLP_TRAIN`` (dropout 0) in this rank:
+    one epoch over ``data``, the launch counters zeroed just before and
+    read just after it; times, bytes and a digest of the end state."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    kw = dict(MLP_TRAIN, epochs=1, model_kwargs={"dropout_rate": 0.0},
+              device=str(device), data_parallel="auto")
+    kw.update(cfg)
+    t = Trainer(TrainConfig(**kw))
+    timer = None
+    if t.optimizer.grad_transform is not None:
+        timer = t.optimizer.grad_transform = _ExchangeTimer(
+            t.optimizer.grad_transform)
+    before = t.evaluate(data) if evaluate else None
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    row = t.train_epoch(data, 0)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    after = t.evaluate(data) if evaluate else None
+    plan, hier = t.comm_plan, t.hier_plan
+    steps = row["steps"]
+    out = {
+        "steps": steps, "losses": t.loss_history, "digest": _digest(t.model),
+        "train_loss": row["train_loss"],
+        "step_ms": row["batch_time_s"] * 1e3,
+        "examples_per_s": MLP_TRAIN["batch_size"] / row["batch_time_s"],
+        "exchange_ms": None if timer is None else timer.ms_per_call(),
+        "wire_bytes_per_step": t.comm_bytes() / steps,
+        "plan_bytes_per_step": (0 if plan is None
+                                else plan.wire_bytes_per_step),
+        "mode": "none" if plan is None else plan.mode, "launches": launches,
+    }
+    if hier is not None:
+        out.update(intra_bytes_per_step=t.comm_bytes(level="intra") / steps,
+                   inter_bytes_per_step=t.comm_bytes(level="inter") / steps,
+                   plan_intra=hier.intra_bytes_per_step,
+                   plan_inter=hier.inter_bytes_per_step)
+    if evaluate:
+        out.update(test_acc_before=before["test_acc"],
+                   test_acc=after["test_acc"])
+    return out
+
+
+def _dp_nccl_rank(rank: int, world: int, device, steps: int) -> dict:
+    """Phase 9 (a) in one NCCL rank: ``steps`` steps of sign_ef."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _dp_run(device, _dp_data(tmp, steps), log_interval=1,
+                       grad_compress="sign_ef")
+
+
+def _dp_gloo_rank(rank: int, world: int, device, epoch_steps) -> dict:
+    """Phase 9 (b)-(d) in one of the gloo ranks sharing a card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        epoch = _dp_data(tmp, epoch_steps)
+        return {
+            "gspmd": _dp_run(device, epoch, evaluate=True),
+            "sign_ef": _dp_run(device, epoch, evaluate=True,
+                               grad_compress="sign_ef"),
+            "sign": _dp_run(device, _first_steps(epoch, DP_SIGN_STEPS,
+                                                 MLP_TRAIN["batch_size"]),
+                            grad_compress="sign",
+                            learning_rate=DP_SIGN_LR),
+            **{f"k1_{b}": _dp_run(
+                device, _first_steps(epoch, DP_SHORT_STEPS,
+                                     MLP_TRAIN["batch_size"]),
+                grad_compress="sign_ef", backend=b)
+               for b in ("pallas_xnor", "xla")},
+            "hier": _dp_run(device, _first_steps(
+                epoch, DP_SHORT_STEPS, MLP_TRAIN["batch_size"]),
+                grad_compress="sign_ef", dp_hosts=DP_HOSTS),
+        }
+
+
+def _check_ranks(name: str, ranks: list) -> None:
+    """Every rank's run ended bitwise equal, every loss finite, and each
+    rank's measured bytes per step equal the plan's."""
+    r0 = ranks[0]
+    for r in ranks:
+        if r["digest"] != r0["digest"] or r["losses"] != r0["losses"]:
+            raise AssertionError(f"{name}: ranks end in different states")
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"{name}: losses {r['losses']}")
+        if r["wire_bytes_per_step"] != r["plan_bytes_per_step"] and (
+                "plan_intra" not in r):
+            raise AssertionError(
+                f"{name}: {r['wire_bytes_per_step']} wire bytes a step, "
+                f"the plan's {r['plan_bytes_per_step']}")
+        if "plan_intra" in r and (
+                r["intra_bytes_per_step"] != r["plan_intra"]
+                or r["inter_bytes_per_step"] != r["plan_inter"]):
+            raise AssertionError(f"{name}: intra/inter bytes {r}")
+
+
+def _cli_dp_row() -> dict:
+    """``cli train --dp auto --grad-compress sign_ef --epochs 1`` in a
+    process of its own: its JSON line."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", MLP_TRAIN["model"],
+            "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
+            "--optimizer", MLP_TRAIN["optimizer"],
+            "--lr", str(MLP_TRAIN["learning_rate"]),
+            "--seed", str(MLP_TRAIN["seed"]), "--dropout", "0",
+            "--dp", "auto", "--grad-compress", "sign_ef",
+            "--synthetic-sizes", *map(str, MLP_SYNTH)]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train --dp auto exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def dp_train_phase(device: torch.device, smi: str):
+    """Data-parallel training of ``bnn-mlp-large``: (a) NCCL, one rank a
+    card, 50 steps of sign_ef (ranks equal; at world 1 equal to one
+    process), then ``cli train --dp auto``; (b) 4 gloo ranks sharing
+    card 0: ``DP_EPOCH_STEPS`` steps uncompressed (global-batch
+    BatchNorm) and of sign_ef (convergence, sign_ef within 2 points),
+    200 steps of sign;
+    (c) 20 steps of sign_ef on pallas_xnor and on xla (equal; K1 2 x 20
+    a rank); (d) 20 steps two-level (2 x 2). Every run: ranks bitwise
+    equal, wire bytes per step equal to the plan's. Returns (each
+    kernel's launches summed over every run and every rank, the rows)."""
+    from distributed_mnist_bnns_tpu_torch.parallel import spawn
+
+    rows = []
+    # (a) NCCL, one rank a card
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    nccl = spawn(_dp_nccl_rank, world, backend="nccl", device="cuda",
+                 args=(DP_NCCL_STEPS,))
+    _check_ranks("nccl", nccl)
+    row = {"dp_run": "nccl_sign_ef", "world": world, "card": smi,
+           "wall_s": time.perf_counter() - t0,
+           **{k: v for k, v in nccl[0].items()
+              if k not in ("losses", "digest")}}
+    if world == 1:
+        with tempfile.TemporaryDirectory() as tmp:
+            alone = _dp_run(device, _dp_data(tmp, DP_NCCL_STEPS),
+                            log_interval=1, grad_compress="sign_ef",
+                            data_parallel=None)
+        row["equals_single_process"] = (
+            alone["digest"] == nccl[0]["digest"]
+            and alone["losses"] == nccl[0]["losses"])
+        if not row["equals_single_process"]:
+            raise AssertionError("world-1 NCCL sign_ef run differs from a "
+                                 "single-process Trainer")
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+    # The threshold of (b)'s cut epoch, met by one process alone
+    with tempfile.TemporaryDirectory() as tmp:
+        alone = _dp_run(device, _dp_data(tmp, DP_EPOCH_STEPS), evaluate=True,
+                        data_parallel=None)
+    print(json.dumps({"dp_run": "single_process_cut_epoch", "card": smi,
+                      **{k: v for k, v in alone.items()
+                         if k not in ("losses", "digest")}}), flush=True)
+    if not (alone["test_acc"] > MLP_MIN_ACC and alone["test_acc"]
+            >= alone["test_acc_before"] + MLP_MIN_GAIN):
+        raise AssertionError(f"{DP_EPOCH_STEPS} single-process steps miss "
+                             f"phase 8's thresholds: {alone}")
+    cli_row = _cli_dp_row()
+    print(json.dumps({"dp_run": "cli_train_dp_auto", "card": smi,
+                      **cli_row}), flush=True)
+    if not (np.isfinite(cli_row["train_loss"])
+            and cli_row["test_acc"] > MLP_MIN_ACC):
+        raise AssertionError(f"cli train --dp auto: {cli_row}")
+
+    # (b)-(d): gloo ranks sharing card 0
+    t0 = time.perf_counter()
+    gloo = spawn(_dp_gloo_rank, DP_GLOO_RANKS, backend="gloo",
+                 device="cuda", args=(DP_EPOCH_STEPS,))
+    wall = time.perf_counter() - t0
+    for name in gloo[0]:
+        ranks = [g[name] for g in gloo]
+        _check_ranks(name, ranks)
+        row = {"dp_run": f"gloo_{name}", "world": DP_GLOO_RANKS,
+               "card": smi, **{k: v for k, v in ranks[0].items()
+                               if k not in ("losses", "digest")},
+               "launches_by_rank": [r["launches"] for r in ranks]}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    runs = {r["dp_run"]: r for r in rows}
+    for name in ("gloo_gspmd", "gloo_sign_ef"):
+        r = runs[name]
+        if not (r["test_acc"] > MLP_MIN_ACC
+                and r["test_acc"] >= r["test_acc_before"] + MLP_MIN_GAIN
+                and r["train_loss"] < gloo[0][name[5:]]["losses"][0]):
+            raise AssertionError(f"{name} did not converge: {r}")
+    if runs["gloo_sign_ef"]["test_acc"] < runs["gloo_gspmd"]["test_acc"] - 2:
+        raise AssertionError("sign_ef more than 2 points below the "
+                             "uncompressed run")
+    if gloo[0]["k1_pallas_xnor"]["digest"] != gloo[0]["k1_xla"]["digest"]:
+        raise AssertionError("pallas_xnor and xla DP runs differ")
+    want = 2 * DP_SHORT_STEPS
+    for g in gloo:
+        k1 = g["k1_pallas_xnor"]["launches"]
+        others = {n: c for n, c in k1.items() if n != "xnor" and c}
+        if k1["xnor"] != want or others:
+            raise AssertionError(f"DP pallas_xnor run: K1 {k1['xnor']} "
+                                 f"launches a rank, want {want}; {others}")
+    counts = {name: sum(r["launches"][name] for r in nccl)
+              + sum(run["launches"][name] for g in gloo for run in g.values())
+              for name in KERNEL_ROWS}
+    log(f"data parallel: nccl x{world}, gloo x{DP_GLOO_RANKS} on one card "
+        f"({wall:.1f} s): ranks equal, bytes equal to the plans, K1 "
+        f"{want} launches a rank")
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1728,6 +2028,7 @@ def main() -> int:
     print(json.dumps({"slice": "bnn-mlp-train",
                       "launches": mlp_train_counts, **mlp_train_timing}),
           flush=True)
+    dp_counts, _ = dp_train_phase(device, smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -1743,13 +2044,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (mlp_counts[name] + lm_counts[name]
-                         + train_counts[name] + mlp_train_counts[name]),
+                         + train_counts[name] + mlp_train_counts[name]
+                         + dp_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
                                     + mlp_train_counts[name]),
             "launches_lm_train_path": train_counts[name],
             "launches_mlp_train_path": mlp_train_counts[name],
+            "launches_dp_path": dp_counts[name],
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -10,6 +10,9 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
                               BinarizedLM
   frozen_lm_from_jax(frozen)  JAX ``infer_transformer._freeze_lm_tensors``
                               dict -> the port's frozen LM artifact
+  JaxFlatOrder(model)         a BnnMLP's parameters in the order and
+                              layout ``jax.flatten_util.ravel_pytree``
+                              gives the flax params
 
 Flax names map as BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 ->
 bn1..bn3 (scale/bias -> weight/bias, mean/var -> running stats) and
@@ -23,7 +26,7 @@ out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head. Flax kernels are
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -156,3 +159,53 @@ def variables_from_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(part, {})
             node[leaf] = data[key]
     return tree
+
+
+class JaxFlatOrder:
+    """A BnnMLP's parameters as ``jax.flatten_util.ravel_pytree`` lays out
+    the JAX model's params: leaves in sorted path order (``BatchNorm_0..2``,
+    ``BinarizedDense_0..2``, ``Dense_0``; ``bias`` before ``kernel`` /
+    ``scale`` in each), each kernel in flax's (in, out) layout, so the
+    port's (out, in) weights are transposed.
+
+    ``entries`` lists ``(flax path, parameter, transposed)`` in that
+    order. ``flatten`` lays tensors shaped like the parameters (their
+    gradients, or by default the parameters themselves) end to end in
+    one fp32 vector; ``unflatten`` cuts such a vector back into tensors
+    shaped like the parameters, keyed by parameter."""
+
+    def __init__(self, model: BnnMLP):
+        names = dict(model.named_parameters())
+        entries: List[Tuple[Tuple[str, str], str, bool]] = []
+        for flax_name, bn in _BNS:
+            entries.append(((flax_name, "bias"), f"{bn}.bias", False))
+            entries.append(((flax_name, "scale"), f"{bn}.weight", False))
+        for flax_name, fc in zip(_DENSE + ("Dense_0",), _FCS + ("head",)):
+            entries.append(((flax_name, "bias"), f"{fc}.bias", False))
+            entries.append(((flax_name, "kernel"), f"{fc}.weight", True))
+        if {e[1] for e in entries} != set(names):
+            raise ValueError("JaxFlatOrder covers the BnnMLP's parameters "
+                             f"only, not {sorted(names)}")
+        self.entries = [("/".join(path), names[name], tr)
+                        for path, name, tr in sorted(entries)]
+        self.n_params = sum(p.numel() for _, p, _ in self.entries)
+
+    def flatten(self, tensors: Optional[Mapping[torch.nn.Parameter,
+                                                torch.Tensor]] = None
+                ) -> torch.Tensor:
+        parts = []
+        for _, p, tr in self.entries:
+            t = p.detach() if tensors is None else tensors[p]
+            parts.append((t.t() if tr else t).reshape(-1))
+        return torch.cat(parts).to(torch.float32)
+
+    def unflatten(self, flat: torch.Tensor
+                  ) -> Dict[torch.nn.Parameter, torch.Tensor]:
+        out, start = {}, 0
+        for _, p, tr in self.entries:
+            n = p.numel()
+            chunk = flat[start:start + n]
+            out[p] = (chunk.reshape(p.shape[1], p.shape[0]).t() if tr
+                      else chunk.reshape(p.shape))
+            start += n
+        return out

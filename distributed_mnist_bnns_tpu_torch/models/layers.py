@@ -1,7 +1,9 @@
 """Binarized PyTorch layers with fp32 latent ("master") parameters.
 
 Counterpart of the JAX package's ``models/layers.py`` (``BinarizedDense``
-only), plus ``hard_tanh``, the activation both model families use.
+only), plus ``hard_tanh``, the activation both model families use, and
+flax's ``nn.Dropout`` on an explicit generator (``Dropout``,
+``SeededTrainRNG``), which both families draw from.
 The fp32 latent weight is the only stored weight; its ±1 view is
 re-derived on every forward with ``binarize_ste``. Inputs are binarized
 before the GEMM unless ``binarize_input`` is False (first layers fed raw
@@ -37,6 +39,54 @@ def hard_tanh(x: torch.Tensor) -> torch.Tensor:
     exactly +-1, which a pre-activation can reach: an integer ±1 sum
     plus a bias)."""
     return torch.clamp(x, -1.0, 1.0)
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout`` with an explicit generator: in train mode
+    ``where(u < 1 - rate, x / (1 - rate), 0)`` for u ~ U[0, 1) drawn from
+    the given generator; the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1], got {rate}")
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("train-mode dropout needs an explicit generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+class SeededTrainRNG:
+    """The train-mode generator of a model whose ``rng_seed`` seeds its
+    draws (dropout masks, stochastic signs): ``train_generator(device)``
+    is a ``torch.Generator`` on ``device``, made from ``rng_seed`` at the
+    first draw there, then advanced by every draw. Two models of one
+    seed draw the same; torch's global RNG is never touched."""
+
+    rng_seed: int = 0
+    _train_gen: Optional[torch.Generator] = None
+
+    def train_generator(self, device: torch.device) -> torch.Generator:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self._train_gen is None or self._train_gen.device != device:
+            self._train_gen = torch.Generator(device=device).manual_seed(
+                self.rng_seed)
+        return self._train_gen
 
 
 class BinarizedDense(nn.Module):

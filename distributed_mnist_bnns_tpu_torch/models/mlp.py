@@ -14,7 +14,7 @@ Kept as the reference has it:
   * train mode is flax's ``nn.BatchNorm`` (``BatchNorm`` below): the
     fast variance ``max(0, mean(x^2) - mean(x)^2)``, and the running
     variance updated with that biased batch variance;
-  * dropout is flax's ``nn.Dropout`` (``Dropout`` below): keep with
+  * dropout is flax's ``nn.Dropout`` (``layers.Dropout``): keep with
     probability 1 - rate, divide the kept units by 1 - rate.
 
 Train-mode randomness (the dropout mask, and with ``stochastic`` the
@@ -29,9 +29,25 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from .layers import BinarizedDense, hard_tanh
+from ..ops.comm_compress import all_reduce_sum
+from .layers import BinarizedDense, Dropout, SeededTrainRNG, hard_tanh
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group; its backward sums the cotangent over
+    the group, since every rank's output depends on every rank's input."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce_sum(g, ctx.group), None
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -42,13 +58,30 @@ class BatchNorm(nn.BatchNorm1d):
     (rsqrt(var + eps) * weight) + bias``, and the running statistics move
     by ``momentum`` towards the mean and the biased ``var`` (flax's
     momentum is the old value's weight, ``1 - momentum`` here). Eval mode
-    is ``nn.BatchNorm1d``'s, on the running statistics."""
+    is ``nn.BatchNorm1d``'s, on the running statistics.
+
+    With a ``group`` (a ``torch.distributed`` process group, set on the
+    module), the batch is the global one, as flax's BatchNorm sees it
+    under the JAX package's GSPMD data parallelism: ``sum x`` and ``sum
+    x^2`` are summed over the group (gradient included) before the fast
+    variance. ``nn.SyncBatchNorm`` would not do: it takes ``E[(x -
+    mean)^2]`` and keeps an unbiased running variance."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        if self.group is None:
+            mean = x.mean(dim=0)
+            mean_sq = (x * x).mean(dim=0)
+        else:
+            c = x.shape[1]
+            sums = _AllReduceSum.apply(
+                torch.cat([x.sum(dim=0), (x * x).sum(dim=0)]), self.group)
+            n = x.shape[0] * dist.get_world_size(self.group)
+            mean, mean_sq = sums[:c] / n, sums[c:] / n
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(
                 self.momentum * mean)
@@ -59,35 +92,7 @@ class BatchNorm(nn.BatchNorm1d):
         return (x - mean) * mul + self.bias
 
 
-class Dropout(nn.Module):
-    """flax's ``nn.Dropout`` with an explicit generator: in train mode
-    ``where(u < 1 - rate, x / (1 - rate), 0)`` for u ~ U[0, 1) drawn from
-    the given generator; the identity in eval mode or at rate 0."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        if not 0.0 <= rate <= 1.0:
-            raise ValueError(f"dropout rate must be in [0, 1], got {rate}")
-        self.rate = rate
-
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.rate == 1.0:
-            return torch.zeros_like(x)
-        if generator is None:
-            raise ValueError("train-mode dropout needs an explicit generator")
-        keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
-
-    def extra_repr(self) -> str:
-        return f"rate={self.rate}"
-
-
-class BnnMLP(nn.Module):
+class BnnMLP(SeededTrainRNG, nn.Module):
     """Binarized MLP with fp32 first-layer input and fp32 head.
 
     Submodules map to the flax names as fc1..fc3 <-> BinarizedDense_0..2,
@@ -143,18 +148,6 @@ class BnnMLP(nn.Module):
             generator=generator,
         )
         nn.init.zeros_(self.head.bias)
-
-    def train_generator(self, device: torch.device) -> torch.Generator:
-        """The generator of this model's train-mode draws, on ``device``:
-        made from ``rng_seed`` at the first draw there, then advanced by
-        every draw."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        if self._train_gen is None or self._train_gen.device != device:
-            self._train_gen = torch.Generator(device=device).manual_seed(
-                self.rng_seed)
-        return self._train_gen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)

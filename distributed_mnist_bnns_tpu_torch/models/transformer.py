@@ -42,7 +42,7 @@ from torch import nn
 
 from ..ops.binarize import STEMode
 from ..ops.flash_attention import flash_attention
-from .layers import BinarizedDense, hard_tanh
+from .layers import BinarizedDense, Dropout, SeededTrainRNG, hard_tanh
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default epsilon
 
@@ -181,7 +181,8 @@ class BinarizedSelfAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-norm block: x += attn(LN(x)); x += mlp(LN(x)), the MLP as
     BinarizedDense -> hard_tanh -> BinarizedDense. Dropout, where set,
-    acts in training mode only."""
+    acts in training mode only, drawing from the generator ``forward``
+    is given (flax's ``nn.Dropout``, ``layers.Dropout``)."""
 
     def __init__(
         self, embed_dim: int, num_heads: int, *, mlp_ratio: int = 2,
@@ -203,19 +204,22 @@ class TransformerBlock(nn.Module):
                                    backend=backend, generator=generator)
         self.mlp2 = BinarizedDense(hidden, embed_dim, ste=ste, scale=scale,
                                    backend=backend, generator=generator)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop(self.attn(self.ln_attn(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.drop(self.attn(self.ln_attn(x)), generator)
         y = hard_tanh(self.mlp1(self.ln_mlp(x)))
-        return x + self.drop(self.mlp2(y))
+        return x + self.drop(self.mlp2(y), generator)
 
 
-class BinarizedLM(nn.Module):
+class BinarizedLM(SeededTrainRNG, nn.Module):
     """Causal binarized language model: fp32 token and position
     embeddings, ``depth`` pre-norm causal blocks, fp32 LN and head over
     the vocabulary. ``forward(tokens (B, T))`` returns (B, T, vocab)
-    next-token log-probs (position t predicts token t + 1)."""
+    next-token log-probs (position t predicts token t + 1). In train
+    mode the blocks' dropout draws from ``train_generator``, seeded with
+    ``rng_seed``: two LMs of one seed drop the same units."""
 
     def __init__(
         self, vocab: int = 256, max_len: int = 256, embed_dim: int = 128,
@@ -223,10 +227,11 @@ class BinarizedLM(nn.Module):
         dropout: float = 0.0, attention: str = "xla",
         ste: STEMode = "identity", scale: bool = False,
         backend: str = "bf16", binarized_attention: bool = True,
-        generator: Optional[torch.Generator] = None,
+        rng_seed: int = 0, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         _check_attention(attention)
+        self.rng_seed = rng_seed
         self.vocab = vocab
         self.max_len = max_len
         self.embed_dim = embed_dim
@@ -258,8 +263,9 @@ class BinarizedLM(nn.Module):
         if t > self.max_len:
             raise ValueError(f"sequence length {t} > max_len {self.max_len}")
         x = embed(tokens, self.tok_embed.weight) + self.pos_embed[:, :t]
+        gen = self.train_generator(x.device) if self.training else None
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, gen)
         x = self.ln_head(x)
         return torch.log_softmax(self.head(x), dim=-1)
 

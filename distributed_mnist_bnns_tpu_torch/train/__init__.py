@@ -1,8 +1,10 @@
 from .optim import (
     OPTIMIZER_REGISTRY,
     RegimeSchedule,
+    SignCompress,
     make_optimizer,
     regime_hp_kwargs,
+    sign_compress,
 )
 from .trainer import (
     TrainConfig,
@@ -16,6 +18,7 @@ from .trainer import (
 __all__ = [
     "OPTIMIZER_REGISTRY",
     "RegimeSchedule",
+    "SignCompress",
     "TrainConfig",
     "Trainer",
     "clamp_latent",
@@ -24,4 +27,5 @@ __all__ = [
     "make_optimizer",
     "make_step_body",
     "regime_hp_kwargs",
+    "sign_compress",
 ]

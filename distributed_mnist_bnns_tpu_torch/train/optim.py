@@ -25,9 +25,12 @@ source (optax 0.2), transform by transform in optax's order:
 
 then ``p += update``. With ``clip_grad_norm`` the gradients first go
 through optax's ``clip_by_global_norm``: scaled by ``max_norm / norm``
-only where ``norm >= max_norm``. The per-parameter tensors are optax's
-leaves, so the layerwise trust ratios of lars and lamb take the same
-norms.
+only where ``norm >= max_norm``. A ``grad_transform`` (``sign_compress``,
+the 1-bit data-parallel exchange) runs next, before the per-parameter
+updates, as the JAX ``make_optimizer`` chains ``[clip, grad_transform,
+base]``; its state (the error-feedback rows) rides in the optimizer's
+``state_dict``. The per-parameter tensors are optax's leaves, so the
+layerwise trust ratios of lars and lamb take the same norms.
 
 Hyperparameters live in ``param_groups`` under optax's names
 (``learning_rate``, ``momentum``, ``b1``, ...): a regime retunes them in
@@ -47,6 +50,16 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..ops.comm_compress import (
+    CommPlan,
+    WireBytes,
+    all_reduce_mean,
+    exchange,
+    make_plan,
+    pad_flat,
+)
 
 _HP_KEYS = ("learning_rate", "momentum", "b1", "b2", "eps", "weight_decay")
 
@@ -113,9 +126,10 @@ def _adam_direction(g: torch.Tensor, state: Dict[str, Any],
 
 
 class OptaxOptimizer(torch.optim.Optimizer):
-    """Base: ``step()`` clips the gradients by global norm (if set), asks
-    ``_update`` for each parameter's optax update and adds it. State is
-    made at construction, as ``tx.init(params)`` makes it."""
+    """Base: ``step()`` clips the gradients by global norm (if set), runs
+    ``grad_transform`` on them (if set), asks ``_update`` for each
+    parameter's optax update and adds it. State is made at construction,
+    as ``tx.init(params)`` makes it."""
 
     def __init__(self, params: Iterable, defaults: Dict[str, Any],
                  clip_grad_norm: Optional[float] = None):
@@ -124,6 +138,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
             raise ValueError(
                 f"clip_grad_norm must be > 0, got {clip_grad_norm}")
         self.clip_grad_norm = clip_grad_norm
+        self.grad_transform: Optional[SignCompress] = None
         for group in self.param_groups:
             for p in group["params"]:
                 self._init_state(p, self.state[p], group)
@@ -147,9 +162,24 @@ class OptaxOptimizer(torch.optim.Optimizer):
         grads = [p.grad for p, _ in pairs]
         if self.clip_grad_norm is not None:
             grads = clip_by_global_norm(grads, self.clip_grad_norm)
+        if self.grad_transform is not None:
+            grads = self.grad_transform([p for p, _ in pairs], grads)
         for (p, group), g in zip(pairs, grads):
             p.add_(self._update(p, g, self.state[p], group))
         return loss
+
+    def state_dict(self) -> Dict[str, Any]:
+        sd = super().state_dict()
+        if self.grad_transform is not None:
+            sd["grad_transform"] = self.grad_transform.state_dict()
+        return sd
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        state_dict = dict(state_dict)
+        transform = state_dict.pop("grad_transform", None)
+        super().load_state_dict(state_dict)
+        if self.grad_transform is not None and transform is not None:
+            self.grad_transform.load_state_dict(transform)
 
 
 class SGD(OptaxOptimizer):
@@ -401,14 +431,17 @@ def _optimizer_class(name: str) -> type:
 
 def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
                    clip_grad_norm: Optional[float] = None,
+                   grad_transform: Optional["SignCompress"] = None,
                    **kwargs: Any) -> OptaxOptimizer:
     """The registry optimizer ``name`` over ``params`` (torch optimizers
     take their parameters at construction; the JAX ``make_optimizer``
     returns a transform that ``init`` gives them), with ``learning_rate``
     and any other hyperparameter in ``param_groups``, optionally behind
-    global-norm clipping."""
-    return _optimizer_class(name)(params, learning_rate=learning_rate,
-                                  clip_grad_norm=clip_grad_norm, **kwargs)
+    global-norm clipping and then ``grad_transform``."""
+    opt = _optimizer_class(name)(params, learning_rate=learning_rate,
+                                 clip_grad_norm=clip_grad_norm, **kwargs)
+    opt.grad_transform = grad_transform
+    return opt
 
 
 def _hyperparams(name: str) -> set:
@@ -465,3 +498,102 @@ class RegimeSchedule:
             for k in _HP_KEYS:
                 if k in cfg and k in group:
                     group[k] = cfg[k]
+
+
+class SignCompress:
+    """The 1-bit gradient exchange as a gradient transform (the JAX
+    ``sign_compress`` with its ``SignCompressState``), run by
+    ``OptaxOptimizer.step`` after clipping and before the updates.
+
+    ``transform(params, grads)`` lays the (local, per-worker) gradients
+    end to end in the JAX flat order (``order``, an
+    ``interop.JaxFlatOrder``), pads them to the plan, adds this worker's
+    residual (``sign_ef``), runs ``ops.comm_compress.exchange`` over
+    ``group`` (this is the data-parallel reduction: the step that hosts
+    it reduces no gradient itself), slices off the pad and returns the
+    combined update cut back into tensors shaped like ``params``.
+    ``mode="sign"`` is the stateless majority vote.
+
+    ``sign_ef`` keeps this worker's rows of the error feedback, row
+    ``rank`` of JAX's ``(world, padded)`` ``ef_residual`` and ``(world,
+    seg)`` ``ef_residual2``, zeroed where JAX zeroes them (the pad tail
+    of the first, the invalid tail of the last worker's segment of the
+    second); ``state_dict`` carries them.
+
+    Hierarchical form: with ``local_group`` the gradient is first
+    fp32-averaged over it (the in-host all-reduce) and the exchange runs
+    over ``group``, the inter-host group, with ``world`` the number of
+    hosts. ``world > 1`` needs a ``group``; ``world=1`` runs no
+    collective. Collectives add their bytes to ``wire``."""
+
+    def __init__(self, *, mode: str, order, world: int = 1, group=None,
+                 local_group=None, bucket_size: int = 1024, chunks: int = 4,
+                 wire: Optional[WireBytes] = None):
+        if mode not in ("sign", "sign_ef"):
+            raise ValueError(
+                f"unknown compression mode {mode!r} (have: sign, sign_ef)")
+        if group is None and world != 1:
+            raise ValueError("world > 1 requires a group to exchange over")
+        if local_group is not None and group is None:
+            raise ValueError("local_group (hierarchical exchange) requires "
+                             "group for the inter-host phase")
+        self.mode = mode
+        self.order = order
+        self.group = group
+        self.local_group = local_group
+        self.wire = WireBytes() if wire is None else wire
+        self.plan: CommPlan = make_plan(order.n_params, world=world,
+                                        mode=mode, bucket_size=bucket_size,
+                                        chunks=chunks)
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self.ef_residual: Optional[torch.Tensor] = None
+        self.ef_residual2: Optional[torch.Tensor] = None
+        if mode == "sign_ef":
+            device = order.entries[0][1].device
+            self.ef_residual = torch.zeros(self.plan.padded, device=device)
+            self.ef_residual2 = torch.zeros(self.plan.seg, device=device)
+
+    def __call__(self, params: List[torch.Tensor],
+                 grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        plan = self.plan
+        flat = self.order.flatten(dict(zip(params, grads)))
+        if self.local_group is not None:
+            flat = all_reduce_mean(flat, self.local_group, self.wire,
+                                   level="intra")
+        flat = pad_flat(flat, plan)
+        if self.mode == "sign_ef":
+            corrected = flat + self.ef_residual
+            e2 = self.ef_residual2
+        else:
+            corrected, e2 = flat, None
+        combined, sent, e2_new = exchange(corrected, plan, group=self.group,
+                                          e2=e2, wire=self.wire)
+        if self.mode == "sign_ef":
+            e1 = corrected - sent
+            e1[plan.n_params:] = 0.0
+            seg0 = self.rank * plan.seg
+            valid2 = seg0 + torch.arange(plan.seg, device=e1.device)
+            self.ef_residual = e1
+            self.ef_residual2 = torch.where(valid2 < plan.n_params, e2_new,
+                                            torch.zeros_like(e2_new))
+        update = self.order.unflatten(combined[:plan.n_params])
+        return [update[p] for p in params]
+
+    def state_dict(self) -> Dict[str, Any]:
+        if self.mode != "sign_ef":
+            return {}
+        return {"ef_residual": self.ef_residual.clone(),
+                "ef_residual2": self.ef_residual2.clone()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if self.mode != "sign_ef":
+            return
+        for k in ("ef_residual", "ef_residual2"):
+            cur = getattr(self, k)
+            if tuple(state[k].shape) != tuple(cur.shape):
+                raise ValueError(f"{k} of shape {tuple(state[k].shape)}, "
+                                 f"want {tuple(cur.shape)}")
+            setattr(self, k, state[k].to(cur.device, cur.dtype).clone())
+
+
+sign_compress = SignCompress   # the JAX package's name

@@ -36,6 +36,20 @@ Checkpoints are the port's own: ``torch.save`` of the model's and the
 optimizer's state dicts with the epoch, step and best accuracy, as
 ``latest.pt`` after every epoch and ``best.pt`` when the test accuracy
 improves, readable with ``torch.load(..., weights_only=True)``.
+
+Data parallelism (``data_parallel``, the JAX ``_setup_grad_compress``
+and ``_setup_data_parallel``): the trainer runs in every rank of a
+``torch.distributed`` process group (``parallel.spawn``, ``cli train
+--dp``), each rank on its rows of the same global batch. Uncompressed,
+it is the JAX GSPMD step (global-batch BatchNorm, DDP); with
+``grad_compress`` the optimizer carries the 1-bit exchange
+(``train.optim.SignCompress``), flat or, with ``dp_hosts``, after an
+fp32 in-host mean. Rank 0 logs and writes checkpoints; the error
+feedback rows of every rank are gathered into them in JAX's ``(world,
+padded)`` / ``(world, seg)`` layout (``(hosts, ...)`` when
+hierarchical) and handed back by ``restore`` at the same world.
+``evaluate`` runs on rank 0 and its result is broadcast. Each rank's
+dropout generator is seeded from ``(seed + 1, rank)``.
 """
 
 from __future__ import annotations
@@ -49,12 +63,27 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import batch_iterator
 from ..infer import resolve_device
 from ..models import get_model, latent_clamp_mask
+from ..ops.comm_compress import (
+    WireBytes,
+    all_gather,
+    all_reduce_sum,
+    broadcast,
+    make_hier_plan,
+    make_plan,
+    tree_size,
+)
 from ..ops.losses import Loss, cross_entropy_loss, make_loss
-from .optim import RegimeSchedule, make_optimizer, regime_hp_kwargs
+from .optim import (
+    RegimeSchedule,
+    SignCompress,
+    make_optimizer,
+    regime_hp_kwargs,
+)
 
 log = logging.getLogger(__name__)
 
@@ -152,16 +181,44 @@ class TrainConfig:
                                    # (None: "bf16")
     checkpoint_dir: Optional[str] = None
     device: Optional[str] = None   # None: "cuda" (raises without a card)
+    data_parallel: Optional[object] = None  # None | "auto" | int ranks
+    dp_mode: str = "gspmd"         # "gspmd" (replicated state); "fsdp"
+                                   # is not ported
+    grad_compress: str = "none"    # 1-bit gradient exchange: "sign"
+                                   # (majority-vote signSGD) | "sign_ef"
+                                   # (error feedback, residuals in the
+                                   # optimizer state)
+    compress_bucket_size: int = 1024  # elements per fp32 scale bucket
+                                   # (multiple of 32)
+    compress_chunks: int = 4       # groups of buckets; they only split
+                                   # the (blocking) collective calls
+    dp_hosts: Optional[int] = None  # >1: two-level exchange, the world
+                                   # as (hosts x local): fp32 mean in a
+                                   # host, 1-bit across hosts. Requires
+                                   # grad_compress != none
 
 
 class Trainer:
-    """One model, one optimizer, one device."""
+    """One model and one optimizer on one device; with
+    ``data_parallel``, one rank of the process group."""
 
     def __init__(self, config: TrainConfig):
         self.config = config
+        if config.dp_mode not in ("gspmd", "fsdp"):
+            raise ValueError(f"unknown dp_mode {config.dp_mode!r} "
+                             "(have: gspmd, fsdp)")
+        if config.dp_mode == "fsdp":
+            raise NotImplementedError(
+                "dp_mode='fsdp' is not ported yet (ROADMAP.md queue 1 "
+                "item 3: parallel/fsdp.py, sign_compress_fsdp)")
         self.device = resolve_device(config.device)
+        self.world, self.rank = self._resolve_world()
         mk = dict(config.model_kwargs)
         mk.setdefault("backend", config.backend or "bf16")
+        if self.world > 1:
+            from ..parallel import rank_seed
+
+            mk.setdefault("rng_seed", rank_seed(config.seed + 1, self.rank))
         mk.setdefault("rng_seed", config.seed + 1)
         self.model = get_model(
             config.model, generator=torch.Generator().manual_seed(config.seed),
@@ -169,6 +226,9 @@ class Trainer:
         ).to(self.device)
         self.clamp_mask = latent_clamp_mask(self.model)
         self.regime = RegimeSchedule(config.regime)
+        self.wire = WireBytes()   # bytes this rank's collectives moved
+        self._setup_grad_compress()
+        self._setup_data_parallel()
         self.optimizer_name = config.optimizer
         self.optimizer = self._build_tx(config.optimizer,
                                         config.learning_rate)
@@ -176,18 +236,159 @@ class Trainer:
             config.loss, num_classes=self.model.num_classes,
             label_smoothing=config.label_smoothing,
         )
-        self.train_step = make_step_body(self.clamp_mask,
-                                         loss_fn=self._loss_fn)
+        self.train_step = self._make_train_step()
         self.eval_step = make_eval_step(self._loss_fn)
         self.step = 0
         self.epoch = 0
         self.best_acc = 0.0
         self.loss_history: List[float] = []  # every synced (logged) loss
 
+    def _resolve_world(self):
+        """(world, rank): the process group's when ``data_parallel`` is
+        set in a rank of one; 1 rank otherwise."""
+        dp = self.config.data_parallel
+        if not dp:
+            return 1, 0
+        if dist.is_available() and dist.is_initialized():
+            world = dist.get_world_size()
+            if dp != "auto" and int(dp) != world:
+                raise ValueError(f"data_parallel={dp}, but the process "
+                                 f"group holds {world} ranks")
+            return world, dist.get_rank()
+        n = ((torch.cuda.device_count() if self.device.type == "cuda" else 1)
+             if dp == "auto" else int(dp))
+        if n > 1:
+            raise ValueError(
+                f"data_parallel={dp} needs {n} ranks: build the trainer in "
+                "every rank of parallel.spawn (cli train --dp does)")
+        return 1, 0
+
+    def _setup_grad_compress(self) -> None:
+        """The 1-bit exchange's plan and groups (JAX
+        ``_setup_grad_compress``); the exchange itself lives in the
+        optimizer (``_build_tx``)."""
+        cfg = self.config
+        self.comm_plan = None
+        self.hier_plan = None
+        self._compress_group = None
+        self._local_group = None
+        self._ef_row = 0      # this rank's row of the checkpointed EF
+        if cfg.grad_compress == "none":
+            if cfg.dp_hosts:
+                raise ValueError(
+                    "dp_hosts (hierarchical exchange) requires "
+                    "grad_compress='sign' or 'sign_ef': the two-level "
+                    "topology exists to put the 1-bit phase on the "
+                    "inter-host link")
+            return
+        if cfg.grad_compress not in ("sign", "sign_ef"):
+            raise ValueError(f"unknown grad_compress {cfg.grad_compress!r} "
+                             "(have: none, sign, sign_ef)")
+        world = self.world
+        n_params = tree_size(self.model.parameters())
+        if world <= 1:
+            log.warning(
+                "grad_compress=%r with data_parallel<=1: gradients are "
+                "sign-quantized locally but there is no exchange to "
+                "compress (pass --dp auto for the wire savings)",
+                cfg.grad_compress)
+        if cfg.dp_hosts:
+            from ..parallel import make_groups
+
+            hosts = int(cfg.dp_hosts)
+            if hosts < 1 or world % hosts:
+                raise ValueError(f"dp_hosts={hosts} must divide the DP "
+                                 f"world ({world} devices)")
+            if hosts == 1 and world > 1:
+                raise ValueError(
+                    "dp_hosts=1 with data_parallel>1 has no inter-host "
+                    "axis to compress over: drop dp_hosts for the flat "
+                    "exchange")
+            self.hier_plan = make_hier_plan(
+                n_params, hosts=hosts, local=world // hosts,
+                mode=cfg.grad_compress, bucket_size=cfg.compress_bucket_size,
+                chunks=cfg.compress_chunks)
+            self.comm_plan = self.hier_plan.inter
+            if world > 1:
+                groups = make_groups(hosts)
+                self._compress_group = groups.inter
+                self._local_group = groups.local
+                self._ef_row = groups.host
+            return
+        self.comm_plan = make_plan(
+            n_params, world=world, mode=cfg.grad_compress,
+            bucket_size=cfg.compress_bucket_size, chunks=cfg.compress_chunks)
+        if world > 1:
+            self._compress_group = dist.group.WORLD
+            self._ef_row = self.rank
+
+    def _setup_data_parallel(self) -> None:
+        """Check the global batch, make sure every rank starts from the
+        same state, and size the fp32 plan of an uncompressed run (JAX
+        ``_setup_data_parallel``)."""
+        cfg = self.config
+        if self.world <= 1:
+            return
+        from ..parallel import replicate
+
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                             f"by data_parallel={self.world}")
+        replicate(self.model)
+        if cfg.grad_compress == "none":
+            self.comm_plan = make_plan(
+                tree_size(self.model.parameters()), world=self.world,
+                mode="fp32", bucket_size=cfg.compress_bucket_size)
+        if self.rank == 0:
+            log.info("data-parallel (%s%s) over %d ranks", cfg.dp_mode,
+                     f", grad_compress={cfg.grad_compress}"
+                     if cfg.grad_compress != "none" else "", self.world)
+
+    def _make_train_step(self) -> Callable:
+        if self.world <= 1:
+            return make_step_body(self.clamp_mask, loss_fn=self._loss_fn)
+        from ..parallel import (
+            make_compressed_dp_train_step,
+            make_compressed_hier_train_step,
+            make_dp_train_step,
+        )
+
+        if self.config.grad_compress == "none":
+            return make_dp_train_step(self.clamp_mask, self.model,
+                                      loss_fn=self._loss_fn, wire=self.wire)
+        if self.hier_plan is not None:
+            return make_compressed_hier_train_step(self.clamp_mask,
+                                                   loss_fn=self._loss_fn)
+        return make_compressed_dp_train_step(self.clamp_mask,
+                                             loss_fn=self._loss_fn)
+
     def _build_tx(self, name: str, learning_rate: float, **kwargs: Any):
+        """make_optimizer with this run's 1-bit exchange chained in: the
+        one constructor of ``__init__`` and of a regime's optimizer
+        switch, which so keeps the exchange (with fresh error feedback,
+        as fresh moments)."""
+        transform = None
+        if self.config.grad_compress != "none":
+            from ..interop import JaxFlatOrder
+
+            plan = self.comm_plan
+            transform = SignCompress(
+                mode=plan.mode, order=JaxFlatOrder(self.model),
+                world=plan.world, group=self._compress_group,
+                local_group=self._local_group,
+                bucket_size=plan.bucket_size, chunks=plan.chunks,
+                wire=self.wire)
         return make_optimizer(name, self.model.parameters(), learning_rate,
                               clip_grad_norm=self.config.clip_grad_norm,
-                              **kwargs)
+                              grad_transform=transform, **kwargs)
+
+    def comm_bytes(self, phase: Optional[str] = None,
+                   level: Optional[str] = None) -> int:
+        """Bytes this rank's gradient exchange put on the wire so far, as
+        its collectives measured them: ``phase`` "rs" or "ag" (None:
+        both); in a hierarchical run ``level`` "intra" (the in-host fp32
+        all-reduce) or "inter" (the 1-bit exchange; None: both)."""
+        return self.wire.bytes(phase=phase, level=level)
 
     def _lr_for_epoch(self, epoch: int) -> float:
         """Epoch learning rate: regime base -> optional linear warmup ->
@@ -240,6 +441,8 @@ class Trainer:
         cfg = self.config
         self._apply_epoch_regime(epoch)
         self.epoch = epoch
+        from ..parallel import shard_batch   # parallel imports this module
+
         every = max(cfg.log_interval, 1)
         losses, accs = [], []
         t_epoch = time.perf_counter()
@@ -248,6 +451,8 @@ class Trainer:
             data.train_images, data.train_labels, cfg.batch_size,
             epoch=epoch, seed=cfg.seed,
         ):
+            if self.world > 1:
+                images, labels = shard_batch(images), shard_batch(labels)
             x, y = self._to_device(images, labels)
             loss, acc = self.train_step(self.model, self.optimizer, x, y)
             seen += 1
@@ -257,8 +462,9 @@ class Trainer:
                 losses.append(loss_f)
                 accs.append(acc_f)
                 self.loss_history.append(loss_f)
-                log.info("epoch %d step %d loss %.4f acc %.2f%%", epoch,
-                         seen, loss_f, acc_f)
+                if self.rank == 0:
+                    log.info("epoch %d step %d loss %.4f acc %.2f%%", epoch,
+                             seen, loss_f, acc_f)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         epoch_time = time.perf_counter() - t_epoch
@@ -273,7 +479,21 @@ class Trainer:
     def evaluate(self, data,
                  batch_size: Optional[int] = None) -> Dict[str, float]:
         """``test_loss``, ``test_acc`` and ``test_acc_top5`` (percent) over
-        ``data.test_images``, every row counted once; one host sync."""
+        ``data.test_images``, every row counted once; one host sync. In
+        a data-parallel run rank 0 evaluates and broadcasts the result."""
+        if self.world <= 1:
+            return self._evaluate(data, batch_size)
+        keys = ("test_loss", "test_acc", "test_acc_top5")
+        vals = torch.zeros(len(keys), dtype=torch.float64, device=self.device)
+        if self.rank == 0:
+            res = self._evaluate(data, batch_size)
+            vals = torch.tensor([res[k] for k in keys], dtype=torch.float64,
+                                device=self.device)
+        vals = broadcast(vals).tolist()
+        return dict(zip(keys, vals))
+
+    def _evaluate(self, data,
+                  batch_size: Optional[int] = None) -> Dict[str, float]:
         bs = batch_size or self.config.batch_size
         totals: Dict[str, torch.Tensor] = {}
         for images, labels in batch_iterator(
@@ -311,19 +531,37 @@ class Trainer:
             if self.config.checkpoint_dir:
                 self.save_checkpoint(self.config.checkpoint_dir,
                                      is_best=is_best)
-            log.info("epoch %d done: %s", epoch,
-                     {k: round(v, 4) for k, v in row.items() if k != "epoch"})
+            if self.rank == 0:
+                log.info("epoch %d done: %s", epoch,
+                         {k: round(v, 4) for k, v in row.items()
+                          if k != "epoch"})
         return history
+
+    def _optimizer_state(self) -> Dict[str, Any]:
+        """The optimizer's state dict with the error feedback of every
+        rank as JAX lays it out, one row per worker (per host when
+        hierarchical); collective in a data-parallel run."""
+        sd = self.optimizer.state_dict()
+        rows = sd.get("grad_transform")
+        if rows:
+            if self.world > 1:
+                local = self.hier_plan.local if self.hier_plan else 1
+                rows = {k: all_gather(v, dist.group.WORLD)[::local]
+                        for k, v in rows.items()}
+            else:
+                rows = {k: v[None] for k, v in rows.items()}
+            sd["grad_transform"] = rows
+        return sd
 
     def save_checkpoint(self, ckpt_dir: str, *, is_best: bool = False) -> str:
         """Write ``latest.pt`` (and ``best.pt`` when ``is_best``) under
-        ``ckpt_dir``; returns the latest path."""
-        os.makedirs(ckpt_dir, exist_ok=True)
+        ``ckpt_dir``; returns the latest path. In a data-parallel run
+        every rank calls it and rank 0 writes."""
         payload = {
             "model": self.config.model,
             "state_dict": self.model.state_dict(),
             "optimizer_name": self.optimizer_name,
-            "optimizer": self.optimizer.state_dict(),
+            "optimizer": self._optimizer_state(),
             "epoch": self.epoch,
             "step": self.step,
             "best_acc": self.best_acc,
@@ -331,10 +569,15 @@ class Trainer:
         paths = [os.path.join(ckpt_dir, LATEST)]
         if is_best:
             paths.append(os.path.join(ckpt_dir, BEST))
-        for path in paths:
-            tmp = path + ".tmp"
-            torch.save(payload, tmp)
-            os.replace(tmp, path)
+        if self.rank == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            for path in paths:
+                tmp = path + ".tmp"
+                torch.save(payload, tmp)
+                os.replace(tmp, path)
+        if self.world > 1:   # no rank reads before rank 0 has written
+            all_reduce_sum(torch.zeros(1, device=self.device),
+                           dist.group.WORLD)
         return paths[0]
 
     def restore(self, ckpt_dir: str, *, best: bool = False) -> Dict[str, Any]:
@@ -344,7 +587,18 @@ class Trainer:
                                   model=self.config.model)
         self.model.load_state_dict(payload["state_dict"])
         if payload["optimizer_name"] == self.optimizer_name:
-            self.optimizer.load_state_dict(payload["optimizer"])
+            opt = dict(payload["optimizer"])
+            rows = opt.get("grad_transform")
+            if rows:
+                world = self.comm_plan.world
+                got = {tuple(v.shape)[0] for v in rows.values()}
+                if got != {world}:
+                    raise ValueError(
+                        f"the checkpoint's error feedback holds {got} rows, "
+                        f"this run exchanges over {world} workers")
+                opt["grad_transform"] = {k: v[self._ef_row]
+                                         for k, v in rows.items()}
+            self.optimizer.load_state_dict(opt)
         self.epoch, self.step = payload["epoch"], payload["step"]
         self.best_acc = payload["best_acc"]
         return payload

@@ -161,3 +161,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build()
+
+
+def test_the_data_parallel_modules_are_scanned():
+    """The data-parallel modules are among the files held to no JAX
+    import, and the torch.distributed ones among those imported."""
+    names = {str(p.relative_to(PORT)) for p in _sources() if PORT in p.parents}
+    assert {"parallel/__init__.py", "parallel/distributed.py",
+            "parallel/data_parallel.py", "ops/comm_compress.py"} <= names

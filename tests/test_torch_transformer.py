@@ -145,8 +145,28 @@ def test_dropout_is_inactive_in_eval_and_live_in_train():
     with torch.no_grad():
         torch.testing.assert_close(a(toks), b(toks), rtol=0, atol=0)
         a.train()
-        torch.manual_seed(0)
         assert not torch.equal(a(toks), b(toks))
+
+
+def test_dropout_draws_from_the_models_seeded_generator():
+    """Two LMs built with one ``rng_seed`` drop the same units in train
+    mode, another seed drops others, and the draws leave torch's global
+    RNG as they found it (flax's ``nn.Dropout`` on an explicit key)."""
+    toks = torch.from_numpy(tokens(4, 12)[None]).long()
+
+    def lm(seed):
+        m = BinarizedLM(**TINY, dropout=0.5, rng_seed=seed,
+                        generator=torch.Generator().manual_seed(0))
+        return m.train()
+
+    a, b, c = lm(5), lm(5), lm(6)
+    before = torch.get_rng_state()
+    with torch.no_grad():
+        ya, yb, yc = a(toks), b(toks), c(toks)
+        assert torch.equal(ya, yb)
+        assert not torch.equal(ya, yc)
+        assert not torch.equal(a(toks), ya)     # the generator advanced
+    assert torch.equal(torch.get_rng_state(), before)
 
 
 def test_too_long_a_sequence_raises():

@@ -1,0 +1,256 @@
+"""The rank side of the port's data-parallel parity tests.
+
+``tests/test_torch_comm_compress.py`` and ``tests/test_torch_data_parallel.py``
+start gloo ranks on the CPU with ``parallel.spawn`` and run the functions
+here in each; the functions import only torch and the port (never JAX),
+take their inputs as numpy arrays and return numpy arrays, which the
+tests hold against the JAX package in the parent process.
+"""
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from distributed_mnist_bnns_tpu_torch.interop import JaxFlatOrder
+from distributed_mnist_bnns_tpu_torch.models.mlp import BnnMLP
+from distributed_mnist_bnns_tpu_torch.ops import comm_compress as cc
+from distributed_mnist_bnns_tpu_torch.parallel import make_groups
+from distributed_mnist_bnns_tpu_torch.train import SignCompress
+
+#: The small MLP of the transform cases (flax leaves of several sizes).
+HIDDEN = (64, 32, 16)
+
+
+def _np(t):
+    return None if t is None else t.detach().cpu().numpy().copy()
+
+
+def _wire(w):
+    return {f"{lv}/{ph}": n for (lv, ph), n in sorted(w.items())}
+
+
+def _plan(case):
+    return cc.make_plan(case["n"], world=case["world"], mode=case["mode"],
+                        bucket_size=case["bucket"], chunks=case["chunks"])
+
+
+def _exchange_case(case, rank):
+    plan = _plan(case)
+    wire = cc.WireBytes()
+    x = torch.from_numpy(case["x"][rank])
+    kind = case["kind"]
+    if kind == "exchange":
+        e2 = case.get("e2")
+        e2 = None if e2 is None else torch.from_numpy(e2[rank])
+        out = cc.exchange(x, plan, group=dist.group.WORLD, e2=e2, wire=wire)
+    elif kind == "rs":
+        out = cc.reduce_scatter_compressed(x, plan, group=dist.group.WORLD,
+                                           wire=wire)
+    elif kind == "ag":
+        out = cc.all_gather_compressed(x, plan, group=dist.group.WORLD,
+                                       wire=wire)
+    else:
+        raise ValueError(kind)
+    return {"out": [_np(t) for t in out], "wire": _wire(wire)}
+
+
+def _hier_case(case, rank):
+    hosts, local = case["hosts"], case["local"]
+    hier = cc.make_hier_plan(case["n"], hosts=hosts, local=local,
+                             mode=case["mode"], bucket_size=case["bucket"],
+                             chunks=case["chunks"])
+    groups = make_groups(hosts)
+    wire = cc.WireBytes()
+    e2 = case.get("e2")
+    e2 = None if e2 is None else torch.from_numpy(e2[groups.host])
+    out = cc.hier_exchange(torch.from_numpy(case["x"][rank]), hier,
+                           host_group=groups.inter,
+                           local_group=groups.local, e2=e2, wire=wire)
+    return {"out": [_np(t) for t in out], "wire": _wire(wire)}
+
+
+def transform_model() -> BnnMLP:
+    return BnnMLP(hidden=HIDDEN, dropout_rate=0.0, backend="xla",
+                  generator=torch.Generator().manual_seed(0))
+
+
+def _transform_case(case, rank):
+    """``SignCompress`` over the steps of ``case["grads"]`` (per step,
+    {parameter name: (world, *shape) port-layout gradients}); per step
+    the update of every parameter and this rank's error-feedback rows."""
+    model = transform_model()
+    hosts = case.get("hosts")
+    group, local_group, world = dist.group.WORLD, None, case["world"]
+    if hosts:
+        groups = make_groups(hosts)
+        group, local_group, world = groups.inter, groups.local, hosts
+    wire = cc.WireBytes()
+    tx = SignCompress(mode=case["mode"], order=JaxFlatOrder(model),
+                      world=world, group=group, local_group=local_group,
+                      bucket_size=case["bucket"], chunks=case["chunks"],
+                      wire=wire)
+    named = dict(model.named_parameters())
+    params = list(named.values())
+    steps = []
+    for grads in case["grads"]:
+        g = [torch.from_numpy(grads[name][rank]) for name in named]
+        upd = tx(params, g)
+        steps.append({
+            "update": {name: _np(u) for name, u in zip(named, upd)},
+            "state": {k: _np(v) for k, v in tx.state_dict().items()},
+        })
+    return {"steps": steps, "wire": _wire(wire)}
+
+
+def comm_rank(rank, world, device, cases):
+    """Every case of ``tests/test_torch_comm_compress.py`` in one rank."""
+    torch.set_num_threads(1)
+    out = []
+    for case in cases:
+        if case["kind"] == "hier":
+            out.append(_hier_case(case, rank))
+        elif case["kind"] == "transform":
+            out.append(_transform_case(case, rank))
+        else:
+            out.append(_exchange_case(case, rank))
+    return out
+
+
+# -- trainer-level runs ------------------------------------------------------
+
+
+def _state(model):
+    return {k: _np(v) for k, v in model.state_dict().items()
+            if "num_batches" not in k}
+
+
+def _load_jax(model, variables):
+    from distributed_mnist_bnns_tpu_torch.interop import params_from_jax
+
+    params_from_jax(variables, model=model)
+
+
+def _trainer(cfg_kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(model="bnn-mlp-small", backend="xla", seed=0, device="cpu",
+               log_interval=1)
+    cfg.update(cfg_kw)
+    return Trainer(TrainConfig(**cfg))
+
+
+def _run_steps(step, model, optimizer, xs, ys):
+    """Each global batch's rows for this rank through ``step``: per step
+    (loss, accuracy, state after it) and the first step's gradients."""
+    from distributed_mnist_bnns_tpu_torch.parallel import shard_batch
+
+    out, first_grads = [], None
+    for s in range(len(xs)):
+        x = torch.from_numpy(shard_batch(xs[s]))
+        y = torch.from_numpy(shard_batch(ys[s]).astype(np.int64))
+        loss, acc = step(model, optimizer, x, y)
+        out.append((float(loss), float(acc), _state(model)))
+        if s == 0:
+            first_grads = {k: _np(p.grad) for k, p in
+                           model.named_parameters() if p.grad is not None}
+    return out, first_grads
+
+
+def steps_rank(rank, world, device, jobs, xs, ys):
+    """Each job ``(kind, trainer config, JAX variables)``: ``len(xs)``
+    steps of one data-parallel step from the JAX variables. ``kind``
+    "trainer" runs the step the Trainer builds for the config;
+    "shardmap" ``make_shardmap_dp_train_step``."""
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        make_shardmap_dp_train_step,
+    )
+
+    torch.set_num_threads(1)
+    out = []
+    for kind, cfg_kw, variables in jobs:
+        t = _trainer(cfg_kw)
+        _load_jax(t.model, variables)
+        step = t.train_step
+        if kind == "shardmap":
+            step = make_shardmap_dp_train_step(
+                t.clamp_mask, loss_fn=t._loss_fn, wire=t.wire)
+        runs, first_grads = _run_steps(step, t.model, t.optimizer, xs, ys)
+        out.append({"runs": runs, "first_grads": first_grads,
+                    "wire": _wire(t.wire)})
+    return out
+
+
+def resume_run(rank, world, device, cfg_kw, ckpt_dir, xs, ys, split):
+    """``len(xs)`` steps uninterrupted, against ``split`` steps, a
+    checkpoint, a fresh trainer restored from it and the rest: both
+    final states, optimizer moments and error feedback included."""
+    torch.set_num_threads(1)
+
+    def finish(t):
+        ef = t._optimizer_state().get("grad_transform", {})
+        moments = {f"{i}/{k}": _np(v) for i, st in
+                   t.optimizer.state_dict()["state"].items()
+                   for k, v in st.items() if torch.is_tensor(v)}
+        return {"state": _state(t.model), "step": t.step,
+                "ef": {k: _np(v) for k, v in ef.items()}, "moments": moments}
+
+    a = _trainer(cfg_kw)
+    _run_steps(a.train_step, a.model, a.optimizer, xs, ys)
+    b = _trainer(cfg_kw)
+    _run_steps(b.train_step, b.model, b.optimizer, xs[:split], ys[:split])
+    b.step = split
+    b.save_checkpoint(ckpt_dir)
+    c = _trainer(cfg_kw)
+    c.restore(ckpt_dir)
+    _run_steps(c.train_step, c.model, c.optimizer, xs[split:], ys[split:])
+    c.step = len(xs)
+    a.step = len(xs)
+    return {"uninterrupted": finish(a), "resumed": finish(c),
+            "files": sorted(os.listdir(ckpt_dir))}
+
+
+def fit_run(rank, world, device, cfg_kw, sizes):
+    """``Trainer.fit`` on the synthetic split: the history, the final
+    state, the measured bytes and the plan's."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    torch.set_num_threads(1)
+    t = _trainer(cfg_kw)
+    data = load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes, seed=0)
+    before = t.evaluate(data)
+    history = t.fit(data)
+    plan = t.comm_plan
+    ef = t._optimizer_state().get("grad_transform", {})
+    return {"before": before, "history": history, "state": _state(t.model),
+            "steps": t.step, "loss_history": t.loss_history,
+            "wire": _wire(t.wire),
+            "plan": None if plan is None else plan.wire_bytes_per_step,
+            "hier": None if t.hier_plan is None else (
+                t.hier_plan.intra_bytes_per_step,
+                t.hier_plan.inter_bytes_per_step),
+            "ef_rows": {k: tuple(v.shape) for k, v in ef.items()},
+            "optimizer": type(t.optimizer).__name__}
+
+
+def raises_run(rank, world, device, cases):
+    """Each config of ``cases`` built into a Trainer in this rank: the
+    exception's type name and message (or None)."""
+    torch.set_num_threads(1)
+    out = []
+    for cfg_kw in cases:
+        try:
+            _trainer(cfg_kw)
+            out.append(None)
+        except (ValueError, NotImplementedError) as e:
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def jobs_rank(rank, world, device, jobs):
+    """Each named job ``(name, function name, arguments)`` of this module
+    in turn; {name: result}."""
+    torch.set_num_threads(1)
+    return {name: globals()[fn](rank, world, device, *args)
+            for name, fn, args in jobs}
