@@ -135,7 +135,39 @@ Phases, each fatal on failure:
      uncompressed; ``HierPlan``'s intra and inter bytes in (d)). Each
      run prints its step time on the host clock, examples per second,
      the exchange's time per step from CUDA events around the
-     optimizer's transform and the wire bytes.
+     optimizer's transform and the wire bytes;
+ 10. the conv families: (a) K1 against its plain version, ``torch.equal``,
+     on ±1 x and on patches with zero taps, two runs equal, at the conv
+     path's shapes (``CNN_K1_SHAPES``: conv2's patch GEMM (B*196, 576,
+     128) and the dense layer (B, 6272, 1024; 196 words, packed to 256)
+     at batch 32 and 64), each timed in a CUDA graph beside its plain
+     version, bf16 ``torch.matmul`` and its bound; (b) ``bnn-cnn`` at
+     its defaults (widths 64, 128, hidden 1024) trained through
+     ``train.Trainer`` on bf16 for the 200 steps of a synthetic
+     12,800/2,048 split (loss falls, test accuracy above 55 and up 20
+     points), two bf16 runs of 30 steps bitwise equal, 20 steps each on
+     xla, xnor and pallas_xnor from one seed (K1 exactly twice a
+     pallas_xnor step, the counters zeroed just before and read just
+     after; pallas_xnor and xnor, one lowering, bitwise equal; the
+     trained model's logits on pallas_xnor equal to those on xla), and
+     each step's device time, kernels and K1 time from ``torch.profiler``;
+     (c) the trained model through ``cli export --checkpoint-dir``,
+     ``load_packed`` on the card against the live model (first conv
+     fp32; argmax equal, atol 1e-4; K1 exactly twice a batch), served
+     over HTTP at batch 32 (K1 twice per predictor batch, the warm-up
+     included; every answer equal to the predictor), with the
+     predictor's host and device time a batch; (d) ``convnet`` and
+     ``deep-cnn``, 200 steps each at fp32 and at bf16 (the loss falls),
+     step and device times, then ``scripts/torch_conv_fp32_check.py`` in
+     a process of its own: ``cli train --model convnet``, which sets no
+     TF32 flag, must give conv outputs within fp32 rounding of a float64
+     conv; (e) 20 steps of ``convnet`` uncompressed and of ``bnn-cnn``
+     with ``sign_ef`` on pallas_xnor over 2 gloo ranks sharing card 0
+     (and ``convnet`` over NCCL, one rank a card, where there are two or
+     more cards): ranks bitwise equal, wire bytes a step equal to the
+     plan's, K1 twice a step in each rank. K1's launches on these paths
+     enter the kernels line as ``launches_conv_path``, and its conv-shape
+     rows as ``conv_shapes``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -230,6 +262,20 @@ DP_EPOCH_STEPS = 300
 DP_SIGN_STEPS, DP_SIGN_LR = 200, 0.001   # (b) majority vote (JAX's lr)
 DP_SHORT_STEPS = 20         # (c) K1 under DP, (d) two-level
 DP_HOSTS = 2                # (d) 2 hosts x 2 local ranks
+# Conv families (phase 10): bnn-cnn at its defaults (widths 64, 128,
+# hidden 1024); K1 at its serving (batch 32) and training (batch 64)
+# shapes: conv2's patch GEMM (B*196, 9*64, 128), the dense layer (B,
+# 49*128, 1024).
+CNN_BATCH = 64
+CNN_K1_SHAPES = tuple((b * m, k, n) for b in (MAIN_M, CNN_BATCH)
+                      for m, k, n in ((196, 576, 128), (1, 6272, 1024)))
+CNN_TRAIN = dict(model="bnn-cnn", batch_size=CNN_BATCH, optimizer="adam",
+                 learning_rate=0.01, seed=0)
+CNN_SYNTH = (12800, 2048)   # 200 steps of 64; a test split of 2048
+CNN_DET_STEPS = 30          # two bf16 runs from one seed
+CNN_BACKEND_STEPS = 20      # xla, xnor and pallas_xnor
+CNN_FP_STEPS = 200          # convnet and deep-cnn at fp32 and bf16
+CNN_DP_STEPS = 20           # 2 gloo ranks sharing card 0
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
@@ -1728,14 +1774,16 @@ def _dp_data(tmp: str, steps=None):
                                                    MLP_TRAIN["batch_size"])
 
 
-def _dp_run(device, data, evaluate: bool = False, **cfg) -> dict:
-    """One data-parallel run of ``MLP_TRAIN`` (dropout 0) in this rank:
-    one epoch over ``data``, the launch counters zeroed just before and
-    read just after it; times, bytes and a digest of the end state."""
+def _dp_run(device, data, evaluate: bool = False, base=MLP_TRAIN,
+            **cfg) -> dict:
+    """One data-parallel run of ``base`` (default ``MLP_TRAIN``, dropout
+    0) in this rank: one epoch over ``data``, the launch counters zeroed
+    just before and read just after it; times, bytes and a digest of the
+    end state."""
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
     from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
 
-    kw = dict(MLP_TRAIN, epochs=1, model_kwargs={"dropout_rate": 0.0},
+    kw = dict(base, epochs=1, model_kwargs={"dropout_rate": 0.0},
               device=str(device), data_parallel="auto")
     kw.update(cfg)
     t = Trainer(TrainConfig(**kw))
@@ -1756,7 +1804,7 @@ def _dp_run(device, data, evaluate: bool = False, **cfg) -> dict:
         "steps": steps, "losses": t.loss_history, "digest": _digest(t.model),
         "train_loss": row["train_loss"],
         "step_ms": row["batch_time_s"] * 1e3,
-        "examples_per_s": MLP_TRAIN["batch_size"] / row["batch_time_s"],
+        "examples_per_s": base["batch_size"] / row["batch_time_s"],
         "exchange_ms": None if timer is None else timer.ms_per_call(),
         "wire_bytes_per_step": t.comm_bytes() / steps,
         "plan_bytes_per_step": (0 if plan is None
@@ -1940,6 +1988,388 @@ def dp_train_phase(device: torch.device, smi: str):
     return counts, rows
 
 
+# -- phase 10: the conv families ---------------------------------------------
+
+
+def _k1_conv_rows(device, gen):
+    """(a) K1 at the conv path's shapes (``CNN_K1_SHAPES``) against its
+    plain version, ``torch.equal``, on ±1 x and on patches holding zero
+    taps (packed as -1, as the padding correction assumes), two runs
+    equal; then CUDA-graph times of the kernel, its plain version and
+    bf16 ``torch.matmul``, with the bound. Returns (rows, max |diff|)."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+
+    rows, max_err = [], 0.0
+    for m, k, n in CNN_K1_SHAPES:
+        w = _pm1(gen, k, n).to(device)
+        wp, _, _ = xg.prepack_weights(w)
+        x = _pm1(gen, m, k).to(device)
+        taps = x * (torch.rand(m, k, generator=gen) > 0.1).to(device)
+        for what, xx in (("±1 x", x), ("zero taps", taps)):
+            got = xg.xnor_matmul_packed(xx, wp, k, n)
+            again = xg.xnor_matmul_packed(xx, wp, k, n)
+            want = xg.xnor_gemm_plain(pack_bits(xx), wp, k)[:, :n]
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(
+                    f"K1 at (M={m}, K={k}, N={n}) on {what}: max |diff| "
+                    f"{err} from its plain version, or two runs differ")
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        row = {"kernel": "xnor", "path": "conv", "m": m, "k": k, "n": n,
+               "words": -(-k // 32), "packed_words": wp.shape[0],
+               "tiling": list(_kernels.xnor_tiling(m, k, n)),
+               "kernel_ms": _graph_ms(
+                   lambda: _kernels.xnor_gemm("xnor", x, wp, k, n)),
+               "plain_ms": _graph_ms(
+                   lambda: xg.xnor_gemm_plain(pack_bits(x), wp, k),
+                   iters=5, reps=5),
+               "library_ms": _graph_ms(lambda: torch.matmul(xb, wb))}
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            "xnor", m, k, n)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows, max_err
+
+
+def _cnn_trainer(device, **kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(CNN_TRAIN, epochs=1, device=str(device))
+    cfg.update(kw)
+    return Trainer(TrainConfig(**cfg))
+
+
+def _step_profile(trainer, xb, yb):
+    """Device time, kernels and K1's time a step (``torch.profiler``)."""
+    ms, top, n = _profile_device_ms(
+        lambda: trainer.train_step(trainer.model, trainer.optimizer, xb, yb),
+        calls=10, top=1000)
+    return {"step_device_ms": ms, "step_kernels": n,
+            "step_k1_ms": sum(t[1] for t in top if "xnor_gemm" in t[0]),
+            "step_top_device_ms": top[:6]}
+
+
+def _cnn_train(device, data, smi):
+    """(b) bnn-cnn training: an epoch of ``CNN_SYNTH`` on bf16 (the loss
+    falls, accuracy rises); two bf16 runs of ``CNN_DET_STEPS`` bitwise
+    equal; ``CNN_BACKEND_STEPS`` on xla, xnor and pallas_xnor from one
+    seed (K1 exactly twice a pallas_xnor step; pallas_xnor and xnor share
+    the im2col lowering and end bitwise equal; the trained model's logits
+    on pallas_xnor equal those on xla). Returns (the trained bf16
+    trainer, K1's launches, rows)."""
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    bs = CNN_TRAIN["batch_size"]
+    tr = _cnn_trainer(device, log_interval=20)
+    before = tr.evaluate(data)
+    row = tr.fit(data)[-1]
+    losses = tr.loss_history
+    out = {"cnn_run": "bnn-cnn_bf16_epoch", "card": smi, **row,
+           "test_before": before, "logged_losses": losses}
+    print(json.dumps(out), flush=True)
+    if not (losses and all(np.isfinite(losses))
+            and row["train_loss"] < losses[0]
+            and row["test_acc"] > MLP_MIN_ACC
+            and row["test_acc"] >= before["test_acc"] + MLP_MIN_GAIN):
+        raise AssertionError(f"bnn-cnn did not learn: {out}")
+    rows = [out]
+    runs = []
+    for _ in range(2):
+        det = _cnn_trainer(device, log_interval=1)
+        det.train_epoch(_first_steps(data, CNN_DET_STEPS, bs), 0)
+        runs.append((det.loss_history, _state(det)))
+    same = runs[0][0] == runs[1][0] and _states_equal(runs[0][1], runs[1][1])
+    print(json.dumps({"cnn_train_runs_bitwise_equal": same,
+                      "loss_history": runs[0][0]}), flush=True)
+    if not same:
+        raise AssertionError("two bnn-cnn bf16 runs from seed 0 differ")
+    del runs
+    few = _first_steps(data, CNN_BACKEND_STEPS, bs)
+    xt = torch.from_numpy(data.test_images[:bs]).to(device)
+    xb = torch.from_numpy(data.train_images[:bs]).to(device)
+    yb = torch.from_numpy(data.train_labels[:bs].astype(np.int64)).to(device)
+    trainers, k1 = {}, None
+    for backend in ("xla", "xnor", "pallas_xnor"):
+        t = _cnn_trainer(device, log_interval=1, backend=backend)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t.train_epoch(few, 0)
+        torch.cuda.synchronize()
+        if backend == "pallas_xnor":
+            k1 = dict(_kernels.LAUNCHES)
+        trainers[backend] = t
+    want = 2 * CNN_BACKEND_STEPS
+    others = {n: c for n, c in k1.items() if n != "xnor" and c}
+    if k1["xnor"] != want or others:
+        raise AssertionError(f"bnn-cnn pallas_xnor: K1 {k1['xnor']} "
+                             f"launches, want {want}; others {others}")
+    px, xn = trainers["pallas_xnor"], trainers["xnor"]
+    if not (px.loss_history == xn.loss_history
+            and _states_equal(_state(px), _state(xn))):
+        raise AssertionError("bnn-cnn pallas_xnor and xnor runs differ")
+    twin = get_model("bnn-cnn", backend="xla").to(device)
+    twin.load_state_dict(px.model.state_dict())
+    with torch.no_grad():
+        logits_x = twin.eval()(xt)
+        logits_p = px.model.eval()(xt)
+    torch.cuda.synchronize()
+    xla_gap = max(abs(a - b) / abs(b) for a, b in zip(
+        trainers["xla"].loss_history, px.loss_history))
+    res = {"cnn_run": "bnn-cnn_backends", "card": smi,
+           "pallas_xnor_k1_launches": k1["xnor"],
+           "pallas_xnor_equals_xnor": True,
+           "trained_logits_pallas_xnor_equal_xla":
+               torch.equal(logits_x, logits_p),
+           "xla_vs_pallas_xnor_loss_max_rel": xla_gap}
+    if not res["trained_logits_pallas_xnor_equal_xla"]:
+        raise AssertionError("bnn-cnn logits on pallas_xnor differ from xla")
+    # profiled on throwaway trainers: ``tr`` goes on to be served as it
+    # converged, and ``det``'s state was taken above
+    for b, t in (("bf16", det), *trainers.items()):
+        t.model.train()
+        res[f"{b}_profile"] = _step_profile(t, xb, yb)
+    res["bf16_step_ms"] = row["batch_time_s"] * 1e3
+    res["bf16_examples_per_s"] = bs / row["batch_time_s"]
+    print(json.dumps(res), flush=True)
+    rows.append(res)
+    return tr, k1["xnor"], rows
+
+
+def _cnn_serve(device, tr, data, smi):
+    """(c) The trained bnn-cnn through ``cli export --checkpoint-dir``,
+    ``load_packed`` on the card against the live eval model (first conv
+    fp32, as the artifact's; argmax equal, atol 1e-4), then served over
+    HTTP at batch 32: K1 exactly twice a predictor batch. Returns (K1's
+    launches, row)."""
+    from distributed_mnist_bnns_tpu_torch import cli
+    from distributed_mnist_bnns_tpu_torch.infer import load_packed
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+        client,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        tr.save_checkpoint(ckpt)
+        path = os.path.join(tmp, "cnn.pt")
+        if cli.main(["--log-level", "WARNING", "export", "--model",
+                     "bnn-cnn", "--checkpoint-dir", ckpt, "--out",
+                     path]) != 0:
+            raise AssertionError("cli export --model bnn-cnn failed")
+        fn, info = load_packed(path, device=device)
+        x = torch.from_numpy(data.test_images[:MAIN_M]).to(device)
+        fn(x)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        frozen = fn(x.reshape(MAIN_M, -1))
+        torch.cuda.synchronize()
+        one = dict(_kernels.LAUNCHES)
+        if one["xnor"] != 2 or any(c for n, c in one.items() if n != "xnor"):
+            raise AssertionError(f"a bnn-cnn predictor batch launched {one}")
+        live = get_model("bnn-cnn", backend="xla").to(device)
+        live.load_state_dict(tr.model.state_dict())
+        with torch.no_grad():
+            want = live.eval()(x)
+        diff = (frozen - want).abs().max().item()
+        if not (torch.equal(frozen.argmax(-1), want.argmax(-1))
+                and diff <= 1e-4 and bool(torch.isfinite(frozen).all())):
+            raise AssertionError(f"frozen bnn-cnn vs live model: {diff}")
+
+        imgs = data.test_images[:MAIN_M]
+        _kernels.reset_launches()
+        srv = PackedInferenceServer(ServeConfig(
+            artifact=path, device=str(device), port=0, batch_size=MAIN_M,
+            default_deadline_ms=30000.0, stall_timeout_s=30.0))
+        host, port = srv.start()
+        base = f"http://{host}:{port}"
+        answers, lat = [], []
+        try:
+            for i, n_req in enumerate((1, MAIN_M, 5, MAIN_M)):
+                xs = np.roll(imgs, -3 * i, axis=0)[:n_req]
+                t0 = time.perf_counter()
+                code, body = client.predict(base, xs.tolist())
+                lat.append(time.perf_counter() - t0)
+                if code != 200:
+                    raise AssertionError(f"/predict: {code} {body[:200]!r}")
+                answers.append((xs, json.loads(body)))
+        finally:
+            srv.request_stop("smoke over")
+            stats = srv.drain_and_stop()
+        served = dict(_kernels.LAUNCHES)
+        batches = stats["batches_total"] + 1   # + the warm-up call
+        if served["xnor"] != 2 * batches:
+            raise AssertionError(f"served bnn-cnn: K1 {served['xnor']} "
+                                 f"launches for {batches} batches")
+        for xs, out in answers:
+            padded = np.zeros((MAIN_M, 28, 28, 1), np.float32)
+            padded[:len(xs)] = xs
+            ref = fn(padded)[:len(xs)].cpu().numpy()
+            if out["argmax"] != ref.argmax(-1).tolist() or not np.allclose(
+                    np.asarray(out["log_probs"], np.float32), ref,
+                    atol=1e-6, rtol=0):
+                raise AssertionError("/predict differs from the predictor")
+    ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, top, n_kernels = _profile_device_ms(lambda: fn(x))
+    row = {"cnn_run": "bnn-cnn_serve", "card": smi, "info": info,
+           "frozen_vs_live_max_abs": diff, "k1_per_batch": one["xnor"],
+           "served_batches": batches, "served_k1": served["xnor"],
+           "predict_ms_batch": statistics.median(ms),
+           "predict_device_ms_batch": dev_ms,
+           "predict_kernels_per_batch": n_kernels,
+           "predict_top_device_ms": top,
+           "request_ms_median": statistics.median(lat) * 1e3}
+    print(json.dumps(row), flush=True)
+    return one["xnor"] + served["xnor"], row
+
+
+def _fp_runs(device, data, smi):
+    """(d) convnet and deep-cnn, ``CNN_FP_STEPS`` steps at fp32 and at
+    bf16 (the loss falls), then the fresh-process check that an fp32
+    conv trained through ``cli train`` is fp32, not TF32."""
+    bs = CNN_TRAIN["batch_size"]
+    cut = _first_steps(data, CNN_FP_STEPS, bs)
+    xb = torch.from_numpy(data.train_images[:bs]).to(device)
+    yb = torch.from_numpy(data.train_labels[:bs].astype(np.int64)).to(device)
+    rows = []
+    for name in ("convnet", "deep-cnn"):
+        for precision in ("fp32", "bf16"):
+            t = _cnn_trainer(device, model=name, precision=precision,
+                             log_interval=20)
+            row = t.train_epoch(cut, 0)
+            losses = t.loss_history
+            r = {"cnn_run": f"{name}_{precision}", "card": smi,
+                 "steps": row["steps"], "first_loss": losses[0],
+                 "train_loss": row["train_loss"], "last_loss": losses[-1],
+                 "step_ms": row["batch_time_s"] * 1e3,
+                 "examples_per_s": bs / row["batch_time_s"],
+                 **_step_profile(t, xb, yb)}
+            print(json.dumps(r), flush=True)
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                    and row["train_loss"] < losses[0]):
+                raise AssertionError(f"{name} at {precision}: the loss did "
+                                     f"not fall: {losses}")
+            rows.append(r)
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(here, "scripts",
+                                      "torch_conv_fp32_check.py")],
+        cwd=here, capture_output=True, text=True, timeout=300)
+    line = json.loads(out.stdout.strip().splitlines()[-1]) \
+        if out.stdout.strip() else {}
+    print(json.dumps({"cnn_run": "fresh_process_fp32_conv", **line}),
+          flush=True)
+    if out.returncode != 0 or not line.get("ok"):
+        raise AssertionError(f"fresh-process convnet conv is not fp32: "
+                             f"{line} {out.stderr[-2000:]}")
+    rows.append(line)
+    return rows
+
+
+def _conv_dp_rank(rank: int, world: int, device, steps: int,
+                  nccl: bool) -> dict:
+    """(e) in one rank: ``steps`` steps of convnet uncompressed and, over
+    gloo, of bnn-cnn with ``sign_ef`` on pallas_xnor."""
+    with tempfile.TemporaryDirectory() as tmp:
+        from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+        data = _first_steps(load_mnist(os.path.join(tmp, "no-idx-files"),
+                                       synthetic_sizes=CNN_SYNTH, seed=0),
+                            steps, CNN_TRAIN["batch_size"])
+        runs = {"convnet": _dp_run(device, data, base=CNN_TRAIN,
+                                   model="convnet", model_kwargs={},
+                                   log_interval=1)}
+        if not nccl:
+            runs["bnn-cnn"] = _dp_run(device, data, base=CNN_TRAIN,
+                                      model_kwargs={}, log_interval=1,
+                                      grad_compress="sign_ef",
+                                      backend="pallas_xnor")
+        return runs
+
+
+def _conv_dp(device, smi):
+    """(e) Data parallel: 2 gloo ranks sharing card 0 (and one NCCL rank
+    a card where there are two or more): every rank bitwise equal, the
+    wire bytes a step the plan's, K1 twice a pallas_xnor step in each
+    rank. Returns (K1's launches, rows)."""
+    from distributed_mnist_bnns_tpu_torch.parallel import spawn
+
+    rows, k1 = [], 0
+    kinds = [("gloo", 2)]
+    if torch.cuda.device_count() > 1:
+        kinds.append(("nccl", torch.cuda.device_count()))
+    for backend, world in kinds:
+        t0 = time.perf_counter()
+        ranks = spawn(_conv_dp_rank, world, backend=backend, device="cuda",
+                      args=(CNN_DP_STEPS, backend == "nccl"))
+        wall = time.perf_counter() - t0
+        for name in ranks[0]:
+            runs = [r[name] for r in ranks]
+            _check_ranks(f"{backend} {name}", runs)
+            row = {"cnn_run": f"dp_{backend}_{name}", "world": world,
+                   "card": smi, "wall_s": wall,
+                   **{k: v for k, v in runs[0].items()
+                      if k not in ("losses", "digest")},
+                   "launches_by_rank": [r["launches"] for r in runs]}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            k1 += sum(r["launches"]["xnor"] for r in runs)
+            if name == "bnn-cnn" and any(
+                    r["launches"]["xnor"] != 2 * CNN_DP_STEPS for r in runs):
+                raise AssertionError(f"DP bnn-cnn: K1 launches by rank "
+                                     f"{row['launches_by_rank']}")
+    if len(kinds) == 1:
+        print(json.dumps({"cnn_run": "dp_nccl", "skipped":
+                          "one card: NCCL refuses two ranks on one card"}),
+              flush=True)
+    return k1, rows
+
+
+def conv_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 10, the conv families: (a) K1 at the conv shapes; (b)
+    bnn-cnn training; (c) bnn-cnn frozen and served; (d) convnet and
+    deep-cnn at fp32 and bf16, and the fresh-process fp32 check; (e)
+    data parallel. Returns (each kernel's launches on the conv path,
+    K1's conv-shape rows)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    t0 = time.perf_counter()
+    k1_rows, k1_err = _k1_conv_rows(device, gen)
+    log(f"K1 equal to its plain version at {len(k1_rows)} conv shapes")
+    with tempfile.TemporaryDirectory() as tmp:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=CNN_SYNTH, seed=0)
+    tr, k1_train, _ = _cnn_train(device, data, smi)
+    log(f"bnn-cnn trained; K1 {k1_train} launches on pallas_xnor")
+    k1_serve, _ = _cnn_serve(device, tr, data, smi)
+    log(f"bnn-cnn frozen and served; K1 {k1_serve} launches")
+    _fp_runs(device, data, smi)
+    log("convnet and deep-cnn train at fp32 and bf16; fresh-process "
+        "conv is fp32")
+    k1_dp, _ = _conv_dp(device, smi)
+    log(f"conv DP: ranks equal, bytes equal to the plans, K1 {k1_dp}")
+    counts = {name: 0 for name in KERNEL_ROWS}
+    counts["xnor"] = k1_train + k1_serve + k1_dp
+    for row in k1_rows:
+        row["max_abs_err"] = k1_err
+    print(json.dumps({"slice": "conv", "launches": counts,
+                      "phase_s": time.perf_counter() - t0}), flush=True)
+    return counts, k1_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2029,6 +2459,7 @@ def main() -> int:
                       "launches": mlp_train_counts, **mlp_train_timing}),
           flush=True)
     dp_counts, _ = dp_train_phase(device, smi)
+    conv_counts, conv_rows = conv_phase(device, gen, smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -2045,7 +2476,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": (mlp_counts[name] + lm_counts[name]
                          + train_counts[name] + mlp_train_counts[name]
-                         + dp_counts[name]),
+                         + dp_counts[name] + conv_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -2053,6 +2484,7 @@ def main() -> int:
             "launches_lm_train_path": train_counts[name],
             "launches_mlp_train_path": mlp_train_counts[name],
             "launches_dp_path": dp_counts[name],
+            "launches_conv_path": conv_counts[name],
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2060,6 +2492,8 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "shape": shape,
         }
+        if name == "xnor":   # K1 at the conv path's shapes (phase 10)
+            entry["conv_shapes"] = conv_rows
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],
                           "library_ms": entry["library_ms"],

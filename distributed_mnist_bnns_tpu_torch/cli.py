@@ -5,6 +5,12 @@
       --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli train --dp auto \
       --grad-compress sign_ef
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model convnet \
+      --precision bf16 --dp auto
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-cnn \
+      --backend pallas_xnor --checkpoint-dir ckpt
+  python -m distributed_mnist_bnns_tpu_torch.cli export --model bnn-cnn \
+      --checkpoint-dir ckpt --out cnn.pt
   python -m distributed_mnist_bnns_tpu_torch.cli eval --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli export --checkpoint-dir ckpt \
       --out m.pt
@@ -16,18 +22,22 @@
   python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.pt
   python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.pt --sample 32
 
-``train`` trains a ``bnn-mlp`` model (``train.Trainer``; MNIST, or
-synthetic data when no idx files are found) and prints its final
+``train`` trains a registered model (``models.list_models()``: the
+bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
+``bnn-cnn``; ``train.Trainer``; MNIST, or synthetic data when no idx
+files are found; ``--precision bf16`` computes in bf16 over fp32
+parameters where the model takes a dtype) and prints its final
 metrics as one JSON line; with ``--dp N`` (or ``auto``: one rank a card)
 it starts N ranks itself, over NCCL on the cards or over gloo with
 ``--device cpu``, and ``--grad-compress sign|sign_ef`` exchanges 1-bit
 gradients (``--dp-hosts``: in two levels); ``eval`` evaluates the
 latest (``--best``: the best) checkpoint of a ``train --checkpoint-dir``
 run. ``export`` freezes
-a ``bnn-mlp`` model (a trained checkpoint with ``--checkpoint-dir``, a
-seeded init, or weights carried across from the JAX package with
-``--jax-variables``) into the port's packed artifact; ``infer`` evaluates an artifact on the MNIST test split
-(synthetic data when no idx files are found); ``serve`` runs the HTTP
+a ``bnn-mlp`` or ``bnn-cnn`` model (a trained checkpoint with
+``--checkpoint-dir``, a seeded init, or weights carried across from the
+JAX package with ``--jax-variables``) into the port's packed artifact;
+``infer`` evaluates an artifact on the MNIST test split (synthetic data
+when no idx files are found); ``serve`` runs the HTTP
 server (``--lm``: the continuous-batching LM server); ``lm --export``
 freezes a BinarizedLM (seeded init, or JAX weights with
 ``--jax-variables``) into a packed LM artifact, ``lm --steps N`` first
@@ -47,21 +57,25 @@ import time
 
 log = logging.getLogger(__name__)
 
+#: the models ``export`` freezes
+FREEZABLE = ("bnn-mlp-large", "bnn-mlp-small", "bnn-cnn")
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="distributed_mnist_bnns_tpu_torch")
     p.add_argument("--log-level", default="INFO")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    for cmd, what in (("train", "train a bnn-mlp model"),
+    for cmd, what in (("train", "train a registered model"),
                       ("eval", "evaluate a train run's checkpoint")):
         _train_flags(sub.add_parser(cmd, help=what))
 
     x = sub.add_parser(
-        "export", help="freeze a bnn-mlp model into a packed artifact",
+        "export", help="freeze a bnn-mlp or bnn-cnn model into a packed "
+                       "artifact",
     )
     x.add_argument("--model", default="bnn-mlp-large",
-                   choices=["bnn-mlp-large", "bnn-mlp-small"])
+                   choices=list(FREEZABLE))
     x.add_argument("--infl-ratio", type=int, default=3)
     x.add_argument("--checkpoint-dir", default=None,
                    help="freeze the latest checkpoint of a train run "
@@ -179,13 +193,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _train_flags(sp: argparse.ArgumentParser) -> None:
     """The flags of ``train`` and ``eval``, with the JAX CLI's defaults."""
+    from .models import list_models
     from .ops.losses import LOSSES
     from .ops.xnor_gemm import BACKENDS
 
     sp.add_argument("--model", default="bnn-mlp-large",
-                    choices=["bnn-mlp-large", "bnn-mlp-small"])
+                    choices=list_models())
     sp.add_argument("--infl-ratio", type=int, default=3,
-                    help="width multiplier of the BNN MLPs")
+                    help="width multiplier of the MLPs")
+    sp.add_argument("--precision", default="fp32", choices=["fp32", "bf16"],
+                    help="bf16: bf16 compute over fp32 parameters in the "
+                         "models that take a dtype (the reference's AMP)")
     sp.add_argument("--epochs", type=int, default=5)
     sp.add_argument("--batch-size", type=int, default=64)
     sp.add_argument("--optimizer", default="adam")
@@ -207,8 +225,8 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--stochastic", action="store_true",
                     help="stochastic activation binarization in training")
     sp.add_argument("--dropout", type=float, default=None,
-                    help="dropout rate before the third BatchNorm "
-                         "(default: the model's 0.3)")
+                    help="dropout rate (the MLPs': before the third "
+                         "BatchNorm, default 0.3; deep-cnn's: 0.5)")
     sp.add_argument("--loss", default="ce", choices=list(LOSSES))
     sp.add_argument("--label-smoothing", type=float, default=0.0,
                     help="uniform target mixing for the ce loss")
@@ -261,18 +279,29 @@ def _dp_world(args) -> int:
     return int(args.dp)
 
 
+def _model_kwargs(args) -> dict:
+    """The model kwargs of the flags, as the JAX CLI passes them:
+    ``infl_ratio`` to the MLPs only, the others when given."""
+    mk = {}
+    if "-mlp-" in args.model:
+        mk["infl_ratio"] = args.infl_ratio
+    if getattr(args, "stochastic", False):
+        mk["stochastic"] = True
+    if getattr(args, "dropout", None) is not None:
+        mk["dropout_rate"] = args.dropout
+    return mk
+
+
 def _trainer(args, data_parallel=None, device=None):
     from .train import TrainConfig, Trainer
 
-    mk = {"infl_ratio": args.infl_ratio, "stochastic": args.stochastic}
-    if args.dropout is not None:
-        mk["dropout_rate"] = args.dropout
     return Trainer(TrainConfig(
         data_parallel=data_parallel, dp_mode=args.dp_mode,
         grad_compress=args.grad_compress, dp_hosts=args.dp_hosts,
         compress_bucket_size=args.compress_bucket_size,
         compress_chunks=args.compress_chunks,
-        model=args.model, model_kwargs=mk, epochs=args.epochs,
+        model=args.model, model_kwargs=_model_kwargs(args),
+        precision=args.precision, epochs=args.epochs,
         batch_size=args.batch_size, optimizer=args.optimizer,
         learning_rate=args.lr, lr_schedule=args.lr_schedule,
         warmup_epochs=args.warmup_epochs, clip_grad_norm=args.clip_grad_norm,
@@ -363,7 +392,7 @@ def _export(args) -> int:
                                       model=args.model)
         except ValueError as e:
             raise SystemExit(f"export: {e}") from None
-        model = get_model(args.model, infl_ratio=args.infl_ratio)
+        model = get_model(args.model, **_model_kwargs(args))
         model.load_state_dict(payload["state_dict"])
         model.eval()
     elif args.jax_variables:
@@ -372,9 +401,8 @@ def _export(args) -> int:
         model = params_from_jax(variables_from_npz(args.jax_variables))
     else:
         gen = torch.Generator().manual_seed(args.seed)
-        model = get_model(
-            args.model, infl_ratio=args.infl_ratio, generator=gen
-        ).eval()
+        model = get_model(args.model, generator=gen,
+                          **_model_kwargs(args)).eval()
     info = export_packed(model, args.out)
     print(json.dumps({"artifact": args.out, **info}))
     return 0

@@ -12,10 +12,10 @@ loss falls fast) stands in. Both come from ``np.random.RandomState(seed)``
 exactly as in the JAX package, so the two see the same batches; the
 weights are drawn from a ``torch.Generator`` and differ.
 
-Not here yet: sequence-parallel ring attention (``ring``, ROADMAP item 12)
-and the model-level pipeline (``pp``, ROADMAP item 14) raise; sampling
-after training goes through ``cli lm --load PATH --sample N`` on the
-exported artifact.
+Not here yet: sequence-parallel ring attention (``ring``, ROADMAP queue 1
+item 14) and the model-level pipeline (``pp``, ROADMAP queue 1 item 7)
+raise; sampling after training goes through ``cli lm --load PATH
+--sample N`` on the exported artifact.
 """
 
 from __future__ import annotations
@@ -105,13 +105,13 @@ def run(steps: int = 200, seq_len: int = 32, batch: int = 16,
         raise ValueError(f"steps must be >= 1, got {steps}")
     if ring:
         raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP item 12, "
+            "ring attention is not ported yet (ROADMAP queue 1 item 14, "
             "parallel/ring_attention.py)"
         )
     if pp > 1:
         raise NotImplementedError(
-            "the model-level pipeline is not ported yet (ROADMAP item 14, "
-            "parallel/pipeline_model.py)"
+            "the model-level pipeline is not ported yet (ROADMAP queue 1 "
+            "item 7, parallel/pipeline_model.py)"
         )
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False

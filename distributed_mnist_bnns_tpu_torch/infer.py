@@ -1,7 +1,8 @@
 """Frozen-model inference for the binarized MLP: the packed-bitplane
 serving path. ``export_packed`` and ``load_packed`` also take the
-binarized LM (``family="bnn-transformer"``, ``kind="lm"``), whose
-freezing and forward live in ``infer_transformer``.
+binarized CNN (``family="bnn-cnn"``, ``infer_conv``) and the binarized
+LM (``family="bnn-transformer"``, ``kind="lm"``, ``infer_transformer``),
+dispatched on the family as the JAX ``_freeze_any`` / ``_build_any``.
 
 Counterpart of the JAX package's ``infer.py`` for the ``bnn-mlp`` family.
 Once training ends the fp32 latent weights are dead weight: serving needs
@@ -109,6 +110,8 @@ def _freeze_tensors(model: BnnMLP) -> Dict[str, Any]:
     layouts are the JAX package's ``_freeze_tensors``."""
     if not isinstance(model, BnnMLP):
         raise ValueError(f"freeze_bnn_mlp needs a BnnMLP, got {type(model)}")
+    if not model.binarized:
+        raise ValueError("freeze_bnn_mlp requires a binarized BnnMLP")
     layers = []
     for fc in (model.fc2, model.fc3):
         wp, k, n = prepack_weights(binarize_ste(fc.weight).t())
@@ -227,18 +230,49 @@ def _to_cpu(tree):
     return tree
 
 
-def export_packed(model, path: str) -> Dict[str, Any]:
-    """Write the frozen artifact of a BnnMLP or a BinarizedLM to
-    ``path`` (``torch.save`` of plain tensors). The MLP's ±1 first layer
-    goes as int8 (4x smaller); the predictor casts it back to fp32.
-    Returns the size-info dict."""
+def _freeze_any(model) -> Dict[str, Any]:
+    """The frozen dict of any freezable model (the JAX ``_freeze_any``):
+    a binarized BnnMLP, a BinarizedCNN or a BinarizedLM."""
+    from .infer_conv import BinarizedCNN, _freeze_cnn_tensors
     from .infer_transformer import BinarizedLM, _freeze_lm_tensors
 
+    if isinstance(model, BnnMLP):
+        return _freeze_tensors(model)
+    if isinstance(model, BinarizedCNN):
+        return _freeze_cnn_tensors(model)
     if isinstance(model, BinarizedLM):
-        frozen = _to_cpu(_freeze_lm_tensors(model))
-    else:
-        frozen = _to_cpu(_freeze_tensors(model))
-        frozen["w1"] = frozen["w1"].to(torch.int8)
+        return _freeze_lm_tensors(model)
+    raise ValueError(f"no packed freeze for {type(model).__name__} "
+                     "(freezable: BnnMLP, BinarizedCNN, BinarizedLM)")
+
+
+def _build_any(frozen: Dict[str, Any], device: torch.device):
+    """The predictor of a frozen dict, by its family (the JAX
+    ``_build_any``)."""
+    family = frozen.get("family", FAMILY)
+    if family == FAMILY:
+        return _build_apply(frozen, device)
+    if family == "bnn-cnn":
+        from .infer_conv import FrozenCNN
+
+        return FrozenCNN(frozen, device)
+    if family == "bnn-transformer":
+        from .infer_transformer import _build_transformer_apply
+
+        return _build_transformer_apply(frozen, device)
+    raise ValueError(f"unknown packed-artifact family {family!r}")
+
+
+def export_packed(model, path: str) -> Dict[str, Any]:
+    """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN
+    or a BinarizedLM to ``path`` (``torch.save`` of plain tensors). The ±1
+    first layer (the MLP's ``w1``, the CNN's ``conv1_w``) goes as int8
+    (4x smaller); the predictor casts it back to fp32. Returns the
+    size-info dict."""
+    frozen = _to_cpu(_freeze_any(model))
+    for key in ("w1", "conv1_w"):
+        if key in frozen:
+            frozen[key] = frozen[key].to(torch.int8)
     torch.save(frozen, path)
     return frozen["info"]
 
@@ -251,12 +285,9 @@ def load_frozen(path: str) -> Dict[str, Any]:
 def load_packed(path: str, *, device="cuda"):
     """Restore an ``export_packed`` artifact into a predictor on
     ``device`` (None: "cuda"; raises without a card): a FrozenMLP for a
-    ``bnn-mlp`` artifact, the LM's full-window ``FrozenLM`` for a
-    ``bnn-transformer`` one. Returns (predictor, info)."""
+    ``bnn-mlp`` artifact, a ``FrozenCNN`` for a ``bnn-cnn`` one (flat
+    (B, 784) or (B, 28, 28, 1) input), the LM's full-window ``FrozenLM``
+    for a ``bnn-transformer`` one. Returns (predictor, info)."""
     dev = resolve_device(device)
     frozen = load_frozen(path)
-    if frozen.get("family") == "bnn-transformer":
-        from .infer_transformer import _build_transformer_apply
-
-        return _build_transformer_apply(frozen, dev), dict(frozen["info"])
-    return _build_apply(frozen, dev), dict(frozen["info"])
+    return _build_any(frozen, dev), dict(frozen["info"])

@@ -3,30 +3,34 @@
 The JAX package's trees arrive as numpy arrays (``np.asarray`` of every
 leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
 
-  params_from_jax(variables)  {"params", "batch_stats"} -> the port's BnnMLP
+  params_from_jax(variables)  {"params", "batch_stats"} -> the port's
+                              model of that family (BnnMLP, binarized or
+                              fp32; ConvNet, DeepCNN, BinarizedCNN)
   frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
                               port's frozen artifact (same keys)
   lm_params_from_jax(params)  a JAX BinarizedLM's params -> the port's
                               BinarizedLM
   frozen_lm_from_jax(frozen)  JAX ``infer_transformer._freeze_lm_tensors``
                               dict -> the port's frozen LM artifact
-  JaxFlatOrder(model)         a BnnMLP's parameters in the order and
+  JaxFlatOrder(model)         a model's parameters in the order and
                               layout ``jax.flatten_util.ravel_pytree``
                               gives the flax params
 
-Flax names map as BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 ->
-bn1..bn3 (scale/bias -> weight/bias, mean/var -> running stats) and
-Dense_0 -> head, the names the JAX ``infer.py`` reads. For the LM:
+Each model's ``flax_names()`` maps its submodules to flax's module names
+(e.g. BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 -> bn1..bn3,
+Dense_0 -> head for the MLP, the names the JAX ``infer.py`` reads), each
+of a kind: "dense" (flax (in, out) kernel, the port's (out, in)
+weight), "conv" (flax HWIO, the port's OIHW) or "bn" (scale/bias ->
+weight/bias, mean/var -> the running statistics). For the LM:
 tok_embed/embedding -> tok_embed, pos_embed, TransformerBlock_i ->
 blocks.i (ln_attn/ln_mlp scale -> weight; BinarizedSelfAttention_0/
 BinarizedDense_0..3, or Dense_0..3 for fp32 attention, -> attn.q, k, v,
-out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head. Flax kernels are
-(in, out); the port's weights are (out, in), as ``nn.Linear``'s.
+out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,43 +38,94 @@ import torch
 from .models.mlp import BnnMLP
 from .models.transformer import BinarizedLM
 
-_DENSE = ("BinarizedDense_0", "BinarizedDense_1", "BinarizedDense_2")
-_FCS = ("fc1", "fc2", "fc3")
-_BNS = (("BatchNorm_0", "bn1"), ("BatchNorm_1", "bn2"), ("BatchNorm_2", "bn3"))
-
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def to_flax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
+    """A port weight in flax's layout: an (out, in) dense weight as the
+    (in, out) kernel, an OIHW conv weight as the HWIO kernel; anything
+    else as it is."""
+    if kind == "dense" and t.dim() == 2:
+        return t.t()
+    if kind == "conv" and t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def from_flax_layout(a, kind: str) -> torch.Tensor:
+    """The inverse of ``to_flax_layout`` for a flax kernel."""
+    t = a if torch.is_tensor(a) else _t(a)
+    if kind == "dense" and t.dim() == 2:
+        return t.t()
+    if kind == "conv" and t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    return t
+
+
+# (port parameter or buffer, flax collection, flax leaf) of each kind
+_LEAVES = {
+    "dense": (("weight", "params", "kernel"), ("bias", "params", "bias")),
+    "conv": (("weight", "params", "kernel"), ("bias", "params", "bias")),
+    "bn": (("weight", "params", "scale"), ("bias", "params", "bias"),
+           ("running_mean", "batch_stats", "mean"),
+           ("running_var", "batch_stats", "var")),
+}
+
+
+def _model_from_tree(p, **model_kw) -> torch.nn.Module:
+    """A model of the family and widths of a JAX model's params:
+    BinarizedCNN (BinarizedConv_0, 1), DeepCNN (Conv_0..2), ConvNet
+    (Conv_0, 1) or BnnMLP, binarized (BinarizedDense_0..2, Dense_0) or
+    fp32 (Dense_0..3)."""
+    from .models import BinarizedCNN, ConvNet, DeepCNN
+
+    def shape(name):
+        return np.asarray(p[name]["kernel"]).shape
+
+    if "BinarizedConv_0" in p:
+        return BinarizedCNN(
+            num_classes=shape("Dense_0")[1],
+            widths=(shape("BinarizedConv_0")[3],
+                    shape("BinarizedConv_1")[3]),
+            hidden=shape("BinarizedDense_0")[1], **model_kw)
+    if "Conv_2" in p:
+        return DeepCNN(num_classes=shape("Dense_1")[1], **model_kw)
+    if "Conv_0" in p:
+        return ConvNet(num_classes=shape("Dense_0")[1], **model_kw)
+    binarized = "BinarizedDense_0" in p
+    fc = "BinarizedDense" if binarized else "Dense"
+    kernels = [shape(f"{fc}_{i}") for i in range(3)]
+    return BnnMLP(
+        hidden=tuple(k[1] for k in kernels),
+        num_classes=shape("Dense_0" if binarized else "Dense_3")[1],
+        in_features=kernels[0][0], binarized=binarized, **model_kw,
+    )
+
+
 def params_from_jax(
-    variables: Dict[str, Any], model: Optional[BnnMLP] = None, **model_kw
-) -> BnnMLP:
-    """Load a JAX BnnMLP's ``{"params", "batch_stats"}`` (numpy leaves)
-    into ``model``, or into a new BnnMLP of the tree's widths built with
-    ``model_kw``. Returns the model in eval mode."""
-    p, s = variables["params"], variables["batch_stats"]
-    kernels = [np.asarray(p[name]["kernel"]) for name in _DENSE]
-    head = np.asarray(p["Dense_0"]["kernel"])
+    variables: Dict[str, Any], model: Optional[torch.nn.Module] = None,
+    **model_kw
+) -> torch.nn.Module:
+    """Load a JAX model's ``{"params", "batch_stats"}`` (numpy leaves)
+    into ``model`` (any model with ``flax_names``: the MLPs, ``ConvNet``,
+    ``DeepCNN``, ``BinarizedCNN``), or into a new model of the tree's
+    family and widths built with ``model_kw``. Kernels change layout (HWIO ->
+    OIHW, (in, out) -> (out, in)); a dense layer after a flatten takes
+    the kernel as it is, since the port flattens in flax's (h, w, c)
+    order. Returns the model in eval mode."""
+    p, s = variables["params"], variables.get("batch_stats", {})
     if model is None:
-        model = BnnMLP(
-            hidden=tuple(k.shape[1] for k in kernels),
-            num_classes=head.shape[1],
-            in_features=kernels[0].shape[0],
-            **model_kw,
-        )
+        model = _model_from_tree(p, **model_kw)
     state = {}
-    for name, fc, kern in zip(_DENSE, _FCS, kernels):
-        state[f"{fc}.weight"] = _t(kern.T)
-        state[f"{fc}.bias"] = _t(p[name]["bias"])
-    for flax_name, bn in _BNS:
-        state[f"{bn}.weight"] = _t(p[flax_name]["scale"])
-        state[f"{bn}.bias"] = _t(p[flax_name]["bias"])
-        state[f"{bn}.running_mean"] = _t(s[flax_name]["mean"])
-        state[f"{bn}.running_var"] = _t(s[flax_name]["var"])
-        state[f"{bn}.num_batches_tracked"] = torch.tensor(0)
-    state["head.weight"] = _t(head.T)
-    state["head.bias"] = _t(p["Dense_0"]["bias"])
+    for sub, flax_name, kind in model.flax_names():
+        for port, coll, leaf in _LEAVES[kind]:
+            tree = p if coll == "params" else s
+            state[f"{sub}.{port}"] = from_flax_layout(
+                tree[flax_name][leaf], kind)
+        if kind == "bn":
+            state[f"{sub}.num_batches_tracked"] = torch.tensor(0)
     model.load_state_dict(state, strict=True)
     return model.eval()
 
@@ -162,50 +217,57 @@ def variables_from_npz(path: str) -> Dict[str, Any]:
 
 
 class JaxFlatOrder:
-    """A BnnMLP's parameters as ``jax.flatten_util.ravel_pytree`` lays out
-    the JAX model's params: leaves in sorted path order (``BatchNorm_0..2``,
-    ``BinarizedDense_0..2``, ``Dense_0``; ``bias`` before ``kernel`` /
-    ``scale`` in each), each kernel in flax's (in, out) layout, so the
-    port's (out, in) weights are transposed.
+    """A model's parameters as ``jax.flatten_util.ravel_pytree`` lays out
+    the JAX model's params: leaves in sorted path order (for bnn-cnn
+    ``BatchNorm_0..2``, ``BinarizedConv_0..1``, ``BinarizedDense_0``,
+    ``Dense_0``; ``bias`` before ``kernel`` / ``scale`` in each), each
+    kernel in flax's layout (``to_flax_layout``: dense (in, out), conv
+    HWIO). Any model with ``flax_names`` (every registered model).
 
-    ``entries`` lists ``(flax path, parameter, transposed)`` in that
-    order. ``flatten`` lays tensors shaped like the parameters (their
+    ``entries`` lists ``(flax path, parameter, relaid)`` in that order,
+    ``relaid`` True where the flax leaf has another layout (a kernel).
+    ``flatten`` lays tensors shaped like the parameters (their
     gradients, or by default the parameters themselves) end to end in
     one fp32 vector; ``unflatten`` cuts such a vector back into tensors
     shaped like the parameters, keyed by parameter."""
 
-    def __init__(self, model: BnnMLP):
+    def __init__(self, model: torch.nn.Module):
         names = dict(model.named_parameters())
-        entries: List[Tuple[Tuple[str, str], str, bool]] = []
-        for flax_name, bn in _BNS:
-            entries.append(((flax_name, "bias"), f"{bn}.bias", False))
-            entries.append(((flax_name, "scale"), f"{bn}.weight", False))
-        for flax_name, fc in zip(_DENSE + ("Dense_0",), _FCS + ("head",)):
-            entries.append(((flax_name, "bias"), f"{fc}.bias", False))
-            entries.append(((flax_name, "kernel"), f"{fc}.weight", True))
+        if not hasattr(model, "flax_names"):
+            raise ValueError(f"JaxFlatOrder needs a model with flax_names, "
+                             f"not a {type(model).__name__}")
+        entries = []
+        for sub, flax_name, kind in model.flax_names():
+            for port, coll, leaf in _LEAVES[kind]:
+                if coll == "params":
+                    entries.append(((flax_name, leaf), f"{sub}.{port}", kind))
         if {e[1] for e in entries} != set(names):
-            raise ValueError("JaxFlatOrder covers the BnnMLP's parameters "
-                             f"only, not {sorted(names)}")
-        self.entries = [("/".join(path), names[name], tr)
-                        for path, name, tr in sorted(entries)]
+            raise ValueError("JaxFlatOrder: flax_names does not cover the "
+                             f"parameters {sorted(names)}")
+        entries.sort()
+        self.entries = [("/".join(path), names[name], path[1] == "kernel")
+                        for path, name, _ in entries]
+        self._kinds = [kind if path[1] == "kernel" else None
+                       for path, _, kind in entries]
         self.n_params = sum(p.numel() for _, p, _ in self.entries)
 
     def flatten(self, tensors: Optional[Mapping[torch.nn.Parameter,
                                                 torch.Tensor]] = None
                 ) -> torch.Tensor:
         parts = []
-        for _, p, tr in self.entries:
+        for (_, p, _), kind in zip(self.entries, self._kinds):
             t = p.detach() if tensors is None else tensors[p]
-            parts.append((t.t() if tr else t).reshape(-1))
+            parts.append(to_flax_layout(t, kind).reshape(-1))
         return torch.cat(parts).to(torch.float32)
 
     def unflatten(self, flat: torch.Tensor
                   ) -> Dict[torch.nn.Parameter, torch.Tensor]:
         out, start = {}, 0
-        for _, p, tr in self.entries:
+        for (_, p, _), kind in zip(self.entries, self._kinds):
             n = p.numel()
-            chunk = flat[start:start + n]
-            out[p] = (chunk.reshape(p.shape[1], p.shape[0]).t() if tr
-                      else chunk.reshape(p.shape))
+            shape = to_flax_layout(torch.empty(p.shape, device="meta"),
+                                   kind).shape
+            out[p] = from_flax_layout(flat[start:start + n].reshape(shape),
+                                      kind)
             start += n
         return out

@@ -350,3 +350,167 @@ def unpacked_pm1(w_packed: torch.Tensor, k: int, n: int,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The (K, N) ±1 matrix a packed weight holds."""
     return unpack_bits(w_packed.t().contiguous(), k, dtype).t()[:, :n]
+
+
+# ---------------------------------------------------------------------------
+# Convolutions: the fp32 contract, the differentiable ±1 conv, im2col
+# ---------------------------------------------------------------------------
+
+
+def conv_precision():
+    """Scope of the port's convolutions on a card: cuDNN on, TF32 off,
+    deterministic algorithms, no autotuning; the previous flags come
+    back on exit. Without it a fresh process runs an fp32 conv in TF32
+    (PyTorch's ``cudnn.allow_tf32`` defaults to True), which rounds its
+    inputs to 10 mantissa bits, and picks weight-gradient algorithms
+    that sum in a different order from run to run. The flags are
+    process-wide, so the scope is as narrow as one conv or one conv
+    backward (``_Conv2d``); nothing outside it changes."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def same_padding(in_hw, kernel, strides):
+    """XLA's "SAME" padding: ((lo, hi), (lo, hi)) with out = ceil(in/s)
+    and the odd pixel of an uneven total on the high side."""
+    pads = []
+    for d, k, s in zip(in_hw, kernel, strides):
+        total = max((-(-d // s) - 1) * s + k - d, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv_pads(padding, in_hw, kernel, strides):
+    """flax's conv ``padding`` ("SAME", "VALID", an int, or (lo, hi)
+    pairs) as ((lo, hi), (lo, hi))."""
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            return same_padding(in_hw, kernel, strides)
+        if padding.upper() == "VALID":
+            return ((0, 0), (0, 0))
+        raise ValueError(f"unknown padding {padding!r}")
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return tuple((int(lo), int(hi)) for lo, hi in padding)
+
+
+def _pad_hw(x: torch.Tensor, pads):
+    """x (N, C, H, W) zero-padded as ``pads``, and the padding left for
+    ``F.conv2d`` (symmetric pads are passed through, uneven ones applied
+    here)."""
+    (t, b), (l, r) = pads
+    if t == b and l == r:
+        return x, (t, l)
+    return torch.nn.functional.pad(x, (l, r, t, b)), (0, 0)
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` of x (N, C, H, W) and w (F, C, kh, kw), forward and
+    backward inside ``conv_precision``. With ``rnd`` the forward
+    multiplies the operands rounded to that dtype (and back to theirs);
+    the backward is the conv's VJP on the operands as given, in their
+    dtype, so no cast rounds the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, rnd):
+        ctx.conf = (stride, padding)
+        ctx.save_for_backward(x, w)
+        if rnd is not None:
+            x, w = x.to(rnd).to(x.dtype), w.to(rnd).to(w.dtype)
+        with conv_precision():
+            return torch.nn.functional.conv2d(x, w, None, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        stride, padding = ctx.conf
+        x, w = ctx.saved_tensors
+        with conv_precision():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.to(x.dtype), x, w, None, list(stride), list(padding),
+                [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        if gw is not None and gw.stride() != w.stride():
+            # cuDNN may return a one-channel kernel's gradient with other
+            # strides; DDP's buckets want the weight's own layout
+            gw = torch.empty_like(w).copy_(gw)
+        return gx, gw, None, None, None
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
+           padding="SAME") -> torch.Tensor:
+    """flax's ``lax.conv_general_dilated`` of x (N, C, H, W) and w (F, C,
+    kh, kw) in their common dtype (an fp32 conv is fp32, a bf16 conv
+    rounds its output to bf16 as flax's ``nn.Conv(dtype=bf16)``), with
+    flax's ``padding``; forward and backward in ``conv_precision``."""
+    pads = conv_pads(padding, x.shape[2:], w.shape[2:], strides)
+    xp, pad = _pad_hw(x, pads)
+    return _Conv2d.apply(xp, w, tuple(strides), pad, None)
+
+
+_CONV_ROUND = {"xla": None, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def binary_conv2d(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
+                  padding="SAME", dtype: str = "bf16") -> torch.Tensor:
+    """The JAX ``binary_conv2d`` on NCHW x and OIHW w: the forward on
+    operands rounded to ``dtype`` ("bf16", "int8", or "xla": fp32 as
+    they are) with fp32 accumulation, the backward the fp32 conv VJP on
+    the unrounded operands (autograd through the casts would round the
+    cotangent). The rounded operands are multiplied by an fp32 conv,
+    which is what a ``dtype`` conv with fp32 accumulation computes: a
+    product of two bf16 (or int8) values is exact in fp32. On ±1
+    operands every backend gives the same integers."""
+    if dtype not in _CONV_ROUND:
+        raise ValueError(f"unknown conv dtype {dtype!r} (have "
+                         f"{tuple(_CONV_ROUND)})")
+    pads = conv_pads(padding, x.shape[2:], w.shape[2:], strides)
+    xp, pad = _pad_hw(x.to(torch.float32), pads)
+    return _Conv2d.apply(xp, w.to(torch.float32), tuple(strides), pad,
+                         _CONV_ROUND[dtype])
+
+
+def conv_patch_weight(wb: torch.Tensor) -> torch.Tensor:
+    """(F, cin, kh, kw) conv kernel -> the (F, cin*kh*kw) GEMM weight in
+    ``binary_matmul``'s (out, in) layout, its input axis in the patch
+    order of ``im2col`` (channel-major: (cin, kh, kw)). The JAX
+    ``conv_patch_weight`` gives the transpose from flax's HWIO kernel."""
+    return wb.reshape(wb.shape[0], -1)
+
+
+def im2col(x: torch.Tensor, kernel, strides=(1, 1),
+           padding="SAME") -> torch.Tensor:
+    """Patches of x (N, C, H, W) -> (N, Ho, Wo, C*kh*kw), each patch
+    channel-major ((c, kh, kw)), zero-padded: bit for bit the NHWC
+    output of ``jax.lax.conv_general_dilated_patches``."""
+    kh, kw = kernel
+    pads = conv_pads(padding, x.shape[2:], kernel, strides)
+    (t, b), (l, r) = pads
+    xp = torch.nn.functional.pad(x, (l, r, t, b))
+    n = x.shape[0]
+    ho = (xp.shape[2] - kh) // strides[0] + 1
+    wo = (xp.shape[3] - kw) // strides[1] + 1
+    cols = torch.nn.functional.unfold(xp, (kh, kw), stride=tuple(strides))
+    return cols.transpose(1, 2).reshape(n, ho, wo, cols.shape[1])
+
+
+def conv_padding_correction(tap_sums: torch.Tensor, in_hw, strides=(1, 1),
+                            padding="SAME") -> torch.Tensor:
+    """The JAX ``conv_padding_correction``: a zero padding tap packs as
+    -1 (bit = x > 0) and so subtracts its weight from the ±1 patch GEMM;
+    this adds back ``sum_all(w) - sum_in_bounds(w)`` per output position.
+    ``tap_sums`` is the ±1 kernel summed over its input channels, (kh,
+    kw, F), as the frozen artifact ships it. Returns (1, Ho, Wo, F),
+    exactly 0 in the interior; every value is a small integer, so the
+    result is exact whatever the order of summation."""
+    kh, kw, f = tap_sums.shape
+    ts = tap_sums.to(torch.float32)
+    ones = torch.ones((1, 1, *in_hw), dtype=torch.float32,
+                      device=ts.device)
+    pads = conv_pads(padding, in_hw, (kh, kw), strides)
+    xp, pad = _pad_hw(ones, pads)
+    with conv_precision():
+        valid = torch.nn.functional.conv2d(
+            xp, ts.permute(2, 0, 1)[:, None].contiguous(), None,
+            tuple(strides), pad)
+    total = ts.sum(dim=(0, 1))
+    return total[None, None, None, :] - valid.permute(0, 2, 3, 1)

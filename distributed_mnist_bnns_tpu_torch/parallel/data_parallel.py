@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.mlp import BatchNorm
+from ..models.layers import BatchNorm
 from ..ops.comm_compress import (
     WireBytes,
     all_reduce_mean,
@@ -76,7 +76,7 @@ def shard_batch(x, group=None):
 
 
 def set_batchnorm_group(model: torch.nn.Module, group) -> None:
-    """Normalise every ``models.mlp.BatchNorm`` of ``model`` over the
+    """Normalise every ``models.layers.BatchNorm`` of ``model`` over the
     global batch of ``group`` (None: each rank's own rows)."""
     for m in model.modules():
         if isinstance(m, BatchNorm):

@@ -1,5 +1,5 @@
-"""The MLP trainer: the STE latent-clamp step, eval, the epoch loop,
-learning-rate schedules and checkpoints.
+"""The trainer of the MLP and conv families: the STE latent-clamp step,
+eval, the epoch loop, learning-rate schedules and checkpoints.
 
 Counterpart of the JAX package's ``train/trainer.py`` for one process on
 one device (``make_step_body``, ``make_eval_step``, ``TrainConfig``,
@@ -30,7 +30,17 @@ The device goes through ``infer.resolve_device``: "cuda" unless the
 caller asks for the CPU, and no card raises. The step's fp32 products
 (the first layer on "xla", the head, the backward pair) are fp32
 products under PyTorch's default ``allow_tf32 = False``, which the
-trainer leaves as it finds it.
+trainer leaves as it finds it; the convs choose their own flags, fp32
+without TF32 and deterministic, forward and backward
+(``ops.xnor_gemm.conv_precision``).
+
+``precision="bf16"`` is the JAX trainer's (the reference's Apex O2,
+``mnist-mixed.py:70``): ``dtype=torch.bfloat16`` for the models that
+take a dtype (the conv families' convs and BatchNorms in bf16 over fp32
+parameters, the heads fp32); a model that takes no dtype (the binarized
+ones, whose products are bf16 already on the default backend, and
+``fp32-mlp-large``) is built without it, as the JAX ``_build_model``
+drops a knob the constructor rejects.
 
 Checkpoints are the port's own: ``torch.save`` of the model's and the
 optimizer's state dicts with the epoch, step and best accuracy, as
@@ -99,6 +109,31 @@ def clamp_latent(params: Iterable[torch.Tensor]) -> None:
     with torch.no_grad():
         for p in params:
             p.clamp_(-1.0, 1.0)
+
+
+_OPTIONAL_KNOBS = ("dtype", "backend", "stochastic", "scale",
+                   "dropout_rate", "rng_seed")
+
+
+def build_model(name: str, mk: Dict[str, Any]) -> torch.nn.Module:
+    """``get_model(name, **mk)``, dropping each optional knob (dtype,
+    backend, stochastic, scale, dropout_rate, rng_seed) that the
+    constructor rejects, as the JAX trainer's ``_build_model`` does:
+    ``fp32-mlp-large`` under bf16 stays fp32, ``convnet`` takes no
+    backend."""
+    mk = dict(mk)
+    while True:
+        try:
+            return get_model(name, **mk)
+        except TypeError as e:
+            bad = next((k for k in _OPTIONAL_KNOBS
+                        if k in mk and f"keyword argument '{k}'" in str(e)),
+                       None)
+            if bad is None:
+                raise
+            mk.pop(bad)
+            if bad != "rng_seed":
+                log.warning("model %r does not take %r; ignored", name, bad)
 
 
 def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
@@ -179,6 +214,8 @@ class TrainConfig:
     label_smoothing: float = 0.0   # ce only
     backend: Optional[str] = None  # GEMM backend of the binarized layers
                                    # (None: "bf16")
+    precision: str = "fp32"        # "bf16": bf16 compute, fp32 masters
+                                   # (mnist-mixed.py:70)
     checkpoint_dir: Optional[str] = None
     device: Optional[str] = None   # None: "cuda" (raises without a card)
     data_parallel: Optional[object] = None  # None | "auto" | int ranks
@@ -210,20 +247,24 @@ class Trainer:
         if config.dp_mode == "fsdp":
             raise NotImplementedError(
                 "dp_mode='fsdp' is not ported yet (ROADMAP.md queue 1 "
-                "item 3: parallel/fsdp.py, sign_compress_fsdp)")
+                "item 6: parallel/fsdp.py, sign_compress_fsdp)")
         self.device = resolve_device(config.device)
         self.world, self.rank = self._resolve_world()
         mk = dict(config.model_kwargs)
-        mk.setdefault("backend", config.backend or "bf16")
+        if config.backend is not None:
+            mk.setdefault("backend", config.backend)
+        if config.precision == "bf16":
+            mk.setdefault("dtype", torch.bfloat16)
+        elif config.precision != "fp32":
+            raise ValueError(f"unknown precision {config.precision!r} "
+                             "(have: fp32, bf16)")
         if self.world > 1:
             from ..parallel import rank_seed
 
             mk.setdefault("rng_seed", rank_seed(config.seed + 1, self.rank))
         mk.setdefault("rng_seed", config.seed + 1)
-        self.model = get_model(
-            config.model, generator=torch.Generator().manual_seed(config.seed),
-            **mk,
-        ).to(self.device)
+        mk["generator"] = torch.Generator().manual_seed(config.seed)
+        self.model = build_model(config.model, mk).to(self.device)
         self.clamp_mask = latent_clamp_mask(self.model)
         self.regime = RegimeSchedule(config.regime)
         self.wire = WireBytes()   # bytes this rank's collectives moved

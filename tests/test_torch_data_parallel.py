@@ -204,7 +204,7 @@ RAISES = [
     (dict(dp_mode="zero"), dict(dp_mode="zero"), ValueError,
      "unknown dp_mode"),
     (dict(data_parallel=3), None, ValueError, "holds 2 ranks"),
-    (dict(dp_mode="fsdp"), None, NotImplementedError, "queue 1 item 3"),
+    (dict(dp_mode="fsdp"), None, NotImplementedError, "queue 1 item 6"),
 ]
 
 
@@ -493,7 +493,7 @@ def test_data_parallel_outside_a_process_group_raises():
     with pytest.raises(ValueError, match="needs 2 ranks"):
         Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
                             data_parallel=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
                             dp_mode="fsdp"))
     t = Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",

@@ -181,9 +181,9 @@ def test_run_trains_and_exports_on_cpu(tmp_path):
 
 
 def test_run_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         lm_demo.run(steps=1, ring=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         lm_demo.run(steps=1, pp=2, device="cpu")
     with pytest.raises(ValueError, match="steps"):
         lm_demo.run(steps=0, device="cpu")

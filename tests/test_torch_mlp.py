@@ -128,10 +128,11 @@ def test_structure_follows_the_reference():
     bound = 1.0 / 784 ** 0.5
     assert model.fc1.weight.abs().max() <= bound
     assert bnn_mlp_large().hidden == (3072, 1536, 768)
-    assert list_models() == ["bnn-mlp-large", "bnn-mlp-small"]
+    assert list_models() == ["bnn-cnn", "bnn-mlp-large", "bnn-mlp-small",
+                             "convnet", "deep-cnn", "fp32-mlp-large"]
     assert get_model("bnn-mlp-small", infl_ratio=1).hidden == (64, 64, 64)
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("bnn-cnn")
+        get_model("xnor-resnet18")
 
 
 def test_seeded_init_is_reproducible():
