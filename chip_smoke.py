@@ -167,7 +167,30 @@ Phases, each fatal on failure:
      more cards): ranks bitwise equal, wire bytes a step equal to the
      plan's, K1 twice a step in each rank. K1's launches on these paths
      enter the kernels line as ``launches_conv_path``, and its conv-shape
-     rows as ``conv_shapes``.
+     rows as ``conv_shapes``;
+ 11. the training runtime (``RT_TRAIN``: phase 8's recipe on
+     ``pallas_xnor``, dropout 0.3, two epochs of a synthetic 6,400/1,024
+     split, 100 steps each): (a) ``cli train --checkpoint-dir`` in a
+     subprocess, sent SIGTERM once epoch 1 has logged step 30, must exit
+     75 with a mid-epoch checkpoint, and ``cli train --resume`` exit 0
+     with a final checkpoint equal in every tensor (params, batch stats,
+     optimizer state) to an uninterrupted ``cli train``'s, run beside
+     it; (b) the same run in this process, again with
+     ``timing_csv_prefix`` (equal states; step and dispatch times with
+     and without the CSVs), the checkpoint's bytes and its save
+     (synchronous, async handoff and total), digest and restore times;
+     (c) the stopped checkpoint with its newest generation truncated
+     rolls back to the one before it and (d) the stopped checkpoint
+     shipped over loopback by ``utils.transfer`` (MB/s printed), each
+     resumed in this process and ending on the uninterrupted state;
+     (e) the trained model exported by ``cli export`` to the JAX
+     package's msgpack artifact and served through K2/K3 on a batch of
+     32, within 1e-4 of the live model; (f) two "nodes" of one gloo rank
+     each sharing the card, meeting at ``tcp://127.0.0.1:<free port>``,
+     20 ``sign_ef`` steps on ``pallas_xnor`` bitwise equal to one
+     ``spawn`` of 2 run beside them, K1 twice a step in every rank.
+     K1's launches in (b)-(d) and (f)'s nodes and K2/K3's in (e) enter
+     the kernels line as ``launches_runtime_path``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -276,6 +299,15 @@ CNN_DET_STEPS = 30          # two bf16 runs from one seed
 CNN_BACKEND_STEPS = 20      # xla, xnor and pallas_xnor
 CNN_FP_STEPS = 200          # convnet and deep-cnn at fp32 and bf16
 CNN_DP_STEPS = 20           # 2 gloo ranks sharing card 0
+# The training runtime (phase 11): MLP_TRAIN on pallas_xnor (K1 in the
+# step) with the MLP's dropout (0.3), so the generator's state matters;
+# two epochs of a synthetic split of 100 steps.
+RT_TRAIN = dict(MLP_TRAIN, backend="pallas_xnor")
+RT_SYNTH = (6400, 1024)
+RT_EPOCHS = 2
+RT_LOG_INTERVAL = 10
+RT_SIGTERM_AFTER = 30       # epoch 1's logged step before the SIGTERM
+RT_NODE_STEPS = 20          # the two-node sign_ef run
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
@@ -801,7 +833,7 @@ def slice_phase(device: torch.device, gen: torch.Generator,
     images = torch.randint(0, 256, (batch, 28, 28, 1), generator=gen) / 256.0
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "model.pt")
+        path = os.path.join(tmp, "model.msgpack")
         _kernels.reset_launches()
         info = export_packed(model, path)
         fn, _ = load_packed(path, device=device)
@@ -1005,7 +1037,7 @@ def lm_slice_phase(device: torch.device, gen: torch.Generator):
     prompts[text_i] = [b % vocab for b in LM_TEXT.encode("utf-8")]
     seq = torch.randint(0, vocab, (60,), generator=gen).numpy()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "lm.pt")
+        path = os.path.join(tmp, "lm.msgpack")
         info = export_packed(model, path)
         frozen = load_frozen(path)
         log(f"LM artifact: {info['frozen_weight_bytes']} packed bytes, "
@@ -1397,7 +1429,7 @@ def lm_train_phase(device: torch.device, gen: torch.Generator):
     del models, grads, flat
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "lm_trained.pt")
+        path = os.path.join(tmp, "lm_trained.msgpack")
         _kernels.reset_launches()
         res = lm_demo.run(
             steps=LM_TRAIN_STEPS, seq_len=LM_TRAIN_SEQ,
@@ -1594,7 +1626,7 @@ def mlp_train_phase(device: torch.device, gen: torch.Generator):
         # eval model (first layer in fp32, as the artifact's).
         ckpt = os.path.join(tmp, "ckpt")
         tr.save_checkpoint(ckpt)
-        path = os.path.join(tmp, "trained.pt")
+        path = os.path.join(tmp, "trained.msgpack")
         if cli.main(["--log-level", "WARNING", "export", "--model",
                      MLP_TRAIN["model"], "--checkpoint-dir", ckpt,
                      "--out", path]) != 0:
@@ -2159,7 +2191,7 @@ def _cnn_serve(device, tr, data, smi):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "ckpt")
         tr.save_checkpoint(ckpt)
-        path = os.path.join(tmp, "cnn.pt")
+        path = os.path.join(tmp, "cnn.msgpack")
         if cli.main(["--log-level", "WARNING", "export", "--model",
                      "bnn-cnn", "--checkpoint-dir", ckpt, "--out",
                      path]) != 0:
@@ -2370,6 +2402,404 @@ def conv_phase(device: torch.device, gen: torch.Generator, smi: str):
     return counts, k1_rows
 
 
+# -- phase 11: the training runtime ------------------------------------------
+
+
+def _rt_argv(ckpt: str, *extra: str) -> list:
+    """``cli train`` of ``RT_TRAIN`` for ``RT_EPOCHS`` epochs into
+    ``ckpt``."""
+    return [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "train", "--model", RT_TRAIN["model"],
+            "--epochs", str(RT_EPOCHS),
+            "--batch-size", str(RT_TRAIN["batch_size"]),
+            "--optimizer", RT_TRAIN["optimizer"],
+            "--lr", str(RT_TRAIN["learning_rate"]),
+            "--seed", str(RT_TRAIN["seed"]), "--backend", RT_TRAIN["backend"],
+            "--log-interval", str(RT_LOG_INTERVAL),
+            "--synthetic-sizes", *map(str, RT_SYNTH),
+            "--checkpoint-dir", ckpt, *extra]
+
+
+def _rt_popen(argv: list) -> subprocess.Popen:
+    return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rt_finish(proc: subprocess.Popen, what: str, want_rc: int) -> dict:
+    """Wait for ``proc`` (killed after 300 s); its JSON line, if any."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != want_rc:
+        raise AssertionError(f"{what} exited {proc.returncode}, want "
+                             f"{want_rc}: {err[-2000:]}")
+    lines = out.strip().splitlines()
+    return json.loads(lines[-1]) if lines else {}
+
+
+def _rt_sigterm_run(ckpt: str) -> dict:
+    """``cli train`` stopped by SIGTERM once epoch 1 has logged step
+    ``RT_SIGTERM_AFTER``: it must exit with 75."""
+    import re
+    import signal
+
+    proc = _rt_popen(_rt_argv(ckpt))
+    seen = []
+    try:
+        for line in proc.stderr:
+            seen.append(line)
+            m = re.search(r"epoch 1 step (\d+) ", line)
+            if m and int(m.group(1)) >= RT_SIGTERM_AFTER:
+                t0 = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                break
+        else:
+            raise AssertionError("cli train ended before the SIGTERM: "
+                                 + "".join(seen[-20:]))
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    _rt_finish(proc, "cli train after SIGTERM", 75)
+    return {"sigterm_to_exit_s": time.perf_counter() - t0}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _tree_digest(path: str) -> str:
+    """sha256 over every leaf (path and bytes) of a checkpoint file's
+    train state: step, params, batch stats, optimizer state."""
+    import hashlib
+
+    from distributed_mnist_bnns_tpu_torch.utils import msgpack
+
+    h = hashlib.sha256()
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}")
+        else:
+            h.update(prefix.encode())
+            h.update(np.ascontiguousarray(tree).tobytes())
+
+    with open(path, "rb") as f:
+        walk(msgpack.from_bytes(f.read()), "")
+    return h.hexdigest()
+
+
+def _rt_trainer(device, ckpt, **kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(RT_TRAIN, epochs=RT_EPOCHS, device=str(device),
+               log_interval=RT_LOG_INTERVAL, checkpoint_dir=ckpt)
+    cfg.update(kw)
+    return Trainer(TrainConfig(**cfg))
+
+
+def _rt_node_rank(rank: int, world: int, device, steps: int) -> dict:
+    """``steps`` steps of sign_ef on pallas_xnor in one rank (phase 11's
+    two-node run and its one-launch twin)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _dp_run(device, _dp_data(tmp, steps), base=RT_TRAIN,
+                       log_interval=1, grad_compress="sign_ef")
+
+
+def _rt_two_nodes(smi: str) -> tuple:
+    """Two "nodes" of one gloo rank each, sharing card 0, meeting at
+    ``tcp://127.0.0.1:<free port>``, against one ``spawn`` of 2 (a
+    ``file://`` rendezvous), run at the same time: every rank bitwise
+    equal, K1 twice a step in each. Returns (K1's launches, row)."""
+    from distributed_mnist_bnns_tpu_torch.parallel import spawn
+
+    port = _free_port()
+    out, errors = {}, []
+
+    def launch(key, **kw):
+        try:
+            out[key] = spawn(_rt_node_rank, kw.pop("world"), backend="gloo",
+                             device="cuda", args=(RT_NODE_STEPS,), **kw)
+        except BaseException as e:   # re-raised below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=launch, args=("one_launch",),
+                                kwargs={"world": 2}),
+               threading.Thread(target=launch, args=("node1",), kwargs=dict(
+                   world=1, coordinator=f"127.0.0.1:{port}", nodes=2,
+                   node_rank=1))]
+    for t in threads:
+        t.start()
+    launch("node0", world=1, coordinator=f"127.0.0.1:{port}", nodes=2,
+           node_rank=0)
+    for t in threads:
+        t.join(timeout=600)
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - t0
+    nodes = out["node0"] + out["node1"]
+    ranks = nodes + out["one_launch"]
+    _check_ranks("two nodes", nodes)
+    _check_ranks("one launch", out["one_launch"])
+    if nodes[0]["digest"] != out["one_launch"][0]["digest"] or (
+            nodes[0]["losses"] != out["one_launch"][0]["losses"]):
+        raise AssertionError("two nodes over tcp differ from one spawn")
+    k1 = [r["launches"]["xnor"] for r in ranks]
+    if any(n != 2 * RT_NODE_STEPS for n in k1):
+        raise AssertionError(f"two-node run: K1 launches by rank {k1}")
+    row = {"runtime": "two_nodes_tcp", "card": smi, "steps": RT_NODE_STEPS,
+           "wall_s": wall, "equal_to_one_spawn": True,
+           "k1_launches_by_rank": k1,
+           "step_ms": [r["step_ms"] for r in nodes]}
+    return sum(k1[:2]), row
+
+
+def runtime_phase(device: torch.device, smi: str):
+    """Phase 11, the training runtime of ``bnn-mlp-large`` (``RT_TRAIN``):
+    (a) ``cli train`` stopped by SIGTERM in epoch 1 exits 75, ``cli
+    train --resume`` exits 0, and its final checkpoint equals an
+    uninterrupted ``cli train``'s in every tensor; (b) in this process
+    the same run, with and without ``--timing-csv``'s CSVs (equal states;
+    step times), checkpoint bytes and save, async, digest and restore
+    times; (c) the stopped checkpoint with its newest generation
+    truncated rolls back to the one before it, and (d) shipped over
+    loopback by ``utils.transfer``, each resumed here and ending on the
+    uninterrupted state; (e) the trained model exported to msgpack and
+    served through K2/K3 against the live model; (f) two nodes over
+    ``tcp://``. Returns (each kernel's launches on this path, rows)."""
+    import shutil
+
+    from distributed_mnist_bnns_tpu_torch import cli
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.infer import load_packed
+    from distributed_mnist_bnns_tpu_torch.interop import (
+        train_state_from_jax,
+        train_state_to_jax,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.utils import checkpoint as ck
+    from distributed_mnist_bnns_tpu_torch.utils import transfer
+
+    t_phase = time.perf_counter()
+    counts = {name: 0 for name in KERNEL_ROWS}
+    rows = []
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rt_")
+    try:
+        whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+        # (a) the uninterrupted cli run beside the one SIGTERM stops
+        whole_proc = _rt_popen(_rt_argv(whole))
+        stop = _rt_sigterm_run(cut)
+        meta = ck.read_meta(cut)
+        if not (meta.get("preempted") and meta.get("epoch_in_progress") == 1
+                and meta.get("batch_in_epoch", 0) >= RT_SIGTERM_AFTER):
+            raise AssertionError(f"the stopped run's meta: {meta}")
+        # copies of the stopped checkpoint for (c) and (d)
+        rolled = os.path.join(tmp, "rolled")
+        shutil.copytree(cut, rolled)
+        newest = meta["generations"][0]["file"]
+        for name in (newest, ck.LATEST):
+            os.truncate(os.path.join(rolled, name),
+                        os.path.getsize(os.path.join(rolled, name)) // 2)
+        shipped = os.path.join(tmp, "shipped")
+        ship = {}
+        for name in (ck.LATEST, ck.META):
+            port = _free_port()
+            recv = threading.Thread(target=transfer.receive_file,
+                                    args=(shipped, port))
+            recv.start()
+            time.sleep(0.2)   # the receiver binds
+            t0 = time.perf_counter()
+            sent = transfer.send_file(os.path.join(cut, name), "127.0.0.1",
+                                      port)
+            dt = time.perf_counter() - t0
+            recv.join(timeout=120)
+            if name == ck.LATEST:
+                ship.update(bytes=sent, ship_s=dt)
+        resumed = _rt_finish(_rt_popen(_rt_argv(cut, "--resume")),
+                             "cli train --resume", 0)
+        whole_row = _rt_finish(whole_proc, "cli train", 0)
+        same = (_tree_digest(os.path.join(cut, ck.LATEST))
+                == _tree_digest(os.path.join(whole, ck.LATEST)))
+        row = {"runtime": "preempt_resume", "card": smi,
+               "exit_codes": [75, 0], "stopped_at": {
+                   "epoch": meta["epoch_in_progress"],
+                   "batch": meta["batch_in_epoch"], "step": meta["step"]},
+               **stop, "resumed_test_acc": resumed.get("test_acc"),
+               "uninterrupted_test_acc": whole_row.get("test_acc"),
+               "bitwise_equal": same}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if not same:
+            raise AssertionError("cli train stopped and resumed differs "
+                                 "from the uninterrupted run")
+        log(f"SIGTERM at epoch 1 batch {meta['batch_in_epoch']}: exit 75, "
+            "--resume exit 0, final state bitwise the uninterrupted one")
+
+        # (b) in this process: the run, then again with the timing CSVs
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=RT_SYNTH, seed=0)
+        ref_dir = os.path.join(tmp, "ref")
+        ref = _rt_trainer(device, ref_dir)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        hist = ref.fit(data)
+        torch.cuda.synchronize()
+        k1_ref = _kernels.LAUNCHES["xnor"]
+        ref_digest = _tree_digest(os.path.join(ref_dir, ck.LATEST))
+        csv = _rt_trainer(device, os.path.join(tmp, "csv"),
+                          timing_csv_prefix=os.path.join(tmp, "timing"))
+        csv_hist = csv.fit(data)
+        steps = sum(h["steps"] for h in hist)
+        # layers 2 and 3 of every training step and every eval batch
+        evals = RT_EPOCHS * -(-RT_SYNTH[1] // RT_TRAIN["batch_size"])
+        if k1_ref != 2 * (steps + evals):
+            raise AssertionError(f"K1 {k1_ref} launches in {steps} "
+                                 f"pallas_xnor steps and {evals} eval "
+                                 "batches")
+        with open(os.path.join(tmp, "timing_batch_time.csv")) as f:
+            n_rows = sum(1 for _ in f) - 1
+        row = {"runtime": "timing_csv", "card": smi, "steps": steps,
+               "step_ms_without": [h["batch_time_s"] * 1e3 for h in hist],
+               "step_ms_with": [h["batch_time_s"] * 1e3 for h in csv_hist],
+               "dispatch_ms_without": [h["dispatch_time_s"] * 1e3
+                                       for h in hist],
+               "dispatch_ms_with": [h["dispatch_time_s"] * 1e3
+                                    for h in csv_hist],
+               "batch_csv_rows": n_rows,
+               "states_equal": _tree_digest(os.path.join(
+                   tmp, "csv", ck.LATEST)) == ref_digest,
+               "in_process_equals_cli": ref_digest == _tree_digest(
+                   os.path.join(whole, ck.LATEST))}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if n_rows != steps or not row["states_equal"]:
+            raise AssertionError(f"the --timing-csv run: {row}")
+
+        # checkpoint bytes and times
+        path = os.path.join(ref_dir, ck.LATEST)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ref.save_checkpoint(os.path.join(tmp, "sync"))
+        save_s = time.perf_counter() - t0
+        ref._checkpointer = ck.AsyncCheckpointer()
+        t0 = time.perf_counter()
+        ref.save_checkpoint(os.path.join(tmp, "async"))
+        handoff_s = time.perf_counter() - t0
+        ref._checkpointer.close()
+        async_s = time.perf_counter() - t0
+        ref._checkpointer = None
+        t0 = time.perf_counter()
+        ck.file_digest(path)
+        digest_s = time.perf_counter() - t0
+        fresh = _rt_trainer(device, ref_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, _ = ck.load_checkpoint_resilient(
+            train_state_to_jax(fresh, values=False), ref_dir)
+        load_s = time.perf_counter() - t0
+        train_state_from_jax(tree, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        row = {"runtime": "checkpoint", "card": smi,
+               "checkpoint_bytes": size, "save_sync_s": save_s,
+               "save_async_handoff_s": handoff_s,
+               "save_async_total_s": async_s, "digest_s": digest_s,
+               "restore_read_verify_decode_s": load_s,
+               "restore_s": restore_s}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        log(f"checkpoint {size / 1e6:.1f} MB: save {save_s:.3f} s, async "
+            f"handoff {handoff_s:.3f} s, digest {digest_s:.3f} s, restore "
+            f"{restore_s:.3f} s")
+
+        # (c) rollback and (d) the shipped copy, each resumed here
+        _kernels.reset_launches()
+        res = {}
+        for name, where in (("rollback", rolled), ("shipped", shipped)):
+            if name == "rollback":
+                _, info = ck.load_checkpoint_resilient(
+                    train_state_to_jax(fresh, values=False), where)
+                if not (info["rolled_back"] and info["file"]
+                        == meta["generations"][1]["file"]):
+                    raise AssertionError(f"no rollback: {info}")
+            t = _rt_trainer(device, where, resume=True)
+            t.fit(data)
+            res[name] = _tree_digest(os.path.join(where, ck.LATEST))
+        torch.cuda.synchronize()
+        k1_resumed = _kernels.LAUNCHES["xnor"]
+        row = {"runtime": "rollback_and_ship", "card": smi,
+               "rolled_back_to": meta["generations"][1]["file"],
+               "rollback_equal": res["rollback"] == ref_digest,
+               "shipped_equal": res["shipped"] == ref_digest,
+               "ship_bytes": ship["bytes"], "ship_s": ship["ship_s"],
+               "ship_mb_per_s": ship["bytes"] / ship["ship_s"] / 1e6,
+               "k1_launches_after_resume": k1_resumed}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if not (row["rollback_equal"] and row["shipped_equal"]):
+            raise AssertionError(f"resumes differ from the uninterrupted "
+                                 f"run: {row}")
+        counts["xnor"] += k1_ref + k1_resumed
+        log(f"rollback past the truncated {newest} and the shipped copy "
+            f"({row['ship_mb_per_s']:.0f} MB/s) both resume to the "
+            "uninterrupted state")
+
+        # (e) the trained model exported to msgpack, served through K2/K3
+        art = os.path.join(tmp, "trained.msgpack")
+        if cli.main(["--log-level", "WARNING", "export", "--model",
+                     RT_TRAIN["model"], "--checkpoint-dir", ref_dir,
+                     "--out", art]) != 0:
+            raise AssertionError("cli export to msgpack failed")
+        fn, _ = load_packed(art, device=device)
+        x = torch.from_numpy(data.test_images[:MAIN_M]).to(device)
+        fn(x)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        frozen = fn(x)
+        torch.cuda.synchronize()
+        serve = dict(_kernels.LAUNCHES)
+        live = get_model(RT_TRAIN["model"], backend="xla")
+        live.load_state_dict(ref.model.state_dict())
+        with torch.no_grad():
+            want = live.to(device).eval()(x)
+        diff = (frozen - want).abs().max().item()
+        row = {"runtime": "msgpack_artifact", "card": smi,
+               "bytes": os.path.getsize(art), "max_abs_vs_live": diff,
+               "launches": serve}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if not (torch.equal(frozen.argmax(-1), want.argmax(-1))
+                and diff <= 1e-4 and serve["xnor_sign"] > 0
+                and serve["xnor_affine"] > 0):
+            raise AssertionError(f"the msgpack artifact: {row}")
+        for name in ("xnor_sign", "xnor_affine"):
+            counts[name] += serve[name]
+        log(f"msgpack artifact served through K2/K3: max |diff| {diff:.3g}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) two nodes over tcp://
+    k1_nodes, row = _rt_two_nodes(smi)
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+    counts["xnor"] += k1_nodes
+    log(f"two nodes over tcp:// equal one spawn; K1 {k1_nodes} launches")
+    print(json.dumps({"slice": "runtime", "launches": counts,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2460,6 +2890,7 @@ def main() -> int:
           flush=True)
     dp_counts, _ = dp_train_phase(device, smi)
     conv_counts, conv_rows = conv_phase(device, gen, smi)
+    rt_counts, _ = runtime_phase(device, smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -2476,7 +2907,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": (mlp_counts[name] + lm_counts[name]
                          + train_counts[name] + mlp_train_counts[name]
-                         + dp_counts[name] + conv_counts[name]),
+                         + dp_counts[name] + conv_counts[name]
+                         + rt_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -2485,6 +2917,7 @@ def main() -> int:
             "launches_mlp_train_path": mlp_train_counts[name],
             "launches_dp_path": dp_counts[name],
             "launches_conv_path": conv_counts[name],
+            "launches_runtime_path": rt_counts[name],
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

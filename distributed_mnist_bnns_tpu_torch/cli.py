@@ -3,6 +3,10 @@
 
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-mlp-large \
       --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
+  python -m distributed_mnist_bnns_tpu_torch.cli train --checkpoint-dir ckpt \
+      --resume --timing-csv timing --results results.csv
+  python -m distributed_mnist_bnns_tpu_torch.cli train --dp 2 --nodes 2 \
+      --node-rank 0 --coordinator 10.0.0.1:29500    # and --node-rank 1
   python -m distributed_mnist_bnns_tpu_torch.cli train --dp auto \
       --grad-compress sign_ef
   python -m distributed_mnist_bnns_tpu_torch.cli train --model convnet \
@@ -10,17 +14,17 @@
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-cnn \
       --backend pallas_xnor --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli export --model bnn-cnn \
-      --checkpoint-dir ckpt --out cnn.pt
+      --checkpoint-dir ckpt --out cnn.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli eval --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli export --checkpoint-dir ckpt \
-      --out m.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli export --out m.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact m.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli lm --export lm.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --export lm.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.pt
-  python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.pt --sample 32
+      --out m.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli export --out m.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact m.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --export lm.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --export lm.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.msgpack --sample 32
 
 ``train`` trains a registered model (``models.list_models()``: the
 bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
@@ -30,12 +34,23 @@ parameters where the model takes a dtype) and prints its final
 metrics as one JSON line; with ``--dp N`` (or ``auto``: one rank a card)
 it starts N ranks itself, over NCCL on the cards or over gloo with
 ``--device cpu``, and ``--grad-compress sign|sign_ef`` exchanges 1-bit
-gradients (``--dp-hosts``: in two levels); ``eval`` evaluates the
+gradients (``--dp-hosts``: in two levels). Checkpoints are the JAX
+package's (``checkpoint.msgpack``, digests and generations in
+``checkpoint_meta.json``); ``--resume`` continues the newest verified one,
+at the step where a graceful stop left it: SIGTERM (passed on to the
+ranks of a ``--dp`` run) or SIGINT writes a checkpoint and exits with 75
+(``--no-preemption``: the signals kill as usual). ``--nodes N --node-rank
+R --coordinator HOST:PORT`` runs node R of N: its ``--dp / N`` ranks (or
+one a card with ``--dp auto``) join the others at ``tcp://HOST:PORT``,
+each try bounded by ``--init-timeout`` and retried ``--init-retries``
+times. ``--timing-csv PREFIX`` writes each batch's host dispatch time and
+each epoch's time; ``--results`` a CSV (and HTML plot) a row an epoch.
+``eval`` evaluates the
 latest (``--best``: the best) checkpoint of a ``train --checkpoint-dir``
-run. ``export`` freezes
+run (with the optimizer flags of the run). ``export`` freezes
 a ``bnn-mlp`` or ``bnn-cnn`` model (a trained checkpoint with
 ``--checkpoint-dir``, a seeded init, or weights carried across from the
-JAX package with ``--jax-variables``) into the port's packed artifact;
+JAX package with ``--jax-variables``) into the packed artifact (the JAX package's msgpack);
 ``infer`` evaluates an artifact on the MNIST test split (synthetic data
 when no idx files are found); ``serve`` runs the HTTP
 server (``--lm``: the continuous-batching LM server); ``lm --export``
@@ -89,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load the JAX package's {params, batch_stats} "
                         "from an .npz with '/'-joined keys instead of a "
                         "seeded init (interop.variables_from_npz)")
-    x.add_argument("--out", default="model_packed.pt")
+    x.add_argument("--out", default="model_packed.msgpack")
 
     inf = sub.add_parser(
         "infer", help="evaluate a packed artifact on the MNIST test split",
@@ -239,6 +254,24 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--best", action="store_true",
                     help="eval: the best checkpoint instead of the latest")
+    sp.add_argument("--save-all", action="store_true",
+                    help="keep a checkpoint_epoch_N copy of every epoch")
+    sp.add_argument("--async-checkpoint", action="store_true",
+                    help="write checkpoints on a background thread")
+    sp.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="checkpoint generations kept for corruption "
+                         "rollback (digest-verified on resume)")
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the newest verified checkpoint")
+    sp.add_argument("--no-preemption", action="store_true",
+                    help="do not turn SIGTERM/SIGINT into a graceful stop "
+                         "+ mid-epoch checkpoint + exit 75")
+    sp.add_argument("--results", default=None,
+                    help="per-epoch results CSV (and an HTML plot)")
+    sp.add_argument("--timing-csv", default=None,
+                    help="prefix of the per-batch / per-epoch timing CSVs")
+    sp.add_argument("--log-file", default=None,
+                    help="also log (DEBUG) to this file, from rank 0")
     sp.add_argument("--device", default="cuda")
     # parallelism
     sp.add_argument("--dp", default="1",
@@ -267,16 +300,31 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "exchange (here the collectives block, so the "
                          "groups only split the calls; the result does "
                          "not depend on it)")
+    # multi-node rendezvous (the reference's -n / -nr and master address)
+    sp.add_argument("--nodes", type=int, default=1)
+    sp.add_argument("--node-rank", type=int, default=0)
+    sp.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's rendezvous store")
+    sp.add_argument("--init-timeout", type=float, default=60.0,
+                    help="seconds a rendezvous try may take")
+    sp.add_argument("--init-retries", type=int, default=3,
+                    help="retries of a failed rendezvous (unreachable or "
+                         "timed out; a rank collision fails at once)")
 
 
-def _dp_world(args) -> int:
-    """The ranks of ``--dp``: 'auto' is one a card (``--device cpu``: as
-    many gloo processes as there are cards, at least one)."""
+def _local_ranks(args) -> int:
+    """The ranks this node starts: ``--dp`` (the whole world) over
+    ``--nodes``; 'auto' is one a card (``--device cpu``: as many gloo
+    processes as there are cards, at least one)."""
     if args.dp == "auto":
         import torch
 
         return max(torch.cuda.device_count(), 1)
-    return int(args.dp)
+    world = int(args.dp)
+    if world % args.nodes:
+        raise SystemExit(f"--dp {world} is not a multiple of --nodes "
+                         f"{args.nodes}")
+    return world // args.nodes
 
 
 def _model_kwargs(args) -> dict:
@@ -307,7 +355,11 @@ def _trainer(args, data_parallel=None, device=None):
         warmup_epochs=args.warmup_epochs, clip_grad_norm=args.clip_grad_norm,
         seed=args.seed, log_interval=args.log_interval, loss=args.loss,
         label_smoothing=args.label_smoothing, backend=args.backend,
-        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_dir=args.checkpoint_dir, save_all_epochs=args.save_all,
+        async_checkpoint=args.async_checkpoint,
+        checkpoint_keep=args.checkpoint_keep, resume=args.resume,
+        handle_preemption=not args.no_preemption,
+        results_path=args.results, timing_csv_prefix=args.timing_csv,
         device=args.device if device is None else device,
     ))
 
@@ -322,9 +374,21 @@ def _train_data(args):
 
 
 def _fit(args, data_parallel=None, device=None) -> dict:
+    """The run's final row, or ``{"preempted": exit code}`` after a
+    graceful stop (the JAX ``_fit_resumable``)."""
+    from .resilience import Preempted
+
     trainer = _trainer(args, data_parallel, device)
     data = _train_data(args)
-    history = trainer.fit(data)
+    try:
+        history = trainer.fit(data)
+    except Preempted as e:
+        log.warning("%s; state checkpointed: rerun with --resume to "
+                    "continue (exit %d)", e, e.exit_code)
+        return {"preempted": e.exit_code, "step": trainer.step}
+    if not history:   # resumed a finished run
+        return {"model": args.model, "total_steps": trainer.step,
+                "best_acc": trainer.best_acc}
     return {
         "model": args.model, "device": str(trainer.device),
         "data_source": data.source, **history[-1],
@@ -335,29 +399,54 @@ def _fit(args, data_parallel=None, device=None) -> dict:
     }
 
 
-def _train_rank(rank: int, world: int, device, args) -> dict:
-    """One rank of ``train --dp``: the trainer on this rank's device."""
+def _setup_logging(args, rank: int = 0) -> None:
+    """The console at ``--log-level`` (rank 0; WARNING on the others),
+    and with ``--log-file`` DEBUG to that file from rank 0
+    (``utils.setup_logging``)."""
+    from .utils import setup_logging
+
+    if args.log_file and rank == 0:
+        setup_logging(args.log_file, console_level=args.log_level,
+                      primary_only=False)
+        return
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        root.removeHandler(h)
     logging.basicConfig(
         level=args.log_level if rank == 0 else "WARNING",
         format=f"%(asctime)s %(levelname)s rank {rank} %(name)s: "
-               "%(message)s",
-    )
+               "%(message)s")
+
+
+def _train_rank(rank: int, world: int, device, args) -> dict:
+    """One rank of ``train --dp``: the trainer on this rank's device."""
+    _setup_logging(args, rank)
     return _fit(args, data_parallel=world, device=str(device))
 
 
 def _train(args) -> int:
-    world = _dp_world(args)
-    if world <= 1:
+    local = _local_ranks(args)
+    multinode = args.nodes > 1 or args.coordinator is not None
+    if local <= 1 and not multinode:
+        if args.log_file:
+            _setup_logging(args)
         row = _fit(args)
     else:
         from .parallel import spawn
 
         # One rank a card over NCCL; on the CPU, gloo processes.
         backend = "gloo" if args.device == "cpu" else "nccl"
-        row = spawn(_train_rank, world, backend=backend,
-                    device="cpu" if args.device == "cpu" else "cuda",
-                    args=(args,))[0]
-    print(json.dumps(row))
+        rows = spawn(_train_rank, local, backend=backend,
+                     device="cpu" if args.device == "cpu" else "cuda",
+                     args=(args,), coordinator=args.coordinator,
+                     nodes=args.nodes, node_rank=args.node_rank,
+                     init_timeout=args.init_timeout,
+                     init_retries=args.init_retries)
+        row = rows[0]
+    if "preempted" in row:
+        return row["preempted"]
+    if args.node_rank == 0:
+        print(json.dumps(row))
     return 0
 
 
@@ -365,12 +454,12 @@ def _eval(args) -> int:
     if not args.checkpoint_dir:
         raise SystemExit("eval requires --checkpoint-dir")
     trainer = _trainer(args)
-    payload = trainer.restore(args.checkpoint_dir, best=args.best)
+    meta = trainer.restore(args.checkpoint_dir, best=args.best)
     data = _train_data(args)
     print(json.dumps({
         "model": args.model, "device": str(trainer.device),
-        "data_source": data.source, "checkpoint_epoch": payload["epoch"],
-        "checkpoint_step": payload["step"], **trainer.evaluate(data),
+        "data_source": data.source, "checkpoint_epoch": meta.get("epoch"),
+        "checkpoint_step": trainer.step, **trainer.evaluate(data),
     }))
     return 0
 
@@ -385,16 +474,16 @@ def _export(args) -> int:
         raise SystemExit("export: give at most one of --checkpoint-dir and "
                          "--jax-variables")
     if args.checkpoint_dir:
+        from .interop import params_from_jax
         from .train import load_checkpoint
 
         try:
-            payload = load_checkpoint(args.checkpoint_dir, best=args.best,
-                                      model=args.model)
-        except ValueError as e:
+            state = load_checkpoint(args.checkpoint_dir, best=args.best,
+                                    model=args.model)["state"]
+            model = params_from_jax(state, get_model(args.model,
+                                                     **_model_kwargs(args)))
+        except (ValueError, RuntimeError, KeyError) as e:
             raise SystemExit(f"export: {e}") from None
-        model = get_model(args.model, **_model_kwargs(args))
-        model.load_state_dict(payload["state_dict"])
-        model.eval()
     elif args.jax_variables:
         from .interop import params_from_jax, variables_from_npz
 

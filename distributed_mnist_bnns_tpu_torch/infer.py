@@ -20,10 +20,13 @@ layer computes the real BN affine + hardtanh for the fp32 head (K3,
 ``xnor_matmul_packed_affine``). The folding math is the JAX package's,
 line for line, including g < 0, g == 0 and >= ties.
 
-The artifact is the port's own format: ``torch.save`` of plain tensors,
-ints, strings and floats under the same keys as the JAX package's frozen
-dict. Entry points take a ``device``, default ``"cuda"``; with no CUDA
-device they raise unless the caller asks for ``device="cpu"``.
+The artifact is the JAX package's: the msgpack of the frozen dict
+(``utils.msgpack.msgpack_serialize``, flax's ``msgpack_serialize``; the
+same keys, dtypes and layouts, through ``interop.frozen_to_jax`` and
+``frozen_from_jax``), so an artifact exported here serves in the JAX
+``load_packed`` and the reverse. Entry points take a ``device``, default
+``"cuda"``; with no CUDA device they raise unless the caller asks for
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -265,21 +268,30 @@ def _build_any(frozen: Dict[str, Any], device: torch.device):
 
 def export_packed(model, path: str) -> Dict[str, Any]:
     """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN
-    or a BinarizedLM to ``path`` (``torch.save`` of plain tensors). The ±1
-    first layer (the MLP's ``w1``, the CNN's ``conv1_w``) goes as int8
-    (4x smaller); the predictor casts it back to fp32. Returns the
-    size-info dict."""
+    or a BinarizedLM to ``path``, as the JAX ``export_packed`` writes it
+    (msgpack). The ±1 first layer (the MLP's ``w1``, the CNN's
+    ``conv1_w``) goes as int8 (4x smaller); the predictor casts it back
+    to fp32. Returns the size-info dict."""
+    from .interop import frozen_to_jax
+    from .utils import msgpack
+
     frozen = _to_cpu(_freeze_any(model))
     for key in ("w1", "conv1_w"):
         if key in frozen:
             frozen[key] = frozen[key].to(torch.int8)
-    torch.save(frozen, path)
+    with open(path, "wb") as f:
+        f.write(msgpack.msgpack_serialize(frozen_to_jax(frozen)))
     return frozen["info"]
 
 
 def load_frozen(path: str) -> Dict[str, Any]:
-    """The frozen dict of an ``export_packed`` artifact, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The frozen dict of an ``export_packed`` artifact (the port's or the
+    JAX package's), as tensors on the CPU."""
+    from .interop import frozen_from_jax
+    from .utils import msgpack
+
+    with open(path, "rb") as f:
+        return frozen_from_jax(msgpack.from_bytes(f.read()))
 
 
 def load_packed(path: str, *, device="cuda"):

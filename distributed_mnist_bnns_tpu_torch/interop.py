@@ -8,6 +8,8 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
                               fp32; ConvNet, DeepCNN, BinarizedCNN)
   frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
                               port's frozen artifact (same keys)
+  frozen_to_jax(frozen)       the inverse: numpy leaves, as the JAX
+                              ``export_packed`` serializes them
   lm_params_from_jax(params)  a JAX BinarizedLM's params -> the port's
                               BinarizedLM
   frozen_lm_from_jax(frozen)  JAX ``infer_transformer._freeze_lm_tensors``
@@ -15,6 +17,9 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
   JaxFlatOrder(model)         a model's parameters in the order and
                               layout ``jax.flatten_util.ravel_pytree``
                               gives the flax params
+  train_state_to_jax(trainer) the trainer's state as the flax state dict
+                              of the JAX ``TrainState`` (a checkpoint)
+  train_state_from_jax(sd, t) the inverse, into a trainer
 
 Each model's ``flax_names()`` maps its submodules to flax's module names
 (e.g. BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 -> bn1..bn3,
@@ -201,6 +206,19 @@ def frozen_from_jax(frozen: Dict[str, Any]) -> Dict[str, Any]:
     return frozen
 
 
+def frozen_to_jax(frozen: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``frozen_from_jax``: tensors as numpy arrays (the
+    ``info`` dict, ints, strings and floats as they are)."""
+    if isinstance(frozen, dict):
+        return {k: (dict(v) if k == "info" else frozen_to_jax(v))
+                for k, v in frozen.items()}
+    if isinstance(frozen, (list, tuple)):
+        return [frozen_to_jax(v) for v in frozen]
+    if torch.is_tensor(frozen):
+        return frozen.detach().cpu().numpy()
+    return frozen
+
+
 def variables_from_npz(path: str) -> Dict[str, Any]:
     """Unflatten an ``.npz`` whose keys are '/'-joined tree paths
     (``params/BinarizedDense_0/kernel``, ``batch_stats/BatchNorm_0/mean``)
@@ -271,3 +289,209 @@ class JaxFlatOrder:
                                       kind)
             start += n
         return out
+
+
+# -- the train state in flax's layout ------------------------------------------
+
+# Each optimizer's optax state under ``inject_hyperparams`` (the stages of
+# its chain, in order): a tuple of names is one stage's state, in the
+# order of its fields ("count" an int32 scalar, any other name a tree
+# shaped like the params); a dict is a stage whose state is that (empty)
+# dict. ``asgd`` is the JAX package's own {inner, avg, count}.
+_OPT_STAGES = {
+    "sgd": (("trace",), ()),
+    "adam": (("count", "mu", "nu"), ()),
+    "adamax": (("count", "mu", "nu"), ()),
+    "adagrad": (("sum_of_squares",), ()),
+    "adadelta": ((), ("e_g", "e_x"), ()),
+    "rprop": (("step_sizes", "prev_updates"), ()),
+    "rmsprop": (("nu",), (), ("trace",)),
+    "lars": ({"inner_state": {}}, {"inner_state": {}}, (), ("trace",)),
+    "lamb": (("count", "mu", "nu"), (), (), ()),
+}
+
+
+def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A dict and its sub-dicts in sorted key order, as a jitted step
+    returns flax's trees."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def _flax_leaves(model: torch.nn.Module, collection: str):
+    """(flax module, flax leaf, port tensor, kind) of one collection."""
+    for sub, flax_name, kind in model.flax_names():
+        for port, coll, leaf in _LEAVES[kind]:
+            if coll == collection:
+                name = f"{sub}.{port}"
+                t = (model.get_parameter(name) if coll == "params"
+                     else model.get_buffer(name))
+                yield flax_name, leaf, t, kind
+
+
+def _tree(model: torch.nn.Module, collection: str, fn) -> Dict[str, Any]:
+    """A sorted flax tree of ``fn(tensor, kind)`` over ``collection``."""
+    out: Dict[str, Any] = {}
+    for flax_name, leaf, t, kind in _flax_leaves(model, collection):
+        out.setdefault(flax_name, {})[leaf] = fn(t, kind)
+    return _sorted(out)
+
+
+def _i32(n: int) -> np.ndarray:
+    return np.asarray(n, np.int32)
+
+
+def _opt_name(optimizer) -> str:
+    from .train.optim import OPTIMIZER_REGISTRY
+
+    for name, cls in OPTIMIZER_REGISTRY.items():
+        if type(optimizer) is cls:
+            return name
+    raise ValueError(f"no flax layout for {type(optimizer).__name__}")
+
+
+def _hyperparam_names(name: str):
+    """The numeric hyperparameters ``inject_hyperparams`` holds: the
+    constructor's arguments in order, but for the boolean ones."""
+    import inspect
+
+    from .train.optim import OPTIMIZER_REGISTRY
+
+    sig = inspect.signature(OPTIMIZER_REGISTRY[name].__init__)
+    return [k for k, p in sig.parameters.items()
+            if k not in ("self", "params", "clip_grad_norm")
+            and not isinstance(p.default, bool)]
+
+
+def _optax_base_state(model, optimizer, name: str, leaf) -> Dict[str, Any]:
+    """The base optimizer's optax state; ``leaf(tensor, kind)`` makes each
+    params-shaped leaf from the optimizer state tensor it is given."""
+    state = optimizer.state
+
+    def tree(key):
+        return _tree(model, "params",
+                     lambda p, kind: leaf(state[p][key], kind))
+
+    def count(key="count"):
+        first = next(iter(model.parameters()))
+        return _i32(state[first][key])
+
+    if name == "asgd":
+        return {"inner": {"0": {}, "1": {}}, "avg": tree("avg"),
+                "count": count()}
+    out = {}
+    for i, stage in enumerate(_OPT_STAGES[name]):
+        if isinstance(stage, dict):
+            out[str(i)] = dict(stage)
+        else:
+            out[str(i)] = {k: count() if k == "count" else tree(k)
+                           for k in stage}
+    return out
+
+
+def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
+    """The trainer's state as the flax state dict of the JAX ``TrainState``:
+    ``{step, params, batch_stats, opt_state}``, every dict in sorted key
+    order and every stage state in its fields' order, as after a jitted
+    JAX step (so ``utils.msgpack.to_bytes`` of it is the bytes of the
+    JAX ``to_bytes``). Kernels in flax's layout; scalars as 0-d int32 /
+    float32 arrays. ``opt_state`` is optax's ``inject_hyperparams`` state
+    (``count``, ``hyperparams``, ``hyperparams_states``, ``inner_state``)
+    with the chain's stages ``[clip_by_global_norm, sign_compress, base]``
+    where present, the error feedback as ``(workers, ...)`` rows (one a
+    host when hierarchical; collective in a data-parallel run).
+
+    ``values=False`` gives the template: the same tree with the
+    params-shaped leaves as meta tensors of their shapes and no
+    collective."""
+    model, opt = trainer.model, trainer.optimizer
+    name = _opt_name(opt)
+    if values:
+        def leaf(t, kind):
+            return to_flax_layout(t.detach(), kind)
+    else:
+        def leaf(t, kind):
+            return to_flax_layout(torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), kind)
+    group = opt.param_groups[0]
+    hyper = _sorted({k: np.asarray(group[k], np.float32)
+                     for k in _hyperparam_names(name)})
+    base = _optax_base_state(model, opt, name, leaf)
+    stages = []
+    if opt.clip_grad_norm is not None:
+        stages.append({})
+    if opt.grad_transform is not None:
+        stages.append(trainer.ef_rows() if values
+                      else trainer.ef_rows(template=True))
+    inner = base if not stages else {
+        str(i): s for i, s in enumerate(stages + [base])}
+    return {
+        "step": _i32(trainer.step),
+        "params": _tree(model, "params", leaf),
+        "batch_stats": _tree(model, "batch_stats", leaf),
+        "opt_state": {"count": _i32(opt.steps), "hyperparams": hyper,
+                      "hyperparams_states": {}, "inner_state": inner},
+    }
+
+
+def _to_tensor(a) -> torch.Tensor:
+    """A decoded leaf as a tensor that owns its memory."""
+    if torch.is_tensor(a):
+        return a.clone()
+    return torch.from_numpy(np.array(a))
+
+
+def train_state_from_jax(state: Dict[str, Any], trainer) -> None:
+    """Load a flax ``TrainState`` state dict (``train_state_to_jax``'s
+    layout, numpy leaves; e.g. ``utils.checkpoint.load_checkpoint``'s)
+    into the trainer: the parameters and running statistics in place,
+    the step, and the optimizer's state, hyperparameters and this
+    worker's row of the error feedback. The tree must have the
+    trainer's structure (``utils.checkpoint`` checks it against
+    ``train_state_to_jax(trainer, values=False)``)."""
+    model, opt = trainer.model, trainer.optimizer
+    name = _opt_name(opt)
+    with torch.no_grad():
+        for coll in ("params", "batch_stats"):
+            for flax_name, leaf, t, kind in _flax_leaves(model, coll):
+                src = from_flax_layout(
+                    _to_tensor(state[coll][flax_name][leaf]), kind)
+                t.copy_(src.to(t.dtype))
+        trainer.step = int(np.asarray(state["step"]))
+        # flax keeps no batch count: every train step counted one batch
+        for sub, _, kind in model.flax_names():
+            if kind == "bn":
+                model.get_buffer(f"{sub}.num_batches_tracked").fill_(
+                    trainer.step)
+    os_ = state["opt_state"]
+    opt.steps = int(np.asarray(os_["count"]))
+    for k, v in os_["hyperparams"].items():
+        for group in opt.param_groups:
+            group[k] = float(np.asarray(v))
+    inner = os_["inner_state"]
+    idx = 0
+    if opt.clip_grad_norm is not None:
+        idx += 1
+    if opt.grad_transform is not None:
+        trainer.load_ef_rows(inner[str(idx)])
+        idx += 1
+    base = inner[str(idx)] if idx else inner
+
+    def put(key, tree):
+        for flax_name, leaf, p, kind in _flax_leaves(model, "params"):
+            src = from_flax_layout(_to_tensor(tree[flax_name][leaf]), kind)
+            opt.state[p][key] = src.to(p.device, p.dtype).contiguous()
+
+    def put_count(key, v):
+        for p in model.parameters():
+            opt.state[p][key] = int(np.asarray(v))
+
+    if name == "asgd":
+        put("avg", base["avg"])
+        put_count("count", base["count"])
+        return
+    for i, stage in enumerate(_OPT_STAGES[name]):
+        if isinstance(stage, dict):
+            continue
+        for k in stage:
+            (put_count if k == "count" else put)(k, base[str(i)][k])

@@ -1,4 +1,23 @@
-from .policy import CircuitBreaker
-from .preempt import StopRequest
+from .policy import (
+    CircuitBreaker,
+    RetryPolicy,
+    TrainingFailure,
+    classify_failure,
+    handle_failure,
+    handle_preemption,
+    run_with_policy,
+)
+from .preempt import PREEMPT_EXIT_CODE, Preempted, StopRequest
 
-__all__ = ["CircuitBreaker", "StopRequest"]
+__all__ = [
+    "CircuitBreaker",
+    "PREEMPT_EXIT_CODE",
+    "Preempted",
+    "RetryPolicy",
+    "StopRequest",
+    "TrainingFailure",
+    "classify_failure",
+    "handle_failure",
+    "handle_preemption",
+    "run_with_policy",
+]

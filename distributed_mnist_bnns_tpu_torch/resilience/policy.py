@@ -1,18 +1,164 @@
-"""Circuit breaker for a flaky dependency (the serving predictor call).
+"""Retry policy for training, and a circuit breaker for serving.
 
-A framework-free copy of ``CircuitBreaker`` from the JAX package's
-``resilience/policy.py``. The retry policy and failure classification
-there belong to training and are not in this package yet.
+A framework-free copy of the JAX package's ``resilience/policy.py``
+without its telemetry and chaos hooks:
+
+  * classification: a missing dataset fails the same way every time, so
+    config and programming errors are fatal; IO and unknown runtime
+    faults are transient; ``Preempted`` resumes without counting against
+    the failure budget;
+  * jittered exponential backoff (``base * factor ** n`` capped at
+    ``max_backoff_s``, the top ``jitter`` fraction drawn at random from
+    ``seed``), so restarting workers do not retry in lockstep;
+  * ``run_with_policy`` rebuilds the trainer (which, with
+    ``TrainConfig.resume``, restores the newest verified checkpoint
+    generation) and runs again;
+  * ``CircuitBreaker`` fences the serving predictor call.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import threading
 import time
-from typing import Callable, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional, Tuple, TypeVar
+
+from .preempt import Preempted
 
 log = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+# Exceptions that a restart cannot fix. KeyboardInterrupt and SystemExit
+# are fatal too, and never wrapped.
+DEFAULT_FATAL_TYPES: Tuple[type, ...] = (
+    FileNotFoundError,
+    NotADirectoryError,
+    IsADirectoryError,
+    PermissionError,
+    ValueError,
+    TypeError,
+    AttributeError,
+    KeyError,
+    IndexError,
+    ImportError,
+    NotImplementedError,
+    AssertionError,
+)
+
+
+class TrainingFailure(RuntimeError):
+    """Training kept failing past the retry budget."""
+
+
+def classify_failure(exc: BaseException, *,
+                     fatal_types: Tuple[type, ...] = DEFAULT_FATAL_TYPES,
+                     transient_types: Tuple[type, ...] = ()) -> str:
+    """``"preempt"``, ``"transient"`` or ``"fatal"``. ``transient_types``
+    wins over ``fatal_types``; an unknown exception is transient."""
+    if isinstance(exc, Preempted):
+        return "preempt"
+    if transient_types and isinstance(exc, transient_types):
+        return "transient"
+    if isinstance(exc, (KeyboardInterrupt, SystemExit, GeneratorExit)):
+        return "fatal"
+    if isinstance(exc, fatal_types):
+        return "fatal"
+    return "transient"
+
+
+@dataclass
+class RetryPolicy:
+    """Restart budget, backoff shape and classification overrides."""
+
+    max_restarts: int = 2          # transient-failure budget
+    max_preemptions: int = 64      # graceful-stop resumes (apart: a
+                                   # preemption is routine, not a failure)
+    base_backoff_s: float = 1.0
+    backoff_factor: float = 2.0
+    max_backoff_s: float = 60.0
+    jitter: float = 0.5            # top fraction of the delay randomized
+    seed: Optional[int] = None     # None: nondeterministic jitter
+    fatal_types: Tuple[type, ...] = DEFAULT_FATAL_TYPES
+    transient_types: Tuple[type, ...] = ()
+    _rng: random.Random = field(init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        self._rng = random.Random(self.seed)
+
+    def classify(self, exc: BaseException) -> str:
+        return classify_failure(exc, fatal_types=self.fatal_types,
+                                transient_types=self.transient_types)
+
+    def backoff(self, attempt: int) -> float:
+        """The delay before retry ``attempt`` (from 1): capped exponential,
+        uniform over its top ``jitter`` fraction."""
+        raw = min(self.base_backoff_s * self.backoff_factor ** (attempt - 1),
+                  self.max_backoff_s)
+        if raw <= 0:
+            return 0.0
+        floor = raw * (1.0 - min(max(self.jitter, 0.0), 1.0))
+        return floor + self._rng.random() * (raw - floor)
+
+
+def handle_preemption(e: Preempted, *, policy: RetryPolicy,
+                      preemptions: int) -> int:
+    """Count a preemption against ``max_preemptions``; returns the new
+    count, raises ``TrainingFailure`` past the budget."""
+    preemptions += 1
+    if preemptions > policy.max_preemptions:
+        raise TrainingFailure(f"preempted {preemptions} times; "
+                              "giving up") from e
+    log.warning("resuming after preemption %d/%d (%s)", preemptions,
+                policy.max_preemptions, e)
+    return preemptions
+
+
+def handle_failure(e: BaseException, *, policy: RetryPolicy, failures: int,
+                   sleep: Callable[[float], None] = time.sleep,
+                   context: str = "") -> int:
+    """Classify ``e``: re-raise a fatal one, count a transient one against
+    ``max_restarts`` (``TrainingFailure`` past it) and sleep its backoff.
+    Returns the new failure count. Call it from the ``except`` block
+    handling ``e``."""
+    if policy.classify(e) == "fatal":
+        log.error("fatal failure (%s: %s); not retrying",
+                  type(e).__name__, e)
+        raise e
+    failures += 1
+    if failures > policy.max_restarts:
+        raise TrainingFailure(f"training failed {failures} times; "
+                              "giving up") from e
+    delay = policy.backoff(failures)
+    log.warning("training attempt %d/%d failed (%s: %s); restarting from "
+                "latest checkpoint%s in %.2fs", failures,
+                policy.max_restarts, type(e).__name__, e, context, delay)
+    sleep(delay)
+    return failures
+
+
+def run_with_policy(make_trainer: Callable[[], Any],
+                    run: Callable[[Any], T], *,
+                    policy: Optional[RetryPolicy] = None,
+                    sleep: Callable[[float], None] = time.sleep) -> T:
+    """``run(make_trainer())`` under ``policy``: a transient failure
+    rebuilds the trainer and runs again after a jittered backoff, up to
+    ``max_restarts``; ``Preempted`` restarts at once and counts against
+    ``max_preemptions`` only; a fatal failure re-raises."""
+    policy = policy if policy is not None else RetryPolicy()
+    failures = preemptions = 0
+    while True:
+        trainer = make_trainer()
+        try:
+            return run(trainer)
+        except Preempted as e:
+            preemptions = handle_preemption(e, policy=policy,
+                                            preemptions=preemptions)
+        except BaseException as e:
+            failures = handle_failure(e, policy=policy, failures=failures,
+                                      sleep=sleep)
 
 
 class CircuitBreaker:

@@ -1,8 +1,11 @@
 """Graceful stop on SIGTERM/SIGINT.
 
-A framework-free copy of ``StopRequest`` from the JAX package's
-``resilience/preempt.py``: the signal handler only sets a flag, and the
-serving loop polls it and drains in normal (non-handler) context.
+A framework-free copy of the JAX package's ``resilience/preempt.py``: the
+signal handler only sets a flag (``StopRequest``), and the serving loop or
+the trainer polls it at a step boundary. The trainer then writes a
+mid-epoch checkpoint and raises ``Preempted``, which ``cli train`` maps to
+``PREEMPT_EXIT_CODE`` and ``run_with_policy`` resumes without counting it
+as a failure.
 """
 
 from __future__ import annotations
@@ -14,6 +17,24 @@ import threading
 from typing import Iterator, Optional, Tuple
 
 log = logging.getLogger(__name__)
+
+# EX_TEMPFAIL: "temporary failure, retrying later will succeed", the exit
+# code a supervisor reads as "resume me" (1 is a crash, 0 done).
+PREEMPT_EXIT_CODE = 75
+
+
+class Preempted(RuntimeError):
+    """Training stopped at a step boundary after a stop request; with a
+    checkpoint dir the state is on disk and ``TrainConfig.resume``
+    continues the run."""
+
+    def __init__(self, epoch: int, step: int, reason: str = ""):
+        super().__init__(f"preempted at epoch {epoch} step {step}"
+                         + (f" ({reason})" if reason else ""))
+        self.epoch = epoch
+        self.step = step
+        self.reason = reason
+        self.exit_code = PREEMPT_EXIT_CODE
 
 
 class StopRequest:

@@ -129,7 +129,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
     """Base: ``step()`` clips the gradients by global norm (if set), runs
     ``grad_transform`` on them (if set), asks ``_update`` for each
     parameter's optax update and adds it. State is made at construction,
-    as ``tx.init(params)`` makes it."""
+    as ``tx.init(params)`` makes it; ``steps`` counts the updates, as
+    ``inject_hyperparams``' ``count`` does."""
 
     def __init__(self, params: Iterable, defaults: Dict[str, Any],
                  clip_grad_norm: Optional[float] = None):
@@ -139,6 +140,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 f"clip_grad_norm must be > 0, got {clip_grad_norm}")
         self.clip_grad_norm = clip_grad_norm
         self.grad_transform: Optional[SignCompress] = None
+        self.steps = 0
         for group in self.param_groups:
             for p in group["params"]:
                 self._init_state(p, self.state[p], group)
@@ -166,6 +168,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
             grads = self.grad_transform([p for p, _ in pairs], grads)
         for (p, group), g in zip(pairs, grads):
             p.add_(self._update(p, g, self.state[p], group))
+        self.steps += 1
         return loss
 
     def state_dict(self) -> Dict[str, Any]:

@@ -42,10 +42,42 @@ ones, whose products are bf16 already on the default backend, and
 ``fp32-mlp-large``) is built without it, as the JAX ``_build_model``
 drops a knob the constructor rejects.
 
-Checkpoints are the port's own: ``torch.save`` of the model's and the
-optimizer's state dicts with the epoch, step and best accuracy, as
-``latest.pt`` after every epoch and ``best.pt`` when the test accuracy
-improves, readable with ``torch.load(..., weights_only=True)``.
+Checkpoints are the JAX package's (``utils.checkpoint``): the msgpack of
+the flax ``TrainState`` state dict (``interop.train_state_to_jax``:
+step, params, batch stats, optax's optimizer state) with a sha256 digest
+and a generation ledger in ``checkpoint_meta.json``, written after every
+epoch (``model_best.msgpack`` when the test accuracy improves,
+``checkpoint_epoch_<N>.msgpack`` with ``save_all_epochs``), from a host
+copy on a thread with ``async_checkpoint``. A JAX checkpoint resumes here
+and a port checkpoint in the JAX ``Trainer``. The meta also holds the
+best accuracy, the world size and, under ``torch_rng_state``, every
+rank's train-time generator (dropout masks, stochastic signs), so that a
+resumed run draws what the uninterrupted one would have; a JAX meta's
+``rng_key`` is a JAX PRNG key and is not read.
+
+Resume and graceful stop (the JAX ``try_resume`` and ``_graceful_stop``):
+with ``resume`` the newest verified generation is restored (rolling back
+past corrupt ones; when all are corrupt the run starts fresh, with a
+logged error), and the run continues at the meta's position: inside an
+epoch (``epoch_in_progress``, ``batch_in_epoch``: the first batches of
+the seeded order are skipped) or at the next one. With
+``handle_preemption`` SIGTERM and SIGINT set ``stop``; the loop checks
+it before each dispatch, writes a mid-epoch checkpoint and raises
+``resilience.Preempted`` (``cli train`` exits 75). In a data-parallel
+run each rank is a process of its own (the JAX package's multi-process
+case, not its one-process mesh), and a signal may reach one rank only:
+a rank stopping alone would leave the others waiting in the next
+collective. So there the stop waits for the epoch boundary, where one
+all-reduce of the flag (a tensor on the rank's device) decides for all,
+and the per-epoch checkpoint is the resume point. A stop at the last
+epoch's boundary finishes the run instead.
+
+Timing (``timing_csv_prefix``): each batch's host dispatch time, with no
+per-batch sync (a sync per step would slow a host-bound step), and each
+epoch's time, which ends in ``torch.cuda.synchronize``, as
+``<prefix>_batch_time.csv`` and ``<prefix>_epoch_time.csv``
+(mnist-dist2.py:112-115,139-155). ``results_path``: one ``ResultsLog``
+row per epoch, as a CSV and an HTML plot.
 
 Data parallelism (``data_parallel``, the JAX ``_setup_grad_compress``
 and ``_setup_data_parallel``): the trainer runs in every rank of a
@@ -64,6 +96,8 @@ dropout generator is seeded from ``(seed + 1, rank)``.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import logging
 import math
 import os
@@ -88,6 +122,21 @@ from ..ops.comm_compress import (
     tree_size,
 )
 from ..ops.losses import Loss, cross_entropy_loss, make_loss
+from ..resilience import Preempted, StopRequest
+from ..utils.checkpoint import (
+    AsyncCheckpointer,
+    CheckpointCorruptionError,
+    CheckpointTemplateMismatch,
+    CheckpointWorldMismatch,
+    latest_exists,
+    load_checkpoint_resilient,
+    read_meta,
+    save_checkpoint,
+    shape_mismatches,
+)
+from ..utils.checkpoint import load_checkpoint as _load_tree
+from ..utils.meters import AverageMeter
+from ..utils.results import ResultsLog
 from .optim import (
     RegimeSchedule,
     SignCompress,
@@ -97,7 +146,7 @@ from .optim import (
 
 log = logging.getLogger(__name__)
 
-LATEST, BEST = "latest.pt", "best.pt"
+RNG_META_KEY = "torch_rng_state"   # the port's key in checkpoint_meta.json
 
 
 def clamp_latent(params: Iterable[torch.Tensor]) -> None:
@@ -217,6 +266,14 @@ class TrainConfig:
     precision: str = "fp32"        # "bf16": bf16 compute, fp32 masters
                                    # (mnist-mixed.py:70)
     checkpoint_dir: Optional[str] = None
+    save_all_epochs: bool = False  # keep checkpoint_epoch_N copies
+    async_checkpoint: bool = False  # write checkpoints on a thread
+    checkpoint_keep: int = 3       # generations kept for rollback
+    resume: bool = False           # restore the newest checkpoint first
+    handle_preemption: bool = True  # SIGTERM/SIGINT -> graceful stop,
+                                   # mid-epoch checkpoint, Preempted
+    results_path: Optional[str] = None  # ResultsLog CSV (+ HTML plot)
+    timing_csv_prefix: Optional[str] = None  # per-batch / epoch CSVs
     device: Optional[str] = None   # None: "cuda" (raises without a card)
     data_parallel: Optional[object] = None  # None | "auto" | int ranks
     dp_mode: str = "gspmd"         # "gspmd" (replicated state); "fsdp"
@@ -283,6 +340,11 @@ class Trainer:
         self.epoch = 0
         self.best_acc = 0.0
         self.loss_history: List[float] = []  # every synced (logged) loss
+        self.results = ResultsLog(config.results_path or "results.csv")
+        self.batch_meter = AverageMeter()
+        self.stop = StopRequest()
+        self._checkpointer = (AsyncCheckpointer() if config.async_checkpoint
+                              else None)
 
     def _resolve_world(self):
         """(world, rank): the process group's when ``data_parallel`` is
@@ -475,30 +537,45 @@ class Trainer:
         return (x.to(self.device, non_blocking=True),
                 y.to(self.device, non_blocking=True))
 
-    def train_epoch(self, data, epoch: int) -> Dict[str, float]:
+    def train_epoch(self, data, epoch: int,
+                    start_batch: int = 0) -> Dict[str, float]:
         """One epoch over ``data.train_images`` in the seeded order of
-        ``batch_iterator``. Returns the mean of the logged steps' loss
-        and accuracy, the epoch's time and the mean time per batch."""
+        ``batch_iterator``, from batch ``start_batch`` on (the resume of a
+        stopped epoch). Returns the mean of the logged steps' loss and
+        accuracy, the epoch's time, its mean time per batch and the mean
+        host dispatch time of a batch."""
         cfg = self.config
         self._apply_epoch_regime(epoch)
         self.epoch = epoch
         from ..parallel import shard_batch   # parallel imports this module
 
+        if start_batch:
+            log.info("resuming epoch %d mid-epoch at batch %d", epoch,
+                     start_batch)
+        it = batch_iterator(data.train_images, data.train_labels,
+                            cfg.batch_size, epoch=epoch, seed=cfg.seed)
+        if start_batch:
+            it = itertools.islice(it, start_batch, None)
         every = max(cfg.log_interval, 1)
         losses, accs = [], []
+        batch_times: List[float] = []
+        self.batch_meter.reset()
         t_epoch = time.perf_counter()
-        seen = 0
-        for images, labels in batch_iterator(
-            data.train_images, data.train_labels, cfg.batch_size,
-            epoch=epoch, seed=cfg.seed,
-        ):
+        seen = start_batch
+        for images, labels in it:
+            # A rank of a data-parallel run never stops alone: it waits
+            # for the epoch boundary (_stop_boundary).
+            if self.stop.requested and self.world <= 1:
+                self._graceful_stop(epoch, batches_done=seen)
+            t0 = time.perf_counter()
             if self.world > 1:
                 images, labels = shard_batch(images), shard_batch(labels)
             x, y = self._to_device(images, labels)
             loss, acc = self.train_step(self.model, self.optimizer, x, y)
+            first = seen == start_batch
             seen += 1
             self.step += 1
-            if seen == 1 or seen % every == 0:
+            if first or seen % every == 0:
                 loss_f, acc_f = float(loss), float(acc)   # host sync
                 losses.append(loss_f)
                 accs.append(acc_f)
@@ -506,15 +583,22 @@ class Trainer:
                 if self.rank == 0:
                     log.info("epoch %d step %d loss %.4f acc %.2f%%", epoch,
                              seen, loss_f, acc_f)
+            dt = time.perf_counter() - t0
+            self.batch_meter.update(dt)
+            batch_times.append(dt)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         epoch_time = time.perf_counter() - t_epoch
+        if cfg.timing_csv_prefix and self.rank == 0:
+            self._dump_timing_csvs(epoch, batch_times, epoch_time)
+        steps = seen - start_batch
         return {
             "train_loss": float(np.mean(losses)) if losses else math.nan,
             "train_acc": float(np.mean(accs)) if accs else math.nan,
             "epoch_time_s": epoch_time,
-            "batch_time_s": epoch_time / max(seen, 1),
-            "steps": seen,
+            "batch_time_s": epoch_time / max(steps, 1),
+            "dispatch_time_s": self.batch_meter.avg,
+            "steps": steps,
         }
 
     def evaluate(self, data,
@@ -555,104 +639,293 @@ class Trainer:
         }
 
     def fit(self, data, eval_every: int = 1) -> List[Dict[str, float]]:
-        """``config.epochs`` epochs, each evaluated when ``eval_every``
-        divides its number (0: never), ``best_acc`` kept, and
-        checkpointed when ``checkpoint_dir`` is set. Returns one row per
-        epoch."""
+        """``config.epochs`` epochs (after ``try_resume`` with ``resume``),
+        each evaluated when ``eval_every`` divides its number (0: never),
+        ``best_acc`` kept, checkpointed when ``checkpoint_dir`` is set and
+        logged to ``results``. Returns one row per epoch run. Raises
+        ``Preempted`` after a graceful stop."""
         history = []
-        for epoch in range(self.config.epochs):
-            row: Dict[str, float] = {"epoch": epoch}
-            row.update(self.train_epoch(data, epoch))
-            if eval_every and (epoch + 1) % eval_every == 0:
-                row.update(self.evaluate(data))
-            history.append(row)
-            acc = row.get("test_acc", 0.0)
-            is_best = acc > self.best_acc
-            self.best_acc = max(self.best_acc, acc)
-            if self.config.checkpoint_dir:
-                self.save_checkpoint(self.config.checkpoint_dir,
-                                     is_best=is_best)
-            if self.rank == 0:
-                log.info("epoch %d done: %s", epoch,
-                         {k: round(v, 4) for k, v in row.items()
-                          if k != "epoch"})
+        start_epoch, start_batch = (self.try_resume() if self.config.resume
+                                    else (0, 0))
+        with contextlib.ExitStack() as stack:
+            if self.config.handle_preemption:
+                stack.enter_context(self.stop.install())
+            for epoch in range(start_epoch, self.config.epochs):
+                row: Dict[str, float] = {"epoch": epoch}
+                row.update(self.train_epoch(
+                    data, epoch, start_batch if epoch == start_epoch else 0))
+                if eval_every and (epoch + 1) % eval_every == 0:
+                    row.update(self.evaluate(data))
+                history.append(row)
+                acc = row.get("test_acc", 0.0)
+                is_best = acc > self.best_acc
+                self.best_acc = max(self.best_acc, acc)
+                if self.config.checkpoint_dir:
+                    self.save_checkpoint(
+                        self.config.checkpoint_dir, is_best=is_best,
+                        epoch=epoch, save_all=self.config.save_all_epochs,
+                        extra_meta={k: v for k, v in row.items()
+                                    if isinstance(v, float)})
+                    if (self._checkpointer is not None
+                            and not self.config.async_checkpoint):
+                        self._checkpointer.wait()
+                if self.rank == 0:
+                    log.info("epoch %d done: %s", epoch,
+                             {k: round(v, 4) for k, v in row.items()
+                              if k != "epoch"})
+                    self.results.add(**row)
+                    if self.config.results_path:
+                        self.results.save()
+                # The epoch's checkpoint is the resume point; a stop at
+                # the last epoch's boundary has nothing left to resume.
+                if epoch < self.config.epochs - 1 and self._stop_boundary():
+                    self._graceful_stop(epoch, batches_done=None,
+                                        write_checkpoint=False)
+        if self._checkpointer is not None:
+            self._checkpointer.wait()
         return history
 
-    def _optimizer_state(self) -> Dict[str, Any]:
-        """The optimizer's state dict with the error feedback of every
-        rank as JAX lays it out, one row per worker (per host when
-        hierarchical); collective in a data-parallel run."""
-        sd = self.optimizer.state_dict()
-        rows = sd.get("grad_transform")
-        if rows:
-            if self.world > 1:
-                local = self.hier_plan.local if self.hier_plan else 1
-                rows = {k: all_gather(v, dist.group.WORLD)[::local]
-                        for k, v in rows.items()}
-            else:
-                rows = {k: v[None] for k, v in rows.items()}
-            sd["grad_transform"] = rows
-        return sd
+    def _stop_boundary(self) -> bool:
+        """The epoch-boundary stop decision: the local flag, or in a
+        data-parallel run one all-reduce of every rank's flag (every rank
+        calls it once an epoch), so that one rank's request stops all."""
+        if self.world <= 1:
+            return self.stop.requested
+        flag = torch.tensor([1.0 if self.stop.requested else 0.0],
+                            device=self.device)
+        if float(all_reduce_sum(flag, dist.group.WORLD)[0]) > 0:
+            if not self.stop.requested:
+                self.stop.request("preemption on a peer rank")
+            return True
+        return False
 
-    def save_checkpoint(self, ckpt_dir: str, *, is_best: bool = False) -> str:
-        """Write ``latest.pt`` (and ``best.pt`` when ``is_best``) under
-        ``ckpt_dir``; returns the latest path. In a data-parallel run
-        every rank calls it and rank 0 writes."""
-        payload = {
-            "model": self.config.model,
-            "state_dict": self.model.state_dict(),
-            "optimizer_name": self.optimizer_name,
-            "optimizer": self._optimizer_state(),
-            "epoch": self.epoch,
-            "step": self.step,
-            "best_acc": self.best_acc,
-        }
-        paths = [os.path.join(ckpt_dir, LATEST)]
-        if is_best:
-            paths.append(os.path.join(ckpt_dir, BEST))
-        if self.rank == 0:
-            os.makedirs(ckpt_dir, exist_ok=True)
-            for path in paths:
-                tmp = path + ".tmp"
-                torch.save(payload, tmp)
-                os.replace(tmp, path)
-        if self.world > 1:   # no rank reads before rank 0 has written
-            all_reduce_sum(torch.zeros(1, device=self.device),
-                           dist.group.WORLD)
-        return paths[0]
+    def _graceful_stop(self, epoch: int, batches_done: Optional[int] = None,
+                       write_checkpoint: bool = True) -> None:
+        """Stop now: write a checkpoint whose meta holds the epoch in
+        progress and the batches done in it (``batches_done`` None: an
+        epoch-boundary stop, whose per-epoch checkpoint the fit loop
+        wrote, ``write_checkpoint=False``), then raise ``Preempted``."""
+        cfg = self.config
+        if self._checkpointer is not None:
+            self._checkpointer.wait()
+        saved = not write_checkpoint and bool(cfg.checkpoint_dir)
+        if write_checkpoint and cfg.checkpoint_dir:
+            extra = {"preempted": True}
+            if batches_done is not None:
+                extra["epoch_in_progress"] = int(epoch)
+                extra["batch_in_epoch"] = int(batches_done)
+            # the meta's epoch is the last one completed (-1: none)
+            self.save_checkpoint(
+                cfg.checkpoint_dir,
+                epoch=epoch - 1 if batches_done is not None else epoch,
+                extra_meta=extra)
+            if self._checkpointer is not None:
+                self._checkpointer.wait()
+            saved = True
+        log.warning("graceful stop at epoch %d step %d (%s): %s", epoch,
+                    self.step, self.stop.reason,
+                    "mid-epoch checkpoint written" if saved
+                    else "no checkpoint dir")
+        raise Preempted(epoch, self.step, self.stop.reason or "")
+
+    def _dump_timing_csvs(self, epoch: int, batch_times: List[float],
+                          epoch_time: float) -> None:
+        """Per-batch dispatch times and the epoch's time as CSVs, the two
+        timing files of the reference's run (mnist-dist2.py:152-155)."""
+        prefix = self.config.timing_csv_prefix
+        mode = "w" if epoch == 0 else "a"
+        with open(f"{prefix}_batch_time.csv", mode) as f:
+            if epoch == 0:
+                f.write("epoch,batch,seconds\n")
+            for i, t in enumerate(batch_times):
+                f.write(f"{epoch},{i},{t:.6f}\n")
+        with open(f"{prefix}_epoch_time.csv", mode) as f:
+            if epoch == 0:
+                f.write("epoch,seconds\n")
+            f.write(f"{epoch},{epoch_time:.6f}\n")
+
+    # -- checkpoints -------------------------------------------------------
+
+    def ef_rows(self, *, template: bool = False) -> Dict[str, torch.Tensor]:
+        """The error feedback of every worker in JAX's layout, one row a
+        worker (a host when hierarchical): ``{"ef_residual": (workers,
+        padded), "ef_residual2": (workers, seg)}``, empty without
+        ``sign_ef``. Collective in a data-parallel run; ``template=True``
+        gives meta tensors of those shapes and no collective."""
+        tx = self.optimizer.grad_transform
+        if tx is None or tx.mode != "sign_ef":
+            return {}
+        rows = {k: getattr(tx, k) for k in ("ef_residual", "ef_residual2")}
+        workers = self.comm_plan.world
+        if template:
+            return {k: torch.empty((workers, *v.shape), dtype=v.dtype,
+                                   device="meta") for k, v in rows.items()}
+        if self.world > 1:
+            local = self.hier_plan.local if self.hier_plan else 1
+            return {k: all_gather(v, dist.group.WORLD)[::local]
+                    for k, v in rows.items()}
+        return {k: v[None] for k, v in rows.items()}
+
+    def load_ef_rows(self, rows: Dict[str, Any]) -> None:
+        """Take this worker's row of ``ef_rows``' layout."""
+        tx = self.optimizer.grad_transform
+        if tx is None or tx.mode != "sign_ef":
+            return
+        from ..interop import _to_tensor
+
+        tx.load_state_dict({k: _to_tensor(v[self._ef_row])
+                            for k, v in rows.items()})
+
+    def _rng_state(self) -> Optional[Dict[str, Any]]:
+        """Every rank's train-time generator state (hex), collective in a
+        data-parallel run; None for a model that draws nothing."""
+        gen_fn = getattr(self.model, "train_generator", None)
+        if gen_fn is None:
+            return None
+        mine = gen_fn(self.device).get_state().numpy().tobytes().hex()
+        ranks = [mine]
+        if self.world > 1:
+            ranks = [None] * self.world
+            dist.all_gather_object(ranks, mine)
+        return {"device": self.device.type, "ranks": ranks}
+
+    def _restore_rng(self, meta: Dict[str, Any]) -> None:
+        """Set the train-time generator from the meta's ``torch_rng_state``
+        when it is this run's device type and world; else keep the
+        seed-derived one (a JAX checkpoint's ``rng_key`` is a JAX key)."""
+        gen_fn = getattr(self.model, "train_generator", None)
+        saved = meta.get(RNG_META_KEY)
+        if gen_fn is None:
+            return
+        if (not saved or saved.get("device") != self.device.type
+                or len(saved.get("ranks") or []) != self.world):
+            log.info("the checkpoint holds no %s generator state for %d "
+                     "rank(s)%s; keeping the seed-derived generator",
+                     self.device.type, self.world,
+                     " (its rng_key is a JAX PRNG key)"
+                     if meta.get("rng_key") else "")
+            return
+        state = bytes.fromhex(saved["ranks"][self.rank])
+        gen_fn(self.device).set_state(
+            torch.frombuffer(bytearray(state), dtype=torch.uint8))
+
+    def _saver(self) -> Callable:
+        return (self._checkpointer.save if self._checkpointer is not None
+                else save_checkpoint)
+
+    def save_checkpoint(self, ckpt_dir: str, *, is_best: bool = False,
+                        epoch: Optional[int] = None, save_all: bool = False,
+                        extra_meta: Optional[Dict[str, Any]] = None) -> str:
+        """Write the train state (``interop.train_state_to_jax``) under
+        ``ckpt_dir`` as the JAX package does, with the meta's epoch
+        (default ``self.epoch``), best accuracy, world size, model name
+        and generator states; returns the latest path. In a
+        data-parallel run every rank calls it and rank 0 writes."""
+        from ..interop import train_state_to_jax
+
+        meta = {"best_acc": self.best_acc, "world_size": self.world,
+                "model": self.config.model}
+        rng = self._rng_state()
+        if rng is not None:
+            meta[RNG_META_KEY] = rng
+        meta.update(extra_meta or {})
+        return self._saver()(
+            train_state_to_jax(self), ckpt_dir, is_best=is_best,
+            epoch=self.epoch if epoch is None else epoch, save_all=save_all,
+            extra_meta=meta, keep_generations=self.config.checkpoint_keep)
+
+    def _check_model(self, meta: Dict[str, Any], path: str) -> None:
+        held = meta.get("model")
+        if held is not None and held != self.config.model:
+            raise CheckpointTemplateMismatch(
+                f"{path} holds a {held!r}, not a {self.config.model!r}")
+
+    def try_resume(self) -> tuple:
+        """Restore the newest verified checkpoint generation under
+        ``checkpoint_dir``, if any; returns ``(start_epoch,
+        start_batch)``. A corrupt latest rolls back to the generation
+        before it; when every generation is corrupt the run starts fresh
+        (logged as an error). A checkpoint of another model or optimizer
+        raises ``CheckpointTemplateMismatch``, one of another world
+        ``CheckpointWorldMismatch``."""
+        from ..interop import train_state_from_jax, train_state_to_jax
+
+        if self._checkpointer is not None:
+            self._checkpointer.wait()
+        ckpt = self.config.checkpoint_dir
+        if not ckpt or (not latest_exists(ckpt)
+                        and not read_meta(ckpt).get("generations")):
+            return 0, 0
+        self._check_model(read_meta(ckpt), ckpt)
+        try:
+            tree, info = load_checkpoint_resilient(
+                train_state_to_jax(self, values=False), ckpt)
+        except CheckpointCorruptionError as e:
+            log.error("every checkpoint generation under %s is corrupt "
+                      "(%s); starting from scratch", ckpt, e)
+            return 0, 0
+        train_state_from_jax(tree, self)
+        meta = info.get("meta") or {}
+        self.best_acc = float(meta.get("best_acc") or 0.0)
+        self._restore_rng(meta)
+        if (meta.get("epoch_in_progress") is not None
+                and meta.get("batch_in_epoch")):
+            start = int(meta["epoch_in_progress"])
+            start_batch = int(meta["batch_in_epoch"])
+        else:
+            epoch = meta.get("epoch")
+            start = (int(epoch) if epoch is not None else -1) + 1
+            start_batch = 0
+        self.epoch = start
+        log.info("resumed from %s (%s%s) at epoch %d%s (step %d)", ckpt,
+                 info["file"], ", rolled back" if info["rolled_back"] else "",
+                 start, f" batch {start_batch}" if start_batch else "",
+                 self.step)
+        return start, start_batch
 
     def restore(self, ckpt_dir: str, *, best: bool = False) -> Dict[str, Any]:
-        """Load ``latest.pt`` (or ``best.pt``) into the model and, when the
-        optimizer class matches, the optimizer; returns the payload."""
-        payload = load_checkpoint(ckpt_dir, best=best,
-                                  model=self.config.model)
-        self.model.load_state_dict(payload["state_dict"])
-        if payload["optimizer_name"] == self.optimizer_name:
-            opt = dict(payload["optimizer"])
-            rows = opt.get("grad_transform")
-            if rows:
-                world = self.comm_plan.world
-                got = {tuple(v.shape)[0] for v in rows.values()}
-                if got != {world}:
-                    raise ValueError(
-                        f"the checkpoint's error feedback holds {got} rows, "
-                        f"this run exchanges over {world} workers")
-                opt["grad_transform"] = {k: v[self._ef_row]
-                                         for k, v in rows.items()}
-            self.optimizer.load_state_dict(opt)
-        self.epoch, self.step = payload["epoch"], payload["step"]
-        self.best_acc = payload["best_acc"]
-        return payload
+        """Load the latest (``best``: the best) checkpoint under
+        ``ckpt_dir`` into the model and the optimizer, without rollback;
+        returns its meta. The optimizer must be the checkpoint's:
+        another raises ``CheckpointTemplateMismatch``, as the JAX
+        ``from_bytes`` does on a template mismatch."""
+        from ..interop import train_state_from_jax, train_state_to_jax
+
+        meta = read_meta(ckpt_dir)
+        self._check_model(meta, ckpt_dir)
+        template = train_state_to_jax(self, values=False)
+        try:
+            tree = _load_tree(template, ckpt_dir, best=best)
+        except ValueError as e:
+            raise CheckpointTemplateMismatch(
+                f"the checkpoint under {ckpt_dir} does not fit this "
+                f"trainer's state: {e}") from e
+        bad = shape_mismatches(template, tree)
+        if bad:
+            raise CheckpointWorldMismatch(
+                f"the checkpoint under {ckpt_dir} differs in shape: "
+                + "; ".join(bad[:3]))
+        train_state_from_jax(tree, self)
+        self.best_acc = float(meta.get("best_acc") or 0.0)
+        if meta.get("epoch") is not None:
+            self.epoch = int(meta["epoch"])
+        self._restore_rng(meta)
+        return meta
 
 
 def load_checkpoint(ckpt_dir: str, *, best: bool = False,
                     model: Optional[str] = None) -> Dict[str, Any]:
-    """The ``latest.pt`` (``best``: ``best.pt``) checkpoint under
-    ``ckpt_dir`` that ``Trainer.save_checkpoint`` wrote, on the CPU;
-    with ``model``, it must hold that model."""
+    """The checkpoint under ``ckpt_dir`` (``best``: the best copy) as
+    ``{"state": the flax train-state tree (numpy leaves), "meta": the
+    meta}``, for tools that need no trainer (``cli export``); with
+    ``model``, the meta must name that model when it names one."""
+    from ..utils import msgpack
+    from ..utils.checkpoint import BEST, LATEST
+
+    meta = read_meta(ckpt_dir)
+    held = meta.get("model")
+    if model is not None and held is not None and held != model:
+        raise ValueError(f"{ckpt_dir} holds a {held!r}, not a {model!r}")
     path = os.path.join(ckpt_dir, BEST if best else LATEST)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if model is not None and payload["model"] != model:
-        raise ValueError(f"{path} holds a {payload['model']!r}, not a "
-                         f"{model!r}")
-    return payload
+    with open(path, "rb") as f:
+        return {"state": msgpack.from_bytes(f.read()), "meta": meta}

@@ -118,7 +118,7 @@ def main() -> int:
     model = BinarizedLM(**cs.LM_WIDTH, generator=gen).eval()
     cs._random_lm_params(model, gen)
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "lm.pt")
+        path = os.path.join(tmp, "lm.msgpack")
         export_packed(model, path)
         frozen = load_frozen(path)
     dec = make_paged_lm_decoder(frozen, slots=cs.LM_SLOTS,

@@ -137,10 +137,10 @@ def main() -> int:
     cs._random_bn_stats(mlp, gen)
     mlp.eval()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "lm.pt")
+        path = os.path.join(tmp, "lm.msgpack")
         export_packed(model, path)
         frozen = load_frozen(path)
-        mlp_path = os.path.join(tmp, "mlp.pt")
+        mlp_path = os.path.join(tmp, "mlp.msgpack")
         export_packed(mlp, mlp_path)
         predict, _ = load_packed(mlp_path, device=device)
     dec = make_paged_lm_decoder(frozen, slots=cs.LM_SLOTS,

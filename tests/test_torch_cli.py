@@ -14,11 +14,11 @@ from distributed_mnist_bnns_tpu_torch.data import (
     load_mnist,
     synthetic_blobs,
 )
-from distributed_mnist_bnns_tpu_torch.infer import load_packed
+from distributed_mnist_bnns_tpu_torch.infer import load_frozen, load_packed
 
 
 def test_export_then_infer_on_cpu(tmp_path, capsys):
-    out = str(tmp_path / "m.pt")
+    out = str(tmp_path / "m.msgpack")
     assert cli.main(["export", "--model", "bnn-mlp-small", "--infl-ratio",
                      "1", "--seed", "3", "--out", out]) == 0
     exported = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -50,10 +50,10 @@ def test_export_from_jax_variables_npz(tmp_path, capsys):
     flat["params/Dense_0/bias"] = np.zeros(10, np.float32)
     npz = tmp_path / "vars.npz"
     np.savez(npz, **flat)
-    out = str(tmp_path / "m.pt")
+    out = str(tmp_path / "m.msgpack")
     assert cli.main(["export", "--jax-variables", str(npz),
                      "--out", out]) == 0
-    frozen = torch.load(out, weights_only=True)
+    frozen = load_frozen(out)
     np.testing.assert_array_equal(
         frozen["w1"].numpy(),
         np.where(flat["params/BinarizedDense_0/kernel"] >= 0, 1, -1),
@@ -68,7 +68,7 @@ def test_device_defaults_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["infer", "--artifact", str(tmp_path / "absent.pt")])
+        cli.main(["infer", "--artifact", str(tmp_path / "absent.msgpack")])
 
 
 def test_mnist_loader_parses_idx_and_falls_back(tmp_path):
@@ -110,10 +110,9 @@ _TINY_LM = ["--vocab", "32", "--max-len", "32", "--embed-dim", "32",
 
 
 def test_lm_export_then_sample_on_cpu(tmp_path, capsys):
-    from distributed_mnist_bnns_tpu_torch.infer import load_frozen
     from distributed_mnist_bnns_tpu_torch.infer_transformer import generate
 
-    out = str(tmp_path / "lm.pt")
+    out = str(tmp_path / "lm.msgpack")
     assert cli.main(["lm", "--export", out, "--seed", "1", *_TINY_LM]) == 0
     info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert info["kind"] == "lm" and info["family"] == "bnn-transformer"
@@ -142,10 +141,10 @@ def test_lm_export_from_jax_variables_npz(tmp_path, capsys):
     }
     npz = tmp_path / "lm.npz"
     np.savez(npz, **flat)
-    out = str(tmp_path / "lm.pt")
+    out = str(tmp_path / "lm.msgpack")
     assert cli.main(["lm", "--export", out, "--jax-variables", str(npz),
                      "--num-heads", "2"]) == 0
-    frozen = torch.load(out, weights_only=True)
+    frozen = load_frozen(out)
     want = _freeze_lm_tensors(jm, {"params": params})
     np.testing.assert_array_equal(frozen["blocks"][1]["mlp2"]["wp"].numpy(),
                                   np.asarray(want["blocks"][1]["mlp2"]["wp"]))
@@ -155,10 +154,9 @@ def test_lm_export_from_jax_variables_npz(tmp_path, capsys):
 def test_lm_train_then_export_then_sample_on_cpu(tmp_path, capsys):
     """``lm --steps N --export`` trains (flash attention by default) and
     freezes the trained model; ``lm --load`` samples from it."""
-    from distributed_mnist_bnns_tpu_torch.infer import load_frozen
     from distributed_mnist_bnns_tpu_torch.infer_transformer import generate
 
-    out = str(tmp_path / "lm.pt")
+    out = str(tmp_path / "lm.msgpack")
     assert cli.main(["lm", "--steps", "2", "--export", out, "--seq-len",
                      "16", "--batch-size", "2", "--device", "cpu",
                      *_TINY_LM]) == 0
@@ -167,7 +165,7 @@ def test_lm_train_then_export_then_sample_on_cpu(tmp_path, capsys):
     assert res["artifact"] == out and res["kind"] == "lm"
     frozen = load_frozen(out)
     assert frozen["pos_embed"].shape[1] == 16   # max_len = seq_len
-    untrained = str(tmp_path / "init.pt")
+    untrained = str(tmp_path / "init.msgpack")
     assert cli.main(["lm", "--export", untrained, "--max-len", "16",
                      *_TINY_LM]) == 0
     capsys.readouterr()
@@ -187,7 +185,7 @@ def test_lm_refuses_training_and_serve_lm_defaults_to_cuda(tmp_path):
     with pytest.raises(SystemExit, match="--steps must be"):
         cli.main(["lm", "--steps", "-1"])
     with pytest.raises(SystemExit, match="neither --load"):
-        cli.main(["lm", "--steps", "2", "--load", str(tmp_path / "x.pt")])
+        cli.main(["lm", "--steps", "2", "--load", str(tmp_path / "x.msgpack")])
     args = cli.build_parser().parse_args(["lm", "--steps", "3"])
     assert args.device == "cuda" and args.attention == "flash"
     if not torch.cuda.is_available():
@@ -200,7 +198,7 @@ def test_lm_refuses_training_and_serve_lm_defaults_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["serve", "--lm", "--artifact", str(tmp_path / "x.pt")])
+        cli.main(["serve", "--lm", "--artifact", str(tmp_path / "x.msgpack")])
 
 
 _TRAIN_SMALL = ["--model", "bnn-mlp-small", "--infl-ratio", "1",
@@ -234,7 +232,7 @@ def test_train_eval_export_infer_on_cpu(tmp_path, capsys):
     for k in ("test_loss", "test_acc", "test_acc_top5"):
         assert evaluated[k] == trained[k], k
     assert evaluated["checkpoint_step"] == trained["total_steps"]
-    out = str(tmp_path / "trained.pt")
+    out = str(tmp_path / "trained.msgpack")
     assert cli.main(["export", "--model", "bnn-mlp-small", "--infl-ratio",
                      "1", "--checkpoint-dir", ckpt, "--best",
                      "--out", out]) == 0
@@ -269,7 +267,7 @@ def test_train_defaults_and_refusals(tmp_path):
                      "--data-dir", str(tmp_path / "none")]) == 0
     with pytest.raises(SystemExit, match="holds a"):
         cli.main(["export", "--checkpoint-dir", ckpt, "--out",
-                  str(tmp_path / "m.pt")])
+                  str(tmp_path / "m.msgpack")])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

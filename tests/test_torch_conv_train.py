@@ -215,7 +215,7 @@ def test_cli_train_export_infer_bnn_cnn(tmp_path, capsys):
     assert row["total_steps"] == 4 and np.isfinite(row["train_loss"])
     ev = _cli_json(["eval", *common, "--checkpoint-dir", ck], capsys)
     assert ev["test_acc"] == row["test_acc"]
-    out = str(tmp_path / "cnn.pt")
+    out = str(tmp_path / "cnn.msgpack")
     info = _cli_json(["export", "--model", "bnn-cnn", "--checkpoint-dir",
                       ck, "--out", out], capsys)
     assert info["family"] == "bnn-cnn" and info["compression"] > 5

@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of the port, and not
-``chip_smoke.py``, imports JAX, flax, optax or the JAX package; and the
+``chip_smoke.py``, imports JAX, flax, optax, msgpack (the port carries
+its own codec, ``utils/msgpack.py``) or the JAX package; and the
 port's kernel build stays out of what git commits."""
 
 import ast
@@ -14,7 +15,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "distributed_mnist_bnns_tpu_torch"
-BANNED = {"jax", "jaxlib", "flax", "optax", "distributed_mnist_bnns_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack",
+          "distributed_mnist_bnns_tpu"}
 
 
 def _sources():
@@ -75,9 +77,9 @@ def test_load_packed_raises_without_cuda(tmp_path):
     from distributed_mnist_bnns_tpu_torch.infer import load_packed
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        load_packed(str(tmp_path / "absent.pt"), device=None)
+        load_packed(str(tmp_path / "absent.msgpack"), device=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        load_packed(str(tmp_path / "absent.pt"))
+        load_packed(str(tmp_path / "absent.msgpack"))
 
 
 def test_kernel_build_dir_is_ignored_and_sources_ship():

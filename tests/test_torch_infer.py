@@ -127,14 +127,14 @@ def test_frozen_matches_live_eval(pair):
 
 def test_export_load_round_trip_bitwise(pair, tmp_path):
     _, _, model, _ = pair
-    path = str(tmp_path / "m.pt")
+    path = str(tmp_path / "m.msgpack")
     info = tinfer.export_packed(model, path)
     fn, loaded_info = tinfer.load_packed(path, device="cpu")
     assert loaded_info == info
     live_fn, _ = tinfer.freeze_bnn_mlp(model, device="cpu")
     x = _pixels(8, seed=2)
     assert torch.equal(fn(x), live_fn(x))
-    disk = torch.load(path, weights_only=True)
+    disk = tinfer.load_frozen(path)
     assert disk["w1"].dtype == torch.int8
     mem = tinfer._freeze_tensors(model)
     for a, b in zip(disk["layers"], mem["layers"]):

@@ -90,7 +90,7 @@ def test_export_load_round_trip_and_input_layouts(tmp_path):
     the first kernel is stored as int8."""
     _, _, model = _setup()
     fn, info = tconv.freeze_bnn_cnn(model, device="cpu")
-    path = str(tmp_path / "cnn.pt")
+    path = str(tmp_path / "cnn.msgpack")
     assert tinfer.export_packed(model, path) == info
     assert tinfer.load_frozen(path)["conv1_w"].dtype == torch.int8
     loaded, info2 = tinfer.load_packed(path, device="cpu")
@@ -117,7 +117,7 @@ def test_rejections():
     with pytest.raises(ValueError, match="expects"):
         fn(np.zeros((2, 14, 14, 1), np.float32))
     with pytest.raises(ValueError, match="no packed freeze"):
-        tinfer.export_packed(get_model("convnet"), "unused.pt")
+        tinfer.export_packed(get_model("convnet"), "unused.msgpack")
     with pytest.raises(ValueError, match="binarized"):
         tinfer._freeze_tensors(get_model("fp32-mlp-large", infl_ratio=1))
     with pytest.raises(ValueError, match="family"):
@@ -146,7 +146,7 @@ def test_server_serves_a_bnn_cnn_artifact(tmp_path):
     from distributed_mnist_bnns_tpu_torch.serve import client as sc
 
     _, _, model = _setup()
-    path = str(tmp_path / "cnn.pt")
+    path = str(tmp_path / "cnn.msgpack")
     tinfer.export_packed(model, path)
     srv = PackedInferenceServer(ServeConfig(
         artifact=path, device="cpu", port=0, batch_size=4,

@@ -71,7 +71,7 @@ def test_frozen_forward_matches_jax_and_the_live_model(pair, tmp_path):
     with torch.no_grad():
         live = tm(torch.from_numpy(toks).long()).numpy()
     np.testing.assert_allclose(fn(toks).numpy(), live, atol=1e-4, rtol=0)
-    path = str(tmp_path / "lm.pt")
+    path = str(tmp_path / "lm.msgpack")
     assert export_packed(tm, path) == info
     loaded, linfo = load_packed(path, device="cpu")
     assert linfo == info

@@ -27,7 +27,9 @@ from distributed_mnist_bnns_tpu_torch.serve.lm import (
     LMServeConfig,
     LMServer,
 )
+from distributed_mnist_bnns_tpu_torch.interop import frozen_to_jax
 from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+from distributed_mnist_bnns_tpu_torch.utils import msgpack
 from tests.torch_lm_util import frozen_pair, tokens
 
 
@@ -38,8 +40,8 @@ def frozen():
 
 @pytest.fixture(scope="module")
 def artifact(frozen, tmp_path_factory):
-    path = tmp_path_factory.mktemp("lm_artifact") / "lm.pt"
-    torch.save(frozen, str(path))
+    path = tmp_path_factory.mktemp("lm_artifact") / "lm.msgpack"
+    path.write_bytes(msgpack.msgpack_serialize(frozen_to_jax(frozen)))
     return str(path)
 
 
@@ -273,7 +275,7 @@ def test_server_defaults_to_cuda_and_refuses_non_lm(artifact, tmp_path):
     assert LMServeConfig(artifact=artifact).device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LMServer(LMServeConfig(artifact=artifact)).start()
-    other = tmp_path / "mlp.pt"
-    torch.save({"family": "bnn-mlp"}, str(other))
+    other = tmp_path / "mlp.msgpack"
+    other.write_bytes(msgpack.msgpack_serialize({"family": "bnn-mlp"}))
     with pytest.raises(ValueError, match="not a packed LM"):
         LMServer(LMServeConfig(artifact=str(other), device="cpu")).start()

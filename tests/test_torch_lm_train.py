@@ -170,7 +170,7 @@ def test_token_stream_reads_corpus_windows(tmp_path):
 
 
 def test_run_trains_and_exports_on_cpu(tmp_path):
-    out = tmp_path / "lm.pt"
+    out = tmp_path / "lm.msgpack"
     res = lm_demo.run(steps=6, seq_len=16, batch=4, vocab=16, embed_dim=16,
                       depth=1, num_heads=2, lr=3e-3, log_every=2,
                       attention="flash", export=str(out), device="cpu")

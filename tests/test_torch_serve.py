@@ -34,7 +34,7 @@ def artifact(tmp_path_factory):
     model = bnn_mlp_small(
         infl_ratio=1, generator=torch.Generator().manual_seed(0)
     ).eval()
-    path = tmp_path_factory.mktemp("serve_artifact") / "m.pt"
+    path = tmp_path_factory.mktemp("serve_artifact") / "m.msgpack"
     export_packed(model, str(path))
     return str(path)
 

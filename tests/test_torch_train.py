@@ -411,8 +411,11 @@ def test_checkpoints_latest_and_best(tmp_path):
     hist = tr.fit(data)
     latest = load_checkpoint(str(tmp_path))
     best = load_checkpoint(str(tmp_path), best=True, model="bnn-mlp-small")
-    assert latest["epoch"] == 1 and latest["step"] == 8
-    assert best["best_acc"] == max(r["test_acc"] for r in hist)
+    assert latest["meta"]["epoch"] == 1 and latest["meta"]["step"] == 8
+    assert int(latest["state"]["step"]) == 8
+    assert latest["meta"]["best_acc"] == max(r["test_acc"] for r in hist)
+    best_epoch = max(range(2), key=lambda e: hist[e]["test_acc"])
+    assert int(best["state"]["step"]) == 4 * (best_epoch + 1)
     again = Trainer(TrainConfig(**cfg))
     again.restore(str(tmp_path))
     for k, v in tr.model.state_dict().items():

@@ -189,7 +189,7 @@ def resume_run(rank, world, device, cfg_kw, ckpt_dir, xs, ys, split):
     torch.set_num_threads(1)
 
     def finish(t):
-        ef = t._optimizer_state().get("grad_transform", {})
+        ef = t.ef_rows()
         moments = {f"{i}/{k}": _np(v) for i, st in
                    t.optimizer.state_dict()["state"].items()
                    for k, v in st.items() if torch.is_tensor(v)}
@@ -222,7 +222,7 @@ def fit_run(rank, world, device, cfg_kw, sizes):
     before = t.evaluate(data)
     history = t.fit(data)
     plan = t.comm_plan
-    ef = t._optimizer_state().get("grad_transform", {})
+    ef = t.ef_rows()
     return {"before": before, "history": history, "state": _state(t.model),
             "steps": t.step, "loss_history": t.loss_history,
             "wire": _wire(t.wire),
@@ -254,3 +254,96 @@ def jobs_rank(rank, world, device, jobs):
     torch.set_num_threads(1)
     return {name: globals()[fn](rank, world, device, *args)
             for name, fn, args in jobs}
+
+
+# -- resume and multi-node runs ------------------------------------------------
+
+
+def _full_state(t):
+    """Every tensor of a trainer's state in the flax layout, as numpy
+    (params, batch stats, optimizer state, error-feedback rows)."""
+    from distributed_mnist_bnns_tpu_torch.interop import train_state_to_jax
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import _to_host
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(flat(v, f"{prefix}/{k}" if prefix else k))
+            return out
+        return {prefix: np.asarray(tree)}
+
+    return flat(_to_host(train_state_to_jax(t)))
+
+
+def stop_after(t, steps):
+    """Make ``t`` request a graceful stop once ``steps`` steps are done."""
+    inner = t.train_step
+
+    def step(*a):
+        out = inner(*a)
+        if t.step + 1 == steps:
+            t.stop.request("stop requested by the test")
+        return out
+
+    t.train_step = step
+
+
+def preempt_run(rank, world, device, cfg_kw, sizes, root, stop_rank,
+                stop_steps):
+    """Uninterrupted ``fit``, against a ``fit`` whose rank ``stop_rank``
+    requests a stop after ``stop_steps`` steps (the run stops at the
+    epoch boundary: the ``Preempted`` of every rank is recorded) and a
+    resumed ``fit`` of the same checkpoint dir: both final states, and
+    the checkpoint dir for the parent to read."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.resilience import Preempted
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import read_meta
+
+    torch.set_num_threads(1)
+    data = load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes,
+                      seed=0)
+    a = _trainer(dict(cfg_kw, checkpoint_dir=f"{root}/uninterrupted"))
+    a.fit(data, eval_every=0)
+    ckpt = f"{root}/stopped"
+    b = _trainer(dict(cfg_kw, checkpoint_dir=ckpt))
+    if rank == stop_rank:
+        stop_after(b, stop_steps)
+    try:
+        b.fit(data, eval_every=0)
+        stopped = None
+    except Preempted as e:
+        stopped = {"epoch": e.epoch, "step": e.step}
+    meta = read_meta(ckpt)
+    c = _trainer(dict(cfg_kw, checkpoint_dir=ckpt, resume=True))
+    history = c.fit(data, eval_every=0)
+    return {"uninterrupted": _full_state(a), "resumed": _full_state(c),
+            "stopped": stopped, "meta_at_stop": meta,
+            "resumed_epochs": [h["epoch"] for h in history],
+            "steps": (a.step, c.step), "ckpt": f"{root}/uninterrupted"}
+
+
+def steps_state_run(rank, world, device, cfg_kw, hosts_list, steps):
+    """For each ``dp_hosts`` of ``hosts_list`` (None: flat), a trainer of
+    the world run ``steps`` steps of the seeded order: its final state."""
+    from distributed_mnist_bnns_tpu_torch.data import (
+        batch_iterator,
+        load_mnist,
+    )
+    from distributed_mnist_bnns_tpu_torch.parallel import shard_batch
+
+    torch.set_num_threads(1)
+    data = load_mnist("/nonexistent-mnist-dir",
+                      synthetic_sizes=(cfg_kw["batch_size"] * steps, 32),
+                      seed=0)
+    out = {}
+    for hosts in hosts_list:
+        t = _trainer(dict(cfg_kw, dp_hosts=hosts))
+        for images, labels in batch_iterator(
+                data.train_images, data.train_labels, cfg_kw["batch_size"],
+                epoch=0, seed=cfg_kw.get("seed", 0)):
+            x, y = t._to_device(shard_batch(images), shard_batch(labels))
+            t.train_step(t.model, t.optimizer, x, y)
+            t.step += 1
+        out[str(hosts)] = _full_state(t)
+    return out
