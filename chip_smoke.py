@@ -190,7 +190,32 @@ Phases, each fatal on failure:
      20 ``sign_ef`` steps on ``pallas_xnor`` bitwise equal to one
      ``spawn`` of 2 run beside them, K1 twice a step in every rank.
      K1's launches in (b)-(d) and (f)'s nodes and K2/K3's in (e) enter
-     the kernels line as ``launches_runtime_path``.
+     the kernels line as ``launches_runtime_path``;
+ 12. the captured training step (``train.capture``: ``scan_steps``,
+     ``device_data``, ``grad_accum``, ``remat``): (a) phase 8's recipe
+     (dropout 0.3, bf16) one epoch of a synthetic 20,480/2,048 split
+     (320 steps) eager, with ``scan_steps=8`` (40 graph replays) and
+     with ``device_data`` (the dataset on the card, 64-step graphs):
+     parameters, BatchNorm statistics, Adam's state and the train
+     generator ``torch.equal``, each dispatch's mean loss the mean of
+     the eager losses it covers, the device eval's counts equal and its
+     loss within ``SCAN_EVAL_RTOL`` of the streaming eval's; (b)
+     ``pallas_xnor``, dropout 0, 40 steps eager against ``scan_steps=8``,
+     bitwise, K1 launched 2 x 40 times inside the graphs (recorded
+     launches x replays), and ``torch.profiler`` sees as many K1
+     kernels a replay as the capture recorded; (c) ``remat`` (eager
+     and captured) bitwise the plain step, ``grad_accum=4`` captured
+     bitwise eager, dropout 0.3; (d) a ``scan_steps=8`` run stopped
+     in-process after 5 dispatches checkpoints at batch 40 and resumes
+     to the uninterrupted state; (e) ``bnn-cnn`` on bf16 captured
+     (``scan_steps=4``, its convs in ``conv_precision``) bitwise eager;
+     (f) ``cli train --scan-steps 8 --device-data`` one 60,000-example
+     epoch in a process of its own, converging. Then the host step time,
+     examples/s, device time a step and busy share (``torch.profiler``)
+     of eager, scan and device-data, replays, capture seconds and each
+     graph's pool bytes. K1's launches here enter the kernels line as
+     ``launches_capture_path`` (eager launches plus those run inside
+     graphs) and ``launches_in_graphs``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -308,6 +333,20 @@ RT_EPOCHS = 2
 RT_LOG_INTERVAL = 10
 RT_SIGTERM_AFTER = 30       # epoch 1's logged step before the SIGTERM
 RT_NODE_STEPS = 20          # the two-node sign_ef run
+# The captured training step (phase 12): MLP_TRAIN (dropout 0.3, bf16)
+# on one epoch of a synthetic 20,480/2,048 split (320 steps of 64).
+SCAN_SYNTH = (20480, 2048)
+SCAN_STEPS = 8              # steps a dispatch of the scan runs
+SCAN_K1_STEPS = 40          # (b) pallas_xnor, dropout 0
+SCAN_SHORT_STEPS = 20       # (c) remat and grad_accum, (e) bnn-cnn
+SCAN_ACCUM = 4              # (c) microbatches a step
+SCAN_CNN_STEPS = 4          # (e) steps a dispatch
+SCAN_STOP_STEPS = 80        # (d) an epoch of 10 dispatches
+SCAN_STOP_AFTER = 5         # (d) dispatches before the stop request
+# Device eval sums each chunk's float32 totals in float32, the streaming
+# eval in float64: over 32 chunks the loss sums differ by ~1e-6 relative;
+# the counts are integers, exact in both.
+SCAN_EVAL_RTOL = 1e-5
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
@@ -2800,6 +2839,327 @@ def runtime_phase(device: torch.device, smi: str):
     return counts, rows
 
 
+# -- phase 12: the captured training step ------------------------------------
+
+
+def _full_state(trainer):
+    """Parameters, buffers, optimizer state tensors and the train
+    generator's state, cloned."""
+    out = _state(trainer)
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        for k, v in st.items():
+            out[f"opt{i}.{k}"] = (v.detach().clone() if torch.is_tensor(v)
+                                  else torch.tensor(v))
+    gen_fn = getattr(trainer.model, "train_generator", None)
+    if gen_fn is not None:
+        out["train_generator"] = gen_fn(trainer.device).get_state()
+    return out
+
+
+def _graph_stats(trainer) -> dict:
+    """The trainer's captured steps: graphs, replays, capture seconds,
+    pool bytes (none on the eager path)."""
+    scan = trainer._train_scan
+    return {"graphs": [], "replays": 0} if scan is None else scan.stats()
+
+
+def _diff_keys(a, b) -> list:
+    return [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+
+
+def _same_run(what: str, a, b) -> None:
+    bad = _diff_keys(_full_state(a), _full_state(b))
+    if bad or a.step != b.step:
+        raise AssertionError(f"{what}: steps {a.step} / {b.step}, "
+                             f"{len(bad)} tensors differ: {bad[:6]}")
+
+
+def _chunk(data, start: int, n: int, device, bs: int):
+    """Batches ``start``..``start + n`` of epoch 0's order, as pinned
+    ``(n, B, ...)`` host tensors."""
+    from distributed_mnist_bnns_tpu_torch.data import batch_iterator
+    from distributed_mnist_bnns_tpu_torch.train.capture import pinned
+
+    it = batch_iterator(data.train_images, data.train_labels, bs, epoch=0,
+                        seed=MLP_TRAIN["seed"])
+    batches = [b for i, b in enumerate(it) if start <= i < start + n]
+    return (pinned(np.stack([b[0] for b in batches]), np.float32, device),
+            pinned(np.stack([b[1] for b in batches]), np.int64, device))
+
+
+def _cli_scan_row() -> dict:
+    """``cli train --scan-steps 8 --device-data``: the flagship's epoch
+    (``MLP_TRAIN``, synthetic 60,000/10,000) in a process of its own."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", MLP_TRAIN["model"],
+            "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
+            "--optimizer", MLP_TRAIN["optimizer"],
+            "--lr", str(MLP_TRAIN["learning_rate"]),
+            "--seed", str(MLP_TRAIN["seed"]),
+            "--synthetic-sizes", *map(str, MLP_SYNTH),
+            "--scan-steps", str(SCAN_STEPS), "--device-data"]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train --scan-steps --device-data exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def scan_phase(device: torch.device, smi: str):
+    """Phase 12, the captured training step (``train.capture``,
+    ``TrainConfig.scan_steps`` / ``device_data`` / ``grad_accum`` /
+    ``remat``): (a) ``bnn-mlp-large`` on phase 8's recipe, one epoch of
+    ``SCAN_SYNTH`` eager, with ``scan_steps=8`` and with
+    ``device_data``: params, BatchNorm statistics, Adam's state and the
+    train generator ``torch.equal``, each dispatch's mean loss the mean
+    of the eager per-step losses it covers, the device eval equal to the
+    streaming one (counts exactly, loss within ``SCAN_EVAL_RTOL``); (b)
+    ``pallas_xnor``, dropout 0, 40 steps eager against ``scan_steps=8``,
+    bitwise, K1 2 x 40 times inside the replayed graphs (recorded
+    launches x replays), cross-checked by ``torch.profiler``'s kernel
+    names over two more replays; (c) dropout 0.3, 20 steps: ``remat``
+    (eager and under ``scan_steps=4``) bitwise the plain step,
+    ``grad_accum=4`` under ``scan_steps=4`` bitwise ``grad_accum=4``
+    eager; (d) a ``scan_steps=8`` epoch stopped in-process after its 5th
+    dispatch writes its checkpoint at batch 40, and a resume with
+    ``scan_steps=8`` ends on the uninterrupted run's state; (e)
+    ``bnn-cnn`` on bf16, 20 steps, ``scan_steps=4`` bitwise eager (its
+    convs captured inside ``conv_precision``); (f) ``cli train
+    --scan-steps 8 --device-data`` one 60,000-example epoch in a process
+    of its own, converging to phase 8's thresholds. Then step times and
+    examples/s on the host clock, device time a step and busy share
+    (``torch.profiler``), replays, capture seconds and pool bytes.
+    Returns (each kernel's launches on this path: eager launches plus
+    the replays' recorded launches x replays; K1's launches inside
+    graphs)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.resilience import Preempted
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import read_meta
+
+    t_phase = time.perf_counter()
+    bs = MLP_TRAIN["batch_size"]
+    raw0 = dict(_kernels.LAUNCHES)
+    trainers = []      # every trainer whose graphs ran
+
+    def made(t):
+        trainers.append(t)
+        return t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=SCAN_SYNTH, seed=0)
+    steps = SCAN_SYNTH[0] // bs
+
+    # (a) eager, scan and device-data: one epoch each from one seed.
+    t_e = _mlp_trainer(device, log_interval=1)
+    t_s = made(_mlp_trainer(device, log_interval=1, scan_steps=SCAN_STEPS))
+    t_d = made(_mlp_trainer(device, device_data=True))
+    rows = {}
+    for name, t in (("eager", t_e), ("scan", t_s), ("device_data", t_d)):
+        rows[name] = t.train_epoch(data, 0)
+    _same_run("scan_steps=8 against eager", t_e, t_s)
+    _same_run("device_data against eager", t_e, t_d)
+    eager = torch.tensor(t_e.loss_history, dtype=torch.float32,
+                         device=device)
+    want = [eager[k:k + SCAN_STEPS].mean().item()
+            for k in range(0, steps, SCAN_STEPS)]
+    if t_s.loss_history != want or len(want) != steps // SCAN_STEPS:
+        raise AssertionError(f"dispatch means {t_s.loss_history[:4]} ... "
+                             f"against eager {want[:4]} ...")
+    if t_d.loss_history != [eager.mean().item()]:
+        raise AssertionError(f"device_data epoch loss {t_d.loss_history} "
+                             f"against the eager mean {eager.mean().item()}")
+    ev_stream, ev_dev = t_e.evaluate(data), t_d.evaluate(data)
+    eval_rel = (abs(ev_dev["test_loss"] - ev_stream["test_loss"])
+                / abs(ev_stream["test_loss"]))
+    if not (ev_dev["test_acc"] == ev_stream["test_acc"]
+            and ev_dev["test_acc_top5"] == ev_stream["test_acc_top5"]
+            and eval_rel <= SCAN_EVAL_RTOL):
+        raise AssertionError(f"device eval {ev_dev} against streaming "
+                             f"{ev_stream}")
+    print(json.dumps({"scan_bitwise_equal": ["eager", "scan_steps=8",
+                                             "device_data"],
+                      "steps": steps, "dispatch_means": len(want),
+                      "eval_streaming": ev_stream, "eval_device": ev_dev,
+                      "eval_loss_rel_diff": eval_rel}), flush=True)
+    log(f"(a) {steps} steps eager, scan_steps={SCAN_STEPS} and device_data "
+        f"bitwise equal; device eval within {eval_rel:.2g}")
+
+    # Times: a second epoch of each (graphs captured), its host clock,
+    # and one step's device time from torch.profiler.
+    timing = {}
+    xs, ys = _chunk(data, 0, SCAN_STEPS, device, bs)
+    xd, yd = (t.to(device) for t in _chunk(data, 0, 64, device, bs))
+    profiled = {
+        "eager": (lambda: t_e.train_step(t_e.model, t_e.optimizer,
+                                         xs[0].to(device),
+                                         ys[0].to(device)), 1),
+        "scan": (lambda: t_s._train_scan(t_s.model, t_s.optimizer, xs, ys),
+                 SCAN_STEPS),
+        "device_data": (lambda: t_d._train_scan(t_d.model, t_d.optimizer,
+                                                xd, yd), 64),
+    }
+    for name, t in (("eager", t_e), ("scan", t_s), ("device_data", t_d)):
+        t.config.log_interval = 100    # TrainConfig's default
+        row = t.train_epoch(data, 1)
+        fn, n = profiled[name]
+        dev_ms, top, kernels = _profile_device_ms(fn, calls=5, top=1000)
+        step_ms = row["epoch_time_s"] / row["steps"] * 1e3
+        per_step = None if dev_ms is None else dev_ms / n
+        timing[name] = {
+            "first_epoch_step_ms": (rows[name]["epoch_time_s"]
+                                    / rows[name]["steps"] * 1e3),
+            "step_ms": step_ms, "examples_per_s": bs / step_ms * 1e3,
+            "device_ms_per_step": per_step,
+            "kernels_per_step": kernels / n,
+            "busy_share": None if per_step is None else per_step / step_ms,
+            "dispatches_per_epoch": row.get("dispatches", (
+                steps if name == "eager" else steps // SCAN_STEPS)),
+            **_graph_stats(t),
+        }
+    print(json.dumps({"scan_timing": timing, "card": smi}), flush=True)
+
+    # (b) pallas_xnor, dropout 0: K1 inside the graphs.
+    be_data = _first_steps(data, SCAN_K1_STEPS, bs)
+    kw = dict(log_interval=1, backend="pallas_xnor",
+              model_kwargs={"dropout_rate": 0.0})
+    t_be = _mlp_trainer(device, **kw)
+    before = _kernels.LAUNCHES["xnor"]
+    t_be.train_epoch(be_data, 0)
+    torch.cuda.synchronize()
+    k1_eager = _kernels.LAUNCHES["xnor"] - before
+    t_bs = made(_mlp_trainer(device, scan_steps=SCAN_STEPS, **kw))
+    t_bs.train_epoch(be_data, 0)
+    _same_run("pallas_xnor scan_steps=8 against eager", t_be, t_bs)
+    k1_graph = t_bs._train_scan.ran.get("xnor", 0)
+    if k1_eager != 2 * SCAN_K1_STEPS or k1_graph != 2 * SCAN_K1_STEPS:
+        raise AssertionError(f"K1: {k1_eager} eager launches, {k1_graph} "
+                             f"in the graphs; want {2 * SCAN_K1_STEPS}")
+    per_graph = 2 * SCAN_STEPS
+    _, top, _ = _profile_device_ms(
+        lambda: t_bs._train_scan(t_bs.model, t_bs.optimizer, xs, ys),
+        calls=2, top=1000)
+    k1_seen = sum(k[2] for k in top if "xnor_gemm" in k[0])
+    print(json.dumps({"scan_pallas_xnor_bitwise_equal": True,
+                      "k1_eager": k1_eager, "k1_in_graphs": k1_graph,
+                      "k1_profiler_per_replay": k1_seen,
+                      "k1_recorded_per_graph": per_graph}), flush=True)
+    if k1_seen != per_graph:
+        raise AssertionError(f"torch.profiler saw {k1_seen} K1 kernels a "
+                             f"replay, the capture recorded {per_graph}")
+    log(f"(b) pallas_xnor scan bitwise eager; K1 {k1_graph} launches in "
+        f"the graphs, {k1_seen} a replay in torch.profiler")
+
+    # (c) remat and grad_accum, dropout 0.3.
+    short = _first_steps(data, SCAN_SHORT_STEPS, bs)
+    runs = {}
+    for name, kw in (("plain", {}), ("remat", dict(remat=True)),
+                     ("remat_scan", dict(remat=True, scan_steps=4)),
+                     ("accum", dict(grad_accum=SCAN_ACCUM)),
+                     ("accum_scan", dict(grad_accum=SCAN_ACCUM,
+                                         scan_steps=4))):
+        t = _mlp_trainer(device, **kw)
+        if "scan" in name:
+            made(t)
+        t.train_epoch(short, 0)
+        runs[name] = t
+    _same_run("remat against the plain step", runs["plain"], runs["remat"])
+    _same_run("remat under scan_steps=4 against the plain step",
+              runs["plain"], runs["remat_scan"])
+    _same_run("grad_accum=4 under scan_steps=4 against eager",
+              runs["accum"], runs["accum_scan"])
+    print(json.dumps({"scan_remat_bitwise_equal": True,
+                      "scan_grad_accum_bitwise_equal": True}), flush=True)
+    log("(c) remat bitwise the plain step (eager and captured); grad_accum "
+        "captured bitwise eager")
+    del runs
+
+    # (d) a stop after the 5th dispatch, then the resume.
+    stop_data = _first_steps(data, SCAN_STOP_STEPS, bs)
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(ckpt, **kw):
+            return made(_mlp_trainer(
+                device, scan_steps=SCAN_STEPS, checkpoint_dir=ckpt,
+                handle_preemption=False, **kw))
+
+        whole = trainer(os.path.join(tmp, "whole"))
+        whole.fit(stop_data, eval_every=0)
+        cut_dir = os.path.join(tmp, "cut")
+        cut = trainer(cut_dir)
+        scan = cut._get_train_scan()
+        run, calls = scan.run, [0]
+
+        def stopping_run(*args):
+            out = run(*args)
+            calls[0] += 1
+            if calls[0] == SCAN_STOP_AFTER:
+                cut.stop.request("phase 12: a stop after 5 dispatches")
+            return out
+
+        scan.run = stopping_run
+        try:
+            cut.fit(stop_data, eval_every=0)
+            raise AssertionError("the stop request did not stop the run")
+        except Preempted:
+            pass
+        meta = read_meta(cut_dir)
+        at = meta.get("batch_in_epoch")
+        if at != SCAN_STOP_AFTER * SCAN_STEPS:
+            raise AssertionError(f"mid-epoch checkpoint at batch {at}, want "
+                                 f"{SCAN_STOP_AFTER * SCAN_STEPS}")
+        resumed = trainer(cut_dir, resume=True)
+        resumed.fit(stop_data, eval_every=0)
+        _same_run("the resume against the uninterrupted run", whole, resumed)
+    print(json.dumps({"scan_stop_at_batch": at,
+                      "scan_resume_bitwise_equal": True}), flush=True)
+    log(f"(d) stopped at batch {at}; the resume ends on the uninterrupted "
+        "state")
+
+    # (e) bnn-cnn on bf16, its convs inside the graph.
+    t_ce = _cnn_trainer(device, log_interval=1)
+    t_cs = made(_cnn_trainer(device, log_interval=1,
+                             scan_steps=SCAN_CNN_STEPS))
+    for t in (t_ce, t_cs):
+        t.train_epoch(short, 0)
+    _same_run("bnn-cnn scan_steps=4 against eager", t_ce, t_cs)
+    print(json.dumps({"scan_bnn_cnn_bitwise_equal": True,
+                      "cnn_dispatch": _graph_stats(t_cs)}), flush=True)
+    log("(e) bnn-cnn captured bitwise eager")
+
+    # (f) the CLI in a process of its own.
+    cli_row = _cli_scan_row()
+    cli_ms = cli_row["batch_time_s"] * 1e3
+    per_step = timing["scan"]["device_ms_per_step"]
+    cli = {"cli_scan_device_data_row": cli_row, "step_ms": cli_ms,
+           "examples_per_s": bs / cli_ms * 1e3,
+           "busy_share": None if per_step is None else per_step / cli_ms}
+    print(json.dumps(cli), flush=True)
+    full = MLP_SYNTH[0] // bs
+    if not (np.isfinite(cli_row["train_loss"])
+            and cli_row["test_acc"] > MLP_MIN_ACC
+            and cli_row["steps"] == full
+            and cli_row.get("dispatches") == -(-full // SCAN_STEPS)):
+        raise AssertionError(f"cli train --scan-steps --device-data: "
+                             f"{cli_row}")
+    log(f"(f) cli train --scan-steps {SCAN_STEPS} --device-data: test_acc "
+        f"{cli_row['test_acc']:.2f}, {cli_ms:.3f} ms a step")
+
+    torch.cuda.synchronize()
+    recorded, ran = {}, {}
+    for scan in (t._train_scan for t in trainers):
+        for k in scan.recorded:
+            recorded[k] = recorded.get(k, 0) + scan.recorded[k]
+            ran[k] = ran.get(k, 0) + scan.ran.get(k, 0)
+    counts = {k: _kernels.LAUNCHES[k] - raw0[k] - recorded.get(k, 0)
+              + ran.get(k, 0) for k in KERNEL_ROWS}
+    print(json.dumps({"slice": "scan", "launches": counts,
+                      "launches_in_graphs": ran,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return counts, ran
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2891,6 +3251,7 @@ def main() -> int:
     dp_counts, _ = dp_train_phase(device, smi)
     conv_counts, conv_rows = conv_phase(device, gen, smi)
     rt_counts, _ = runtime_phase(device, smi)
+    scan_counts, in_graphs = scan_phase(device, smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -2908,7 +3269,7 @@ def main() -> int:
             "launches": (mlp_counts[name] + lm_counts[name]
                          + train_counts[name] + mlp_train_counts[name]
                          + dp_counts[name] + conv_counts[name]
-                         + rt_counts[name]),
+                         + rt_counts[name] + scan_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -2918,6 +3279,8 @@ def main() -> int:
             "launches_dp_path": dp_counts[name],
             "launches_conv_path": conv_counts[name],
             "launches_runtime_path": rt_counts[name],
+            "launches_capture_path": scan_counts[name],
+            "launches_in_graphs": in_graphs.get(name, 0),
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

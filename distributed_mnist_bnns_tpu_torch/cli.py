@@ -221,6 +221,20 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "models that take a dtype (the reference's AMP)")
     sp.add_argument("--epochs", type=int, default=5)
     sp.add_argument("--batch-size", type=int, default=64)
+    sp.add_argument("--scan-steps", type=int, default=1,
+                    help="train N steps a dispatch: on a card one CUDA "
+                         "graph of N steps, captured once and replayed "
+                         "(single process; no --grad-compress)")
+    sp.add_argument("--device-data", action="store_true",
+                    help="keep the dataset on the device: each epoch one "
+                         "gather, then graph replays of --scan-steps (or "
+                         "64) steps and one host sync; eval on the device")
+    sp.add_argument("--grad-accum", type=int, default=1,
+                    help="microbatches per optimizer step (activation-"
+                         "memory saver; batch-size must divide evenly)")
+    sp.add_argument("--remat", action="store_true",
+                    help="recompute the forward's activations in the "
+                         "backward (activation checkpoint)")
     sp.add_argument("--optimizer", default="adam")
     sp.add_argument("--lr", type=float, default=0.01)
     sp.add_argument("--lr-schedule", default="step",
@@ -355,6 +369,8 @@ def _trainer(args, data_parallel=None, device=None):
         warmup_epochs=args.warmup_epochs, clip_grad_norm=args.clip_grad_norm,
         seed=args.seed, log_interval=args.log_interval, loss=args.loss,
         label_smoothing=args.label_smoothing, backend=args.backend,
+        scan_steps=args.scan_steps, device_data=args.device_data,
+        grad_accum=args.grad_accum, remat=args.remat,
         checkpoint_dir=args.checkpoint_dir, save_all_epochs=args.save_all,
         async_checkpoint=args.async_checkpoint,
         checkpoint_keep=args.checkpoint_keep, resume=args.resume,
@@ -425,6 +441,9 @@ def _train_rank(rank: int, world: int, device, args) -> dict:
 
 
 def _train(args) -> int:
+    if args.grad_accum < 1 or args.batch_size % args.grad_accum:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"--grad-accum {args.grad_accum}")
     local = _local_ranks(args)
     multinode = args.nodes > 1 or args.coordinator is not None
     if local <= 1 and not multinode:

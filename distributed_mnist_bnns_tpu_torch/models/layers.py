@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..ops import remat
 from ..ops.binarize import STEMode, binarize, binarize_ste
 from ..ops.comm_compress import all_reduce_sum
 from ..ops.xnor_gemm import (
@@ -77,7 +78,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("train-mode dropout needs an explicit generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator,
+        keep = remat.rand(x.shape, generator=generator,
                           device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
@@ -272,8 +273,9 @@ class BatchNorm(nn.BatchNorm1d):
     normalise as ``(x - mean) * (rsqrt(var + eps) * weight) + bias``,
     and the running statistics move by ``momentum`` towards the mean and
     the biased ``var`` (flax's momentum is the old value's weight,
-    ``1 - momentum`` here). Eval mode normalises with the running
-    statistics.
+    ``1 - momentum`` here), once a forward: not again when an activation
+    checkpoint recomputes it (``ops.remat``). Eval mode normalises with
+    the running statistics.
 
     As flax's, the statistics and the normalisation are fp32 whatever the
     input's dtype, and the result is cast to ``dtype`` (None: the
@@ -308,12 +310,13 @@ class BatchNorm(nn.BatchNorm1d):
             n = x.numel() // c * dist.get_world_size(self.group)
             mean, mean_sq = sums[:c] / n, sums[c:] / n
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(
-                self.momentum * mean)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                self.momentum * var)
-            self.num_batches_tracked.add_(1)
+        if not remat.recomputing():   # not again in a recompute
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    self.momentum * var)
+                self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
         shape = (1, c) + (1,) * (x.dim() - 2)
         return ((x - mean.reshape(shape)) * mul.reshape(shape)

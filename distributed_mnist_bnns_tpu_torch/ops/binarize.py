@@ -20,6 +20,7 @@ from typing import Literal, Optional
 
 import torch
 
+from . import remat
 from .bitpack import TINY
 
 STEMode = Literal["identity", "hardtanh"]
@@ -76,7 +77,7 @@ def _uniform_noise(x: torch.Tensor,
     """U(-0.5, 0.5) noise of x's shape, dtype and device."""
     if generator is None:
         raise ValueError("a stochastic path needs an explicit generator")
-    return torch.rand(x.shape, generator=generator, dtype=x.dtype,
+    return remat.rand(x.shape, generator=generator, dtype=x.dtype,
                       device=x.device) - 0.5
 
 

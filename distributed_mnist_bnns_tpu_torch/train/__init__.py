@@ -11,8 +11,11 @@ from .trainer import (
     Trainer,
     clamp_latent,
     load_checkpoint,
+    make_eval_epoch_fn,
     make_eval_step,
     make_step_body,
+    make_train_epoch_fn,
+    make_train_scan,
 )
 
 __all__ = [
@@ -23,9 +26,12 @@ __all__ = [
     "Trainer",
     "clamp_latent",
     "load_checkpoint",
+    "make_eval_epoch_fn",
     "make_eval_step",
     "make_optimizer",
     "make_step_body",
+    "make_train_epoch_fn",
+    "make_train_scan",
     "regime_hp_kwargs",
     "sign_compress",
 ]

@@ -42,11 +42,27 @@ here too. As the JAX ``make_optimizer`` materialises ``momentum=0.0``
 where optax's default is None (sgd, rmsprop), the classes here default
 to 0.0, so a regime can retune it. Hyperparameter arithmetic (``1 - b1``,
 ``b1 ** count``) is done in float32, as on optax's float32 hyperparams.
+
+The step can be captured in a CUDA graph and replayed (the trainer's
+``scan_steps`` and ``device_data``): every state tensor is written in
+place (the last op of its expression writes it, ``out=``: the same
+rounding, no extra copy), and the scalars that move from step to step (the learning rate,
+Adam's, Adamax's and LAMB's bias corrections, ASGD's count) are read
+from a small tensor on the parameters' device, one row a step, which
+the host fills with the float32 arithmetic above (``scalar_rows``).
+``step()`` makes that row itself and advances the host counters (the
+per-parameter ``count`` and ``steps``); ``step(scalars=row)`` reads a
+row the caller filled, and the caller advances the counters
+(``advance``) once per dispatch. Both read the same device scalars:
+PyTorch's CUDA true division multiplies by the reciprocal of a CPU
+scalar but divides by a device tensor, which can round otherwise. The
+other hyperparameters are constants of a captured step: a regime that
+retunes one needs a new capture.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,8 +111,7 @@ def _trace(u: torch.Tensor, state: Dict[str, Any], momentum: float,
            nesterov: bool) -> torch.Tensor:
     """optax ``trace``: t = u + momentum * t; u + momentum * t under
     nesterov, else t."""
-    t = u + _f32(momentum) * state["trace"]
-    state["trace"] = t
+    t = torch.add(u, _f32(momentum) * state["trace"], out=state["trace"])
     return u + _f32(momentum) * t if nesterov else t
 
 
@@ -112,17 +127,24 @@ def _trust_ratio(u: torch.Tensor, p: torch.Tensor, trust_coefficient: float,
 
 
 def _adam_direction(g: torch.Tensor, state: Dict[str, Any],
-                    group: Dict[str, Any]) -> torch.Tensor:
+                    group: Dict[str, Any],
+                    sc: Dict[str, torch.Tensor]) -> torch.Tensor:
     """optax ``scale_by_adam`` (no nesterov): bias-corrected mu / (sqrt(nu
-    + eps_root) + eps)."""
+    + eps_root) + eps), the corrections ``sc["bc1"]``, ``sc["bc2"]``."""
     b1, b2 = group["b1"], group["b2"]
-    state["mu"] = _one_minus(b1) * g + _f32(b1) * state["mu"]
-    state["nu"] = _one_minus(b2) * (g * g) + _f32(b2) * state["nu"]
-    state["count"] += 1
-    mu_hat = state["mu"] / _bias_correction(b1, state["count"])
-    nu_hat = state["nu"] / _bias_correction(b2, state["count"])
+    torch.add(_one_minus(b1) * g, _f32(b1) * state["mu"], out=state["mu"])
+    torch.add(_one_minus(b2) * (g * g), _f32(b2) * state["nu"],
+              out=state["nu"])
+    mu_hat = state["mu"] / sc["bc1"]
+    nu_hat = state["nu"] / sc["bc2"]
     return mu_hat / (torch.sqrt(nu_hat + _f32(group["eps_root"]))
                      + _f32(group["eps"]))
+
+
+def _adam_row(group: Dict[str, Any], count: int) -> List[float]:
+    """``scale_by_adam``'s bias corrections of step ``count``."""
+    return [_bias_correction(group["b1"], count),
+            _bias_correction(group["b2"], count)]
 
 
 class OptaxOptimizer(torch.optim.Optimizer):
@@ -130,7 +152,13 @@ class OptaxOptimizer(torch.optim.Optimizer):
     ``grad_transform`` on them (if set), asks ``_update`` for each
     parameter's optax update and adds it. State is made at construction,
     as ``tx.init(params)`` makes it; ``steps`` counts the updates, as
-    ``inject_hyperparams``' ``count`` does."""
+    ``inject_hyperparams``' ``count`` does.
+
+    ``SCALARS`` names the columns of a group's slice of a step's scalar
+    row (``neg_lr`` = -learning_rate, then the class's own), which
+    ``_row`` computes for the step whose count is ``count``."""
+
+    SCALARS: Tuple[str, ...] = ("neg_lr",)
 
     def __init__(self, params: Iterable, defaults: Dict[str, Any],
                  clip_grad_norm: Optional[float] = None):
@@ -150,15 +178,57 @@ class OptaxOptimizer(torch.optim.Optimizer):
         raise NotImplementedError
 
     def _update(self, p: torch.Tensor, g: torch.Tensor,
-                state: Dict[str, Any], group: Dict[str, Any]) -> torch.Tensor:
+                state: Dict[str, Any], group: Dict[str, Any],
+                sc: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
 
+    def _row(self, group: Dict[str, Any], count: int) -> List[float]:
+        return [-_f32(group["learning_rate"])]
+
+    def _count(self, group: Dict[str, Any]) -> int:
+        """The optax count of the group's state before the next step
+        (``steps`` for a class that keeps none)."""
+        state = self.state[group["params"][0]] if group["params"] else {}
+        return state.get("count", self.steps)
+
+    def scalar_rows(self, n: int) -> np.ndarray:
+        """(n, width) float32: the scalars of the next ``n`` steps, one
+        row a step, every group's ``SCALARS`` in turn."""
+        rows = np.empty((n, len(self.SCALARS) * len(self.param_groups)),
+                        np.float32)
+        for i in range(n):
+            rows[i] = [v for group in self.param_groups
+                       for v in self._row(group, self._count(group) + i + 1)]
+        return rows
+
+    def advance(self, n: int) -> None:
+        """Move the host counters ``n`` steps on: ``steps`` and every
+        state's ``count``, as ``n`` calls of ``step()`` would."""
+        self.steps += n
+        for state in self.state.values():
+            if "count" in state:
+                state["count"] += n
+
+    def _device_row(self) -> torch.Tensor:
+        row = torch.from_numpy(self.scalar_rows(1)[0])
+        device = self.param_groups[0]["params"][0].device
+        if device.type == "cuda":
+            return row.pin_memory().to(device, non_blocking=True)
+        return row
+
     @torch.no_grad()
-    def step(self, closure: Optional[Callable] = None):
+    def step(self, closure: Optional[Callable] = None,
+             scalars: Optional[torch.Tensor] = None):
+        """One update. ``scalars``: this step's row of ``scalar_rows`` on
+        the parameters' device (the counters are then the caller's to
+        advance); None makes the row and advances them."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        own = scalars is None
+        if own:
+            scalars = self._device_row()
         pairs = [(p, group) for group in self.param_groups
                  for p in group["params"] if p.grad is not None]
         grads = [p.grad for p, _ in pairs]
@@ -166,9 +236,17 @@ class OptaxOptimizer(torch.optim.Optimizer):
             grads = clip_by_global_norm(grads, self.clip_grad_norm)
         if self.grad_transform is not None:
             grads = self.grad_transform([p for p, _ in pairs], grads)
+        width = len(self.SCALARS)
+        group_sc = {}
+        for i, group in enumerate(self.param_groups):
+            group_sc[id(group)] = {
+                name: scalars[i * width + j]
+                for j, name in enumerate(self.SCALARS)}
         for (p, group), g in zip(pairs, grads):
-            p.add_(self._update(p, g, self.state[p], group))
-        self.steps += 1
+            p.add_(self._update(p, g, self.state[p], group,
+                                group_sc[id(group)]))
+        if own:
+            self.advance(1)
         return loss
 
     def state_dict(self) -> Dict[str, Any]:
@@ -195,14 +273,16 @@ class SGD(OptaxOptimizer):
     def _init_state(self, p, state, group):
         state["trace"] = torch.zeros_like(p)
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, sc):
         u = _trace(g, state, group["momentum"], group["nesterov"])
-        return u * -_f32(group["learning_rate"])
+        return u * sc["neg_lr"]
 
 
 class ASGD(OptaxOptimizer):
     """SGD with the Polyak average of the iterates in state (``avg``),
     the JAX package's ``_asgd``; it steps as plain SGD."""
+
+    SCALARS = ("neg_lr", "count")
 
     def __init__(self, params, learning_rate: float = 0.01,
                  clip_grad_norm=None):
@@ -213,15 +293,19 @@ class ASGD(OptaxOptimizer):
         state["avg"] = p.detach().clone()
         state["count"] = 0
 
-    def _update(self, p, g, state, group):
-        u = g * -_f32(group["learning_rate"])
-        state["count"] += 1
-        state["avg"] = state["avg"] + ((p + u) - state["avg"]) / float(
-            state["count"])
+    def _row(self, group, count):
+        return super()._row(group, count) + [float(count)]
+
+    def _update(self, p, g, state, group, sc):
+        u = g * sc["neg_lr"]
+        torch.add(state["avg"], ((p + u) - state["avg"]) / sc["count"],
+                  out=state["avg"])
         return u
 
 
 class Adam(OptaxOptimizer):
+    SCALARS = ("neg_lr", "bc1", "bc2")
+
     def __init__(self, params, learning_rate: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
                  clip_grad_norm=None):
@@ -234,11 +318,16 @@ class Adam(OptaxOptimizer):
         state["nu"] = torch.zeros_like(p)
         state["count"] = 0
 
-    def _update(self, p, g, state, group):
-        return _adam_direction(g, state, group) * -_f32(group["learning_rate"])
+    def _row(self, group, count):
+        return super()._row(group, count) + _adam_row(group, count)
+
+    def _update(self, p, g, state, group, sc):
+        return _adam_direction(g, state, group, sc) * sc["neg_lr"]
 
 
 class Adamax(OptaxOptimizer):
+    SCALARS = ("neg_lr", "bc1")
+
     def __init__(self, params, learning_rate: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, clip_grad_norm=None):
         super().__init__(params, dict(learning_rate=learning_rate, b1=b1,
@@ -249,14 +338,18 @@ class Adamax(OptaxOptimizer):
         state["nu"] = torch.zeros_like(p)
         state["count"] = 0
 
-    def _update(self, p, g, state, group):
+    def _row(self, group, count):
+        return super()._row(group, count) + [
+            _bias_correction(group["b1"], count)]
+
+    def _update(self, p, g, state, group, sc):
         b1 = group["b1"]
-        state["count"] += 1
-        state["mu"] = _one_minus(b1) * g + _f32(b1) * state["mu"]
-        state["nu"] = torch.maximum(g.abs() + _f32(group["eps"]),
-                                    _f32(group["b2"]) * state["nu"])
-        mu_hat = state["mu"] / _bias_correction(b1, state["count"])
-        return (mu_hat / state["nu"]) * -_f32(group["learning_rate"])
+        torch.add(_one_minus(b1) * g, _f32(b1) * state["mu"],
+                  out=state["mu"])
+        torch.maximum(g.abs() + _f32(group["eps"]),
+                      _f32(group["b2"]) * state["nu"], out=state["nu"])
+        mu_hat = state["mu"] / sc["bc1"]
+        return (mu_hat / state["nu"]) * sc["neg_lr"]
 
 
 class Adagrad(OptaxOptimizer):
@@ -272,12 +365,12 @@ class Adagrad(OptaxOptimizer):
         state["sum_of_squares"] = torch.full_like(
             p, _f32(group["initial_accumulator_value"]))
 
-    def _update(self, p, g, state, group):
-        s = g * g + state["sum_of_squares"]
-        state["sum_of_squares"] = s
+    def _update(self, p, g, state, group, sc):
+        s = torch.add(g * g, state["sum_of_squares"],
+                      out=state["sum_of_squares"])
         inv = torch.where(s > 0, torch.rsqrt(s + _f32(group["eps"])),
                           torch.zeros_like(s))
-        return (inv * g) * -_f32(group["learning_rate"])
+        return (inv * g) * sc["neg_lr"]
 
 
 class Adadelta(OptaxOptimizer):
@@ -292,14 +385,16 @@ class Adadelta(OptaxOptimizer):
         state["e_g"] = torch.zeros_like(p)
         state["e_x"] = torch.zeros_like(p)
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, sc):
         rho, eps = group["rho"], _f32(group["eps"])
         u = g + _f32(group["weight_decay"]) * p
-        state["e_g"] = _one_minus(rho) * (u * u) + _f32(rho) * state["e_g"]
+        torch.add(_one_minus(rho) * (u * u), _f32(rho) * state["e_g"],
+                  out=state["e_g"])
         u = (torch.sqrt(state["e_x"] + eps)
              / torch.sqrt(state["e_g"] + eps)) * u
-        state["e_x"] = _one_minus(rho) * (u * u) + _f32(rho) * state["e_x"]
-        return u * -_f32(group["learning_rate"])
+        torch.add(_one_minus(rho) * (u * u), _f32(rho) * state["e_x"],
+                  out=state["e_x"])
+        return u * sc["neg_lr"]
 
 
 class Rprop(OptaxOptimizer):
@@ -319,7 +414,7 @@ class Rprop(OptaxOptimizer):
         state["step_sizes"] = torch.full_like(p, _f32(group["learning_rate"]))
         state["prev_updates"] = torch.zeros_like(p)
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, sc):
         s = g * state["prev_updates"]
         step = state["step_sizes"]
         factor = torch.where(s > 0, _f32(group["eta_plus"]),
@@ -331,7 +426,8 @@ class Rprop(OptaxOptimizer):
         zeros = torch.zeros_like(g)
         new_prev = torch.where(s < 0, zeros, step * torch.sign(g))
         u = torch.where(s < 0, zeros, state["prev_updates"])
-        state["step_sizes"], state["prev_updates"] = step, new_prev
+        state["step_sizes"].copy_(step)
+        state["prev_updates"].copy_(new_prev)
         return u * -1.0
 
 
@@ -351,15 +447,15 @@ class RMSprop(OptaxOptimizer):
         state["nu"] = torch.full_like(p, _f32(group["initial_scale"]))
         state["trace"] = torch.zeros_like(p)
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, sc):
         decay, eps = group["decay"], _f32(group["eps"])
-        nu = _one_minus(decay) * (g * g) + _f32(decay) * state["nu"]
-        state["nu"] = nu
+        nu = torch.add(_one_minus(decay) * (g * g), _f32(decay) * state["nu"],
+                       out=state["nu"])
         if group["eps_in_sqrt"]:
             scaling = torch.rsqrt(nu + eps)
         else:
             scaling = 1.0 / (torch.sqrt(nu) + eps)
-        u = (scaling * g) * -_f32(group["learning_rate"])
+        u = (scaling * g) * sc["neg_lr"]
         return _trace(u, state, group["momentum"], group["nesterov"])
 
 
@@ -379,15 +475,17 @@ class LARS(OptaxOptimizer):
     def _init_state(self, p, state, group):
         state["trace"] = torch.zeros_like(p)
 
-    def _update(self, p, g, state, group):
+    def _update(self, p, g, state, group, sc):
         u = g + _f32(group["weight_decay"]) * p
         u = _trust_ratio(u, p, group["trust_coefficient"], group["eps"])
-        u = u * -_f32(group["learning_rate"])
+        u = u * sc["neg_lr"]
         return _trace(u, state, group["momentum"], group["nesterov"])
 
 
 class LAMB(OptaxOptimizer):
     """optax ``lamb`` (weight decay on every parameter)."""
+
+    SCALARS = ("neg_lr", "bc1", "bc2")
 
     def __init__(self, params, learning_rate: float, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-6, eps_root: float = 0.0,
@@ -401,11 +499,14 @@ class LAMB(OptaxOptimizer):
         state["nu"] = torch.zeros_like(p)
         state["count"] = 0
 
-    def _update(self, p, g, state, group):
-        u = _adam_direction(g, state, group)
+    def _row(self, group, count):
+        return super()._row(group, count) + _adam_row(group, count)
+
+    def _update(self, p, g, state, group, sc):
+        u = _adam_direction(g, state, group, sc)
         u = u + _f32(group["weight_decay"]) * p
         u = _trust_ratio(u, p, 1.0, 0.0)
-        return u * -_f32(group["learning_rate"])
+        return u * sc["neg_lr"]
 
 
 OPTIMIZER_REGISTRY: Dict[str, type] = {

@@ -72,6 +72,20 @@ all-reduce of the flag (a tensor on the rank's device) decides for all,
 and the per-epoch checkpoint is the resume point. A stop at the last
 epoch's boundary finishes the run instead.
 
+Dispatch (the JAX ``scan_steps`` and ``device_data``, ``train.capture``):
+with ``scan_steps = S > 1`` the epoch's batches go S at a time through
+``make_train_scan``, on a card one CUDA graph of S steps captured once
+and replayed (the epoch's leftover batches one step a dispatch); the
+host keeps the step count, the optimizer's counters, the log cadence and
+the stop poll, each advanced by S a dispatch, and each dispatch's time
+is spread over its steps. With ``device_data`` the dataset is uploaded
+once, each epoch gathers its rows on the device and runs as replays of
+S (or ``DEVICE_DATA_CHUNK``) steps with one host sync, and evaluation
+sums float32 totals on the device; a resumed part of an epoch streams,
+and a stop waits for the epoch boundary. Every mode is bitwise the
+per-step path. ``grad_accum`` and ``remat`` are the JAX step body's
+(``make_step_body``). None of them is ported under data parallelism yet.
+
 Timing (``timing_csv_prefix``): each batch's host dispatch time, with no
 per-batch sync (a sync per step would slow a host-bound step), and each
 epoch's time, which ends in ``torch.cuda.synchronize``, as
@@ -102,6 +116,7 @@ import logging
 import math
 import os
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -109,7 +124,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..data import batch_iterator
+from ..data import batch_iterator, shard_indices
 from ..infer import resolve_device
 from ..models import get_model, latent_clamp_mask
 from ..ops.comm_compress import (
@@ -137,6 +152,8 @@ from ..utils.checkpoint import (
 from ..utils.checkpoint import load_checkpoint as _load_tree
 from ..utils.meters import AverageMeter
 from ..utils.results import ResultsLog
+from ..ops.remat import checkpoint as remat_checkpoint
+from .capture import TrainScan, pinned
 from .optim import (
     RegimeSchedule,
     SignCompress,
@@ -145,6 +162,11 @@ from .optim import (
 )
 
 log = logging.getLogger(__name__)
+
+# Steps a dispatch of the device-resident epoch when scan_steps is 1: one
+# graph of 64 steps and one of the remainder (15 dispatches for the
+# 937 steps of a 60,000-example epoch at batch 64).
+DEVICE_DATA_CHUNK = 64
 
 RNG_META_KEY = "torch_rng_state"   # the port's key in checkpoint_meta.json
 
@@ -186,30 +208,125 @@ def build_model(name: str, mk: Dict[str, Any]) -> torch.nn.Module:
 
 
 def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
-                   loss_fn: Callable = cross_entropy_loss) -> Callable:
+                   loss_fn: Callable = cross_entropy_loss,
+                   grad_accum: int = 1, remat: bool = False,
+                   augment: bool = False) -> Callable:
     """The train step: forward in train mode -> loss -> backward ->
     optimizer step -> ``clamp_latent`` on ``clamp_mask``'s tensors
     (``models.latent_clamp_mask``).
 
-    ``step(model, optimizer, images, labels) -> (loss, accuracy)``, both
-    0-d tensors on the model's device (accuracy in percent): nothing
-    syncs with the host."""
+    ``step(model, optimizer, images, labels, scalars=None) -> (loss,
+    accuracy)``, both 0-d tensors on the model's device (accuracy in
+    percent): nothing syncs with the host. ``scalars``: the step's row
+    of the optimizer's scalars, on the device (a captured step's; None:
+    the optimizer makes its own and advances its counters).
+
+    ``grad_accum=N`` (the JAX body's): the batch is split into N
+    microbatches run one after another; the update takes the mean of
+    their gradients, each microbatch moves the BatchNorm statistics once
+    (as a torch accumulation loop does), and the loss and accuracy are
+    the microbatch means. ``remat``: each forward is an activation
+    checkpoint (``ops.remat.checkpoint``; bitwise the plain step).
+    ``augment`` (the device-side crop and flip) is not ported."""
+    if augment:
+        raise NotImplementedError(
+            "augment (ops/augment.py, the device-side random crop and "
+            "flip) is not ported yet (ROADMAP.md queue 1 item 13)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     latents = list(clamp_mask.values())
 
-    def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                   images: torch.Tensor, labels: torch.Tensor):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        outs = model(images)
+    def loss_and_acc(model, images, labels):
+        outs = remat_checkpoint(model, images) if remat else model(images)
         loss = loss_fn(outs, labels)
         loss.backward()
-        optimizer.step()
-        clamp_latent(latents)
         outs = outs.detach()
         acc = (outs.argmax(-1) == labels).to(outs.dtype).mean() * 100.0
         return loss.detach(), acc
 
+    def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                   images: torch.Tensor, labels: torch.Tensor,
+                   scalars: Optional[torch.Tensor] = None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        if grad_accum == 1:
+            loss, acc = loss_and_acc(model, images, labels)
+        else:
+            metrics = [loss_and_acc(model, x, y) for x, y in zip(
+                images.reshape(grad_accum, -1, *images.shape[1:]),
+                labels.reshape(grad_accum, -1))]
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(grad_accum)
+            loss, acc = (torch.stack(m).mean() for m in zip(*metrics))
+        if scalars is None:
+            optimizer.step()
+        else:
+            optimizer.step(scalars=scalars)
+        clamp_latent(latents)
+        return loss, acc
+
     return train_step
+
+
+def make_train_scan(clamp_mask: Dict[str, torch.Tensor], *,
+                    loss_fn: Callable = cross_entropy_loss,
+                    grad_accum: int = 1, remat: bool = False,
+                    augment: bool = False) -> TrainScan:
+    """Multi-step dispatch (the JAX ``make_train_scan``): ``scan(model,
+    optimizer, images (S, B, ...), labels (S, B)) -> (loss, accuracy)``,
+    S steps of ``make_step_body`` and the means of their metrics. On a
+    CUDA device the S steps are captured once as a CUDA graph and
+    replayed (``train.capture.TrainScan``); on the CPU they run eagerly,
+    the plain version. ``scan.run`` gives the per-step metrics."""
+    body = make_step_body(clamp_mask, loss_fn=loss_fn, grad_accum=grad_accum,
+                          remat=remat, augment=augment)
+
+    def chunk(model, optimizer, images, labels, scalars):
+        metrics = [body(model, optimizer, images[i], labels[i], scalars[i])
+                   for i in range(images.shape[0])]
+        losses, accs = zip(*metrics)
+        return torch.stack(losses), torch.stack(accs)
+
+    return TrainScan(chunk)
+
+
+def make_train_epoch_fn(clamp_mask: Dict[str, torch.Tensor], *,
+                        loss_fn: Callable = cross_entropy_loss,
+                        grad_accum: int = 1, remat: bool = False,
+                        augment: bool = False,
+                        chunk: int = DEVICE_DATA_CHUNK,
+                        scan: Optional[TrainScan] = None) -> Callable:
+    """The device-resident epoch (the JAX ``make_train_epoch_fn``):
+    ``epoch_fn(model, optimizer, images_all, labels_all, idx) -> (loss,
+    accuracy, dispatches)`` over the ``(n_batches, B)`` index matrix
+    ``idx`` into the dataset on the device. The epoch's rows are gathered
+    once (as the JAX epoch hoists its gather), then run as dispatches of
+    ``chunk`` steps through ``scan`` (``make_train_scan``'s; captured
+    graphs on a card) reading contiguous slices, the last one shorter.
+    No batch crosses from the host and nothing syncs; the metrics are
+    the means over every step of the epoch."""
+    scan = scan or make_train_scan(clamp_mask, loss_fn=loss_fn,
+                                   grad_accum=grad_accum, remat=remat,
+                                   augment=augment)
+
+    def epoch_fn(model, optimizer, images_all, labels_all, idx):
+        im_seq = images_all[idx]
+        lb_seq = labels_all[idx]
+        n = idx.shape[0]
+        losses = torch.empty(n, dtype=torch.float32, device=idx.device)
+        accs = torch.empty_like(losses)
+        dispatches = 0
+        for s in range(0, n, chunk):
+            lo, ac = scan.run(model, optimizer, im_seq[s:s + chunk],
+                              lb_seq[s:s + chunk])
+            losses[s:s + chunk].copy_(lo)
+            accs[s:s + chunk].copy_(ac)
+            dispatches += 1
+        return losses.mean(), accs.mean(), dispatches
+
+    return epoch_fn
 
 
 def make_eval_step(loss_fn: Loss) -> Callable:
@@ -238,6 +355,28 @@ def make_eval_step(loss_fn: Loss) -> Callable:
             }
 
     return eval_step
+
+
+def make_eval_epoch_fn(loss_fn: Loss) -> Callable:
+    """Evaluation over a test set on the device (the JAX
+    ``make_eval_epoch_fn``): ``f(model, images_all, labels_all, idx,
+    valid) -> totals`` gathers the ``(n_chunks, B)`` rows of ``idx`` once
+    and sums ``make_eval_step``'s masked aggregates chunk by chunk in
+    float32 on the device, as the JAX scan sums them; ``valid`` masks the
+    last chunk's padding. Nothing syncs."""
+    eval_step = make_eval_step(loss_fn)
+    keys = ("loss_sum", "correct1", "correct5", "count")
+
+    def eval_epoch(model, images_all, labels_all, idx, valid):
+        im_seq, lb_seq = images_all[idx], labels_all[idx]
+        totals = {k: torch.zeros((), dtype=torch.float32, device=idx.device)
+                  for k in keys}
+        for c in range(idx.shape[0]):
+            out = eval_step(model, im_seq[c], lb_seq[c], valid[c])
+            totals = {k: totals[k] + out[k].to(torch.float32) for k in keys}
+        return totals
+
+    return eval_epoch
 
 
 @dataclass
@@ -290,6 +429,23 @@ class TrainConfig:
                                    # as (hosts x local): fp32 mean in a
                                    # host, 1-bit across hosts. Requires
                                    # grad_compress != none
+    remat: bool = False            # activation checkpoint of the forward
+    grad_accum: int = 1            # >1: N sequential microbatches a step
+    scan_steps: int = 1            # >1: S steps a dispatch (a CUDA graph
+                                   # on a card; make_train_scan)
+    device_data: bool = False      # the dataset on the device, each epoch
+                                   # one gather and graph replays of
+                                   # scan_steps (or DEVICE_DATA_CHUNK)
+                                   # steps (make_train_epoch_fn)
+
+
+def _dataset_ref(data):
+    """A weak reference to ``data`` (a strong one where it takes none):
+    the device copies are reused for this dataset object only."""
+    try:
+        return weakref.ref(data)
+    except TypeError:
+        return lambda: data
 
 
 class Trainer:
@@ -307,6 +463,7 @@ class Trainer:
                 "item 6: parallel/fsdp.py, sign_compress_fsdp)")
         self.device = resolve_device(config.device)
         self.world, self.rank = self._resolve_world()
+        self._check_dispatch()
         mk = dict(config.model_kwargs)
         if config.backend is not None:
             mk.setdefault("backend", config.backend)
@@ -336,6 +493,11 @@ class Trainer:
         )
         self.train_step = self._make_train_step()
         self.eval_step = make_eval_step(self._loss_fn)
+        self._train_scan: Optional[TrainScan] = None  # scan_steps, device_data
+        self._epoch_fn: Optional[Callable] = None
+        self._eval_epoch_fn = make_eval_epoch_fn(self._loss_fn)
+        self._device_train = None   # (dataset ref, images, labels)
+        self._device_test = None
         self.step = 0
         self.epoch = 0
         self.best_acc = 0.0
@@ -365,6 +527,27 @@ class Trainer:
                 f"data_parallel={dp} needs {n} ranks: build the trainer in "
                 "every rank of parallel.spawn (cli train --dp does)")
         return 1, 0
+
+    def _check_dispatch(self) -> None:
+        """The JAX ``grad_accum`` divisibility rule, and what the dispatch
+        modes do not cover yet."""
+        cfg = self.config
+        if cfg.grad_accum < 1 or cfg.batch_size % cfg.grad_accum:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
+                             f"grad_accum={cfg.grad_accum}")
+        later = "not ported yet (ROADMAP.md queue 1 item 6)"
+        captured = cfg.scan_steps > 1 or cfg.device_data
+        if captured and self.world > 1:
+            raise NotImplementedError(
+                "scan_steps and device_data under data parallelism (NCCL "
+                f"collectives inside a CUDA graph) are {later}")
+        if captured and cfg.grad_compress != "none":
+            raise NotImplementedError(
+                "scan_steps and device_data with grad_compress (the 1-bit "
+                f"exchange inside a CUDA graph) are {later}")
+        if self.world > 1 and (cfg.grad_accum > 1 or cfg.remat):
+            raise NotImplementedError(
+                f"grad_accum and remat under data parallelism are {later}")
 
     def _setup_grad_compress(self) -> None:
         """The 1-bit exchange's plan and groups (JAX
@@ -449,7 +632,9 @@ class Trainer:
 
     def _make_train_step(self) -> Callable:
         if self.world <= 1:
-            return make_step_body(self.clamp_mask, loss_fn=self._loss_fn)
+            return make_step_body(self.clamp_mask, loss_fn=self._loss_fn,
+                                  grad_accum=self.config.grad_accum,
+                                  remat=self.config.remat)
         from ..parallel import (
             make_compressed_dp_train_step,
             make_compressed_hier_train_step,
@@ -524,29 +709,74 @@ class Trainer:
                 **regime_hp_kwargs(name, cfg),
             )
             self.optimizer_name = name
+            self._drop_graphs()   # they hold the old optimizer's state
         self.regime.apply_hyperparams(self.optimizer, epoch)
         lr = self._lr_for_epoch(epoch)
         for group in self.optimizer.param_groups:
             group["learning_rate"] = lr
 
     def _to_device(self, images: np.ndarray, labels: np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        y = torch.from_numpy(np.asarray(labels).astype(np.int64))
-        if self.device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        return (x.to(self.device, non_blocking=True),
-                y.to(self.device, non_blocking=True))
+        return (pinned(images, np.float32, self.device).to(
+                    self.device, non_blocking=True),
+                pinned(labels, np.int64, self.device).to(
+                    self.device, non_blocking=True))
+
+    def _drop_graphs(self) -> None:
+        """Forget the captured steps (a new optimizer, restored state)."""
+        self._train_scan = None
+        self._epoch_fn = None
+
+    def _get_train_scan(self) -> TrainScan:
+        if self._train_scan is None:
+            cfg = self.config
+            self._train_scan = make_train_scan(
+                self.clamp_mask, loss_fn=self._loss_fn,
+                grad_accum=cfg.grad_accum, remat=cfg.remat)
+        return self._train_scan
+
+    def _get_epoch_fn(self) -> Callable:
+        if self._epoch_fn is None:
+            s = int(self.config.scan_steps)
+            self._epoch_fn = make_train_epoch_fn(
+                self.clamp_mask, scan=self._get_train_scan(),
+                chunk=s if s > 1 else DEVICE_DATA_CHUNK)
+        return self._epoch_fn
+
+    @staticmethod
+    def _scan_chunks(it, scan_steps: int):
+        """Group a batch iterator into (images, labels, n) items (the JAX
+        ``_scan_chunks``): full S-batch stacks, then any leftover batches
+        one at a time (n = 1)."""
+        buf: list = []
+        for batch in it:
+            buf.append(batch)
+            if len(buf) == scan_steps:
+                yield (np.stack([b[0] for b in buf]),
+                       np.stack([b[1] for b in buf]), scan_steps)
+                buf.clear()
+        for images, labels in buf:
+            yield images, labels, 1
 
     def train_epoch(self, data, epoch: int,
                     start_batch: int = 0) -> Dict[str, float]:
         """One epoch over ``data.train_images`` in the seeded order of
         ``batch_iterator``, from batch ``start_batch`` on (the resume of a
-        stopped epoch). Returns the mean of the logged steps' loss and
-        accuracy, the epoch's time, its mean time per batch and the mean
-        host dispatch time of a batch."""
+        stopped epoch). Returns the train loss and accuracy (the logged
+        dispatches' means, each weighted by its examples), the epoch's
+        time, its mean time per batch and the mean host dispatch time of
+        a batch.
+
+        ``scan_steps = S > 1``: S batches a dispatch of the captured step
+        (``make_train_scan``), the leftover ones a 1-step dispatch each;
+        logging, the stop poll and the timing CSVs work per dispatch, a
+        dispatch's time spread over its steps. ``device_data``: the
+        whole epoch on the device (``_train_epoch_device``), but for a
+        resumed part of an epoch, which streams as JAX's does."""
         cfg = self.config
         self._apply_epoch_regime(epoch)
         self.epoch = epoch
+        if cfg.device_data and not start_batch:
+            return self._train_epoch_device(data, epoch)
         from ..parallel import shard_batch   # parallel imports this module
 
         if start_batch:
@@ -556,36 +786,48 @@ class Trainer:
                             cfg.batch_size, epoch=epoch, seed=cfg.seed)
         if start_batch:
             it = itertools.islice(it, start_batch, None)
+        scan_steps = max(int(cfg.scan_steps), 1)
+        items = (self._scan_chunks(it, scan_steps) if scan_steps > 1
+                 else ((im, lb, 1) for im, lb in it))
         every = max(cfg.log_interval, 1)
-        losses, accs = [], []
+        losses, accs = AverageMeter(), AverageMeter()
         batch_times: List[float] = []
         self.batch_meter.reset()
         t_epoch = time.perf_counter()
         seen = start_batch
-        for images, labels in it:
+        for images, labels, n in items:
             # A rank of a data-parallel run never stops alone: it waits
             # for the epoch boundary (_stop_boundary).
             if self.stop.requested and self.world <= 1:
                 self._graceful_stop(epoch, batches_done=seen)
             t0 = time.perf_counter()
-            if self.world > 1:
-                images, labels = shard_batch(images), shard_batch(labels)
-            x, y = self._to_device(images, labels)
-            loss, acc = self.train_step(self.model, self.optimizer, x, y)
+            if scan_steps > 1:
+                if n == 1:     # a leftover batch: a 1-step dispatch
+                    images, labels = images[None], labels[None]
+                loss, acc = self._get_train_scan()(
+                    self.model, self.optimizer,
+                    pinned(images, np.float32, self.device),
+                    pinned(labels, np.int64, self.device))
+            else:
+                if self.world > 1:
+                    images, labels = shard_batch(images), shard_batch(labels)
+                x, y = self._to_device(images, labels)
+                loss, acc = self.train_step(self.model, self.optimizer, x, y)
             first = seen == start_batch
-            seen += 1
-            self.step += 1
-            if first or seen % every == 0:
+            seen += n
+            self.step += n
+            if first or seen % every < n:
                 loss_f, acc_f = float(loss), float(acc)   # host sync
-                losses.append(loss_f)
-                accs.append(acc_f)
+                losses.update(loss_f, n * cfg.batch_size)
+                accs.update(acc_f, n * cfg.batch_size)
                 self.loss_history.append(loss_f)
                 if self.rank == 0:
-                    log.info("epoch %d step %d loss %.4f acc %.2f%%", epoch,
-                             seen, loss_f, acc_f)
+                    log.info("epoch %d step %d loss %.4f acc %.2f%%%s",
+                             epoch, seen, loss_f, acc_f,
+                             f" ({n}-step dispatch)" if n > 1 else "")
             dt = time.perf_counter() - t0
-            self.batch_meter.update(dt)
-            batch_times.append(dt)
+            self.batch_meter.update(dt / n, n)
+            batch_times.extend([dt / n] * n)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         epoch_time = time.perf_counter() - t_epoch
@@ -593,12 +835,69 @@ class Trainer:
             self._dump_timing_csvs(epoch, batch_times, epoch_time)
         steps = seen - start_batch
         return {
-            "train_loss": float(np.mean(losses)) if losses else math.nan,
-            "train_acc": float(np.mean(accs)) if accs else math.nan,
+            "train_loss": losses.avg if losses.count else math.nan,
+            "train_acc": accs.avg if accs.count else math.nan,
             "epoch_time_s": epoch_time,
             "batch_time_s": epoch_time / max(steps, 1),
             "dispatch_time_s": self.batch_meter.avg,
             "steps": steps,
+        }
+
+    def _device_set(self, data, split: str):
+        """``data``'s ``split`` ("train" or "test") images (float32) and
+        labels (int64) on the device, uploaded once per dataset object (a
+        weak reference tells a new dataset from the cached one)."""
+        attr = f"_device_{split}"
+        held = getattr(self, attr)
+        if held is None or held[0]() is not data:
+            images = getattr(data, f"{split}_images")
+            labels = getattr(data, f"{split}_labels")
+            held = (_dataset_ref(data),
+                    *self._to_device(images, labels))
+            setattr(self, attr, held)
+        return held[1], held[2]
+
+    def _train_epoch_device(self, data, epoch: int) -> Dict[str, float]:
+        """The epoch over the dataset on the device (the JAX
+        ``_train_epoch_device``): ``shard_indices``' first ``n_batches *
+        batch_size`` rows as an ``(n_batches, batch_size)`` matrix,
+        uploaded once; one gather; replays of the captured chunk
+        (``make_train_epoch_fn``). One host sync, at the end; per-batch
+        times are the epoch's amortized, the metrics the means over
+        every step."""
+        cfg = self.config
+        images_all, labels_all = self._device_set(data, "train")
+        idx = shard_indices(len(data.train_labels), epoch=epoch,
+                            seed=cfg.seed)
+        n_batches = len(idx) // cfg.batch_size
+        idx = np.asarray(idx[:n_batches * cfg.batch_size], np.int64)
+        idx = torch.from_numpy(idx.reshape(n_batches, cfg.batch_size)).to(
+            self.device)
+        self.batch_meter.reset()
+        t0 = time.perf_counter()
+        loss, acc, dispatches = self._get_epoch_fn()(
+            self.model, self.optimizer, images_all, labels_all, idx)
+        loss_f, acc_f = torch.stack([loss, acc]).tolist()   # the one sync
+        epoch_time = time.perf_counter() - t0
+        self.step += n_batches
+        self.loss_history.append(loss_f)
+        per_batch = epoch_time / max(n_batches, 1)
+        self.batch_meter.update(per_batch, n_batches)
+        if self.rank == 0:
+            log.info("epoch %d on the device: %d steps in %d dispatches, "
+                     "loss %.4f acc %.2f%% (%.3f ms/batch)", epoch,
+                     n_batches, dispatches, loss_f, acc_f, per_batch * 1e3)
+        if cfg.timing_csv_prefix and self.rank == 0:
+            self._dump_timing_csvs(epoch, [per_batch] * n_batches,
+                                   epoch_time)
+        return {
+            "train_loss": loss_f,
+            "train_acc": acc_f,
+            "epoch_time_s": epoch_time,
+            "batch_time_s": per_batch,
+            "dispatch_time_s": per_batch,
+            "steps": n_batches,
+            "dispatches": dispatches,
         }
 
     def evaluate(self, data,
@@ -620,23 +919,45 @@ class Trainer:
     def _evaluate(self, data,
                   batch_size: Optional[int] = None) -> Dict[str, float]:
         bs = batch_size or self.config.batch_size
-        totals: Dict[str, torch.Tensor] = {}
-        for images, labels in batch_iterator(
-            data.test_images, data.test_labels, bs, shuffle=False,
-            drop_last=False,
-        ):
-            x, y = self._to_device(images, labels)
-            out = self.eval_step(self.model, x, y)
-            for k, v in out.items():
-                v = v.to(torch.float64)
-                totals[k] = v if k not in totals else totals[k] + v
-        t = {k: float(v) for k, v in totals.items()}
+        if self.config.device_data:
+            t = self._eval_device(data, bs)
+        else:
+            totals: Dict[str, torch.Tensor] = {}
+            for images, labels in batch_iterator(
+                data.test_images, data.test_labels, bs, shuffle=False,
+                drop_last=False,
+            ):
+                x, y = self._to_device(images, labels)
+                out = self.eval_step(self.model, x, y)
+                for k, v in out.items():
+                    v = v.to(torch.float64)
+                    totals[k] = v if k not in totals else totals[k] + v
+            t = {k: float(v) for k, v in totals.items()}
         n = max(t.get("count", 0.0), 1.0)
         return {
             "test_loss": t.get("loss_sum", 0.0) / n,
             "test_acc": t.get("correct1", 0.0) / n * 100.0,
             "test_acc_top5": t.get("correct5", 0.0) / n * 100.0,
         }
+
+    def _eval_device(self, data, bs: int) -> Dict[str, float]:
+        """The test set on the device in ``bs``-row chunks, the last one
+        padded and masked (``valid``); float32 totals, one host sync (the
+        JAX ``_eval_device``)."""
+        images_all, labels_all = self._device_set(data, "test")
+        n = len(data.test_labels)
+        n_chunks = max(-(-n // bs), 1)
+        flat = np.zeros(n_chunks * bs, np.int64)
+        flat[:n] = np.arange(n)
+        valid = np.zeros(n_chunks * bs, bool)
+        valid[:n] = True
+        idx, valid = (torch.from_numpy(a.reshape(n_chunks, bs)).to(
+            self.device) for a in (flat, valid))
+        totals = self._eval_epoch_fn(self.model, images_all, labels_all,
+                                     idx, valid)
+        keys = list(totals)
+        return dict(zip(keys, torch.stack([totals[k] for k in keys])
+                        .tolist()))
 
     def fit(self, data, eval_every: int = 1) -> List[Dict[str, float]]:
         """``config.epochs`` epochs (after ``try_resume`` with ``resume``),
@@ -865,6 +1186,7 @@ class Trainer:
                       "(%s); starting from scratch", ckpt, e)
             return 0, 0
         train_state_from_jax(tree, self)
+        self._drop_graphs()
         meta = info.get("meta") or {}
         self.best_acc = float(meta.get("best_acc") or 0.0)
         self._restore_rng(meta)
@@ -906,6 +1228,7 @@ class Trainer:
                 f"the checkpoint under {ckpt_dir} differs in shape: "
                 + "; ".join(bad[:3]))
         train_state_from_jax(tree, self)
+        self._drop_graphs()
         self.best_acc = float(meta.get("best_acc") or 0.0)
         if meta.get("epoch") is not None:
             self.epoch = int(meta["epoch"])

@@ -272,3 +272,39 @@ def test_train_defaults_and_refusals(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train", *_TRAIN_SMALL, "--epochs", "1"])
+
+
+def test_train_dispatch_flags_on_cpu(tmp_path, capsys):
+    """``--scan-steps``, ``--device-data``, ``--grad-accum`` and
+    ``--remat`` (the JAX CLI's) reach the trainer: the first two train
+    the same model as the per-step loop (on the CPU a dispatch runs its
+    steps eagerly), the device-data run in one dispatch with its eval on
+    the device; a batch that ``--grad-accum`` does not divide is
+    refused."""
+    args = cli.build_parser().parse_args(["train"])
+    assert (args.scan_steps, args.device_data, args.grad_accum,
+            args.remat) == (1, False, 1, False)
+    base = ["train", "--model", "bnn-mlp-small", "--infl-ratio", "1",
+            "--synthetic-sizes", "256", "64", "--seed", "3", "--epochs", "1",
+            "--batch-size", "32", "--device", "cpu",
+            "--data-dir", str(tmp_path / "none")]
+    rows = {}
+    for name, extra in (("eager", []), ("scan", ["--scan-steps", "3"]),
+                        ("device", ["--device-data"]),
+                        ("remat", ["--remat"]),
+                        ("accum", ["--grad-accum", "4"])):
+        assert cli.main(base + extra) == 0
+        rows[name] = _last_json(capsys)
+    eager = rows["eager"]
+    for name in ("scan", "remat"):
+        for k in ("test_loss", "test_acc", "test_acc_top5", "total_steps"):
+            assert rows[name][k] == eager[k], (name, k)
+    dev = rows["device"]
+    assert dev["dispatches"] == 1 and dev["total_steps"] == 256 // 32
+    assert dev["test_acc"] == eager["test_acc"]
+    np.testing.assert_allclose(dev["test_loss"], eager["test_loss"],
+                               rtol=1e-5)
+    assert rows["accum"]["total_steps"] == 256 // 32
+    assert np.isfinite(rows["accum"]["train_loss"])
+    with pytest.raises(SystemExit, match="not divisible by --grad-accum"):
+        cli.main(base + ["--batch-size", "30", "--grad-accum", "4"])

@@ -22,6 +22,9 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack",
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    # the modules of the captured step (train.capture) and of remat
+    assert {PORT / "train" / "capture.py", PORT / "ops" / "remat.py"} <= set(
+        files)
     return files
 
 
