@@ -120,7 +120,8 @@ Phases, each fatal on failure:
      process of its own, which must converge; (b) 4 gloo ranks sharing
      card 0 (16 rows each of the global batch of 64): the first 300
      steps of the epoch (``DP_EPOCH_STEPS``) uncompressed (global-batch
-     BatchNorm, DDP) and again with ``sign_ef``, each passing phase 8's
+     BatchNorm, the gradients averaged in DDP's order) and again with
+     ``sign_ef``, each passing phase 8's
      convergence thresholds (which 300 steps in one process meet too,
      checked beside), ``sign_ef`` within 2 points of the uncompressed
      run, then 200 steps of ``sign`` (majority vote, lr 0.001); (c) 20
@@ -347,6 +348,10 @@ SCAN_STOP_AFTER = 5         # (d) dispatches before the stop request
 # eval in float64: over 32 chunks the loss sums differ by ~1e-6 relative;
 # the counts are integers, exact in both.
 SCAN_EVAL_RTOL = 1e-5
+# Phase 13: data parallelism captured, one NCCL rank (this process)
+DPC_STEPS = 40              # (a), (b): 5 dispatches of SCAN_STEPS
+DPC_SHORT_STEPS = 16        # (c) grad_accum and remat, (d) elastic
+DPC_CLI_SYNTH = (6400, 1024)  # (e) 100 steps
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
@@ -1798,18 +1803,21 @@ def mlp_train_phase(device: torch.device, gen: torch.Generator):
 
 
 class _ExchangeTimer:
-    """The optimizer's 1-bit exchange (``SignCompress``) with CUDA events
-    around each call: compression, collectives and decoding."""
+    """A step's gradient exchange with CUDA events around each call: the
+    optimizer's 1-bit exchange (``SignCompress``, ``SignCompressFsdp``:
+    compression, collectives and decoding), or a function of the step
+    (the gradient all-reduce, FSDP's reduce-scatter and all-gather).
+    Eager steps only: a captured step records no timed events."""
 
     def __init__(self, transform):
         self.transform = transform
         self.events = []
 
-    def __call__(self, params, grads):
+    def __call__(self, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.transform(params, grads)
+        out = self.transform(*args)
         end.record()
         self.events.append((start, end))
         return out
@@ -1849,34 +1857,64 @@ def _dp_run(device, data, evaluate: bool = False, base=MLP_TRAIN,
             **cfg) -> dict:
     """One data-parallel run of ``base`` (default ``MLP_TRAIN``, dropout
     0) in this rank: one epoch over ``data``, the launch counters zeroed
-    just before and read just after it; times, bytes and a digest of the
-    end state."""
+    just before and read just after it; times, bytes, this run's peak
+    memory and a digest of the end state. On the eager steps CUDA events
+    time the exchange; a captured run (``scan_steps``) times a second
+    epoch on its graphs as well (``replayed_step_ms``)."""
+    import gc
+
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.parallel import data_parallel
     from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
 
     kw = dict(base, epochs=1, model_kwargs={"dropout_rate": 0.0},
               device=str(device), data_parallel="auto")
     kw.update(cfg)
+    gc.collect()     # an earlier run's trainer must not count in the peak
+    torch.cuda.empty_cache()
     t = Trainer(TrainConfig(**kw))
-    timer = None
-    if t.optimizer.grad_transform is not None:
-        timer = t.optimizer.grad_transform = _ExchangeTimer(
-            t.optimizer.grad_transform)
+    timers, restore = [], None
+    if kw.get("scan_steps", 1) <= 1 and not kw.get("device_data"):
+        opt = t.optimizer
+        for attr in ("grad_transform", "fsdp_compress"):
+            if getattr(opt, attr) is not None:
+                timers.append(_ExchangeTimer(getattr(opt, attr)))
+                setattr(opt, attr, timers[-1])
+        if t.fsdp is not None:
+            for attr in ("reduce_grads", "gather"):
+                timers.append(_ExchangeTimer(getattr(t.fsdp, attr)))
+                setattr(t.fsdp, attr, timers[-1])
+        elif not timers and t.distributed:
+            saved = data_parallel.all_reduce_grads
+            timers.append(_ExchangeTimer(saved))
+            data_parallel.all_reduce_grads = timers[-1]
+
+            def restore():
+                data_parallel.all_reduce_grads = saved
     before = t.evaluate(data) if evaluate else None
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     _kernels.reset_launches()
-    row = t.train_epoch(data, 0)
+    try:
+        row = t.train_epoch(data, 0)
+    finally:
+        if restore is not None:
+            restore()
     torch.cuda.synchronize()
     launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
     after = t.evaluate(data) if evaluate else None
     plan, hier = t.comm_plan, t.hier_plan
     steps = row["steps"]
     out = {
-        "steps": steps, "losses": t.loss_history, "digest": _digest(t.model),
-        "train_loss": row["train_loss"],
+        "steps": steps, "losses": list(t.loss_history),
+        "digest": _digest(t.model), "train_loss": row["train_loss"],
         "step_ms": row["batch_time_s"] * 1e3,
         "examples_per_s": base["batch_size"] / row["batch_time_s"],
-        "exchange_ms": None if timer is None else timer.ms_per_call(),
+        "exchange_ms": (sum(x.ms_per_call() for x in timers) if timers
+                        else None),
+        "max_memory_allocated": peak,
+        "optimizer_state_bytes": _opt_state_bytes(t),
         "wire_bytes_per_step": t.comm_bytes() / steps,
         "plan_bytes_per_step": (0 if plan is None
                                 else plan.wire_bytes_per_step),
@@ -1890,6 +1928,9 @@ def _dp_run(device, data, evaluate: bool = False, base=MLP_TRAIN,
     if evaluate:
         out.update(test_acc_before=before["test_acc"],
                    test_acc=after["test_acc"])
+    if t._train_scan is not None:
+        out["replayed_step_ms"] = t.train_epoch(data, 1)[
+            "batch_time_s"] * 1e3
     return out
 
 
@@ -3160,6 +3201,341 @@ def scan_phase(device: torch.device, smi: str):
     return counts, ran
 
 
+# -- phase 13: data parallelism captured -----------------------------------------
+
+
+def _dpc_trainer(device, **kw):
+    """Phase 13's recipe: phase 9's (``MLP_TRAIN``) on pallas_xnor,
+    dropout 0.3, one rank of the process group (``data_parallel=1``)."""
+    cfg = dict(backend="pallas_xnor", model_kwargs={"dropout_rate": 0.3},
+               data_parallel=1, log_interval=1)
+    cfg.update(kw)
+    return _mlp_trainer(device, **cfg)
+
+
+def _opt_state_bytes(trainer) -> int:
+    """The bytes of this rank's optimizer state: moments (of its shards
+    or segment), the exchange's rows and an FSDP rank's master shards;
+    not the model's parameters."""
+    opt = trainer.optimizer
+    own = {id(p) for p in trainer.model.parameters()}
+    return sum(t.numel() * t.element_size() for t in opt.state_tensors()
+               if id(t) not in own)
+
+
+class _CollectiveCalls:
+    """Counts the ``torch.distributed`` collectives called from Python
+    while it is entered (a replayed graph calls none)."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "all_to_all_single", "all_gather")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls = 0
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def counted(fn):
+            def call(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+        return False
+
+
+def _dpc_save_rank(rank: int, world: int, device, steps: int, ckpt: str):
+    """Phase 13 (d) in one of 2 gloo ranks sharing the card: ``steps``
+    steps of sign_ef, checkpointed; the error-feedback rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = _dp_data(tmp, steps)
+    t = _dpc_trainer(device, grad_compress="sign_ef", data_parallel="auto",
+                     checkpoint_dir=ckpt)
+    t.fit(data, eval_every=0)
+    return {k: v.cpu().numpy() for k, v in t.ef_rows().items()}
+
+
+def _cli_dp_capture_row() -> dict:
+    """``cli train --dp 1 --dp-mode fsdp --scan-steps 8 --device-data``
+    in a process of its own: its JSON line."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", MLP_TRAIN["model"],
+            "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
+            "--optimizer", MLP_TRAIN["optimizer"],
+            "--lr", str(MLP_TRAIN["learning_rate"]),
+            "--seed", str(MLP_TRAIN["seed"]), "--backend", "pallas_xnor",
+            "--synthetic-sizes", *map(str, DPC_CLI_SYNTH),
+            "--dp", "1", "--dp-mode", "fsdp",
+            "--scan-steps", str(SCAN_STEPS), "--device-data"]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train --dp 1 --dp-mode fsdp exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def dp_capture_phase(device: torch.device, smi: str):
+    """Phase 13, data parallelism captured (``parallel.fsdp``,
+    ``SignCompressFsdp``, ``parallel.remesh``, ``TrainScan`` over the
+    data-parallel steps), in this process as the one rank of an NCCL
+    group, ``bnn-mlp-large`` on phase 9's recipe on pallas_xnor with
+    dropout 0.3 (``_dpc_trainer``):
+
+    (a) ``DPC_STEPS`` steps of fp32 FSDP bitwise the single-card
+    trainer's (the reduce-scatter and all-gather of one rank are
+    copies), and of compressed FSDP bitwise the single-process
+    compressed FSDP trainer's;
+    (b) uncompressed DP (the gradient all-reduce and the metrics'), the
+    flat ``sign_ef`` exchange, fp32 FSDP and compressed FSDP, each eager
+    and with ``scan_steps=8`` (uncompressed DP also with
+    ``device_data``): every tensor and the generator ``torch.equal``;
+    K1 2 x ``DPC_STEPS`` times inside the graphs (recorded launches x
+    replays), as many K1 kernels a replay in ``torch.profiler`` as
+    recorded; the collectives recorded into each graph counted from
+    Python at capture (a replay calls none); wire bytes recorded x
+    replays equal to the plan's;
+    (c) ``grad_accum=4`` and ``remat`` under uncompressed DP and fp32
+    FSDP, captured, bitwise eager;
+    (d) a ``sign_ef`` checkpoint of 2 gloo ranks sharing the card
+    resumed here at world 1 with ``elastic=True``: the rows after the
+    restore equal ``remesh_compress_state`` of the saved rows, and
+    training continues;
+    (e) ``cli train --dp 1 --dp-mode fsdp --scan-steps 8 --device-data``
+    in a process of its own.
+    Then each mode's eager and captured step time on the host clock,
+    device time a step and busy share, and its optimizer-state bytes.
+    Returns (each kernel's launches on this path, K1's inside graphs)."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        init_world,
+        remesh_compress_state,
+        spawn,
+    )
+    from distributed_mnist_bnns_tpu_torch.utils import msgpack
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import LATEST
+
+    t_phase = time.perf_counter()
+    bs = MLP_TRAIN["batch_size"]
+    raw0 = dict(_kernels.LAUNCHES)
+    trainers = []      # every trainer whose graphs ran
+
+    def made(t):
+        trainers.append(t)
+        return t
+
+    tmp = tempfile.mkdtemp(prefix="phase13-")
+    init_world(0, 1, backend="nccl", init_file=os.path.join(tmp, "pg"))
+    try:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=SCAN_SYNTH, seed=0)
+        steps = _first_steps(data, DPC_STEPS, bs)
+
+        # (a) FSDP at world 1 against one process
+        runs = {}
+        for name, kw in (("single", dict(data_parallel=None)),
+                         ("fsdp", dict(dp_mode="fsdp")),
+                         ("cfsdp_single", dict(data_parallel=None,
+                                               dp_mode="fsdp",
+                                               grad_compress="sign_ef")),
+                         ("cfsdp", dict(dp_mode="fsdp",
+                                        grad_compress="sign_ef"))):
+            runs[name] = t = _dpc_trainer(device, **kw)
+            t.train_epoch(steps, 0)
+        if not (runs["fsdp"].distributed and runs["fsdp"].fsdp is not None):
+            raise AssertionError("the FSDP trainer did not shard")
+        _same_run("fp32 FSDP at world 1 against the single-card trainer",
+                  runs["single"], runs["fsdp"])
+        _same_run("compressed FSDP at world 1 against one process",
+                  runs["cfsdp_single"], runs["cfsdp"])
+        print(json.dumps({"dpc_fsdp_world1_bitwise_single_card": True,
+                          "dpc_cfsdp_world1_bitwise_one_process": True,
+                          "steps": DPC_STEPS}), flush=True)
+        log(f"(a) FSDP and compressed FSDP at world 1 bitwise one process "
+            f"({DPC_STEPS} steps)")
+
+        # (b) every mode eager and captured
+        modes = {"dp": {}, "sign_ef": dict(grad_compress="sign_ef"),
+                 "fsdp": dict(dp_mode="fsdp"),
+                 "cfsdp": dict(dp_mode="fsdp", grad_compress="sign_ef")}
+        eager, captured, rows = {}, {}, {}
+        xs, ys = _chunk(data, 0, SCAN_STEPS, device, bs)
+        for name, kw in modes.items():
+            eager[name] = _dpc_trainer(device, **kw)
+            t_e = eager[name]
+            with _CollectiveCalls() as per_eager:
+                t_e.train_epoch(steps, 0)
+            variants = [("scan", dict(scan_steps=SCAN_STEPS))]
+            if name == "dp":
+                variants.append(("device_data", dict(
+                    scan_steps=SCAN_STEPS, device_data=True,
+                    log_interval=100)))
+            for vname, vkw in variants:
+                t = made(_dpc_trainer(device, **kw, **vkw))
+                captured[(name, vname)] = t
+                with _CollectiveCalls() as calls:
+                    t.train_epoch(steps, 0)
+                _same_run(f"{name} {vname} against eager", t_e, t)
+                scan = t._train_scan
+                k1 = scan.ran.get("xnor", 0)
+                if k1 != 2 * DPC_STEPS:
+                    raise AssertionError(f"{name} {vname}: K1 {k1} times "
+                                         f"in the graphs, want "
+                                         f"{2 * DPC_STEPS}")
+                plan = t.comm_plan
+                plan_bytes = 0 if plan is None else plan.wire_bytes_per_step
+                if t.comm_bytes() != DPC_STEPS * plan_bytes:
+                    raise AssertionError(f"{name} {vname}: {t.comm_bytes()} "
+                                         f"wire bytes, the plan's "
+                                         f"{DPC_STEPS * plan_bytes}")
+                # one eager step's collectives (the warm-up) and then the
+                # capture's; replays call none from Python
+                per_step = per_eager.calls / DPC_STEPS
+                in_graph = calls.calls - per_step
+                rows[(name, vname)] = {
+                    "collectives_per_step_eager": per_step,
+                    "collectives_recorded_per_graph": in_graph,
+                    "graphs": len(scan.graphs), "replays": sum(
+                        g.replays for g in scan.graphs.values()),
+                    "k1_in_graphs": k1, "wire_bytes": t.comm_bytes(),
+                    "plan_bytes": DPC_STEPS * plan_bytes}
+                if in_graph < per_step * SCAN_STEPS:
+                    raise AssertionError(f"{name} {vname}: {in_graph} "
+                                         "collectives recorded, want "
+                                         f"{per_step * SCAN_STEPS}")
+            _, top, _ = _profile_device_ms(
+                lambda: captured[(name, "scan")]._train_scan(
+                    captured[(name, "scan")].model,
+                    captured[(name, "scan")].optimizer, xs, ys),
+                calls=2, top=1000)
+            k1_seen = sum(k[2] for k in top if "xnor_gemm" in k[0])
+            nccl_seen = sum(k[2] for k in top if "nccl" in k[0].lower())
+            rows[(name, "scan")].update(k1_profiler_per_replay=k1_seen,
+                                        nccl_kernels_per_replay=nccl_seen)
+            if k1_seen != 2 * SCAN_STEPS:
+                raise AssertionError(f"{name}: torch.profiler saw {k1_seen} "
+                                     f"K1 kernels a replay, the capture "
+                                     f"recorded {2 * SCAN_STEPS}")
+        print(json.dumps({"dpc_bitwise": {f"{m}/{v}": r for (m, v), r
+                                          in rows.items()}}), flush=True)
+        log("(b) dp, sign_ef, fsdp, cfsdp: scan_steps=8 (and dp's "
+            "device_data) bitwise eager; K1 and the collectives inside the "
+            "graphs")
+
+        # (c) grad_accum and remat under DP, captured
+        short = _first_steps(data, DPC_SHORT_STEPS, bs)
+        for name in ("dp", "fsdp"):
+            kw = modes[name]
+            plain = _dpc_trainer(device, **kw)
+            accum = _dpc_trainer(device, grad_accum=SCAN_ACCUM, **kw)
+            accum_s = made(_dpc_trainer(device, grad_accum=SCAN_ACCUM,
+                                        scan_steps=SCAN_STEPS, **kw))
+            remat_s = made(_dpc_trainer(device, remat=True,
+                                        scan_steps=SCAN_STEPS, **kw))
+            for t in (plain, accum, accum_s, remat_s):
+                t.train_epoch(short, 0)
+            _same_run(f"{name} grad_accum=4 captured against eager", accum,
+                      accum_s)
+            _same_run(f"{name} remat captured against the plain step",
+                      plain, remat_s)
+        print(json.dumps({"dpc_grad_accum_bitwise": ["dp", "fsdp"],
+                          "dpc_remat_bitwise": ["dp", "fsdp"]}), flush=True)
+        log("(c) grad_accum=4 and remat under DP and FSDP captured bitwise "
+            "eager")
+
+        # (d) a world-2 sign_ef checkpoint resumed at world 1, elastic
+        ckpt = os.path.join(tmp, "elastic")
+        saved = spawn(_dpc_save_rank, 2, backend="gloo", device="cuda",
+                      args=(DPC_SHORT_STEPS, ckpt))[0]
+        with open(os.path.join(ckpt, LATEST), "rb") as f:
+            tree = msgpack.from_bytes(f.read())
+        t_el = _dpc_trainer(device, grad_compress="sign_ef", elastic=True,
+                            checkpoint_dir=ckpt, resume=True, epochs=2)
+        start, _ = t_el.try_resume()
+        want, n = remesh_compress_state(tree["opt_state"], t_el.comm_plan)
+        got = {k: v.cpu().numpy() for k, v in t_el.ef_rows().items()}
+        node = want["inner_state"]["0"]
+        if not (n == 1 and start == 1 and all(
+                np.array_equal(got[k], node[k]) for k in got)
+                and np.array_equal(np.asarray(tree["opt_state"][
+                    "inner_state"]["0"]["ef_residual"]),
+                    saved["ef_residual"])):
+            raise AssertionError("the elastic restore's rows differ from "
+                                 "remesh_compress_state of the saved rows")
+        t_el.train_epoch(short, 1)
+        if not all(np.isfinite(t_el.loss_history)):
+            raise AssertionError(f"after the elastic restore: losses "
+                                 f"{t_el.loss_history}")
+        print(json.dumps({"dpc_elastic": {
+            "saved_world": 2, "resumed_world": t_el.world,
+            "rows": {k: list(v.shape) for k, v in got.items()},
+            "steps_after": DPC_SHORT_STEPS,
+            "last_loss": t_el.loss_history[-1]}}), flush=True)
+        log("(d) a world-2 sign_ef checkpoint resumed at world 1 with "
+            "elastic=True: rows equal remesh_compress_state's")
+
+        # (e) the CLI
+        cli_row = _cli_dp_capture_row()
+        print(json.dumps({"dpc_cli_row": cli_row}), flush=True)
+        if not (np.isfinite(cli_row["train_loss"]) and cli_row["steps"]
+                == DPC_CLI_SYNTH[0] // bs):
+            raise AssertionError(f"cli train --dp 1 --dp-mode fsdp: "
+                                 f"{cli_row}")
+        log("(e) cli train --dp 1 --dp-mode fsdp --scan-steps 8 "
+            "--device-data ran")
+
+        # Times: eager against captured, each mode
+        timing = {}
+        for name in modes:
+            for vname, t in (("eager", eager[name]),
+                             ("scan", captured[(name, "scan")])):
+                t.config.log_interval = 100
+                row = t.train_epoch(steps, 1)
+                step_ms = row["epoch_time_s"] / row["steps"] * 1e3
+                if vname == "eager":
+                    x0, y0 = xs[0].to(device), ys[0].to(device)
+                    fn, n_steps = (lambda t=t, x0=x0, y0=y0: t.train_step(
+                        t.model, t.optimizer, x0, y0)), 1
+                else:
+                    fn, n_steps = (lambda t=t: t._train_scan(
+                        t.model, t.optimizer, xs, ys)), SCAN_STEPS
+                dev_ms, _, _ = _profile_device_ms(fn, calls=5, top=1)
+                per = None if dev_ms is None else dev_ms / n_steps
+                timing[f"{name}/{vname}"] = {
+                    "step_ms": step_ms, "examples_per_s": bs / step_ms * 1e3,
+                    "device_ms_per_step": per,
+                    "busy_share": None if per is None else per / step_ms,
+                    "optimizer_state_bytes": _opt_state_bytes(t)}
+        print(json.dumps({"dpc_timing": timing, "card": smi}), flush=True)
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    recorded, ran = {}, {}
+    for scan in (t._train_scan for t in trainers):
+        for k in scan.recorded:
+            recorded[k] = recorded.get(k, 0) + scan.recorded[k]
+            ran[k] = ran.get(k, 0) + scan.ran.get(k, 0)
+    counts = {k: _kernels.LAUNCHES[k] - raw0[k] - recorded.get(k, 0)
+              + ran.get(k, 0) for k in KERNEL_ROWS}
+    print(json.dumps({"slice": "dp_capture", "launches": counts,
+                      "launches_in_graphs": ran,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    return counts, ran
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3252,6 +3628,9 @@ def main() -> int:
     conv_counts, conv_rows = conv_phase(device, gen, smi)
     rt_counts, _ = runtime_phase(device, smi)
     scan_counts, in_graphs = scan_phase(device, smi)
+    dpc_counts, dpc_in_graphs = dp_capture_phase(device, smi)
+    if dpc_counts["xnor"] == 0:
+        raise AssertionError("the captured DP path never launched K1")
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -3269,7 +3648,8 @@ def main() -> int:
             "launches": (mlp_counts[name] + lm_counts[name]
                          + train_counts[name] + mlp_train_counts[name]
                          + dp_counts[name] + conv_counts[name]
-                         + rt_counts[name] + scan_counts[name]),
+                         + rt_counts[name] + scan_counts[name]
+                         + dpc_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -3280,7 +3660,9 @@ def main() -> int:
             "launches_conv_path": conv_counts[name],
             "launches_runtime_path": rt_counts[name],
             "launches_capture_path": scan_counts[name],
-            "launches_in_graphs": in_graphs.get(name, 0),
+            "launches_dp_capture_path": dpc_counts[name],
+            "launches_in_graphs": (in_graphs.get(name, 0)
+                                   + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

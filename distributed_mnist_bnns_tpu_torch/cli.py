@@ -224,11 +224,13 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--scan-steps", type=int, default=1,
                     help="train N steps a dispatch: on a card one CUDA "
                          "graph of N steps, captured once and replayed "
-                         "(single process; no --grad-compress)")
+                         "(with --dp, the collectives inside: NCCL)")
     sp.add_argument("--device-data", action="store_true",
                     help="keep the dataset on the device: each epoch one "
                          "gather, then graph replays of --scan-steps (or "
-                         "64) steps and one host sync; eval on the device")
+                         "64) steps and one host sync; eval on the device "
+                         "(with --dp each rank gathers its columns; "
+                         "--dp-mode fsdp streams; no --grad-compress)")
     sp.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches per optimizer step (activation-"
                          "memory saver; batch-size must divide evenly)")
@@ -292,7 +294,11 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                     help="'auto' = all devices, or an integer")
     sp.add_argument("--dp-mode", default="gspmd",
                     choices=["gspmd", "fsdp"],
-                    help="fsdp = ZeRO-style sharded params/opt state")
+                    help="fsdp: each rank holds its shard of every "
+                         "parameter and of the optimizer state (ZeRO: "
+                         "gradients reduce-scattered, shards all-"
+                         "gathered); with --grad-compress the 1-bit "
+                         "exchange runs the optimizer on segments")
     sp.add_argument("--grad-compress", default="none",
                     choices=["none", "sign", "sign_ef"],
                     help="1-bit gradient exchange: sign bitplanes + per-"

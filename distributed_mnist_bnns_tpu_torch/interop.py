@@ -35,7 +35,7 @@ out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -57,6 +57,16 @@ def to_flax_layout(t: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "conv" and t.dim() == 4:
         return t.permute(2, 3, 1, 0)
     return t
+
+
+def port_dim(kind: Optional[str], ndim: int, axis: int) -> int:
+    """The port tensor's dim that is axis ``axis`` of its flax layout
+    (``to_flax_layout``)."""
+    if kind == "dense" and ndim == 2:
+        return 1 - axis
+    if kind == "conv" and ndim == 4:
+        return (2, 3, 1, 0)[axis]
+    return axis
 
 
 def from_flax_layout(a, kind: str) -> torch.Tensor:
@@ -269,6 +279,12 @@ class JaxFlatOrder:
                        for path, _, kind in entries]
         self.n_params = sum(p.numel() for _, p, _ in self.entries)
 
+    def kinds(self) -> Dict[torch.nn.Parameter, Optional[str]]:
+        """Each parameter's layout kind ("dense", "conv"; None for a
+        leaf that keeps the port's layout)."""
+        return {p: kind for (_, p, _), kind in zip(self.entries,
+                                                    self._kinds)}
+
     def flatten(self, tensors: Optional[Mapping[torch.nn.Parameter,
                                                 torch.Tensor]] = None
                 ) -> torch.Tensor:
@@ -363,30 +379,59 @@ def _hyperparam_names(name: str):
             and not isinstance(p.default, bool)]
 
 
-def _optax_base_state(model, optimizer, name: str, leaf) -> Dict[str, Any]:
-    """The base optimizer's optax state; ``leaf(tensor, kind)`` makes each
-    params-shaped leaf from the optimizer state tensor it is given."""
-    state = optimizer.state
-
-    def tree(key):
-        return _tree(model, "params",
-                     lambda p, kind: leaf(state[p][key], kind))
-
-    def count(key="count"):
-        first = next(iter(model.parameters()))
-        return _i32(state[first][key])
-
+def _optax_base_state(name: str, tree, count) -> Dict[str, Any]:
+    """The base optimizer's optax state: ``tree(key)`` makes the
+    params-shaped tree of state ``key``, ``count(key)`` an int32
+    counter."""
     if name == "asgd":
         return {"inner": {"0": {}, "1": {}}, "avg": tree("avg"),
-                "count": count()}
+                "count": count("count")}
     out = {}
     for i, stage in enumerate(_OPT_STAGES[name]):
         if isinstance(stage, dict):
             out[str(i)] = dict(stage)
         else:
-            out[str(i)] = {k: count() if k == "count" else tree(k)
+            out[str(i)] = {k: count(k) if k == "count" else tree(k)
                            for k in stage}
     return out
+
+
+def _own_params(opt) -> List[torch.Tensor]:
+    """The optimizer's own parameters: the model's, or its FSDP shards,
+    or the compressed FSDP exchange's segment."""
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def _base_state(trainer, opt, name: str, values: bool) -> Dict[str, Any]:
+    """The base optimizer's state in optax's layout: over the flax params
+    (full leaves: an FSDP run gathers its shards, collective), or, under
+    the compressed FSDP exchange, over its ``(workers, seg)`` segment
+    rows (collective in a data-parallel run)."""
+    model, state = trainer.model, opt.state
+    first = _own_params(opt)[0]
+
+    def count(key):
+        return _i32(state[first][key])
+
+    if opt.fsdp_compress is not None:
+        seg, workers = first, opt.fsdp_compress.plan.world
+        if not values:
+            return _optax_base_state(name, lambda key: torch.empty(
+                (workers, seg.numel()), device="meta"), count)
+        return _optax_base_state(
+            name, lambda key: trainer.gather_rows(state[seg][key]), count)
+    fsdp = opt.fsdp
+
+    def get(p, key):
+        if not values:
+            return torch.empty(p.shape, dtype=p.dtype, device="meta")
+        if fsdp is None:
+            return state[p][key].detach()
+        return fsdp.gather_leaf(p, state[fsdp.shard_of(p)][key])
+
+    return _optax_base_state(
+        name, lambda key: _tree(model, "params", lambda p, kind:
+                                to_flax_layout(get(p, key), kind)), count)
 
 
 def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
@@ -416,15 +461,19 @@ def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
     group = opt.param_groups[0]
     hyper = _sorted({k: np.asarray(group[k], np.float32)
                      for k in _hyperparam_names(name)})
-    base = _optax_base_state(model, opt, name, leaf)
+    base = _base_state(trainer, opt, name, values)
+    rows = trainer.ef_rows(template=not values)
     stages = []
     if opt.clip_grad_norm is not None:
         stages.append({})
     if opt.grad_transform is not None:
-        stages.append(trainer.ef_rows() if values
-                      else trainer.ef_rows(template=True))
-    inner = base if not stages else {
-        str(i): s for i, s in enumerate(stages + [base])}
+        stages.append(rows)
+    if opt.fsdp_compress is not None:
+        stages.append({**rows, "inner": base})
+    else:
+        stages.append(base)
+    inner = (stages[0] if len(stages) == 1
+             else {str(i): st for i, st in enumerate(stages)})
     return {
         "step": _i32(trainer.step),
         "params": _tree(model, "params", leaf),
@@ -476,14 +525,29 @@ def train_state_from_jax(state: Dict[str, Any], trainer) -> None:
         trainer.load_ef_rows(inner[str(idx)])
         idx += 1
     base = inner[str(idx)] if idx else inner
+    fsdp, seg_tx = opt.fsdp, opt.fsdp_compress
+    if seg_tx is not None:
+        trainer.load_ef_rows({k: base[k] for k in ("ef_residual",
+                                                   "ef_residual2")})
+        base = base["inner"]
+        seg_tx.refresh_segment()
+    elif fsdp is not None:
+        fsdp.load_full()
 
     def put(key, tree):
+        if seg_tx is not None:
+            seg = _own_params(opt)[0]
+            row = _to_tensor(np.asarray(tree)[trainer._ef_row])
+            opt.state[seg][key] = row.to(seg.device, seg.dtype).contiguous()
+            return
         for flax_name, leaf, p, kind in _flax_leaves(model, "params"):
             src = from_flax_layout(_to_tensor(tree[flax_name][leaf]), kind)
+            if fsdp is not None:
+                src, p = fsdp.slice_leaf(p, src), fsdp.shard_of(p)
             opt.state[p][key] = src.to(p.device, p.dtype).contiguous()
 
     def put_count(key, v):
-        for p in model.parameters():
+        for p in _own_params(opt):
             opt.state[p][key] = int(np.asarray(v))
 
     if name == "asgd":

@@ -252,12 +252,15 @@ class BinarizedConv(nn.Module):
 
 class _AllReduceSum(torch.autograd.Function):
     """The sum over a process group; its backward sums the cotangent over
-    the group, since every rank's output depends on every rank's input."""
+    the group, since every rank's output depends on every rank's input.
+    An activation checkpoint's recompute gets the forward's sum back
+    (``ops.remat.once``) and issues no second collective."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
         ctx.group = group
-        return all_reduce_sum(x, group)
+        out = remat.once(lambda: all_reduce_sum(x, group))
+        return out.clone() if remat.recomputing() else out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

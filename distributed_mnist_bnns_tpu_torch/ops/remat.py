@@ -21,6 +21,10 @@ not happen twice:
   ``recomputing()`` is True then, and ``models.layers.BatchNorm`` moves
   its running statistics only on the first forward, once a step (a
   microbatch under ``grad_accum``), as the plain step does.
+- **Collectives.** A BatchNorm over a data-parallel group all-reduces
+  its batch sums in the forward; the recompute takes the forward's sums
+  back (``once``) instead of issuing the collective again, so a step
+  with ``remat`` runs the same collectives as one without.
 
 So the step with ``remat`` is bitwise the step without it: same masks,
 same recomputed activations, same statistics and generator state.
@@ -74,18 +78,22 @@ class _Tape:
         return self.draws[self.next - 1]
 
 
+def once(fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``fn()`` in a forward; inside a checkpoint's recompute the tensor
+    the forward's call gave, ``fn`` not called again (a draw, a
+    collective)."""
+    tape = getattr(_local, "tape", None)
+    return fn() if tape is None else tape.take(fn)
+
+
 def rand(shape, *, generator: torch.Generator,
          dtype: Optional[torch.dtype] = None,
          device: Optional[torch.device] = None) -> torch.Tensor:
     """``torch.rand`` on ``generator``: every train-time draw of the
     models goes through here, so that a checkpoint's recompute gets back
     what its forward drew."""
-    def draw():
-        return torch.rand(shape, generator=generator, dtype=dtype,
-                          device=device)
-
-    tape = getattr(_local, "tape", None)
-    return draw() if tape is None else tape.take(draw)
+    return once(lambda: torch.rand(shape, generator=generator, dtype=dtype,
+                                   device=device))
 
 
 def recomputing() -> bool:

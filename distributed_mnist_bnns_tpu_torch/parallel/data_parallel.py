@@ -6,10 +6,13 @@ Each rank is a process; every function here runs in every rank of the
 group, in the same order. The steps keep the single-device step's call,
 ``step(model, optimizer, images, labels) -> (loss, accuracy)``, on this
 rank's rows of the global batch (``shard_batch``), and return the loss
-and accuracy averaged over the ranks (0-d tensors, no host sync).
+and accuracy averaged over the ranks (0-d tensors, no host sync). Each
+takes ``scalars`` (the optimizer's row of a captured step), and
+``grad_accum`` and ``remat`` as the single-device step body does.
 
   make_dp_train_step            the JAX GSPMD step: BatchNorm over the
-                                global batch, gradients reduced by DDP
+                                global batch, gradients averaged in
+                                DDP's order (``all_reduce_grads``)
   make_shardmap_dp_train_step   the JAX shard_map step: per-rank
                                 BatchNorm, one fp32 all-reduce mean of
                                 the gradients, running statistics averaged
@@ -20,6 +23,15 @@ and accuracy averaged over the ranks (0-d tensors, no host sync).
                                 ``sign_compress`` transform is the
                                 reduction (flat, or in-host fp32 then 1-bit
                                 across hosts); running statistics averaged
+  make_compressed_fsdp_train_step
+                                the compressed step over the 1-bit FSDP
+                                exchange (``train.optim.SignCompressFsdp``)
+  parallel.fsdp.make_fsdp_train_step
+                                fp32 FSDP (ZeRO-3, explicit collectives)
+
+Every collective of a step runs in every rank in the same order and
+none depends on the data, so a step captures into a CUDA graph over
+NCCL (``train.capture.TrainScan``).
 
 Each step's collectives add their bytes to the ``WireBytes`` counter it
 is given (the compressed steps count through their transform).
@@ -27,7 +39,7 @@ is given (the compressed steps count through their transform).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,12 +48,12 @@ import torch.distributed as dist
 from ..models.layers import BatchNorm
 from ..ops.comm_compress import (
     WireBytes,
+    _count,
     all_reduce_mean,
     all_reduce_sum,
     broadcast,
 )
 from ..ops.losses import cross_entropy_loss
-from ..train.trainer import clamp_latent
 
 
 def replicate(model: torch.nn.Module, group=None) -> None:
@@ -62,17 +74,29 @@ def replicate(model: torch.nn.Module, group=None) -> None:
                          "every rank's model from the same seed")
 
 
-def shard_batch(x, group=None):
+def shard_batch(x, group=None, *, microbatches: int = 1, dim: int = 0):
     """This rank's rows ``[r B/W, (r+1) B/W)`` of the global batch ``x``
-    (a tensor or array; the JAX ``P("data")`` split: contiguous, not
-    ``data.shard_indices``' rank-strided one)."""
+    along ``dim`` (a tensor or array; the JAX ``P("data")`` split:
+    contiguous, not ``data.shard_indices``' rank-strided one).
+
+    ``microbatches=N``: the batch is N microbatches of B/N rows, and this
+    rank takes its rows of each in turn, so that splitting its rows in N
+    gives its share of every global microbatch (a GSPMD step's
+    ``grad_accum``, whose BatchNorm sees the global microbatch)."""
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    if len(x) % world:
-        raise ValueError(f"batch of {len(x)} not divisible by "
-                         f"data_parallel={world}")
-    per = len(x) // world
-    return x[rank * per:(rank + 1) * per]
+    n = x.shape[dim]
+    if n % (world * microbatches):
+        raise ValueError(f"batch of {n} not divisible by "
+                         f"data_parallel={world}"
+                         + (f" x grad_accum={microbatches}"
+                            if microbatches > 1 else ""))
+    per = n // (world * microbatches)
+    head = x.shape[:dim]
+    rows = x.reshape(*head, microbatches, world, per, *x.shape[dim + 1:])
+    index = (slice(None),) * (dim + 1) + (rank,)
+    return rows[index].reshape(*head, microbatches * per,
+                               *x.shape[dim + 1:])
 
 
 def set_batchnorm_group(model: torch.nn.Module, group) -> None:
@@ -93,68 +117,75 @@ def average_batch_stats(model: torch.nn.Module, group) -> None:
                 m.running_var.copy_(all_reduce_mean(m.running_var, group))
 
 
-def _metrics(outs: torch.Tensor, labels: torch.Tensor, loss: torch.Tensor,
-             group):
-    """(loss, accuracy in percent), each averaged over the group."""
-    outs = outs.detach()
-    acc = (outs.argmax(-1) == labels).to(outs.dtype).mean() * 100.0
-    m = all_reduce_mean(torch.stack([loss.detach(), acc]), group)
+def _mean_metrics(loss: torch.Tensor, acc: torch.Tensor, group):
+    """(loss, accuracy), each averaged over the group."""
+    m = all_reduce_mean(torch.stack([loss, acc]), group)
     return m[0], m[1]
 
 
-def _counting_allreduce_hook(state, bucket):
-    """DDP's default all-reduce hook, its bytes counted: (N-1)/N of the
-    bucket in each ring phase."""
-    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
-
-    group, wire = state
+def all_reduce_grads(params: List[torch.Tensor], group,
+                     wire: Optional[WireBytes] = None) -> None:
+    """Replace every gradient of ``params`` by its mean over the group,
+    in DDP's default hook's order (each rank's gradients divided by the
+    world, then one all-reduce sum of them laid end to end); counted as
+    a ring all-reduce of that buffer."""
+    params = [p for p in params if p.grad is not None]
     world = dist.get_world_size(group)
-    nbytes = bucket.buffer().nbytes
-    rs = (world - 1) * nbytes // world
-    wire[("inter", "rs")] += rs
-    wire[("inter", "ag")] += 2 * (world - 1) * nbytes // world - rs
-    return default_hooks.allreduce_hook(group, bucket)
+    flat = torch.cat([p.grad.reshape(-1) for p in params]).div_(world)
+    dist.all_reduce(flat, group=group)
+    rs = (world - 1) * flat.nbytes // world
+    _count(wire, "inter", "rs", rs)
+    _count(wire, "inter", "ag", 2 * (world - 1) * flat.nbytes // world - rs)
+    with torch.no_grad():
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p.grad))
 
 
 def make_dp_train_step(clamp_mask: Dict[str, torch.Tensor],
                        model: torch.nn.Module, *, group=None,
                        loss_fn: Callable = cross_entropy_loss,
-                       wire: Optional[WireBytes] = None) -> Callable:
+                       wire: Optional[WireBytes] = None,
+                       grad_accum: int = 1, remat: bool = False
+                       ) -> Callable:
     """The JAX GSPMD step (``make_dp_train_step``, :107): ``model``'s
-    BatchNorms normalise over the global batch, and DDP (buffers not
-    broadcast: the running statistics come out equal on every rank)
-    averages the gradients of each rank's local mean loss. The
-    BatchNorm's all-reduce sums its cotangent over the ranks, so the
-    average is the gradient of the global batch's mean loss.
+    BatchNorms normalise over the global batch (at world 1 the global
+    batch is this rank's), and each rank's gradients of its local mean
+    loss are averaged in DDP's order (``all_reduce_grads``: the
+    reduction of DistributedDataParallel written out, so that the step
+    is the same eager or captured in a CUDA graph). The BatchNorm's
+    all-reduce sums its cotangent over the ranks, so the average is the
+    gradient of the global batch's mean loss; the running statistics
+    come out equal on every rank.
 
-    ``model`` is wrapped once here; ``step`` must be given the same
-    module."""
-    from torch.nn.parallel import DistributedDataParallel
+    ``grad_accum`` and ``remat`` are the single-device body's
+    (``train.trainer.forward_backward``); under ``grad_accum`` each
+    microbatch is a slice of the global batch, so this rank's rows are
+    ``shard_batch(..., microbatches=grad_accum)``'s."""
+    from ..train.trainer import (
+        check_step_options,
+        clamp_latent,
+        forward_backward,
+    )
 
+    check_step_options(grad_accum)
     group = dist.group.WORLD if group is None else group
-    set_batchnorm_group(model, group)
-    device = next(model.parameters()).device
-    # Buffers stay each rank's: the global-batch statistics make them
-    # equal.
-    ddp = DistributedDataParallel(
-        model, device_ids=[device] if device.type == "cuda" else None,
-        process_group=group, broadcast_buffers=False)
-    ddp.register_comm_hook((group, WireBytes() if wire is None else wire),
-                           _counting_allreduce_hook)
+    if dist.get_world_size(group) > 1:
+        set_batchnorm_group(model, group)
     latents = list(clamp_mask.values())
 
     def dp_step(m: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                images: torch.Tensor, labels: torch.Tensor):
-        if m is not ddp.module:
+                images: torch.Tensor, labels: torch.Tensor,
+                scalars: Optional[torch.Tensor] = None):
+        if m is not model:
             raise ValueError("the DP step was built for another model")
         m.train()
         optimizer.zero_grad(set_to_none=True)
-        outs = ddp(images)
-        loss = loss_fn(outs, labels)
-        loss.backward()
-        optimizer.step()
+        loss, acc = forward_backward(m, images, labels, loss_fn=loss_fn,
+                                     grad_accum=grad_accum, remat=remat)
+        all_reduce_grads(list(m.parameters()), group, wire)
+        optimizer.step(scalars=scalars)
         clamp_latent(latents)
-        return _metrics(outs, labels, loss, group)
+        return _mean_metrics(loss, acc, group)
 
     return dp_step
 
@@ -162,31 +193,40 @@ def make_dp_train_step(clamp_mask: Dict[str, torch.Tensor],
 def make_shardmap_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                 group=None,
                                 loss_fn: Callable = cross_entropy_loss,
-                                wire: Optional[WireBytes] = None
+                                wire: Optional[WireBytes] = None,
+                                grad_accum: int = 1, remat: bool = False
                                 ) -> Callable:
     """The JAX shard_map step (``make_shardmap_dp_train_step``, :137):
     BatchNorm over each rank's rows, the gradients laid end to end and
-    averaged in one fp32 all-reduce (DDP's all-reduce made visible), the
-    running statistics averaged after the step."""
+    averaged in one fp32 all-reduce (summed, then divided), the
+    running statistics averaged after the step. ``grad_accum`` splits
+    this rank's rows; ``remat`` as the single-device body's."""
+    from ..train.trainer import (
+        check_step_options,
+        clamp_latent,
+        forward_backward,
+    )
+
+    check_step_options(grad_accum)
     group = dist.group.WORLD if group is None else group
     latents = list(clamp_mask.values())
 
     def shardmap_step(model: torch.nn.Module,
                       optimizer: torch.optim.Optimizer,
-                      images: torch.Tensor, labels: torch.Tensor):
+                      images: torch.Tensor, labels: torch.Tensor,
+                      scalars: Optional[torch.Tensor] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        outs = model(images)
-        loss = loss_fn(outs, labels)
-        loss.backward()
+        loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
+                                     grad_accum=grad_accum, remat=remat)
         params = [p for p in model.parameters() if p.grad is not None]
         flat = all_reduce_mean(torch.cat([p.grad.reshape(-1)
                                           for p in params]), group, wire)
         for p, g in zip(params, flat.split([p.numel() for p in params])):
             p.grad.copy_(g.view_as(p.grad))
-        metrics = _metrics(outs, labels, loss, group)
+        metrics = _mean_metrics(loss, acc, group)
         average_batch_stats(model, group)
-        optimizer.step()
+        optimizer.step(scalars=scalars)
         clamp_latent(latents)
         return metrics
 
@@ -195,31 +235,44 @@ def make_shardmap_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
 
 def make_compressed_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                   group=None,
-                                  loss_fn: Callable = cross_entropy_loss
+                                  loss_fn: Callable = cross_entropy_loss,
+                                  grad_accum: int = 1, remat: bool = False
                                   ) -> Callable:
     """The JAX compressed step (``make_compressed_dp_train_step``,
     :274): the single-device step body on each rank's rows, with no
-    DDP wrapper and no gradient all-reduce: the optimizer's
-    ``sign_compress`` transform runs the 1-bit exchange, and it is the
-    reduction. Metrics and running statistics take the plain fp32 mean
-    over ``group``."""
+    gradient all-reduce: the optimizer's ``sign_compress`` transform
+    runs the 1-bit exchange, and it is the reduction. Metrics and
+    running statistics take the plain fp32 mean over ``group``.
+    ``grad_accum`` splits this rank's rows (the JAX body runs inside the
+    shard_map); ``remat`` as the single-device body's.
+
+    The same step runs the compressed FSDP exchange
+    (``make_compressed_fsdp_train_step``): only the optimizer differs."""
+    from ..train.trainer import (
+        check_step_options,
+        clamp_latent,
+        forward_backward,
+    )
+
+    check_step_options(grad_accum)
     group = dist.group.WORLD if group is None else group
     latents = list(clamp_mask.values())
 
     def compressed_step(model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer,
-                        images: torch.Tensor, labels: torch.Tensor):
-        if getattr(optimizer, "grad_transform", None) is None:
+                        images: torch.Tensor, labels: torch.Tensor,
+                        scalars: Optional[torch.Tensor] = None):
+        if optimizer.comm_transform() is None:
             raise ValueError("the compressed step needs an optimizer with "
-                             "a sign_compress grad_transform")
+                             "a sign_compress grad_transform or a "
+                             "sign_compress_fsdp exchange")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        outs = model(images)
-        loss = loss_fn(outs, labels)
-        loss.backward()
-        optimizer.step()
+        loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
+                                     grad_accum=grad_accum, remat=remat)
+        optimizer.step(scalars=scalars)
         clamp_latent(latents)
-        metrics = _metrics(outs, labels, loss, group)
+        metrics = _mean_metrics(loss, acc, group)
         average_batch_stats(model, group)
         return metrics
 
@@ -228,7 +281,8 @@ def make_compressed_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
 
 def make_compressed_hier_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                     group=None,
-                                    loss_fn: Callable = cross_entropy_loss
+                                    loss_fn: Callable = cross_entropy_loss,
+                                    grad_accum: int = 1, remat: bool = False
                                     ) -> Callable:
     """The JAX two-level step (``make_compressed_hier_train_step``,
     :313): as ``make_compressed_dp_train_step`` over every rank of
@@ -236,7 +290,23 @@ def make_compressed_hier_train_step(clamp_mask: Dict[str, torch.Tensor], *,
     in-host ``local_group`` (fp32 mean first) and the inter-host
     ``group``. The step itself holds no gradient collective."""
     return make_compressed_dp_train_step(clamp_mask, group=group,
-                                         loss_fn=loss_fn)
+                                         loss_fn=loss_fn,
+                                         grad_accum=grad_accum, remat=remat)
+
+
+def make_compressed_fsdp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
+                                    group=None,
+                                    loss_fn: Callable = cross_entropy_loss,
+                                    grad_accum: int = 1, remat: bool = False
+                                    ) -> Callable:
+    """The JAX compressed FSDP step (``make_compressed_fsdp_train_step``,
+    :397): the compressed step's shape; the ZeRO part lives in the
+    optimizer (``train.optim.SignCompressFsdp``: the 1-bit
+    reduce-scatter to segment owners, the base optimizer on the owner's
+    segment and moment rows, the 1-bit all-gather of the update)."""
+    return make_compressed_dp_train_step(clamp_mask, group=group,
+                                         loss_fn=loss_fn,
+                                         grad_accum=grad_accum, remat=remat)
 
 
 def rank_seed(seed: int, rank: int) -> int:

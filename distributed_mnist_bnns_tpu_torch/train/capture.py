@@ -38,6 +38,19 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
   recorded, at capture, not when a replay runs it: ``recorded`` sums
   what the captures counted, ``ran`` what the replays ran (a graph's
   recorded launches at each replay).
+- **Data parallelism.** A data-parallel step's collectives (BatchNorm's
+  global-batch all-reduce, the gradient all-reduce, the 1-bit
+  exchange's all-to-alls and all-gathers, FSDP's gathers and
+  reduce-scatters) are recorded into the graph and run at each replay.
+  Only NCCL's can be: a capture over another backend raises
+  (``check_capturable``) and nothing runs eagerly in its place. The
+  capture is thread-local, since NCCL's watchdog thread keeps polling
+  its events meanwhile. Every rank captures and replays the same graphs
+  in the same order, so the collectives stay matched. The bytes the
+  collectives move are counted when they are recorded, too: the
+  capture's count is taken back out of ``wire`` (the warm-up step's as
+  well) and each replay adds it, so ``wire`` holds what the replays
+  moved.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import _kernels
 
@@ -63,11 +77,24 @@ def optimizer_key(optimizer) -> tuple:
 
 def _state_tensors(model, optimizer) -> List[torch.Tensor]:
     """Every tensor a step writes: parameters, buffers (running
-    statistics), optimizer state."""
-    out = list(model.parameters()) + list(model.buffers())
-    for state in optimizer.state.values():
-        out.extend(v for v in state.values() if torch.is_tensor(v))
-    return out
+    statistics), the optimizer's (its state, shards or segment, the
+    exchange's error-feedback rows)."""
+    return (list(model.parameters()) + list(model.buffers())
+            + optimizer.state_tensors())
+
+
+def check_capturable(groups) -> None:
+    """Raise unless every process group in ``groups`` runs over NCCL,
+    whose collectives a CUDA graph records; gloo's run on the host and
+    cannot be captured."""
+    for group in groups:
+        backend = dist.get_backend(group)
+        if backend != "nccl":
+            raise RuntimeError(
+                "a captured dispatch (scan_steps, device_data) records the "
+                "step's collectives in a CUDA graph, which NCCL supports "
+                f"and {backend!r} does not: run one NCCL rank a card, or "
+                "set scan_steps=1 and device_data=False")
 
 
 def train_generator(model, device) -> Optional[torch.Generator]:
@@ -88,6 +115,7 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.losses = self.accs = None
         self.captured: Dict[str, int] = {}   # launches recorded
+        self.wire: Dict[tuple, int] = {}     # wire bytes recorded
         self.replays = 0
         self.capture_s = 0.0
         self.pool_bytes = 0
@@ -97,8 +125,10 @@ class TrainScan:
     """``n`` steps of ``chunk`` a dispatch: captured and replayed on a
     card, eager on the CPU."""
 
-    def __init__(self, chunk: Callable):
+    def __init__(self, chunk: Callable, *, wire=None, groups=()):
         self.chunk = chunk
+        self.wire = wire          # the step's WireBytes, if it has any
+        self.groups = tuple(groups)   # the step's process groups
         self.graphs: Dict[tuple, _Graph] = {}
         self._held: tuple = ()    # the model, optimizer and constants
         self.recorded: Dict[str, int] = {}  # launches counted at captures
@@ -125,6 +155,8 @@ class TrainScan:
         g.replays += 1
         for k, v in g.captured.items():
             self.ran[k] = self.ran.get(k, 0) + v
+        if self.wire is not None:
+            self.wire.update(g.wire)
         optimizer.advance(images.shape[0])
         return g.losses, g.accs
 
@@ -150,7 +182,9 @@ class TrainScan:
         return g
 
     def _capture(self, model, optimizer, images, labels, rows) -> _Graph:
+        check_capturable(self.groups)
         t0 = time.perf_counter()
+        wire_before = None if self.wire is None else dict(self.wire)
         device = images.device
         g = _Graph(images, labels, rows.shape[1])
         gen = train_generator(model, device)
@@ -167,13 +201,19 @@ class TrainScan:
             for t, s in zip(tensors, saved):
                 t.copy_(s)
         del saved
+        if self.wire is not None:    # the warm-up step is not a step
+            self.wire.clear()
+            self.wire.update(wire_before)
         if gen is not None:
             gen.set_state(saved_gen)
             g.graph.register_generator_state(gen)
         optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize(device)
         before = dict(_kernels.LAUNCHES)
-        with torch.cuda.graph(g.graph):
+        # NCCL's watchdog thread polls its events while we capture; a
+        # global capture mode would fail on its calls
+        mode = "thread_local" if self.groups else "global"
+        with torch.cuda.graph(g.graph, capture_error_mode=mode):
             # (entering emptied the allocator's cache: what is reserved
             # from here on is the graph's pool)
             reserved = torch.cuda.memory_reserved(device)
@@ -181,6 +221,11 @@ class TrainScan:
                                           g.labels, g.scalars)
         torch.cuda.synchronize(device)
         g.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        if self.wire is not None:   # recorded, not run: replays count it
+            for k in self.wire:
+                g.wire[k] = self.wire[k] - wire_before.get(k, 0)
+            self.wire.clear()
+            self.wire.update(wire_before)
         g.captured = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()
                       if v != before[k]}
         for k, v in g.captured.items():

@@ -71,10 +71,12 @@ import torch.distributed as dist
 from ..ops.comm_compress import (
     CommPlan,
     WireBytes,
+    all_gather_compressed,
     all_reduce_mean,
     exchange,
     make_plan,
     pad_flat,
+    reduce_scatter_compressed,
 )
 
 _HP_KEYS = ("learning_rate", "momentum", "b1", "b2", "eps", "weight_decay")
@@ -95,14 +97,19 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq: Optional[List[torch.Tensor]] = None
+                        ) -> List[torch.Tensor]:
     """optax ``clip_by_global_norm``: every tensor scaled by
     ``max_norm / norm`` when the global norm is >= max_norm, unchanged
-    otherwise. No host sync: the choice is a ``torch.where``."""
+    otherwise. No host sync: the choice is a ``torch.where``. ``sq``:
+    each leaf's sum of squares when the tensors are shards of the leaves
+    (``parallel.fsdp.FsdpShards.sq_norms``)."""
     if not grads:
         return grads
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    if sq is None:
+        sq = [torch.sum(g * g) for g in grads]
+    norm = torch.sqrt(sum(sq))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -116,11 +123,15 @@ def _trace(u: torch.Tensor, state: Dict[str, Any], momentum: float,
 
 
 def _trust_ratio(u: torch.Tensor, p: torch.Tensor, trust_coefficient: float,
-                 eps: float) -> torch.Tensor:
+                 eps: float, norms=None) -> torch.Tensor:
     """optax ``scale_by_trust_ratio`` (min_norm 0): u * tc * |p| / (|u| +
-    eps), or u where either norm is 0."""
-    p_norm = torch.linalg.vector_norm(p)
-    u_norm = torch.linalg.vector_norm(u)
+    eps), or u where either norm is 0. ``norms``: ``(|p|, |u|)`` of the
+    whole leaves when ``p`` and ``u`` are shards of them."""
+    if norms is None:
+        p_norm = torch.linalg.vector_norm(p)
+        u_norm = torch.linalg.vector_norm(u)
+    else:
+        p_norm, u_norm = norms
     ratio = _f32(trust_coefficient) * p_norm / (u_norm + _f32(eps))
     zero = (p_norm == 0.0) | (u_norm == 0.0)
     return u * torch.where(zero, torch.ones_like(ratio), ratio)
@@ -168,6 +179,14 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 f"clip_grad_norm must be > 0, got {clip_grad_norm}")
         self.clip_grad_norm = clip_grad_norm
         self.grad_transform: Optional[SignCompress] = None
+        # the 1-bit FSDP exchange that runs this optimizer on a segment
+        self.fsdp_compress: Optional[SignCompressFsdp] = None
+        # fp32 FSDP: the shards' whole-leaf norms (parallel.fsdp)
+        self.fsdp = None
+        # tensors whose gradients the step reads, where they are not the
+        # optimizer's own parameters (the full parameters of a sharded
+        # or segment optimizer); zero_grad clears them too
+        self.grad_params: List[torch.Tensor] = []
         self.steps = 0
         for group in self.param_groups:
             for p in group["params"]:
@@ -229,38 +248,95 @@ class OptaxOptimizer(torch.optim.Optimizer):
         own = scalars is None
         if own:
             scalars = self._device_row()
-        pairs = [(p, group) for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
-        grads = [p.grad for p, _ in pairs]
-        if self.clip_grad_norm is not None:
-            grads = clip_by_global_norm(grads, self.clip_grad_norm)
-        if self.grad_transform is not None:
-            grads = self.grad_transform([p for p, _ in pairs], grads)
         width = len(self.SCALARS)
         group_sc = {}
         for i, group in enumerate(self.param_groups):
             group_sc[id(group)] = {
                 name: scalars[i * width + j]
                 for j, name in enumerate(self.SCALARS)}
-        for (p, group), g in zip(pairs, grads):
-            p.add_(self._update(p, g, self.state[p], group,
-                                group_sc[id(group)]))
+        if self.fsdp_compress is not None:
+            self._step_fsdp_compress(group_sc)
+        else:
+            pairs = [(p, group) for group in self.param_groups
+                     for p in group["params"] if p.grad is not None]
+            grads = [p.grad for p, _ in pairs]
+            if self.clip_grad_norm is not None:
+                sq = None if self.fsdp is None else self.fsdp.sq_norms(
+                    [(p, g) for (p, _), g in zip(pairs, grads)])
+                grads = clip_by_global_norm(grads, self.clip_grad_norm, sq)
+            if self.grad_transform is not None:
+                grads = self.grad_transform([p for p, _ in pairs], grads)
+            for (p, group), g in zip(pairs, grads):
+                p.add_(self._update(p, g, self.state[p], group,
+                                    group_sc[id(group)]))
         if own:
             self.advance(1)
         return loss
 
+    def _step_fsdp_compress(self, group_sc) -> None:
+        """The JAX chain ``[clip, sign_compress_fsdp(base)]``: the local
+        gradients of ``grad_params`` clipped, then the exchange, which
+        runs this optimizer's ``_update`` on its segment; every full
+        parameter takes the decoded update."""
+        params = [p for p in self.grad_params if p.grad is not None]
+        grads = [p.grad for p in params]
+        if self.clip_grad_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_grad_norm)
+        group = self.param_groups[0]
+        seg = group["params"][0]
+
+        def base(own: torch.Tensor) -> torch.Tensor:
+            return self._update(seg, own, self.state[seg], group,
+                                group_sc[id(group)])
+
+        for p, u in zip(params, self.fsdp_compress(params, grads, base)):
+            p.add_(u)
+
+    def _leaf_norms(self, p: torch.Tensor, u: torch.Tensor):
+        """``(|p|, |u|)`` of the whole leaf of which ``p`` is a shard
+        (fp32 FSDP), or None where ``p`` is the leaf."""
+        if self.fsdp is None:
+            return None
+        sq = self.fsdp.sq_norms([(p, p), (p, u)])
+        return torch.sqrt(sq[0]), torch.sqrt(sq[1])
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        super().zero_grad(set_to_none=set_to_none)
+        for p in self.grad_params:
+            if set_to_none:
+                p.grad = None
+            elif p.grad is not None:
+                p.grad.zero_()
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes that the optimizer holds: its
+        parameters (shards or a segment where they are not the model's),
+        their state and the exchange's rows."""
+        out = [p for group in self.param_groups for p in group["params"]]
+        for state in self.state.values():
+            out.extend(v for v in state.values() if torch.is_tensor(v))
+        for tx in (self.grad_transform, self.fsdp_compress):
+            if tx is not None:
+                out.extend(tx.tensors())
+        return list({id(t): t for t in out}.values())
+
+    def comm_transform(self):
+        """The 1-bit exchange this optimizer runs (``SignCompress`` in
+        front of it, or ``SignCompressFsdp`` around it), if any."""
+        return self.grad_transform or self.fsdp_compress
+
     def state_dict(self) -> Dict[str, Any]:
         sd = super().state_dict()
-        if self.grad_transform is not None:
-            sd["grad_transform"] = self.grad_transform.state_dict()
+        if self.comm_transform() is not None:
+            sd["grad_transform"] = self.comm_transform().state_dict()
         return sd
 
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         state_dict = dict(state_dict)
         transform = state_dict.pop("grad_transform", None)
         super().load_state_dict(state_dict)
-        if self.grad_transform is not None and transform is not None:
-            self.grad_transform.load_state_dict(transform)
+        if self.comm_transform() is not None and transform is not None:
+            self.comm_transform().load_state_dict(transform)
 
 
 class SGD(OptaxOptimizer):
@@ -477,7 +553,8 @@ class LARS(OptaxOptimizer):
 
     def _update(self, p, g, state, group, sc):
         u = g + _f32(group["weight_decay"]) * p
-        u = _trust_ratio(u, p, group["trust_coefficient"], group["eps"])
+        u = _trust_ratio(u, p, group["trust_coefficient"], group["eps"],
+                         self._leaf_norms(p, u))
         u = u * sc["neg_lr"]
         return _trace(u, state, group["momentum"], group["nesterov"])
 
@@ -505,7 +582,7 @@ class LAMB(OptaxOptimizer):
     def _update(self, p, g, state, group, sc):
         u = _adam_direction(g, state, group, sc)
         u = u + _f32(group["weight_decay"]) * p
-        u = _trust_ratio(u, p, 1.0, 0.0)
+        u = _trust_ratio(u, p, 1.0, 0.0, self._leaf_norms(p, u))
         return u * sc["neg_lr"]
 
 
@@ -533,18 +610,51 @@ def _optimizer_class(name: str) -> type:
         ) from None
 
 
+def check_elementwise(name: str) -> None:
+    """Raise for a layerwise optimizer, which the compressed FSDP
+    exchange cannot run (the JAX Trainer's rule and message)."""
+    if name.lower() in ("lars", "lamb"):
+        raise ValueError(
+            f"optimizer {name!r} does not compose with grad_compress "
+            "under dp_mode='fsdp': the compressed-FSDP exchange runs "
+            "the optimizer on flattened ZeRO segments, where layerwise "
+            "trust ratios would silently compute norms over arbitrary "
+            "slices (use an elementwise optimizer, or dp_mode='gspmd')")
+
+
 def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
                    clip_grad_norm: Optional[float] = None,
                    grad_transform: Optional["SignCompress"] = None,
-                   **kwargs: Any) -> OptaxOptimizer:
+                   fsdp_compress: Optional["SignCompressFsdp"] = None,
+                   fsdp=None, **kwargs: Any) -> OptaxOptimizer:
     """The registry optimizer ``name`` over ``params`` (torch optimizers
     take their parameters at construction; the JAX ``make_optimizer``
     returns a transform that ``init`` gives them), with ``learning_rate``
     and any other hyperparameter in ``param_groups``, optionally behind
-    global-norm clipping and then ``grad_transform``."""
+    global-norm clipping and then ``grad_transform``.
+
+    ``fsdp_compress`` (the JAX ``grad_transform_wrapper`` of
+    ``sign_compress_fsdp``) wraps the optimizer instead: it runs on the
+    exchange's flat segment (its state the segment's moment rows) and
+    ``params`` are the full parameters whose gradients it reads. Only
+    elementwise optimizers compose with it. ``fsdp`` (fp32 FSDP, a
+    ``parallel.fsdp.FsdpShards`` of ``params``) runs it on this rank's
+    shards, its norms over whole leaves."""
+    if grad_transform is not None and fsdp_compress is not None:
+        raise ValueError("grad_transform and fsdp_compress are mutually "
+                         "exclusive (chain-in-front vs wrap-the-optimizer)")
+    grad_params: List[torch.Tensor] = []
+    if fsdp_compress is not None:
+        check_elementwise(name)
+        grad_params, params = list(params), [fsdp_compress.segment]
+    elif fsdp is not None:
+        grad_params, params = list(params), fsdp.tensors
     opt = _optimizer_class(name)(params, learning_rate=learning_rate,
                                  clip_grad_norm=clip_grad_norm, **kwargs)
     opt.grad_transform = grad_transform
+    opt.fsdp_compress = fsdp_compress
+    opt.fsdp = fsdp
+    opt.grad_params = grad_params
     return opt
 
 
@@ -673,15 +783,15 @@ class SignCompress:
         combined, sent, e2_new = exchange(corrected, plan, group=self.group,
                                           e2=e2, wire=self.wire)
         if self.mode == "sign_ef":
-            e1 = corrected - sent
-            e1[plan.n_params:] = 0.0
-            seg0 = self.rank * plan.seg
-            valid2 = seg0 + torch.arange(plan.seg, device=e1.device)
-            self.ef_residual = e1
-            self.ef_residual2 = torch.where(valid2 < plan.n_params, e2_new,
-                                            torch.zeros_like(e2_new))
+            _keep_residuals(self, plan, corrected - sent, e2_new)
         update = self.order.unflatten(combined[:plan.n_params])
         return [update[p] for p in params]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The rows a step writes (in place: a captured step keeps
+        them)."""
+        return [t for t in (self.ef_residual, self.ef_residual2)
+                if t is not None]
 
     def state_dict(self) -> Dict[str, Any]:
         if self.mode != "sign_ef":
@@ -697,7 +807,120 @@ class SignCompress:
             if tuple(state[k].shape) != tuple(cur.shape):
                 raise ValueError(f"{k} of shape {tuple(state[k].shape)}, "
                                  f"want {tuple(cur.shape)}")
-            setattr(self, k, state[k].to(cur.device, cur.dtype).clone())
+            cur.copy_(state[k])
+
+
+def _keep_residuals(tx, plan: CommPlan, e1: torch.Tensor,
+                    e2: torch.Tensor) -> None:
+    """Write the new error feedback into ``tx``'s rows, in place: ``e1``
+    with its pad tail zeroed, ``e2`` zeroed past ``n_params`` (the
+    invalid tail of the last worker's segment), as JAX zeroes them."""
+    e1[plan.n_params:] = 0.0
+    seg0 = tx.rank * plan.seg
+    valid2 = seg0 + torch.arange(plan.seg, device=e1.device)
+    tx.ef_residual.copy_(e1)
+    tx.ef_residual2.copy_(torch.where(valid2 < plan.n_params, e2,
+                                      torch.zeros_like(e2)))
 
 
 sign_compress = SignCompress   # the JAX package's name
+
+
+class SignCompressFsdp:
+    """The 1-bit compressed FSDP exchange (the JAX ``sign_compress_fsdp``
+    with its ``FsdpCompressState``): the ZeRO layout of the 1-bit
+    exchange, which wraps the base optimizer
+    (``make_optimizer(..., fsdp_compress=...)``) instead of running in
+    front of it.
+
+    ``transform(params, grads, base)``, per step:
+
+    1. this worker's gradients in the JAX flat order, padded, plus its
+       residual (``sign_ef``), go through the compressed reduce-scatter
+       (``ops.comm_compress.reduce_scatter_compressed``): sign planes and
+       bucket scales to the segment owners, each owner combining its
+       ``(seg,)`` segment;
+    2. ``base(own)``, the base optimizer's update of the owner's segment
+       (``segment``: this worker's ``(seg,)`` slice of the padded flat
+       parameters, refreshed first; the optimizer's state is that
+       segment's moment rows, row ``rank`` of JAX's ``(world, seg)``);
+    3. the update (plus the owner's residual under ``sign_ef``) goes
+       through the compressed all-gather
+       (``all_gather_compressed``), and every worker applies the same
+       decoded update, so the parameters stay equal on every rank.
+
+    ``sign_ef`` keeps two residuals, this worker's ``(padded,)`` row and
+    the owner's ``(seg,)`` row, written in place (a captured step keeps
+    them); ``sign`` keeps none (JAX's ``(world, 0)`` rows). ``world=1``
+    runs no collective. Collectives add their bytes to ``wire``."""
+
+    def __init__(self, *, mode: str, order, world: int = 1, group=None,
+                 bucket_size: int = 1024, chunks: int = 4,
+                 wire: Optional[WireBytes] = None):
+        if mode not in ("sign", "sign_ef"):
+            raise ValueError(
+                f"unknown compression mode {mode!r} (have: sign, sign_ef)")
+        if group is None and world != 1:
+            raise ValueError("world > 1 requires a group to exchange over")
+        self.mode = mode
+        self.order = order
+        self.group = group
+        self.wire = WireBytes() if wire is None else wire
+        self.plan: CommPlan = make_plan(order.n_params, world=world,
+                                        mode=mode, bucket_size=bucket_size,
+                                        chunks=chunks, layout="fsdp")
+        self.rank = 0 if group is None else dist.get_rank(group)
+        device = order.entries[0][1].device
+        self.segment = torch.empty(self.plan.seg, device=device)
+        self.refresh_segment()
+        self.ef_residual: Optional[torch.Tensor] = None
+        self.ef_residual2: Optional[torch.Tensor] = None
+        if mode == "sign_ef":
+            self.ef_residual = torch.zeros(self.plan.padded, device=device)
+            self.ef_residual2 = torch.zeros(self.plan.seg, device=device)
+
+    @torch.no_grad()
+    def refresh_segment(self) -> None:
+        """``segment`` := this worker's slice of the padded flat
+        parameters."""
+        plan = self.plan
+        flat = pad_flat(self.order.flatten(), plan)
+        self.segment.copy_(flat[self.rank * plan.seg:
+                                (self.rank + 1) * plan.seg])
+
+    def __call__(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+                 base: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> List[torch.Tensor]:
+        plan = self.plan
+        flat = pad_flat(self.order.flatten(dict(zip(params, grads))), plan)
+        corrected = (flat + self.ef_residual if self.mode == "sign_ef"
+                     else flat)
+        own, sent = reduce_scatter_compressed(corrected, plan,
+                                              group=self.group,
+                                              wire=self.wire)
+        self.refresh_segment()
+        delta = base(own)
+        if self.mode == "sign_ef":
+            delta = delta + self.ef_residual2
+        full, own_dec = all_gather_compressed(delta, plan, group=self.group,
+                                              wire=self.wire)
+        if self.mode == "sign_ef":
+            _keep_residuals(self, plan, corrected - sent, delta - own_dec)
+        update = self.order.unflatten(full[:plan.n_params])
+        return [update[p] for p in params]
+
+    def tensors(self) -> List[torch.Tensor]:
+        """The rows a step writes, in place."""
+        return [t for t in (self.segment, self.ef_residual,
+                            self.ef_residual2) if t is not None]
+
+    def state_dict(self) -> Dict[str, Any]:
+        if self.mode != "sign_ef":
+            return {}
+        return {"ef_residual": self.ef_residual.clone(),
+                "ef_residual2": self.ef_residual2.clone()}
+
+    load_state_dict = SignCompress.load_state_dict
+
+
+sign_compress_fsdp = SignCompressFsdp   # the JAX package's name

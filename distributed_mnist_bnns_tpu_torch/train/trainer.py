@@ -84,7 +84,10 @@ S (or ``DEVICE_DATA_CHUNK``) steps with one host sync, and evaluation
 sums float32 totals on the device; a resumed part of an epoch streams,
 and a stop waits for the epoch boundary. Every mode is bitwise the
 per-step path. ``grad_accum`` and ``remat`` are the JAX step body's
-(``make_step_body``). None of them is ported under data parallelism yet.
+(``forward_backward``). All four run under data parallelism too: the
+data-parallel step is captured with its collectives (NCCL) inside the
+graph, and ``device_data`` gives each rank its columns of the epoch's
+index matrix (FSDP over more than one rank streams, as JAX's does).
 
 Timing (``timing_csv_prefix``): each batch's host dispatch time, with no
 per-batch sync (a sync per step would slow a host-bound step), and each
@@ -96,16 +99,21 @@ row per epoch, as a CSV and an HTML plot.
 Data parallelism (``data_parallel``, the JAX ``_setup_grad_compress``
 and ``_setup_data_parallel``): the trainer runs in every rank of a
 ``torch.distributed`` process group (``parallel.spawn``, ``cli train
---dp``), each rank on its rows of the same global batch. Uncompressed,
-it is the JAX GSPMD step (global-batch BatchNorm, DDP); with
-``grad_compress`` the optimizer carries the 1-bit exchange
-(``train.optim.SignCompress``), flat or, with ``dp_hosts``, after an
-fp32 in-host mean. Rank 0 logs and writes checkpoints; the error
-feedback rows of every rank are gathered into them in JAX's ``(world,
-padded)`` / ``(world, seg)`` layout (``(hosts, ...)`` when
-hierarchical) and handed back by ``restore`` at the same world.
-``evaluate`` runs on rank 0 and its result is broadcast. Each rank's
-dropout generator is seeded from ``(seed + 1, rank)``.
+--dp``; world 1 included), each rank on its rows of the same global
+batch. Uncompressed, it is the JAX GSPMD step (global-batch BatchNorm,
+the gradients averaged in DDP's order); with ``grad_compress`` the
+optimizer carries the 1-bit exchange (``train.optim.SignCompress``),
+flat or, with ``dp_hosts``, after an fp32 in-host mean. ``dp_mode=
+"fsdp"`` shards the parameters and the optimizer state
+(``parallel.fsdp``), or with ``grad_compress`` wraps the optimizer in
+the 1-bit ZeRO exchange (``SignCompressFsdp``). Rank 0 logs and writes
+checkpoints; the error feedback rows of every rank are gathered into
+them in JAX's ``(world, padded)`` / ``(world, seg)`` layout (``(hosts,
+...)`` when hierarchical), an FSDP run's full leaves and segment rows
+too, and handed back by ``restore``; at another world with
+``elastic``, re-placed first (``parallel.remesh``). ``evaluate`` runs
+on rank 0 and its result is broadcast. Each rank's dropout generator is
+seeded from ``(seed + 1, rank)``.
 """
 
 from __future__ import annotations
@@ -157,6 +165,8 @@ from .capture import TrainScan, pinned
 from .optim import (
     RegimeSchedule,
     SignCompress,
+    SignCompressFsdp,
+    check_elementwise,
     make_optimizer,
     regime_hp_kwargs,
 )
@@ -207,6 +217,41 @@ def build_model(name: str, mk: Dict[str, Any]) -> torch.nn.Module:
                 log.warning("model %r does not take %r; ignored", name, bad)
 
 
+def forward_backward(model: torch.nn.Module, images: torch.Tensor,
+                     labels: torch.Tensor, *,
+                     loss_fn: Callable = cross_entropy_loss,
+                     grad_accum: int = 1, remat: bool = False):
+    """The step's forward in train mode and backward into the
+    parameters' ``.grad`` (which the caller has cleared): ``(loss,
+    accuracy)`` of these rows, 0-d tensors (accuracy in percent).
+
+    ``grad_accum=N`` (the JAX body's): the rows are split into N
+    microbatches run one after another; the gradients are their mean,
+    each microbatch moves the BatchNorm statistics once (as a torch
+    accumulation loop does), and the loss and accuracy are the
+    microbatch means. ``remat``: each forward is an activation
+    checkpoint (``ops.remat.checkpoint``; bitwise the plain step)."""
+    def loss_and_acc(x, y):
+        outs = remat_checkpoint(model, x) if remat else model(x)
+        loss = loss_fn(outs, y)
+        loss.backward()
+        outs = outs.detach()
+        acc = (outs.argmax(-1) == y).to(outs.dtype).mean() * 100.0
+        return loss.detach(), acc
+
+    if grad_accum == 1:
+        return loss_and_acc(images, labels)
+    metrics = [loss_and_acc(x, y) for x, y in zip(
+        images.reshape(grad_accum, -1, *images.shape[1:]),
+        labels.reshape(grad_accum, -1))]
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(grad_accum)
+    loss, acc = (torch.stack(m).mean() for m in zip(*metrics))
+    return loss, acc
+
+
 def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
                    loss_fn: Callable = cross_entropy_loss,
                    grad_accum: int = 1, remat: bool = False,
@@ -220,68 +265,53 @@ def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
     percent): nothing syncs with the host. ``scalars``: the step's row
     of the optimizer's scalars, on the device (a captured step's; None:
     the optimizer makes its own and advances its counters).
-
-    ``grad_accum=N`` (the JAX body's): the batch is split into N
-    microbatches run one after another; the update takes the mean of
-    their gradients, each microbatch moves the BatchNorm statistics once
-    (as a torch accumulation loop does), and the loss and accuracy are
-    the microbatch means. ``remat``: each forward is an activation
-    checkpoint (``ops.remat.checkpoint``; bitwise the plain step).
-    ``augment`` (the device-side crop and flip) is not ported."""
-    if augment:
-        raise NotImplementedError(
-            "augment (ops/augment.py, the device-side random crop and "
-            "flip) is not ported yet (ROADMAP.md queue 1 item 13)")
-    if grad_accum < 1:
-        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    ``grad_accum`` and ``remat``: ``forward_backward``'s. ``augment``
+    (the device-side crop and flip) is not ported."""
+    check_step_options(grad_accum, augment)
     latents = list(clamp_mask.values())
-
-    def loss_and_acc(model, images, labels):
-        outs = remat_checkpoint(model, images) if remat else model(images)
-        loss = loss_fn(outs, labels)
-        loss.backward()
-        outs = outs.detach()
-        acc = (outs.argmax(-1) == labels).to(outs.dtype).mean() * 100.0
-        return loss.detach(), acc
 
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    images: torch.Tensor, labels: torch.Tensor,
                    scalars: Optional[torch.Tensor] = None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        if grad_accum == 1:
-            loss, acc = loss_and_acc(model, images, labels)
-        else:
-            metrics = [loss_and_acc(model, x, y) for x, y in zip(
-                images.reshape(grad_accum, -1, *images.shape[1:]),
-                labels.reshape(grad_accum, -1))]
-            with torch.no_grad():
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(grad_accum)
-            loss, acc = (torch.stack(m).mean() for m in zip(*metrics))
-        if scalars is None:
-            optimizer.step()
-        else:
-            optimizer.step(scalars=scalars)
+        loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
+                                     grad_accum=grad_accum, remat=remat)
+        optimizer.step(scalars=scalars)
         clamp_latent(latents)
         return loss, acc
 
     return train_step
 
 
+def check_step_options(grad_accum: int, augment: bool = False) -> None:
+    """The step options that no train step takes."""
+    if augment:
+        raise NotImplementedError(
+            "augment (ops/augment.py, the device-side random crop and "
+            "flip) is not ported yet (ROADMAP.md queue 1 item 13)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+
 def make_train_scan(clamp_mask: Dict[str, torch.Tensor], *,
                     loss_fn: Callable = cross_entropy_loss,
                     grad_accum: int = 1, remat: bool = False,
-                    augment: bool = False) -> TrainScan:
+                    augment: bool = False, step: Optional[Callable] = None,
+                    wire: Optional[WireBytes] = None,
+                    groups=()) -> TrainScan:
     """Multi-step dispatch (the JAX ``make_train_scan``): ``scan(model,
     optimizer, images (S, B, ...), labels (S, B)) -> (loss, accuracy)``,
-    S steps of ``make_step_body`` and the means of their metrics. On a
-    CUDA device the S steps are captured once as a CUDA graph and
-    replayed (``train.capture.TrainScan``); on the CPU they run eagerly,
-    the plain version. ``scan.run`` gives the per-step metrics."""
-    body = make_step_body(clamp_mask, loss_fn=loss_fn, grad_accum=grad_accum,
-                          remat=remat, augment=augment)
+    S steps of ``make_step_body`` (or of ``step``, a data-parallel step
+    over ``groups`` whose collectives count into ``wire``, on this
+    rank's rows) and the means of their metrics. On a CUDA device the S
+    steps are captured once as a CUDA graph and replayed
+    (``train.capture.TrainScan``; the collectives inside, over NCCL);
+    on the CPU they run eagerly, the plain version. ``scan.run`` gives
+    the per-step metrics."""
+    body = step or make_step_body(clamp_mask, loss_fn=loss_fn,
+                                  grad_accum=grad_accum, remat=remat,
+                                  augment=augment)
 
     def chunk(model, optimizer, images, labels, scalars):
         metrics = [body(model, optimizer, images[i], labels[i], scalars[i])
@@ -289,7 +319,7 @@ def make_train_scan(clamp_mask: Dict[str, torch.Tensor], *,
         losses, accs = zip(*metrics)
         return torch.stack(losses), torch.stack(accs)
 
-    return TrainScan(chunk)
+    return TrainScan(chunk, wire=wire, groups=groups)
 
 
 def make_train_epoch_fn(clamp_mask: Dict[str, torch.Tensor], *,
@@ -415,8 +445,11 @@ class TrainConfig:
     timing_csv_prefix: Optional[str] = None  # per-batch / epoch CSVs
     device: Optional[str] = None   # None: "cuda" (raises without a card)
     data_parallel: Optional[object] = None  # None | "auto" | int ranks
-    dp_mode: str = "gspmd"         # "gspmd" (replicated state); "fsdp"
-                                   # is not ported
+    dp_mode: str = "gspmd"         # "gspmd" (replicated state) | "fsdp"
+                                   # (parameters and optimizer state
+                                   # sharded: parallel/fsdp.py; with
+                                   # grad_compress the 1-bit ZeRO
+                                   # exchange, SignCompressFsdp)
     grad_compress: str = "none"    # 1-bit gradient exchange: "sign"
                                    # (majority-vote signSGD) | "sign_ef"
                                    # (error feedback, residuals in the
@@ -437,6 +470,14 @@ class TrainConfig:
                                    # one gather and graph replays of
                                    # scan_steps (or DEVICE_DATA_CHUNK)
                                    # steps (make_train_epoch_fn)
+    elastic: bool = False          # resume a checkpoint of another DP
+                                   # world: its (world, ...) 1-bit
+                                   # exchange rows are re-placed
+                                   # (parallel/remesh.py). The elastic
+                                   # supervisor (run_elastic, cli train
+                                   # --elastic, the chaos membership
+                                   # faults) is not ported yet: it comes
+                                   # with obs/ (ROADMAP queue 1 item 8)
 
 
 def _dataset_ref(data):
@@ -457,11 +498,18 @@ class Trainer:
         if config.dp_mode not in ("gspmd", "fsdp"):
             raise ValueError(f"unknown dp_mode {config.dp_mode!r} "
                              "(have: gspmd, fsdp)")
-        if config.dp_mode == "fsdp":
-            raise NotImplementedError(
-                "dp_mode='fsdp' is not ported yet (ROADMAP.md queue 1 "
-                "item 6: parallel/fsdp.py, sign_compress_fsdp)")
+        if config.elastic:
+            if config.device_data:
+                raise ValueError(
+                    "elastic=True requires device_data=False: the "
+                    "device-resident epoch has no step boundaries to "
+                    "stop at")
+            if not config.checkpoint_dir:
+                raise ValueError(
+                    "elastic=True requires checkpoint_dir: the remesh "
+                    "re-places state from checkpoint generations")
         self.device = resolve_device(config.device)
+        self.distributed = False   # in a process group (_resolve_world)
         self.world, self.rank = self._resolve_world()
         self._check_dispatch()
         mk = dict(config.model_kwargs)
@@ -510,7 +558,8 @@ class Trainer:
 
     def _resolve_world(self):
         """(world, rank): the process group's when ``data_parallel`` is
-        set in a rank of one; 1 rank otherwise."""
+        set in a rank of one (``distributed``: the data-parallel step
+        runs, at world 1 too); 1 rank otherwise."""
         dp = self.config.data_parallel
         if not dp:
             return 1, 0
@@ -519,6 +568,7 @@ class Trainer:
             if dp != "auto" and int(dp) != world:
                 raise ValueError(f"data_parallel={dp}, but the process "
                                  f"group holds {world} ranks")
+            self.distributed = True
             return world, dist.get_rank()
         n = ((torch.cuda.device_count() if self.device.type == "cuda" else 1)
              if dp == "auto" else int(dp))
@@ -529,25 +579,15 @@ class Trainer:
         return 1, 0
 
     def _check_dispatch(self) -> None:
-        """The JAX ``grad_accum`` divisibility rule, and what the dispatch
-        modes do not cover yet."""
+        """The JAX ``grad_accum`` divisibility rule, and the JAX rule that
+        the 1-bit exchange does not run in the device-resident epoch."""
         cfg = self.config
         if cfg.grad_accum < 1 or cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
                              f"grad_accum={cfg.grad_accum}")
-        later = "not ported yet (ROADMAP.md queue 1 item 6)"
-        captured = cfg.scan_steps > 1 or cfg.device_data
-        if captured and self.world > 1:
-            raise NotImplementedError(
-                "scan_steps and device_data under data parallelism (NCCL "
-                f"collectives inside a CUDA graph) are {later}")
-        if captured and cfg.grad_compress != "none":
-            raise NotImplementedError(
-                "scan_steps and device_data with grad_compress (the 1-bit "
-                f"exchange inside a CUDA graph) are {later}")
-        if self.world > 1 and (cfg.grad_accum > 1 or cfg.remat):
-            raise NotImplementedError(
-                f"grad_accum and remat under data parallelism are {later}")
+        if cfg.grad_compress != "none" and cfg.device_data:
+            raise ValueError(f"grad_compress={cfg.grad_compress!r} requires "
+                             "device_data=False")
 
     def _setup_grad_compress(self) -> None:
         """The 1-bit exchange's plan and groups (JAX
@@ -582,6 +622,11 @@ class Trainer:
             from ..parallel import make_groups
 
             hosts = int(cfg.dp_hosts)
+            if cfg.dp_mode != "gspmd":
+                raise ValueError(
+                    "dp_hosts composes with dp_mode='gspmd' only: the "
+                    "hierarchical exchange keeps the optimizer replicated "
+                    "(per-host EF rows sharded over the host axis)")
             if hosts < 1 or world % hosts:
                 raise ValueError(f"dp_hosts={hosts} must divide the DP "
                                  f"world ({world} devices)")
@@ -603,72 +648,114 @@ class Trainer:
             return
         self.comm_plan = make_plan(
             n_params, world=world, mode=cfg.grad_compress,
-            bucket_size=cfg.compress_bucket_size, chunks=cfg.compress_chunks)
+            bucket_size=cfg.compress_bucket_size, chunks=cfg.compress_chunks,
+            layout="fsdp" if cfg.dp_mode == "fsdp" else "dp")
         if world > 1:
             self._compress_group = dist.group.WORLD
             self._ef_row = self.rank
 
     def _setup_data_parallel(self) -> None:
         """Check the global batch, make sure every rank starts from the
-        same state, and size the fp32 plan of an uncompressed run (JAX
-        ``_setup_data_parallel``)."""
+        same state, shard it under fp32 FSDP, and size the fp32 plan of
+        an uncompressed run (JAX ``_setup_data_parallel``)."""
         cfg = self.config
-        if self.world <= 1:
+        self.fsdp = None
+        if not self.distributed:
+            if cfg.dp_mode != "gspmd":
+                log.warning("dp_mode=%r has no effect with "
+                            "data_parallel<=1 (pass --dp auto or an "
+                            "integer > 1)", cfg.dp_mode)
             return
         from ..parallel import replicate
 
         if cfg.batch_size % self.world:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible "
                              f"by data_parallel={self.world}")
-        replicate(self.model)
+        if self.world > 1:
+            replicate(self.model)
         if cfg.grad_compress == "none":
+            if cfg.dp_mode == "fsdp":
+                from ..parallel.fsdp import FsdpShards
+
+                self.fsdp = FsdpShards(self.model, wire=self.wire)
             self.comm_plan = make_plan(
                 tree_size(self.model.parameters()), world=self.world,
-                mode="fp32", bucket_size=cfg.compress_bucket_size)
+                mode="fp32", bucket_size=cfg.compress_bucket_size,
+                layout="fsdp" if cfg.dp_mode == "fsdp" else "dp")
         if self.rank == 0:
             log.info("data-parallel (%s%s) over %d ranks", cfg.dp_mode,
                      f", grad_compress={cfg.grad_compress}"
                      if cfg.grad_compress != "none" else "", self.world)
 
+    def _global_bn(self) -> bool:
+        """Does the step normalise over the global batch (the GSPMD and
+        fp32 FSDP steps), so that ``grad_accum``'s microbatches are
+        slices of the global batch?"""
+        return self.distributed and self.config.grad_compress == "none"
+
+    def _shard(self, x, dim: int = 0):
+        """This rank's rows of a global batch along ``dim``."""
+        if not self.distributed:
+            return x
+        from ..parallel import shard_batch   # parallel imports this module
+
+        return shard_batch(x, microbatches=(self.config.grad_accum
+                                            if self._global_bn() else 1),
+                           dim=dim)
+
     def _make_train_step(self) -> Callable:
-        if self.world <= 1:
-            return make_step_body(self.clamp_mask, loss_fn=self._loss_fn,
-                                  grad_accum=self.config.grad_accum,
-                                  remat=self.config.remat)
+        cfg = self.config
+        kw = dict(loss_fn=self._loss_fn, grad_accum=cfg.grad_accum,
+                  remat=cfg.remat)
+        if not self.distributed:
+            return make_step_body(self.clamp_mask, **kw)
         from ..parallel import (
             make_compressed_dp_train_step,
+            make_compressed_fsdp_train_step,
             make_compressed_hier_train_step,
             make_dp_train_step,
         )
 
-        if self.config.grad_compress == "none":
+        if self.fsdp is not None:
+            from ..parallel.fsdp import make_fsdp_train_step
+
+            return make_fsdp_train_step(self.clamp_mask, self.model,
+                                        self.fsdp, **kw)
+        if cfg.grad_compress == "none":
             return make_dp_train_step(self.clamp_mask, self.model,
-                                      loss_fn=self._loss_fn, wire=self.wire)
+                                      wire=self.wire, **kw)
         if self.hier_plan is not None:
-            return make_compressed_hier_train_step(self.clamp_mask,
-                                                   loss_fn=self._loss_fn)
-        return make_compressed_dp_train_step(self.clamp_mask,
-                                             loss_fn=self._loss_fn)
+            return make_compressed_hier_train_step(self.clamp_mask, **kw)
+        if cfg.dp_mode == "fsdp":
+            return make_compressed_fsdp_train_step(self.clamp_mask, **kw)
+        return make_compressed_dp_train_step(self.clamp_mask, **kw)
 
     def _build_tx(self, name: str, learning_rate: float, **kwargs: Any):
-        """make_optimizer with this run's 1-bit exchange chained in: the
-        one constructor of ``__init__`` and of a regime's optimizer
+        """make_optimizer with this run's 1-bit exchange chained in (or,
+        under FSDP, wrapped around it), or over this rank's FSDP shards:
+        the one constructor of ``__init__`` and of a regime's optimizer
         switch, which so keeps the exchange (with fresh error feedback,
-        as fresh moments)."""
-        transform = None
-        if self.config.grad_compress != "none":
+        as fresh moments) and the sharding."""
+        cfg = self.config
+        plan = self.comm_plan
+        params = list(self.model.parameters())
+        exchange: Dict[str, Any] = {}
+        if cfg.grad_compress != "none":
             from ..interop import JaxFlatOrder
 
-            plan = self.comm_plan
-            transform = SignCompress(
-                mode=plan.mode, order=JaxFlatOrder(self.model),
-                world=plan.world, group=self._compress_group,
-                local_group=self._local_group,
-                bucket_size=plan.bucket_size, chunks=plan.chunks,
-                wire=self.wire)
-        return make_optimizer(name, self.model.parameters(), learning_rate,
-                              clip_grad_norm=self.config.clip_grad_norm,
-                              grad_transform=transform, **kwargs)
+            common = dict(mode=plan.mode, order=JaxFlatOrder(self.model),
+                          world=plan.world, group=self._compress_group,
+                          bucket_size=plan.bucket_size, chunks=plan.chunks,
+                          wire=self.wire)
+            if cfg.dp_mode == "fsdp":
+                check_elementwise(name)
+                exchange["fsdp_compress"] = SignCompressFsdp(**common)
+            else:
+                exchange["grad_transform"] = SignCompress(
+                    local_group=self._local_group, **common)
+        return make_optimizer(name, params, learning_rate,
+                              clip_grad_norm=cfg.clip_grad_norm,
+                              fsdp=self.fsdp, **exchange, **kwargs)
 
     def comm_bytes(self, phase: Optional[str] = None,
                    level: Optional[str] = None) -> int:
@@ -727,12 +814,27 @@ class Trainer:
         self._epoch_fn = None
 
     def _get_train_scan(self) -> TrainScan:
+        """The multi-step dispatch of this run's step: under data
+        parallelism its collectives go into the graph."""
         if self._train_scan is None:
-            cfg = self.config
             self._train_scan = make_train_scan(
-                self.clamp_mask, loss_fn=self._loss_fn,
-                grad_accum=cfg.grad_accum, remat=cfg.remat)
+                self.clamp_mask, step=self.train_step, wire=self.wire,
+                groups=(dist.group.WORLD,) if self.distributed else ())
         return self._train_scan
+
+    def _device_data_active(self) -> bool:
+        """device_data runs on one card and under GSPMD data parallelism
+        (the dataset on every rank's card, each rank its columns of the
+        epoch's index matrix); FSDP over more than one rank keeps the
+        streaming path, as the JAX ``_device_data_active`` does."""
+        if not self.config.device_data:
+            return False
+        if self.world > 1 and self.config.dp_mode != "gspmd":
+            log.warning("device_data needs dp_mode='gspmd' (multi-process "
+                        "additionally needs the DP mesh); falling back to "
+                        "the streaming path")
+            return False
+        return True
 
     def _get_epoch_fn(self) -> Callable:
         if self._epoch_fn is None:
@@ -775,10 +877,8 @@ class Trainer:
         cfg = self.config
         self._apply_epoch_regime(epoch)
         self.epoch = epoch
-        if cfg.device_data and not start_batch:
+        if not start_batch and self._device_data_active():
             return self._train_epoch_device(data, epoch)
-        from ..parallel import shard_batch   # parallel imports this module
-
         if start_batch:
             log.info("resuming epoch %d mid-epoch at batch %d", epoch,
                      start_batch)
@@ -806,12 +906,11 @@ class Trainer:
                     images, labels = images[None], labels[None]
                 loss, acc = self._get_train_scan()(
                     self.model, self.optimizer,
-                    pinned(images, np.float32, self.device),
-                    pinned(labels, np.int64, self.device))
+                    pinned(self._shard(images, 1), np.float32, self.device),
+                    pinned(self._shard(labels, 1), np.int64, self.device))
             else:
-                if self.world > 1:
-                    images, labels = shard_batch(images), shard_batch(labels)
-                x, y = self._to_device(images, labels)
+                x, y = self._to_device(self._shard(images),
+                                       self._shard(labels))
                 loss, acc = self.train_step(self.model, self.optimizer, x, y)
             first = seen == start_batch
             seen += n
@@ -871,8 +970,9 @@ class Trainer:
                             seed=cfg.seed)
         n_batches = len(idx) // cfg.batch_size
         idx = np.asarray(idx[:n_batches * cfg.batch_size], np.int64)
-        idx = torch.from_numpy(idx.reshape(n_batches, cfg.batch_size)).to(
-            self.device)
+        # each rank gathers its columns of the epoch's batches
+        idx = torch.from_numpy(self._shard(
+            idx.reshape(n_batches, cfg.batch_size), 1)).to(self.device)
         self.batch_meter.reset()
         t0 = time.perf_counter()
         loss, acc, dispatches = self._get_epoch_fn()(
@@ -1067,34 +1167,47 @@ class Trainer:
 
     # -- checkpoints -------------------------------------------------------
 
+    def gather_rows(self, row: torch.Tensor) -> torch.Tensor:
+        """``(workers, ...)``: every worker's ``row`` (one a host when
+        hierarchical), JAX's layout of a worker-sharded state leaf;
+        collective in a data-parallel run."""
+        if not self.distributed:
+            return row.detach()[None]
+        local = self.hier_plan.local if self.hier_plan else 1
+        return all_gather(row.detach(), dist.group.WORLD)[::local]
+
     def ef_rows(self, *, template: bool = False) -> Dict[str, torch.Tensor]:
         """The error feedback of every worker in JAX's layout, one row a
         worker (a host when hierarchical): ``{"ef_residual": (workers,
-        padded), "ef_residual2": (workers, seg)}``, empty without
-        ``sign_ef``. Collective in a data-parallel run; ``template=True``
-        gives meta tensors of those shapes and no collective."""
-        tx = self.optimizer.grad_transform
-        if tx is None or tx.mode != "sign_ef":
+        padded), "ef_residual2": (workers, seg)}``; without ``sign_ef``
+        empty, or zero-width rows under the compressed FSDP exchange (as
+        JAX's ``FsdpCompressState`` keeps them). Collective in a
+        data-parallel run; ``template=True`` gives meta tensors of those
+        shapes and no collective."""
+        tx = self.optimizer.comm_transform()
+        if tx is None:
             return {}
-        rows = {k: getattr(tx, k) for k in ("ef_residual", "ef_residual2")}
+        keys = ("ef_residual", "ef_residual2")
         workers = self.comm_plan.world
+        if tx.mode != "sign_ef":
+            if self.optimizer.fsdp_compress is None:
+                return {}
+            return {k: torch.empty((workers, 0), device="meta"
+                                   if template else "cpu") for k in keys}
+        rows = {k: getattr(tx, k) for k in keys}
         if template:
             return {k: torch.empty((workers, *v.shape), dtype=v.dtype,
                                    device="meta") for k, v in rows.items()}
-        if self.world > 1:
-            local = self.hier_plan.local if self.hier_plan else 1
-            return {k: all_gather(v, dist.group.WORLD)[::local]
-                    for k, v in rows.items()}
-        return {k: v[None] for k, v in rows.items()}
+        return {k: self.gather_rows(v) for k, v in rows.items()}
 
     def load_ef_rows(self, rows: Dict[str, Any]) -> None:
         """Take this worker's row of ``ef_rows``' layout."""
-        tx = self.optimizer.grad_transform
+        tx = self.optimizer.comm_transform()
         if tx is None or tx.mode != "sign_ef":
             return
         from ..interop import _to_tensor
 
-        tx.load_state_dict({k: _to_tensor(v[self._ef_row])
+        tx.load_state_dict({k: _to_tensor(np.asarray(v)[self._ef_row])
                             for k, v in rows.items()})
 
     def _rng_state(self) -> Optional[Dict[str, Any]]:
@@ -1167,8 +1280,9 @@ class Trainer:
         start_batch)``. A corrupt latest rolls back to the generation
         before it; when every generation is corrupt the run starts fresh
         (logged as an error). A checkpoint of another model or optimizer
-        raises ``CheckpointTemplateMismatch``, one of another world
-        ``CheckpointWorldMismatch``."""
+        raises ``CheckpointTemplateMismatch``; one of another world
+        ``CheckpointWorldMismatch``, unless ``elastic`` re-places its
+        rows (``_remesh``)."""
         from ..interop import train_state_from_jax, train_state_to_jax
 
         if self._checkpointer is not None:
@@ -1178,13 +1292,18 @@ class Trainer:
                         and not read_meta(ckpt).get("generations")):
             return 0, 0
         self._check_model(read_meta(ckpt), ckpt)
+        template = train_state_to_jax(self, values=False)
         try:
             tree, info = load_checkpoint_resilient(
-                train_state_to_jax(self, values=False), ckpt)
+                template, ckpt, on_shape_mismatch=(
+                    "return" if self.config.elastic else "raise"))
         except CheckpointCorruptionError as e:
             log.error("every checkpoint generation under %s is corrupt "
                       "(%s); starting from scratch", ckpt, e)
             return 0, 0
+        if info["shape_mismatches"]:
+            tree = self._remesh(template, tree, info["shape_mismatches"],
+                                ckpt, info.get("meta") or {})
         train_state_from_jax(tree, self)
         self._drop_graphs()
         meta = info.get("meta") or {}
@@ -1205,6 +1324,35 @@ class Trainer:
                  self.step)
         return start, start_batch
 
+    def _remesh(self, template, tree, mismatches, ckpt: str,
+                meta: Dict[str, Any]):
+        """An elastic restore across a change of world (the JAX
+        ``try_resume``): the checkpoint's ``(world, ...)`` rows of the
+        1-bit exchange re-placed onto this run's world
+        (``parallel.remesh``); any leaf still of another shape is a
+        change of model or configuration and raises."""
+        from ..parallel.remesh import remesh_compress_state
+
+        if self.config.grad_compress == "none":
+            raise CheckpointWorldMismatch(
+                f"restored state under {ckpt} does not match this run's "
+                "shapes and no compression state is active to re-place: "
+                + "; ".join(mismatches[:3])
+                + " (a change of model or configuration, not of world)")
+        tree = dict(tree)
+        tree["opt_state"], n = remesh_compress_state(tree["opt_state"],
+                                                     self.comm_plan)
+        leftover = shape_mismatches(template, tree)
+        if leftover:
+            raise CheckpointWorldMismatch(
+                "shapes still mismatch after re-placing the compression "
+                "state (a change of model or configuration, not of world): "
+                + "; ".join(leftover[:3]))
+        log.warning("elastic restore: re-placed %d compression-state "
+                    "node(s) from checkpoint world %s onto world %d", n,
+                    meta.get("world_size"), self.comm_plan.world)
+        return tree
+
     def restore(self, ckpt_dir: str, *, best: bool = False) -> Dict[str, Any]:
         """Load the latest (``best``: the best) checkpoint under
         ``ckpt_dir`` into the model and the optimizer, without rollback;
@@ -1223,10 +1371,13 @@ class Trainer:
                 f"the checkpoint under {ckpt_dir} does not fit this "
                 f"trainer's state: {e}") from e
         bad = shape_mismatches(template, tree)
-        if bad:
+        if bad and not self.config.elastic:
             raise CheckpointWorldMismatch(
                 f"the checkpoint under {ckpt_dir} differs in shape: "
-                + "; ".join(bad[:3]))
+                + "; ".join(bad[:3]) + " (a checkpoint of another world "
+                "resumes with elastic=True)")
+        if bad:
+            tree = self._remesh(template, tree, bad, ckpt_dir, meta)
         train_state_from_jax(tree, self)
         self._drop_graphs()
         self.best_acc = float(meta.get("best_acc") or 0.0)

@@ -398,7 +398,9 @@ def load_checkpoint_resilient(template: Any, path: str, *,
                 f"leaf(s) differ in shape from the trainer's state (e.g. "
                 f"{'; '.join(mismatches[:3])}); the checkpoint's meta "
                 f"records world_size={world}. Resume at the checkpoint's "
-                "world, or start a fresh checkpoint dir for another model")
+                "world, or with elastic=True (TrainConfig.elastic), which "
+                "re-places the (world, ...) rows of the 1-bit exchange; "
+                "another model needs a fresh checkpoint dir")
         if errors:
             log.warning("checkpoint rollback: restored %s after skipping %s",
                         fname, "; ".join(errors))

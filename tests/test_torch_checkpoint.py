@@ -331,6 +331,10 @@ STATE_CASES = [(o, {}) for o in OPTIMIZERS] + [
     ("adam", {"clip_grad_norm": 1.0}),
     ("sgd", {"grad_compress": "sign"}),
     ("adam", {"clip_grad_norm": 1.0, "grad_compress": "sign_ef"}),
+    # the compressed FSDP exchange at world 1 (FsdpCompressState)
+    ("adam", {"dp_mode": "fsdp", "grad_compress": "sign_ef"}),
+    ("sgd", {"clip_grad_norm": 1.0, "dp_mode": "fsdp",
+             "grad_compress": "sign"}),
 ]
 
 
@@ -408,6 +412,24 @@ def test_port_resumes_a_jax_checkpoint_and_steps_like_jax(opt,
         else:
             np.testing.assert_allclose(got[k], want[k], atol=ATOL, rtol=0,
                                        err_msg=str(k))
+
+
+@pytest.mark.parametrize("opt,mode", [("adam", "sign_ef"), ("sgd", "sign")])
+def test_port_resumes_a_jax_compressed_fsdp_checkpoint(opt, mode, tmp_path):
+    """A JAX checkpoint of the compressed FSDP exchange at world 1 (the
+    ``FsdpCompressState``: residual rows, the base optimizer's segment
+    rows) restores into the port's ``SignCompressFsdp`` trainer to the
+    same state, every leaf bitwise."""
+    root = str(tmp_path)
+    kw = dict(optimizer=opt, dp_mode="fsdp", grad_compress=mode)
+    jt = JTrainer(_jax_cfg(checkpoint_dir=root, **kw))
+    jt.train_epoch(jload_mnist("/nonexistent", synthetic_sizes=SIZES), 0)
+    jckpt.save_checkpoint(jt.state, root, epoch=0,
+                          extra_meta={"best_acc": 0.0})
+    want = serialization.to_state_dict(jax.device_get(jt.state))
+    t = Trainer(_port_cfg(epochs=2, checkpoint_dir=root, resume=True, **kw))
+    assert t.try_resume() == (1, 0)
+    _assert_trees_equal(ck._to_host(train_state_to_jax(t)), want)
 
 
 # -- artifacts ----------------------------------------------------------------

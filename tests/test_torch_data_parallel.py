@@ -204,7 +204,9 @@ RAISES = [
     (dict(dp_mode="zero"), dict(dp_mode="zero"), ValueError,
      "unknown dp_mode"),
     (dict(data_parallel=3), None, ValueError, "holds 2 ranks"),
-    (dict(dp_mode="fsdp"), None, NotImplementedError, "queue 1 item 6"),
+    (dict(dp_mode="fsdp", grad_compress="sign_ef", dp_hosts=2),
+     dict(dp_mode="fsdp", grad_compress="sign_ef", dp_hosts=2), ValueError,
+     "composes with dp_mode='gspmd' only"),
 ]
 
 
@@ -495,9 +497,13 @@ def test_data_parallel_outside_a_process_group_raises():
     with pytest.raises(ValueError, match="needs 2 ranks"):
         Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
                             data_parallel=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
-                            dp_mode="fsdp"))
+    # FSDP outside a group has nothing to shard over: the single-process
+    # trainer, as the JAX one warns that dp_mode has no effect
+    fsdp = Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
+                               dp_mode="fsdp"))
+    assert fsdp.world == 1 and fsdp.fsdp is None and not fsdp.distributed
+    assert list(fsdp.optimizer.param_groups[0]["params"]) == list(
+        fsdp.model.parameters())
     t = Trainer(TrainConfig(model="bnn-mlp-small", device="cpu",
                             data_parallel="auto", grad_compress="sign_ef"))
     assert t.world == 1 and t.comm_plan.world == 1

@@ -22,9 +22,11 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack",
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
-    # the modules of the captured step (train.capture) and of remat
-    assert {PORT / "train" / "capture.py", PORT / "ops" / "remat.py"} <= set(
-        files)
+    # the modules of the captured step (train.capture), of remat, of
+    # FSDP and of the re-placement across worlds
+    assert {PORT / "train" / "capture.py", PORT / "ops" / "remat.py",
+            PORT / "parallel" / "fsdp.py",
+            PORT / "parallel" / "remesh.py"} <= set(files)
     return files
 
 

@@ -20,6 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from distributed_mnist_bnns_tpu.data.common import ImageClassData as JData
 from distributed_mnist_bnns_tpu.train import TrainConfig as JConfig
@@ -250,23 +251,54 @@ def test_stop_and_resume_at_a_chunk_boundary(tmp_path):
     _assert_bitwise(whole, resumed)
 
 
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A 1-rank gloo process group in this process, for the test."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kw", [dict(scan_steps=2), dict(device_data=True),
                                 dict(grad_accum=2), dict(remat=True)],
                          ids=["scan", "device_data", "grad_accum", "remat"])
-def test_data_parallel_dispatch_is_not_ported(monkeypatch, kw):
-    """Under data parallelism the dispatch modes (NCCL collectives in a
-    CUDA graph), grad_accum and remat raise, naming ROADMAP queue 1 item
-    6."""
-    monkeypatch.setattr(Trainer, "_resolve_world", lambda self: (2, 0))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(TrainConfig(**DROPOUT, **kw))
+def test_data_parallel_dispatch_is_not_ported(one_rank_group, kw):
+    """The dispatch modes, grad_accum and remat under data parallelism
+    (the test's name is older than their port there). In a 1-rank gloo
+    group the trainer runs its data-parallel step, its collectives over
+    the group, in each mode; an epoch is bitwise the single-process
+    trainer's (``tests/test_torch_scan_dp.py`` runs 4 ranks)."""
+    data = _data()
+    dp = Trainer(TrainConfig(**DROPOUT, data_parallel=1, **kw))
+    assert dp.distributed and dp.world == 1
+    alone = Trainer(TrainConfig(**DROPOUT, **kw))
+    assert not alone.distributed
+    for t in (dp, alone):
+        t.fit(data, eval_every=0)
+    _assert_bitwise(dp, alone)
 
 
 @pytest.mark.parametrize("kw", [dict(scan_steps=2), dict(device_data=True)],
                          ids=["scan", "device_data"])
 def test_grad_compress_dispatch_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(TrainConfig(**DROPOUT, grad_compress="sign", **kw))
+    """The 1-bit exchange in the dispatch modes (the test's name is older
+    than their port): with ``scan_steps`` an epoch is bitwise the
+    per-step one; ``device_data`` raises the JAX trainer's ValueError
+    (the exchange does not run in the device-resident epoch)."""
+    if kw.get("device_data"):
+        with pytest.raises(ValueError, match="requires device_data=False"):
+            Trainer(TrainConfig(**DROPOUT, grad_compress="sign", **kw))
+        with pytest.raises(ValueError, match="requires device_data=False"):
+            JTrainer(JConfig(model_kwargs=SMALL, grad_compress="sign",
+                             **COMMON, **kw))
+        return
+    data = _data()
+    scan = Trainer(TrainConfig(**DROPOUT, grad_compress="sign", **kw))
+    step = Trainer(TrainConfig(**DROPOUT, grad_compress="sign"))
+    for t in (scan, step):
+        t.fit(data, eval_every=0)
+    _assert_bitwise(scan, step)
 
 
 def test_augment_is_not_ported():

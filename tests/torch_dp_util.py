@@ -141,15 +141,18 @@ def _trainer(cfg_kw):
     return Trainer(TrainConfig(**cfg))
 
 
-def _run_steps(step, model, optimizer, xs, ys):
-    """Each global batch's rows for this rank through ``step``: per step
-    (loss, accuracy, state after it) and the first step's gradients."""
+def _run_steps(step, model, optimizer, xs, ys, shard=None):
+    """Each global batch's rows for this rank (``shard``, by default
+    ``shard_batch``) through ``step``: per step (loss, accuracy, state
+    after it) and the first step's gradients."""
     from distributed_mnist_bnns_tpu_torch.parallel import shard_batch
 
+    shard = shard or shard_batch
     out, first_grads = [], None
     for s in range(len(xs)):
-        x = torch.from_numpy(shard_batch(xs[s]))
-        y = torch.from_numpy(shard_batch(ys[s]).astype(np.int64))
+        x = torch.from_numpy(np.ascontiguousarray(shard(xs[s])))
+        y = torch.from_numpy(np.ascontiguousarray(shard(ys[s])).astype(
+            np.int64))
         loss, acc = step(model, optimizer, x, y)
         out.append((float(loss), float(acc), _state(model)))
         if s == 0:
@@ -172,13 +175,16 @@ def steps_rank(rank, world, device, jobs, xs, ys):
     for kind, cfg_kw, variables in jobs:
         t = _trainer(cfg_kw)
         _load_jax(t.model, variables)
-        step = t.train_step
+        if t.fsdp is not None:   # the shards follow the loaded weights
+            t.fsdp.load_full()
+        step, shard = t.train_step, t._shard
         if kind == "shardmap":
-            step = make_shardmap_dp_train_step(
-                t.clamp_mask, loss_fn=t._loss_fn, wire=t.wire)
-        runs, first_grads = _run_steps(step, t.model, t.optimizer, xs, ys)
+            step, shard = make_shardmap_dp_train_step(
+                t.clamp_mask, loss_fn=t._loss_fn, wire=t.wire), None
+        runs, first_grads = _run_steps(step, t.model, t.optimizer, xs, ys,
+                                       shard)
         out.append({"runs": runs, "first_grads": first_grads,
-                    "wire": _wire(t.wire)})
+                    "wire": _wire(t.wire), "jax_state": _full_state(t)})
     return out
 
 
@@ -347,3 +353,110 @@ def steps_state_run(rank, world, device, cfg_kw, hosts_list, steps):
             t.step += 1
         out[str(hosts)] = _full_state(t)
     return out
+
+
+# -- FSDP, remesh and the dispatch modes under data parallelism ---------------
+
+
+def _generator_state(t):
+    gen_fn = getattr(t.model, "train_generator", None)
+    return None if gen_fn is None else (
+        gen_fn(t.device).get_state().numpy().tobytes().hex())
+
+
+def epoch_states_run(rank, world, device, jobs, sizes):
+    """Each job ``(name, trainer config)``: one epoch of ``fit`` (no
+    eval) on the synthetic split of ``sizes``; the full state in the
+    flax layout, the generator, the per-step losses, the wire bytes and
+    whether the epoch ran on the device."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    torch.set_num_threads(1)
+    data = load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes,
+                      seed=0)
+    out = {}
+    for name, cfg_kw in jobs:
+        t = _trainer(dict(cfg_kw, epochs=1))
+        history = t.fit(data, eval_every=0)
+        out[name] = {"state": _full_state(t), "gen": _generator_state(t),
+                     "losses": t.loss_history, "steps": t.step,
+                     "wire": _wire(t.wire), "plan": (
+                         None if t.comm_plan is None
+                         else t.comm_plan.wire_bytes_per_step),
+                     "on_device": "dispatches" in history[-1],
+                     "fsdp": t.fsdp is not None}
+    return out
+
+
+def capture_guard_run(rank, world, device):
+    """``train.capture.check_capturable`` on this gloo group: the
+    error's message, or None."""
+    from distributed_mnist_bnns_tpu_torch.train.capture import (
+        check_capturable,
+    )
+
+    try:
+        check_capturable([dist.group.WORLD])
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def elastic_write_run(rank, world, device, cfg_kw, sizes, ckpt):
+    """One epoch of ``fit`` with checkpoints under ``ckpt`` (the
+    generation a smaller world resumes)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    torch.set_num_threads(1)
+    data = load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes,
+                      seed=0)
+    t = _trainer(dict(cfg_kw, epochs=1, checkpoint_dir=ckpt))
+    t.fit(data, eval_every=0)
+    return {"ef": {k: _np(v) for k, v in t.ef_rows().items()}}
+
+
+def elastic_resume_run(rank, world, device, cfg_kw, sizes, ckpt, epochs):
+    """Resume ``ckpt`` (``resume=True``; ``cfg_kw`` says whether
+    ``elastic``) and train to ``epochs``: the rows and moments just
+    after the restore and the final full state, or the error the
+    restore raised (type name, message)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    torch.set_num_threads(1)
+    data = load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes,
+                      seed=0)
+    t = _trainer(dict(cfg_kw, epochs=epochs, checkpoint_dir=ckpt,
+                      resume=True))
+    try:
+        start, _ = t.try_resume()
+    except ValueError as e:
+        return {"error": (type(e).__name__, str(e))}
+    restored = _full_state(t)
+    for epoch in range(start, epochs):
+        t.train_epoch(data, epoch)
+    return {"restored": restored, "final": _full_state(t),
+            "steps": t.step, "losses": t.loss_history}
+
+
+def shardmap_remat_run(rank, world, device, cfg_kw, xs, ys):
+    """``make_shardmap_dp_train_step`` with and without ``remat`` from
+    the same trainer state: both runs' states and losses."""
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        make_shardmap_dp_train_step,
+    )
+
+    torch.set_num_threads(1)
+    out = {}
+    for remat in (False, True):
+        t = _trainer(cfg_kw)
+        step = make_shardmap_dp_train_step(t.clamp_mask, loss_fn=t._loss_fn,
+                                           remat=remat)
+        runs, _ = _run_steps(step, t.model, t.optimizer, xs, ys)
+        out[remat] = {"runs": runs, "gen": _generator_state(t)}
+    return out
+
+
+def topology_run(rank, world, device):
+    from distributed_mnist_bnns_tpu_torch.parallel import mesh_topology
+
+    return mesh_topology()
