@@ -124,7 +124,7 @@ Phases, each fatal on failure:
      ``sign_ef``, each passing phase 8's
      convergence thresholds (which 300 steps in one process meet too,
      checked beside), ``sign_ef`` within 2 points of the uncompressed
-     run, then 200 steps of ``sign`` (majority vote, lr 0.001); (c) 20
+     run, then 50 steps of ``sign`` (majority vote, lr 0.001); (c) 20
      steps of (b)'s ``sign_ef`` on pallas_xnor and on xla (bf16 rounds
      layer 1's raw pixels, which the ±1 backends take in fp32), bitwise
      equal, K1 launched exactly 2 x 20 times in every rank (counted in
@@ -216,7 +216,40 @@ Phases, each fatal on failure:
      of eager, scan and device-data, replays, capture seconds and each
      graph's pool bytes. K1's launches here enter the kernels line as
      ``launches_capture_path`` (eager launches plus those run inside
-     graphs) and ``launches_in_graphs``.
+     graphs) and ``launches_in_graphs``;
+ 13. data parallelism captured (``parallel.fsdp``, ``SignCompressFsdp``,
+     ``parallel.remesh``, ``TrainScan`` over the data-parallel steps), in
+     this process as the one rank of an NCCL group: (a) fp32 FSDP and
+     compressed FSDP bitwise the single-card trainers'; (b) uncompressed
+     DP, flat ``sign_ef``, fp32 FSDP and compressed FSDP each eager and
+     with ``scan_steps=8`` (and ``device_data``), bitwise, K1 2 x steps
+     times inside the graphs, wire bytes recorded x replays equal to the
+     plans; (c) ``grad_accum`` and ``remat`` captured bitwise eager; (d)
+     a 2-rank gloo ``sign_ef`` checkpoint resumed at world 1 with
+     ``elastic``; (e) ``cli train --dp-mode fsdp --scan-steps 8
+     --device-data`` in a process of its own. K1's launches enter the
+     kernels line as ``launches_dp_capture_path``;
+ 14. model parallelism (``parallel.mesh``, ``model_parallel``,
+     ``pipeline``, ``pipeline_model``, ``tp_pipeline``), gloo ranks
+     sharing the card: (a) ``bnn-mlp-large`` at full width on
+     pallas_xnor, 20 SGD steps at tp = 2 and at data 2 x model 2 against
+     the single-process trainer (losses 1e-4, parameters 1e-3), ranks'
+     losses equal, replicated leaves bitwise equal, K1 2 x 20 times in
+     each rank, wire bytes a step equal to the plan in PERF.md, the
+     trained model's forward up to the head ``torch.equal`` to the
+     unsharded model's; (b) the LM at the --lm-bench width, flash
+     attention, pipelined over 2 stages of 2 microbatches: the forward
+     within 1e-4 of the sequential one, each of 10 Adam steps (loss,
+     gradients within ``LM_GRAD_RTOL``) against the sequential step on
+     the same parameters, 10 steps of ``lm_demo.run(pp=2)`` twice bitwise
+     equal, K4, K5 and K6 40 times in each rank; (c) ``cli train --model
+     bnn-vit-tiny --pp 2`` one epoch, converging, in a process of its
+     own; (d) ``make_tp_pipeline_fn`` at (data 1, model 2, pipe 2), each
+     of 10 SGD steps against ``tp_pipeline_reference`` on the same
+     parameters (output, loss, gradients); K1 at
+     the shards' shapes equal to its plain version and timed
+     (``mp_shapes`` in K1's row). K1's and K4-K6's launches enter the
+     kernels line as ``launches_mp_path``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -308,7 +341,9 @@ DP_GLOO_RANKS = 4           # (b)-(d) gloo ranks sharing card 0: 16 rows each
 # 107). Phase 8's convergence thresholds hold, and 300 single-process
 # steps must meet them too (checked beside).
 DP_EPOCH_STEPS = 300
-DP_SIGN_STEPS, DP_SIGN_LR = 200, 0.001   # (b) majority vote (JAX's lr)
+# (b) majority vote (JAX's lr): ranks equal and the plan's bytes, no
+# convergence threshold; cut from 200 steps in PR 15 for phase 14's time
+DP_SIGN_STEPS, DP_SIGN_LR = 50, 0.001
 DP_SHORT_STEPS = 20         # (c) K1 under DP, (d) two-level
 DP_HOSTS = 2                # (d) 2 hosts x 2 local ranks
 # Conv families (phase 10): bnn-cnn at its defaults (widths 64, 128,
@@ -353,6 +388,61 @@ DPC_STEPS = 40              # (a), (b): 5 dispatches of SCAN_STEPS
 DPC_SHORT_STEPS = 16        # (c) grad_accum and remat, (d) elastic
 DPC_CLI_SYNTH = (6400, 1024)  # (e) 100 steps
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
+
+# Phase 14: model parallelism, gloo ranks sharing the card
+MP_BATCH = 64               # the global batch of (a)
+MP_TP_STEPS = 20
+# the JAX TP test's recipe (tests/test_tensor_parallel.py: SGD 0.05) on
+# bnn-mlp-large at full width, pallas_xnor, dropout 0
+MP_TRAIN = dict(model="bnn-mlp-large", batch_size=MP_BATCH, optimizer="sgd",
+                learning_rate=0.05, seed=0, backend="pallas_xnor",
+                model_kwargs={"dropout_rate": 0.0})
+MP_LOSS_ATOL, MP_PARAM_TOL = 1e-4, 1e-3   # the JAX TP test's tolerances
+# (data, model) -> wire bytes a step and rank, the plan written in
+# PERF.md before the run: ring all-reduces (2 (n-1)/n of the buffer) of
+# fc2's and the head's fp32 outputs and fc3's input gradient over the
+# model group, of the rank's gradient shards over the data group
+MP_TP_PLAN = {(1, 2): {"model": 788992, "data": 0},
+              (2, 2): {"model": 394496, "data": 16670248}}
+# (b) the LM at the --lm-bench width, pp = 2, two microbatches
+MP_PP, MP_PP_MICRO, MP_PP_STEPS = 2, 2, 10
+MP_PP_FWD_ATOL = 1e-4       # the flash checks' tolerance (FLASH_GRAD_TOL)
+# Each pipelined training step is held to the sequential model's step
+# from the same parameters (its loss, as phase 12's flash step: 1e-4
+# relative; every gradient within LM_GRAD_RTOL), not the two
+# trajectories: the binarized LM turns rounding into sign flips, and two
+# runs of one model that differ only in the gradients' order of
+# summation part after a few steps (after 10 Adam steps mlp1's bias of
+# block 0 was 6.3e-3, relative L2, from the sequential run's on an H100;
+# on the CPU at a small width a sign flip at step 6 moved a query bias by
+# 70% under SGD while every step's gradients agreed to 2e-7)
+MP_PP_LOSS_RTOL = 1e-4
+# (c) cli train --model bnn-vit-tiny --pp 2: 256 steps of 64 (128 reached
+# 59.6% on an H100, too near phase 8's 55)
+MP_VIT_SYNTH = (16384, 1024)
+# (d) make_tp_pipeline_fn at (data 1, model 2, pipe 2)
+MP_TPP = dict(d_model=256, d_hidden=1024, batch=64, steps=10, lr=0.05)
+# Each step is held to the reference on the same parameters (its output
+# relative to its scale and its loss: the row-parallel sums reassociate
+# fp32 products of up to 1024 terms; this rank's gradient slices in
+# relative L2), not the two trajectories: a +-1 weight flips where
+# rounding puts a latent on either side of 0, and the runs part (after
+# 10 steps at lr 1e-3 the slices were 0.046 apart on an H100, the
+# forwards 3.5e-6; at lr 0.05, 1.6 apart on the card and the CPU alike)
+# Tolerances from the arithmetic: the output relative to its scale
+# 1e-4, above the fp32 bound on a sum of K <= 1,024 products (K * 2^-24
+# = 6.1e-5 of the sum of |terms|); the loss 1e-5; this rank's gradient
+# slices LM_GRAD_RTOL, the repo's bound for gradients summed in another
+# order. A first setting of 1e-5 and 1e-4, chosen without that
+# arithmetic, failed on an H100 at 1.0e-5 and 1.4e-4 (loss 9.8e-8); the
+# CPU gives 0, 0 and 1.4e-7.
+MP_TPP_RTOL = 1e-4
+MP_TPP_LOSS_RTOL = 1e-5
+MP_TPP_GRAD_RTOL = LM_GRAD_RTOL
+# K1 at the tensor-parallel shards' (M, K, N): fc2's row shard and fc3's
+# column shard at tp = 2 (M = 64; 32 under data 2) and tp = 4
+MP_K1_SHAPES = ((64, 1536, 1536), (64, 1536, 384), (32, 1536, 1536),
+                (32, 1536, 384), (64, 768, 1536), (64, 1536, 192))
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
 _TPU = "distributed_mnist_bnns_tpu/ops/"
@@ -2009,7 +2099,7 @@ def dp_train_phase(device: torch.device, smi: str):
     process), then ``cli train --dp auto``; (b) 4 gloo ranks sharing
     card 0: ``DP_EPOCH_STEPS`` steps uncompressed (global-batch
     BatchNorm) and of sign_ef (convergence, sign_ef within 2 points),
-    200 steps of sign;
+    ``DP_SIGN_STEPS`` steps of sign;
     (c) 20 steps of sign_ef on pallas_xnor and on xla (equal; K1 2 x 20
     a rank); (d) 20 steps two-level (2 x 2). Every run: ranks bitwise
     equal, wire bytes per step equal to the plan's. Returns (each
@@ -3536,6 +3626,563 @@ def dp_capture_phase(device: torch.device, smi: str):
     return counts, ran
 
 
+# -- phase 14: model parallelism ---------------------------------------------
+
+
+def _mlp_features(model, x: torch.Tensor) -> torch.Tensor:
+    """``BnnMLP``'s forward up to the head (the activation entering it):
+    on a tensor-parallel model, this rank's features."""
+    from distributed_mnist_bnns_tpu_torch.models.layers import hard_tanh
+
+    x = x.reshape(x.shape[0], -1)
+    x = hard_tanh(model.bn1(model.fc1(x)))
+    x = hard_tanh(model.bn2(model.fc2(x)))
+    return hard_tanh(model.bn3(model.dropout(model.fc3(x))))
+
+
+def _np_tree(tree):
+    """A nested dict of tensors as numpy copies."""
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return np.array(tree.detach().cpu() if torch.is_tensor(tree) else tree)
+
+
+def _mp_tp_rank(rank: int, world: int, device, dp: int, xs, ys, x_eval):
+    """Phase 14 (a) in one of ``world`` gloo ranks sharing the card:
+    ``MP_TP_STEPS`` steps of the (dp x world/dp) tensor-parallel trainer,
+    its K1 launches and wire bytes; then its eval forward up to the head
+    against the unsharded model holding the gathered weights."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.interop import (
+        params_from_jax,
+        train_state_to_jax,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = Trainer(TrainConfig(device=str(device), data_parallel=dp,
+                            tensor_parallel=world // dp, log_interval=1,
+                            **MP_TRAIN))
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    _kernels.reset_launches()
+    losses = []
+    sync()
+    t0 = time.perf_counter()
+    for x, y in zip(xs, ys):
+        xb = torch.from_numpy(t._shard(x)).to(device)
+        yb = torch.from_numpy(t._shard(y).astype(np.int64)).to(device)
+        loss, _ = t.train_step(t.model, t.optimizer, xb, yb)
+        losses.append(loss)
+    sync()
+    step_ms = (time.perf_counter() - t0) / len(xs) * 1e3
+    k1 = _kernels.LAUNCHES["xnor"]
+    wire = {f"{lv}/{ph}": n for (lv, ph), n in sorted(t.wire.items())}
+    repl = hashlib.sha256()
+    for name, v in sorted({**dict(t.model.named_parameters()),
+                           **dict(t.model.named_buffers())}.items()):
+        if t.tp.dims.get(v, 0) is None:
+            repl.update(name.encode() + v.detach().cpu().numpy().tobytes())
+    state = train_state_to_jax(t)
+    full = params_from_jax(
+        {"params": state["params"], "batch_stats": state["batch_stats"]},
+        get_model("bnn-mlp-large", backend="pallas_xnor")).to(device)
+    t.model.eval()
+    xe = torch.from_numpy(x_eval).to(device)
+    with torch.no_grad():
+        part = _mlp_features(t.model, xe)
+        shards = [torch.empty_like(part) for _ in range(t.tp.tp)]
+        dist.all_gather(shards, part.contiguous(), group=t.tp.group)
+        feats = torch.cat(shards, dim=1)
+        want = _mlp_features(full, xe)
+        logits_err = float((t.model(xe) - full(xe)).abs().max())
+    return {"losses": [float(v) for v in losses], "k1": k1, "wire": wire,
+            "step_ms": step_ms, "repl": repl.hexdigest(),
+            "model_rank": t.tp.rank,
+            "features_equal": bool(torch.equal(feats, want)),
+            "features_err": float((feats - want).abs().max()),
+            "logits_err": logits_err,
+            "params": _np_tree(state["params"]) if rank == 0 else None,
+            "stats": _np_tree(state["batch_stats"]) if rank == 0 else None}
+
+
+def _mp_tp(device, smi: str) -> dict:
+    """Phase 14 (a): 2 ranks at tp = 2, then 4 at data 2 x model 2,
+    against the single-process trainer (the data-parallel run of world 1:
+    the same global batch, BatchNorm over it) on the card."""
+    from distributed_mnist_bnns_tpu_torch.interop import train_state_to_jax
+    from distributed_mnist_bnns_tpu_torch.parallel import spawn, tp_wire_plan
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    rng = np.random.RandomState(14)
+    xs = rng.randn(MP_TP_STEPS, MP_BATCH, 784).astype(np.float32)
+    ys = rng.randint(0, 10, (MP_TP_STEPS, MP_BATCH)).astype(np.int32)
+    ref = Trainer(TrainConfig(device="cuda", log_interval=1, **MP_TRAIN))
+    ref_losses = []
+    for x, y in zip(xs, ys):
+        loss, _ = ref.train_step(
+            ref.model, ref.optimizer, torch.from_numpy(x).to(device),
+            torch.from_numpy(y.astype(np.int64)).to(device))
+        ref_losses.append(float(loss))
+    ref_state = _np_tree(train_state_to_jax(ref))
+    out = {}
+    total_k1 = 0
+    for dp, tp in ((1, 2), (2, 2)):
+        name = f"dp{dp}xtp{tp}"
+        ranks = spawn(_mp_tp_rank, dp * tp, backend="gloo", device="cuda",
+                      args=(dp, xs, ys, xs[0]))
+        plan = tp_wire_plan(ref.model, tp=tp, dp=dp, batch=MP_BATCH)
+        want_plan = MP_TP_PLAN[(dp, tp)]
+        if {k: plan[k] for k in want_plan} != want_plan:
+            raise AssertionError(f"{name}: tp_wire_plan {plan} is not the "
+                                 f"plan in PERF.md {want_plan}")
+        for r in ranks:
+            if r["k1"] != 2 * MP_TP_STEPS:
+                raise AssertionError(f"{name}: K1 launched {r['k1']} times "
+                                     f"in a rank, want {2 * MP_TP_STEPS}")
+            got_model = sum(n for k, n in r["wire"].items()
+                            if k.startswith("model/")) // MP_TP_STEPS
+            got_data = sum(n for k, n in r["wire"].items()
+                           if k.startswith("inter/")) // MP_TP_STEPS
+            if (got_model, got_data) != (want_plan["model"],
+                                         want_plan["data"]):
+                raise AssertionError(
+                    f"{name}: {got_model} model-group and {got_data} "
+                    f"data-group bytes a step, the plan's {want_plan}")
+            if not r["features_equal"]:
+                raise AssertionError(
+                    f"{name}: the TP forward up to the head differs from "
+                    f"the unsharded one by {r['features_err']}")
+            if r["losses"] != ranks[0]["losses"]:
+                raise AssertionError(f"{name}: ranks' losses differ")
+        repl = [r["repl"] for r in ranks]
+        if len(set(repl)) != 1:
+            raise AssertionError(f"{name}: replicated leaves differ "
+                                 f"between model ranks")
+        loss_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"],
+                                                  ref_losses))
+        if loss_err > MP_LOSS_ATOL:
+            raise AssertionError(f"{name}: losses {loss_err} from the "
+                                 "data-parallel run's")
+        param_err = 0.0
+        for layer, leaves in ref_state["params"].items():
+            for leaf, want in leaves.items():
+                got = ranks[0]["params"][layer][leaf]
+                np.testing.assert_allclose(got, want, atol=MP_PARAM_TOL,
+                                           rtol=MP_PARAM_TOL,
+                                           err_msg=f"{name} {layer}/{leaf}")
+                param_err = max(param_err, float(np.abs(got - want).max()))
+        total_k1 += sum(r["k1"] for r in ranks)
+        out[name] = {"ranks": dp * tp, "loss_err": loss_err,
+                     "param_err": param_err,
+                     "logits_err": max(r["logits_err"] for r in ranks),
+                     "wire_per_step": want_plan,
+                     "step_ms_host": [round(r["step_ms"], 3) for r in ranks],
+                     "k1_per_rank": ranks[0]["k1"],
+                     "final_loss": ranks[0]["losses"][-1], "card": smi}
+        print(json.dumps({"phase": "14a", "run": name, **out[name]}),
+              flush=True)
+    out["k1_launches"] = total_k1
+    return out
+
+
+def _mp_lm(device):
+    """The LM of (b): the --lm-bench widths, flash attention, seeded, with
+    non-zero biases and LayerNorm parameters."""
+    from distributed_mnist_bnns_tpu_torch.models import BinarizedLM
+
+    model = BinarizedLM(max_len=LM_TRAIN_SEQ, attention="flash",
+                        generator=torch.Generator().manual_seed(0),
+                        **LM_TRAIN)
+    _random_lm_params(model, torch.Generator().manual_seed(1))
+    return model.to(device)
+
+
+def _mp_pp_train_rank(rank: int, world: int, device, tokens):
+    """Phase 14 (b): this stage of the pipelined LM (random biases): its
+    eval forward, then ``MP_PP_STEPS`` steps of ``lm_demo._pp_step``
+    (Adam). Before each,
+    the parameters and that step's gradients are gathered from the
+    stages, and rank 0 runs the sequential model on those parameters:
+    each step's loss and each leaf's gradient (relative L2) against it.
+    Returns rank 0's (forward, per-step errors and losses)."""
+    from distributed_mnist_bnns_tpu_torch.examples import lm_demo
+    from distributed_mnist_bnns_tpu_torch.interop import (
+        Layout,
+        _layout_tree,
+        lm_params_from_jax,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import (
+        latent_clamp_mask,
+        lm_loss,
+    )
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        Mesh,
+        PipelinedModel,
+        sequential_params,
+    )
+    from distributed_mnist_bnns_tpu_torch.train import clamp_latent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pm = PipelinedModel(_mp_lm(device), Mesh((world,), ("pipe",)),
+                        n_micro=MP_PP_MICRO)
+    latents = list(latent_clamp_mask(pm).values())
+    opt = lm_demo.make_optimizer(pm, LM_TRAIN_LR)
+    tok = torch.from_numpy(tokens).to(device)
+    with torch.no_grad():
+        fwd = pm.eval()(tok).cpu().numpy()   # the eval forward first
+    pm.train()
+
+    def tree_of(fn):
+        return sequential_params(_layout_tree(pm, "params", fn),
+                                 LM_TRAIN["depth"])
+
+    steps = []
+    for _ in range(MP_PP_STEPS):
+        params = tree_of(lambda p: p.detach().clone())
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(pm(tok), tok)
+        loss.backward()
+        pm.sync_grads()
+        grads = tree_of(lambda p: p.grad)
+        opt.step()
+        clamp_latent(latents)
+        if rank:
+            continue
+        seq = lm_params_from_jax(
+            {k: _np_tree(v) for k, v in params.items()},
+            num_heads=LM_TRAIN["num_heads"], attention="flash").to(device)
+        seq.train()
+        seq_loss = lm_loss(seq(tok), tok)
+        seq_loss.backward()
+        want = _np_tree(_layout_tree(Layout(seq), "params",
+                                     lambda p: p.grad))
+        steps.append({"loss": float(loss.detach()),
+                      "seq_loss": float(seq_loss.detach()),
+                      "grad_rel_l2": _rel_l2(_np_tree(grads), want)})
+    return (fwd, steps) if rank == 0 else None
+
+
+# the key projection's bias: an exact-zero gradient (softmax ignores a
+# constant added to a row's scores), rounding noise that Adam turns into
+# moves of up to lr; printed, not held (ROADMAP queue 3)
+_KEY_BIAS = "BinarizedSelfAttention_0/BinarizedDense_1/bias"
+
+
+def _rel_l2(got, want) -> dict:
+    """Each leaf's relative L2 distance, by '/'-joined flax path."""
+    out = {}
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            for k in b:
+                walk(a[k], b[k], path + (k,))
+            return
+        out["/".join(path)] = float(np.linalg.norm(a - b)
+                                    / max(np.linalg.norm(b), 1e-30))
+
+    walk(got, want, ())
+    return out
+
+
+def _mp_pp(device, smi: str) -> dict:
+    """Phase 14 (b): the LM pipelined over 2 gloo ranks sharing the card,
+    random biases and LayerNorm parameters: the eval forward against the
+    sequential model's in this process; 10 Adam steps, each one's loss
+    and gradients against the sequential model's on the same parameters
+    (``_mp_pp_train_rank``); then ``lm_demo.run(pp=2)`` 10 steps twice
+    (bitwise equal), K4-K6 each (depth / pp) x n_micro x steps times in
+    each rank."""
+    from distributed_mnist_bnns_tpu_torch.examples import lm_demo
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        pipeline_bubble_fraction,
+        spawn,
+    )
+
+    t0 = time.perf_counter()
+    tokens = np.random.RandomState(15).randint(
+        0, LM_TRAIN["vocab"], (LM_TRAIN_BATCH, LM_TRAIN_SEQ))
+    tok = torch.from_numpy(tokens).to(device)
+    got, steps = spawn(_mp_pp_train_rank, MP_PP, backend="gloo",
+                       device="cuda", args=(tokens,))[0]
+    with torch.no_grad():
+        want = _mp_lm(device).eval()(tok)
+    fwd_err = float(np.abs(got - want.cpu().numpy()).max())
+    if not fwd_err <= MP_PP_FWD_ATOL:
+        raise AssertionError(f"the pipelined LM forward is {fwd_err} from "
+                             "the sequential one")
+    key_bias, grad_worst, loss_rel = 0.0, 0.0, 0.0
+    for i, st in enumerate(steps):
+        loss_rel = max(loss_rel, abs(st["loss"] - st["seq_loss"])
+                       / abs(st["seq_loss"]))
+        for path, v in st["grad_rel_l2"].items():
+            if _KEY_BIAS in path:
+                key_bias = max(key_bias, v)
+            elif v > LM_GRAD_RTOL:
+                raise AssertionError(
+                    f"pipelined LM step {i}: gradient {path} is {v} "
+                    "(relative L2) from the sequential model's")
+            else:
+                grad_worst = max(grad_worst, v)
+    if loss_rel > MP_PP_LOSS_RTOL:
+        raise AssertionError(f"pipelined LM losses {loss_rel} (relative) "
+                             "from the sequential model's")
+    t1 = time.perf_counter()
+    kw = dict(steps=MP_PP_STEPS, seq_len=LM_TRAIN_SEQ,
+              batch=LM_TRAIN_BATCH, lr=LM_TRAIN_LR, attention="flash",
+              log_every=MP_PP_STEPS, **LM_TRAIN)
+    runs = [lm_demo.run(pp=MP_PP, backend="gloo", device="cuda", **kw)
+            for _ in range(2)]
+    a, b = runs
+    if a.history != b.history or any(
+            not torch.equal(v, b.model.state_dict()[k])
+            for k, v in a.model.state_dict().items()):
+        raise AssertionError("two pipelined LM runs differ")
+    want_launches = (LM_TRAIN["depth"] // MP_PP) * MP_PP_MICRO * MP_PP_STEPS
+    for r in a.ranks + b.ranks:
+        for name in FLASH:
+            if r["launches"][name] != want_launches:
+                raise AssertionError(
+                    f"{name} launched {r['launches'][name]} times in a "
+                    f"pipelined rank, want {want_launches}")
+    launches = {name: sum(r["launches"][name] for r in a.ranks + b.ranks)
+                for name in FLASH}
+    out = {"fwd_max_abs_err": fwd_err, "loss_rel_err": loss_rel,
+           "grad_rel_l2": grad_worst, "key_bias_grad_rel_l2": key_bias,
+           "losses": [st["loss"] for st in steps],
+           "launches_per_rank": want_launches,
+           "launches": launches, "checks_s": t1 - t0,
+           "run_s": (time.perf_counter() - t1) / 2,
+           "bubble_fraction": pipeline_bubble_fraction(MP_PP, MP_PP_MICRO),
+           "card": smi}
+    print(json.dumps({"phase": "14b", **out}), flush=True)
+    return out
+
+
+def _mp_cli_vit(smi: str) -> dict:
+    """Phase 14 (c): ``cli train --model bnn-vit-tiny --pp 2`` one epoch
+    in a process of its own (2 gloo ranks sharing the card)."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", "bnn-vit-tiny",
+            "--epochs", "1", "--batch-size", "64", "--optimizer", "adam",
+            "--lr", "0.003", "--seed", "0", "--pp", "2",
+            "--dist-backend", "gloo",
+            "--synthetic-sizes", *map(str, MP_VIT_SYNTH)]
+    t0 = time.perf_counter()
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train --pp 2 failed: {out.stderr[-3000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    if not (row["test_acc"] > MLP_MIN_ACC
+            and np.isfinite(row["train_loss"])):
+        raise AssertionError(f"cli train --pp 2 did not converge: {row}")
+    row["process_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "14c", **{k: row[k] for k in (
+        "test_acc", "train_loss", "batch_time_s", "epoch_time_s",
+        "process_s")}, "card": smi}), flush=True)
+    return row
+
+
+def _mp_tpp_rank(rank: int, world: int, device, params):
+    """Phase 14 (d) in one of 4 gloo ranks: ``make_tp_pipeline_fn`` at
+    (data 1, model 2, pipe 2), ``MP_TPP["steps"]`` SGD steps (latents
+    clamped). Each rank holds the full stage-major tensors and updates
+    its slices; before each step the current parameters are assembled
+    from every rank's slices, and ``tp_pipeline_reference`` runs on
+    them: the step's output (relative to its scale), loss (relative) and
+    this rank's slices of the gradients (relative L2) against it."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        latent_mask,
+        make_mesh,
+        make_tp_pipeline_fn,
+        tp_pipeline_param_specs,
+        tp_pipeline_reference,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=1, model=2, pipe=2)
+    f = make_tp_pipeline_fn(mesh)
+    specs = tp_pipeline_param_specs()
+    got = {k: torch.tensor(v, device=device, requires_grad=True)
+           for k, v in params.items()}
+    rng = np.random.RandomState(5)
+    xd = torch.from_numpy(rng.randn(MP_TPP["batch"], MP_TPP["d_model"])
+                          .astype(np.float32)).to(device)
+    td = torch.from_numpy(rng.randn(MP_TPP["batch"], MP_TPP["d_model"])
+                          .astype(np.float32)).to(device)
+    mask = latent_mask(params)
+
+    def local(k, t):
+        """This rank's slice of stage-major leaf ``k`` (a view)."""
+        t = t[mesh.index("pipe")]
+        for dim, name in enumerate(specs[k][1:]):
+            if name is not None:
+                n = t.shape[dim] // mesh.size(name)
+                t = t.narrow(dim, mesh.index(name) * n, n)
+        return t
+
+    def assembled():
+        """The current full parameters: every rank's slices summed over
+        the world, each divided by the ranks that hold it."""
+        out = {}
+        for k, v in got.items():
+            part = torch.zeros_like(v.detach())
+            local(k, part).copy_(local(k, v.detach()))
+            dist.all_reduce(part)
+            holders = 1 if "model" in specs[k] else mesh.size("model")
+            out[k] = (part / holders).requires_grad_()
+        return out
+
+    err = {"fwd": 0.0, "loss": 0.0, "grad": 0.0}
+    losses = []
+    for _ in range(MP_TPP["steps"]):
+        ref = assembled()
+        want = tp_pipeline_reference(ref, xd)
+        y = f(got, xd)
+        err["fwd"] = max(err["fwd"], float((y - want).abs().max()
+                                           / want.abs().max()))
+        loss = ((y - td) ** 2).mean()
+        ref_loss = ((want - td) ** 2).mean()
+        loss.backward()
+        ref_loss.backward()
+        err["loss"] = max(err["loss"], abs(float(loss) - float(ref_loss))
+                          / abs(float(ref_loss)))
+        with torch.no_grad():
+            for k, v in got.items():
+                a, b = local(k, v.grad), local(k, ref[k].grad)
+                err["grad"] = max(err["grad"], float(
+                    (a - b).norm() / b.norm().clamp_min(1e-30)))
+                v -= MP_TPP["lr"] * v.grad
+                v.grad = None
+                if mask[k]:
+                    v.clamp_(-1.0, 1.0)
+        losses.append(float(loss.detach()))
+    return {**err, "losses": losses}
+
+
+def _mp_tpp(smi: str) -> dict:
+    """Phase 14 (d): the three-axis composition on 4 gloo ranks."""
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        init_tp_pipeline_params,
+        spawn,
+    )
+
+    params = {k: v.numpy() for k, v in init_tp_pipeline_params(
+        torch.Generator().manual_seed(3), 2, MP_TPP["d_model"],
+        MP_TPP["d_hidden"]).items()}
+    params["b1"] = np.random.RandomState(4).randn(
+        *params["b1"].shape).astype(np.float32) * 0.1
+    ranks = spawn(_mp_tpp_rank, 4, backend="gloo", device="cuda",
+                  args=(params,))
+    out = {k: max(r[k] for r in ranks) for k in ("fwd", "loss", "grad")}
+    out.update(losses=ranks[0]["losses"], card=smi)
+    if not (out["fwd"] <= MP_TPP_RTOL and out["loss"] <= MP_TPP_LOSS_RTOL
+            and out["grad"] <= MP_TPP_GRAD_RTOL):
+        raise AssertionError(f"tp_pipeline against its reference: {out}")
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"tp_pipeline did not train: {out}")
+    print(json.dumps({"phase": "14d", **out}), flush=True)
+    return out
+
+
+def _k1_mp_rows(device, gen) -> list:
+    """K1 at the tensor-parallel shards' shapes: equal to its plain
+    version, timed with its plain version, bf16 ``torch.matmul`` of the
+    same ±1 values and its bound."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+
+    rows = []
+    for m, k, n in MP_K1_SHAPES:
+        x = _pm1(gen, m, k).to(device)
+        wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+        got = _kernels.xnor_gemm("xnor", x, wp, k, n)
+        want = xg.xnor_gemm_plain(pack_bits(x), wp, k)[:, :n]
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 at the TP shard (M={m}, K={k}, N={n}) "
+                                 "differs from its plain version")
+        xb = x.to(torch.bfloat16)
+        wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
+        row = {"m": m, "k": k, "n": n,
+               "kernel_ms": _graph_ms(
+                   lambda: _kernels.xnor_gemm("xnor", x, wp, k, n)),
+               "plain_ms": _graph_ms(
+                   lambda: xg.xnor_gemm_plain(pack_bits(x), wp, k)),
+               "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+               "max_abs_err": float((got - want).abs().max())}
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            "xnor", m, k, n)
+        rows.append(row)
+        print(json.dumps({"phase": "14", "k1_tp_shard": row}), flush=True)
+    return rows
+
+
+def mp_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 14, model parallelism (``parallel.mesh``,
+    ``model_parallel``, ``pipeline``, ``pipeline_model``,
+    ``tp_pipeline``; the trainer's ``tensor_parallel`` and
+    ``pipeline_parallel``), gloo ranks sharing the card (NCCL runs one
+    rank a card: the four-card runs are ``scripts/torch_mp_timing.py``):
+
+    (a) ``bnn-mlp-large`` at full width on pallas_xnor, dropout 0, SGD
+    0.05, global batch 64, 20 steps at tp = 2 and at data 2 x model 2:
+    losses within 1e-4 and parameters within 1e-3 of the single-process
+    trainer's, every rank's losses equal, the replicated leaves bitwise
+    equal on every rank, K1 launched 2 x 20 times in each rank, the wire
+    bytes a step equal to ``MP_TP_PLAN`` (PERF.md), and the trained
+    model's eval forward up to the head ``torch.equal`` to the unsharded
+    model's on the gathered weights (logits: the row-parallel head's
+    partial sums reassociate, printed);
+    (b) the LM at the --lm-bench width with flash attention pipelined
+    over 2 stages of 2 microbatches, random biases: the eval forward
+    within 1e-4 of the sequential model's; 10 Adam steps, each one's
+    loss within 1e-4 (relative) and gradients within ``LM_GRAD_RTOL``
+    (each leaf in relative L2; the key biases printed) of the sequential
+    model's step on the same parameters; ``lm_demo.run(pp=2)`` 10 steps
+    twice, bitwise equal; K4,
+    K5 and K6 each launched (depth / pp) x n_micro x steps = 40 times in
+    each rank;
+    (c) ``cli train --model bnn-vit-tiny --pp 2 --dist-backend gloo``
+    one epoch, converging, in a process of its own;
+    (d) ``make_tp_pipeline_fn`` at (data 1, model 2, pipe 2): 10 SGD
+    steps, each one's output, loss and gradients against
+    ``tp_pipeline_reference`` on the same parameters;
+    then K1 at the shards' shapes against its plain version, timed.
+    Returns ({kernel: launches on the model-parallel path}, K1's rows)."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = round(time.perf_counter() - t0, 3)
+
+    k1_rows = _k1_mp_rows(device, gen)
+    mark("k1")
+    tp = _mp_tp(device, smi)
+    mark("a")
+    pp = _mp_pp(device, smi)
+    mark("b")
+    _mp_cli_vit(smi)
+    mark("c")
+    _mp_tpp(smi)
+    mark("d")
+    launches = {name: 0 for name in KERNEL_ROWS}
+    launches["xnor"] = tp["k1_launches"]
+    launches.update(pp["launches"])
+    print(json.dumps({"phase": 14, "launches": launches,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return launches, k1_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3631,6 +4278,11 @@ def main() -> int:
     dpc_counts, dpc_in_graphs = dp_capture_phase(device, smi)
     if dpc_counts["xnor"] == 0:
         raise AssertionError("the captured DP path never launched K1")
+    mp_counts, mp_k1_rows = mp_phase(device, gen, smi)
+    for name in ("xnor", *FLASH):
+        if mp_counts[name] == 0:
+            raise AssertionError(f"the model-parallel path never launched "
+                                 f"{name}")
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -3649,7 +4301,7 @@ def main() -> int:
                          + train_counts[name] + mlp_train_counts[name]
                          + dp_counts[name] + conv_counts[name]
                          + rt_counts[name] + scan_counts[name]
-                         + dpc_counts[name]),
+                         + dpc_counts[name] + mp_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -3661,6 +4313,7 @@ def main() -> int:
             "launches_runtime_path": rt_counts[name],
             "launches_capture_path": scan_counts[name],
             "launches_dp_capture_path": dpc_counts[name],
+            "launches_mp_path": mp_counts[name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,
@@ -3672,6 +4325,7 @@ def main() -> int:
         }
         if name == "xnor":   # K1 at the conv path's shapes (phase 10)
             entry["conv_shapes"] = conv_rows
+            entry["mp_shapes"] = mp_k1_rows   # and the TP shards' (14)
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],
                           "library_ms": entry["library_ms"],

@@ -9,6 +9,10 @@
       --node-rank 0 --coordinator 10.0.0.1:29500    # and --node-rank 1
   python -m distributed_mnist_bnns_tpu_torch.cli train --dp auto \
       --grad-compress sign_ef
+  python -m distributed_mnist_bnns_tpu_torch.cli train --tp 2 --dp 2
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-vit-tiny \
+      --pp 2
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 100 --pp 2
   python -m distributed_mnist_bnns_tpu_torch.cli train --model convnet \
       --precision bf16 --dp auto
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-cnn \
@@ -28,13 +32,17 @@
 
 ``train`` trains a registered model (``models.list_models()``: the
 bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
-``bnn-cnn``; ``train.Trainer``; MNIST, or synthetic data when no idx
+``bnn-cnn``, the bnn-vit family; ``train.Trainer``; MNIST, or synthetic
+data when no idx
 files are found; ``--precision bf16`` computes in bf16 over fp32
 parameters where the model takes a dtype) and prints its final
 metrics as one JSON line; with ``--dp N`` (or ``auto``: one rank a card)
 it starts N ranks itself, over NCCL on the cards or over gloo with
 ``--device cpu``, and ``--grad-compress sign|sign_ef`` exchanges 1-bit
-gradients (``--dp-hosts``: in two levels). Checkpoints are the JAX
+gradients (``--dp-hosts``: in two levels). ``--tp N`` shards the bnn-mlp
+models Megatron-style over N ranks and ``--pp N`` pipelines a
+transformer's blocks over N (``--pp-microbatches``, ``--pp-remat``);
+either times ``--dp`` ranks in all (``eval`` takes them too). Checkpoints are the JAX
 package's (``checkpoint.msgpack``, digests and generations in
 ``checkpoint_meta.json``); ``--resume`` continues the newest verified one,
 at the step where a graceful stop left it: SIGTERM (passed on to the
@@ -202,6 +210,10 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--sample", type=int, default=64)
     lm.add_argument("--prompt", default="\n",
                     help="with --load: text prompt (UTF-8 bytes mod vocab)")
+    lm.add_argument("--pp", type=int, default=1,
+                    help="with --steps: pipeline the block stack over N "
+                         "ranks (one a card; gloo processes with --device "
+                         "cpu)")
     lm.add_argument("--device", default="cuda")
     return p
 
@@ -321,6 +333,25 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "groups only split the calls; the result does "
                          "not depend on it)")
     # multi-node rendezvous (the reference's -n / -nr and master address)
+    sp.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel width: Megatron column/row "
+                         "shards over a 'model' axis of ranks (the "
+                         "bnn-mlp family); with --dp a (dp x tp) mesh")
+    sp.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages: GPipe the transformer block "
+                         "stack over N ranks (bnn-vit models; depth %% N "
+                         "== 0); with --dp a (dp x pp) mesh")
+    sp.add_argument("--pp-microbatches", type=int, default=0,
+                    help="microbatches per pipelined step (0 = one per "
+                         "stage)")
+    sp.add_argument("--pp-remat", action="store_true",
+                    help="checkpoint each pipeline stage (recompute in "
+                         "backward)")
+    sp.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="the ranks' transport (default: nccl on the "
+                         "cards, one rank a card; gloo with --device cpu). "
+                         "gloo on the cards lets ranks share a card")
     sp.add_argument("--nodes", type=int, default=1)
     sp.add_argument("--node-rank", type=int, default=0)
     sp.add_argument("--coordinator", default=None,
@@ -332,15 +363,28 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "timed out; a rank collision fails at once)")
 
 
+def _mp(args) -> int:
+    """Ranks a data row holds: ``--tp`` or ``--pp`` (1 without)."""
+    return max(args.tp, 1) * max(args.pp, 1)
+
+
+def _dist_backend(args) -> str:
+    """One rank a card over NCCL; on the CPU, gloo processes; gloo ranks
+    sharing the cards only when ``--dist-backend gloo`` asks for it."""
+    if args.dist_backend:
+        return args.dist_backend
+    return "gloo" if args.device == "cpu" else "nccl"
+
+
 def _local_ranks(args) -> int:
-    """The ranks this node starts: ``--dp`` (the whole world) over
-    ``--nodes``; 'auto' is one a card (``--device cpu``: as many gloo
-    processes as there are cards, at least one)."""
+    """The ranks this node starts: ``--dp`` (times ``--tp`` or ``--pp``:
+    the whole world) over ``--nodes``; 'auto' is one a card (``--device
+    cpu``: as many gloo processes as there are cards, at least one)."""
     if args.dp == "auto":
         import torch
 
-        return max(torch.cuda.device_count(), 1)
-    world = int(args.dp)
+        return max(torch.cuda.device_count(), _mp(args))
+    world = int(args.dp) * _mp(args)
     if world % args.nodes:
         raise SystemExit(f"--dp {world} is not a multiple of --nodes "
                          f"{args.nodes}")
@@ -380,6 +424,8 @@ def _trainer(args, data_parallel=None, device=None):
         checkpoint_dir=args.checkpoint_dir, save_all_epochs=args.save_all,
         async_checkpoint=args.async_checkpoint,
         checkpoint_keep=args.checkpoint_keep, resume=args.resume,
+        tensor_parallel=args.tp, pipeline_parallel=args.pp,
+        pp_microbatches=args.pp_microbatches, pp_remat=args.pp_remat,
         handle_preemption=not args.no_preemption,
         results_path=args.results, timing_csv_prefix=args.timing_csv,
         device=args.device if device is None else device,
@@ -416,7 +462,7 @@ def _fit(args, data_parallel=None, device=None) -> dict:
         "data_source": data.source, **history[-1],
         "total_steps": trainer.step, "best_acc": trainer.best_acc,
         "checkpoint_dir": args.checkpoint_dir,
-        "data_parallel": trainer.world, "grad_compress": args.grad_compress,
+        "data_parallel": trainer.dp_n, "grad_compress": args.grad_compress,
         "comm_bytes_per_step": trainer.comm_bytes() / max(trainer.step, 1),
     }
 
@@ -441,9 +487,18 @@ def _setup_logging(args, rank: int = 0) -> None:
 
 
 def _train_rank(rank: int, world: int, device, args) -> dict:
-    """One rank of ``train --dp``: the trainer on this rank's device."""
+    """One rank of ``train --dp`` (``--tp``, ``--pp``): the trainer on
+    this rank's device."""
     _setup_logging(args, rank)
-    return _fit(args, data_parallel=world, device=str(device))
+    return _fit(args, data_parallel=world // _mp(args), device=str(device))
+
+
+def _eval_rank(rank: int, world: int, device, args) -> dict:
+    """One rank of ``eval --tp`` / ``--pp``: the sharded trainer restored
+    and evaluated (the forward is collective)."""
+    _setup_logging(args, rank)
+    return _eval_row(args, data_parallel=world // _mp(args),
+                     device=str(device))
 
 
 def _train(args) -> int:
@@ -452,16 +507,14 @@ def _train(args) -> int:
                          f"--grad-accum {args.grad_accum}")
     local = _local_ranks(args)
     multinode = args.nodes > 1 or args.coordinator is not None
-    if local <= 1 and not multinode:
+    if local <= 1 and not multinode and _mp(args) == 1:
         if args.log_file:
             _setup_logging(args)
         row = _fit(args)
     else:
         from .parallel import spawn
 
-        # One rank a card over NCCL; on the CPU, gloo processes.
-        backend = "gloo" if args.device == "cpu" else "nccl"
-        rows = spawn(_train_rank, local, backend=backend,
+        rows = spawn(_train_rank, local, backend=_dist_backend(args),
                      device="cpu" if args.device == "cpu" else "cuda",
                      args=(args,), coordinator=args.coordinator,
                      nodes=args.nodes, node_rank=args.node_rank,
@@ -475,17 +528,30 @@ def _train(args) -> int:
     return 0
 
 
-def _eval(args) -> int:
-    if not args.checkpoint_dir:
-        raise SystemExit("eval requires --checkpoint-dir")
-    trainer = _trainer(args)
+def _eval_row(args, data_parallel=None, device=None) -> dict:
+    trainer = _trainer(args, data_parallel, device)
     meta = trainer.restore(args.checkpoint_dir, best=args.best)
     data = _train_data(args)
-    print(json.dumps({
+    return {
         "model": args.model, "device": str(trainer.device),
         "data_source": data.source, "checkpoint_epoch": meta.get("epoch"),
         "checkpoint_step": trainer.step, **trainer.evaluate(data),
-    }))
+    }
+
+
+def _eval(args) -> int:
+    if not args.checkpoint_dir:
+        raise SystemExit("eval requires --checkpoint-dir")
+    if _mp(args) > 1:
+        from .parallel import spawn
+
+        rows = spawn(_eval_rank, _local_ranks(args),
+                     backend=_dist_backend(args),
+                     device="cpu" if args.device == "cpu" else "cuda",
+                     args=(args,))
+        print(json.dumps(rows[0]))
+        return 0
+    print(json.dumps(_eval_row(args)))
     return 0
 
 
@@ -613,6 +679,8 @@ def _lm(args) -> int:
     if args.steps and (args.load or args.jax_variables):
         raise SystemExit("lm: --steps trains a seeded init; it takes "
                          "neither --load nor --jax-variables")
+    if args.pp > 1 and not args.steps:
+        raise SystemExit("lm: --pp pipelines the training; give --steps")
     if args.steps:
         from .examples.lm_demo import run
 
@@ -622,7 +690,7 @@ def _lm(args) -> int:
             num_heads=args.num_heads, mlp_ratio=args.mlp_ratio,
             scale=args.scale, lr=args.lr, seed=args.seed,
             attention=args.attention, corpus=args.corpus,
-            export=args.export, device=args.device,
+            export=args.export, device=args.device, pp=args.pp,
         )
         print(json.dumps({"steps": args.steps, "loss_history": res.history,
                           **({"artifact": args.export, **res.export}

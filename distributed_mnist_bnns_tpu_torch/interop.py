@@ -79,14 +79,63 @@ def from_flax_layout(a, kind: str) -> torch.Tensor:
     return t
 
 
-# (port parameter or buffer, flax collection, flax leaf) of each kind
+# (port parameter or buffer, flax collection, flax leaf) of each kind;
+# "param" is a raw parameter (the port's submodule name is the tensor,
+# the flax module path its leaf: ``pos_embed``)
 _LEAVES = {
     "dense": (("weight", "params", "kernel"), ("bias", "params", "bias")),
     "conv": (("weight", "params", "kernel"), ("bias", "params", "bias")),
     "bn": (("weight", "params", "scale"), ("bias", "params", "bias"),
            ("running_mean", "batch_stats", "mean"),
            ("running_var", "batch_stats", "var")),
+    "ln": (("weight", "params", "scale"), ("bias", "params", "bias")),
+    "embed": (("weight", "params", "embedding"),),
+    "param": (("", "params", ""),),
 }
+
+
+def _paths(model: torch.nn.Module, collection: Optional[str] = None):
+    """(flax path, port name, collection, kind) of every leaf of
+    ``model.flax_names()`` (of ``collection`` only, when given). A flax
+    module path may be nested ('TransformerBlock_0/ln_attn')."""
+    for sub, flax_name, kind in model.flax_names():
+        for port, coll, leaf in _LEAVES[kind]:
+            if collection is None or coll == collection:
+                path = tuple(flax_name.split("/")) + ((leaf,) if leaf
+                                                      else ())
+                yield path, f"{sub}.{port}" if port else sub, coll, kind
+
+
+def _get(tree: Mapping[str, Any], path) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _nest(pairs) -> Dict[str, Any]:
+    """A sorted nested dict of (path, leaf) pairs, as a jitted step
+    returns flax's trees."""
+    out: Dict[str, Any] = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return _sorted(out)
+
+
+def _tensor(model: torch.nn.Module, name: str, coll: str) -> torch.Tensor:
+    return (model.get_parameter(name) if coll == "params"
+            else model.get_buffer(name))
+
+
+def flax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The flax params tree of ``model`` with each leaf's flax shape (a
+    tuple) as its value: the tree the JAX package's rule tables
+    (``parallel.model_parallel``) and layouts are written over."""
+    return _nest((path, tuple(to_flax_layout(torch.empty(
+        _tensor(model, name, coll).shape, device="meta"), kind).shape))
+        for path, name, coll, kind in _paths(model, "params"))
 
 
 def _model_from_tree(p, **model_kw) -> torch.nn.Module:
@@ -99,6 +148,27 @@ def _model_from_tree(p, **model_kw) -> torch.nn.Module:
     def shape(name):
         return np.asarray(p[name]["kernel"]).shape
 
+    if "TransformerBlock_0" in p and "pos_embed" in p and (
+            "tok_embed" not in p):
+        from .models import BinarizedTransformer
+
+        binarized = "BinarizedDense_0" in p
+        fan_in, embed = shape("BinarizedDense_0" if binarized else "Dense_0")
+        tokens = np.asarray(p["pos_embed"]).shape[1]
+        side = int(round(tokens ** 0.5))
+        blk = p["TransformerBlock_0"]
+        mlp = blk["BinarizedDense_0" if "BinarizedDense_0" in blk
+                  else "Dense_0"]
+        attn_bin = "BinarizedDense_0" in blk["BinarizedSelfAttention_0"]
+        model_kw.setdefault("image_size", 28)
+        patch = model_kw["image_size"] // side
+        return BinarizedTransformer(
+            num_classes=shape("head")[1], patch_size=patch,
+            embed_dim=embed,
+            depth=sum(1 for k in p if k.startswith("TransformerBlock_")),
+            mlp_ratio=np.asarray(mlp["kernel"]).shape[1] // embed,
+            binarized=binarized, binarized_attention=attn_bin,
+            in_channels=fan_in // (patch * patch), **model_kw)
     if "BinarizedConv_0" in p:
         return BinarizedCNN(
             num_classes=shape("Dense_0")[1],
@@ -134,11 +204,10 @@ def params_from_jax(
     if model is None:
         model = _model_from_tree(p, **model_kw)
     state = {}
-    for sub, flax_name, kind in model.flax_names():
-        for port, coll, leaf in _LEAVES[kind]:
-            tree = p if coll == "params" else s
-            state[f"{sub}.{port}"] = from_flax_layout(
-                tree[flax_name][leaf], kind)
+    for path, name, coll, kind in _paths(model):
+        state[name] = from_flax_layout(
+            _get(p if coll == "params" else s, path), kind)
+    for sub, _, kind in model.flax_names():
         if kind == "bn":
             state[f"{sub}.num_batches_tracked"] = torch.tensor(0)
     model.load_state_dict(state, strict=True)
@@ -264,19 +333,19 @@ class JaxFlatOrder:
         if not hasattr(model, "flax_names"):
             raise ValueError(f"JaxFlatOrder needs a model with flax_names, "
                              f"not a {type(model).__name__}")
-        entries = []
-        for sub, flax_name, kind in model.flax_names():
-            for port, coll, leaf in _LEAVES[kind]:
-                if coll == "params":
-                    entries.append(((flax_name, leaf), f"{sub}.{port}", kind))
+        # sorted paths, as ravel_pytree orders a tree of sorted dicts
+        # ('/' sorts below every character of a module name)
+        entries = sorted(("/".join(path), name, kind) for path, name, _, kind
+                         in _paths(model, "params"))
         if {e[1] for e in entries} != set(names):
             raise ValueError("JaxFlatOrder: flax_names does not cover the "
                              f"parameters {sorted(names)}")
-        entries.sort()
-        self.entries = [("/".join(path), names[name], path[1] == "kernel")
-                        for path, name, _ in entries]
-        self._kinds = [kind if path[1] == "kernel" else None
-                       for path, _, kind in entries]
+        relaid = [path.endswith("/kernel") and kind in ("dense", "conv")
+                  for path, _, kind in entries]
+        self.entries = [(path, names[name], r)
+                        for (path, name, _), r in zip(entries, relaid)]
+        self._kinds = [kind if r else None
+                       for (_, _, kind), r in zip(entries, relaid)]
         self.n_params = sum(p.numel() for _, p, _ in self.entries)
 
     def kinds(self) -> Dict[torch.nn.Parameter, Optional[str]]:
@@ -334,23 +403,71 @@ def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in sorted(tree.items())}
 
 
-def _flax_leaves(model: torch.nn.Module, collection: str):
-    """(flax module, flax leaf, port tensor, kind) of one collection."""
-    for sub, flax_name, kind in model.flax_names():
-        for port, coll, leaf in _LEAVES[kind]:
-            if coll == collection:
-                name = f"{sub}.{port}"
-                t = (model.get_parameter(name) if coll == "params"
-                     else model.get_buffer(name))
-                yield flax_name, leaf, t, kind
+class Layout:
+    """How a trainer's tensors make the flax tree: ``leaves(coll)`` gives
+    ``(flax path, port tensors, kind)``, ``full`` the flax leaf of those
+    tensors' values (of meta tensors of its shape when ``values`` is
+    None), ``split`` the port tensors' values of a flax leaf. This
+    default is one port tensor per flax leaf; a tensor-parallel run's
+    (``TpLayout``) and a pipelined model's
+    (``parallel.pipeline_model.PipelinedModel``) gather and cut."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.model = model
+
+    def leaves(self, coll: str):
+        for path, name, c, kind in _paths(self.model, coll):
+            yield path, [_tensor(self.model, name, c)], kind
+
+    def full(self, tensors, values, kind):
+        t = tensors[0]
+        v = (torch.empty(t.shape, dtype=t.dtype, device="meta")
+             if values is None else values[0])
+        return to_flax_layout(v, kind)
+
+    def split(self, tensors, full, kind):
+        return [from_flax_layout(full, kind)]
+
+    def bn_counters(self):
+        """Every BatchNorm's ``num_batches_tracked``."""
+        return [m.num_batches_tracked for m in self.model.modules()
+                if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
 
 
-def _tree(model: torch.nn.Module, collection: str, fn) -> Dict[str, Any]:
-    """A sorted flax tree of ``fn(tensor, kind)`` over ``collection``."""
-    out: Dict[str, Any] = {}
-    for flax_name, leaf, t, kind in _flax_leaves(model, collection):
-        out.setdefault(flax_name, {})[leaf] = fn(t, kind)
-    return _sorted(out)
+class TpLayout(Layout):
+    """A tensor-parallel model's layout: each leaf gathered over the
+    model group from the shards (``parallel.model_parallel.TpShards``,
+    collective) and cut back into this rank's shard."""
+
+    def __init__(self, model: torch.nn.Module, shards):
+        super().__init__(model)
+        self.shards = shards
+
+    def full(self, tensors, values, kind):
+        t = tensors[0]
+        if values is None:
+            return to_flax_layout(torch.empty(
+                self.shards.full_shape(t), dtype=t.dtype, device="meta"),
+                kind)
+        return to_flax_layout(self.shards.gather_leaf(t, values[0]), kind)
+
+    def split(self, tensors, full, kind):
+        return [self.shards.slice_leaf(tensors[0],
+                                       from_flax_layout(full, kind))]
+
+
+def _layout(trainer) -> Layout:
+    return getattr(trainer, "layout", None) or Layout(trainer.model)
+
+
+def _layout_tree(layout: Layout, coll: str, value,
+                 values: bool = True) -> Dict[str, Any]:
+    """The sorted flax tree of ``coll``: each leaf ``layout.full`` of
+    ``value(t)`` over its port tensors (collective where the layout
+    gathers); meta leaves of the full shapes when not ``values``."""
+    return _nest((path, layout.full(
+        tensors, [value(t) for t in tensors] if values else None, kind))
+        for path, tensors, kind in layout.leaves(coll))
 
 
 def _i32(n: int) -> np.ndarray:
@@ -404,10 +521,11 @@ def _own_params(opt) -> List[torch.Tensor]:
 
 def _base_state(trainer, opt, name: str, values: bool) -> Dict[str, Any]:
     """The base optimizer's state in optax's layout: over the flax params
-    (full leaves: an FSDP run gathers its shards, collective), or, under
+    (full leaves: an FSDP run gathers its shards, a tensor-parallel or
+    pipelined run its model group's or stages', collective), or, under
     the compressed FSDP exchange, over its ``(workers, seg)`` segment
     rows (collective in a data-parallel run)."""
-    model, state = trainer.model, opt.state
+    state = opt.state
     first = _own_params(opt)[0]
 
     def count(key):
@@ -423,15 +541,15 @@ def _base_state(trainer, opt, name: str, values: bool) -> Dict[str, Any]:
     fsdp = opt.fsdp
 
     def get(p, key):
-        if not values:
-            return torch.empty(p.shape, dtype=p.dtype, device="meta")
         if fsdp is None:
             return state[p][key].detach()
         return fsdp.gather_leaf(p, state[fsdp.shard_of(p)][key])
 
+    layout = _layout(trainer)
     return _optax_base_state(
-        name, lambda key: _tree(model, "params", lambda p, kind:
-                                to_flax_layout(get(p, key), kind)), count)
+        name, lambda key: _layout_tree(layout, "params",
+                                       lambda p: get(p, key), values),
+        count)
 
 
 def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
@@ -449,15 +567,9 @@ def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
     ``values=False`` gives the template: the same tree with the
     params-shaped leaves as meta tensors of their shapes and no
     collective."""
-    model, opt = trainer.model, trainer.optimizer
+    opt = trainer.optimizer
     name = _opt_name(opt)
-    if values:
-        def leaf(t, kind):
-            return to_flax_layout(t.detach(), kind)
-    else:
-        def leaf(t, kind):
-            return to_flax_layout(torch.empty(t.shape, dtype=t.dtype,
-                                              device="meta"), kind)
+    layout = _layout(trainer)
     group = opt.param_groups[0]
     hyper = _sorted({k: np.asarray(group[k], np.float32)
                      for k in _hyperparam_names(name)})
@@ -476,8 +588,10 @@ def train_state_to_jax(trainer, *, values: bool = True) -> Dict[str, Any]:
              else {str(i): st for i, st in enumerate(stages)})
     return {
         "step": _i32(trainer.step),
-        "params": _tree(model, "params", leaf),
-        "batch_stats": _tree(model, "batch_stats", leaf),
+        "params": _layout_tree(layout, "params", torch.Tensor.detach,
+                               values),
+        "batch_stats": _layout_tree(layout, "batch_stats",
+                                    torch.Tensor.detach, values),
         "opt_state": {"count": _i32(opt.steps), "hyperparams": hyper,
                       "hyperparams_states": {}, "inner_state": inner},
     }
@@ -498,20 +612,20 @@ def train_state_from_jax(state: Dict[str, Any], trainer) -> None:
     worker's row of the error feedback. The tree must have the
     trainer's structure (``utils.checkpoint`` checks it against
     ``train_state_to_jax(trainer, values=False)``)."""
-    model, opt = trainer.model, trainer.optimizer
+    opt = trainer.optimizer
     name = _opt_name(opt)
+    layout = _layout(trainer)
     with torch.no_grad():
         for coll in ("params", "batch_stats"):
-            for flax_name, leaf, t, kind in _flax_leaves(model, coll):
-                src = from_flax_layout(
-                    _to_tensor(state[coll][flax_name][leaf]), kind)
-                t.copy_(src.to(t.dtype))
+            for path, tensors, kind in layout.leaves(coll):
+                srcs = layout.split(
+                    tensors, _to_tensor(_get(state[coll], path)), kind)
+                for t, src in zip(tensors, srcs):
+                    t.copy_(src.to(t.dtype))
         trainer.step = int(np.asarray(state["step"]))
         # flax keeps no batch count: every train step counted one batch
-        for sub, _, kind in model.flax_names():
-            if kind == "bn":
-                model.get_buffer(f"{sub}.num_batches_tracked").fill_(
-                    trainer.step)
+        for counter in layout.bn_counters():
+            counter.fill_(trainer.step)
     os_ = state["opt_state"]
     opt.steps = int(np.asarray(os_["count"]))
     for k, v in os_["hyperparams"].items():
@@ -540,11 +654,12 @@ def train_state_from_jax(state: Dict[str, Any], trainer) -> None:
             row = _to_tensor(np.asarray(tree)[trainer._ef_row])
             opt.state[seg][key] = row.to(seg.device, seg.dtype).contiguous()
             return
-        for flax_name, leaf, p, kind in _flax_leaves(model, "params"):
-            src = from_flax_layout(_to_tensor(tree[flax_name][leaf]), kind)
-            if fsdp is not None:
-                src, p = fsdp.slice_leaf(p, src), fsdp.shard_of(p)
-            opt.state[p][key] = src.to(p.device, p.dtype).contiguous()
+        for path, tensors, kind in layout.leaves("params"):
+            srcs = layout.split(tensors, _to_tensor(_get(tree, path)), kind)
+            for p, src in zip(tensors, srcs):
+                if fsdp is not None:
+                    src, p = fsdp.slice_leaf(p, src), fsdp.shard_of(p)
+                opt.state[p][key] = src.to(p.device, p.dtype).contiguous()
 
     def put_count(key, v):
         for p in _own_params(opt):

@@ -1,6 +1,6 @@
 """Model registry: the names the CLI accepts, as in the JAX package's
 ``models/registry.py`` (the bnn-mlp family, its fp32 twin and the conv
-families, so far), and ``latent_clamp_mask``."""
+families and the ViT family, so far), and ``latent_clamp_mask``."""
 
 from __future__ import annotations
 
@@ -13,6 +13,12 @@ from .cnn import DeepCNN
 from .convnet import ConvNet
 from .layers import BinarizedConv, BinarizedDense
 from .mlp import bnn_mlp_large, bnn_mlp_small, fp32_mlp_large
+from .transformer import (
+    bnn_vit_small,
+    bnn_vit_tiny,
+    fp32_vit_small,
+    fp32_vit_tiny,
+)
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     # flagship BNN MLPs (mnist-dist2.py:46-76 / mnist-dist3.py:40-70)
@@ -25,6 +31,11 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "deep-cnn": DeepCNN,
     # the binarized CNN (BASELINE.json; BinarizeConv2d)
     "bnn-cnn": BinarizedCNN,
+    # binarized vision transformers and their fp32 twins
+    "bnn-vit-tiny": bnn_vit_tiny,
+    "bnn-vit-small": bnn_vit_small,
+    "fp32-vit-tiny": fp32_vit_tiny,
+    "fp32-vit-small": fp32_vit_small,
 }
 
 

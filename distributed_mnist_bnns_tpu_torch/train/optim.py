@@ -183,6 +183,9 @@ class OptaxOptimizer(torch.optim.Optimizer):
         self.fsdp_compress: Optional[SignCompressFsdp] = None
         # fp32 FSDP: the shards' whole-leaf norms (parallel.fsdp)
         self.fsdp = None
+        # tensor parallelism: the model's own parameters are shards
+        # (parallel.model_parallel.TpShards): whole-leaf norms too
+        self.tp = None
         # tensors whose gradients the step reads, where they are not the
         # optimizer's own parameters (the full parameters of a sharded
         # or segment optimizer); zero_grad clears them too
@@ -261,7 +264,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
                      for p in group["params"] if p.grad is not None]
             grads = [p.grad for p, _ in pairs]
             if self.clip_grad_norm is not None:
-                sq = None if self.fsdp is None else self.fsdp.sq_norms(
+                shards = self.fsdp or self.tp
+                sq = None if shards is None else shards.sq_norms(
                     [(p, g) for (p, _), g in zip(pairs, grads)])
                 grads = clip_by_global_norm(grads, self.clip_grad_norm, sq)
             if self.grad_transform is not None:
@@ -294,10 +298,12 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
     def _leaf_norms(self, p: torch.Tensor, u: torch.Tensor):
         """``(|p|, |u|)`` of the whole leaf of which ``p`` is a shard
-        (fp32 FSDP), or None where ``p`` is the leaf."""
-        if self.fsdp is None:
+        (fp32 FSDP, tensor parallelism), or None where ``p`` is the
+        leaf."""
+        shards = self.fsdp or self.tp
+        if shards is None:
             return None
-        sq = self.fsdp.sq_norms([(p, p), (p, u)])
+        sq = shards.sq_norms([(p, p), (p, u)])
         return torch.sqrt(sq[0]), torch.sqrt(sq[1])
 
     def zero_grad(self, set_to_none: bool = True) -> None:
@@ -626,7 +632,7 @@ def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
                    clip_grad_norm: Optional[float] = None,
                    grad_transform: Optional["SignCompress"] = None,
                    fsdp_compress: Optional["SignCompressFsdp"] = None,
-                   fsdp=None, **kwargs: Any) -> OptaxOptimizer:
+                   fsdp=None, tp=None, **kwargs: Any) -> OptaxOptimizer:
     """The registry optimizer ``name`` over ``params`` (torch optimizers
     take their parameters at construction; the JAX ``make_optimizer``
     returns a transform that ``init`` gives them), with ``learning_rate``
@@ -639,7 +645,9 @@ def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
     ``params`` are the full parameters whose gradients it reads. Only
     elementwise optimizers compose with it. ``fsdp`` (fp32 FSDP, a
     ``parallel.fsdp.FsdpShards`` of ``params``) runs it on this rank's
-    shards, its norms over whole leaves."""
+    shards, its norms over whole leaves. ``tp`` (a
+    ``parallel.model_parallel.TpShards``: ``params`` are a tensor-parallel
+    model's shards) gives it whole-leaf norms over the model group."""
     if grad_transform is not None and fsdp_compress is not None:
         raise ValueError("grad_transform and fsdp_compress are mutually "
                          "exclusive (chain-in-front vs wrap-the-optimizer)")
@@ -654,6 +662,7 @@ def make_optimizer(name: str, params: Iterable, learning_rate: float, *,
     opt.grad_transform = grad_transform
     opt.fsdp_compress = fsdp_compress
     opt.fsdp = fsdp
+    opt.tp = tp
     opt.grad_params = grad_params
     return opt
 

@@ -114,6 +114,20 @@ too, and handed back by ``restore``; at another world with
 ``elastic``, re-placed first (``parallel.remesh``). ``evaluate`` runs
 on rank 0 and its result is broadcast. Each rank's dropout generator is
 seeded from ``(seed + 1, rank)``.
+
+Model parallelism (the JAX ``_setup_tensor_parallel`` and
+``_setup_pipeline_parallel``, with their errors): ``tensor_parallel``
+cuts the bnn-mlp model into each rank's Megatron shards over a (data x
+model) mesh (``parallel.model_parallel.TpShards``; the optimizer runs on
+the shards), ``pipeline_parallel`` keeps a transformer's embedding, head
+and this stage's blocks over a (data x pipe) mesh
+(``parallel.pipeline_model.PipelinedModel``; ``remat`` checkpoints each
+stage). Every rank of a data row draws from the row's generator, and
+every rank evaluates (the forward is collective). Checkpoints keep the
+JAX layouts: the flax tree's full arrays under TP, the pipelined
+``{"blocks", "rest"}`` tree under PP (``interop.Layout``), written by
+rank 0 and cut back on a restore. ``scan_steps`` and ``device_data``
+under either raise (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -478,6 +492,14 @@ class TrainConfig:
                                    # --elastic, the chaos membership
                                    # faults) is not ported yet: it comes
                                    # with obs/ (ROADMAP queue 1 item 8)
+    pipeline_parallel: int = 1     # >1: GPipe the transformer block stack
+                                   # over N ranks (parallel/pipeline_model)
+    pp_microbatches: int = 0       # microbatches per pipelined step
+                                   # (0 = one per stage)
+    pp_remat: bool = False         # checkpoint each pipeline stage
+    tensor_parallel: int = 1       # >1: Megatron TP over a 'model' axis of
+                                   # ranks (parallel/model_parallel); with
+                                   # data_parallel a (data x model) mesh
 
 
 def _dataset_ref(data):
@@ -499,6 +521,13 @@ class Trainer:
             raise ValueError(f"unknown dp_mode {config.dp_mode!r} "
                              "(have: gspmd, fsdp)")
         if config.elastic:
+            bad = [need for cond, need in (
+                (config.tensor_parallel > 1, "tensor_parallel=1"),
+                (config.pipeline_parallel > 1, "pipeline_parallel=1"))
+                if cond]
+            if bad:
+                raise ValueError("elastic=True requires " + ", ".join(bad)
+                                 + " (RESILIENCE.md 'Elastic membership')")
             if config.device_data:
                 raise ValueError(
                     "elastic=True requires device_data=False: the "
@@ -510,7 +539,17 @@ class Trainer:
                     "re-places state from checkpoint generations")
         self.device = resolve_device(config.device)
         self.distributed = False   # in a process group (_resolve_world)
+        self.mesh = None           # TP / PP: the rank mesh
+        self.dp_rank = 0           # this rank's data row
+        self._data_group = None    # the gradient all-reduce's group
+        self.tp = None             # TP: this rank's TpShards
+        self.fsdp = None           # fp32 FSDP: this rank's FsdpShards
+        self.layout = None         # TP / PP: the flax layout (interop)
+        self.mp = ("tp" if config.tensor_parallel > 1 else "pp"
+                   if config.pipeline_parallel > 1 else None)
         self.world, self.rank = self._resolve_world()
+        if self.mp is None:
+            self.dp_n, self.dp_rank = self.world, self.rank
         self._check_dispatch()
         mk = dict(config.model_kwargs)
         if config.backend is not None:
@@ -520,18 +559,25 @@ class Trainer:
         elif config.precision != "fp32":
             raise ValueError(f"unknown precision {config.precision!r} "
                              "(have: fp32, bf16)")
-        if self.world > 1:
+        if self.dp_n > 1:
+            # the data row's: model and pipe ranks of a row draw alike
             from ..parallel import rank_seed
 
-            mk.setdefault("rng_seed", rank_seed(config.seed + 1, self.rank))
+            mk.setdefault("rng_seed", rank_seed(config.seed + 1,
+                                                self.dp_rank))
         mk.setdefault("rng_seed", config.seed + 1)
         mk["generator"] = torch.Generator().manual_seed(config.seed)
         self.model = build_model(config.model, mk).to(self.device)
-        self.clamp_mask = latent_clamp_mask(self.model)
         self.regime = RegimeSchedule(config.regime)
         self.wire = WireBytes()   # bytes this rank's collectives moved
         self._setup_grad_compress()
-        self._setup_data_parallel()
+        if config.pipeline_parallel > 1:
+            self._setup_pipeline_parallel()
+        elif config.tensor_parallel > 1:
+            self._setup_tensor_parallel()
+        else:
+            self._setup_data_parallel()
+        self.clamp_mask = latent_clamp_mask(self.model)
         self.optimizer_name = config.optimizer
         self.optimizer = self._build_tx(config.optimizer,
                                         config.learning_rate)
@@ -557,10 +603,16 @@ class Trainer:
                               else None)
 
     def _resolve_world(self):
-        """(world, rank): the process group's when ``data_parallel`` is
-        set in a rank of one (``distributed``: the data-parallel step
-        runs, at world 1 too); 1 rank otherwise."""
-        dp = self.config.data_parallel
+        """(world, rank): the process group's when ``data_parallel``,
+        ``tensor_parallel`` or ``pipeline_parallel`` is set in a rank of
+        one (``distributed``: the data-parallel step runs, at world 1
+        too); 1 rank otherwise. Sets ``dp_n``, the data-parallel width
+        (the world, or under TP / PP the ranks of the 'data' axis)."""
+        cfg = self.config
+        dp = cfg.data_parallel
+        self.dp_n = 1
+        if cfg.tensor_parallel > 1 or cfg.pipeline_parallel > 1:
+            return self._resolve_mp_world()
         if not dp:
             return 1, 0
         if dist.is_available() and dist.is_initialized():
@@ -578,6 +630,53 @@ class Trainer:
                 "every rank of parallel.spawn (cli train --dp does)")
         return 1, 0
 
+    def _resolve_mp_world(self):
+        """The world of a TP or PP run (the JAX ``_setup_tensor_parallel``
+        and ``_setup_pipeline_parallel`` checks of the devices): every
+        rank of the process group is a cell of the (data x model) or
+        (data x pipe) mesh."""
+        cfg = self.config
+        tp, pp = int(cfg.tensor_parallel), int(cfg.pipeline_parallel)
+        if pp > 1 and tp > 1:
+            raise ValueError("pipeline_parallel does not compose with "
+                             "tensor_parallel yet; pick one")
+        inner = tp * pp
+        what = (f"tensor_parallel={tp}" if tp > 1
+                else f"pipeline_parallel={pp}")
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(
+                f"{what} needs {inner} ranks: build the trainer in every "
+                "rank of parallel.spawn (cli train --tp / --pp does)")
+        world = dist.get_world_size()
+        dp = cfg.data_parallel
+        dp_n = world // inner if dp == "auto" else (int(dp) if dp else 1)
+        if tp > 1:
+            if cfg.dp_mode != "gspmd":
+                raise ValueError(
+                    "tensor_parallel composes with dp_mode='gspmd' only")
+            if dp_n < 1:
+                raise ValueError(f"tensor_parallel={tp} exceeds the {world} "
+                                 "available devices")
+            if cfg.batch_size % max(dp_n, 1):
+                raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                                 f"by data_parallel={dp_n}")
+        else:
+            if dp_n > 1 and cfg.dp_mode != "gspmd":
+                raise ValueError(
+                    "pipeline_parallel composes with dp_mode='gspmd' only")
+            if world < pp * dp_n:
+                raise ValueError(
+                    f"pipeline_parallel={pp} x data_parallel={dp_n} needs "
+                    f"{pp * dp_n} devices, have {world}")
+        if dp_n * inner != world:
+            raise ValueError(
+                f"data_parallel={dp_n} x {what} needs {dp_n * inner} ranks, "
+                f"but the process group holds {world}")
+        self.dp_n = dp_n
+        self.dp_rank = dist.get_rank() // inner
+        self.distributed = True
+        return world, dist.get_rank()
+
     def _check_dispatch(self) -> None:
         """The JAX ``grad_accum`` divisibility rule, and the JAX rule that
         the 1-bit exchange does not run in the device-resident epoch."""
@@ -585,9 +684,19 @@ class Trainer:
         if cfg.grad_accum < 1 or cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by "
                              f"grad_accum={cfg.grad_accum}")
-        if cfg.grad_compress != "none" and cfg.device_data:
-            raise ValueError(f"grad_compress={cfg.grad_compress!r} requires "
-                             "device_data=False")
+        if cfg.grad_compress != "none":
+            bad = [need for cond, need in (
+                (cfg.tensor_parallel > 1, "tensor_parallel=1"),
+                (cfg.pipeline_parallel > 1, "pipeline_parallel=1"),
+                (cfg.device_data, "device_data=False")) if cond]
+            if bad:
+                raise ValueError(f"grad_compress={cfg.grad_compress!r} "
+                                 "requires " + ", ".join(bad))
+        if self.mp is not None and (cfg.scan_steps > 1 or cfg.device_data):
+            raise NotImplementedError(
+                "scan_steps and device_data under tensor_parallel or "
+                "pipeline_parallel are not ported yet (ROADMAP queue 1 "
+                "item 7)")
 
     def _setup_grad_compress(self) -> None:
         """The 1-bit exchange's plan and groups (JAX
@@ -687,6 +796,62 @@ class Trainer:
                      f", grad_compress={cfg.grad_compress}"
                      if cfg.grad_compress != "none" else "", self.world)
 
+    def _setup_tensor_parallel(self) -> None:
+        """Megatron tensor parallelism over a (data x model) mesh (the JAX
+        ``_setup_tensor_parallel``): every rank holds the same seeded
+        model, then its shards by the family's rule table
+        (``parallel.model_parallel.TpShards``); BatchNorm normalises over
+        the data group's global batch."""
+        from ..parallel import (
+            TpShards,
+            make_mesh,
+            replicate,
+            set_batchnorm_group,
+        )
+        from ..interop import TpLayout
+
+        cfg = self.config
+        tp = int(cfg.tensor_parallel)
+        replicate(self.model)
+        self.mesh = make_mesh(data=self.dp_n, model=tp)
+        self._data_group = self.mesh.group("data")
+        self.tp = TpShards(self.model, cfg.model, self.mesh, wire=self.wire)
+        self.layout = TpLayout(self.model, self.tp)
+        if self.dp_n > 1:
+            set_batchnorm_group(self.model, self._data_group)
+        if self.rank == 0:
+            log.info("tensor-parallel over (data=%d x model=%d) devices",
+                     self.dp_n, tp)
+
+    def _setup_pipeline_parallel(self) -> None:
+        """The GPipe pipelined model over a (data x pipe) mesh (the JAX
+        ``_setup_pipeline_parallel``): this rank keeps its stage's blocks
+        (``parallel.pipeline_model.PipelinedModel``), so the optimizer
+        built over it holds its stage's moments only."""
+        from ..parallel import PipelinedModel, Mesh, replicate
+
+        cfg = self.config
+        pp = int(cfg.pipeline_parallel)
+        if getattr(self.model, "depth", None) is None:
+            raise ValueError(f"model {cfg.model!r} has no block stack to "
+                             "pipeline (transformer families only)")
+        n_micro = cfg.pp_microbatches or pp
+        if self.dp_n > 1 and cfg.batch_size % (self.dp_n * n_micro):
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by "
+                f"data_parallel={self.dp_n} x microbatches={n_micro}")
+        replicate(self.model)
+        self.mesh = Mesh((self.dp_n, pp), ("data", "pipe"))
+        self._data_group = self.mesh.group("data")
+        self.model = PipelinedModel(
+            self.model, self.mesh, n_micro=n_micro,
+            batch_axis="data" if self.dp_n > 1 else None,
+            stage_remat=cfg.pp_remat or cfg.remat, wire=self.wire)
+        self.layout = self.model
+        if self.rank == 0:
+            log.info("pipeline-parallel over %d stages (depth %d), "
+                     "data_parallel=%d", pp, self.model.depth, self.dp_n)
+
     def _global_bn(self) -> bool:
         """Does the step normalise over the global batch (the GSPMD and
         fp32 FSDP steps), so that ``grad_accum``'s microbatches are
@@ -699,14 +864,44 @@ class Trainer:
             return x
         from ..parallel import shard_batch   # parallel imports this module
 
-        return shard_batch(x, microbatches=(self.config.grad_accum
-                                            if self._global_bn() else 1),
+        return shard_batch(x, self._data_group,
+                           microbatches=(self.config.grad_accum
+                                         if self._global_bn() else 1),
                            dim=dim)
+
+    def _set_tp_step(self) -> Callable:
+        """The TP step over the trainer's shards (its optimizer comes per
+        call: a regime's optimizer switch keeps the sharding, as the JAX
+        ``_set_tp_step`` rebuilds it to)."""
+        from ..parallel import make_tp_train_step
+
+        cfg = self.config
+        return make_tp_train_step(
+            self.clamp_mask, self.model, self.tp, loss_fn=self._loss_fn,
+            wire=self.wire, grad_accum=cfg.grad_accum, remat=cfg.remat)
+
+    def _set_pp_step(self) -> Callable:
+        """The pipelined step (the JAX ``_set_pp_step``): the step body
+        over the pipelined model, the embedding's gradients summed over
+        the pipe group, then averaged over the data group. ``remat`` is
+        the stages' checkpoint (the pipelined forward's sends and
+        receives are not run twice)."""
+        from ..parallel import make_pp_train_step
+
+        cfg = self.config
+        return make_pp_train_step(
+            self.clamp_mask, self.model, self._data_group,
+            loss_fn=self._loss_fn, wire=self.wire,
+            grad_accum=cfg.grad_accum)
 
     def _make_train_step(self) -> Callable:
         cfg = self.config
         kw = dict(loss_fn=self._loss_fn, grad_accum=cfg.grad_accum,
                   remat=cfg.remat)
+        if self.mp == "tp":
+            return self._set_tp_step()
+        if self.mp == "pp":
+            return self._set_pp_step()
         if not self.distributed:
             return make_step_body(self.clamp_mask, **kw)
         from ..parallel import (
@@ -755,7 +950,8 @@ class Trainer:
                     local_group=self._local_group, **common)
         return make_optimizer(name, params, learning_rate,
                               clip_grad_norm=cfg.clip_grad_norm,
-                              fsdp=self.fsdp, **exchange, **kwargs)
+                              fsdp=self.fsdp, tp=self.tp, **exchange,
+                              **kwargs)
 
     def comm_bytes(self, phase: Optional[str] = None,
                    level: Optional[str] = None) -> int:
@@ -1005,7 +1201,8 @@ class Trainer:
         """``test_loss``, ``test_acc`` and ``test_acc_top5`` (percent) over
         ``data.test_images``, every row counted once; one host sync. In
         a data-parallel run rank 0 evaluates and broadcasts the result."""
-        if self.world <= 1:
+        if self.world <= 1 or self.mp is not None:
+            # TP / PP: the forward is collective, every rank evaluates
             return self._evaluate(data, batch_size)
         keys = ("test_loss", "test_acc", "test_acc_top5")
         vals = torch.zeros(len(keys), dtype=torch.float64, device=self.device)

@@ -20,13 +20,23 @@ BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack",
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("torch_*.py"))
+             + [REPO / "tests" / "torch_dp_util.py",
+                REPO / "tests" / "torch_mp_util.py"])
     assert len(files) > 20
     # the modules of the captured step (train.capture), of remat, of
-    # FSDP and of the re-placement across worlds
+    # FSDP and of the re-placement across worlds, of model parallelism,
+    # the timing scripts and the rank sides of the spawned tests
     assert {PORT / "train" / "capture.py", PORT / "ops" / "remat.py",
             PORT / "parallel" / "fsdp.py",
-            PORT / "parallel" / "remesh.py"} <= set(files)
+            PORT / "parallel" / "remesh.py",
+            PORT / "parallel" / "mesh.py",
+            PORT / "parallel" / "model_parallel.py",
+            PORT / "parallel" / "pipeline.py",
+            PORT / "parallel" / "pipeline_model.py",
+            PORT / "parallel" / "tp_pipeline.py",
+            REPO / "scripts" / "torch_mp_timing.py"} <= set(files)
     return files
 
 
