@@ -118,11 +118,11 @@ Phases, each fatal on failure:
      equal to a single-process ``Trainer(grad_compress="sign_ef")``;
      then ``cli train --dp auto --grad-compress sign_ef`` one epoch in a
      process of its own, which must converge; (b) 4 gloo ranks sharing
-     card 0 (16 rows each of the global batch of 64): the first 300
+     card 0 (16 rows each of the global batch of 64): the first 150
      steps of the epoch (``DP_EPOCH_STEPS``) uncompressed (global-batch
      BatchNorm, the gradients averaged in DDP's order) and again with
      ``sign_ef``, each passing phase 8's
-     convergence thresholds (which 300 steps in one process meet too,
+     convergence thresholds (which 150 steps in one process meet too,
      checked beside), ``sign_ef`` within 2 points of the uncompressed
      run, then 50 steps of ``sign`` (majority vote, lr 0.001); (c) 20
      steps of (b)'s ``sign_ef`` on pallas_xnor and on xla (bf16 rounds
@@ -158,7 +158,7 @@ Phases, each fatal on failure:
      over HTTP at batch 32 (K1 twice per predictor batch, the warm-up
      included; every answer equal to the predictor), with the
      predictor's host and device time a batch; (d) ``convnet`` and
-     ``deep-cnn``, 200 steps each at fp32 and at bf16 (the loss falls),
+     ``deep-cnn``, 100 steps each at fp32 and at bf16 (the loss falls),
      step and device times, then ``scripts/torch_conv_fp32_check.py`` in
      a process of its own: ``cli train --model convnet``, which sets no
      TF32 flag, must give conv outputs within fp32 rounding of a float64
@@ -195,7 +195,7 @@ Phases, each fatal on failure:
  12. the captured training step (``train.capture``: ``scan_steps``,
      ``device_data``, ``grad_accum``, ``remat``): (a) phase 8's recipe
      (dropout 0.3, bf16) one epoch of a synthetic 20,480/2,048 split
-     (320 steps) eager, with ``scan_steps=8`` (40 graph replays) and
+     (160 steps) eager, with ``scan_steps=8`` (20 graph replays) and
      with ``device_data`` (the dataset on the card, 64-step graphs):
      parameters, BatchNorm statistics, Adam's state and the train
      generator ``torch.equal``, each dispatch's mean loss the mean of
@@ -232,24 +232,42 @@ Phases, each fatal on failure:
  14. model parallelism (``parallel.mesh``, ``model_parallel``,
      ``pipeline``, ``pipeline_model``, ``tp_pipeline``), gloo ranks
      sharing the card: (a) ``bnn-mlp-large`` at full width on
-     pallas_xnor, 20 SGD steps at tp = 2 and at data 2 x model 2 against
+     pallas_xnor, 10 SGD steps at tp = 2 and at data 2 x model 2 against
      the single-process trainer (losses 1e-4, parameters 1e-3), ranks'
-     losses equal, replicated leaves bitwise equal, K1 2 x 20 times in
+     losses equal, replicated leaves bitwise equal, K1 2 x 10 times in
      each rank, wire bytes a step equal to the plan in PERF.md, the
      trained model's forward up to the head ``torch.equal`` to the
      unsharded model's; (b) the LM at the --lm-bench width, flash
      attention, pipelined over 2 stages of 2 microbatches: the forward
-     within 1e-4 of the sequential one, each of 10 Adam steps (loss,
+     within 1e-4 of the sequential one, each of 5 Adam steps (loss,
      gradients within ``LM_GRAD_RTOL``) against the sequential step on
-     the same parameters, 10 steps of ``lm_demo.run(pp=2)`` twice bitwise
-     equal, K4, K5 and K6 40 times in each rank; (c) ``cli train --model
+     the same parameters, 5 steps of ``lm_demo.run(pp=2)`` twice bitwise
+     equal, K4, K5 and K6 20 times in each rank; (c) ``cli train --model
      bnn-vit-tiny --pp 2`` one epoch, converging, in a process of its
      own; (d) ``make_tp_pipeline_fn`` at (data 1, model 2, pipe 2), each
-     of 10 SGD steps against ``tp_pipeline_reference`` on the same
+     of 5 SGD steps against ``tp_pipeline_reference`` on the same
      parameters (output, loss, gradients); K1 at
      the shards' shapes equal to its plain version and timed
      (``mp_shapes`` in K1's row). K1's and K4-K6's launches enter the
      kernels line as ``launches_mp_path``.
+ 15. observability (``obs/``; the trainer's and both servers'
+     telemetry), run last, ~14 min into the process: (a)
+     ``bnn-mlp-large`` on pallas_xnor, batch 64, a 50-step epoch through ``Trainer.fit`` with ``telemetry_dir``,
+     ``trace`` and the profile window 8:24, eager and at
+     ``scan_steps=8``: the logs read back (``read_events``,
+     ``summarize``), one step event a dispatch, examples = steps x batch,
+     the build counter's captures = ``TrainScan``'s, MFU in (0, 1], K1
+     inside the window's ``jg_step`` regions as often as the counters
+     launched it (taken as the window starts and stops), and what the
+     capture says of the card's clock against the host's
+     (``capture_clock``); (b) phase 12's captured step timed with telemetry off
+     and on (printed); (c) the frozen MLP served with telemetry and
+     trace: /metrics in Prometheus text counting the requests, request
+     events with their span trees, a /admin/profile capture under
+     traffic showing K2 and K3, a /admin/reload answering bitwise alike;
+     (d) the LM served with telemetry: six streams during a capture
+     showing K7 and K8, /metrics, ``lm_decode`` events. The kernels'
+     launches there enter the kernels line as ``launches_obs_path``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -270,6 +288,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()   # the process's age at each capture
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, the lowest
 # precision the data sheet lists; a ±1 GEMM counts 2*M*N*K operations
@@ -335,12 +354,14 @@ MLP_MIN_ACC, MLP_MIN_GAIN = 55.0, 20.0
 # Data-parallel training (phase 9): MLP_TRAIN, dropout 0.
 DP_NCCL_STEPS = 50          # (a) sign_ef, one NCCL rank a card
 DP_GLOO_RANKS = 4           # (b)-(d) gloo ranks sharing card 0: 16 rows each
-# (b) the epoch cut to its first 300 steps: the whole 937 took phase 9
+# (b) the epoch cut to its first steps: the whole 937 took phase 9
 # to 366 s on an H100 80GB HBM3 at 700 W (gloo moves each collective
 # through the host; the uncompressed step took 130 ms, the sign_ef one
-# 107). Phase 8's convergence thresholds hold, and 300 single-process
-# steps must meet them too (checked beside).
-DP_EPOCH_STEPS = 300
+# 107). Phase 8's convergence thresholds hold, and the single-process
+# steps must meet them too (checked beside). Cut from 300 steps
+# for phase 15's time (300 reached 100% test accuracy on the synthetic
+# split, against the thresholds' 55 and a 20-point gain).
+DP_EPOCH_STEPS = 150
 # (b) majority vote (JAX's lr): ranks equal and the plan's bytes, no
 # convergence threshold; cut from 200 steps in PR 15 for phase 14's time
 DP_SIGN_STEPS, DP_SIGN_LR = 50, 0.001
@@ -358,7 +379,8 @@ CNN_TRAIN = dict(model="bnn-cnn", batch_size=CNN_BATCH, optimizer="adam",
 CNN_SYNTH = (12800, 2048)   # 200 steps of 64; a test split of 2048
 CNN_DET_STEPS = 30          # two bf16 runs from one seed
 CNN_BACKEND_STEPS = 20      # xla, xnor and pallas_xnor
-CNN_FP_STEPS = 200          # convnet and deep-cnn at fp32 and bf16
+CNN_FP_STEPS = 100          # convnet and deep-cnn at fp32 and bf16 (cut
+# from 200 steps for phase 15's time: the check is a falling loss)
 CNN_DP_STEPS = 20           # 2 gloo ranks sharing card 0
 # The training runtime (phase 11): MLP_TRAIN on pallas_xnor (K1 in the
 # step) with the MLP's dropout (0.3), so the generator's state matters;
@@ -370,8 +392,9 @@ RT_LOG_INTERVAL = 10
 RT_SIGTERM_AFTER = 30       # epoch 1's logged step before the SIGTERM
 RT_NODE_STEPS = 20          # the two-node sign_ef run
 # The captured training step (phase 12): MLP_TRAIN (dropout 0.3, bf16)
-# on one epoch of a synthetic 20,480/2,048 split (320 steps of 64).
-SCAN_SYNTH = (20480, 2048)
+# on one epoch of a synthetic 10,240/2,048 split (160 steps of 64; cut
+# from 320 for phase 15's time).
+SCAN_SYNTH = (10240, 2048)
 SCAN_STEPS = 8              # steps a dispatch of the scan runs
 SCAN_K1_STEPS = 40          # (b) pallas_xnor, dropout 0
 SCAN_SHORT_STEPS = 20       # (c) remat and grad_accum, (e) bnn-cnn
@@ -384,14 +407,15 @@ SCAN_STOP_AFTER = 5         # (d) dispatches before the stop request
 # the counts are integers, exact in both.
 SCAN_EVAL_RTOL = 1e-5
 # Phase 13: data parallelism captured, one NCCL rank (this process)
-DPC_STEPS = 40              # (a), (b): 5 dispatches of SCAN_STEPS
+DPC_STEPS = 24              # (a), (b): 3 dispatches of SCAN_STEPS (cut
+# from 40 for phase 15's time)
 DPC_SHORT_STEPS = 16        # (c) grad_accum and remat, (d) elastic
 DPC_CLI_SYNTH = (6400, 1024)  # (e) 100 steps
 _GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernels
 
 # Phase 14: model parallelism, gloo ranks sharing the card
 MP_BATCH = 64               # the global batch of (a)
-MP_TP_STEPS = 20
+MP_TP_STEPS = 10            # cut from 20 for phase 15's time
 # the JAX TP test's recipe (tests/test_tensor_parallel.py: SGD 0.05) on
 # bnn-mlp-large at full width, pallas_xnor, dropout 0
 MP_TRAIN = dict(model="bnn-mlp-large", batch_size=MP_BATCH, optimizer="sgd",
@@ -405,7 +429,8 @@ MP_LOSS_ATOL, MP_PARAM_TOL = 1e-4, 1e-3   # the JAX TP test's tolerances
 MP_TP_PLAN = {(1, 2): {"model": 788992, "data": 0},
               (2, 2): {"model": 394496, "data": 16670248}}
 # (b) the LM at the --lm-bench width, pp = 2, two microbatches
-MP_PP, MP_PP_MICRO, MP_PP_STEPS = 2, 2, 10
+# (MP_PP_STEPS cut from 10 for phase 15's time)
+MP_PP, MP_PP_MICRO, MP_PP_STEPS = 2, 2, 5
 MP_PP_FWD_ATOL = 1e-4       # the flash checks' tolerance (FLASH_GRAD_TOL)
 # Each pipelined training step is held to the sequential model's step
 # from the same parameters (its loss, as phase 12's flash step: 1e-4
@@ -421,7 +446,8 @@ MP_PP_LOSS_RTOL = 1e-4
 # 59.6% on an H100, too near phase 8's 55)
 MP_VIT_SYNTH = (16384, 1024)
 # (d) make_tp_pipeline_fn at (data 1, model 2, pipe 2)
-MP_TPP = dict(d_model=256, d_hidden=1024, batch=64, steps=10, lr=0.05)
+# (steps cut from 10 for phase 15's time)
+MP_TPP = dict(d_model=256, d_hidden=1024, batch=64, steps=5, lr=0.05)
 # Each step is held to the reference on the same parameters (its output
 # relative to its scale and its loss: the row-parallel sums reassociate
 # fp32 products of up to 1024 terms; this rank's gradient slices in
@@ -443,6 +469,17 @@ MP_TPP_GRAD_RTOL = LM_GRAD_RTOL
 # column shard at tp = 2 (M = 64; 32 under data 2) and tp = 4
 MP_K1_SHAPES = ((64, 1536, 1536), (64, 1536, 384), (32, 1536, 1536),
                 (32, 1536, 384), (64, 768, 1536), (64, 1536, 192))
+# Observability (phase 15): bnn-mlp-large on pallas_xnor, batch 64, one
+# epoch of 50 steps with the profile window over steps 8 to 24 (eager:
+# 16 dispatches; scan_steps=8: the graph's 2nd and 3rd replays);
+# a 320-step epoch of phase 12's step for the telemetry on/off times
+OBS_SYNTH = (3200, 1024)
+OBS_WINDOW = "8:24"
+OBS_COST_SYNTH = (20480, 2048)
+OBS_REQUESTS = 8
+OBS_PROFILE_MS = 1000.0
+OBS_LM_PROFILE_MS = 2500.0
+OBS_LM_DECODE_EVERY = 10
 
 _SRC = "distributed_mnist_bnns_tpu_torch/csrc/"
 _TPU = "distributed_mnist_bnns_tpu/ops/"
@@ -4134,22 +4171,22 @@ def mp_phase(device: torch.device, gen: torch.Generator, smi: str):
     rank a card: the four-card runs are ``scripts/torch_mp_timing.py``):
 
     (a) ``bnn-mlp-large`` at full width on pallas_xnor, dropout 0, SGD
-    0.05, global batch 64, 20 steps at tp = 2 and at data 2 x model 2:
+    0.05, global batch 64, 10 steps at tp = 2 and at data 2 x model 2:
     losses within 1e-4 and parameters within 1e-3 of the single-process
     trainer's, every rank's losses equal, the replicated leaves bitwise
-    equal on every rank, K1 launched 2 x 20 times in each rank, the wire
+    equal on every rank, K1 launched 2 x 10 times in each rank, the wire
     bytes a step equal to ``MP_TP_PLAN`` (PERF.md), and the trained
     model's eval forward up to the head ``torch.equal`` to the unsharded
     model's on the gathered weights (logits: the row-parallel head's
     partial sums reassociate, printed);
     (b) the LM at the --lm-bench width with flash attention pipelined
     over 2 stages of 2 microbatches, random biases: the eval forward
-    within 1e-4 of the sequential model's; 10 Adam steps, each one's
+    within 1e-4 of the sequential model's; 5 Adam steps, each one's
     loss within 1e-4 (relative) and gradients within ``LM_GRAD_RTOL``
     (each leaf in relative L2; the key biases printed) of the sequential
-    model's step on the same parameters; ``lm_demo.run(pp=2)`` 10 steps
+    model's step on the same parameters; ``lm_demo.run(pp=2)`` 5 steps
     twice, bitwise equal; K4,
-    K5 and K6 each launched (depth / pp) x n_micro x steps = 40 times in
+    K5 and K6 each launched (depth / pp) x n_micro x steps = 20 times in
     each rank;
     (c) ``cli train --model bnn-vit-tiny --pp 2 --dist-backend gloo``
     one epoch, converging, in a process of its own;
@@ -4183,6 +4220,476 @@ def mp_phase(device: torch.device, gen: torch.Generator, smi: str):
     return launches, k1_rows
 
 
+# -- phase 15: observability -------------------------------------------------
+
+
+def _obs_summary(path: str) -> dict:
+    """The port's summary of a run log; fails unless the log reads."""
+    from distributed_mnist_bnns_tpu_torch.obs import read_events, summarize
+
+    events = list(read_events(path))
+    if not events or events[0]["kind"] != "run_manifest":
+        raise AssertionError(f"{path}: no run manifest first: {events[:1]}")
+    return {"events": events, "summary": summarize(path)}
+
+
+def capture_clock(artifact_dir: str) -> dict:
+    """What a capture's Chrome trace says of the card's clock against the
+    host's. ``lag_*_us``: a kernel's start less its launch call's start
+    (the first kernel of each launch; a few us on an idle card, and never
+    below 0 while the two clocks agree). ``orphans``: kernel launch calls
+    left without any kernel (a kernel the profiler dropped), each with
+    its distance in us from the window's first launch call and to its
+    last. ``kernels``: the package's kernels in the trace by counter
+    name."""
+    from distributed_mnist_bnns_tpu_torch.obs.profile import (
+        find_trace_json,
+        load_trace_events,
+        port_kernel,
+    )
+
+    events = [e for e in load_trace_events(find_trace_json(artifact_dir))
+              if e.get("ph") == "X"]
+    calls, first_kernel, port = {}, {}, {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        cat, name = str(e.get("cat", "")), str(e.get("name", ""))
+        if cat in ("cuda_runtime", "cuda_driver") and corr is not None \
+                and "Launch" in name:
+            calls[corr] = float(e.get("ts", 0.0))
+        elif cat == "kernel":
+            ts = float(e.get("ts", 0.0))
+            if corr is not None:
+                first_kernel[corr] = min(ts, first_kernel.get(corr, ts))
+            kernel = port_kernel(name)
+            if kernel is not None:
+                port[kernel] = port.get(kernel, 0) + 1
+    lags = sorted(first_kernel[c] - t for c, t in calls.items()
+                  if c in first_kernel)
+    t_first = min(calls.values(), default=0.0)
+    t_last = max(calls.values(), default=0.0)
+    return {
+        "lag_min_us": lags[0] if lags else None,
+        "lag_p50_us": lags[len(lags) // 2] if lags else None,
+        "launch_calls": len(calls),
+        "orphans": [[round(t - t_first, 1), round(t_last - t, 1)]
+                    for c, t in sorted(calls.items(), key=lambda kv: kv[1])
+                    if c not in first_kernel],
+        "kernels": dict(sorted(port.items())),
+    }
+
+
+def _window_hook(trainer, marks: dict):
+    """Take the kernel launches that ran (eager launches, less what
+    graph captures recorded, plus what the replays ran) as the trainer's
+    profile window starts (``marks["start"]``) and stops
+    (``marks["stop"]``), through the process's ``ProfileManager``;
+    returns the function that removes the hook."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    prof = trainer._profiler
+    start, stop = prof.start, prof.stop
+
+    def ran() -> dict:
+        scan = trainer._train_scan
+        rec = scan.recorded if scan is not None else {}
+        replayed = scan.ran if scan is not None else {}
+        return {k: v - rec.get(k, 0) + replayed.get(k, 0)
+                for k, v in _kernels.LAUNCHES.items()}
+
+    def hooked_start(artifact_dir):
+        start(artifact_dir)
+        marks["start"] = ran()
+
+    def hooked_stop(**kw):
+        marks["stop"] = ran()
+        return stop(**kw)
+
+    prof.start, prof.stop = hooked_start, hooked_stop
+
+    def remove():
+        del prof.start, prof.stop
+
+    return remove
+
+
+def _obs_train(device, data, tmp: str, scan_steps: int, smi: str) -> dict:
+    """Phase 15 (a), one run: ``bnn-mlp-large`` on pallas_xnor through
+    ``Trainer.fit`` with telemetry, trace and the profile window; the
+    run's checks. Returns its numbers and the run's kernel launches."""
+    from distributed_mnist_bnns_tpu_torch.obs import (
+        get_tracker,
+        summarize_capture,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    name = "eager" if scan_steps == 1 else f"scan_steps={scan_steps}"
+    td = os.path.join(tmp, name)
+    bs = MLP_TRAIN["batch_size"]
+    tracker = get_tracker()
+    captures0 = tracker.kind_count("capture")
+    before = dict(_kernels.LAUNCHES)
+    t = _mlp_trainer(device, backend="pallas_xnor", log_interval=10,
+                     scan_steps=scan_steps, telemetry_dir=td, trace=True,
+                     profile_step_window=OBS_WINDOW)
+    marks = {}
+    unhook = _window_hook(t, marks)
+    t0 = time.perf_counter()
+    try:
+        t.fit(data)
+    finally:
+        unhook()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    scan = t._train_scan
+    launches = {k: _kernels.LAUNCHES[k] - before[k]
+                - (scan.recorded.get(k, 0) if scan else 0)
+                + (scan.ran.get(k, 0) if scan else 0) for k in KERNEL_ROWS}
+    got = _obs_summary(os.path.join(td, "events.jsonl"))
+    events, summary = got["events"], got["summary"]
+    steps = [e for e in events if e["kind"] == "step"]
+    n_steps = len(data.train_labels) // bs
+    dispatches = (n_steps if scan_steps == 1
+                  else n_steps // scan_steps + n_steps % scan_steps)
+    examples = t.telemetry.registry.counter(
+        "train_examples_total").total()
+    captures = tracker.kind_count("capture") - captures0
+    mfus = [e["mfu"] for e in steps]
+    caps = [e for e in events if e["kind"] == "profile_capture"]
+    if len(caps) != 1:
+        raise AssertionError(f"{name}: {len(caps)} profile captures")
+    prof = summarize_capture(caps[0]["dir"])
+    clock = capture_clock(caps[0]["dir"])
+    k1_window = marks["stop"]["xnor"] - marks["start"]["xnor"]
+    k1_in_steps = prof["kernel_launches_in_steps"].get("xnor", 0)
+    row = {
+        "obs_train": name, "card": smi, "wall_s": wall,
+        "step_events": len(steps), "dispatches": dispatches,
+        "steps": summary["steps"]["count"],
+        "examples_total": examples,
+        "summary_examples": summary["steps"]["examples"],
+        "captures_counted": captures,
+        "train_scan_captures": scan.captures if scan else 0,
+        "mfu_mean": summary["steps"]["mfu_mean"],
+        "mfu_max": summary["steps"]["mfu_max"],
+        "step_latency_s": summary["steps"]["latency_s"],
+        "step_latency_ms": [round(e["latency_s"] * 1e3, 3) for e in steps],
+        "examples_per_sec_mean": summary["steps"]["examples_per_sec_mean"],
+        "analytic_step_flops": t._step_flops,
+        "peak_flops": t._peak_flops, "peak_precision": t._peak_precision,
+        "event_counts": summary["event_counts"],
+        "profile_window": OBS_WINDOW, "k1_launched_in_window": k1_window,
+        "k1_in_jg_step_regions": k1_in_steps,
+        "profile_kernel_launches": prof["kernel_launches"],
+        "profile_annotated_steps": prof["annotated_steps"],
+        "process_age_s": time.perf_counter() - T_START,
+        "capture_clock": clock,
+        "launches": launches,
+    }
+    print(json.dumps(row), flush=True)
+    bad = []
+    if len(steps) != dispatches or summary["steps"]["count"] != n_steps:
+        bad.append(f"{len(steps)} step events for {dispatches} dispatches "
+                   f"({summary['steps']['count']} steps, want {n_steps})")
+    if examples != n_steps * bs or summary["steps"]["examples"] != \
+            n_steps * bs:
+        bad.append(f"examples_total {examples} / {summary['steps']} != "
+                   f"{n_steps} x {bs}")
+    if captures != row["train_scan_captures"] or (
+            scan_steps > 1 and captures != 2):
+        bad.append(f"capture counter {captures}, TrainScan "
+                   f"{row['train_scan_captures']}")
+    if not mfus or not all(0 < m <= 1 for m in mfus) \
+            or t._peak_precision != "bf16":
+        bad.append(f"MFU outside (0, 1] or not against the card's bf16 "
+                   f"peak: {mfus[:4]} {t._peak_precision}")
+    if not (k1_window > 0 and k1_in_steps == k1_window):
+        bad.append(f"profile window: K1 {k1_in_steps} in jg_step regions, "
+                   f"the counters say {k1_window}")
+    for kind in ("run_manifest", "epoch", "eval", "span", "metrics",
+                 "run_end"):
+        if kind not in summary["event_counts"]:
+            bad.append(f"no {kind} event")
+    if bad:
+        raise AssertionError(f"phase 15 (a) {name}: " + "; ".join(bad))
+    log(f"(a) {name}: {len(steps)} step events for {dispatches} "
+        f"dispatches, {examples:.0f} examples, {captures} captures, MFU "
+        f"mean {row['mfu_mean']:.4g}; K1 {k1_in_steps} in jg_step regions "
+        f"= {k1_window} launched in the window")
+    return row
+
+
+def _obs_cost(device, smi: str) -> dict:
+    """Phase 15 (b): phase 12's captured step (``MLP_TRAIN``, bf16,
+    ``scan_steps=8``) timed with telemetry off (the registry only) and
+    on (events, trace), off / on / on / off, each a second epoch on the
+    host clock after the capture epoch. Printed, nothing gated."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=OBS_COST_SYNTH, seed=0)
+        ms = {"off": [], "on": []}
+        for i, mode in enumerate(("off", "on", "on", "off")):
+            kw = ({} if mode == "off" else
+                  dict(telemetry_dir=os.path.join(tmp, f"t{i}"), trace=True))
+            t = _mlp_trainer(device, scan_steps=SCAN_STEPS, **kw)
+            t.train_epoch(data, 0)
+            row = t.train_epoch(data, 1)
+            ms[mode].append(row["epoch_time_s"] / row["steps"] * 1e3)
+            t.telemetry.close()
+    out = {"obs_telemetry_cost": True, "card": smi,
+           "steps_per_epoch": OBS_COST_SYNTH[0] // MLP_TRAIN["batch_size"],
+           "step_ms_off": ms["off"], "step_ms_on": ms["on"],
+           "on_over_off": statistics.mean(ms["on"])
+           / statistics.mean(ms["off"])}
+    print(json.dumps(out), flush=True)
+    log(f"(b) captured step {statistics.mean(ms['off']):.4f} ms off, "
+        f"{statistics.mean(ms['on']):.4f} ms on")
+    return out
+
+
+def _prom(text: str, series: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"/metrics has no {series}")
+
+
+def _obs_mlp_server(device, gen, tmp: str, smi: str) -> dict:
+    """Phase 15 (c): the frozen ``bnn-mlp-large`` served with telemetry
+    and trace: N requests, /metrics as Prometheus text counting N, N
+    request events each with its span tree, a /admin/profile capture
+    under traffic showing K2 and K3, a /admin/reload answering bitwise
+    alike. Returns the path's launches."""
+    from distributed_mnist_bnns_tpu_torch.infer import export_packed
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.obs import (
+        load_spans,
+        summarize_capture,
+    )
+    from distributed_mnist_bnns_tpu_torch.obs.trace import children_index
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve import client
+
+    model = get_model("bnn-mlp-large", generator=gen)
+    _random_bn_stats(model, gen)
+    path = os.path.join(tmp, "mlp.msgpack")
+    export_packed(model.eval(), path)
+    td = os.path.join(tmp, "serve")
+    imgs = (torch.randint(0, 256, (MAIN_M, 28, 28, 1), generator=gen)
+            / 256.0).numpy()
+    before = dict(_kernels.LAUNCHES)
+    srv = PackedInferenceServer(ServeConfig(
+        artifact=path, device=str(device), port=0, batch_size=MAIN_M,
+        default_deadline_ms=30000.0, stall_timeout_s=30.0,
+        telemetry_dir=td, trace=True))
+    host, port = srv.start()
+    base = f"http://{host}:{port}"
+    stop = threading.Event()
+    extra = [0]
+
+    def traffic():
+        while not stop.is_set():
+            if client.predict(base, imgs[:8].tolist())[0] == 200:
+                extra[0] += 1
+
+    try:
+        answers = []
+        for i in range(OBS_REQUESTS):
+            code, body = client.predict(base, imgs[:1 + 4 * i].tolist(),
+                                        trace=True)
+            if code != 200:
+                raise AssertionError(f"/predict: {code} {body[:200]!r}")
+            answers.append(body)
+        code, text = client.metrics(base, prometheus=True)
+        n_ok = _prom(text.decode(), 'serve_requests_total{status="ok"}')
+        th = threading.Thread(target=traffic)
+        th.start()
+        time.sleep(0.2)
+        code_p, body_p = client.profile(base, OBS_PROFILE_MS)
+        stop.set()
+        th.join(60)
+        code_r, _ = client.reload_artifact(base)
+        again = client.predict(base, imgs[:1].tolist())[1]
+    finally:
+        stop.set()
+        srv.request_stop("smoke over")
+        srv.drain_and_stop()
+    launches = {k: _kernels.LAUNCHES[k] - before[k] for k in KERNEL_ROWS}
+    got = _obs_summary(os.path.join(td, "events.jsonl"))
+    events = got["events"]
+    reqs = [e for e in events if e["kind"] == "request"]
+    spans = load_spans(os.path.join(td, "events.jsonl"))
+    kids = children_index(spans)
+    roots = [s for s in spans if s["span_kind"] == "request"]
+    trees = sum({"queue", "assemble", "infer", "respond"} <= {
+        k["span_kind"] for k in kids.get((r["trace"], r["span"]), [])}
+        for r in roots)
+    prof = (summarize_capture(json.loads(body_p)["dir"])
+            if code_p == 200 else {})
+    total = OBS_REQUESTS + extra[0] + 1
+    row = {"obs_serve": "bnn-mlp-large", "card": smi,
+           "requests_before_profile": OBS_REQUESTS,
+           "metrics_ok_count": n_ok, "request_events": len(reqs),
+           "requests_total": total, "span_trees": trees,
+           "profile_status": code_p,
+           "profile_kernel_launches": prof.get("kernel_launches"),
+           "reload_status": code_r, "reload_same_answer":
+               again == answers[0], "launches": launches,
+           "event_counts": got["summary"]["event_counts"]}
+    print(json.dumps(row), flush=True)
+    k = prof.get("kernel_launches") or {}
+    if not (n_ok == OBS_REQUESTS and len(reqs) == total
+            and trees == total and code_p == 200
+            and k.get("xnor_sign", 0) > 0 and k.get("xnor_affine", 0) > 0
+            and code_r == 200 and row["reload_same_answer"]
+            and "reload" in row["event_counts"]):
+        raise AssertionError(f"phase 15 (c): {row}")
+    log(f"(c) server: /metrics counted {n_ok:.0f} requests, {len(reqs)} "
+        f"request events with their span trees, profile K2 x"
+        f"{k['xnor_sign']} K3 x{k['xnor_affine']}, reload bitwise")
+    return row
+
+
+def _obs_lm_server(device, gen, tmp: str, smi: str) -> dict:
+    """Phase 15 (d): the LM (``LM_WIDTH``) served with telemetry: six
+    streams during a /admin/profile capture, which must show K7 (the
+    prefill chunks) and K8; /metrics; ``lm_decode`` events. Returns the
+    path's launches."""
+    from distributed_mnist_bnns_tpu_torch.infer import export_packed
+    from distributed_mnist_bnns_tpu_torch.models import BinarizedLM
+    from distributed_mnist_bnns_tpu_torch.obs import summarize_capture
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve.lm import (
+        LMServeConfig,
+        LMServer,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+
+    model = BinarizedLM(**LM_WIDTH, generator=gen).eval()
+    _random_lm_params(model, gen)
+    path = os.path.join(tmp, "lm.msgpack")
+    export_packed(model, path)
+    td = os.path.join(tmp, "lm")
+    prompts = [torch.randint(0, LM_WIDTH["vocab"], (n,),
+                             generator=gen).tolist() for n in LM_PROMPTS]
+    before = dict(_kernels.LAUNCHES)
+    srv = LMServer(LMServeConfig(
+        artifact=path, device=str(device), port=0, slots=LM_SLOTS,
+        page_size=LM_PAGE, prefill_chunk=LM_CHUNK, telemetry_dir=td,
+        trace=True))
+    host, port = srv.start()
+    srv.engine.decode_event_every = OBS_LM_DECODE_EVERY
+    base = f"http://{host}:{port}"
+    codes = [None] * len(prompts)
+
+    def ask(i):
+        code, events = lc.generate(base, prompts[i],
+                                   max_new_tokens=LM_NEW_TOKENS,
+                                   deadline_ms=120000.0, trace=True)
+        codes[i] = (code, events[-1])
+
+    prof_reply = {}
+
+    def profile():
+        prof_reply["r"] = lc.profile(base, OBS_LM_PROFILE_MS)
+
+    try:
+        pt = threading.Thread(target=profile)
+        pt.start()
+        time.sleep(0.3)
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        pt.join(120)
+        code_m, body_m = lc.metrics(base)
+        snap = json.loads(body_m)
+    finally:
+        srv.request_stop("smoke over")
+        srv.drain_and_stop()
+    launches = {k: _kernels.LAUNCHES[k] - before[k] for k in KERNEL_ROWS}
+    got = _obs_summary(os.path.join(td, "events.jsonl"))
+    counts = got["summary"]["event_counts"]
+    code_p, body_p = prof_reply.get("r", (None, b"{}"))
+    prof = (summarize_capture(json.loads(body_p)["dir"])
+            if code_p == 200 else {})
+    k = prof.get("kernel_launches") or {}
+    ok = [c for c, last in codes if c == 200 and last.get("status") == "ok"]
+    req_ok = [s["value"] for s in snap["lm_requests_total"]["series"]
+              if s["labels"] == {"status": "ok"}]
+    row = {"obs_serve": "bnn-lm", "card": smi, "streams_ok": len(ok),
+           "metrics_status": code_m, "lm_requests_ok": req_ok,
+           "event_counts": counts, "profile_status": code_p,
+           "profile_kernel_launches": k, "launches": launches}
+    print(json.dumps(row), flush=True)
+    if not (len(ok) == len(prompts) and req_ok == [len(prompts)]
+            and counts.get("lm_decode", 0) >= 1
+            and counts.get("lm_admit") == counts.get("lm_evict")
+            == len(prompts) and code_p == 200
+            and k.get("xnor_unpack", 0) > 0 and k.get("paged_attn", 0) > 0):
+        raise AssertionError(f"phase 15 (d): {row}")
+    log(f"(d) LM server: {len(ok)} streams, {counts['lm_decode']} lm_decode "
+        f"events, profile K7 x{k['xnor_unpack']} K8 x{k['paged_attn']}")
+    return row
+
+
+def obs_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 15, observability (``obs/``, the trainer's and the servers'
+    telemetry): (a) ``bnn-mlp-large`` on pallas_xnor, batch 64, one
+    epoch of ``OBS_SYNTH`` through ``Trainer.fit`` with ``telemetry_dir``,
+    ``trace`` and ``profile_step_window``, eager and at ``scan_steps=8``:
+    the logs read back through ``read_events`` and ``summarize``, one
+    ``step`` event a dispatch, ``train_examples_total`` = steps x batch,
+    the build counter's ``kind=capture`` = ``TrainScan.captures``, every
+    step's MFU in (0, 1] against the card's bf16 peak, the window's
+    capture holding as many K1 kernels inside ``jg_step`` regions as the
+    counters launched there (recorded x replays in the graphs); (b)
+    phase 12's captured step timed with telemetry off and on; (c) the
+    frozen MLP served with telemetry (``_obs_mlp_server``); (d) the LM
+    served with telemetry (``_obs_lm_server``). The launch counters are
+    zeroed just before and read just after. Returns ({kernel: launches
+    on the observability path}, the rows)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    marks = {}
+    _kernels.reset_launches()
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                          synthetic_sizes=OBS_SYNTH, seed=0)
+        train = [_obs_train(device, data, tmp, s, smi)
+                 for s in (1, SCAN_STEPS)]
+        marks["a"] = round(time.perf_counter() - t0, 3)
+        rows["cost"] = _obs_cost(device, smi)
+        marks["b"] = round(time.perf_counter() - t0, 3)
+        serve = _obs_mlp_server(device, gen, tmp, smi)
+        marks["c"] = round(time.perf_counter() - t0, 3)
+        lm = _obs_lm_server(device, gen, tmp, smi)
+        marks["d"] = round(time.perf_counter() - t0, 3)
+    launches = {k: sum(r["launches"][k] for r in (*train, serve, lm))
+                for k in KERNEL_ROWS}
+    rows["train"], rows["serve"], rows["lm"] = train, serve, lm
+    for name in ("xnor", "xnor_sign", "xnor_affine", "xnor_unpack",
+                 "paged_attn"):
+        if launches[name] == 0:
+            raise AssertionError(f"the observability path never launched "
+                                 f"{name}")
+    print(json.dumps({"phase": 15, "launches": launches,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4200,8 +4707,15 @@ def main() -> int:
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
 
+    # The package's profiler keeps CUPTI up between torch.profiler
+    # sessions (TEARDOWN_CUPTI=0, obs/profile.py), as a program of the
+    # package does from its first capture on; imported here, before this
+    # process's first session.
+    from distributed_mnist_bnns_tpu_torch.obs import profile as _profile
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
 
+    print(json.dumps({"teardown_cupti": os.environ.get("TEARDOWN_CUPTI"),
+                      "profile_edge_s": _profile.EDGE_S}), flush=True)
     t0 = time.perf_counter()
     built = _kernels.build()
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
@@ -4223,7 +4737,6 @@ def main() -> int:
     paged_rows, paged_err = paged_phase(device, gen)
     results["paged_attn"] = (paged_rows[0], paged_err)
     log("paged_attn: within 1e-5 of the gather path at every case")
-
     mlp_counts, timing = slice_phase(device, gen)
     print(json.dumps({"slice": "bnn-mlp-large", "launches": mlp_counts,
                       **timing}), flush=True)
@@ -4283,6 +4796,10 @@ def main() -> int:
         if mp_counts[name] == 0:
             raise AssertionError(f"the model-parallel path never launched "
                                  f"{name}")
+    # Phase 15 runs last, in the oldest process the smoke has: its
+    # profile windows are held to the launch counters there.
+    obs_counts, _ = obs_phase(device, torch.Generator().manual_seed(15),
+                              smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -4301,7 +4818,8 @@ def main() -> int:
                          + train_counts[name] + mlp_train_counts[name]
                          + dp_counts[name] + conv_counts[name]
                          + rt_counts[name] + scan_counts[name]
-                         + dpc_counts[name] + mp_counts[name]),
+                         + dpc_counts[name] + mp_counts[name]
+                         + obs_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -4314,6 +4832,7 @@ def main() -> int:
             "launches_capture_path": scan_counts[name],
             "launches_dp_capture_path": dpc_counts[name],
             "launches_mp_path": mp_counts[name],
+            "launches_obs_path": obs_counts[name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,

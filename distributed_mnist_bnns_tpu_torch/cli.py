@@ -1,5 +1,6 @@
 """Command line for the port: ``train``, ``eval``, ``export``, ``infer``,
-``serve`` and ``lm``.
+``serve``, ``lm``, and the readers ``telemetry``, ``trace`` and
+``profile``.
 
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-mlp-large \
       --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
@@ -29,6 +30,13 @@
   python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --export lm.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.msgpack --sample 32
+  python -m distributed_mnist_bnns_tpu_torch.cli train --telemetry-dir tel \
+      --trace --profile-steps 10:20
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack \
+      --telemetry-dir tel --trace --costs
+  python -m distributed_mnist_bnns_tpu_torch.cli telemetry tel
+  python -m distributed_mnist_bnns_tpu_torch.cli trace tel --export trace.json
+  python -m distributed_mnist_bnns_tpu_torch.cli profile tel/profile
 
 ``train`` trains a registered model (``models.list_models()``: the
 bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
@@ -68,6 +76,20 @@ trains it N steps (``examples/lm_demo.py::run``; flash attention by
 default) and exports the trained model, and ``lm --load --sample``
 generates from one greedily. ``--device`` defaults to ``cuda`` and never
 falls back to the CPU: pass ``--device cpu`` to run there.
+
+Telemetry (``obs/``, the JAX package's flags and readers): ``train`` and
+``eval`` take ``--telemetry-dir`` (JSONL events and heartbeats),
+``--trace`` (span trees in that log), ``--profile-dir`` (a
+``torch.profiler`` capture of the first epoch's early steps) and
+``--profile-steps A:B`` (a capture of cumulative steps A to B, into
+``--profile-dir`` or ``<telemetry-dir>/profile``); ``serve`` (and
+``serve --lm``) takes ``--telemetry-dir``, ``--trace``, ``--costs`` (the
+per-program cost ledger in /healthz) and ``--events-max-bytes``.
+``telemetry LOG`` summarizes a run's event log (a table, or ``--json``),
+``trace LOG...`` reports the p99 tail attribution of its span trees (or
+per-kind totals for a training run) and ``--export``s Chrome-trace JSON
+for Perfetto, ``profile DIR`` summarizes a capture: top ops, the card's
+kernels, the package's kernels inside ``jg_step`` regions.
 """
 
 from __future__ import annotations
@@ -165,6 +187,24 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--breaker-reset-s", type=float, default=5.0)
     sv.add_argument("--breaker-probes", type=int, default=1)
     sv.add_argument("--drain-timeout-s", type=float, default=30.0)
+    sv.add_argument("--telemetry-dir", default=None,
+                    help="JSONL request/shed/breaker/drain events here; "
+                         "read back with `telemetry`")
+    sv.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="per-request span trees in the event log, "
+                         "joined to the client's x-jg-trace header; read "
+                         "back with `trace`. Default: the JG_TRACE env "
+                         "var; needs --telemetry-dir")
+    sv.add_argument("--costs", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="the per-program cost ledger (counted flops, "
+                         "bytes, peak memory) and measured MFU in "
+                         "/healthz. Default: the JG_COSTS env var")
+    sv.add_argument("--events-max-bytes", type=int, default=None,
+                    help="size-rotate the events.jsonl past this many "
+                         "bytes (default: JG_EVENTS_MAX_BYTES, else "
+                         "unbounded)")
     sv.add_argument("--input-shape", type=int, nargs="+",
                     default=[28, 28, 1])
 
@@ -215,6 +255,31 @@ def build_parser() -> argparse.ArgumentParser:
                          "ranks (one a card; gloo processes with --device "
                          "cpu)")
     lm.add_argument("--device", default="cuda")
+
+    tm = sub.add_parser(
+        "telemetry", help="summarize a run's telemetry event log")
+    tm.add_argument("log", help="an events.jsonl, or the telemetry "
+                                "directory holding one")
+    tm.add_argument("--json", action="store_true",
+                    help="one JSON object instead of the table")
+    tc = sub.add_parser(
+        "trace", help="a traced run's span trees: the p99 tail "
+                      "attribution, or Chrome-trace JSON for Perfetto")
+    tc.add_argument("log", nargs="+",
+                    help="events.jsonl files or telemetry directories "
+                         "(several: request trees stitched across the "
+                         "x-jg-trace hop)")
+    tc.add_argument("--export", default=None, metavar="OUT",
+                    help="write the Chrome-trace-event JSON here ('-' = "
+                         "stdout); open in https://ui.perfetto.dev")
+    tc.add_argument("--tail-pct", type=float, default=99.0)
+    tc.add_argument("--json", action="store_true")
+    pf = sub.add_parser(
+        "profile", help="summarize a torch.profiler capture directory")
+    pf.add_argument("dir", help="the capture directory (/admin/profile's "
+                                "`dir`, or --profile-dir)")
+    pf.add_argument("--top", type=int, default=15)
+    pf.add_argument("--json", action="store_true")
     return p
 
 
@@ -301,6 +366,22 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--log-file", default=None,
                     help="also log (DEBUG) to this file, from rank 0")
     sp.add_argument("--device", default="cuda")
+    sp.add_argument("--telemetry-dir", default=None,
+                    help="structured run telemetry here: JSONL events "
+                         "(manifest/step/epoch/checkpoint), per-rank "
+                         "heartbeats; read back with `telemetry`")
+    sp.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="step/checkpoint/restore spans in the event log "
+                         "(`trace`). Default: the JG_TRACE env var; needs "
+                         "--telemetry-dir")
+    sp.add_argument("--profile-dir", default=None,
+                    help="a torch.profiler capture of the first trained "
+                         "epoch's early steps here")
+    sp.add_argument("--profile-steps", default=None, metavar="A:B",
+                    help="capture cumulative optimizer steps A to B into "
+                         "--profile-dir (or <telemetry-dir>/profile); "
+                         "summarize with `profile`")
     # parallelism
     sp.add_argument("--dp", default="1",
                     help="'auto' = all devices, or an integer")
@@ -429,6 +510,8 @@ def _trainer(args, data_parallel=None, device=None):
         handle_preemption=not args.no_preemption,
         results_path=args.results, timing_csv_prefix=args.timing_csv,
         device=args.device if device is None else device,
+        telemetry_dir=args.telemetry_dir, trace=args.trace,
+        profile_dir=args.profile_dir, profile_step_window=args.profile_steps,
     ))
 
 
@@ -532,10 +615,14 @@ def _eval_row(args, data_parallel=None, device=None) -> dict:
     trainer = _trainer(args, data_parallel, device)
     meta = trainer.restore(args.checkpoint_dir, best=args.best)
     data = _train_data(args)
+    metrics = trainer.evaluate(data)
+    # fit() seals a training run's log; a standalone eval seals its own
+    trainer.telemetry.emit("eval", **metrics)
+    trainer.telemetry.close()
     return {
         "model": args.model, "device": str(trainer.device),
         "data_source": data.source, "checkpoint_epoch": meta.get("epoch"),
-        "checkpoint_step": trainer.step, **trainer.evaluate(data),
+        "checkpoint_step": trainer.step, **metrics,
     }
 
 
@@ -644,6 +731,8 @@ def _serve(args) -> int:
             default_deadline_ms=(30000.0 if args.deadline_ms is None
                                  else args.deadline_ms),
             drain_timeout_s=args.drain_timeout_s,
+            telemetry_dir=args.telemetry_dir, trace=args.trace,
+            costs=args.costs, events_max_bytes=args.events_max_bytes,
         )).run()
     from .serve import PackedInferenceServer, ServeConfig
 
@@ -663,6 +752,8 @@ def _serve(args) -> int:
         breaker_probes=args.breaker_probes,
         drain_timeout_s=args.drain_timeout_s,
         input_shape=tuple(args.input_shape),
+        telemetry_dir=args.telemetry_dir, trace=args.trace,
+        costs=args.costs, events_max_bytes=args.events_max_bytes,
     ))
     return server.run()
 
@@ -738,6 +829,112 @@ def _lm(args) -> int:
     return 0
 
 
+def _events_path(given: str) -> str:
+    import os
+
+    from .obs.telemetry import EVENTS_FILE
+
+    return os.path.join(given, EVENTS_FILE) if os.path.isdir(given) else given
+
+
+def _telemetry(args) -> int:
+    """The run log's summary: the table, or ``--json``."""
+    from .obs import render_table, summarize
+
+    path = _events_path(args.log)
+    try:
+        summary = summarize(path)
+    except FileNotFoundError:
+        print(f"no event log at {path}", file=sys.stderr)
+        return 2
+    print(json.dumps(summary) if args.json else render_table(summary))
+    return 0
+
+
+def _trace(args) -> int:
+    """The span trees of one or more logs (several are stitched across
+    the x-jg-trace hop, each process its own Perfetto lane): the tail
+    attribution, or per-kind totals for a log without request roots."""
+    import os
+
+    from .obs.trace import (
+        load_spans, render_attribution, span_kind_totals, stitch_spans,
+        tail_attribution, to_chrome_trace,
+    )
+
+    groups = {}
+    for given in args.log:
+        path = _events_path(given)
+        name = (os.path.basename(os.path.abspath(given))
+                if os.path.isdir(given)
+                else os.path.basename(os.path.dirname(os.path.abspath(path)))
+                or given)
+        try:
+            groups[name] = (path, load_spans(path))
+        except FileNotFoundError:
+            print(f"no event log at {path}", file=sys.stderr)
+            return 2
+    if len(groups) > 1:
+        stitched = stitch_spans(
+            {name: spans for name, (_, spans) in groups.items()})
+        spans, path = stitched["spans"], " + ".join(sorted(groups))
+        print(f"stitched {stitched['joined']}/{stitched['replica_roots']} "
+              f"replica request tree(s) across {len(groups)} log(s)",
+              file=sys.stderr)
+    else:
+        (path, spans), = groups.values()
+    if not spans:
+        print(f"no span events in {path} — was the run traced? (--trace "
+              "or JG_TRACE=1)", file=sys.stderr)
+        return 2
+    if args.export:
+        if len(groups) > 1:
+            chrome = {"traceEvents": [], "displayTimeUnit": "ms"}
+            for pid, name in enumerate(sorted(groups)):
+                rows = [s for s in spans
+                        if (s.get("attrs") or {}).get("process") == name]
+                chrome["traceEvents"] += to_chrome_trace(
+                    rows, pid=pid, process_name=name)["traceEvents"]
+        else:
+            chrome = to_chrome_trace(spans, process_name=os.path.basename(
+                os.path.dirname(os.path.abspath(path))))
+        if args.export == "-":
+            print(json.dumps(chrome))
+            return 0
+        with open(args.export, "w") as f:
+            json.dump(chrome, f)
+        print(f"wrote {len(chrome['traceEvents'])} trace events to "
+              f"{args.export} (open in https://ui.perfetto.dev)",
+              file=sys.stderr)
+    report = tail_attribution(spans, pct=args.tail_pct)
+    if report["n_requests"] == 0:
+        totals = span_kind_totals(spans)
+        if args.json:
+            print(json.dumps({**report, "kind_totals": totals}))
+            return 0
+        print(f"no request spans in {path}; per-kind totals over "
+              f"{len(spans)} span(s):")
+        for kind, row in totals.items():
+            print(f"  {kind:<16} x{row['count']:<6} "
+                  f"{row['total_ms']:>12.3f} ms")
+        return 0
+    print(json.dumps(report) if args.json else render_attribution(report))
+    return 0
+
+
+def _profile(args) -> int:
+    from .obs import render_capture_summary, summarize_capture
+
+    try:
+        summary = summarize_capture(args.dir, top=args.top)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    print(json.dumps(summary) if args.json
+          else render_capture_summary(summary))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -745,7 +942,9 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     return {"train": _train, "eval": _eval, "export": _export,
-            "infer": _infer, "serve": _serve, "lm": _lm}[args.cmd](args)
+            "infer": _infer, "serve": _serve, "lm": _lm,
+            "telemetry": _telemetry, "trace": _trace,
+            "profile": _profile}[args.cmd](args)
 
 
 if __name__ == "__main__":

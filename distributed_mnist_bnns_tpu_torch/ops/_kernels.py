@@ -11,7 +11,9 @@ module must import on a machine that has no ``nvcc``.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made. It is
 incremented where a kernel is launched and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels. Each ``nvcc`` build
+and each library load is reported to the build counter of ``obs``
+(``RecompileTracker``, kinds ``kernel_build`` and ``kernel_load``).
 """
 
 from __future__ import annotations
@@ -171,6 +173,12 @@ def build(sources: Optional[list] = None) -> Dict[str, float]:
         th.join()
     if errors:
         raise errors[0]
+    if seconds:
+        from ..obs.recompile import get_tracker
+
+        tracker = get_tracker()
+        for s in seconds.values():
+            tracker.record("kernel_build", s)
     return seconds
 
 
@@ -182,12 +190,16 @@ def _library(source: str) -> ctypes.CDLL:
         path = _lib_path(source)
         if not os.path.exists(path):
             build([source])
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(path)
         for symbol, argtypes in SIGNATURES[source].items():
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _libs[source] = lib
+        from ..obs.recompile import get_tracker
+
+        get_tracker().record("kernel_load", time.perf_counter() - t0)
         return lib
 
 

@@ -36,9 +36,15 @@ draws back).
 
 On gloo, ``send`` and ``recv`` take host tensors only, so a CUDA
 activation is staged through a pinned host buffer there (and only
-there: NCCL sends device memory). The JAX package's ``pipeline_*``
-gauges and call counter report through ``obs/`` (ROADMAP queue 1 item
-8); ``wire`` counts the bytes each rank sends.
+there: NCCL sends device memory). ``wire`` counts the bytes each rank
+sends.
+
+Telemetry, as the JAX package's: building a pipeline sets the
+``pipeline_stages``, ``pipeline_microbatches`` and
+``pipeline_bubble_fraction`` gauges of ``obs.default_registry()`` (label
+``axis``; the analytic bubble is the number a profile should confirm),
+and every call counts in ``pipeline_calls_total`` and runs in a
+``pipeline_dispatch`` region of the profiler.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs.registry import default_registry
 from ..ops import remat
 from ..ops.comm_compress import WireBytes, _count
 from .mesh import Mesh, P, comm_span
@@ -320,6 +327,19 @@ def make_pipeline_fn(mesh: Mesh, stage_fn: Callable[..., torch.Tensor], *,
     schedule`` is the rank's ``Schedule`` (its ``timer``, wire)."""
     sched = Schedule(mesh, axis=axis, n_micro=n_micro,
                      batch_axis=batch_axis, wire=wire)
+    reg = default_registry()
+    reg.gauge("pipeline_stages", "GPipe stage count").set(
+        sched.n_stages, axis=axis)
+    reg.gauge("pipeline_microbatches", "microbatches per step").set(
+        sched.n_micro, axis=axis)
+    reg.gauge(
+        "pipeline_bubble_fraction", "analytic GPipe bubble fraction"
+    ).set(pipeline_bubble_fraction(sched.n_stages, sched.n_micro),
+          axis=axis)
+    calls = reg.counter(
+        "pipeline_calls_total",
+        "pipeline invocations (dispatches, or traces under an outer jit)",
+    )
     if param_specs is not None:
         for spec in _flatten(param_specs)[0]:
             if not spec or spec[0] != axis:
@@ -360,7 +380,9 @@ def make_pipeline_fn(mesh: Mesh, stage_fn: Callable[..., torch.Tensor], *,
                 return remat.checkpoint(lambda i: cell(leaves, i, m), inp)
             return cell(leaves, inp, m)
 
-        return run_pipeline(sched, run, x, params)
+        calls.inc(axis=axis)
+        with torch.profiler.record_function("pipeline_dispatch"):
+            return run_pipeline(sched, run, x, params)
 
     f.schedule = sched
     return f

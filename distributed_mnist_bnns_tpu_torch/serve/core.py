@@ -1,9 +1,13 @@
 """Serving data plane: requests, admission queue, micro-batching engine.
 
-Counterpart of the JAX package's ``serve/core.py``, without its hooks
-into tracing, cost ledger, device profiling, recompile fences and chaos
-(those wait for the port's observability slice). The Tail-at-Scale
-mechanics are the same:
+Counterpart of the JAX package's ``serve/core.py``, with its telemetry
+(the registry's ``serve_*`` metrics, ``request`` and ``shed`` events,
+per-request span trees: ``serve.request`` with its ``queue``,
+``assemble``, ``batch`` / ``infer`` and ``respond`` phases), the cost
+ledger's ``classifier_predict`` dispatch times (CUDA events) and the
+``jg_step`` profiler region while a capture is live; without its
+recompile fence and chaos hooks. The Tail-at-Scale mechanics are the
+same:
 
   * every request carries a **deadline**; work whose deadline has
     passed is cancelled when the batcher pops it (never computed), and
@@ -22,7 +26,7 @@ mechanics are the same:
 
 from __future__ import annotations
 
-import itertools
+import contextlib
 import logging
 import threading
 import time
@@ -32,55 +36,35 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..obs.costs import get_ledger
+from ..obs.profile import get_profiler, step_annotation
+from ..obs.registry import MetricsRegistry
+from ..obs.telemetry import StepClock
+from ..obs.trace import NULL_SPAN, NULL_TRACER, TraceContext, next_request_id
+
 log = logging.getLogger(__name__)
+
+REQUESTS_TOTAL = "serve_requests_total"
+SHED_TOTAL = "serve_shed_total"
+BATCHES_TOTAL = "serve_batches_total"
+BATCH_SECONDS = "serve_batch_seconds"
+QUEUE_DEPTH = "serve_queue_depth"
+BREAKER_TRANSITIONS_TOTAL = "serve_breaker_transitions_total"
 
 # SLO tiers, highest priority first.
 TIERS = ("interactive", "batch")
 DEFAULT_TIER = TIERS[0]
 _TIER_RANK = {t: i for i, t in enumerate(TIERS)}
 
-_request_ids = itertools.count(1)
 
-
-class Counter:
-    """Thread-safe counter with optional labels."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._series: Dict[tuple, int] = {}
-
-    def inc(self, n: int = 1, **labels: str) -> None:
-        key = tuple(sorted(labels.items()))
-        with self._lock:
-            self._series[key] = self._series.get(key, 0) + n
-
-    def total(self) -> int:
-        with self._lock:
-            return sum(self._series.values())
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return {
-                ",".join(f"{k}={v}" for k, v in key): n
-                for key, n in self._series.items()
-            }
-
-
-class Gauge:
-    """Thread-safe last-value gauge."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._value = 0.0
-
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
-
-    @property
-    def value(self) -> float:
-        with self._lock:
-            return self._value
+def labeled(counter) -> Dict[str, float]:
+    """A registry counter's series as ``{"k=v,...": value}`` (the
+    /healthz view of request, shed and transition counts)."""
+    return {
+        ",".join(f"{k}={v}" for k, v in sorted(s["labels"].items())):
+            s["value"]
+        for s in counter.snapshot()["series"]
+    }
 
 
 class Request:
@@ -94,12 +78,14 @@ class Request:
 
     __slots__ = (
         "id", "images", "n", "deadline", "enqueued_at", "event",
-        "status", "log_probs", "error", "tier", "_lock", "_done",
+        "status", "log_probs", "error", "span", "tier", "_lock", "_done",
     )
 
     def __init__(self, images: np.ndarray, deadline: float,
                  tier: str = DEFAULT_TIER):
-        self.id = next(_request_ids)
+        # run-scoped (obs/trace): the join key of request events and
+        # span trees, unique across replicas and restarts
+        self.id = next_request_id()
         self.images = images
         self.n = int(images.shape[0])
         self.deadline = deadline
@@ -109,6 +95,7 @@ class Request:
         self.status: Optional[str] = None
         self.log_probs: Optional[np.ndarray] = None
         self.error = ""
+        self.span = NULL_SPAN      # root trace span, set at admission
         self._lock = threading.Lock()
         self._done = False
 
@@ -250,7 +237,10 @@ class ServeEngine:
 
     ``predict_fn`` is the predictor from ``infer.load_packed``; it is
     only ever called from the worker thread, always at ``batch_size``
-    examples (padded), so the kernels see one shape for the whole run.
+    examples (padded), so the kernels see one shape for the whole run,
+    and ``swap_predictor`` (hot reload) is a plain attribute write
+    observed at the next batch. ``device`` is the predictor's (the
+    ledger's dispatch times are CUDA events there).
     """
 
     def __init__(
@@ -260,6 +250,8 @@ class ServeEngine:
         batch_size: int,
         queue: AdmissionQueue,
         breaker: Any,
+        telemetry: Any = None,
+        device: Any = None,
         stall_timeout_s: float = 1.0,
         linger_s: float = 0.002,
     ):
@@ -267,41 +259,103 @@ class ServeEngine:
         self.batch_size = int(batch_size)
         self.queue = queue
         self.breaker = breaker
+        self.telemetry = telemetry
+        self.device = device
         self.stall_timeout_s = float(stall_timeout_s)
         self.linger_s = float(linger_s)
+        # Spans ride the telemetry's tracer; without one the shared
+        # NULL_TRACER keeps every instrumentation site one attribute
+        # check. The ledger and the profiler are off by default: one
+        # attribute check each on the hot path.
+        self.tracer = getattr(telemetry, "tracer", None) or NULL_TRACER
+        self._ledger = get_ledger()
+        self._profiler = get_profiler()
+        self._clock = StepClock(device if device is not None else "cpu")
         self.batch_seq = 0
         self.draining = False
         self._stop = threading.Event()
         self._busy = False
         self._thread: Optional[threading.Thread] = None
-        self.requests_ctr = Counter()   # by final status
-        self.shed_ctr = Counter()       # by reason and tier
-        self.batches_ctr = Counter()
+        reg = (telemetry.registry if telemetry is not None
+               else MetricsRegistry())
+        self.requests_ctr = reg.counter(
+            REQUESTS_TOTAL, "serving requests by final status"
+        )
+        self.shed_ctr = reg.counter(
+            SHED_TOTAL, "admission rejections by reason"
+        )
+        self.batches_ctr = reg.counter(
+            BATCHES_TOTAL, "predictor micro-batches dispatched"
+        )
+        self.batch_hist = reg.histogram(
+            BATCH_SECONDS, "predictor call latency per micro-batch"
+        )
+        self.depth_gauge = reg.gauge(
+            QUEUE_DEPTH, "admission queue depth at batch pop"
+        )
 
     # -- admission (handler threads) ----------------------------------------
 
-    def submit(self, images: np.ndarray, deadline: float,
-               tier: str = DEFAULT_TIER):
+    def submit(
+        self, images: np.ndarray, deadline: float,
+        ctx: Optional[TraceContext] = None, tier: str = DEFAULT_TIER,
+    ):
         """Admit or shed. Returns a :class:`Request`, or a shed-reason
-        string (``draining`` | ``breaker_open`` | ``queue_full``)."""
+        string (``draining`` | ``breaker_open`` | ``queue_full``).
+        ``ctx`` is an adopted ``x-jg-trace`` context: the request's root
+        span joins the client's trace; None mints a fresh trace."""
         if self.draining or self._stop.is_set():
-            return self._shed("draining", tier)
+            return self._shed("draining", ctx=ctx, tier=tier)
         if not self.breaker.admits():
-            return self._shed("breaker_open", tier)
+            return self._shed("breaker_open", ctx=ctx, tier=tier)
         req = Request(images, deadline, tier=tier)
+        req.span = self.tracer.start(
+            "serve.request", kind="request", ctx=ctx, fresh=True,
+            id=req.id, n=req.n, tier=tier,
+        )
         admitted, victim = self.queue.put_or_displace(req)
-        if victim is not None and victim.finish(
+        if victim is not None:
+            self._displace(victim)
+        if not admitted:
+            req.span.end("shed", reason="queue_full")
+            return self._shed("queue_full", spanned=True, tier=tier)
+        return req
+
+    def _displace(self, victim: Request) -> None:
+        """Resolve a queue-displaced lower-tier request as a shed
+        (reason ``displaced``)."""
+        if victim.finish(
             "shed", error="displaced by a higher-tier admission"
         ):
             self.shed_ctr.inc(reason="displaced", tier=victim.tier)
             self.requests_ctr.inc(status="shed")
-        if not admitted:
-            return self._shed("queue_full", tier)
-        return req
+            victim.span.end("shed", reason="displaced")
+            if self.telemetry is not None:
+                self.telemetry.emit(
+                    "shed", reason="displaced", tier=victim.tier,
+                    id=victim.id, queue_depth=len(self.queue),
+                )
 
-    def _shed(self, reason: str, tier: str) -> str:
+    def _shed(
+        self, reason: str, *, ctx: Optional[TraceContext] = None,
+        spanned: bool = False, tier: str = DEFAULT_TIER,
+    ) -> str:
         self.shed_ctr.inc(reason=reason, tier=tier)
         self.requests_ctr.inc(status="shed")
+        if not spanned and self.tracer.enabled:
+            # sheds are (zero-length) spans too, joinable to the
+            # client's trace
+            now = time.monotonic()
+            self.tracer.record(
+                "serve.request", kind="request", t0=now, t1=now,
+                ctx=ctx, fresh=True, status="shed", reason=reason,
+                tier=tier,
+            )
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "shed", reason=reason, tier=tier,
+                queue_depth=len(self.queue),
+            )
         return reason
 
     # -- worker -------------------------------------------------------------
@@ -329,9 +383,10 @@ class ServeEngine:
             try:
                 self._process(reqs)
             except Exception:
-                # The worker must outlive ANY per-batch failure: a dead
-                # worker is a silent total outage behind a green healthz.
-                # The batch's unresolved requests 504 at their deadlines.
+                # The worker must outlive ANY per-batch failure (e.g. a
+                # full disk erroring the telemetry write): a dead worker
+                # is a silent total outage behind a green healthz. The
+                # batch's unresolved requests 504 at their deadlines.
                 log.exception(
                     "serve-engine batch %d processing failed; worker "
                     "continues", self.batch_seq,
@@ -341,20 +396,32 @@ class ServeEngine:
 
     def _process(self, reqs: List[Request]) -> None:
         self.batch_seq += 1
+        self.depth_gauge.set(len(self.queue))
         now = time.monotonic()
+        # queue wait ends at the pop
+        waits = {r.id: now - r.enqueued_at for r in reqs}
         live = []
         for r in reqs:
             if r.expired(now):
-                self._finish(r, "deadline", error="deadline exceeded in queue")
+                self._finish(r, "deadline",
+                             error="deadline exceeded in queue",
+                             queue_s=waits[r.id])
             else:
                 live.append(r)
         if not live:
             return
         if not self.breaker.allow():
             for r in live:
-                self._finish(r, "breaker_open", error="circuit breaker open")
+                self._finish(
+                    r, "breaker_open", error="circuit breaker open",
+                    queue_s=waits[r.id],
+                )
             return
         t0 = time.perf_counter()
+        # Trace marks (monotonic, the span timebase): pop -> assembled ->
+        # dispatch done; the children are banked after delivery.
+        m_pop = m_asm = now
+        timed = self._ledger.enabled
         try:
             x = np.concatenate([r.images for r in live], axis=0)
             pad = self.batch_size - x.shape[0]
@@ -362,22 +429,49 @@ class ServeEngine:
                 x = np.concatenate(
                     [x, np.zeros((pad, *x.shape[1:]), x.dtype)], axis=0
                 )
-            out = _to_numpy(self.predict_fn(x))
+            m_asm = time.monotonic()
+            with self.tracer.start(
+                "serve.batch", kind="batch",
+                batch_seq=self.batch_seq, n=sum(r.n for r in live),
+            ) as bspan:
+                # while a capture is live, the dispatch runs in a jg_step
+                # region carrying the batch's trace id (obs/profile)
+                with (step_annotation("classifier_predict",
+                                      bspan.trace_id
+                                      or self.tracer.run_trace)
+                      if self._profiler.active
+                      else contextlib.nullcontext()):
+                    if timed:
+                        self._clock.restart()
+                        token = self._clock.start()
+                    lp = self.predict_fn(x)
+                    if timed:
+                        self._clock.stop(token)
+                out = _to_numpy(lp)
         except Exception as e:  # any backend error must trip, not crash
             dt = time.perf_counter() - t0
+            m_end = time.monotonic()
             self.breaker.record_failure(f"{type(e).__name__}: {e}")
             log.warning(
                 "serve batch %d failed after %.3fs (%s: %s)",
                 self.batch_seq, dt, type(e).__name__, e,
             )
             for r in live:
+                self._trace_phases(r, m_pop, m_asm, m_end)
                 self._finish(
                     r, "error",
                     error=f"backend failure: {type(e).__name__}: {e}",
+                    infer_s=dt, queue_s=waits[r.id],
                 )
             return
         dt = time.perf_counter() - t0
+        m_end = time.monotonic()
         self.batches_ctr.inc()
+        self.batch_hist.observe(dt)
+        if timed:
+            # the predictor's device time (its results were read above)
+            for seconds, _ in self._clock.ready():
+                self._ledger.observe("classifier_predict", seconds)
         if dt > self.stall_timeout_s:
             # The call *returned*, but so late that the backend must be
             # presumed unhealthy.
@@ -390,18 +484,65 @@ class ServeEngine:
         for r in live:
             rows = out[offset:offset + r.n]
             offset += r.n
-            self._finish(r, "ok", log_probs=rows)
+            self._trace_phases(r, m_pop, m_asm, m_end)
+            self._finish(r, "ok", log_probs=rows, infer_s=dt,
+                         queue_s=waits[r.id])
+
+    def _trace_phases(
+        self, req: Request, pop_m: float, asm_m: float, end_m: float,
+    ) -> None:
+        """Bank the request's dispatch-phase child spans (assemble,
+        infer) under its root; the queue child and the root's end live
+        in ``_finish``."""
+        if not self.tracer.enabled or req.span is NULL_SPAN:
+            return
+        rec = self.tracer.record
+        if asm_m > pop_m:
+            rec("serve.assemble", kind="assemble", parent=req.span,
+                t0=pop_m, t1=asm_m)
+        if end_m > asm_m:
+            rec("serve.infer", kind="infer", parent=req.span,
+                t0=asm_m, t1=end_m, batch_seq=self.batch_seq)
 
     def _finish(self, req: Request, status: str, *,
-                log_probs: Optional[np.ndarray] = None,
-                error: str = "") -> None:
-        """Resolve ``req``. A failed claim means the waiter already
-        abandoned it at its deadline — count that, not the late result."""
+                log_probs: Optional[np.ndarray] = None, error: str = "",
+                infer_s: Optional[float] = None,
+                queue_s: Optional[float] = None) -> None:
+        """Resolve ``req`` and emit its single ``request`` event. A
+        failed claim means the waiter already abandoned it at its
+        deadline — count that, not the late result."""
         if not req.finish(status, log_probs=log_probs, error=error):
             status = "deadline"
         self.requests_ctr.inc(status=status)
+        if queue_s is None:
+            queue_s = time.monotonic() - req.enqueued_at
+        if self.tracer.enabled and req.span is not NULL_SPAN:
+            self.tracer.record(
+                "serve.queue", kind="queue", parent=req.span,
+                t0=req.enqueued_at, t1=req.enqueued_at + queue_s,
+            )
+            # claim-once: a deadline waiter that ended the root wins
+            req.span.end(status, batch_seq=self.batch_seq)
+        if self.telemetry is not None:
+            fields: Dict[str, Any] = {
+                "id": req.id,
+                "status": status,
+                "n": req.n,
+                "batch_seq": self.batch_seq,
+                "queue_ms": round(queue_s * 1e3, 3),
+            }
+            if infer_s is not None:
+                fields["infer_ms"] = round(infer_s * 1e3, 3)
+            if error:
+                fields["error"] = error[:500]
+            self.telemetry.emit("request", **fields)
 
     # -- lifecycle ----------------------------------------------------------
+
+    def swap_predictor(self, predict_fn: Callable) -> None:
+        """Atomic hot swap; callers warm the new predictor first so
+        serving never stalls on a kernel load."""
+        self.predict_fn = predict_fn
 
     def begin_drain(self) -> None:
         self.draining = True

@@ -1,13 +1,18 @@
-"""Stdlib-HTTP handler plumbing for the serving front end.
+"""Shared stdlib-HTTP handler plumbing for the serving front ends (the
+JAX package's ``serve/httpbase.py``).
 
-A copy of the JAX package's ``serve/httpbase.py`` without the
-``/metrics`` and ``/admin/profile`` helpers (those endpoints are not in
-this package yet): keep-alive HTTP/1.1 with a connection-socket timeout
-(a client that declares a Content-Length and never sends the body must
-not pin a handler thread forever), stderr chatter routed into logging,
-one ``_reply`` shape, and a body-size cap enforced BEFORE the body is
-read (replying without reading desyncs a keep-alive connection, so an
-oversize request closes it).
+Both servers (serve/server.py classifier micro-batcher, serve/lm/
+streaming generation) speak JSON over ``ThreadingHTTPServer``; the
+request/response mechanics that must not drift between them live here:
+keep-alive HTTP/1.1 with a connection-socket timeout (a client that
+declares a Content-Length and never sends the body must not pin a
+handler thread forever), stderr chatter routed into logging, one
+``_reply`` shape, a body-size cap enforced BEFORE the body is read
+(overload protection must not be bypassable by size; replying without
+reading desyncs a keep-alive connection, so an oversize request closes
+it), and the shared ``/metrics`` content negotiation: JSON by default,
+Prometheus text exposition under ``Accept: text/plain`` — one scrape
+format for the whole replica fleet (OBSERVABILITY.md).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, Optional
 
 _log = logging.getLogger(__name__)
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 class JsonHandler(BaseHTTPRequestHandler):
@@ -51,6 +58,70 @@ class JsonHandler(BaseHTTPRequestHandler):
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
+
+    def _reply_metrics(self, registry: Any) -> None:
+        """``GET /metrics`` for both serving engines: the registry
+        snapshot as JSON (the default, what the repo's own tooling
+        reads), or Prometheus text exposition when the client asks for
+        ``text/plain`` — fleet scrapers negotiate, nothing breaks."""
+        accept = self.headers.get("Accept", "")
+        if "text/plain" not in accept:
+            self._reply(200, registry.snapshot())
+            return
+        from ..obs import render_prometheus
+
+        body = render_prometheus(registry.snapshot()).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _admin_profile(
+        self, telemetry: Any, default_dir: Optional[str],
+    ) -> None:
+        """``POST /admin/profile {"duration_ms": N, "dir": optional}``
+        for both serving front ends: arm an on-demand ``torch.profiler``
+        capture for the window, off the serving path (THIS handler
+        thread sleeps through it; the engine worker never blocks), and
+        reply with the artifact dir + sizes. One capture per process: a
+        concurrent request gets 409."""
+        from ..obs.profile import ProfileBusyError, get_profiler
+
+        body = self._read_json()
+        if body is None:
+            return
+        try:
+            duration_ms = float(body.get("duration_ms", 1000.0))
+        except (TypeError, ValueError):
+            duration_ms = float("nan")
+        if not duration_ms > 0:   # also catches NaN
+            self._reply(400, {
+                "error": "duration_ms must be a positive number, got "
+                         f"{body.get('duration_ms')!r}",
+            })
+            return
+        artifact_dir = body.get("dir") or default_dir
+        if not artifact_dir:
+            self._reply(400, {
+                "error": "no artifact dir: pass {\"dir\": ...} or run "
+                         "the server with --telemetry-dir",
+            })
+            return
+        try:
+            summary = get_profiler().capture(
+                duration_ms, artifact_dir=str(artifact_dir),
+                telemetry=telemetry,
+            )
+        except ProfileBusyError as e:
+            self._reply(409, {"error": str(e)})
+            return
+        except (OSError, RuntimeError, ValueError) as e:
+            self._reply(500, {
+                "error": f"capture failed: {type(e).__name__}: {e}",
+            })
+            return
+        self._reply(200, summary)
 
     def _read_json(self) -> Optional[Dict[str, Any]]:
         try:

@@ -4,8 +4,9 @@
               allocation at admission, chunked prefill, decode rounds,
               eviction that frees pages, host-side sampling
   server.py   the streaming HTTP front end (POST /generate as ndjson,
-              GET /healthz) and the SIGTERM drain
-  client.py   a stdlib streaming client
+              GET /healthz, GET /metrics, POST /admin/profile), its
+              telemetry and the SIGTERM drain
+  client.py   a stdlib streaming client (with the x-jg-trace header)
 """
 
 from .engine import LMEngine, LMRequest

@@ -1,9 +1,10 @@
 """Minimal stdlib client for the streaming LM server.
 
-Counterpart of the JAX package's ``serve/lm/client.py`` without its trace
-header and retrying wrapper. ``http.client`` decodes chunked transfer
-encoding, so iterating the response yields one JSON object per emitted
-token as it arrives.
+Counterpart of the JAX package's ``serve/lm/client.py`` (with the
+``x-jg-trace`` header and ``metrics``), without its retrying wrapper.
+``http.client`` decodes chunked transfer encoding, so iterating the
+response yields one JSON object per emitted token as it arrives.
+``profile`` is the classifier client's (the same endpoint).
 """
 
 from __future__ import annotations
@@ -13,6 +14,11 @@ import urllib.error
 import urllib.request
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from ..client import metrics, profile, trace_headers
+
+__all__ = ["generate", "healthz", "iter_lines", "metrics", "open_stream",
+           "profile"]
+
 
 def open_stream(
     base_url: str, prompt: Any, *,
@@ -21,10 +27,13 @@ def open_stream(
     temperature: Optional[float] = None,
     seed: Optional[int] = None,
     timeout: float = 60.0,
+    trace: Any = None,
 ) -> Tuple[int, Any]:
     """Start a generation. Returns ``(200, response)`` (read the stream
-    with :func:`iter_lines`) or ``(code, parsed_error_body)``. A ``str``
-    prompt is sent as ``"text"``, anything else as the token list."""
+    with :func:`iter_lines`; its ``x-jg-trace`` header names the
+    stream's trace) or ``(code, parsed_error_body)``. A ``str`` prompt
+    is sent as ``"text"``, anything else as the token list; ``trace``:
+    the ``x-jg-trace`` header the server adopts (``True`` mints one)."""
     body: Dict[str, Any] = (
         {"text": prompt} if isinstance(prompt, str)
         else {"prompt": list(prompt)}
@@ -36,7 +45,8 @@ def open_stream(
             body[key] = value
     req = urllib.request.Request(
         base_url + "/generate", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json",
+                 **(trace_headers(trace) or {})},
     )
     try:
         resp = urllib.request.urlopen(req, timeout=timeout)

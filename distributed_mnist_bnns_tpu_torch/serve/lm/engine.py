@@ -1,9 +1,16 @@
 """Continuous-batching LM engine: iteration-level scheduling over a paged
 KV cache.
 
-Counterpart of the JAX package's ``serve/lm/engine.py``, without its hooks
-into the recompile fence, cost ledger, device profiling, tracing, chaos,
-the prefix cache and speculative decoding (later slices of the port).
+Counterpart of the JAX package's ``serve/lm/engine.py``, with its
+telemetry: the registry's ``lm_*`` metrics; the ``lm_warmup``,
+``lm_admit``, ``lm_evict``, ``lm_decode`` (every ``decode_event_every``
+iterations) and ``lm_decode_error`` events; each stream's span tree
+(``lm.request`` with ``lm.queue``, ``lm.page_alloc``, ``lm.prefill`` and
+``lm.decode``, one ``lm.decode_iter`` span an iteration); the cost
+ledger's ``lm_prefill`` and ``lm_decode`` rows (the warm-up calls) and
+dispatch times (CUDA events); the ``jg_step`` profiler region while a
+capture is live. Without its recompile fence, chaos, the prefix cache
+and speculative decoding (later slices of the port).
 Every decode iteration runs ALL active batch slots through one call of
 the paged decoder; between iterations the scheduler admits queued
 requests into freed slots, so sequences join and leave the batch
@@ -21,7 +28,7 @@ host-side numpy, so the decoder's calls carry no sampling state.
 
 from __future__ import annotations
 
-import itertools
+import contextlib
 import logging
 import queue
 import threading
@@ -31,18 +38,32 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ...obs.costs import get_ledger
+from ...obs.profile import get_profiler, step_annotation
+from ...obs.recompile import get_tracker
+from ...obs.registry import MetricsRegistry
+from ...obs.telemetry import StepClock
+from ...obs.trace import NULL_SPAN, NULL_TRACER, TraceContext, next_request_id
 from ...ops.paged_kv import PageAllocator, pages_needed
-from ..core import Counter, Gauge
+from ..core import labeled
 
 log = logging.getLogger(__name__)
 
 TOKENS_TOTAL = "lm_tokens_total"
+PAGE_OCCUPANCY = "lm_page_occupancy"
+ACTIVE_STREAMS = "lm_active_streams"
+PREFILL_MS = "lm_prefill_ms"
+DECODE_ITERATION_SECONDS = "lm_decode_iteration_seconds"
 REQUESTS_TOTAL = "lm_requests_total"
 SHED_TOTAL = "lm_shed_total"
-ACTIVE_STREAMS = "lm_active_streams"
-PAGE_OCCUPANCY = "lm_page_occupancy"
+DECODE_ERRORS_TOTAL = "lm_decode_errors_total"
 
-_request_ids = itertools.count(1)
+# Millisecond buckets for the prefill histogram (the default registry
+# buckets are seconds-scaled; prefill is a handful of chunk calls).
+_MS_BUCKETS = (
+    0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+    1000.0, 2500.0, 5000.0, 10000.0, 30000.0,
+)
 
 
 class _PrefillDispatchError(RuntimeError):
@@ -65,14 +86,14 @@ class LMRequest:
     __slots__ = (
         "id", "prompt", "max_new_tokens", "deadline", "temperature",
         "seed", "rng", "enqueued_at", "events", "cancelled", "status",
-        "tokens", "slot", "n_emitted",
+        "tokens", "slot", "n_emitted", "span",
     )
 
     def __init__(
         self, prompt: np.ndarray, max_new_tokens: int, deadline: float,
         temperature: float = 0.0, seed: int = 0,
     ):
-        self.id = next(_request_ids)
+        self.id = next_request_id()   # run-scoped: the event/span join key
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.deadline = float(deadline)
@@ -91,6 +112,7 @@ class LMRequest:
         self.tokens: List[int] = []
         self.slot: Optional[int] = None
         self.n_emitted = 0
+        self.span = NULL_SPAN      # root trace span, set at admission
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (time.monotonic() if now is None else now) >= self.deadline
@@ -100,7 +122,8 @@ class _Slot:
     """Host-side state of one batch slot (the device state lives in the
     pools and the engine's position/table arrays)."""
 
-    __slots__ = ("req", "pages", "total_len", "rng", "admitted_at")
+    __slots__ = ("req", "pages", "total_len", "rng", "admitted_at",
+                 "decode_span")
 
     def __init__(self, req: LMRequest, pages: List[int], total_len: int,
                  admitted_at: float):
@@ -108,7 +131,8 @@ class _Slot:
         self.pages = pages
         self.total_len = total_len          # prompt + clamped max_new
         self.rng = req.rng
-        self.admitted_at = admitted_at
+        self.admitted_at = admitted_at      # queue pop, before prefill
+        self.decode_span = NULL_SPAN        # the stream's decode window
 
 
 class LMEngine:
@@ -118,10 +142,17 @@ class LMEngine:
     ``submit`` returns an :class:`LMRequest` (stream from its ``events``
     queue) or a shed-reason string (``queue_full`` | ``draining`` |
     ``engine_failed``), the admission contract of ``serve.core``.
+    Metrics go to the telemetry's registry (an engine of its own without
+    one); ``device`` is the decoder's (the ledger's CUDA events).
     """
 
-    def __init__(self, decoder, *, queue_depth: int = 16):
+    def __init__(self, decoder, *, queue_depth: int = 16,
+                 telemetry: Any = None, device: Any = None,
+                 decode_event_every: int = 50):
         self.decoder = decoder
+        self.telemetry = telemetry
+        self.device = device
+        self.decode_event_every = max(int(decode_event_every), 1)
         self.queue_depth = int(queue_depth)
         self.allocator = PageAllocator(decoder.num_pages)
         self.max_len = int(decoder.max_len)
@@ -138,11 +169,45 @@ class LMEngine:
         self._closed = False           # set by the final queue drain
         self.batch_seq = 0             # decode iterations dispatched
         self._thread: Optional[threading.Thread] = None
-        self.tokens_ctr = Counter()    # TOKENS_TOTAL, by phase
-        self.requests_ctr = Counter()  # REQUESTS_TOTAL, by final status
-        self.shed_ctr = Counter()      # SHED_TOTAL, by reason
-        self.active_gauge = Gauge()    # ACTIVE_STREAMS
-        self.occupancy_gauge = Gauge() # PAGE_OCCUPANCY
+        self._tracker = get_tracker()
+        self._compile_baseline: Optional[int] = None
+        # off by default: one attribute check each a dispatch
+        self._ledger = get_ledger()
+        self._profiler = get_profiler()
+        self._clock = StepClock(device if device is not None else "cpu")
+        self.pool_reserved_bytes = 0   # set once the pools exist
+        self.page_bytes = 0
+        self.tracer = getattr(telemetry, "tracer", None) or NULL_TRACER
+        reg = (telemetry.registry if telemetry is not None
+               else MetricsRegistry())
+        self.registry = reg
+        self.tokens_ctr = reg.counter(
+            TOKENS_TOTAL, "LM tokens processed (phase=prefill|decode)"
+        )
+        self.occupancy_gauge = reg.gauge(
+            PAGE_OCCUPANCY, "fraction of KV pages in use"
+        )
+        self.active_gauge = reg.gauge(
+            ACTIVE_STREAMS, "generation streams holding a batch slot"
+        )
+        self.prefill_hist = reg.histogram(
+            PREFILL_MS, "admission prefill wall time (ms)",
+            buckets=_MS_BUCKETS,
+        )
+        self.iter_hist = reg.histogram(
+            DECODE_ITERATION_SECONDS,
+            "decode iteration wall time (= inter-token latency while "
+            "the batch is stable)",
+        )
+        self.requests_ctr = reg.counter(
+            REQUESTS_TOTAL, "LM requests by final status"
+        )
+        self.shed_ctr = reg.counter(
+            SHED_TOTAL, "LM admission rejections by reason"
+        )
+        self.errors_ctr = reg.counter(
+            DECODE_ERRORS_TOTAL, "decode dispatch failures"
+        )
         # host-clock times of the latest admissions' prefills and of the
         # latest decode iterations (each ends in a device sync)
         self.prefill_ms: deque[float] = deque(maxlen=1024)
@@ -159,34 +224,75 @@ class LMEngine:
         with self._cond:
             return len(self._queue)
 
+    @property
+    def recompiles_post_warmup(self) -> Optional[int]:
+        """Builds (kernel loads, captures) since the warm-up ended."""
+        if self._compile_baseline is None:
+            return None
+        return self._tracker.count - self._compile_baseline
+
     def metrics(self) -> Dict[str, Any]:
-        """Counter and gauge snapshot under their metric names."""
+        """Counter and gauge view under their metric names (counters as
+        ``{"k=v": value}``)."""
         return {
-            TOKENS_TOTAL: self.tokens_ctr.snapshot(),
-            REQUESTS_TOTAL: self.requests_ctr.snapshot(),
-            SHED_TOTAL: self.shed_ctr.snapshot(),
-            ACTIVE_STREAMS: self.active_gauge.value,
-            PAGE_OCCUPANCY: self.occupancy_gauge.value,
+            TOKENS_TOTAL: labeled(self.tokens_ctr),
+            REQUESTS_TOTAL: labeled(self.requests_ctr),
+            SHED_TOTAL: labeled(self.shed_ctr),
+            ACTIVE_STREAMS: self.active_gauge.value() or 0.0,
+            PAGE_OCCUPANCY: self.occupancy_gauge.value() or 0.0,
         }
+
+    def kv_pool_stats(self) -> Dict[str, Any]:
+        """The paged pool's memory: its fixed reservation against the
+        bytes its in-use pages pin (a page leak becomes a number); also
+        sets the ``kv_pool_*_bytes`` gauges."""
+        in_use = self.allocator.used_count()
+        stats = {
+            "reserved_bytes": self.pool_reserved_bytes,
+            "page_bytes": self.page_bytes,
+            "pages_in_use": in_use,
+            "in_use_bytes": in_use * self.page_bytes,
+        }
+        self.registry.gauge(
+            "kv_pool_reserved_bytes", "paged KV pool reservation"
+        ).set(stats["reserved_bytes"])
+        self.registry.gauge(
+            "kv_pool_in_use_bytes",
+            "bytes pinned by in-use KV pages (pages_in_use x page_bytes)",
+        ).set(stats["in_use_bytes"])
+        return stats
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "LMEngine":
         """Run one prefill and one decode against the null page (the
-        kernels are built and loaded before the first request), then
-        start the scheduler."""
+        kernels are built and loaded before the first request; with the
+        cost ledger armed they are the ``lm_prefill`` and ``lm_decode``
+        rows' runs), pin the build baseline, start the scheduler."""
         dec = self.decoder
         pools = dec.init_pools()
-        pools, lp = dec.prefill(
-            pools, np.zeros(dec.prefill_chunk, np.int32),
+        measure, tel = self._ledger.measure, self.telemetry
+        pools, lp = measure(
+            "lm_prefill", dec.prefill, pools,
+            np.zeros(dec.prefill_chunk, np.int32),
             np.zeros(dec.max_pages, np.int32), 0, 0,
+            device=self.device, telemetry=tel,
         )
-        pools, lp = dec.decode(
-            pools, self._tokens, self._page_tables, self._positions
+        pools, lp = measure(
+            "lm_decode", dec.decode, pools, self._tokens,
+            self._page_tables, self._positions,
+            device=self.device, telemetry=tel,
         )
         lp.cpu()
         self._pools = pools
-        log.info("lm engine warm: kernels=%s", bool(dec.kernels))
+        self.pool_reserved_bytes = int(sum(
+            int(k.nbytes) + int(v.nbytes) for k, v in pools))
+        self.page_bytes = self.pool_reserved_bytes // max(dec.num_pages, 1)
+        self._compile_baseline = self._tracker.mark()
+        kernels = bool(dec.kernels)
+        if tel is not None:
+            tel.emit("lm_warmup", programs=2, kernels=kernels, spec_k=0)
+        log.info("lm engine warm: kernels=%s", kernels)
         self._thread = threading.Thread(
             target=self._run, name="lm-engine", daemon=True
         )
@@ -220,16 +326,24 @@ class LMEngine:
     def submit(
         self, prompt, max_new_tokens: int, deadline: float, *,
         temperature: float = 0.0, seed: int = 0,
+        ctx: Optional[TraceContext] = None,
     ):
         """Admit or shed. Returns an :class:`LMRequest` or a shed-reason
         string. Validation of the prompt against ``max_len`` is the
-        transport's job (it owns the 4xx replies)."""
+        transport's job (it owns the 4xx replies). ``ctx`` is an adopted
+        ``x-jg-trace`` context: the stream's span tree joins the
+        client's trace."""
         if self.draining or self._stop.is_set():
-            return self._shed("draining")
+            return self._shed("draining", ctx=ctx)
         if self._thread is not None and not self._thread.is_alive():
-            return self._shed("engine_failed")
+            return self._shed("engine_failed", ctx=ctx)
         req = LMRequest(prompt, max_new_tokens, deadline,
                         temperature=temperature, seed=seed)
+        req.span = self.tracer.start(
+            "lm.request", kind="request", ctx=ctx, fresh=True,
+            id=req.id, prompt_tokens=int(req.prompt.shape[0]),
+            max_new_tokens=req.max_new_tokens,
+        )
         with self._cond:
             if self._closed:
                 # the scheduler drained the queue for the last time
@@ -241,11 +355,26 @@ class LMEngine:
                 self._queue.append(req)
                 self._cond.notify()
                 return req
-        return self._shed(reason)
+        req.span.end("shed", reason=reason)
+        return self._shed(reason, spanned=True)
 
-    def _shed(self, reason: str) -> str:
+    def _shed(
+        self, reason: str, *, ctx: Optional[TraceContext] = None,
+        spanned: bool = False,
+    ) -> str:
         self.shed_ctr.inc(reason=reason)
         self.requests_ctr.inc(status="shed")
+        if not spanned and self.tracer.enabled:
+            now = time.monotonic()
+            self.tracer.record(
+                "lm.request", kind="request", t0=now, t1=now,
+                ctx=ctx, fresh=True, status="shed", reason=reason,
+            )
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "shed", reason=reason, queue_depth=self.queue_len,
+                engine="lm",
+            )
         return reason
 
     # -- scheduler ----------------------------------------------------------
@@ -292,9 +421,11 @@ class LMEngine:
             self._queue.extend(kept)
         for req in dead:
             if req.expired():
-                self._finish(req, "deadline", "deadline exceeded in queue")
+                self._finish_unslotted(req, "deadline",
+                                       "deadline exceeded in queue")
             else:
-                self._finish(req, "cancelled", "cancelled while queued")
+                self._finish_unslotted(req, "cancelled",
+                                       "cancelled while queued")
 
     def _admit_ready(self) -> None:
         """Pop queued requests into free slots while pages allow; runs
@@ -309,20 +440,23 @@ class LMEngine:
                     return
                 req = self._queue.popleft()
             if req.expired():
-                self._finish(req, "deadline", "deadline exceeded in queue")
+                self._finish_unslotted(req, "deadline",
+                                       "deadline exceeded in queue")
                 continue
             if req.cancelled:
-                self._finish(req, "cancelled", "cancelled while queued")
+                self._finish_unslotted(req, "cancelled",
+                                       "cancelled while queued")
                 continue
             total = min(len(req.prompt) + req.max_new_tokens, self.max_len)
             need = pages_needed(total, self.decoder.page_size)
             if need > self.allocator.capacity:
-                self._finish(
+                self._finish_unslotted(
                     req, "error",
                     f"request needs {need} pages, pool holds "
                     f"{self.allocator.capacity}",
                 )
                 continue
+            alloc_t0 = time.monotonic()
             pages = self.allocator.alloc(need)
             if pages is None:
                 # not enough KV memory: back to the head of the queue;
@@ -330,6 +464,18 @@ class LMEngine:
                 with self._cond:
                     self._queue.appendleft(req)
                 return
+            if self.tracer.enabled:
+                # queue wait ends when the scheduler takes the request up
+                # (= alloc start); sequential children, no overlap
+                self.tracer.record(
+                    "lm.queue", kind="queue", parent=req.span,
+                    t0=req.enqueued_at, t1=alloc_t0,
+                )
+                self.tracer.record(
+                    "lm.page_alloc", kind="page_alloc", parent=req.span,
+                    t0=alloc_t0, t1=time.monotonic(), pages=len(pages),
+                    need=need, forked=0,
+                )
             try:
                 self._prefill_into_slot(req, slot, pages, total)
             except Exception as e:
@@ -342,7 +488,7 @@ class LMEngine:
                     self._evict(slot, "error", detail)   # frees the pages
                 elif req.status is None:
                     self.allocator.free(pages)
-                    self._finish(req, "error", detail)
+                    self._finish_unslotted(req, "error", detail)
                 if isinstance(e, _PrefillDispatchError):
                     self._dispatch_failure(cause)
 
@@ -359,20 +505,45 @@ class LMEngine:
         padded = -(-plen // chunk) * chunk
         prompt = np.zeros(padded, np.int32)
         prompt[:plen] = req.prompt
+        timed = self._ledger.enabled
         try:
-            for start in range(0, padded, chunk):
-                self._pools, clp = dec.prefill(
-                    self._pools, prompt[start:start + chunk], table,
-                    start, plen,
-                )
+            with (step_annotation("lm_prefill",
+                                  req.span.trace_id or self.tracer.run_trace)
+                  if self._profiler.active else contextlib.nullcontext()):
+                if timed:
+                    self._clock.restart()
+                    token = self._clock.start()
+                for start in range(0, padded, chunk):
+                    self._pools, clp = dec.prefill(
+                        self._pools, prompt[start:start + chunk], table,
+                        start, plen,
+                    )
+                if timed:
+                    self._clock.stop(token)
             lp_host = clp.cpu().numpy()   # the sync: a device error shows here
         except Exception as e:
             raise _PrefillDispatchError(
                 f"prefill dispatch for request {req.id}"
             ) from e
-        self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        self.prefill_ms.append(prefill_ms)
+        self.prefill_hist.observe(prefill_ms)
+        if timed:
+            for seconds, _ in self._clock.ready():
+                self._ledger.observe("lm_prefill", seconds, n=padded // chunk)
         self.tokens_ctr.inc(plen, phase="prefill")
         st = _Slot(req, pages, total, admitted_at)
+        if self.tracer.enabled:
+            self.tracer.record(
+                "lm.prefill", kind="prefill", parent=req.span,
+                t0=admitted_at, t1=admitted_at + prefill_ms / 1e3,
+                prompt_tokens=plen, chunks=padded // chunk, slot=slot,
+                cached_tokens=0,
+            )
+            # the decode window: first token out of prefill -> evict
+            st.decode_span = self.tracer.start(
+                "lm.decode", kind="decode", parent=req.span, slot=slot,
+            )
         # The prompt's last position predicts position plen.
         first = self._sample_token(req, lp_host[plen - 1 - (padded - chunk)],
                                    st.rng)
@@ -383,6 +554,17 @@ class LMEngine:
         self._tokens[slot] = first
         self.active_gauge.set(self.active_streams)
         self.occupancy_gauge.set(self.allocator.occupancy())
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "lm_admit",
+                id=req.id, slot=slot, prompt_tokens=plen,
+                prefill_tokens=plen, cached_tokens=0,
+                max_new_tokens=req.max_new_tokens, pages=len(pages),
+                iteration=self.batch_seq,
+                queue_ms=round((admitted_at - req.enqueued_at) * 1e3, 3),
+                prefill_ms=round(prefill_ms, 3),
+                page_occupancy=round(self.allocator.occupancy(), 4),
+            )
         self._emit_token(req, first)
         self._maybe_finish(slot)
 
@@ -406,22 +588,46 @@ class LMEngine:
         })
 
     def _decode_once(self) -> None:
-        """One iteration for every active slot."""
+        """One iteration for every active slot, in one ``lm.decode_iter``
+        span."""
         self.batch_seq += 1
         self._expire_active()
         if self.active_streams == 0:
             return
-        t0 = time.perf_counter()
-        try:
-            self._pools, lp = self.decoder.decode(
-                self._pools, self._tokens, self._page_tables,
-                self._positions,
-            )
-            lp_host = lp.cpu().numpy()         # per-iteration sync point
-        except Exception as e:
-            self._dispatch_failure(e)
-            return
-        self.iter_ms.append((time.perf_counter() - t0) * 1e3)
+        iter_span = self.tracer.start(
+            "lm.decode_iter", kind="decode_iter",
+            iteration=self.batch_seq, active=self.active_streams,
+        )
+        timed = self._ledger.enabled
+        with iter_span:
+            t0 = time.perf_counter()
+            try:
+                with (step_annotation(
+                        "lm_decode",
+                        iter_span.trace_id or self.tracer.run_trace)
+                        if self._profiler.active
+                        else contextlib.nullcontext()):
+                    if timed:
+                        self._clock.restart()
+                        token = self._clock.start()
+                    self._pools, lp = self.decoder.decode(
+                        self._pools, self._tokens, self._page_tables,
+                        self._positions,
+                    )
+                    if timed:
+                        self._clock.stop(token)
+                lp_host = lp.cpu().numpy()     # per-iteration sync point
+            except Exception as e:
+                iter_span.end("error", error=type(e).__name__)
+                self._dispatch_failure(e)
+                return
+            dt = time.perf_counter() - t0
+            iter_span.end("ok", iter_ms=round(dt * 1e3, 3))
+        self.iter_ms.append(dt * 1e3)
+        self.iter_hist.observe(dt)
+        if timed:
+            for seconds, _ in self._clock.ready():
+                self._ledger.observe("lm_decode", seconds)
         for slot, st in enumerate(self._slots):
             if st is None:
                 continue
@@ -430,11 +636,29 @@ class LMEngine:
             self._tokens[slot] = nxt
             self._emit_token(st.req, nxt)
             self._maybe_finish(slot)
+        if (self.batch_seq % self.decode_event_every == 0
+                and self.telemetry is not None):
+            self.telemetry.emit(
+                "lm_decode",
+                iteration=self.batch_seq,
+                active=self.active_streams,
+                queue_depth=self.queue_len,
+                iter_ms=round(dt * 1e3, 3),
+                page_occupancy=round(self.allocator.occupancy(), 4),
+                recompiles_post_warmup=self.recompiles_post_warmup,
+            )
 
     def _dispatch_failure(self, e: Exception) -> None:
         """A decoder call failed part way: the pools may hold partial
         writes, so every active stream fails here, and the engine goes
         on serving new requests on fresh pools."""
+        self.errors_ctr.inc(kind=type(e).__name__)
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "lm_decode_error", iteration=self.batch_seq,
+                error=f"{type(e).__name__}: {e}"[:500],
+                fatal_to_streams=True,
+            )
         log.error(
             "lm-engine dispatch failed at iteration %d (%s: %s): failing "
             "%d active stream(s), rebuilding the pools", self.batch_seq,
@@ -477,8 +701,14 @@ class LMEngine:
         self._positions[slot] = 0
         self._tokens[slot] = 0
         self.allocator.free(st.pages)
-        st.req.slot = None
-        self._finish(st.req, status, detail)
+        req = st.req
+        req.slot = None
+        st.decode_span.end(status, tokens=req.n_emitted,
+                           iteration=self.batch_seq)
+        self._finish(req, status, detail, slot=slot,
+                     pages_freed=len(st.pages),
+                     wall_ms=round(
+                         (time.monotonic() - st.admitted_at) * 1e3, 3))
         self.active_gauge.set(self.active_streams)
         self.occupancy_gauge.set(self.allocator.occupancy())
 
@@ -498,11 +728,44 @@ class LMEngine:
                 if not self._queue:
                     return
                 req = self._queue.popleft()
-            self._finish(req, "cancelled", detail)
+            self._finish_unslotted(req, "cancelled", detail)
 
-    def _finish(self, req: LMRequest, status: str, detail: str) -> None:
+    def _finish_unslotted(
+        self, req: LMRequest, status: str, detail: str
+    ) -> None:
+        """A request that never took a slot: its whole life was queue
+        wait, and its span tree says so."""
+        if self.tracer.enabled and req.span is not NULL_SPAN:
+            self.tracer.record(
+                "lm.queue", kind="queue", parent=req.span,
+                t0=req.enqueued_at, t1=time.monotonic(),
+            )
+        self._finish(req, status, detail, slot=None, pages_freed=0,
+                     wall_ms=round(
+                         (time.monotonic() - req.enqueued_at) * 1e3, 3))
+
+    def _finish(
+        self, req: LMRequest, status: str, detail: str, *,
+        slot: Optional[int], pages_freed: int, wall_ms: float,
+    ) -> None:
         req.status = status
         self.requests_ctr.inc(status=status)
+        req.span.end(status, tokens_emitted=req.n_emitted,
+                     iteration=self.batch_seq)
+        if self.telemetry is not None:
+            fields: Dict[str, Any] = {
+                "id": req.id, "status": status, "slot": slot,
+                "tokens_emitted": req.n_emitted,
+                "pages_freed": pages_freed, "wall_ms": wall_ms,
+                "iteration": self.batch_seq,
+            }
+            if detail:
+                fields["detail"] = detail[:500]
+            try:
+                self.telemetry.emit("lm_evict", **fields)
+            except Exception:
+                # the client's terminal event below is owed regardless
+                log.exception("lm_evict emit failed (telemetry only)")
         req.events.put({
             "kind": "done", "status": status, "n": req.n_emitted,
             "id": req.id, **({"detail": detail} if detail else {}),

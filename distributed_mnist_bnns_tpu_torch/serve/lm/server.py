@@ -21,14 +21,27 @@ transfer encoding, one JSON object per line (ndjson).
                       {"done": true, "status": "deadline"} instead.
                       ``"text"`` is tokenized as its UTF-8 bytes mod vocab.
   GET  /healthz       status, active_streams, queue_depth, page occupancy,
-                      the engine's counters
+                      the engine's counters, the KV pool's bytes (+
+                      per-program costs and the cards' memory with
+                      --costs)
+  GET  /metrics       the obs registry: JSON, or Prometheus text under
+                      ``Accept: text/plain``
+  POST /admin/profile {"duration_ms": N} — an on-demand torch.profiler
+                      capture, off the serving path; 409 while another
+                      capture runs
+
+With ``telemetry_dir`` the server writes the JAX package's events
+(``run_manifest``, ``lm_warmup``, ``lm_admit``, ``lm_evict``,
+``lm_decode``, ``lm_decode_error``, ``shed``, ``drain``,
+``program_cost``, ``profile_capture``, ``metrics``, ``run_end``);
+``trace`` adds each stream's span tree, rooted under the client's
+``x-jg-trace`` header when it sends one (echoed in the reply).
 
 Lifecycle: SIGTERM stops admission (shed ``draining``), lets the active
-streams run out within the drain budget, and exits 0.
+streams run out within the drain budget, emits ``drain`` and exits 0.
 
-``/metrics``, ``/admin/profile``, telemetry, chaos, AOT boot, trace
-headers, the prefix cache and speculative decoding are not in this
-package yet.
+Chaos, the AOT boot, the prefix cache and speculative decoding are not
+in this package yet.
 """
 
 from __future__ import annotations
@@ -46,6 +59,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ...infer import load_frozen, resolve_device
+from ...obs import Telemetry
+from ...obs.costs import arm_ledger
+from ...obs.profile import default_capture_dir
+from ...obs.trace import TRACE_HEADER, format_header, parse_header
 from ...resilience.preempt import StopRequest
 from ..httpbase import JsonHandler
 from .engine import LMEngine, LMRequest
@@ -77,6 +94,13 @@ class LMServeConfig:
     default_max_new_tokens: int = 64
     max_prompt_tokens: Optional[int] = None   # None: max_len - 1
     drain_timeout_s: float = 30.0
+    telemetry_dir: Optional[str] = None  # JSONL events here (obs/)
+    trace: Optional[bool] = None        # per-stream span trees in the
+                                        # event log; None: the JG_TRACE
+                                        # env var; needs telemetry_dir
+    costs: Optional[bool] = None        # the per-program cost ledger
+                                        # (obs/costs); None: JG_COSTS
+    events_max_bytes: Optional[int] = None  # size-rotate events.jsonl
 
 
 class LMServer:
@@ -84,6 +108,11 @@ class LMServer:
 
     def __init__(self, config: LMServeConfig):
         self.config = config
+        self.telemetry = Telemetry(
+            config.telemetry_dir, heartbeat=False, trace=config.trace,
+            events_max_bytes=config.events_max_bytes,
+        )
+        self._ledger = arm_ledger(config.costs)
         self.stop_request = StopRequest()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
@@ -109,7 +138,26 @@ class LMServer:
             max_len=cfg.max_len, device=device,
         )
         self.vocab = decoder.vocab
-        self.engine = LMEngine(decoder, queue_depth=cfg.queue_depth).start()
+        # the manifest opens the log, before the engine's warm-up events
+        self.telemetry.manifest(
+            config={
+                "artifact": cfg.artifact,
+                "engine": "lm",
+                "slots": cfg.slots,
+                "page_size": cfg.page_size,
+                "num_pages": decoder.num_pages,
+                "prefill_chunk": cfg.prefill_chunk,
+                "max_len": decoder.max_len,
+                "queue_depth": cfg.queue_depth,
+                "default_deadline_ms": cfg.default_deadline_ms,
+                "kernels": bool(decoder.kernels),
+            },
+            device=device, artifact_info=self.artifact_info,
+        )
+        self.engine = LMEngine(
+            decoder, queue_depth=cfg.queue_depth, telemetry=self.telemetry,
+            device=device,
+        ).start()
         server = self
 
         class Handler(_LMHandler):
@@ -132,7 +180,7 @@ class LMServer:
 
     def health(self) -> Dict[str, Any]:
         eng = self.engine
-        return {
+        health = {
             "status": "draining" if eng.draining else "ok",
             "engine": "lm",
             "device": self.config.device,
@@ -144,9 +192,24 @@ class LMServer:
             "max_len": eng.max_len,
             "kernels": bool(eng.decoder.kernels),
             "iterations_total": eng.batch_seq,
+            "recompiles_post_warmup": eng.recompiles_post_warmup,
             "metrics": eng.metrics(),
+            "kv_pool": eng.kv_pool_stats(),
             "uptime_s": round(time.time() - self._started_at, 3),
         }
+        if self._ledger.enabled:
+            from ...obs import device_memory_stats
+
+            health["programs"] = self._ledger.snapshot()
+            mem = device_memory_stats(live_fallback=True)
+            if mem is not None:
+                health["device_memory"] = mem
+        return health
+
+    def profile_dir_default(self) -> Optional[str]:
+        """The /admin/profile artifact dir without a ``dir`` in the body:
+        ``<telemetry_dir>/profile``."""
+        return default_capture_dir(self.config.telemetry_dir)
 
     def request_stop(self, reason: str = "stop requested") -> None:
         self.stop_request.request(reason)
@@ -169,12 +232,15 @@ class LMServer:
             "queued_at_drain": queued,
             "streaming_at_drain": streaming,
             "flushed": flushed,
-            "requests_total": self.engine.requests_ctr.total(),
-            "shed_total": self.engine.shed_ctr.total(),
+            "requests_total": int(self.engine.requests_ctr.total()),
+            "shed_total": int(self.engine.shed_ctr.total()),
             "iterations_total": self.engine.batch_seq,
+            "recompiles_post_warmup": self.engine.recompiles_post_warmup,
             "pages_in_use": self.engine.allocator.used_count(),
             "wall_s": round(time.monotonic() - t0, 3),
         }
+        self.telemetry.emit("drain", engine="lm", **stats)
+        self.telemetry.close()
         log.info("lm server drained and stopped: %s", stats)
         return stats
 
@@ -201,10 +267,14 @@ class _LMHandler(JsonHandler):
 
     # -- chunked ndjson streaming --------------------------------------------
 
-    def _start_stream(self) -> None:
+    def _start_stream(
+        self, headers: Optional[Dict[str, str]] = None
+    ) -> None:
         self.send_response(200)
         self.send_header("Content-Type", "application/x-ndjson")
         self.send_header("Transfer-Encoding", "chunked")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
 
     def _write_line(self, obj: Dict[str, Any]) -> None:
@@ -221,12 +291,20 @@ class _LMHandler(JsonHandler):
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
         if self.path == "/healthz":
             self._reply(200, self.srv.health())
+        elif self.path == "/metrics":
+            self._reply_metrics(self.srv.telemetry.registry)
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802 (http.server API)
         if self.path == "/generate":
             self._generate()
+        elif self.path == "/admin/profile":
+            # this handler thread sleeps through the capture while the
+            # scheduler keeps decoding
+            self._admin_profile(
+                self.srv.telemetry, self.srv.profile_dir_default()
+            )
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -307,13 +385,19 @@ class _LMHandler(JsonHandler):
             })
             return
         deadline = time.monotonic() + deadline_ms / 1e3
+        # x-jg-trace: the client mints, this server adopts
+        ctx = parse_header(self.headers.get(TRACE_HEADER))
         req = engine.submit(prompt, max_new, deadline,
-                            temperature=temperature, seed=seed)
+                            temperature=temperature, seed=seed, ctx=ctx)
         if isinstance(req, str):       # shed reason
             self._reply(_SHED_HTTP[req], {"error": "shed", "reason": req},
                         headers={"Retry-After": "0.100"})
             return
         self._stream_reply(req, deadline)
+
+    def _trace_headers(self, req: LMRequest) -> Optional[Dict[str, str]]:
+        ctx = req.span.context
+        return {TRACE_HEADER: format_header(ctx)} if ctx else None
 
     def _stream_reply(self, req: LMRequest, deadline: float) -> None:
         """Wait for the first event (bounded by the deadline: a request
@@ -325,16 +409,17 @@ class _LMHandler(JsonHandler):
             )
         except queue.Empty:
             req.cancelled = True       # the scheduler drops it on sight
-            self._reply(504, {"error": "deadline exceeded", "id": req.id})
+            self._reply(504, {"error": "deadline exceeded", "id": req.id},
+                        headers=self._trace_headers(req))
             return
         if ev["kind"] == "done" and not req.tokens:
             code = {"deadline": 504, "error": 502}.get(ev["status"], 502)
             self._reply(code, {
                 "error": ev.get("detail") or ev["status"], "id": req.id,
-            })
+            }, headers=self._trace_headers(req))
             return
         try:
-            self._start_stream()
+            self._start_stream(self._trace_headers(req))
             while True:
                 if ev["kind"] == "done":
                     self._write_line({

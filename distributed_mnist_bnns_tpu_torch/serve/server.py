@@ -12,14 +12,30 @@ micro-batcher, serving ``infer.load_packed`` artifacts on a ``device``
                        draining) | 504 deadline | 502 backend error |
                        400 bad input | 413 batch too large
   GET  /healthz        status (ok|draining), breaker state, queue depth,
-                       request/shed/batch counts
+                       request/shed/batch counts (+ per-program costs
+                       and the cards' memory with --costs)
+  GET  /metrics        the obs registry: JSON, or Prometheus text under
+                       ``Accept: text/plain``
+  POST /admin/reload   {"artifact": path} — hot swap: the new artifact
+                       is loaded AND warmed off-path, then swapped in
+                       atomically; unchanged weights give bitwise-
+                       identical responses across the swap
+  POST /admin/profile  {"duration_ms": N} — an on-demand torch.profiler
+                       capture of a live window, off the serving path;
+                       409 while another capture runs
+
+With ``telemetry_dir`` the server writes the JAX package's events
+(``run_manifest``, ``request``, ``shed``, ``breaker_open`` /
+``breaker_close``, ``reload``, ``drain``, ``program_cost``,
+``profile_capture``, ``metrics``, ``run_end``); ``trace`` adds each
+request's span tree, rooted under the client's ``x-jg-trace`` header
+when it sends one (echoed in the reply).
 
 Lifecycle: SIGTERM/SIGINT set a :class:`~..resilience.preempt.
 StopRequest` flag — stop admitting (new work is shed with reason
-``draining``), flush everything in flight, exit 0.
+``draining``), flush everything in flight, emit ``drain``, exit 0.
 
-Telemetry, tracing, chaos, AOT boot, ``/admin/reload``,
-``/admin/profile`` and ``/metrics`` are not in this package yet.
+Chaos and the AOT boot are not in this package yet.
 """
 
 from __future__ import annotations
@@ -35,9 +51,21 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from ..infer import load_packed
+from ..obs import Telemetry
+from ..obs.costs import arm_ledger
+from ..obs.profile import default_capture_dir
+from ..obs.trace import TRACE_HEADER, format_header, parse_header
 from ..resilience.policy import CircuitBreaker
 from ..resilience.preempt import StopRequest
-from .core import DEFAULT_TIER, TIERS, AdmissionQueue, Counter, ServeEngine
+from .core import (
+    BREAKER_TRANSITIONS_TOTAL,
+    DEFAULT_TIER,
+    TIERS,
+    AdmissionQueue,
+    Request,
+    ServeEngine,
+    labeled,
+)
 from .httpbase import JsonHandler
 
 log = logging.getLogger(__name__)
@@ -71,6 +99,17 @@ class ServeConfig:
     breaker_probes: int = 1          # half-open probe batches
     drain_timeout_s: float = 30.0    # flush budget on SIGTERM
     input_shape: Tuple[int, ...] = (28, 28, 1)
+    telemetry_dir: Optional[str] = None  # JSONL events here (obs/)
+    trace: Optional[bool] = None     # per-request span trees in the event
+                                     # log; None: the JG_TRACE env var;
+                                     # needs telemetry_dir
+    costs: Optional[bool] = None     # the per-program cost ledger and
+                                     # measured MFU in /healthz (obs/costs);
+                                     # None: the JG_COSTS env var
+    events_max_bytes: Optional[int] = None  # size-rotate events.jsonl
+                                     # past this (None: the
+                                     # JG_EVENTS_MAX_BYTES env var, else
+                                     # unbounded)
 
 
 class PackedInferenceServer:
@@ -78,18 +117,29 @@ class PackedInferenceServer:
 
     def __init__(self, config: ServeConfig):
         self.config = config
-        self.breaker_transitions = Counter()
+        self.telemetry = Telemetry(
+            config.telemetry_dir, heartbeat=False, trace=config.trace,
+            events_max_bytes=config.events_max_bytes,
+        )
+        # the process-wide ledger; an explicit flag wins over JG_COSTS
+        self._ledger = arm_ledger(config.costs)
+        self.breaker_transitions = self.telemetry.registry.counter(
+            BREAKER_TRANSITIONS_TOTAL, "circuit-breaker state transitions")
         self.breaker = CircuitBreaker(
             failure_threshold=config.breaker_threshold,
             reset_timeout_s=config.breaker_reset_s,
             half_open_probes=config.breaker_probes,
-            on_transition=lambda old, new, reason:
-                self.breaker_transitions.inc(to=new),
+            on_transition=self._on_breaker_transition,
         )
         self.queue = AdmissionQueue(config.queue_depth)
         self.stop_request = StopRequest()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
+        self._reload_lock = threading.Lock()
+        # requests a handler thread is still answering: the drain seals
+        # the event log only after their last spans are recorded
+        self._handling = 0
+        self._handling_cond = threading.Condition()
         self._started_at = time.time()
         self.engine: Optional[ServeEngine] = None
         self.artifact_info: Dict[str, Any] = {}
@@ -103,14 +153,21 @@ class PackedInferenceServer:
             1 << 20, config.batch_size * n_vals * 32 + (1 << 16)
         )
 
-    def _load_and_warm(self, path: str):
-        """load_packed + one padded-shape call before the first request,
-        so the kernels are built and loaded before traffic arrives."""
-        fn, info = load_packed(path, device=self.config.device)
+    def _warm(self, fn, path: str) -> None:
+        """One padded-shape call, off the serving path (at boot, or
+        before a reload's swap), so the kernels are built and loaded
+        before traffic meets them. With the cost ledger armed it is the
+        ``classifier_predict`` row's run."""
         warm = np.zeros(
             (self.config.batch_size, *self.config.input_shape), np.float32
         )
-        fn(warm).cpu()
+        self._ledger.measure(
+            "classifier_predict", fn, warm, device=self.config.device,
+            telemetry=self.telemetry, extra={"artifact": path}).cpu()
+
+    def _load_and_warm(self, path: str):
+        fn, info = load_packed(path, device=self.config.device)
+        self._warm(fn, path)
         return fn, info
 
     # -- lifecycle -----------------------------------------------------------
@@ -119,13 +176,29 @@ class PackedInferenceServer:
         """Load + warm the artifact, start the engine and the HTTP
         front end. Returns the bound (host, port)."""
         cfg = self.config
-        fn, info = self._load_and_warm(cfg.artifact)
+        fn, info = load_packed(cfg.artifact, device=cfg.device)
         self.artifact_info = dict(info)
+        # the manifest opens the log, before the warm-up's cost row
+        self.telemetry.manifest(
+            config={
+                "artifact": cfg.artifact,
+                "batch_size": cfg.batch_size,
+                "queue_depth": cfg.queue_depth,
+                "default_deadline_ms": cfg.default_deadline_ms,
+                "stall_timeout_s": cfg.stall_timeout_s,
+                "breaker_threshold": cfg.breaker_threshold,
+                "breaker_reset_s": cfg.breaker_reset_s,
+            },
+            device=cfg.device, artifact_info=self.artifact_info,
+        )
+        self._warm(fn, cfg.artifact)
         self.engine = ServeEngine(
             fn,
             batch_size=cfg.batch_size,
             queue=self.queue,
             breaker=self.breaker,
+            telemetry=self.telemetry,
+            device=cfg.device,
             stall_timeout_s=cfg.stall_timeout_s,
             linger_s=cfg.linger_ms / 1e3,
         ).start()
@@ -150,20 +223,67 @@ class PackedInferenceServer:
         )
         return host, port
 
+    def _on_breaker_transition(
+        self, old: str, new: str, reason: str
+    ) -> None:
+        self.breaker_transitions.inc(to=new)
+        if new == "open":
+            self.telemetry.emit(
+                "breaker_open", from_state=old, reason=reason
+            )
+        elif new == "closed":
+            self.telemetry.emit(
+                "breaker_close", from_state=old, reason=reason
+            )
+        # half_open is an internal hop; the close/open events bracket it
+
+    def reload_artifact(self, path: Optional[str] = None) -> Dict[str, Any]:
+        """Hot swap to ``path`` (default: the configured artifact, read
+        again from disk). Load and warm happen before the swap, so the
+        worker sees the old or the new predictor, never a half-built
+        one."""
+        path = path or self.config.artifact
+        with self._reload_lock:   # one admin reload at a time
+            fn, info = self._load_and_warm(path)
+            if self.engine is None:
+                raise RuntimeError("reload before start")
+            self.engine.swap_predictor(fn)
+            self.artifact_info = dict(info)
+        # info nests under its own field: an artifact's "kind" would
+        # clobber the event envelope's
+        self.telemetry.emit("reload", artifact=path, info=dict(info))
+        log.info("hot-reloaded artifact %s (%s)", path, info.get("family"))
+        return dict(info)
+
     def health(self) -> Dict[str, Any]:
         eng = self.engine
-        return {
+        health = {
             "status": "draining" if eng is not None and eng.draining else "ok",
             "breaker": self.breaker.state,
             "queue_depth": len(self.queue),
             "batch_size": self.config.batch_size,
             "device": self.config.device,
             "family": self.artifact_info.get("family"),
-            "requests": eng.requests_ctr.snapshot() if eng else {},
-            "sheds": eng.shed_ctr.snapshot() if eng else {},
-            "batches_total": eng.batches_ctr.total() if eng else 0,
+            "requests": labeled(eng.requests_ctr) if eng else {},
+            "sheds": labeled(eng.shed_ctr) if eng else {},
+            "batches_total": int(eng.batches_ctr.total()) if eng else 0,
             "uptime_s": round(time.time() - self._started_at, 3),
         }
+        if self._ledger.enabled:
+            # per-program costs and measured MFU, and the memory census
+            # (healthz is a poll-rate path)
+            from ..obs import device_memory_stats
+
+            health["programs"] = self._ledger.snapshot()
+            mem = device_memory_stats(live_fallback=True)
+            if mem is not None:
+                health["device_memory"] = mem
+        return health
+
+    def profile_dir_default(self) -> Optional[str]:
+        """The /admin/profile artifact dir without a ``dir`` in the body:
+        ``<telemetry_dir>/profile`` (None: the body must name one)."""
+        return default_capture_dir(self.config.telemetry_dir)
 
     def request_stop(self, reason: str = "stop requested") -> None:
         self.stop_request.request(reason)
@@ -182,15 +302,20 @@ class PackedInferenceServer:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        with self._handling_cond:
+            self._handling_cond.wait_for(lambda: self._handling == 0,
+                                         timeout=5.0)
         stats = {
             "reason": self.stop_request.reason or "stop requested",
             "inflight_at_drain": inflight,
             "flushed": flushed,
-            "requests_total": self.engine.requests_ctr.total(),
-            "shed_total": self.engine.shed_ctr.total(),
-            "batches_total": self.engine.batches_ctr.total(),
+            "requests_total": int(self.engine.requests_ctr.total()),
+            "shed_total": int(self.engine.shed_ctr.total()),
+            "batches_total": int(self.engine.batches_ctr.total()),
             "wall_s": round(time.monotonic() - t0, 3),
         }
+        self.telemetry.emit("drain", **stats)
+        self.telemetry.close()
         log.info("drained and stopped: %s", stats)
         return stats
 
@@ -225,14 +350,49 @@ class _Handler(JsonHandler):
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
         if self.path == "/healthz":
             self._reply(200, self.srv.health())
+        elif self.path == "/metrics":
+            # JSON by default, Prometheus text under Accept: text/plain
+            self._reply_metrics(self.srv.telemetry.registry)
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802 (http.server API)
+        srv = self.srv
+        with srv._handling_cond:
+            srv._handling += 1
+        try:
+            self._route_post()
+        finally:
+            with srv._handling_cond:
+                srv._handling -= 1
+                srv._handling_cond.notify_all()
+
+    def _route_post(self) -> None:
         if self.path == "/predict":
             self._predict()
+        elif self.path == "/admin/reload":
+            self._reload()
+        elif self.path == "/admin/profile":
+            # this handler thread sleeps through the capture window;
+            # traffic keeps flowing through the worker
+            self._admin_profile(
+                self.srv.telemetry, self.srv.profile_dir_default()
+            )
         else:
             self._reply(404, {"error": f"no route {self.path}"})
+
+    def _reload(self) -> None:
+        body = self._read_json()
+        if body is None:
+            return
+        try:
+            info = self.srv.reload_artifact(body.get("artifact"))
+        except (OSError, ValueError, KeyError) as e:
+            self._reply(
+                400, {"error": f"reload failed: {type(e).__name__}: {e}"}
+            )
+            return
+        self._reply(200, {"reloaded": True, "info": info})
 
     def _predict(self) -> None:
         body = self._read_json()
@@ -283,7 +443,10 @@ class _Handler(JsonHandler):
                          f"{', '.join(TIERS)})",
             })
             return
-        req = engine.submit(images, deadline, tier=tier)
+        # x-jg-trace: the client mints, this server adopts (malformed
+        # headers degrade to a fresh trace, never a 4xx)
+        ctx = parse_header(self.headers.get(TRACE_HEADER))
+        req = engine.submit(images, deadline, ctx, tier=tier)
         if isinstance(req, str):  # shed reason
             self._reply(_SHED_HTTP[req], {"error": "shed", "reason": req},
                         headers=self._shed_headers(req))
@@ -301,7 +464,13 @@ class _Handler(JsonHandler):
             after = _RETRY_AFTER_S
         return {"Retry-After": f"{after:.3f}"}
 
-    def _wait_and_reply(self, req, deadline: float) -> None:
+    def _trace_headers(self, req: Request) -> Optional[Dict[str, str]]:
+        """The request's trace id, so a caller that sent no header can
+        still find its span tree in the server's log."""
+        ctx = req.span.context
+        return {TRACE_HEADER: format_header(ctx)} if ctx else None
+
+    def _wait_and_reply(self, req: Request, deadline: float) -> None:
         """Block until the engine resolves ``req`` or its deadline
         passes — the response ALWAYS arrives within deadline + slack,
         even if the backend is mid-stall (the abandoned request is
@@ -309,27 +478,42 @@ class _Handler(JsonHandler):
         remaining = deadline - time.monotonic() + _WAIT_SLACK_S
         if not req.event.wait(max(remaining, 0.0)):
             if req.finish("deadline", error="deadline exceeded"):
-                self._reply(504, {"error": "deadline exceeded", "id": req.id})
+                # the waiter owns the root span's end too
+                req.span.end("deadline")
+                self._reply(504, {"error": "deadline exceeded",
+                                  "id": req.id},
+                            headers=self._trace_headers(req))
                 return
             # engine won the race after our timeout check: fall through
         status = req.status
+        m_resp = time.monotonic()
+        trace_headers = self._trace_headers(req)
         if status == "ok":
             lp = req.log_probs
             self._reply(200, {
                 "argmax": [int(i) for i in lp.argmax(-1)],
                 "log_probs": [[float(v) for v in row] for row in lp],
-            })
+            }, headers=trace_headers)
         elif status == "deadline":
             self._reply(504, {"error": req.error or "deadline exceeded",
-                              "id": req.id})
+                              "id": req.id}, headers=trace_headers)
         elif status == "breaker_open":
             self._reply(503, {"error": "shed", "reason": "breaker_open",
                               "id": req.id},
-                        headers=self._shed_headers("breaker_open"))
+                        headers={**(trace_headers or {}),
+                                 **self._shed_headers("breaker_open")})
         elif status == "shed":
             self._reply(503, {"error": "shed", "reason": "displaced",
                               "tier": req.tier, "id": req.id},
-                        headers=self._shed_headers("displaced"))
+                        headers={**(trace_headers or {}),
+                                 **self._shed_headers("displaced")})
         else:
             self._reply(502, {"error": req.error or "backend failure",
-                              "id": req.id})
+                              "id": req.id}, headers=trace_headers)
+        engine = self.srv.engine
+        if engine is not None and engine.tracer.enabled:
+            # wake-to-reply-written: the respond phase of the tree
+            engine.tracer.record(
+                "serve.respond", kind="respond", parent=req.span,
+                t0=m_resp, t1=time.monotonic(), status=str(status),
+            )

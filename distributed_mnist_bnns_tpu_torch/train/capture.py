@@ -34,6 +34,13 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
   betas, eps or weight decay: ``optimizer_key``). The trainer drops the
   whole ``TrainScan`` when it builds a new optimizer or restores a
   checkpoint (a restore replaces the optimizer's state tensors).
+- **Telemetry.** Every capture is reported to the build counter of
+  ``obs`` (``RecompileTracker``, ``kind="capture"``) and counted in
+  ``captures``: a capture on every chunk, the port's retrace storm, is
+  a counter that keeps growing. With the cost ledger armed
+  (``obs.costs``), the captured chunk's flops and bytes are counted
+  while it is captured and banked as ``train_scan_<n>`` with the
+  graph's pool as its peak memory.
 - **Kernel launches.** A kernel wrapper counts when its launch is
   recorded, at capture, not when a replay runs it: ``recorded`` sums
   what the captures counted, ``ran`` what the replays ran (a graph's
@@ -55,6 +62,7 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -62,6 +70,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs.costs import counting, get_ledger
+from ..obs.recompile import get_tracker
 from ..ops import _kernels
 
 
@@ -133,6 +143,8 @@ class TrainScan:
         self._held: tuple = ()    # the model, optimizer and constants
         self.recorded: Dict[str, int] = {}  # launches counted at captures
         self.ran: Dict[str, int] = {}       # launches run by replays
+        self.captures = 0         # captures so far, recaptures included
+        self.telemetry = None     # where cost rows go (obs.Telemetry)
 
     def run(self, model, optimizer, images: torch.Tensor,
             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -210,6 +222,7 @@ class TrainScan:
         optimizer.zero_grad(set_to_none=True)
         torch.cuda.synchronize(device)
         before = dict(_kernels.LAUNCHES)
+        ledger = get_ledger()
         # NCCL's watchdog thread polls its events while we capture; a
         # global capture mode would fail on its calls
         mode = "thread_local" if self.groups else "global"
@@ -217,8 +230,10 @@ class TrainScan:
             # (entering emptied the allocator's cache: what is reserved
             # from here on is the graph's pool)
             reserved = torch.cuda.memory_reserved(device)
-            g.losses, g.accs = self.chunk(model, optimizer, g.images,
-                                          g.labels, g.scalars)
+            with (counting() if ledger.enabled
+                  else contextlib.nullcontext({})) as cost:
+                g.losses, g.accs = self.chunk(model, optimizer, g.images,
+                                              g.labels, g.scalars)
         torch.cuda.synchronize(device)
         g.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         if self.wire is not None:   # recorded, not run: replays count it
@@ -231,6 +246,14 @@ class TrainScan:
         for k, v in g.captured.items():
             self.recorded[k] = self.recorded.get(k, 0) + v
         g.capture_s = time.perf_counter() - t0
+        self.captures += 1
+        get_tracker().record("capture", g.capture_s)
+        if ledger.enabled:
+            n = int(images.shape[0])
+            ledger.record(f"train_scan_{n}",
+                          {**cost, "hbm": {"peak_bytes": g.pool_bytes}},
+                          telemetry=self.telemetry, n_steps=n,
+                          batch=list(images.shape[1:2]))
         return g
 
     def stats(self) -> Dict[str, Any]:

@@ -128,6 +128,30 @@ JAX layouts: the flax tree's full arrays under TP, the pipelined
 ``{"blocks", "rest"}`` tree under PP (``interop.Layout``), written by
 rank 0 and cut back on a restore. ``scan_steps`` and ``device_data``
 under either raise (ROADMAP queue 1 item 7).
+
+Telemetry (the JAX ``_setup_telemetry`` and ``_record_step``, ``obs``):
+``telemetry_dir`` writes the run's JSONL events (the manifest with the
+analytic step FLOPs and the card's peak, one ``step`` event a dispatch
+with examples/s, MFU and, at log boundaries, loss and accuracy, then
+``epoch`` with the cards' memory, ``eval``, ``checkpoint``, ``resume``,
+``rollback``, ``graceful_stop``, ``error``, ``metrics`` and ``run_end``)
+and per-rank heartbeats; without it the registry still counts steps and
+examples and keeps the step-latency histogram (from the host's dispatch
+time). A step event's ``latency_s`` is the device's: the time between
+the CUDA completion events of consecutive dispatches (an epoch's first,
+and the first after a profile capture starts or stops, from its own
+start event: the capture's time is no step's), read once ``Event.query``
+says they fired or after the epoch's closing synchronize
+(``obs.StepClock``), so telemetry adds no host sync to the step loop;
+a chunk of S captured steps is one event of ``n_steps = S`` with the
+latency amortized. ``trace`` adds
+``train.step``, ``train.checkpoint`` and ``train.restore`` spans;
+``comm_bytes_total{mode, phase[, level]}`` counts what the exchange's
+collectives put on the wire (``wire``), split as JAX splits it.
+``profile_dir`` captures the first epoch's ``profile_steps`` steps with
+``torch.profiler``, ``profile_step_window="A:B"`` the cumulative steps A
+to B (into ``profile_dir`` or ``<telemetry_dir>/profile``), each
+dispatch inside a ``jg_step`` region (``obs.profile``).
 """
 
 from __future__ import annotations
@@ -174,6 +198,7 @@ from ..utils.checkpoint import (
 from ..utils.checkpoint import load_checkpoint as _load_tree
 from ..utils.meters import AverageMeter
 from ..utils.results import ResultsLog
+from ..obs.profile import step_annotation
 from ..ops.remat import checkpoint as remat_checkpoint
 from .capture import TrainScan, pinned
 from .optim import (
@@ -490,8 +515,8 @@ class TrainConfig:
                                    # (parallel/remesh.py). The elastic
                                    # supervisor (run_elastic, cli train
                                    # --elastic, the chaos membership
-                                   # faults) is not ported yet: it comes
-                                   # with obs/ (ROADMAP queue 1 item 8)
+                                   # faults) is not ported yet (ROADMAP
+                                   # queue 1, item 6's remainder)
     pipeline_parallel: int = 1     # >1: GPipe the transformer block stack
                                    # over N ranks (parallel/pipeline_model)
     pp_microbatches: int = 0       # microbatches per pipelined step
@@ -500,6 +525,18 @@ class TrainConfig:
     tensor_parallel: int = 1       # >1: Megatron TP over a 'model' axis of
                                    # ranks (parallel/model_parallel); with
                                    # data_parallel a (data x model) mesh
+    profile_dir: Optional[str] = None  # torch.profiler capture of the first
+                                   # trained epoch's profile_steps steps
+    profile_steps: int = 5
+    profile_step_window: Optional[str] = None  # "A:B": capture from
+                                   # cumulative step A to B (obs/profile)
+                                   # into profile_dir, or <telemetry_dir>/
+                                   # profile; supersedes profile_steps
+    telemetry_dir: Optional[str] = None  # JSONL events, heartbeats (obs/);
+                                   # None: the registry only, no files
+    trace: Optional[bool] = None   # train.step / checkpoint / restore spans
+                                   # in the event log (obs/trace); None: the
+                                   # JG_TRACE env var; needs telemetry_dir
 
 
 def _dataset_ref(data):
@@ -515,7 +552,7 @@ class Trainer:
     """One model and one optimizer on one device; with
     ``data_parallel``, one rank of the process group."""
 
-    def __init__(self, config: TrainConfig):
+    def __init__(self, config: TrainConfig, input_shape=(28, 28, 1)):
         self.config = config
         if config.dp_mode not in ("gspmd", "fsdp"):
             raise ValueError(f"unknown dp_mode {config.dp_mode!r} "
@@ -566,6 +603,7 @@ class Trainer:
             mk.setdefault("rng_seed", rank_seed(config.seed + 1,
                                                 self.dp_rank))
         mk.setdefault("rng_seed", config.seed + 1)
+        self._model_kwargs = dict(mk)   # the unsharded model's (FLOPs)
         mk["generator"] = torch.Generator().manual_seed(config.seed)
         self.model = build_model(config.model, mk).to(self.device)
         self.regime = RegimeSchedule(config.regime)
@@ -601,6 +639,198 @@ class Trainer:
         self.stop = StopRequest()
         self._checkpointer = (AsyncCheckpointer() if config.async_checkpoint
                               else None)
+        self._setup_telemetry(input_shape)
+
+    # -- telemetry (obs/) ----------------------------------------------------
+
+    def _setup_telemetry(self, input_shape) -> None:
+        """The run's ``obs.Telemetry`` (event sink and heartbeats under
+        ``telemetry_dir``, registry-only without), the analytic step
+        FLOPs and the card's peak for MFU, the manifest, the 1-bit
+        plan's ``comm_compress`` record, the profile window (the JAX
+        ``_setup_telemetry``)."""
+        import dataclasses
+
+        from ..obs import (
+            StepClock, Telemetry, device_peak_flops, get_ledger,
+            get_profiler, train_step_flops,
+        )
+
+        cfg = self.config
+        self.telemetry = Telemetry(cfg.telemetry_dir, trace=cfg.trace)
+        self._clock = StepClock(self.device) if cfg.telemetry_dir else None
+        self._ledger = get_ledger()
+        self._profiler = get_profiler()
+        self._global_batch = cfg.batch_size   # every rank's rows together
+        self._wire_seen: Dict[tuple, int] = {}
+        # The conv and transformer families' FLOPs come from a forward
+        # at batch 1 on the CPU: paid only when files were asked for. A
+        # sharded model's FLOPs are its unsharded twin's.
+        model = self.model
+        if self.mp is not None and cfg.telemetry_dir:
+            model = build_model(cfg.model, dict(
+                self._model_kwargs, generator=torch.Generator()))
+        self._step_flops, self._flops_method = (
+            train_step_flops(cfg.model, model, self._global_batch,
+                             input_shape=input_shape
+                             if cfg.telemetry_dir else None)
+            if self.mp is None or cfg.telemetry_dir
+            else (None, "unavailable"))
+        self._peak_flops, self._peak_precision = device_peak_flops(
+            self.device, "int8" if cfg.backend == "int8" else "bf16")
+        if self.telemetry.enabled:
+            self.telemetry.manifest(
+                config=dataclasses.asdict(cfg), mesh=self.mesh,
+                device=self.device, step_flops=self._step_flops,
+                flops_method=self._flops_method,
+                peak_flops=self._peak_flops,
+                peak_precision=self._peak_precision, world=self.world,
+            )
+        if self.comm_plan is not None and self.comm_plan.mode != "fp32":
+            p = self.comm_plan
+            extra = {}
+            if self.hier_plan is not None:
+                h = self.hier_plan
+                extra = dict(
+                    hosts=h.hosts, local=h.local,
+                    intra_bytes_per_step=h.intra_bytes_per_step,
+                    inter_bytes_per_step=h.inter_bytes_per_step,
+                    flat_fp32_bytes_per_step=h.flat_fp32_bytes_per_step,
+                    inter_ratio_vs_flat_fp32=h.inter_ratio_vs_flat_fp32,
+                )
+            self.telemetry.emit(
+                "comm_compress",
+                mode=p.mode, layout=p.layout, world=p.world,
+                n_params=p.n_params, bucket_size=p.bucket_size,
+                buckets=p.world * p.nb, chunks=p.chunks,
+                wire_bytes_per_step=p.wire_bytes_per_step,
+                wire_bytes_rs=p.wire_bytes_rs,
+                wire_bytes_ag=p.wire_bytes_ag,
+                fp32_bytes_per_step=p.fp32_bytes_per_step,
+                wire_ratio=p.wire_ratio, **extra,
+            )
+        self._profiled = False   # the first-epoch profile_dir capture
+        self._profile_window = self._parse_profile_window(
+            cfg.profile_step_window)
+        if self._profile_window is not None:
+            self._profile_artifact_dir()   # fail at init, not mid-run
+        self._profile_window_started = False
+
+    @staticmethod
+    def _parse_profile_window(spec: Optional[str]):
+        if spec is None:
+            return None
+        try:
+            a, b = (int(v) for v in str(spec).split(":"))
+        except ValueError:
+            raise ValueError(
+                f"profile_step_window must be 'A:B' integer steps, got "
+                f"{spec!r}") from None
+        if not 0 <= a < b:
+            raise ValueError(
+                f"profile_step_window needs 0 <= A < B, got {spec!r}")
+        return a, b
+
+    def _profile_artifact_dir(self) -> str:
+        cfg = self.config
+        if cfg.profile_dir:
+            return cfg.profile_dir
+        from ..obs.profile import default_capture_dir
+
+        d = default_capture_dir(cfg.telemetry_dir)
+        if d is None:
+            raise ValueError("--profile-steps needs --profile-dir or "
+                             "--telemetry-dir for the capture artifacts")
+        return d
+
+    def _drive_profile_window(self, *, before_dispatch: bool) -> None:
+        """Start the ``profile_step_window`` capture before the dispatch
+        that reaches step A, stop it after the one that reaches B (the
+        JAX ``_drive_profile_window``)."""
+        from ..obs.profile import ProfileBusyError
+
+        a, b = self._profile_window
+        if before_dispatch:
+            if not self._profile_window_started and self.step >= a:
+                try:
+                    self._profiler.start(self._profile_artifact_dir())
+                except ProfileBusyError:
+                    log.warning("profile window %s skipped: a capture is "
+                                "already running",
+                                self.config.profile_step_window)
+                    self._profile_window = None
+                    return
+                self._profile_window_started = True
+                self._restart_clock()
+        elif self._profile_window_started and self.step >= b:
+            self._stop_profile_window()
+
+    def _stop_profile_window(self) -> None:
+        self._profile_window_started = False
+        self._profile_window = None
+        self._profiler.stop(telemetry=self.telemetry)
+        self._restart_clock()
+
+    def _restart_clock(self) -> None:
+        """Time the next dispatch from its own start: a capture's start
+        and stop (a synchronize, idle edges, the trace's export) are no
+        step's latency."""
+        if self._clock is not None:
+            self._clock.restart()
+
+    def _record_step(self, per_step_s: float, n: int, seen: int,
+                     metrics: Optional[Dict[str, float]] = None,
+                     program: str = "train_step") -> None:
+        """Step-level derived telemetry: examples/s, the latency
+        histogram, MFU — one ``step`` event per dispatch (n > 1: a
+        chunk, its latency amortized) — and the cost ledger's dispatch
+        time of ``program``."""
+        self.telemetry.record_step(
+            per_step_s, batch_size=self._global_batch, n_steps=n,
+            step=seen, step_flops=self._step_flops,
+            peak_flops=self._peak_flops, n_devices=self.world,
+            metrics=metrics,
+        )
+        if self._ledger.enabled:
+            self._ledger.observe(program, per_step_s * n)
+
+    def _record_comm(self, n: int) -> None:
+        """``comm_bytes_total`` from what the exchange's collectives
+        counted since the last dispatch (of ``n`` steps) (``wire``; a replay adds its
+        graph's recorded bytes), split as JAX splits it: flat
+        {mode, phase}; hierarchical the in-host fp32 ring (level intra)
+        and the 1-bit phases (level inter)."""
+        p = self.comm_plan
+        if p is None or self.world <= 1:
+            return
+        reg = self.telemetry.registry
+        comm = reg.counter(
+            "comm_bytes_total",
+            "gradient-exchange bytes on the wire per worker (labels: "
+            "mode, phase=rs|ag; hierarchical runs add level=intra|inter)",
+        )
+        for (level, phase), total in list(self.wire.items()):
+            delta = total - self._wire_seen.get((level, phase), 0)
+            if delta <= 0:
+                continue
+            self._wire_seen[(level, phase)] = total
+            if self.hier_plan is None:
+                comm.inc(delta, mode=p.mode, phase=phase)
+            elif level == "intra":
+                comm.inc(delta, mode="fp32", phase="ring", level="intra")
+            else:
+                comm.inc(delta, mode=p.mode, phase=phase, level="inter")
+        if p.saved_bytes_per_step:
+            reg.counter(
+                "comm_saved_bytes_total",
+                "wire bytes saved vs the fp32 exchange",
+            ).inc(p.saved_bytes_per_step * n)
+
+    def _drain_clock(self) -> None:
+        """Record every dispatch whose completion event has fired."""
+        for seconds, d in self._clock.ready():
+            self._record_step(seconds / d["n"], d["n"], d["step"],
+                              d["metrics"], d["program"])
 
     def _resolve_world(self):
         """(world, rank): the process group's when ``data_parallel``,
@@ -1016,6 +1246,7 @@ class Trainer:
             self._train_scan = make_train_scan(
                 self.clamp_mask, step=self.train_step, wire=self.wire,
                 groups=(dist.group.WORLD,) if self.distributed else ())
+            self._train_scan.telemetry = self.telemetry
         return self._train_scan
 
     def _device_data_active(self) -> bool:
@@ -1089,47 +1320,108 @@ class Trainer:
         losses, accs = AverageMeter(), AverageMeter()
         batch_times: List[float] = []
         self.batch_meter.reset()
+        clock, tracer = self._clock, self.telemetry.tracer
+        if clock is not None:
+            clock.restart()
+        # The first epoch run (a resume may skip epoch 0) is captured for
+        # profile_steps steps; a profile_step_window supersedes it.
+        profiling = bool(cfg.profile_dir and not self._profiled
+                         and cfg.profile_step_window is None)
+        if profiling:
+            self._profiled = True
+            self._profiler.start(cfg.profile_dir)
         t_epoch = time.perf_counter()
         seen = start_batch
-        for images, labels, n in items:
-            # A rank of a data-parallel run never stops alone: it waits
-            # for the epoch boundary (_stop_boundary).
-            if self.stop.requested and self.world <= 1:
-                self._graceful_stop(epoch, batches_done=seen)
-            t0 = time.perf_counter()
-            if scan_steps > 1:
-                if n == 1:     # a leftover batch: a 1-step dispatch
-                    images, labels = images[None], labels[None]
-                loss, acc = self._get_train_scan()(
-                    self.model, self.optimizer,
-                    pinned(self._shard(images, 1), np.float32, self.device),
-                    pinned(self._shard(labels, 1), np.int64, self.device))
-            else:
-                x, y = self._to_device(self._shard(images),
-                                       self._shard(labels))
-                loss, acc = self.train_step(self.model, self.optimizer, x, y)
-            first = seen == start_batch
-            seen += n
-            self.step += n
-            if first or seen % every < n:
-                loss_f, acc_f = float(loss), float(acc)   # host sync
-                losses.update(loss_f, n * cfg.batch_size)
-                accs.update(acc_f, n * cfg.batch_size)
-                self.loss_history.append(loss_f)
-                if self.rank == 0:
-                    log.info("epoch %d step %d loss %.4f acc %.2f%%%s",
-                             epoch, seen, loss_f, acc_f,
-                             f" ({n}-step dispatch)" if n > 1 else "")
-            dt = time.perf_counter() - t0
-            self.batch_meter.update(dt / n, n)
-            batch_times.extend([dt / n] * n)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        dispatches = 0
+        try:
+            for images, labels, n in items:
+                # A rank of a data-parallel run never stops alone: it
+                # waits for the epoch boundary (_stop_boundary).
+                if self.stop.requested and self.world <= 1:
+                    self._graceful_stop(epoch, batches_done=seen)
+                if self._profile_window is not None:
+                    self._drive_profile_window(before_dispatch=True)
+                m0 = time.monotonic() if tracer.enabled else 0.0
+                t0 = time.perf_counter()
+                token = clock.start() if clock is not None else None
+                program = "train_step" if scan_steps == 1 else f"train_scan_{n}"
+                with (step_annotation(program, tracer.run_trace)
+                      if self._profiler.active else contextlib.nullcontext()):
+                    if scan_steps > 1:
+                        if n == 1:   # a leftover batch: a 1-step dispatch
+                            images, labels = images[None], labels[None]
+                        loss, acc = self._get_train_scan()(
+                            self.model, self.optimizer,
+                            pinned(self._shard(images, 1), np.float32,
+                                   self.device),
+                            pinned(self._shard(labels, 1), np.int64,
+                                   self.device))
+                    else:
+                        x, y = self._to_device(self._shard(images),
+                                               self._shard(labels))
+                        if self._ledger.enabled and (
+                                self._ledger.costs(program) is None):
+                            loss, acc = self._ledger.measure(
+                                program, self.train_step, self.model,
+                                self.optimizer, x, y, device=self.device,
+                                telemetry=self.telemetry,
+                                extra={"model": cfg.model})
+                        else:
+                            loss, acc = self.train_step(
+                                self.model, self.optimizer, x, y)
+                payload = {"n": n, "step": self.step + n, "metrics": None,
+                           "program": program}
+                if clock is not None:
+                    clock.stop(token, payload)
+                dispatches += 1
+                first = seen == start_batch
+                seen += n
+                self.step += n
+                if first or seen % every < n:
+                    loss_f, acc_f = float(loss), float(acc)   # host sync
+                    payload["metrics"] = {"loss": loss_f,
+                                          "accuracy": acc_f}
+                    losses.update(loss_f, n * cfg.batch_size)
+                    accs.update(acc_f, n * cfg.batch_size)
+                    self.loss_history.append(loss_f)
+                    if self.rank == 0:
+                        log.info("epoch %d step %d loss %.4f acc %.2f%%%s",
+                                 epoch, seen, loss_f, acc_f,
+                                 f" ({n}-step dispatch)" if n > 1 else "")
+                dt = time.perf_counter() - t0
+                if tracer.enabled:
+                    tracer.record("train.step", kind="step", t0=m0,
+                                  t1=time.monotonic(), step=self.step,
+                                  n_steps=n, epoch=epoch)
+                self.batch_meter.update(dt / n, n)
+                batch_times.extend([dt / n] * n)
+                self._record_comm(n)
+                if clock is None:
+                    self._record_step(dt / n, n, self.step,
+                                      payload["metrics"], program)
+                else:
+                    self._drain_clock()
+                if profiling and seen >= cfg.profile_steps:
+                    self._profiler.stop(telemetry=self.telemetry)
+                    profiling = False
+                    self._restart_clock()
+                if self._profile_window is not None:
+                    self._drive_profile_window(before_dispatch=False)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            if profiling:   # an epoch shorter than profile_steps, a raise
+                self._profiler.stop(telemetry=self.telemetry)
+            if self._profile_window_started:
+                # the truncated window is final: it does not reopen
+                self._stop_profile_window()
         epoch_time = time.perf_counter() - t_epoch
+        if clock is not None:
+            self._drain_clock()
         if cfg.timing_csv_prefix and self.rank == 0:
             self._dump_timing_csvs(epoch, batch_times, epoch_time)
         steps = seen - start_batch
-        return {
+        row = {
             "train_loss": losses.avg if losses.count else math.nan,
             "train_acc": accs.avg if accs.count else math.nan,
             "epoch_time_s": epoch_time,
@@ -1137,6 +1429,11 @@ class Trainer:
             "dispatch_time_s": self.batch_meter.avg,
             "steps": steps,
         }
+        self.telemetry.epoch(
+            epoch, metrics={"train_loss": row["train_loss"],
+                            "train_acc": row["train_acc"]},
+            epoch_time_s=round(epoch_time, 3), dispatches=dispatches)
+        return row
 
     def _device_set(self, data, split: str):
         """``data``'s ``split`` ("train" or "test") images (float32) and
@@ -1170,12 +1467,29 @@ class Trainer:
         idx = torch.from_numpy(self._shard(
             idx.reshape(n_batches, cfg.batch_size), 1)).to(self.device)
         self.batch_meter.reset()
+        clock = self._clock
+        if clock is not None:
+            clock.restart()
         t0 = time.perf_counter()
+        token = clock.start() if clock is not None else None
         loss, acc, dispatches = self._get_epoch_fn()(
             self.model, self.optimizer, images_all, labels_all, idx)
+        payload = {"n": n_batches, "step": self.step + n_batches,
+                   "metrics": None, "program": "train_epoch"}
+        if clock is not None:
+            clock.stop(token, payload)
         loss_f, acc_f = torch.stack([loss, acc]).tolist()   # the one sync
         epoch_time = time.perf_counter() - t0
         self.step += n_batches
+        # One dispatch = the whole epoch (JAX's): its step event has the
+        # epoch's time amortized over its steps.
+        payload["metrics"] = {"loss": loss_f, "accuracy": acc_f}
+        if clock is None:
+            self._record_step(epoch_time / max(n_batches, 1), n_batches,
+                              self.step, payload["metrics"], "train_epoch")
+        else:
+            self._drain_clock()
+        self._record_comm(n_batches)
         self.loss_history.append(loss_f)
         per_batch = epoch_time / max(n_batches, 1)
         self.batch_meter.update(per_batch, n_batches)
@@ -1186,6 +1500,9 @@ class Trainer:
         if cfg.timing_csv_prefix and self.rank == 0:
             self._dump_timing_csvs(epoch, [per_batch] * n_batches,
                                    epoch_time)
+        self.telemetry.epoch(
+            epoch, metrics={"train_loss": loss_f, "train_acc": acc_f},
+            epoch_time_s=round(epoch_time, 3), dispatches=dispatches)
         return {
             "train_loss": loss_f,
             "train_acc": acc_f,
@@ -1261,46 +1578,71 @@ class Trainer:
         each evaluated when ``eval_every`` divides its number (0: never),
         ``best_acc`` kept, checkpointed when ``checkpoint_dir`` is set and
         logged to ``results``. Returns one row per epoch run. Raises
-        ``Preempted`` after a graceful stop."""
+        ``Preempted`` after a graceful stop. The run's telemetry is
+        sealed at the end (``metrics`` and ``run_end`` events), after an
+        ``error`` event on a crash."""
         history = []
         start_epoch, start_batch = (self.try_resume() if self.config.resume
                                     else (0, 0))
+        tracer = self.telemetry.tracer
+        epoch = start_epoch
         with contextlib.ExitStack() as stack:
             if self.config.handle_preemption:
                 stack.enter_context(self.stop.install())
-            for epoch in range(start_epoch, self.config.epochs):
-                row: Dict[str, float] = {"epoch": epoch}
-                row.update(self.train_epoch(
-                    data, epoch, start_batch if epoch == start_epoch else 0))
-                if eval_every and (epoch + 1) % eval_every == 0:
-                    row.update(self.evaluate(data))
-                history.append(row)
-                acc = row.get("test_acc", 0.0)
-                is_best = acc > self.best_acc
-                self.best_acc = max(self.best_acc, acc)
-                if self.config.checkpoint_dir:
-                    self.save_checkpoint(
-                        self.config.checkpoint_dir, is_best=is_best,
-                        epoch=epoch, save_all=self.config.save_all_epochs,
-                        extra_meta={k: v for k, v in row.items()
-                                    if isinstance(v, float)})
-                    if (self._checkpointer is not None
-                            and not self.config.async_checkpoint):
-                        self._checkpointer.wait()
-                if self.rank == 0:
-                    log.info("epoch %d done: %s", epoch,
-                             {k: round(v, 4) for k, v in row.items()
-                              if k != "epoch"})
-                    self.results.add(**row)
-                    if self.config.results_path:
-                        self.results.save()
-                # The epoch's checkpoint is the resume point; a stop at
-                # the last epoch's boundary has nothing left to resume.
-                if epoch < self.config.epochs - 1 and self._stop_boundary():
-                    self._graceful_stop(epoch, batches_done=None,
-                                        write_checkpoint=False)
-        if self._checkpointer is not None:
-            self._checkpointer.wait()
+            try:
+                for epoch in range(start_epoch, self.config.epochs):
+                    row: Dict[str, float] = {"epoch": epoch}
+                    row.update(self.train_epoch(
+                        data, epoch,
+                        start_batch if epoch == start_epoch else 0))
+                    if eval_every and (epoch + 1) % eval_every == 0:
+                        eval_row = self.evaluate(data)
+                        row.update(eval_row)
+                        self.telemetry.emit("eval", epoch=epoch, **eval_row)
+                    history.append(row)
+                    acc = row.get("test_acc", 0.0)
+                    is_best = acc > self.best_acc
+                    self.best_acc = max(self.best_acc, acc)
+                    if self.config.checkpoint_dir:
+                        with tracer.start("train.checkpoint",
+                                          kind="checkpoint", epoch=epoch,
+                                          best=is_best):
+                            self.save_checkpoint(
+                                self.config.checkpoint_dir, is_best=is_best,
+                                epoch=epoch,
+                                save_all=self.config.save_all_epochs,
+                                extra_meta={k: v for k, v in row.items()
+                                            if isinstance(v, float)})
+                        self.telemetry.checkpoint(
+                            epoch, self.config.checkpoint_dir, best=is_best)
+                        if (self._checkpointer is not None
+                                and not self.config.async_checkpoint):
+                            self._checkpointer.wait()
+                    if self.rank == 0:
+                        log.info("epoch %d done: %s", epoch,
+                                 {k: round(v, 4) for k, v in row.items()
+                                  if k != "epoch"})
+                        self.results.add(**row)
+                        if self.config.results_path:
+                            self.results.save()
+                    # The epoch's checkpoint is the resume point; a stop
+                    # at the last epoch's boundary has nothing left to
+                    # resume.
+                    if (epoch < self.config.epochs - 1
+                            and self._stop_boundary()):
+                        self._graceful_stop(epoch, batches_done=None,
+                                            write_checkpoint=False)
+                if self._checkpointer is not None:
+                    self._checkpointer.wait()
+            except Preempted:
+                # not a crash: the graceful_stop event is in the log
+                self.telemetry.close(preempted=True, epochs=len(history))
+                raise
+            except Exception as e:
+                self.telemetry.error(e, epoch=epoch)
+                self.telemetry.close(crashed=True, epochs=len(history))
+                raise
+        self.telemetry.close(epochs=len(history))
         return history
 
     def _stop_boundary(self) -> bool:
@@ -1333,13 +1675,23 @@ class Trainer:
                 extra["epoch_in_progress"] = int(epoch)
                 extra["batch_in_epoch"] = int(batches_done)
             # the meta's epoch is the last one completed (-1: none)
-            self.save_checkpoint(
-                cfg.checkpoint_dir,
-                epoch=epoch - 1 if batches_done is not None else epoch,
-                extra_meta=extra)
-            if self._checkpointer is not None:
-                self._checkpointer.wait()
+            with self.telemetry.tracer.start(
+                    "train.checkpoint", kind="checkpoint", epoch=epoch,
+                    preempted=True):
+                self.save_checkpoint(
+                    cfg.checkpoint_dir,
+                    epoch=epoch - 1 if batches_done is not None else epoch,
+                    extra_meta=extra)
+                if self._checkpointer is not None:
+                    self._checkpointer.wait()
             saved = True
+        self.telemetry.registry.counter(
+            "graceful_stops_total", "preemption-driven graceful stops"
+        ).inc()
+        self.telemetry.emit(
+            "graceful_stop", epoch=int(epoch), step=self.step,
+            batch_in_epoch=batches_done, checkpoint_saved=saved,
+            reason=self.stop.reason)
         log.warning("graceful stop at epoch %d step %d (%s): %s", epoch,
                     self.step, self.stop.reason,
                     "mid-epoch checkpoint written" if saved
@@ -1489,6 +1841,8 @@ class Trainer:
                         and not read_meta(ckpt).get("generations")):
             return 0, 0
         self._check_model(read_meta(ckpt), ckpt)
+        telemetry, tracer = self.telemetry, self.telemetry.tracer
+        m_restore = time.monotonic()
         template = train_state_to_jax(self, values=False)
         try:
             tree, info = load_checkpoint_resilient(
@@ -1497,8 +1851,17 @@ class Trainer:
         except CheckpointCorruptionError as e:
             log.error("every checkpoint generation under %s is corrupt "
                       "(%s); starting from scratch", ckpt, e)
+            telemetry.registry.counter(
+                "rollbacks_total", "checkpoint generation rollbacks"
+            ).inc(outcome="fresh_start")
+            telemetry.emit("rollback", path=ckpt, file=None,
+                           outcome="fresh_start", error=str(e)[:500])
+            tracer.record("train.restore", kind="restore", t0=m_restore,
+                          t1=time.monotonic(), status="fresh_start",
+                          path=ckpt)
             return 0, 0
-        if info["shape_mismatches"]:
+        remeshed = bool(info["shape_mismatches"])
+        if remeshed:
             tree = self._remesh(template, tree, info["shape_mismatches"],
                                 ckpt, info.get("meta") or {})
         train_state_from_jax(tree, self)
@@ -1515,6 +1878,27 @@ class Trainer:
             start = (int(epoch) if epoch is not None else -1) + 1
             start_batch = 0
         self.epoch = start
+        if info["rolled_back"]:
+            telemetry.registry.counter(
+                "rollbacks_total", "checkpoint generation rollbacks"
+            ).inc(outcome="generation")
+            telemetry.emit(
+                "rollback", path=ckpt, file=info.get("file"),
+                outcome="generation", generation=meta.get("generation"),
+                skipped="; ".join(info.get("errors") or [])[:500])
+        telemetry.registry.counter(
+            "resumes_total", "checkpoint restores before training").inc()
+        telemetry.emit(
+            "resume", epoch=start, batch_in_epoch=start_batch or None,
+            step=meta.get("step"), path=ckpt, file=info.get("file"),
+            digest_verified=info.get("digest_verified"),
+            rolled_back=bool(info["rolled_back"]), world_size=self.world,
+            checkpoint_world_size=meta.get("world_size"),
+            remeshed=remeshed)
+        tracer.record("train.restore", kind="restore", t0=m_restore,
+                      t1=time.monotonic(), path=ckpt, epoch=start,
+                      remeshed=remeshed,
+                      rolled_back=bool(info["rolled_back"]))
         log.info("resumed from %s (%s%s) at epoch %d%s (step %d)", ckpt,
                  info["file"], ", rolled back" if info["rolled_back"] else "",
                  start, f" batch {start_batch}" if start_batch else "",

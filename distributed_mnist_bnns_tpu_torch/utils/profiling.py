@@ -49,11 +49,23 @@ class StepTimer:
     ``stop()`` measures the dispatch only (the card may still run the
     step: the right default in a hot loop); ``stop(sync_on=device)``
     first waits for ``device`` (``torch.cuda.synchronize``), for the
-    step's full latency. A CPU device has nothing to wait for."""
+    step's full latency. A CPU device has nothing to wait for.
 
-    def __init__(self) -> None:
+    ``metric``: a metric name feeds every ``stop()`` into the obs
+    registry's histogram of that name (``obs.default_registry()``, with
+    ``labels``), so ad-hoc timers and the telemetry layer read from one
+    store, percentiles included."""
+
+    def __init__(self, metric: Optional[str] = None, **labels: str) -> None:
         self.meter = AverageMeter()
         self._t0: Optional[float] = None
+        self._hist = None
+        self._labels = labels
+        if metric is not None:
+            from ..obs import default_registry
+
+            self._hist = default_registry().histogram(
+                metric, "StepTimer wall-clock latency")
 
     def start(self) -> None:
         self._t0 = time.perf_counter()
@@ -66,6 +78,8 @@ class StepTimer:
         now = time.perf_counter()
         dt = now - (self._t0 if self._t0 is not None else now)
         self.meter.update(dt)
+        if self._hist is not None:
+            self._hist.observe(dt, **self._labels)
         return dt
 
     @property

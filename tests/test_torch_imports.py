@@ -37,6 +37,11 @@ def _sources():
             PORT / "parallel" / "pipeline_model.py",
             PORT / "parallel" / "tp_pipeline.py",
             REPO / "scripts" / "torch_mp_timing.py"} <= set(files)
+    # and the telemetry package, every module of the JAX obs/ it ports
+    assert {PORT / "obs" / f"{m}.py" for m in (
+        "__init__", "registry", "events", "heartbeat", "flops",
+        "recompile", "trace", "telemetry", "costs", "profile",
+        "summary")} <= set(files)
     return files
 
 

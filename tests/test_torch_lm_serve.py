@@ -28,6 +28,7 @@ from distributed_mnist_bnns_tpu_torch.serve.lm import (
     LMServer,
 )
 from distributed_mnist_bnns_tpu_torch.interop import frozen_to_jax
+from distributed_mnist_bnns_tpu_torch.serve.core import labeled
 from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
 from distributed_mnist_bnns_tpu_torch.utils import msgpack
 from tests.torch_lm_util import frozen_pair, tokens
@@ -197,7 +198,7 @@ def test_queue_full_sheds_503(artifact):
         assert results["first"][0] == 200 and results["second"][0] == 200
     finally:
         _stop(srv)
-    assert srv.engine.shed_ctr.snapshot() == {"reason=queue_full": 1}
+    assert labeled(srv.engine.shed_ctr) == {"reason=queue_full": 1}
 
 
 def test_queued_deadline_504_never_takes_pages(artifact):
@@ -218,7 +219,7 @@ def test_queued_deadline_504_never_takes_pages(artifact):
         _wait_for(lambda: srv.engine.allocator.used_count() == 0)
     finally:
         _stop(srv)
-    assert srv.engine.requests_ctr.snapshot()["status=deadline"] == 1
+    assert srv.engine.requests_ctr.value(status="deadline") == 1
 
 
 def test_mid_stream_deadline_ends_the_stream_and_frees_pages(artifact):

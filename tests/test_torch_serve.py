@@ -25,6 +25,7 @@ from distributed_mnist_bnns_tpu_torch.serve import (
     ServeConfig,
 )
 from distributed_mnist_bnns_tpu_torch.serve import client as sc
+from distributed_mnist_bnns_tpu_torch.serve.core import labeled
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +170,7 @@ def test_roundtrip_health_and_bad_inputs(artifact):
     finally:
         stats = _stop(srv)
     assert stats["flushed"]
-    assert srv.engine.requests_ctr.snapshot()["status=ok"] == 4
+    assert srv.engine.requests_ctr.value(status="ok") == 4
 
 
 def test_queue_full_sheds_503(artifact):
@@ -198,7 +199,7 @@ def test_queue_full_sheds_503(artifact):
     finally:
         gate.set()
         _stop(srv)
-    assert srv.engine.shed_ctr.snapshot() == {
+    assert labeled(srv.engine.shed_ctr) == {
         "reason=queue_full,tier=interactive": 1
     }
 
@@ -216,7 +217,7 @@ def test_deadline_bounds_response_under_stall(artifact):
         assert elapsed < 0.9, f"504 took {elapsed:.3f}s (stall was 1s)"
     finally:
         _stop(srv)
-    assert srv.engine.requests_ctr.snapshot()["status=deadline"] == 1
+    assert srv.engine.requests_ctr.value(status="deadline") == 1
 
 
 def test_breaker_trips_on_backend_errors_and_recovers(artifact):
@@ -241,7 +242,7 @@ def test_breaker_trips_on_backend_errors_and_recovers(artifact):
         assert json.loads(sc.healthz(base)[1])["breaker"] == "closed"
     finally:
         _stop(srv)
-    assert srv.breaker_transitions.snapshot() == {
+    assert labeled(srv.breaker_transitions) == {
         "to=open": 1, "to=half_open": 1, "to=closed": 1,
     }
 

@@ -402,3 +402,30 @@ def jobs_rank(rank, world, device, jobs):
     torch.set_num_threads(1)
     return {name: globals()[fn](rank, world, device, *args)
             for name, fn, args in jobs}
+
+
+def pipeline_gauges_run(rank, world, device, cases):
+    """Each ``(n_stages, n_micro)``: a pipeline over a (data, pipe) mesh
+    of ``world // n_stages`` x ``n_stages``, called once; the
+    ``pipeline_*`` gauges and the call counter of the default registry
+    after it."""
+    from distributed_mnist_bnns_tpu_torch.obs import default_registry
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        Mesh,
+        make_pipeline_fn,
+    )
+
+    out = []
+    for n_stages, n_micro in cases:
+        rows = world // n_stages
+        mesh = Mesh((rows, n_stages), ("data", "pipe"))
+        f = make_pipeline_fn(mesh, residual_stage, n_micro=n_micro,
+                             batch_axis="data" if rows > 1 else None)
+        w = torch.from_numpy(np.random.RandomState(0).randn(
+            n_stages, 4, 4).astype(np.float32))
+        f({"w": w}, torch.ones(n_micro * 2, 4))
+        snap = default_registry().snapshot()
+        out.append({name: snap[name]["series"] for name in (
+            "pipeline_stages", "pipeline_microbatches",
+            "pipeline_bubble_fraction", "pipeline_calls_total")})
+    return out
