@@ -116,15 +116,16 @@ Phases, each fatal on failure:
      a card, 50 steps of the 1-bit exchange with error feedback
      (``sign_ef``): every rank's state bitwise equal, and at world 1
      equal to a single-process ``Trainer(grad_compress="sign_ef")``;
-     then ``cli train --dp auto --grad-compress sign_ef`` one epoch in a
-     process of its own, which must converge; (b) 4 gloo ranks sharing
-     card 0 (16 rows each of the global batch of 64): the first 150
+     then ``cli train --dp auto --grad-compress sign_ef`` one epoch of
+     100 steps (``DP_CLI_SYNTH``) in a process of its own, which must
+     converge; (b) 4 gloo ranks sharing
+     card 0 (16 rows each of the global batch of 64): the first 100
      steps of the epoch (``DP_EPOCH_STEPS``) uncompressed (global-batch
      BatchNorm, the gradients averaged in DDP's order) and again with
      ``sign_ef``, each passing phase 8's
-     convergence thresholds (which 150 steps in one process meet too,
+     convergence thresholds (which 100 steps in one process meet too,
      checked beside), ``sign_ef`` within 2 points of the uncompressed
-     run, then 50 steps of ``sign`` (majority vote, lr 0.001); (c) 20
+     run, then 20 steps of ``sign`` (majority vote, lr 0.001); (c) 20
      steps of (b)'s ``sign_ef`` on pallas_xnor and on xla (bf16 rounds
      layer 1's raw pixels, which the ±1 backends take in fp32), bitwise
      equal, K1 launched exactly 2 x 20 times in every rank (counted in
@@ -250,6 +251,25 @@ Phases, each fatal on failure:
      the shards' shapes equal to its plain version and timed
      (``mp_shapes`` in K1's row). K1's and K4-K6's launches enter the
      kernels line as ``launches_mp_path``.
+ 16. model parallelism finished (``mp2_phase``): (a) a row-parallel
+     ``BinarizedDense(scale=True)`` at tp 2 on gloo ranks sharing the
+     card: the all-reduced +-1 sums ``torch.equal`` to the unsharded
+     GEMM's, alpha and the output within 1e-6 of the unsharded layer's;
+     (b) bnn-vit-tiny at tp 2, pallas_xnor, flash attention, the alpha:
+     3 steps each against the unsharded step on the same parameters;
+     (c) the TP and pipelined steps captured at one NCCL rank in this
+     process, bitwise eager, launches recorded x replays. K1 and K4-K6
+     enter the kernels line as ``launches_mp2_path``;
+ 17. the fault-tolerant runtime (``resilience_phase``): (a) chaos
+     ``step_fault``, ``preempt`` and ``ckpt_corrupt`` in one
+     ``Trainer.fit`` under ``run_with_policy``, bitwise the
+     uninterrupted run, ``fault_injected`` records equal to the fires;
+     (b) elastic DP 2 -> 1 -> 2 on gloo ranks and (c) two host
+     processes through ``host_lost`` and ``host_restore``, run at once,
+     each generation bitwise a fresh resume of the one before; (d) both
+     servers under ``infer_error`` (the breaker opens and closes; the
+     LM engine retries). K1-K3, K7 and K8 enter the kernels line as
+     ``launches_resilience_path``.
  15. observability (``obs/``; the trainer's and both servers'
      telemetry), run last, ~14 min into the process: (a)
      ``bnn-mlp-large`` on pallas_xnor, batch 64, a 50-step epoch through ``Trainer.fit`` with ``telemetry_dir``,
@@ -268,6 +288,19 @@ Phases, each fatal on failure:
      (d) the LM served with telemetry: six streams during a capture
      showing K7 and K8, /metrics, ``lm_decode`` events. The kernels'
      launches there enter the kernels line as ``launches_obs_path``.
+
+Phases 16 and 17 run after 14, phase 15 last. Checks that wait on
+processes of their own (spawned ranks, CLI runs, host processes) run two
+at a time (``_background``), never beside a kernel timing or a
+``torch.profiler`` device time; the host step times those processes
+print then share the host's cores, and are read as such: phase
+9's gloo ranks beside its CLI run, phase 10's fresh-process fp32 check
+beside its data-parallel ranks, phase 11's two nodes beside its CLI
+runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
+13's CLI beside its elastic ranks, phase 14's (c) beside (a)
+and (d) beside (b), phase 17's (b) beside (c). Every ``parallel.spawn``
+and CLI process prints its seconds, every phase its ``phase_s``, and the
+summary line before the card's name gives them all and ``total_s``.
 
 The last lines are the per-kernel JSON lines, the card's name and power
 limit, the ``{"kernels": [...]}`` line and, last,
@@ -361,10 +394,13 @@ DP_GLOO_RANKS = 4           # (b)-(d) gloo ranks sharing card 0: 16 rows each
 # steps must meet them too (checked beside). Cut from 300 steps
 # for phase 15's time (300 reached 100% test accuracy on the synthetic
 # split, against the thresholds' 55 and a 20-point gain).
-DP_EPOCH_STEPS = 150
+DP_EPOCH_STEPS = 100        # cut from 150 for phases 16 and 17
+# (a) cli train --dp auto: 100 steps of 64 (cut from the whole 937 for
+# phases 16 and 17; phase 13's CLI converges in as many)
+DP_CLI_SYNTH = (6400, 1024)
 # (b) majority vote (JAX's lr): ranks equal and the plan's bytes, no
 # convergence threshold; cut from 200 steps in PR 15 for phase 14's time
-DP_SIGN_STEPS, DP_SIGN_LR = 50, 0.001
+DP_SIGN_STEPS, DP_SIGN_LR = 20, 0.001   # 50 before phases 16 and 17
 DP_SHORT_STEPS = 20         # (c) K1 under DP, (d) two-level
 DP_HOSTS = 2                # (d) 2 hosts x 2 local ranks
 # Conv families (phase 10): bnn-cnn at its defaults (widths 64, 128,
@@ -506,6 +542,31 @@ FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def _background(fn):
+    """Start ``fn()`` in a thread; returns what joins it and gives its
+    result (or raises its exception). For checks that wait on processes
+    of their own (spawned ranks, a CLI run), so that two such checks
+    overlap; nothing timed runs beside one."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # re-raised by the join
+            box["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["out"]
+
+    return join
 
 
 def _pm1(gen: torch.Generator, *shape) -> torch.Tensor:
@@ -2121,7 +2182,7 @@ def _cli_dp_row() -> dict:
             "--lr", str(MLP_TRAIN["learning_rate"]),
             "--seed", str(MLP_TRAIN["seed"]), "--dropout", "0",
             "--dp", "auto", "--grad-compress", "sign_ef",
-            "--synthetic-sizes", *map(str, MLP_SYNTH)]
+            "--synthetic-sizes", *map(str, DP_CLI_SYNTH)]
     out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
@@ -2147,8 +2208,19 @@ def dp_train_phase(device: torch.device, smi: str):
     # (a) NCCL, one rank a card
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
-    nccl = spawn(_dp_nccl_rank, world, backend="nccl", device="cuda",
-                 args=(DP_NCCL_STEPS,))
+    if world == 1:
+        # the one rank in this process (as phase 13's): no process start
+        from distributed_mnist_bnns_tpu_torch.parallel import init_world
+
+        with tempfile.TemporaryDirectory() as tmp:
+            init_world(0, 1, backend="nccl", init_file=os.path.join(tmp, "pg"))
+            try:
+                nccl = [_dp_nccl_rank(0, 1, device, DP_NCCL_STEPS)]
+            finally:
+                torch.distributed.destroy_process_group()
+    else:
+        nccl = spawn(_dp_nccl_rank, world, backend="nccl", device="cuda",
+                     args=(DP_NCCL_STEPS,))
     _check_ranks("nccl", nccl)
     row = {"dp_run": "nccl_sign_ef", "world": world, "card": smi,
            "wall_s": time.perf_counter() - t0,
@@ -2167,6 +2239,12 @@ def dp_train_phase(device: torch.device, smi: str):
                                  "single-process Trainer")
     print(json.dumps(row), flush=True)
     rows.append(row)
+    # (b)-(d): gloo ranks sharing card 0, beside the single-process epoch
+    # and (a)'s CLI process below
+    t0 = time.perf_counter()
+    gloo_ranks = _background(lambda: spawn(
+        _dp_gloo_rank, DP_GLOO_RANKS, backend="gloo", device="cuda",
+        args=(DP_EPOCH_STEPS,)))
     # The threshold of (b)'s cut epoch, met by one process alone
     with tempfile.TemporaryDirectory() as tmp:
         alone = _dp_run(device, _dp_data(tmp, DP_EPOCH_STEPS), evaluate=True,
@@ -2185,10 +2263,7 @@ def dp_train_phase(device: torch.device, smi: str):
             and cli_row["test_acc"] > MLP_MIN_ACC):
         raise AssertionError(f"cli train --dp auto: {cli_row}")
 
-    # (b)-(d): gloo ranks sharing card 0
-    t0 = time.perf_counter()
-    gloo = spawn(_dp_gloo_rank, DP_GLOO_RANKS, backend="gloo",
-                 device="cuda", args=(DP_EPOCH_STEPS,))
+    gloo = gloo_ranks()
     wall = time.perf_counter() - t0
     for name in gloo[0]:
         ranks = [g[name] for g in gloo]
@@ -2502,6 +2577,12 @@ def _fp_runs(device, data, smi):
                 raise AssertionError(f"{name} at {precision}: the loss did "
                                      f"not fall: {losses}")
             rows.append(r)
+    return rows
+
+
+def _fp32_check() -> dict:
+    """(d) the fresh-process check that an fp32 conv trained through
+    ``cli train`` is fp32, not TF32 (``scripts/torch_conv_fp32_check.py``)."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = subprocess.run(
         [sys.executable, os.path.join(here, "scripts",
@@ -2514,8 +2595,7 @@ def _fp_runs(device, data, smi):
     if out.returncode != 0 or not line.get("ok"):
         raise AssertionError(f"fresh-process convnet conv is not fp32: "
                              f"{line} {out.stderr[-2000:]}")
-    rows.append(line)
-    return rows
+    return line
 
 
 def _conv_dp_rank(rank: int, world: int, device, steps: int,
@@ -2596,9 +2676,11 @@ def conv_phase(device: torch.device, gen: torch.Generator, smi: str):
     k1_serve, _ = _cnn_serve(device, tr, data, smi)
     log(f"bnn-cnn frozen and served; K1 {k1_serve} launches")
     _fp_runs(device, data, smi)
-    log("convnet and deep-cnn train at fp32 and bf16; fresh-process "
-        "conv is fp32")
+    log("convnet and deep-cnn train at fp32 and bf16")
+    fp32 = _background(_fp32_check)    # a process of its own, beside (e)
     k1_dp, _ = _conv_dp(device, smi)
+    fp32()
+    log("fresh-process conv is fp32")
     log(f"conv DP: ranks equal, bytes equal to the plans, K1 {k1_dp}")
     counts = {name: 0 for name in KERNEL_ROWS}
     counts["xnor"] = k1_train + k1_serve + k1_dp
@@ -2804,6 +2886,8 @@ def runtime_phase(device: torch.device, smi: str):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rt_")
     try:
         whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+        # (f) the two nodes' ranks run beside (a)'s CLI processes
+        two_nodes = _background(lambda: _rt_two_nodes(smi))
         # (a) the uninterrupted cli run beside the one SIGTERM stops
         whole_proc = _rt_popen(_rt_argv(whole))
         stop = _rt_sigterm_run(cut)
@@ -2997,7 +3081,7 @@ def runtime_phase(device: torch.device, smi: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
     # (f) two nodes over tcp://
-    k1_nodes, row = _rt_two_nodes(smi)
+    k1_nodes, row = two_nodes()
     print(json.dumps(row), flush=True)
     rows.append(row)
     counts["xnor"] += k1_nodes
@@ -3188,6 +3272,8 @@ def scan_phase(device: torch.device, smi: str):
             **_graph_stats(t),
         }
     print(json.dumps({"scan_timing": timing, "card": smi}), flush=True)
+    # (f)'s CLI process runs beside the checks (b)-(e), after the times
+    cli = _background(_cli_scan_row)
 
     # (b) pallas_xnor, dropout 0: K1 inside the graphs.
     be_data = _first_steps(data, SCAN_K1_STEPS, bs)
@@ -3297,7 +3383,7 @@ def scan_phase(device: torch.device, smi: str):
     log("(e) bnn-cnn captured bitwise eager")
 
     # (f) the CLI in a process of its own.
-    cli_row = _cli_scan_row()
+    cli_row = cli()
     cli_ms = cli_row["batch_time_s"] * 1e3
     per_step = timing["scan"]["device_ms_per_step"]
     cli = {"cli_scan_device_data_row": cli_row, "step_ms": cli_ms,
@@ -3583,6 +3669,8 @@ def dp_capture_phase(device: torch.device, smi: str):
         log("(c) grad_accum=4 and remat under DP and FSDP captured bitwise "
             "eager")
 
+        # (e)'s CLI process runs beside (d)'s ranks
+        cli = _background(_cli_dp_capture_row)
         # (d) a world-2 sign_ef checkpoint resumed at world 1, elastic
         ckpt = os.path.join(tmp, "elastic")
         saved = spawn(_dpc_save_rank, 2, backend="gloo", device="cuda",
@@ -3615,7 +3703,7 @@ def dp_capture_phase(device: torch.device, smi: str):
             "elastic=True: rows equal remesh_compress_state's")
 
         # (e) the CLI
-        cli_row = _cli_dp_capture_row()
+        cli_row = cli()
         print(json.dumps({"dpc_cli_row": cli_row}), flush=True)
         if not (np.isfinite(cli_row["train_loss"]) and cli_row["steps"]
                 == DPC_CLI_SYNTH[0] // bs):
@@ -3769,10 +3857,14 @@ def _mp_tp(device, smi: str) -> dict:
     ref_state = _np_tree(train_state_to_jax(ref))
     out = {}
     total_k1 = 0
-    for dp, tp in ((1, 2), (2, 2)):
+    layouts = ((1, 2), (2, 2))
+    # both layouts' ranks at once (6 processes sharing the card)
+    joins = [_background(lambda dp=dp, tp=tp: spawn(
+        _mp_tp_rank, dp * tp, backend="gloo", device="cuda",
+        args=(dp, xs, ys, xs[0]))) for dp, tp in layouts]
+    for (dp, tp), join in zip(layouts, joins):
         name = f"dp{dp}xtp{tp}"
-        ranks = spawn(_mp_tp_rank, dp * tp, backend="gloo", device="cuda",
-                      args=(dp, xs, ys, xs[0]))
+        ranks = join()
         plan = tp_wire_plan(ref.model, tp=tp, dp=dp, batch=MP_BATCH)
         want_plan = MP_TP_PLAN[(dp, tp)]
         if {k: plan[k] for k in want_plan} != want_plan:
@@ -3973,8 +4065,10 @@ def _mp_pp(device, smi: str) -> dict:
     kw = dict(steps=MP_PP_STEPS, seq_len=LM_TRAIN_SEQ,
               batch=LM_TRAIN_BATCH, lr=LM_TRAIN_LR, attention="flash",
               log_every=MP_PP_STEPS, **LM_TRAIN)
-    runs = [lm_demo.run(pp=MP_PP, backend="gloo", device="cuda", **kw)
-            for _ in range(2)]
+    joins = [_background(lambda: lm_demo.run(pp=MP_PP, backend="gloo",
+                                             device="cuda", **kw))
+             for _ in range(2)]   # the two runs at once
+    runs = [join() for join in joins]
     a, b = runs
     if a.history != b.history or any(
             not torch.equal(v, b.model.state_dict()[k])
@@ -4201,15 +4295,19 @@ def mp_phase(device: torch.device, gen: torch.Generator, smi: str):
     def mark(name):
         marks[name] = round(time.perf_counter() - t0, 3)
 
-    k1_rows = _k1_mp_rows(device, gen)
+    k1_rows = _k1_mp_rows(device, gen)     # timed: nothing beside it
     mark("k1")
+    # each check waits on processes of its own: (c) beside (a), (d)
+    # beside (b)
+    cli_vit = _background(lambda: _mp_cli_vit(smi))
     tp = _mp_tp(device, smi)
     mark("a")
+    cli_vit()
+    mark("c")
+    tpp = _background(lambda: _mp_tpp(smi))
     pp = _mp_pp(device, smi)
     mark("b")
-    _mp_cli_vit(smi)
-    mark("c")
-    _mp_tpp(smi)
+    tpp()
     mark("d")
     launches = {name: 0 for name in KERNEL_ROWS}
     launches["xnor"] = tp["k1_launches"]
@@ -4690,7 +4788,778 @@ def obs_phase(device: torch.device, gen: torch.Generator, smi: str):
     return launches, rows
 
 
+# -- phase 16: model parallelism finished ------------------------------------
+
+# (a) the row-parallel XNOR-Net alpha at bnn-vit-tiny's second MLP dense
+# (hidden 256 -> 128) over batch 32 x 16 tokens, tp = 2
+MP2_ALPHA = (512, 256, 128)      # (M, K, N)
+MP2_ALPHA_RTOL = 1e-6            # alpha's fp32 sum runs in another order
+# (b) bnn-vit-tiny at full width (embed 128, depth 2, 4 heads, 16 tokens),
+# pallas_xnor, flash attention, scale=True, dropout 0, Adam 1e-3,
+# batch 32, tp = 2: each step's loss within MP_TPP_LOSS_RTOL (relative)
+# and every gradient within LM_GRAD_RTOL (relative L2) of the unsharded
+# model's step on the same parameters
+MP2_VIT = dict(model="bnn-vit-tiny", batch_size=32, optimizer="adam",
+               learning_rate=1e-3, seed=0, backend="pallas_xnor",
+               model_kwargs={"attention": "flash", "scale": True,
+                             "dropout": 0.0})
+MP2_VIT_STEPS = 3
+# (c) the captured TP and PP steps at one NCCL rank per axis: 2 replays
+# of an 8-step graph against 16 eager steps, bitwise
+MP2_SCAN, MP2_SCAN_CHUNKS = 8, 2
+
+
+def _mp2_rank(rank: int, world: int, device, xs, ys) -> dict:
+    """Phase 16 (a) and (b) in one of 2 gloo ranks sharing the card."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.models.layers import BinarizedDense
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops.binarize import binarize_ste
+    from distributed_mnist_bnns_tpu_torch.ops.xnor_gemm import binary_matmul
+    from distributed_mnist_bnns_tpu_torch.parallel import make_mesh
+    from distributed_mnist_bnns_tpu_torch.parallel.model_parallel import (
+        RowBinarizedDense,
+        TpContext,
+        reduce_from_model,
+    )
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+    from distributed_mnist_bnns_tpu_torch.train.trainer import (
+        clamp_latent,
+        forward_backward,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    # (a) the row-parallel alpha forward
+    m, k, n = MP2_ALPHA
+    gen = torch.Generator().manual_seed(16)
+    full = BinarizedDense(k, n, scale=True, backend="pallas_xnor",
+                          generator=gen).to(device)
+    with torch.no_grad():   # a bias of either sign: no exact ties
+        full.bias.copy_(0.2 * torch.randn(
+            n, generator=torch.Generator().manual_seed(17)))
+    x = torch.randn(m, k, generator=torch.Generator().manual_seed(18)
+                    ).to(device)
+    ctx = TpContext(make_mesh(data=1, model=world).group("model"))
+    row = RowBinarizedDense(full, ctx)
+    lo = ctx.rank * row.in_features
+    x_loc = x[:, lo:lo + row.in_features]
+    with torch.no_grad():
+        _kernels.reset_launches()
+        y = row(x_loc)
+        k1 = _kernels.LAUNCHES["xnor"]
+        raw = reduce_from_model(binary_matmul(
+            binarize_ste(x_loc), binarize_ste(row.weight), "pallas_xnor"),
+            ctx.group)
+        alpha = reduce_from_model(row.weight.abs().sum(dim=1),
+                                  ctx.group) / k
+        raw_full = binary_matmul(binarize_ste(x), binarize_ste(full.weight),
+                                 "pallas_xnor")
+        alpha_full = full.weight.abs().mean(dim=1)
+        y_full = full(x)
+        scale_y = (raw_full * alpha_full).abs() + full.bias.abs()
+    out["alpha"] = {
+        "k1": k1, "raw_equal": bool(torch.equal(raw, raw_full)),
+        "alpha_rel": float(((alpha - alpha_full).abs()
+                            / alpha_full.abs()).max()),
+        "y_rel": float(((y - y_full).abs() / scale_y).max()),
+    }
+    # (b) the ViT at tp = 2 against the unsharded step, step by step
+    t = Trainer(TrainConfig(device=str(device), tensor_parallel=world,
+                            log_interval=1, **MP2_VIT))
+    ref = get_model("bnn-vit-tiny", backend="pallas_xnor",
+                    **MP2_VIT["model_kwargs"]).to(device)
+    refs = dict(ref.named_parameters())
+    latents = list(t.clamp_mask.values())
+    steps = []
+    for xb, yb in zip(xs, ys):
+        xb = torch.from_numpy(xb).to(device)
+        yb = torch.from_numpy(yb.astype(np.int64)).to(device)
+        with torch.no_grad():
+            for name, p in t.model.named_parameters():
+                refs[name].copy_(t.tp.gather_leaf(p, p))
+        ref.zero_grad(set_to_none=True)
+        ref_loss, _ = forward_backward(ref, xb, yb, loss_fn=t._loss_fn)
+        t.model.train()
+        t.optimizer.zero_grad(set_to_none=True)
+        _kernels.reset_launches()
+        loss, _ = forward_backward(t.model, xb, yb, loss_fn=t._loss_fn)
+        t.optimizer.step()
+        clamp_latent(latents)
+        launches = dict(_kernels.LAUNCHES)
+        rel = {}
+        for name, p in t.model.named_parameters():
+            g = t.tp.gather_leaf(p, p.grad)
+            want = refs[name].grad
+            rel[name] = float(torch.linalg.vector_norm(g - want)
+                              / max(float(torch.linalg.vector_norm(want)),
+                                    1e-30))
+        steps.append({"loss": float(loss), "ref_loss": float(ref_loss),
+                      "rel": rel, "launches": launches})
+    out["vit"] = steps
+    out["vit_shapes"] = {k: tuple(v.shape)
+                         for k, v in t.model.named_parameters()}
+    dist.barrier()
+    return out
+
+
+def _mp2_captured(device) -> dict:
+    """Phase 16 (c): one NCCL rank in this process; the TP step over a
+    (data 1 x model 1) mesh and the pipelined step over (data 1 x pipe
+    1), each captured as an 8-step graph (``TrainScan``) and replayed
+    against the same steps run eagerly from the same seed: bitwise, the
+    graph's recorded launches run once a replay."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.models import (
+        get_model,
+        latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops.comm_compress import WireBytes
+    from distributed_mnist_bnns_tpu_torch.ops.losses import (
+        cross_entropy_loss,
+    )
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        Mesh,
+        PipelinedModel,
+        TpShards,
+        init_world,
+        make_mesh,
+        make_pp_train_step,
+        make_tp_train_step,
+    )
+    from distributed_mnist_bnns_tpu_torch.train.capture import pinned
+    from distributed_mnist_bnns_tpu_torch.train.optim import make_optimizer
+    from distributed_mnist_bnns_tpu_torch.train.trainer import (
+        make_train_scan,
+    )
+
+    def tp_run():
+        model = get_model("bnn-mlp-large", backend="pallas_xnor",
+                          dropout_rate=0.0,
+                          generator=torch.Generator().manual_seed(0)
+                          ).to(device)
+        wire = WireBytes()
+        shards = TpShards(model, "bnn-mlp-large",
+                          make_mesh(data=1, model=1), wire=wire)
+        mask = latent_clamp_mask(model)
+        opt = make_optimizer("sgd", list(model.parameters()), 0.05,
+                             tp=shards)
+        return model, opt, make_tp_train_step(mask, model, shards,
+                                              wire=wire), mask, wire
+
+    def pp_run():
+        model = get_model("bnn-vit-tiny", backend="pallas_xnor",
+                          attention="flash", dropout=0.0,
+                          generator=torch.Generator().manual_seed(0),
+                          ).to(device)
+        wire = WireBytes()
+        mesh = Mesh((1, 1), ("data", "pipe"))
+        pm = PipelinedModel(model, mesh, n_micro=2, wire=wire)
+        mask = latent_clamp_mask(pm)
+        opt = make_optimizer("adam", list(pm.parameters()), 1e-3)
+        return pm, opt, make_pp_train_step(
+            mask, pm, mesh.group("data"), loss_fn=cross_entropy_loss,
+            wire=wire), mask, wire
+
+    rng = np.random.RandomState(16)
+    n = MP2_SCAN * MP2_SCAN_CHUNKS
+    xs = rng.randn(n, 32, 28, 28, 1).astype(np.float32)
+    ys = rng.randint(0, 10, (n, 32)).astype(np.int64)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="mp2_pg_")
+    init_world(0, 1, backend="nccl", init_file=os.path.join(tmp, "pg"))
+    try:
+        for name, build in (("tp", tp_run), ("pp", pp_run)):
+            model, opt, step, mask, wire = build()
+            for x, y in zip(xs, ys):
+                step(model, opt, torch.from_numpy(x).to(device),
+                     torch.from_numpy(y).to(device))
+            eager = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+            model, opt, step, mask, wire = build()
+            scan = make_train_scan(mask, step=step, wire=wire,
+                                   groups=(dist.group.WORLD,))
+            for c in range(MP2_SCAN_CHUNKS):
+                sl = slice(c * MP2_SCAN, (c + 1) * MP2_SCAN)
+                scan(model, opt, pinned(xs[sl], np.float32, device),
+                     pinned(ys[sl], np.int64, device))
+            torch.cuda.synchronize(device)
+            got = model.state_dict()
+            equal = all(torch.equal(got[k], eager[k]) for k in eager)
+            out[name] = {"bitwise": equal,
+                         "recorded": dict(scan.recorded),
+                         "ran": dict(scan.ran),
+                         "replays": scan.stats()["replays"]}
+            if not equal:
+                bad = [k for k in eager if not torch.equal(got[k], eager[k])]
+                raise AssertionError(f"phase 16 (c) {name}: the captured "
+                                     f"steps differ from the eager ones in "
+                                     f"{bad[:4]}")
+            for kname, v in scan.recorded.items():
+                if scan.ran.get(kname) != v * MP2_SCAN_CHUNKS:
+                    raise AssertionError(
+                        f"phase 16 (c) {name}: {kname} recorded {v} a graph "
+                        f"but ran {scan.ran.get(kname)} in "
+                        f"{MP2_SCAN_CHUNKS} replays")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mp2_phase(device: torch.device, smi: str):
+    """Phase 16, model parallelism finished:
+
+    (a) a row-parallel ``BinarizedDense(scale=True)`` (the XNOR-Net
+    alpha summed over the model group) at bnn-vit-tiny's second MLP
+    dense, tp = 2 on gloo ranks sharing the card: the all-reduced +-1
+    partial sums ``torch.equal`` to the unsharded GEMM's, alpha and the
+    output within ``MP2_ALPHA_RTOL`` of the unsharded layer, K1 counted;
+    (b) bnn-vit-tiny at tp = 2 (heads 2 a rank), pallas_xnor, flash
+    attention, scale=True: 3 steps, each one's loss and every gradient
+    (gathered) against the unsharded model's step on the same parameters
+    (``MP_TPP_LOSS_RTOL``, ``LM_GRAD_RTOL``), every rank's losses equal,
+    K1 and K4-K6 launched in every step;
+    (c) the TP step and the pipelined step captured (``TrainScan``) at
+    one NCCL rank per axis: 2 replays of 8 steps bitwise 16 eager steps,
+    the graphs' launches counted once a replay (the 4-card captures are
+    ``scripts/torch_mp_timing.py --scan-steps 8``).
+    Returns {kernel: launches on this path}."""
+    from distributed_mnist_bnns_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(160)
+    xs = rng.rand(MP2_VIT_STEPS, MP2_VIT["batch_size"], 28, 28, 1).astype(
+        np.float32)
+    ys = rng.randint(0, 10, (MP2_VIT_STEPS, MP2_VIT["batch_size"]))
+    ranks = spawn(_mp2_rank, 2, backend="gloo", device="cuda",
+                  args=(xs, ys))
+    launches = {name: 0 for name in KERNEL_ROWS}
+    for r in ranks:
+        a = r["alpha"]
+        print(json.dumps({"phase": 16, "alpha": a}), flush=True)
+        if not a["raw_equal"]:
+            raise AssertionError("phase 16 (a): the all-reduced +-1 partial "
+                                 "sums differ from the unsharded GEMM's")
+        if a["alpha_rel"] > MP2_ALPHA_RTOL or a["y_rel"] > MP2_ALPHA_RTOL:
+            raise AssertionError(f"phase 16 (a): alpha {a['alpha_rel']} / "
+                                 f"output {a['y_rel']} past "
+                                 f"{MP2_ALPHA_RTOL} of the unsharded layer")
+        if a["k1"] == 0:
+            raise AssertionError("phase 16 (a): K1 never launched")
+        launches["xnor"] += a["k1"]
+        for i, s in enumerate(r["vit"]):
+            loss_rel = abs(s["loss"] - s["ref_loss"]) / abs(s["ref_loss"])
+            # the key biases' gradients are 0 in exact arithmetic (softmax
+            # is shift-invariant): rounding noise, printed only
+            worst = max(((k, v) for k, v in s["rel"].items()
+                         if not k.endswith("attn.k.bias")),
+                        key=lambda kv: kv[1])
+            print(json.dumps({"phase": 16, "vit_step": i, "loss": s["loss"],
+                              "loss_rel": loss_rel, "worst_grad": worst,
+                              "key_bias": {k: v for k, v in s["rel"].items()
+                                           if k.endswith("attn.k.bias")},
+                              "launches": {k: v for k, v in
+                                           s["launches"].items() if v}}),
+                  flush=True)
+            if loss_rel > MP_TPP_LOSS_RTOL or worst[1] > LM_GRAD_RTOL:
+                raise AssertionError(f"phase 16 (b) step {i}: loss {loss_rel}"
+                                     f", gradient {worst} past the bounds")
+            for name in ("xnor", *FLASH):
+                if s["launches"].get(name, 0) == 0:
+                    raise AssertionError(f"phase 16 (b): {name} never "
+                                         "launched in a TP step")
+                launches[name] += s["launches"][name]
+        if [s["loss"] for s in r["vit"]] != [s["loss"]
+                                             for s in ranks[0]["vit"]]:
+            raise AssertionError("phase 16 (b): the ranks' losses differ")
+    if ranks[0]["vit_shapes"]["blocks.0.attn.q.weight"] != (64, 128):
+        raise AssertionError("phase 16 (b): q is not column-sharded")
+    mark_ab = time.perf_counter() - t0
+    cap = _mp2_captured(device)
+    for name, c in cap.items():
+        print(json.dumps({"phase": 16, "captured": name, **c}), flush=True)
+        for k, v in c["ran"].items():
+            launches[k] += v
+    if not cap["tp"]["ran"].get("xnor"):
+        raise AssertionError("phase 16 (c): the captured TP step ran no K1")
+    if not all(cap["pp"]["ran"].get(k) for k in ("xnor", *FLASH)):
+        raise AssertionError("phase 16 (c): the captured pipelined step ran "
+                             "no K1 or flash kernel")
+    print(json.dumps({"phase": 16, "launches": launches,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after_ab": mark_ab}), flush=True)
+    return launches
+
+
+# -- phase 17: the fault-tolerant runtime ------------------------------------
+
+# bnn-mlp-large on pallas_xnor, batch 64, dropout on; (a) Adam 0.01
+# (MLP_TRAIN); (b) SGD 0.05 (MP_TRAIN's: no moments in the checkpoints
+# the ranks write and read)
+RS_TRAIN = dict(MLP_TRAIN, backend="pallas_xnor")
+RS_SGD = dict(optimizer="sgd", learning_rate=0.05)
+# (a) 3 epochs of 10 steps: a transient fault at step 3 (the run
+# restarts), a preemption at step 13 whose checkpoint is corrupted (the
+# resume rolls back to the epoch-0 generation)
+RS_CHAOS = "step_fault@step=3;preempt@step=13;ckpt_corrupt@step=13"
+RS_CHAOS_SYNTH = (640, 128)
+# (b) elastic DP, 2 gloo ranks sharing the card, sign_ef, one epoch of 8
+RS_ELASTIC = "worker_lost@step=2,world=1;worker_restore@step=5"
+RS_ELASTIC_SYNTH = (512, 128)
+# (c) 2 host processes on the card over loopback, 3 epochs of 4 steps
+RS_HOSTS = "host_lost@step=2,hosts=1;host_restore@step=6"
+RS_HOSTS_SYNTH = ("256", "64")
+# (d) serving: 3 injected errors trip the breaker (threshold 3); the LM
+# engine retries 2 failed decode iterations
+RS_SERVE_CHAOS = "infer_error@step=0,times=3"
+RS_LM_CHAOS = "infer_error@step=2,times=2"
+RS_BREAKER_RESET_S = 0.5
+
+
+def _rs_data(sizes):
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    return load_mnist("/nonexistent-mnist-dir", synthetic_sizes=sizes,
+                      seed=0)
+
+
+def _rs_config(**kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig
+
+    cfg = dict(RS_TRAIN, device="cuda", log_interval=1,
+               handle_preemption=False)
+    cfg.update(kw)
+    return TrainConfig(**cfg)
+
+
+def _rs_elastic_trainer(kw, world):
+    """``run_elastic``'s factory (phase 17 (b)) in a rank."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.train import Trainer
+
+    if world is None:
+        return Trainer(_rs_config(data_parallel=dist.get_world_size(), **kw))
+    return Trainer(_rs_config(data_parallel=world, resume=True, **kw))
+
+
+def _rs_fit(trainer):
+    trainer.fit(_rs_data(RS_ELASTIC_SYNTH), eval_every=0)
+    return {"step": trainer.step, "world": trainer.world}
+
+
+def _rs_resume_rank(rank: int, world: int, device, kw) -> dict:
+    """A fresh trainer of ``world`` ranks resuming ``kw``'s checkpoint
+    directory, fitted to the end (or to a chaos stop)."""
+    from distributed_mnist_bnns_tpu_torch.resilience import Preempted
+    from distributed_mnist_bnns_tpu_torch.train import Trainer
+
+    t = Trainer(_rs_config(data_parallel=world, resume=True, **kw))
+    try:
+        t.fit(_rs_data(RS_ELASTIC_SYNTH), eval_every=0)
+    except Preempted:
+        pass
+    return {"step": t.step}
+
+
+def _ckpt_leaves(path: str) -> dict:
+    from distributed_mnist_bnns_tpu_torch.utils import msgpack
+
+    with open(path, "rb") as f:
+        tree = msgpack.from_bytes(f.read())
+    out = {}
+
+    def walk(t, p):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{p}/{k}")
+        else:
+            out[p] = np.asarray(t)
+
+    walk(tree, "")
+    return out
+
+
+def _same_tree(what: str, got: dict, want: dict) -> None:
+    bad = [k for k in want if k not in got
+           or not np.array_equal(got[k], want[k])]
+    if bad or got.keys() != want.keys():
+        raise AssertionError(f"{what}: differs in {bad[:4]}")
+
+
+def _generation_dir(src: str, record: dict, dst: str) -> None:
+    """``dst`` holding only the generation ``record`` of ``src`` as its
+    latest checkpoint (a fresh resume from that generation)."""
+    import shutil
+
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import LATEST
+
+    os.makedirs(dst)
+    shutil.copyfile(os.path.join(src, record["file"]),
+                    os.path.join(dst, LATEST))
+    shutil.copyfile(os.path.join(src, record["file"]),
+                    os.path.join(dst, record["file"]))
+    meta = {k: v for k, v in record.items() if k != "file"}
+    meta["generations"] = [record]
+    with open(os.path.join(dst, "checkpoint_meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def _rs_chaos(tmp: str) -> dict:
+    """(a): one ``Trainer.fit`` under ``run_with_policy`` with
+    ``RS_CHAOS`` against the uninterrupted run: bitwise; the
+    ``fault_injected`` events are the fires."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.resilience import (
+        RetryPolicy,
+        reset_fire_counts,
+        run_with_policy,
+    )
+    from distributed_mnist_bnns_tpu_torch.train import Trainer
+
+    data = _rs_data(RS_CHAOS_SYNTH)
+    plain = Trainer(_rs_config(epochs=3, checkpoint_dir=os.path.join(
+        tmp, "plain")))
+    plain.fit(data, eval_every=0)
+    reset_fire_counts()
+    tel = os.path.join(tmp, "chaos_tel")
+    made = []
+
+    def make():
+        made.append(Trainer(_rs_config(
+            epochs=3, resume=True, chaos=RS_CHAOS, telemetry_dir=tel,
+            checkpoint_dir=os.path.join(tmp, "chaos"))))
+        return made[-1]
+
+    _kernels.reset_launches()
+    run_with_policy(make, lambda t: t.fit(data, eval_every=0),
+                    policy=RetryPolicy(base_backoff_s=0.0),
+                    sleep=lambda s: None)
+    launches = dict(_kernels.LAUNCHES)
+    last = made[-1]
+    want = plain.model.state_dict()
+    got = last.model.state_dict()
+    if last.step != plain.step or not all(torch.equal(got[k], want[k])
+                                          for k in want):
+        raise AssertionError("phase 17 (a): the recovered run is not the "
+                             "uninterrupted one")
+    events = [json.loads(line)
+              for line in open(os.path.join(tel, "events.jsonl"))]
+    fires = [(e["fault"], e["step"]) for e in events
+             if e["kind"] == "fault_injected"]
+    if fires != [("step_fault", 3), ("preempt", 13), ("ckpt_corrupt", 13)]:
+        raise AssertionError(f"phase 17 (a): fault_injected records {fires}")
+    rollbacks = [e["outcome"] for e in events if e["kind"] == "rollback"]
+    if rollbacks != ["generation"]:
+        raise AssertionError(f"phase 17 (a): rollbacks {rollbacks}")
+    return {"trainers": len(made), "fires": fires, "steps": last.step,
+            "launches": launches}
+
+
+def _rs_elastic(tmp: str) -> dict:
+    """(b): elastic DP 2 -> 1 -> 2 on gloo ranks sharing the card; the
+    world-1 and final world-2 states bitwise fresh resumes of the
+    generations they resumed from."""
+    import functools
+
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.obs import Telemetry
+    from distributed_mnist_bnns_tpu_torch.parallel import init_world, spawn
+    from distributed_mnist_bnns_tpu_torch.resilience import (
+        RetryPolicy,
+        run_elastic,
+    )
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import (
+        LATEST,
+        read_meta,
+    )
+
+    ck = os.path.join(tmp, "elastic")
+    kw = {"checkpoint_dir": ck, "chaos": RS_ELASTIC, "elastic": True,
+          "grad_compress": "sign_ef", "epochs": 1, **RS_SGD}
+    tel = Telemetry(os.path.join(tmp, "elastic_tel"), heartbeat=False)
+    out = run_elastic(functools.partial(_rs_elastic_trainer, kw), _rs_fit,
+                      world=2, backend="gloo", device="cuda",
+                      policy=RetryPolicy(max_restarts=0, max_preemptions=0),
+                      telemetry=tel)
+    tel.close()
+    events = [json.loads(line) for line in open(
+        os.path.join(tmp, "elastic_tel", "events.jsonl"))]
+    remesh = [(e["direction"], e["world_from"], e["world_to"])
+              for e in events if e["kind"] == "remesh"]
+    if out != {"step": 8, "world": 2} or remesh != [("shrink", 2, 1),
+                                                    ("grow", 1, 2)]:
+        raise AssertionError(f"phase 17 (b): {out}, remesh {remesh}")
+    gens = {g["generation"]: g for g in read_meta(ck)["generations"]}
+    # generation 0: world 2 stopped at step 2; 1: world 1 at step 5;
+    # 2: world 2 at the epoch's end
+    base = {k: v for k, v in kw.items() if k != "checkpoint_dir"}
+    for world, gen, stop in ((1, 0, "preempt@step=5"), (2, 1, None)):
+        ref = os.path.join(tmp, f"elastic_ref{gen}")
+        _generation_dir(ck, gens[gen], ref)
+        args = (dict(base, checkpoint_dir=ref, chaos=stop),)
+        if world == 1:
+            # a world-1 gloo group in this process: the spawned world-1
+            # generation's trainer, without a process start
+            init_world(0, 1, backend="gloo",
+                       init_file=os.path.join(tmp, "world1"))
+            try:
+                _rs_resume_rank(0, 1, torch.device("cuda", 0), *args)
+            finally:
+                dist.destroy_process_group()
+        else:
+            spawn(_rs_resume_rank, world, backend="gloo", device="cuda",
+                  args=args)
+        _same_tree(f"phase 17 (b) world {world} from generation {gen}",
+                   _ckpt_leaves(os.path.join(ck, gens[gen + 1]["file"])),
+                   _ckpt_leaves(os.path.join(ref, LATEST)))
+    return {"remesh": remesh, "steps": out["step"]}
+
+
+def _rs_multihost(tmp: str) -> dict:
+    """(c): 2 host processes on the card (each ``cli train`` with the
+    ``JG_MH_*`` environment, on ``cuda:0``, over a loopback
+    ``HostChannel``) through ``host_lost`` and ``host_restore``; the final
+    state bitwise 2 hosts freshly resumed from the generation the regrown
+    world resumed from; ``membership.json`` records both transitions."""
+    from distributed_mnist_bnns_tpu_torch.resilience import (
+        read_membership,
+        run_elastic_multihost,
+    )
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import (
+        LATEST,
+        read_meta,
+    )
+
+    def cmd(ck, chaos=None):
+        argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+                "train", "--model", "bnn-mlp-large", "--backend",
+                "pallas_xnor", "--epochs", "3", "--batch-size", "64",
+                "--optimizer", RS_SGD["optimizer"],
+                "--lr", str(RS_SGD["learning_rate"]), "--seed", "0",
+                "--synthetic-sizes",
+                *RS_HOSTS_SYNTH, "--data-dir", "/nonexistent-mnist-dir",
+                "--grad-compress", "sign_ef", "--elastic", "--resume",
+                "--dropout", "0", "--no-preemption",
+                "--checkpoint-dir", ck]
+        return argv + (["--chaos", chaos] if chaos else [])
+
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    store = os.path.join(tmp, "hosts")
+    ck = os.path.join(store, "ck")
+    rc = run_elastic_multihost(cmd(ck, RS_HOSTS), hosts=2, store=store,
+                               env=env, generation_timeout_s=240)
+    view = read_membership(store)
+    history = [(h["event"], h.get("hosts_from"), h.get("hosts_to"))
+               for h in view["history"]]
+    if rc != 0 or history != [("lost", 2, 1), ("restored", 1, 2),
+                              ("complete", None, None)]:
+        raise AssertionError(f"phase 17 (c): rc {rc}, membership {history}")
+    gens = read_meta(ck)["generations"]    # newest first
+    ref_store = os.path.join(tmp, "hosts_ref")
+    ref = os.path.join(ref_store, "ck")
+    os.makedirs(ref_store)
+    _generation_dir(ck, gens[1], ref)
+    if run_elastic_multihost(cmd(ref), hosts=2, store=ref_store, env=env,
+                             generation_timeout_s=240) != 0:
+        raise AssertionError("phase 17 (c): the fresh 2-host resume failed")
+    _same_tree("phase 17 (c) the regrown world",
+               _ckpt_leaves(os.path.join(ck, LATEST)),
+               _ckpt_leaves(os.path.join(ref, LATEST)))
+    return {"membership": history, "generations": view["generation"]}
+
+
+def _rs_serve(device, gen, tmp: str) -> dict:
+    """(d): the classifier server's breaker trips on 3 injected errors and
+    closes on the probe after its reset; the LM server retries 2 failed
+    decode iterations and its stream equals the decoder driven alone."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_frozen,
+    )
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        make_paged_lm_decoder,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import BinarizedLM, get_model
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve import client
+    from distributed_mnist_bnns_tpu_torch.serve.lm import (
+        LMServeConfig,
+        LMServer,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+
+    model = get_model("bnn-mlp-large", generator=gen)
+    _random_bn_stats(model, gen)
+    path = os.path.join(tmp, "mlp.msgpack")
+    export_packed(model.eval(), path)
+    srv = PackedInferenceServer(ServeConfig(
+        artifact=path, device=str(device), port=0, batch_size=MAIN_M,
+        breaker_threshold=3, breaker_reset_s=RS_BREAKER_RESET_S,
+        stall_timeout_s=30.0, chaos=RS_SERVE_CHAOS))
+    host, port = srv.start()
+    base = f"http://{host}:{port}"
+    imgs = torch.rand(4, 28, 28, 1, generator=gen).numpy().tolist()
+    codes = []
+    try:
+        _kernels.reset_launches()
+        codes += [client.predict(base, imgs)[0] for _ in range(3)]
+        opened = json.loads(client.healthz(base)[1])["breaker"]
+        codes.append(client.predict(base, imgs)[0])
+        time.sleep(RS_BREAKER_RESET_S + 0.05)
+        codes.append(client.predict(base, imgs)[0])
+        closed = json.loads(client.healthz(base)[1])["breaker"]
+        mlp_launches = dict(_kernels.LAUNCHES)
+    finally:
+        srv.request_stop("smoke over")
+        srv.drain_and_stop()
+    if codes != [502, 502, 502, 503, 200] or (opened, closed) != (
+            "open", "closed"):
+        raise AssertionError(f"phase 17 (d): classifier codes {codes}, "
+                             f"breaker {opened} then {closed}")
+    lm = BinarizedLM(**LM_WIDTH, generator=gen).eval()
+    _random_lm_params(lm, gen)
+    lm_path = os.path.join(tmp, "lm.msgpack")
+    export_packed(lm, lm_path)
+    prompt = torch.randint(0, LM_WIDTH["vocab"], (20,),
+                           generator=gen).tolist()
+    srv = LMServer(LMServeConfig(
+        artifact=lm_path, device=str(device), port=0, slots=LM_SLOTS,
+        page_size=LM_PAGE, prefill_chunk=LM_CHUNK, chaos=RS_LM_CHAOS))
+    host, port = srv.start()
+    try:
+        _kernels.reset_launches()
+        code, events = lc.generate(f"http://{host}:{port}", prompt,
+                                   max_new_tokens=8)
+        lm_launches = dict(_kernels.LAUNCHES)
+        errors = srv.engine.errors_ctr.value(kind="ChaosInferError")
+    finally:
+        srv.request_stop("smoke over")
+        srv.drain_and_stop()
+    dec = make_paged_lm_decoder(load_frozen(lm_path), slots=LM_SLOTS,
+                                page_size=LM_PAGE, prefill_chunk=LM_CHUNK,
+                                device=device)
+    want = _drive_alone(dec, prompt, 8)
+    got = [e["token"] for e in events[:-1]]
+    if code != 200 or events[-1].get("status") != "ok" or got != want \
+            or errors != 2:
+        raise AssertionError(f"phase 17 (d): LM stream {code} "
+                             f"{events[-1:]}, {got} vs {want}, {errors} "
+                             "injected errors counted")
+    return {"codes": codes, "mlp_launches": mlp_launches,
+            "lm_launches": lm_launches, "lm_errors": errors}
+
+
+def resilience_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 17, the fault-tolerant runtime (``resilience/chaos``,
+    ``elastic``, ``multihost``, ``parallel/hostcomm``):
+
+    (a) chaos ``step_fault``, ``preempt`` and ``ckpt_corrupt`` in one
+    ``Trainer.fit`` of ``bnn-mlp-large`` on pallas_xnor, recovered by
+    ``run_with_policy`` (a restart, a resume, a generation rollback):
+    the final state ``torch.equal`` to the uninterrupted run's, the
+    ``fault_injected`` records equal to the fires;
+    (b) elastic DP: ``worker_lost`` 2 -> 1 then ``worker_restore`` -> 2
+    on gloo ranks sharing the card (``sign_ef``), each generation's state
+    bitwise a fresh resume at its world from the generation before it;
+    (c) multihost: 2 host processes on the card over a loopback
+    ``HostChannel``, ``host_lost@hosts=1`` then ``host_restore``: the
+    final state bitwise a fresh 2-host resume, ``membership.json``
+    holding both transitions;
+    (d) both servers under ``infer_error``: the classifier's breaker
+    opens and closes (K2/K3 counted), the LM engine retries and its
+    stream equals the decoder alone (K1, K7, K8 counted).
+    Returns {kernel: launches on this path}."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    marks = {}
+    launches = {name: 0 for name in KERNEL_ROWS}
+    with tempfile.TemporaryDirectory(prefix="resilience_") as tmp:
+        a = _rs_chaos(tmp)
+        marks["a"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps({"phase": 17, "chaos": a}), flush=True)
+        # (b)'s ranks and (c)'s host processes at once
+        elastic = _background(lambda: _rs_elastic(tmp))
+        c = _rs_multihost(tmp)
+        marks["c"] = round(time.perf_counter() - t0, 1)
+        b = elastic()
+        marks["b"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps({"phase": 17, "elastic": b}), flush=True)
+        print(json.dumps({"phase": 17, "multihost": c}), flush=True)
+        d = _rs_serve(device, gen, tmp)
+        marks["d"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps({"phase": 17, "serve": d}), flush=True)
+    for counts in (a["launches"], d["mlp_launches"], d["lm_launches"]):
+        for k, v in counts.items():
+            launches[k] += v
+    for name in ("xnor", "xnor_sign", "xnor_affine", "xnor_unpack",
+                 "paged_attn"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 17: {name} never launched")
+    print(json.dumps({"phase": 17, "launches": launches,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return launches
+
+
+PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
+
+
+def _time_processes() -> None:
+    """Print the seconds of every ``parallel.spawn`` and ``subprocess.run``
+    of the phases (``{"spawn": ...}`` / ``{"process": ...}`` lines): where
+    a phase's time goes."""
+    import distributed_mnist_bnns_tpu_torch.parallel as par
+
+    spawn, run = par.spawn, subprocess.run
+
+    def timed_spawn(fn, world, **kw):
+        t0 = time.perf_counter()
+        try:
+            return spawn(fn, world, **kw)
+        finally:
+            print(json.dumps({"spawn": getattr(fn, "__name__", str(fn)),
+                              "world": world, "backend": kw.get("backend"),
+                              "s": round(time.perf_counter() - t0, 1)}),
+                  flush=True)
+
+    def timed_run(argv, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return run(argv, *a, **kw)
+        finally:
+            if isinstance(argv, (list, tuple)) and "-m" in argv:
+                print(json.dumps({"process": " ".join(map(str, argv[2:6])),
+                                  "s": round(time.perf_counter() - t0, 1)}),
+                      flush=True)
+
+    par.spawn, subprocess.run = timed_spawn, timed_run
+
+
+def _timed(phase: str, fn, *args):
+    """``fn(*args)``, its seconds printed as ``{"phase", "phase_s"}`` and
+    kept in ``PHASE_S``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[phase] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"phase": phase, "phase_s": PHASE_S[phase]}),
+          flush=True)
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -4716,34 +5585,37 @@ def main() -> int:
 
     print(json.dumps({"teardown_cupti": os.environ.get("TEARDOWN_CUPTI"),
                       "profile_edge_s": _profile.EDGE_S}), flush=True)
+    _time_processes()
     t0 = time.perf_counter()
     built = _kernels.build()
+    PHASE_S["2"] = round(time.perf_counter() - t0, 1)
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3),
                       "sources": built}), flush=True)
 
     gen = torch.Generator().manual_seed(0)
     results = {}
     for name in ("xnor", "xnor_sign", "xnor_affine"):
-        rows, max_err = kernel_phase(name, device, gen)
+        rows, max_err = _timed(f"3:{name}", kernel_phase, name, device, gen)
         m, k, n = KERNEL_ROWS[name][2]
         results[name] = (next(r for r in rows if (r["m"], r["k"], r["n"])
                               == (m, k, n)), max_err)
         torch.cuda.synchronize()
         log(f"{name}: equal to its plain version at every shape")
-    unpack_rows, unpack_err = unpack_phase(device, gen)
+    unpack_rows, unpack_err = _timed("3:xnor_unpack", unpack_phase, device,
+                                     gen)
     results["xnor_unpack"] = (unpack_rows[0], unpack_err)
     log("xnor_unpack: equal to its plain version on ±1 x at every shape, "
         "two runs bitwise equal")
-    paged_rows, paged_err = paged_phase(device, gen)
+    paged_rows, paged_err = _timed("3:paged_attn", paged_phase, device, gen)
     results["paged_attn"] = (paged_rows[0], paged_err)
     log("paged_attn: within 1e-5 of the gather path at every case")
-    mlp_counts, timing = slice_phase(device, gen)
+    mlp_counts, timing = _timed("4", slice_phase, device, gen)
     print(json.dumps({"slice": "bnn-mlp-large", "launches": mlp_counts,
                       **timing}), flush=True)
     for name in ("xnor_sign", "xnor_affine"):
         if mlp_counts[name] == 0:
             raise AssertionError(f"the MLP path never launched {name}")
-    lm_counts, lm_timing = lm_slice_phase(device, gen)
+    lm_counts, lm_timing = _timed("5", lm_slice_phase, device, gen)
     print(json.dumps({"slice": "bnn-lm", "launches": lm_counts,
                       **lm_timing}), flush=True)
     for name in ("xnor", "xnor_unpack", "paged_attn"):
@@ -4772,34 +5644,38 @@ def main() -> int:
             f"want {want} ({lm_timing['decode_iterations']} decode "
             f"iterations, {chunks} prefill chunks)")
 
-    flash_rows, flash_err = flash_phase(device, gen)
+    flash_rows, flash_err = _timed("6", flash_phase, device, gen)
     for name in FLASH:
         results[name] = (flash_rows[name], flash_err[name])
     log("flash: K4/K5/K6 within tolerance of their plain versions at "
         "every shape")
-    train_counts, train_timing = lm_train_phase(device, gen)
+    train_counts, train_timing = _timed("7", lm_train_phase, device, gen)
     print(json.dumps({"slice": "bnn-lm-train", "launches": train_counts,
                       **train_timing}), flush=True)
-    mlp_train_counts, mlp_train_timing = mlp_train_phase(device, gen)
+    mlp_train_counts, mlp_train_timing = _timed("8", mlp_train_phase,
+                                                device, gen)
     print(json.dumps({"slice": "bnn-mlp-train",
                       "launches": mlp_train_counts, **mlp_train_timing}),
           flush=True)
-    dp_counts, _ = dp_train_phase(device, smi)
-    conv_counts, conv_rows = conv_phase(device, gen, smi)
-    rt_counts, _ = runtime_phase(device, smi)
-    scan_counts, in_graphs = scan_phase(device, smi)
-    dpc_counts, dpc_in_graphs = dp_capture_phase(device, smi)
+    dp_counts, _ = _timed("9", dp_train_phase, device, smi)
+    conv_counts, conv_rows = _timed("10", conv_phase, device, gen, smi)
+    rt_counts, _ = _timed("11", runtime_phase, device, smi)
+    scan_counts, in_graphs = _timed("12", scan_phase, device, smi)
+    dpc_counts, dpc_in_graphs = _timed("13", dp_capture_phase, device, smi)
     if dpc_counts["xnor"] == 0:
         raise AssertionError("the captured DP path never launched K1")
-    mp_counts, mp_k1_rows = mp_phase(device, gen, smi)
+    mp_counts, mp_k1_rows = _timed("14", mp_phase, device, gen, smi)
     for name in ("xnor", *FLASH):
         if mp_counts[name] == 0:
             raise AssertionError(f"the model-parallel path never launched "
                                  f"{name}")
+    mp2_counts = _timed("16", mp2_phase, device, smi)
+    rs_counts = _timed("17", resilience_phase, device,
+                       torch.Generator().manual_seed(17), smi)
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
-    obs_counts, _ = obs_phase(device, torch.Generator().manual_seed(15),
-                              smi)
+    obs_counts, _ = _timed("15", obs_phase, device,
+                           torch.Generator().manual_seed(15), smi)
 
     kernels = []
     for name, (replaces, source, _) in KERNEL_ROWS.items():
@@ -4819,6 +5695,7 @@ def main() -> int:
                          + dp_counts[name] + conv_counts[name]
                          + rt_counts[name] + scan_counts[name]
                          + dpc_counts[name] + mp_counts[name]
+                         + mp2_counts[name] + rs_counts[name]
                          + obs_counts[name]),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
@@ -4832,6 +5709,8 @@ def main() -> int:
             "launches_capture_path": scan_counts[name],
             "launches_dp_capture_path": dpc_counts[name],
             "launches_mp_path": mp_counts[name],
+            "launches_mp2_path": mp2_counts[name],
+            "launches_resilience_path": rs_counts[name],
             "launches_obs_path": obs_counts[name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
@@ -4850,6 +5729,8 @@ def main() -> int:
                           "library_ms": entry["library_ms"],
                           "launches": entry["launches"]}), flush=True)
         kernels.append(entry)
+    print(json.dumps({"phase_s": PHASE_S, "total_s": round(
+        time.perf_counter() - t_main, 1)}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,13 @@
       --grad-compress sign_ef
   python -m distributed_mnist_bnns_tpu_torch.cli train --tp 2 --dp 2
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-vit-tiny \
+      --tp 2 --xnor-scale --scan-steps 8
+  python -m distributed_mnist_bnns_tpu_torch.cli train --dp 2 \
+      --grad-compress sign_ef --elastic --checkpoint-dir ckpt \
+      --chaos 'worker_lost@step=100,world=1;worker_restore@step=200'
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack \
+      --chaos 'infer_error@step=4,times=3'
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-vit-tiny \
       --pp 2
   python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 100 --pp 2
   python -m distributed_mnist_bnns_tpu_torch.cli train --model convnet \
@@ -48,9 +55,19 @@ metrics as one JSON line; with ``--dp N`` (or ``auto``: one rank a card)
 it starts N ranks itself, over NCCL on the cards or over gloo with
 ``--device cpu``, and ``--grad-compress sign|sign_ef`` exchanges 1-bit
 gradients (``--dp-hosts``: in two levels). ``--tp N`` shards the bnn-mlp
-models Megatron-style over N ranks and ``--pp N`` pipelines a
+and bnn-vit models Megatron-style over N ranks and ``--pp N`` pipelines a
 transformer's blocks over N (``--pp-microbatches``, ``--pp-remat``);
-either times ``--dp`` ranks in all (``eval`` takes them too). Checkpoints are the JAX
+either times ``--dp`` ranks in all (``eval`` takes them too), with
+``--scan-steps`` and ``--device-data`` as without them (captured over
+NCCL). ``--xnor-scale`` turns on the XNOR-Net alpha in the models that
+take it (the transformer families). ``--chaos SPEC`` (or ``JG_CHAOS``)
+injects scripted faults (``resilience/chaos``); ``--elastic`` runs the
+``--dp`` ranks under ``resilience.run_elastic``: a chaos
+``worker_lost``/``worker_restore`` respawns them at the new world from
+the newest verified checkpoint generation. A ``train`` started with the
+``JG_MH_*`` environment (``resilience.run_elastic_multihost``) is one
+host of a multihost world, its 1-bit exchange over TCP
+(``parallel/hostcomm``). Checkpoints are the JAX
 package's (``checkpoint.msgpack``, digests and generations in
 ``checkpoint_meta.json``); ``--resume`` continues the newest verified one,
 at the step where a graceful stop left it: SIGTERM (passed on to the
@@ -69,7 +86,8 @@ a ``bnn-mlp`` or ``bnn-cnn`` model (a trained checkpoint with
 JAX package with ``--jax-variables``) into the packed artifact (the JAX package's msgpack);
 ``infer`` evaluates an artifact on the MNIST test split (synthetic data
 when no idx files are found); ``serve`` runs the HTTP
-server (``--lm``: the continuous-batching LM server); ``lm --export``
+server (``--lm``: the continuous-batching LM server; ``--chaos``: the
+serving faults ``infer_error`` and ``infer_slow``); ``lm --export``
 freezes a BinarizedLM (seeded init, or JAX weights with
 ``--jax-variables``) into a packed LM artifact, ``lm --steps N`` first
 trains it N steps (``examples/lm_demo.py::run``; flash attention by
@@ -205,6 +223,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="size-rotate the events.jsonl past this many "
                          "bytes (default: JG_EVENTS_MAX_BYTES, else "
                          "unbounded)")
+    sv.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="serving fault injection (resilience/chaos): "
+                         "e.g. 'infer_error@step=4,times=3;"
+                         "infer_slow@p=0.1,delay_s=0.5'. Default: the "
+                         "JG_CHAOS env var")
+    sv.add_argument("--seed", type=int, default=0,
+                    help="seeds the chaos rules' draws")
     sv.add_argument("--input-shape", type=int, nargs="+",
                     default=[28, 28, 1])
 
@@ -301,7 +326,8 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--scan-steps", type=int, default=1,
                     help="train N steps a dispatch: on a card one CUDA "
                          "graph of N steps, captured once and replayed "
-                         "(with --dp, the collectives inside: NCCL)")
+                         "(with --dp, --tp or --pp, the collectives "
+                         "inside: NCCL)")
     sp.add_argument("--device-data", action="store_true",
                     help="keep the dataset on the device: each epoch one "
                          "gather, then graph replays of --scan-steps (or "
@@ -332,6 +358,10 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "bf16; pallas_xnor runs K1)")
     sp.add_argument("--stochastic", action="store_true",
                     help="stochastic activation binarization in training")
+    sp.add_argument("--xnor-scale", action="store_true",
+                    help="XNOR-Net per-channel alpha rescaling on "
+                         "binarized GEMMs (models that support it: the "
+                         "transformer families)")
     sp.add_argument("--dropout", type=float, default=None,
                     help="dropout rate (the MLPs': before the third "
                          "BatchNorm, default 0.3; deep-cnn's: 0.5)")
@@ -356,6 +386,24 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "rollback (digest-verified on resume)")
     sp.add_argument("--resume", action="store_true",
                     help="continue from the newest verified checkpoint")
+    sp.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault-injection spec (resilience/chaos): "
+                         "';'-separated kind@k=v entries, e.g. "
+                         "'step_fault@step=5;ckpt_corrupt@epoch=1;"
+                         "preempt@step=12'. Kinds: step_fault, data_io, "
+                         "preempt, slow_host, ckpt_corrupt, ckpt_truncate, "
+                         "infer_slow, infer_error, worker_lost, "
+                         "worker_restore (the last two need --elastic), "
+                         "host_lost, host_restore (the multihost runtime). "
+                         "Default: the JG_CHAOS env var")
+    sp.add_argument("--elastic", action="store_true",
+                    help="elastic data-parallel membership: a chaos "
+                         "worker_lost/worker_restore respawns the --dp "
+                         "ranks at the new world, state re-placed from the "
+                         "newest digest-verified checkpoint generation "
+                         "instead of restarting the job; a checkpoint of "
+                         "another world resumes. Needs --checkpoint-dir; "
+                         "DP only (TP/PP/--device-data refused)")
     sp.add_argument("--no-preemption", action="store_true",
                     help="do not turn SIGTERM/SIGINT into a graceful stop "
                          "+ mid-epoch checkpoint + exit 75")
@@ -417,7 +465,9 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel width: Megatron column/row "
                          "shards over a 'model' axis of ranks (the "
-                         "bnn-mlp family); with --dp a (dp x tp) mesh")
+                         "bnn-mlp and bnn-vit families; the ViT's heads "
+                         "split over the ranks); with --dp a (dp x tp) "
+                         "mesh")
     sp.add_argument("--pp", type=int, default=1,
                     help="pipeline stages: GPipe the transformer block "
                          "stack over N ranks (bnn-vit models; depth %% N "
@@ -480,15 +530,18 @@ def _model_kwargs(args) -> dict:
         mk["infl_ratio"] = args.infl_ratio
     if getattr(args, "stochastic", False):
         mk["stochastic"] = True
+    if getattr(args, "xnor_scale", False):
+        mk["scale"] = True
     if getattr(args, "dropout", None) is not None:
         mk["dropout_rate"] = args.dropout
     return mk
 
 
-def _trainer(args, data_parallel=None, device=None):
+def _trainer(args, data_parallel=None, device=None, resume=None):
     from .train import TrainConfig, Trainer
 
     return Trainer(TrainConfig(
+        chaos=args.chaos, elastic=args.elastic,
         data_parallel=data_parallel, dp_mode=args.dp_mode,
         grad_compress=args.grad_compress, dp_hosts=args.dp_hosts,
         compress_bucket_size=args.compress_bucket_size,
@@ -504,7 +557,8 @@ def _trainer(args, data_parallel=None, device=None):
         grad_accum=args.grad_accum, remat=args.remat,
         checkpoint_dir=args.checkpoint_dir, save_all_epochs=args.save_all,
         async_checkpoint=args.async_checkpoint,
-        checkpoint_keep=args.checkpoint_keep, resume=args.resume,
+        checkpoint_keep=args.checkpoint_keep,
+        resume=args.resume if resume is None else resume,
         tensor_parallel=args.tp, pipeline_parallel=args.pp,
         pp_microbatches=args.pp_microbatches, pp_remat=args.pp_remat,
         handle_preemption=not args.no_preemption,
@@ -530,13 +584,18 @@ def _fit(args, data_parallel=None, device=None) -> dict:
     from .resilience import Preempted
 
     trainer = _trainer(args, data_parallel, device)
-    data = _train_data(args)
     try:
-        history = trainer.fit(data)
+        return _fit_row(args, trainer)
     except Preempted as e:
         log.warning("%s; state checkpointed: rerun with --resume to "
                     "continue (exit %d)", e, e.exit_code)
         return {"preempted": e.exit_code, "step": trainer.step}
+
+
+def _fit_row(args, trainer) -> dict:
+    """Fit ``trainer`` on the run's data; its final row."""
+    data = _train_data(args)
+    history = trainer.fit(data)
     if not history:   # resumed a finished run
         return {"model": args.model, "total_steps": trainer.step,
                 "best_acc": trainer.best_acc}
@@ -569,6 +628,52 @@ def _setup_logging(args, rank: int = 0) -> None:
                "%(message)s")
 
 
+def _elastic_trainer(args, world):
+    """``run_elastic``'s factory in a rank: the launch configuration
+    (``world`` None), or the run resumed at ``world`` ranks."""
+    _setup_logging(args, _rank_of_group())
+    if world is None:
+        return _trainer(args, data_parallel=int(args.dp))
+    return _trainer(args, data_parallel=world, resume=True)
+
+
+def _rank_of_group() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _train_elastic(args) -> dict:
+    """``train --elastic``: the ``--dp`` ranks under
+    ``resilience.run_elastic`` (a chaos membership change respawns them
+    at the new world); a real signal still vacates with exit 75."""
+    import functools
+
+    from .obs import Telemetry
+    from .resilience import Preempted, RetryPolicy, run_elastic
+
+    if _mp(args) > 1 or args.device_data or args.dp == "auto" or (
+            args.nodes > 1 or args.coordinator is not None):
+        raise SystemExit("--elastic runs data parallelism of an integer "
+                         "--dp on one node (no --tp/--pp/--device-data)")
+    sup = (Telemetry(args.telemetry_dir, heartbeat=False)
+           if args.telemetry_dir else None)
+    try:
+        return run_elastic(
+            functools.partial(_elastic_trainer, args),
+            functools.partial(_fit_row, args), world=int(args.dp),
+            backend=_dist_backend(args),
+            device="cpu" if args.device == "cpu" else "cuda",
+            policy=RetryPolicy(seed=args.seed), telemetry=sup)
+    except Preempted as e:
+        log.warning("%s; state checkpointed: rerun with --resume to "
+                    "continue (exit %d)", e, e.exit_code)
+        return {"preempted": e.exit_code, "step": e.step}
+    finally:
+        if sup is not None:
+            sup.close()
+
+
 def _train_rank(rank: int, world: int, device, args) -> dict:
     """One rank of ``train --dp`` (``--tp``, ``--pp``): the trainer on
     this rank's device."""
@@ -590,7 +695,14 @@ def _train(args) -> int:
                          f"--grad-accum {args.grad_accum}")
     local = _local_ranks(args)
     multinode = args.nodes > 1 or args.coordinator is not None
-    if local <= 1 and not multinode and _mp(args) == 1:
+    from .parallel.distributed import detect_multihost
+
+    if args.elastic and detect_multihost() is None:
+        # a multihost rank (JG_MH_*) is supervised by its parent
+        # (resilience.run_elastic_multihost): it fits alone, exit 75 on
+        # a host loss or regrow
+        row = _train_elastic(args)
+    elif local <= 1 and not multinode and _mp(args) == 1:
         if args.log_file:
             _setup_logging(args)
         row = _fit(args)
@@ -733,6 +845,7 @@ def _serve(args) -> int:
             drain_timeout_s=args.drain_timeout_s,
             telemetry_dir=args.telemetry_dir, trace=args.trace,
             costs=args.costs, events_max_bytes=args.events_max_bytes,
+            chaos=args.chaos, seed=args.seed,
         )).run()
     from .serve import PackedInferenceServer, ServeConfig
 
@@ -754,6 +867,7 @@ def _serve(args) -> int:
         input_shape=tuple(args.input_shape),
         telemetry_dir=args.telemetry_dir, trace=args.trace,
         costs=args.costs, events_max_bytes=args.events_max_bytes,
+        chaos=args.chaos, seed=args.seed,
     ))
     return server.run()
 

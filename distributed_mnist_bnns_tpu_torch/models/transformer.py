@@ -169,16 +169,19 @@ class BinarizedSelfAttention(nn.Module):
         self.q, self.k, self.v, self.out = dense(), dense(), dense(), dense()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, e = x.shape
-        h = self.num_heads
-        q = self.q(x).reshape(b, t, h, e // h)
-        k = self.k(x).reshape(b, t, h, e // h)
-        v = self.v(x).reshape(b, t, h, e // h)
+        # the heads are the projections' width over the head dim: all of
+        # them, or this rank's under tensor parallelism (column-parallel
+        # q/k/v, parallel.model_parallel)
+        b, t, _ = x.shape
+        d = self.embed_dim // self.num_heads
+        q = self.q(x).reshape(b, t, -1, d)
+        k = self.k(x).reshape(b, t, -1, d)
+        v = self.v(x).reshape(b, t, -1, d)
         if self.attention == "flash":
             core = flash_attention(q, k, v, causal=self.causal)
         else:
             core = _attend_xla(q, k, v, causal=self.causal)
-        return self.out(core.reshape(b, t, e))
+        return self.out(core.reshape(b, t, -1))
 
 
 class TransformerBlock(nn.Module):

@@ -41,6 +41,12 @@ coordinator-unreachable, rank-collision, timeout, unknown), the
 retryable kinds are retried with ``RetryPolicy``'s jittered backoff, and
 then ``MultihostInitError`` is raised: a rank never carries on alone. A
 rank collision (two processes on rank 0's port) is fatal at once.
+
+``detect_multihost`` reads the ``JG_MH_*`` environment that the
+multihost elastic supervisor (``resilience.multihost``) exports into
+each rank process: there every host is one process outside any process
+group, and the inter-host exchange travels over the host collective
+(``parallel.hostcomm``).
 """
 
 from __future__ import annotations
@@ -63,6 +69,17 @@ import torch.multiprocessing as mp
 log = logging.getLogger(__name__)
 
 BACKENDS = ("nccl", "gloo")
+
+# Environment contract between the elastic multihost supervisor and its
+# rank subprocesses (resilience/multihost.py exports, detect_multihost
+# reads). RANK/HOSTS name the host-level world; PORT is the rank-0
+# conductor port for the host collective; STORE is the shared directory
+# (checkpoints + membership.json + events).
+ENV_RANK = "JG_MH_RANK"
+ENV_HOSTS = "JG_MH_HOSTS"
+ENV_PORT = "JG_MH_PORT"
+ENV_STORE = "JG_MH_STORE"
+
 
 #: classification kinds (``MultihostInitError.kind``)
 COORDINATOR_UNREACHABLE = "coordinator-unreachable"
@@ -152,6 +169,51 @@ def check_multihost_config(coordinator_address: Optional[str],
                 f"{num_processes} (ranks are 0..{num_processes - 1})")
     if coordinator_address is not None:
         _split_address(coordinator_address)
+
+
+def detect_multihost(env: Optional[Dict[str, str]] = None) -> Optional[dict]:
+    """Read the elastic supervisor's ``JG_MH_*`` rank environment.
+
+    Returns ``{"rank", "hosts", "port", "store"}`` when this process
+    was launched as a rank of a multihost world, else ``None``. Raises
+    ``ValueError`` on a half-set or inconsistent environment — a rank
+    that silently ran single-host would corrupt the shared checkpoint
+    generations it shares with its peers.
+    """
+    env = os.environ if env is None else env
+    rank_s = env.get(ENV_RANK)
+    hosts_s = env.get(ENV_HOSTS)
+    if rank_s is None and hosts_s is None:
+        return None
+    if rank_s is None or hosts_s is None:
+        raise ValueError(
+            f"half-set multihost env: {ENV_RANK}={rank_s!r} "
+            f"{ENV_HOSTS}={hosts_s!r} (supervisor must export both)"
+        )
+    try:
+        rank, hosts = int(rank_s), int(hosts_s)
+    except ValueError:
+        raise ValueError(
+            f"non-integer multihost env: {ENV_RANK}={rank_s!r} "
+            f"{ENV_HOSTS}={hosts_s!r}"
+        ) from None
+    if hosts < 1 or not 0 <= rank < hosts:
+        raise ValueError(
+            f"multihost env rank {rank} out of range for {hosts} host(s)"
+        )
+    port_s = env.get(ENV_PORT)
+    info = {
+        "rank": rank,
+        "hosts": hosts,
+        "port": int(port_s) if port_s is not None else None,
+        "store": env.get(ENV_STORE),
+    }
+    if hosts > 1 and info["port"] is None:
+        raise ValueError(
+            f"{ENV_HOSTS}={hosts} needs {ENV_PORT} (rank-0 conductor "
+            "port for the host collective)"
+        )
+    return info
 
 
 def _with_retries(connect: Callable[[], Any], rank: int, world: int,

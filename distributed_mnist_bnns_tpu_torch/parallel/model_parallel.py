@@ -33,7 +33,23 @@ gradient is partial on each rank: ``copy_to_model`` all-reduces it in
 backward, or BatchNorm_1 and fc2's bias would learn from one shard);
 dropout draws the full-width mask from the model's generator and keeps
 this rank's columns; the fp32 head is row-parallel (its partial sums
-reassociate: a tolerance, not bitwise). A step carries two forward
+reassociate: a tolerance, not bitwise). With ``scale=True`` (XNOR-Net's
+alpha = mean |W_latent| over the input dim) a row-parallel layer sums
+|W| over its shard, the model group all-reduces the sums
+(``reduce_from_model``: forward all-reduce, backward identity) and they
+are divided by the full input width; the all-reduced +-1 product is
+multiplied by alpha, then the bias added once (the integer sums stay
+bitwise, alpha's fp32 sum runs in another order than the unsharded
+mean's).
+
+The ViT family (``BNN_VIT_TP_TABLE``): in each block, q, k and v are
+column-parallel (this rank holds ``num_heads / tp`` heads, and the
+attention core, K4-K6 under ``attention="flash"``, runs on them), the
+output projection is row-parallel; the MLP's first dense is column-
+and its second row-parallel. The LayerNorms, the patch embedding,
+``pos_embed`` and the head are replicated. Each block's residual
+stream is replicated, so its dropout masks are drawn full-width from
+the data row's generator on every model rank (the unsharded model's). A step carries two forward
 all-reduces and one backward all-reduce over the model group; the data
 group carries the gradients (``data_parallel.all_reduce_grads``).
 Replicated leaves (BatchNorm_1, the row biases) get the same gradient on
@@ -316,8 +332,10 @@ class ColumnBinarizedDense(BinarizedDense):
 class RowBinarizedDense(BinarizedDense):
     """A ``BinarizedDense`` holding this rank's input features (weight
     columns); its input is this rank's features of a column-parallel
-    output. The partial product is all-reduced, then the (replicated)
-    bias added once. Stochastic signs draw the full-width noise and keep
+    output. The partial product is all-reduced, multiplied by alpha under
+    ``scale`` (the shards' |W| sums all-reduced, over the full input
+    width), then the (replicated) bias added once. Stochastic signs draw
+    the full-width noise and keep
     this rank's columns, so every rank's signs are the unsharded
     layer's."""
 
@@ -325,10 +343,6 @@ class RowBinarizedDense(BinarizedDense):
         nn.Module.__init__(self)
         self.__dict__.update({k: v for k, v in full.__dict__.items()
                               if not k.startswith("_")})
-        if full.scale:
-            raise NotImplementedError(
-                "the XNOR-Net alpha of a row-parallel layer needs a "
-                "model-group sum of |W| (not ported)")
         self.ctx = ctx
         self.full_in = full.in_features
         self.in_features = full.in_features // ctx.tp
@@ -353,6 +367,11 @@ class RowBinarizedDense(BinarizedDense):
                           self.gemm_backend())
         y = reduce_from_model(y, self.ctx.group, self.ctx.wire)
         y = y.reshape(*lead, self.out_features)
+        if self.scale:
+            # alpha over the full input dim: the shards' |W| sums summed
+            sums = reduce_from_model(self.weight.abs().sum(dim=1),
+                                     self.ctx.group, self.ctx.wire)
+            y = y * (sums / self.full_in)
         return y if self.bias is None else y + self.bias
 
 
@@ -432,15 +451,20 @@ class ShardedDropout(Dropout):
 # -- the shards -----------------------------------------------------------------
 
 
-def _check_tp_model(model: nn.Module, model_name: str) -> None:
+def _check_tp_model(model: nn.Module, model_name: str, tp: int) -> None:
     from ..models.mlp import BnnMLP
+    from ..models.transformer import BinarizedTransformer
 
     table = tp_table_for(model_name)
     if table is BNN_VIT_TP_TABLE:
-        raise NotImplementedError(
-            f"tensor parallelism of {model_name!r}: the ViT family's TP "
-            "execution (heads sharded over the model group) is not ported "
-            "yet (ROADMAP queue 1 item 7); BNN_VIT_TP_TABLE is")
+        if not isinstance(model, BinarizedTransformer):
+            raise ValueError(f"no TP rule table for model {model_name!r}")
+        if model.num_heads % tp:
+            raise ValueError(
+                f"num_heads {model.num_heads} not divisible by "
+                f"tensor_parallel={tp}: each rank holds num_heads/tp "
+                "heads of every attention")
+        return
     if not (isinstance(model, BnnMLP) and model.binarized):
         raise ValueError(f"no TP rule table for model {model_name!r}")
 
@@ -464,9 +488,9 @@ class TpShards:
     def __init__(self, model: nn.Module, model_name: str, mesh: Mesh, *,
                  axis: str = "model", data_axis: Optional[str] = "data",
                  wire: Optional[WireBytes] = None):
-        _check_tp_model(model, model_name)
         self.mesh = mesh
         self.ctx = TpContext(mesh.group(axis), wire)
+        _check_tp_model(model, model_name, self.ctx.tp)
         self.group = self.ctx.group
         self.tp, self.rank = self.ctx.tp, self.ctx.rank
         self.data_group = (mesh.group(data_axis) if data_axis
@@ -476,6 +500,9 @@ class TpShards:
                                             axis)))
         dims: Dict[str, Optional[int]] = {}
         for sub, flax_name, kind in model.flax_names():
+            if kind == "param":   # a raw parameter (pos_embed): replicated
+                dims[sub] = None
+                continue
             role = _role_of(flax_name, table)
             full = model.get_submodule(sub)
             part = self._part(full, role)

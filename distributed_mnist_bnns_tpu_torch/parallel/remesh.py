@@ -25,9 +25,12 @@ zero by the exchange's invariant. Everything here is host-side numpy on
 the checkpoint's tree (flax's state-dict layout, nested dicts), kept
 apart from the JAX package: the port imports none of it.
 
-The elastic supervisor (``run_elastic``, ``cli train --elastic``) and
-the chaos membership faults are not ported yet: they report through
-``obs/`` telemetry and come with it (ROADMAP queue 1 item 8).
+The supervisors that change the world call it through that restore:
+``resilience.run_elastic`` (``cli train --elastic``: chaos
+``worker_lost`` / ``worker_restore`` respawn the data-parallel ranks at
+the new world) and ``resilience.run_elastic_multihost`` (a lost or
+restored host relaunches the hosts' processes; their per-host rows,
+``parallel.hostcomm.HostSignCompress``'s, fold by the same rules).
 """
 
 from __future__ import annotations

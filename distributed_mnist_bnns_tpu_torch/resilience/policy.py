@@ -1,18 +1,20 @@
 """Retry policy for training, and a circuit breaker for serving.
 
-A framework-free copy of the JAX package's ``resilience/policy.py``
-without its telemetry and chaos hooks:
+A framework-free copy of the JAX package's ``resilience/policy.py``:
 
   * classification: a missing dataset fails the same way every time, so
-    config and programming errors are fatal; IO and unknown runtime
-    faults are transient; ``Preempted`` resumes without counting against
-    the failure budget;
+    config and programming errors are fatal; IO, injected chaos faults
+    (``resilience.chaos.ChaosFault``) and unknown runtime faults are
+    transient; ``Preempted`` resumes without counting against the
+    failure budget;
   * jittered exponential backoff (``base * factor ** n`` capped at
     ``max_backoff_s``, the top ``jitter`` fraction drawn at random from
     ``seed``), so restarting workers do not retry in lockstep;
   * ``run_with_policy`` rebuilds the trainer (which, with
     ``TrainConfig.resume``, restores the newest verified checkpoint
-    generation) and runs again;
+    generation) and runs again; every rebuild is a ``restart`` event
+    (with the failed attempt's ``trainer_topology``) and a
+    ``restarts_total{cause}`` count in the ``obs`` telemetry;
   * ``CircuitBreaker`` fences the serving predictor call.
 """
 
@@ -25,11 +27,14 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Tuple, TypeVar
 
+from .chaos import ChaosFault
 from .preempt import Preempted
 
 log = logging.getLogger(__name__)
 
 T = TypeVar("T")
+
+RESTARTS_TOTAL = "restarts_total"
 
 # Exceptions that a restart cannot fix. KeyboardInterrupt and SystemExit
 # are fatal too, and never wrapped.
@@ -53,6 +58,22 @@ class TrainingFailure(RuntimeError):
     """Training kept failing past the retry budget."""
 
 
+def trainer_topology(trainer: Any) -> Tuple[int, dict]:
+    """``(data-parallel world, {axis: size})`` of a trainer, recorded on
+    restart, resume and remesh events and in checkpoint metas: a
+    multihost rank's world is its host count (``{"host": hosts}``), a
+    trainer in a process group its group's, ``(1, {})`` otherwise."""
+    mh = getattr(trainer, "_mh", None)
+    if mh:
+        return int(mh["hosts"]), {"host": int(mh["hosts"])}
+    if trainer is None or not getattr(trainer, "distributed", False):
+        return 1, {}
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None:
+        return int(trainer.dp_n), dict(mesh.shape)
+    return int(trainer.world), {"data": int(trainer.world)}
+
+
 def classify_failure(exc: BaseException, *,
                      fatal_types: Tuple[type, ...] = DEFAULT_FATAL_TYPES,
                      transient_types: Tuple[type, ...] = ()) -> str:
@@ -60,6 +81,8 @@ def classify_failure(exc: BaseException, *,
     wins over ``fatal_types``; an unknown exception is transient."""
     if isinstance(exc, Preempted):
         return "preempt"
+    if isinstance(exc, ChaosFault):
+        return "transient"
     if transient_types and isinstance(exc, transient_types):
         return "transient"
     if isinstance(exc, (KeyboardInterrupt, SystemExit, GeneratorExit)):
@@ -103,26 +126,49 @@ class RetryPolicy:
         return floor + self._rng.random() * (raw - floor)
 
 
+def _note_restart(telemetry: Any, *, cause: str, attempt: int,
+                  error: BaseException, backoff_s: float,
+                  trainer: Any = None) -> None:
+    from ..obs import default_registry
+
+    registry = (telemetry.registry if telemetry is not None
+                else default_registry())
+    registry.counter(RESTARTS_TOTAL, "resilient-loop trainer restarts"
+                     ).inc(cause=cause)
+    if telemetry is not None:
+        world_size, mesh_shape = trainer_topology(trainer)
+        telemetry.emit(
+            "restart", cause=cause, attempt=attempt,
+            error_type=type(error).__name__, error=str(error)[:500],
+            backoff_s=round(backoff_s, 3), world_size=world_size,
+            mesh_shape=mesh_shape)
+
+
 def handle_preemption(e: Preempted, *, policy: RetryPolicy,
-                      preemptions: int) -> int:
-    """Count a preemption against ``max_preemptions``; returns the new
-    count, raises ``TrainingFailure`` past the budget."""
+                      preemptions: int, telemetry: Any = None,
+                      trainer: Any = None) -> int:
+    """Count a preemption against ``max_preemptions`` (a ``restart``
+    event of cause ``preemption``); returns the new count, raises
+    ``TrainingFailure`` past the budget."""
     preemptions += 1
     if preemptions > policy.max_preemptions:
         raise TrainingFailure(f"preempted {preemptions} times; "
                               "giving up") from e
+    _note_restart(telemetry, cause="preemption", attempt=preemptions,
+                  error=e, backoff_s=0.0, trainer=trainer)
     log.warning("resuming after preemption %d/%d (%s)", preemptions,
                 policy.max_preemptions, e)
     return preemptions
 
 
 def handle_failure(e: BaseException, *, policy: RetryPolicy, failures: int,
+                   telemetry: Any = None, trainer: Any = None,
                    sleep: Callable[[float], None] = time.sleep,
                    context: str = "") -> int:
     """Classify ``e``: re-raise a fatal one, count a transient one against
-    ``max_restarts`` (``TrainingFailure`` past it) and sleep its backoff.
-    Returns the new failure count. Call it from the ``except`` block
-    handling ``e``."""
+    ``max_restarts`` (``TrainingFailure`` past it; a ``restart`` event of
+    cause ``transient``) and sleep its backoff. Returns the new failure
+    count. Call it from the ``except`` block handling ``e``."""
     if policy.classify(e) == "fatal":
         log.error("fatal failure (%s: %s); not retrying",
                   type(e).__name__, e)
@@ -132,6 +178,8 @@ def handle_failure(e: BaseException, *, policy: RetryPolicy, failures: int,
         raise TrainingFailure(f"training failed {failures} times; "
                               "giving up") from e
     delay = policy.backoff(failures)
+    _note_restart(telemetry, cause="transient", attempt=failures, error=e,
+                  backoff_s=delay, trainer=trainer)
     log.warning("training attempt %d/%d failed (%s: %s); restarting from "
                 "latest checkpoint%s in %.2fs", failures,
                 policy.max_restarts, type(e).__name__, e, context, delay)
@@ -142,11 +190,14 @@ def handle_failure(e: BaseException, *, policy: RetryPolicy, failures: int,
 def run_with_policy(make_trainer: Callable[[], Any],
                     run: Callable[[Any], T], *,
                     policy: Optional[RetryPolicy] = None,
+                    telemetry: Any = None,
                     sleep: Callable[[float], None] = time.sleep) -> T:
     """``run(make_trainer())`` under ``policy``: a transient failure
     rebuilds the trainer and runs again after a jittered backoff, up to
     ``max_restarts``; ``Preempted`` restarts at once and counts against
-    ``max_preemptions`` only; a fatal failure re-raises."""
+    ``max_preemptions`` only; a fatal failure re-raises. ``telemetry``:
+    an ``obs.Telemetry`` for the ``restart`` events (one sharing the
+    run's directory interleaves them with the trainers' events)."""
     policy = policy if policy is not None else RetryPolicy()
     failures = preemptions = 0
     while True:
@@ -154,10 +205,12 @@ def run_with_policy(make_trainer: Callable[[], Any],
         try:
             return run(trainer)
         except Preempted as e:
-            preemptions = handle_preemption(e, policy=policy,
-                                            preemptions=preemptions)
+            preemptions = handle_preemption(
+                e, policy=policy, preemptions=preemptions,
+                telemetry=telemetry, trainer=trainer)
         except BaseException as e:
             failures = handle_failure(e, policy=policy, failures=failures,
+                                      telemetry=telemetry, trainer=trainer,
                                       sleep=sleep)
 
 

@@ -49,12 +49,18 @@ class StopRequest:
     def __init__(self) -> None:
         self._event = threading.Event()
         self.reason: Optional[str] = None
+        # set when every rank of a process group requests the same stop
+        # at the same step (a seed-deterministic chaos rule): the ranks
+        # may then stop there together instead of at the epoch boundary
+        self.lockstep = False
 
     @property
     def requested(self) -> bool:
         return self._event.is_set()
 
-    def request(self, reason: str = "stop requested") -> None:
+    def request(self, reason: str = "stop requested", *,
+                lockstep: bool = False) -> None:
+        self.lockstep = self.lockstep or lockstep
         if not self._event.is_set():
             self.reason = reason
             log.warning(
@@ -66,6 +72,7 @@ class StopRequest:
     def clear(self) -> None:
         self._event.clear()
         self.reason = None
+        self.lockstep = False
 
     def _handler(self, signum, frame) -> None:
         name = signal.Signals(signum).name

@@ -5,9 +5,10 @@ Counterpart of the JAX package's ``serve/core.py``, with its telemetry
 per-request span trees: ``serve.request`` with its ``queue``,
 ``assemble``, ``batch`` / ``infer`` and ``respond`` phases), the cost
 ledger's ``classifier_predict`` dispatch times (CUDA events) and the
-``jg_step`` profiler region while a capture is live; without its
-recompile fence and chaos hooks. The Tail-at-Scale mechanics are the
-same:
+``jg_step`` profiler region while a capture is live, and its chaos hook
+before the predictor call (``resilience/chaos``: ``infer_slow`` stalls
+the batch, ``infer_error`` fails it, and either trips the breaker);
+without its recompile fence. The Tail-at-Scale mechanics are the same:
 
   * every request carries a **deadline**; work whose deadline has
     passed is cancelled when the batcher pops it (never computed), and
@@ -254,8 +255,10 @@ class ServeEngine:
         device: Any = None,
         stall_timeout_s: float = 1.0,
         linger_s: float = 0.002,
+        chaos: Any = None,
     ):
         self.predict_fn = predict_fn
+        self.chaos = chaos
         self.batch_size = int(batch_size)
         self.queue = queue
         self.breaker = breaker
@@ -434,6 +437,11 @@ class ServeEngine:
                 "serve.batch", kind="batch",
                 batch_seq=self.batch_seq, n=sum(r.n for r in live),
             ) as bspan:
+                # a chaos fault fired here parents its span to this batch
+                # (resilience/chaos): a stall counts toward dt, an error
+                # fails the batch and trips the breaker like a backend's
+                if self.chaos is not None and self.chaos.active:
+                    self.chaos.on_infer(step=self.batch_seq)
                 # while a capture is live, the dispatch runs in a jg_step
                 # region carrying the batch's trace id (obs/profile)
                 with (step_annotation("classifier_predict",

@@ -9,8 +9,10 @@ iterations) and ``lm_decode_error`` events; each stream's span tree
 ``lm.decode``, one ``lm.decode_iter`` span an iteration); the cost
 ledger's ``lm_prefill`` and ``lm_decode`` rows (the warm-up calls) and
 dispatch times (CUDA events); the ``jg_step`` profiler region while a
-capture is live. Without its recompile fence, chaos, the prefix cache
-and speculative decoding (later slices of the port).
+capture is live; the chaos hook before each decode iteration
+(``resilience/chaos``, ``infer_error`` / ``infer_slow``). Without its
+recompile fence, the prefix cache and speculative decoding (later slices
+of the port).
 Every decode iteration runs ALL active batch slots through one call of
 the paged decoder; between iterations the scheduler admits queued
 requests into freed slots, so sequences join and leave the batch
@@ -144,12 +146,22 @@ class LMEngine:
     ``engine_failed``), the admission contract of ``serve.core``.
     Metrics go to the telemetry's registry (an engine of its own without
     one); ``device`` is the decoder's (the ledger's CUDA events).
+
+    ``chaos`` (a ``resilience.ChaosController``) fires its serving rules
+    before each decode iteration's dispatch (``on_infer(step=batch_seq)``):
+    an injected error there touches no pool, so the iteration is retried,
+    up to ``max_consecutive_failures`` in a row, past which every active
+    stream fails (the JAX engine's fence).
     """
 
     def __init__(self, decoder, *, queue_depth: int = 16,
                  telemetry: Any = None, device: Any = None,
-                 decode_event_every: int = 50):
+                 decode_event_every: int = 50, chaos: Any = None,
+                 max_consecutive_failures: int = 4):
         self.decoder = decoder
+        self.chaos = chaos
+        self.max_consecutive_failures = int(max_consecutive_failures)
+        self._consecutive_failures = 0
         self.telemetry = telemetry
         self.device = device
         self.decode_event_every = max(int(decode_event_every), 1)
@@ -600,6 +612,15 @@ class LMEngine:
         )
         timed = self._ledger.enabled
         with iter_span:
+            if self.chaos is not None and self.chaos.active:
+                try:
+                    self.chaos.on_infer(step=self.batch_seq)
+                except Exception as e:
+                    # before the dispatch: the pools are intact and the
+                    # iteration is retried
+                    iter_span.end("error", error=type(e).__name__)
+                    self._record_predispatch_failure(e)
+                    return
             t0 = time.perf_counter()
             try:
                 with (step_annotation(
@@ -623,6 +644,7 @@ class LMEngine:
                 return
             dt = time.perf_counter() - t0
             iter_span.end("ok", iter_ms=round(dt * 1e3, 3))
+        self._consecutive_failures = 0
         self.iter_ms.append(dt * 1e3)
         self.iter_hist.observe(dt)
         if timed:
@@ -647,6 +669,28 @@ class LMEngine:
                 page_occupancy=round(self.allocator.occupancy(), 4),
                 recompiles_post_warmup=self.recompiles_post_warmup,
             )
+
+    def _record_predispatch_failure(self, e: Exception) -> None:
+        """A fault before the dispatch (chaos ``infer_error``): counted and
+        retried; ``max_consecutive_failures`` in a row fail every active
+        stream, as a wedged backend must."""
+        self._consecutive_failures += 1
+        self.errors_ctr.inc(kind=type(e).__name__)
+        log.warning("lm-engine decode iteration %d failed (%s: %s): "
+                    "attempt %d/%d", self.batch_seq, type(e).__name__, e,
+                    self._consecutive_failures,
+                    self.max_consecutive_failures)
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "lm_decode_error", iteration=self.batch_seq,
+                error=f"{type(e).__name__}: {e}"[:500],
+                consecutive=self._consecutive_failures)
+        if self._consecutive_failures >= self.max_consecutive_failures:
+            self._evict_all(
+                "error",
+                f"{self._consecutive_failures} consecutive decode failures "
+                f"(last: {type(e).__name__}: {e})")
+            self._consecutive_failures = 0
 
     def _dispatch_failure(self, e: Exception) -> None:
         """A decoder call failed part way: the pools may hold partial

@@ -101,6 +101,10 @@ class LMServeConfig:
     costs: Optional[bool] = None        # the per-program cost ledger
                                         # (obs/costs); None: JG_COSTS
     events_max_bytes: Optional[int] = None  # size-rotate events.jsonl
+    chaos: Optional[str] = None         # serving fault injection
+                                        # (resilience/chaos; None:
+                                        # JG_CHAOS)
+    seed: int = 0                       # the chaos rules' draws
 
 
 class LMServer:
@@ -113,6 +117,10 @@ class LMServer:
             events_max_bytes=config.events_max_bytes,
         )
         self._ledger = arm_ledger(config.costs)
+        from ...resilience.chaos import ChaosController
+
+        self.chaos = ChaosController.from_config(
+            config.chaos, seed=config.seed, telemetry=self.telemetry)
         self.stop_request = StopRequest()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._http_thread: Optional[threading.Thread] = None
@@ -156,7 +164,7 @@ class LMServer:
         )
         self.engine = LMEngine(
             decoder, queue_depth=cfg.queue_depth, telemetry=self.telemetry,
-            device=device,
+            device=device, chaos=self.chaos if self.chaos.active else None,
         ).start()
         server = self
 

@@ -110,6 +110,9 @@ class ServeConfig:
                                      # past this (None: the
                                      # JG_EVENTS_MAX_BYTES env var, else
                                      # unbounded)
+    chaos: Optional[str] = None      # serving fault injection
+                                     # (resilience/chaos; None: JG_CHAOS)
+    seed: int = 0                    # the chaos rules' draws
 
 
 class PackedInferenceServer:
@@ -123,6 +126,10 @@ class PackedInferenceServer:
         )
         # the process-wide ledger; an explicit flag wins over JG_COSTS
         self._ledger = arm_ledger(config.costs)
+        from ..resilience.chaos import ChaosController
+
+        self.chaos = ChaosController.from_config(
+            config.chaos, seed=config.seed, telemetry=self.telemetry)
         self.breaker_transitions = self.telemetry.registry.counter(
             BREAKER_TRANSITIONS_TOTAL, "circuit-breaker state transitions")
         self.breaker = CircuitBreaker(
@@ -201,6 +208,7 @@ class PackedInferenceServer:
             device=cfg.device,
             stall_timeout_s=cfg.stall_timeout_s,
             linger_s=cfg.linger_ms / 1e3,
+            chaos=self.chaos if self.chaos.active else None,
         ).start()
         server = self
 

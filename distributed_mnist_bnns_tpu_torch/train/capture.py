@@ -20,8 +20,9 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
   the state is put back; then the chunk is captured on its static
   inputs, ``zero_grad(set_to_none=True)`` inside, as PyTorch's
   whole-network recipe has it. The model's generator is registered with
-  the graph (``register_generator_state``), so a replay draws what the
-  eager steps would and advances the generator as they would.
+  the graph (``register_generator_state``) when the warm-up step drew
+  from it, so a replay draws what the eager steps would and advances the
+  generator as they would.
 - **Replay.** The inputs are copied into the static buffers (from pinned
   host memory or, for the device-resident epoch, from the device), the
   graph is replayed, and the counters advance on the host. Nothing
@@ -57,7 +58,14 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
   collectives move are counted when they are recorded, too: the
   capture's count is taken back out of ``wire`` (the warm-up step's as
   well) and each replay adds it, so ``wire`` holds what the replays
-  moved.
+  moved. The tensor-parallel, pipelined and (data, model, pipe) steps
+  are captured the same way: Megatron's all-reduces, the pipeline's
+  sends and receives and the data group's gradient all-reduce go into
+  the graph.
+- **Refusals.** A step that cannot be recorded sets ``refuse`` (the
+  multihost exchange over host sockets, a pipelined model that draws
+  its step's dropout seed on the host): its capture raises that message,
+  and nothing runs eagerly in its place.
 """
 
 from __future__ import annotations
@@ -145,6 +153,8 @@ class TrainScan:
         self.ran: Dict[str, int] = {}       # launches run by replays
         self.captures = 0         # captures so far, recaptures included
         self.telemetry = None     # where cost rows go (obs.Telemetry)
+        self.refuse: Optional[str] = None   # why the step cannot be
+                                  # captured (a capture raises it)
 
     def run(self, model, optimizer, images: torch.Tensor,
             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -194,6 +204,8 @@ class TrainScan:
         return g
 
     def _capture(self, model, optimizer, images, labels, rows) -> _Graph:
+        if self.refuse:
+            raise RuntimeError(self.refuse)
         check_capturable(self.groups)
         t0 = time.perf_counter()
         wire_before = None if self.wire is None else dict(self.wire)
@@ -216,7 +228,11 @@ class TrainScan:
         if self.wire is not None:    # the warm-up step is not a step
             self.wire.clear()
             self.wire.update(wire_before)
-        if gen is not None:
+        if gen is not None and not torch.equal(gen.get_state(), saved_gen):
+            # a step that draws (dropout, stochastic signs): the graph
+            # takes the generator over. One that never draws leaves it
+            # alone (registering a CUDA generator that has never drawn
+            # crashed the process on an H100, PyTorch 2.11)
             gen.set_state(saved_gen)
             g.graph.register_generator_state(gen)
         optimizer.zero_grad(set_to_none=True)

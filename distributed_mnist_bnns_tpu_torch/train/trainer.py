@@ -127,7 +127,30 @@ every rank evaluates (the forward is collective). Checkpoints keep the
 JAX layouts: the flax tree's full arrays under TP, the pipelined
 ``{"blocks", "rest"}`` tree under PP (``interop.Layout``), written by
 rank 0 and cut back on a restore. ``scan_steps`` and ``device_data``
-under either raise (ROADMAP queue 1 item 7).
+run under either: on a card the TP, PP and (data, model) steps are
+captured with their collectives and point-to-point transfers inside
+(NCCL; ``check_capturable`` refuses gloo), on the CPU the chunk runs
+eagerly. A pipelined model that draws dropout takes its step's seed on
+the host and refuses capture.
+
+Resilience (the JAX ``resilience/`` hooks): ``chaos`` (or ``JG_CHAOS``)
+arms a ``resilience.ChaosController``, fired before each dispatch
+(``on_step`` with the global step), after each checkpoint write
+(``on_checkpoint_written``) and wired to the stop flag (``preempt``);
+a resume marks the rules the restored position already passed. Its
+``worker_*`` rules need ``elastic`` (``resilience.run_elastic``), its
+``host_*`` rules the multihost runtime. Under the ``JG_MH_*``
+environment (``parallel.detect_multihost``, set by
+``resilience.run_elastic_multihost``) the trainer is one host of a
+multihost world: a single-process trainer on the full batch whose
+1-bit exchange runs over the ``parallel.hostcomm`` TCP collective
+(``HostSignCompress``), with JAX's refusals (no in-process data
+parallelism, ``gspmd`` only, ``elastic`` beyond one host, ``sign`` /
+``sign_ef`` only); a lost host vacates without saving, ``host_restore``
+saves and vacates, the error feedback rows are gathered over the
+channel at each checkpoint, the epoch-boundary stop is agreed over it,
+and a captured dispatch raises (a socket cannot be recorded in a CUDA
+graph).
 
 Telemetry (the JAX ``_setup_telemetry`` and ``_record_step``, ``obs``):
 ``telemetry_dir`` writes the run's JSONL events (the manifest with the
@@ -158,9 +181,11 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import json
 import logging
 import math
 import os
+import signal
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -196,6 +221,7 @@ from ..utils.checkpoint import (
     shape_mismatches,
 )
 from ..utils.checkpoint import load_checkpoint as _load_tree
+from ..utils.logging_utils import is_primary_host
 from ..utils.meters import AverageMeter
 from ..utils.results import ResultsLog
 from ..obs.profile import step_annotation
@@ -218,6 +244,12 @@ log = logging.getLogger(__name__)
 DEVICE_DATA_CHUNK = 64
 
 RNG_META_KEY = "torch_rng_state"   # the port's key in checkpoint_meta.json
+
+# Host-collective tags of the out-of-step collectives (the channel checks
+# that every rank issues the same sequence; the values name them in a
+# divergence message), the JAX trainer's.
+_MH_SYNC_TAG = 0x5EF0   # checkpoint-boundary EF-row allgather
+_MH_STOP_TAG = 0x570B   # epoch-boundary stop agreement
 
 
 def clamp_latent(params: Iterable[torch.Tensor]) -> None:
@@ -512,11 +544,12 @@ class TrainConfig:
     elastic: bool = False          # resume a checkpoint of another DP
                                    # world: its (world, ...) 1-bit
                                    # exchange rows are re-placed
-                                   # (parallel/remesh.py). The elastic
-                                   # supervisor (run_elastic, cli train
-                                   # --elastic, the chaos membership
-                                   # faults) is not ported yet (ROADMAP
-                                   # queue 1, item 6's remainder)
+                                   # (parallel/remesh.py); the elastic
+                                   # supervisor (resilience.run_elastic,
+                                   # cli train --elastic) and the chaos
+                                   # membership faults need it
+    chaos: Optional[str] = None    # fault-injection spec (resilience/
+                                   # chaos); None: the JG_CHAOS env var
     pipeline_parallel: int = 1     # >1: GPipe the transformer block stack
                                    # over N ranks (parallel/pipeline_model)
     pp_microbatches: int = 0       # microbatches per pipelined step
@@ -558,22 +591,20 @@ class Trainer:
             raise ValueError(f"unknown dp_mode {config.dp_mode!r} "
                              "(have: gspmd, fsdp)")
         if config.elastic:
+            # TP and PP shard over non-data axes (no world fold), and the
+            # device-resident epoch has no step boundary to stop at
             bad = [need for cond, need in (
                 (config.tensor_parallel > 1, "tensor_parallel=1"),
-                (config.pipeline_parallel > 1, "pipeline_parallel=1"))
-                if cond]
+                (config.pipeline_parallel > 1, "pipeline_parallel=1"),
+                (config.device_data, "device_data=False")) if cond]
             if bad:
                 raise ValueError("elastic=True requires " + ", ".join(bad)
                                  + " (RESILIENCE.md 'Elastic membership')")
-            if config.device_data:
-                raise ValueError(
-                    "elastic=True requires device_data=False: the "
-                    "device-resident epoch has no step boundaries to "
-                    "stop at")
             if not config.checkpoint_dir:
                 raise ValueError(
                     "elastic=True requires checkpoint_dir: the remesh "
-                    "re-places state from checkpoint generations")
+                    "re-places state from checkpoint generations "
+                    "(RESILIENCE.md 'Elastic membership')")
         self.device = resolve_device(config.device)
         self.distributed = False   # in a process group (_resolve_world)
         self.mesh = None           # TP / PP: the rank mesh
@@ -640,6 +671,49 @@ class Trainer:
         self._checkpointer = (AsyncCheckpointer() if config.async_checkpoint
                               else None)
         self._setup_telemetry(input_shape)
+        self._setup_chaos()
+
+    def _setup_chaos(self) -> None:
+        """The run's ``ChaosController`` (the JAX trainer's): a ``preempt``
+        fault requests the graceful stop; membership rules need
+        ``elastic``, host rules the multihost runtime, or they raise
+        here."""
+        from ..resilience.chaos import (
+            HOST_KINDS,
+            MEMBERSHIP_KINDS,
+            ChaosController,
+        )
+
+        cfg = self.config
+        self.chaos = ChaosController.from_config(
+            cfg.chaos, seed=cfg.seed, telemetry=self.telemetry)
+        # every rank fires the same rule at the same step, so a rank of a
+        # process group may stop there with the others (multihost ranks
+        # agree at the epoch boundary, as JAX's)
+        self.chaos.on_preempt = lambda reason: self.stop.request(
+            reason, lockstep=self.host_channel is None)
+        if not cfg.elastic:
+            member = [r.kind for r in self.chaos.rules
+                      if r.kind in MEMBERSHIP_KINDS]
+            if member:
+                raise ValueError(
+                    f"chaos {member[0]!r} requires elastic=True "
+                    "(--elastic): membership faults drive the elastic "
+                    "supervisor's mesh shrink/grow — without it the "
+                    "fault would fire into nothing (RESILIENCE.md "
+                    "'Elastic membership')")
+        host_rules = [r.kind for r in self.chaos.rules
+                      if r.kind in HOST_KINDS]
+        if host_rules and self.host_channel is None:
+            raise ValueError(
+                f"chaos {host_rules[0]!r} requires the multihost "
+                "elastic runtime (JG_MH_* env via resilience."
+                "multihost.run_elastic_multihost): host faults "
+                "SIGKILL/regrow real rank processes — without it the "
+                "fault would fire into nothing (RESILIENCE.md "
+                "'Multi-host elastic membership')")
+        if self.host_channel is not None:
+            self.chaos.on_host_membership = self._on_host_membership
 
     # -- telemetry (obs/) ----------------------------------------------------
 
@@ -801,6 +875,21 @@ class Trainer:
         {mode, phase}; hierarchical the in-host fp32 ring (level intra)
         and the 1-bit phases (level inter)."""
         p = self.comm_plan
+        if self.host_channel is not None:
+            # the channel's framed TCP bytes since the last dispatch, all
+            # inter-host (the JAX trainer's count)
+            ch = self.host_channel
+            total = ch.bytes_sent + ch.bytes_received
+            delta, self._host_bytes_seen = (total - self._host_bytes_seen,
+                                            total)
+            if delta > 0:
+                self.telemetry.registry.counter(
+                    "comm_bytes_total",
+                    "gradient-exchange bytes on the wire per worker "
+                    "(labels: mode, phase=rs|ag; hierarchical runs add "
+                    "level=intra|inter)",
+                ).inc(delta, mode=p.mode, phase="xchg", level="inter")
+            return
         if p is None or self.world <= 1:
             return
         reg = self.telemetry.registry
@@ -922,11 +1011,6 @@ class Trainer:
             if bad:
                 raise ValueError(f"grad_compress={cfg.grad_compress!r} "
                                  "requires " + ", ".join(bad))
-        if self.mp is not None and (cfg.scan_steps > 1 or cfg.device_data):
-            raise NotImplementedError(
-                "scan_steps and device_data under tensor_parallel or "
-                "pipeline_parallel are not ported yet (ROADMAP queue 1 "
-                "item 7)")
 
     def _setup_grad_compress(self) -> None:
         """The 1-bit exchange's plan and groups (JAX
@@ -938,7 +1022,19 @@ class Trainer:
         self._compress_group = None
         self._local_group = None
         self._ef_row = 0      # this rank's row of the checkpointed EF
+        self._mh = None       # the supervisor's {rank, hosts, port, store}
+        self.host_channel = None   # parallel.hostcomm's TCP collective
+        self._host_bytes_seen = 0
+        from ..parallel.distributed import detect_multihost
+
+        mh = detect_multihost()
         if cfg.grad_compress == "none":
+            if mh is not None:
+                raise ValueError(
+                    "multihost elastic runtime (JG_MH_* env) requires "
+                    "grad_compress='sign' or 'sign_ef': the host-side "
+                    "compressed exchange IS the inter-host transport "
+                    "(RESILIENCE.md 'Multi-host elastic membership')")
             if cfg.dp_hosts:
                 raise ValueError(
                     "dp_hosts (hierarchical exchange) requires "
@@ -949,6 +1045,9 @@ class Trainer:
         if cfg.grad_compress not in ("sign", "sign_ef"):
             raise ValueError(f"unknown grad_compress {cfg.grad_compress!r} "
                              "(have: none, sign, sign_ef)")
+        if mh is not None:
+            self._setup_multihost(mh)
+            return
         world = self.world
         n_params = tree_size(self.model.parameters())
         if world <= 1:
@@ -992,6 +1091,46 @@ class Trainer:
         if world > 1:
             self._compress_group = dist.group.WORLD
             self._ef_row = self.rank
+
+    def _setup_multihost(self, mh: Dict[str, Any]) -> None:
+        """Join the multihost elastic world (the JAX ``_setup_multihost``):
+        this process is one host of ``mh["hosts"]``, a single-process
+        trainer whose inter-host exchange is the TCP collective
+        (``parallel.hostcomm``). ``start()`` blocks until the world has
+        formed, or fails within the channel's timeout (``JG_MH_TIMEOUT``
+        seconds, 60 by default)."""
+        cfg = self.config
+        if cfg.data_parallel not in (None, 1) or cfg.dp_hosts not in (
+                None, 1):
+            raise ValueError(
+                "multihost elastic runtime (JG_MH_* env) does not "
+                "compose with in-process data_parallel/dp_hosts: each "
+                "rank is one host of the world, the exchange runs over "
+                "the host collective (parallel/hostcomm)")
+        if cfg.dp_mode == "fsdp":
+            raise ValueError(
+                "multihost elastic runtime composes with "
+                "dp_mode='gspmd' only: the host exchange keeps the "
+                "optimizer replicated (per-host EF rows)")
+        if mh["hosts"] > 1 and not cfg.elastic:
+            raise ValueError(
+                "multihost runtime with JG_MH_HOSTS>1 requires "
+                "elastic=True (--elastic): host loss vacates via the "
+                "preempt path and the supervisor re-places state "
+                "through checkpoint generations (RESILIENCE.md "
+                "'Multi-host elastic membership')")
+        from ..parallel.hostcomm import HostChannel
+
+        self.comm_plan = make_plan(
+            tree_size(self.model.parameters()), world=mh["hosts"],
+            mode=cfg.grad_compress, bucket_size=cfg.compress_bucket_size,
+            chunks=cfg.compress_chunks)
+        self._mh = dict(mh)
+        self._ef_row = mh["rank"]
+        self.host_channel = HostChannel(
+            mh["rank"], mh["hosts"], int(mh["port"] or 0),
+            timeout_s=float(os.environ.get("JG_MH_TIMEOUT", "60")))
+        self.host_channel.start()
 
     def _setup_data_parallel(self) -> None:
         """Check the global batch, make sure every rank starts from the
@@ -1172,7 +1311,16 @@ class Trainer:
                           world=plan.world, group=self._compress_group,
                           bucket_size=plan.bucket_size, chunks=plan.chunks,
                           wire=self.wire)
-            if cfg.dp_mode == "fsdp":
+            if self.host_channel is not None:
+                # a regime's optimizer switch rebuilds it with a fresh
+                # tag counter: every rank switches at the same epoch
+                from ..parallel.hostcomm import HostSignCompress
+
+                exchange["grad_transform"] = HostSignCompress(
+                    mode=plan.mode, order=common["order"],
+                    channel=self.host_channel, bucket_size=plan.bucket_size,
+                    chunks=plan.chunks)
+            elif cfg.dp_mode == "fsdp":
                 check_elementwise(name)
                 exchange["fsdp_compress"] = SignCompressFsdp(**common)
             else:
@@ -1247,7 +1395,24 @@ class Trainer:
                 self.clamp_mask, step=self.train_step, wire=self.wire,
                 groups=(dist.group.WORLD,) if self.distributed else ())
             self._train_scan.telemetry = self.telemetry
+            self._train_scan.refuse = self._capture_refusal()
         return self._train_scan
+
+    def _capture_refusal(self) -> Optional[str]:
+        """Why this run's step cannot be captured in a CUDA graph (None:
+        it can): a host socket cannot be recorded, and a pipelined model
+        that draws dropout takes each step's seed on the host."""
+        if self.host_channel is not None:
+            return ("a captured dispatch (scan_steps, device_data) cannot "
+                    "record the multihost exchange: it runs over host TCP "
+                    "sockets (parallel.hostcomm), which a CUDA graph does "
+                    "not capture; set scan_steps=1")
+        if self.mp == "pp" and getattr(self.model, "needs_rng", False):
+            return ("a captured dispatch (scan_steps, device_data) of a "
+                    "pipelined model with dropout would replay one step's "
+                    "seed (drawn on the host each step): set dropout=0, or "
+                    "scan_steps=1 and device_data=False")
+        return None
 
     def _device_data_active(self) -> bool:
         """device_data runs on one card and under GSPMD data parallelism
@@ -1335,9 +1500,18 @@ class Trainer:
         dispatches = 0
         try:
             for images, labels, n in items:
-                # A rank of a data-parallel run never stops alone: it
-                # waits for the epoch boundary (_stop_boundary).
-                if self.stop.requested and self.world <= 1:
+                # a lost host world: the last step consumed a zeroed
+                # exchange, so vacate before anything else (no save)
+                self._check_host_lost(epoch)
+                if self.chaos.active:
+                    self.chaos.on_step(step=self.step, epoch=epoch)
+                # A rank of a data-parallel run (or a multihost rank)
+                # never stops alone: it waits for the epoch boundary
+                # (_stop_boundary), unless every rank requested the same
+                # stop at this step (a lockstep chaos stop).
+                if self.stop.requested and (
+                        (self.world <= 1 and self.host_channel is None)
+                        or self.stop.lockstep):
                     self._graceful_stop(epoch, batches_done=seen)
                 if self._profile_window is not None:
                     self._drive_profile_window(before_dispatch=True)
@@ -1409,6 +1583,9 @@ class Trainer:
                     self._drive_profile_window(before_dispatch=False)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            # a loss in the epoch's last exchange vacates here, before
+            # the fit loop checkpoints the tainted epoch
+            self._check_host_lost(epoch)
         finally:
             if profiling:   # an epoch shorter than profile_steps, a raise
                 self._profiler.stop(telemetry=self.telemetry)
@@ -1458,6 +1635,9 @@ class Trainer:
         times are the epoch's amortized, the metrics the means over
         every step."""
         cfg = self.config
+        if self.chaos.active:
+            # one fault point an epoch: the epoch is one dispatch
+            self.chaos.on_step(step=self.step, epoch=epoch)
         images_all, labels_all = self._device_set(data, "train")
         idx = shard_indices(len(data.train_labels), epoch=epoch,
                             seed=cfg.seed)
@@ -1604,6 +1784,7 @@ class Trainer:
                     is_best = acc > self.best_acc
                     self.best_acc = max(self.best_acc, acc)
                     if self.config.checkpoint_dir:
+                        self._check_host_lost(epoch)
                         with tracer.start("train.checkpoint",
                                           kind="checkpoint", epoch=epoch,
                                           best=is_best):
@@ -1618,7 +1799,7 @@ class Trainer:
                         if (self._checkpointer is not None
                                 and not self.config.async_checkpoint):
                             self._checkpointer.wait()
-                    if self.rank == 0:
+                    if is_primary_host():   # a multihost rank 0 too
                         log.info("epoch %d done: %s", epoch,
                                  {k: round(v, 4) for k, v in row.items()
                                   if k != "epoch"})
@@ -1649,6 +1830,21 @@ class Trainer:
         """The epoch-boundary stop decision: the local flag, or in a
         data-parallel run one all-reduce of every rank's flag (every rank
         calls it once an epoch), so that one rank's request stops all."""
+        if self._mh is not None and self._mh["hosts"] > 1:
+            # multihost: the agreement rides the host collective; a
+            # transport failure means the world is dying: stop, and let
+            # the lost latch vacate without a save
+            try:
+                flags = self.host_channel.allgather(
+                    b"\x01" if self.stop.requested else b"\x00",
+                    tag=_MH_STOP_TAG)
+            except ConnectionError:
+                return True
+            if any(f == b"\x01" for f in flags):
+                if not self.stop.requested:
+                    self.stop.request("preemption on a peer host")
+                return True
+            return False
         if self.world <= 1:
             return self.stop.requested
         flag = torch.tensor([1.0 if self.stop.requested else 0.0],
@@ -1670,6 +1866,8 @@ class Trainer:
             self._checkpointer.wait()
         saved = not write_checkpoint and bool(cfg.checkpoint_dir)
         if write_checkpoint and cfg.checkpoint_dir:
+            # a dying multihost world must not save (tainted state)
+            self._check_host_lost(epoch)
             extra = {"preempted": True}
             if batches_done is not None:
                 extra["epoch_in_progress"] = int(epoch)
@@ -1720,6 +1918,13 @@ class Trainer:
         """``(workers, ...)``: every worker's ``row`` (one a host when
         hierarchical), JAX's layout of a worker-sharded state leaf;
         collective in a data-parallel run."""
+        if self.host_channel is not None:
+            from ..parallel.hostcomm import allgather_rows
+
+            rows = allgather_rows(self.host_channel,
+                                  row.detach().cpu().numpy(),
+                                  tag=_MH_SYNC_TAG)
+            return torch.from_numpy(rows)
         if not self.distributed:
             return row.detach()[None]
         local = self.hier_plan.local if self.hier_plan else 1
@@ -1806,16 +2011,25 @@ class Trainer:
         data-parallel run every rank calls it and rank 0 writes."""
         from ..interop import train_state_to_jax
 
-        meta = {"best_acc": self.best_acc, "world_size": self.world,
+        meta = {"best_acc": self.best_acc,
+                "world_size": (self._mh["hosts"] if self._mh
+                               else self.world),
                 "model": self.config.model}
         rng = self._rng_state()
         if rng is not None:
             meta[RNG_META_KEY] = rng
         meta.update(extra_meta or {})
+        try:
+            tree = train_state_to_jax(self)   # collective: gathers rows
+        except ConnectionError:
+            # the multihost world died in the rows' gather: no save
+            self._check_host_lost(self.epoch)
+            raise
         return self._saver()(
-            train_state_to_jax(self), ckpt_dir, is_best=is_best,
+            tree, ckpt_dir, is_best=is_best,
             epoch=self.epoch if epoch is None else epoch, save_all=save_all,
-            extra_meta=meta, keep_generations=self.config.checkpoint_keep)
+            extra_meta=meta, keep_generations=self.config.checkpoint_keep,
+            chaos=self.chaos)
 
     def _check_model(self, meta: Dict[str, Any], path: str) -> None:
         held = meta.get("model")
@@ -1878,6 +2092,11 @@ class Trainer:
             start = (int(epoch) if epoch is not None else -1) + 1
             start_batch = 0
         self.epoch = start
+        if self.chaos.active:
+            # the faults scripted at or before the restored position
+            # fired in the process that wrote it (the fire ledger did
+            # not survive it): without this, preempt@step=K refires
+            self.chaos.mark_reached(step=meta.get("step"), epoch=start)
         if info["rolled_back"]:
             telemetry.registry.counter(
                 "rollbacks_total", "checkpoint generation rollbacks"
@@ -1933,6 +2152,63 @@ class Trainer:
                     "node(s) from checkpoint world %s onto world %d", n,
                     meta.get("world_size"), self.comm_plan.world)
         return tree
+
+    # -- the multihost world (chaos host rules, loss fence) --------------------
+
+    def _on_host_membership(self, event: str, *, hosts=None, step=None,
+                            epoch=None) -> None:
+        """Chaos ``host_lost`` / ``host_restore`` (the JAX trainer's): the
+        rules fire on every rank at the same step. ``lost``: the ranks
+        at or above the surviving count die by SIGKILL (no cleanup, no
+        checkpoint); the survivors find the loss in the next exchange and
+        vacate without saving (``_check_host_lost``). ``restored``: rank
+        0 writes the regrow request to the store and every rank requests
+        a graceful stop (at the epoch boundary, agreed over the channel),
+        whose checkpoint the supervisor relaunches from."""
+        mh = self._mh
+        if mh is None:
+            return
+        if event == "lost":
+            surviving = int(hosts) if hosts is not None else mh["hosts"]
+            if mh["rank"] >= surviving:
+                log.warning("chaos host_lost: rank %d >= surviving hosts "
+                            "%d: SIGKILL (no cleanup, no checkpoint)",
+                            mh["rank"], surviving)
+                os.kill(os.getpid(), signal.SIGKILL)
+            return
+        if event == "restored":
+            store = mh.get("store") or self.config.checkpoint_dir
+            if store and mh["rank"] == 0:
+                os.makedirs(store, exist_ok=True)
+                req = os.path.join(store, "restore_request.json")
+                with open(req + ".tmp", "w") as f:
+                    json.dump({"hosts": int(hosts) if hosts else None,
+                               "step": step, "epoch": epoch}, f)
+                os.replace(req + ".tmp", req)   # the supervisor polls it
+            self.stop.request(
+                f"chaos host_restore (regrow to {hosts or 'full'} hosts)")
+
+    def _check_host_lost(self, epoch: int) -> None:
+        """The host-loss fence: once the channel latched ``lost``, the
+        step that consumed the zeroed exchange is garbage, so vacate
+        through ``Preempted`` without saving; the relaunch resumes from
+        the last verified generation (bitwise a fresh resume)."""
+        ch = self.host_channel
+        if ch is None or not ch.lost:
+            return
+        mh = self._mh or {}
+        reason = (ch.lost_reason or "peer failure")[:200]
+        self.telemetry.registry.counter(
+            "host_losses_total",
+            "host-collective losses observed by a surviving rank").inc()
+        self.telemetry.emit(
+            "host_membership", event="lost", rank=mh.get("rank"),
+            hosts=mh.get("hosts"), lost_ranks=list(ch.lost_ranks),
+            reason=reason, step=int(self.step), epoch=int(epoch))
+        log.warning("host collective lost (%s): vacating without a "
+                    "checkpoint; the supervisor resumes the shrunken world "
+                    "from the last verified generation", reason)
+        raise Preempted(epoch, self.step, f"host lost: {reason}")
 
     def restore(self, ckpt_dir: str, *, best: bool = False) -> Dict[str, Any]:
         """Load the latest (``best``: the best) checkpoint under

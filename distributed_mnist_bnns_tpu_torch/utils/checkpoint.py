@@ -127,9 +127,12 @@ def _link_or_copy(src: str, dst: str) -> None:
 def _write_checkpoint(host_tree: Any, path: str, is_best: bool,
                       epoch: Optional[int], save_all: bool,
                       extra_meta: Optional[dict],
-                      keep_generations: Optional[int] = None) -> str:
+                      keep_generations: Optional[int] = None,
+                      chaos: Any = None) -> str:
     """Serialize a host tree and write it with its meta and generation (rank
-    0 only); host work only, so it runs inline or on a thread."""
+    0 only); host work only, so it runs inline or on a thread. ``chaos``
+    (a ``resilience.ChaosController``) may damage the written file
+    (``on_checkpoint_written``), as in the JAX writer."""
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, LATEST)
     if not is_primary_host():
@@ -167,6 +170,8 @@ def _write_checkpoint(host_tree: Any, path: str, is_best: bool,
     if save_all and epoch is not None:
         shutil.copyfile(target,
                         os.path.join(path, f"checkpoint_epoch_{epoch}.msgpack"))
+    if chaos is not None:
+        chaos.on_checkpoint_written(target, epoch=epoch, step=step)
     log.info("saved checkpoint to %s (epoch=%s best=%s)", target, epoch,
              is_best)
     return target
@@ -175,11 +180,12 @@ def _write_checkpoint(host_tree: Any, path: str, is_best: bool,
 def save_checkpoint(tree: Any, path: str, *, is_best: bool = False,
                     epoch: Optional[int] = None, save_all: bool = False,
                     extra_meta: Optional[dict] = None,
-                    keep_generations: Optional[int] = None) -> str:
+                    keep_generations: Optional[int] = None,
+                    chaos: Any = None) -> str:
     """Write the latest checkpoint (and the best / per-epoch copies); rank
     0 writes, every rank passes the trailing barrier."""
     target = _write_checkpoint(_to_host(tree), path, is_best, epoch,
-                               save_all, extra_meta, keep_generations)
+                               save_all, extra_meta, keep_generations, chaos)
     _barrier()
     return target
 
@@ -203,12 +209,13 @@ class AsyncCheckpointer:
     def save(self, tree: Any, path: str, *, is_best: bool = False,
              epoch: Optional[int] = None, save_all: bool = False,
              extra_meta: Optional[dict] = None,
-             keep_generations: Optional[int] = None) -> str:
+             keep_generations: Optional[int] = None,
+             chaos: Any = None) -> str:
         self.wait()
         host_tree = _to_host(tree)
         self._inflight = self._executor.submit(
             _write_checkpoint, host_tree, path, is_best, epoch, save_all,
-            extra_meta, keep_generations)
+            extra_meta, keep_generations, chaos)
         return os.path.join(path, LATEST)
 
     def wait(self) -> None:

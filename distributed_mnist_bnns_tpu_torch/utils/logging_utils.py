@@ -12,9 +12,17 @@ import torch.distributed as dist
 
 
 def is_primary_host() -> bool:
-    """True in the process that logs and writes checkpoints: rank 0 of
-    the ``torch.distributed`` process group, or the only process when
-    there is none."""
+    """True in the process that logs and writes checkpoints: host rank 0
+    of a multihost world (``JG_MH_RANK``, set by the multihost supervisor:
+    each host is a process of its own, outside any process group), rank 0
+    of the ``torch.distributed`` process group, or the only process when
+    there is neither."""
+    rank = os.environ.get("JG_MH_RANK")
+    if rank is not None:
+        try:
+            return int(rank) == 0
+        except ValueError:
+            pass   # malformed: fall through to the process group's view
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank() == 0
     return True

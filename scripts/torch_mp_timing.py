@@ -1,6 +1,7 @@
 """Time the port's model parallelism on the cards of one host.
 
     python3 scripts/torch_mp_timing.py [--steps N] [--runs tp4 dp2tp2 pp4 tpp]
+    python3 scripts/torch_mp_timing.py --scan-steps 8 [--steps N]
     python3 scripts/torch_mp_timing.py --phase14
 
 By default: one NCCL rank a card (four cards), ``--steps`` timed steps
@@ -26,6 +27,19 @@ measured idle share (1 - compute / step time) beside
 ``pipeline_bubble_fraction``; the TP runs' ranks must end with equal
 losses. One JSON line a run and rank, then the cards' name and power
 limit. ``--phase14`` runs ``chip_smoke.py``'s phase 14 alone (one card).
+
+``--scan-steps S`` times the steps captured as CUDA graphs of S steps
+instead (tp4, dp2tp2 and pp4; ``--steps`` rounded up to whole graphs):
+a second model from the same seed runs the same steps eagerly, and the
+run fails unless the captured model's parameters and optimizer state are
+``torch.equal`` to the eager one's; the wire bytes and kernel launches a
+step are the graph's recorded ones times its replays (they must equal the
+eager steps'). For tp4 and dp2tp2 the graph is ``TrainScan``'s (the
+trainer's ``scan_steps``: Megatron's all-reduces and the data group's
+gradient all-reduce recorded over NCCL); for pp4 the LM's pipelined step
+(``lm_demo``'s Adam made capturable, eager and captured alike) is
+captured directly, S steps a graph, its sends and receives recorded.
+Each line gives the eager and the replayed step times.
 """
 
 import argparse
@@ -99,6 +113,185 @@ def _tp_run(device, dp: int, tp: int, steps: int) -> dict:
             "peak_mb": torch.cuda.max_memory_allocated(device) / 2 ** 20,
             "loss": float(losses[-1]),
             "examples_per_s": cs.MP_BATCH / step_ms * 1e3}
+
+
+def _state(model, optimizer=None) -> dict:
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    if optimizer is not None:
+        ts = (optimizer.state_tensors() if hasattr(optimizer, "state_tensors")
+              else [t for st in optimizer.state.values() for t in st.values()
+                    if torch.is_tensor(t)])
+        out.update({f"opt/{i}": t.detach().clone() for i, t in enumerate(ts)})
+    return out
+
+
+def _equal(a: dict, b: dict) -> list:
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _tp_scan_run(device, dp: int, tp: int, steps: int, s: int) -> dict:
+    """``steps`` (whole graphs of ``s``) of the TP step eager and through
+    ``TrainScan`` from the same seed: bitwise, bytes and K1 a step equal,
+    both step times."""
+    import chip_smoke as cs
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    n = -(-steps // s) * s
+    rng = np.random.RandomState(14)
+    xs = rng.randn(WARMUP * s + n, cs.MP_BATCH, 784).astype(np.float32)
+    ys = rng.randint(0, 10, (WARMUP * s + n, cs.MP_BATCH))
+
+    def trainer():
+        return Trainer(TrainConfig(device=str(device), data_parallel=dp,
+                                   tensor_parallel=tp, log_interval=1,
+                                   scan_steps=s, **cs.MP_TRAIN))
+
+    eager, cap = trainer(), trainer()
+    sh = [(torch.from_numpy(eager._shard(x)).to(device),
+           torch.from_numpy(eager._shard(y)).to(device))
+          for x, y in zip(xs, ys)]
+    out = {}
+    for name, t in (("eager", eager), ("scan", cap)):
+        def run(lo, hi, t=t, name=name):
+            if name == "eager":
+                for x, y in sh[lo:hi]:
+                    t.train_step(t.model, t.optimizer, x, y)
+                return
+            scan = t._get_train_scan()
+            for c in range(lo, hi, s):
+                scan(t.model, t.optimizer,
+                     torch.stack([x for x, _ in sh[c:c + s]]),
+                     torch.stack([y for _, y in sh[c:c + s]]))
+
+        run(0, WARMUP * s)
+        torch.cuda.synchronize()
+        t.wire.clear()
+        _kernels.reset_launches()
+        if t._train_scan is not None:
+            t._train_scan.ran.clear()
+        t0 = time.perf_counter()
+        run(WARMUP * s, WARMUP * s + n)
+        torch.cuda.synchronize()
+        out[name] = {
+            "step_ms": (time.perf_counter() - t0) / n * 1e3,
+            "wire": {"model": _group_bytes(t.wire, "model") // n,
+                     "data": _group_bytes(t.wire, "inter") // n},
+            "k1": (_kernels.LAUNCHES["xnor"] if name == "eager"
+                   else t._train_scan.ran.get("xnor", 0)) / n}
+    bad = _equal(_state(eager.model, eager.optimizer),
+                 _state(cap.model, cap.optimizer))
+    if bad or out["eager"]["wire"] != out["scan"]["wire"] \
+            or out["eager"]["k1"] != out["scan"]["k1"]:
+        raise AssertionError(f"dp{dp}xtp{tp} captured: differs from eager "
+                             f"in {bad[:4]}; {out}")
+    return {"scan_steps": s, "steps": n, "bitwise": True,
+            "eager_step_ms": out["eager"]["step_ms"],
+            "scan_step_ms": out["scan"]["step_ms"],
+            "wire_per_step": out["scan"]["wire"],
+            "k1_per_step": out["scan"]["k1"],
+            "graphs": len(cap._train_scan.graphs),
+            "examples_per_s": cs.MP_BATCH / out["scan"]["step_ms"] * 1e3}
+
+
+def _pp_scan_run(device, steps: int, s: int) -> dict:
+    """``steps`` of the LM's pipelined step eager, then the same steps
+    captured ``s`` a graph from the same seed (Adam capturable in both):
+    bitwise; the pipe group's bytes and the flash launches a step."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.examples import lm_demo
+    from distributed_mnist_bnns_tpu_torch.models import (
+        BinarizedLM,
+        latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops.comm_compress import WireBytes
+    from distributed_mnist_bnns_tpu_torch.parallel import Mesh, PipelinedModel
+
+    n_ranks = dist.get_world_size()
+    n = -(-steps // s) * s
+    _, draw = lm_demo.token_stream(PP["seq"], PP["batch"], PP["vocab"], 0)
+    tokens = torch.from_numpy(draw()).to(device)
+
+    def build():
+        wire = WireBytes()
+        model = BinarizedLM(
+            vocab=PP["vocab"], max_len=PP["seq"], embed_dim=PP["embed_dim"],
+            depth=PP["depth"], num_heads=PP["num_heads"],
+            mlp_ratio=PP["mlp_ratio"], attention="flash",
+            generator=torch.Generator().manual_seed(0)).to(device)
+        pm = PipelinedModel(model, Mesh((n_ranks,), ("pipe",)),
+                            n_micro=n_ranks, wire=wire)
+        opt = torch.optim.Adam(pm.parameters(), lr=PP["lr"],
+                               betas=(0.9, 0.999), eps=1e-8,
+                               capturable=True)
+        return pm, opt, list(latent_clamp_mask(pm).values()), wire
+
+    out = {}
+    pm, opt, latents, wire = build()
+    for _ in range(WARMUP):
+        lm_demo._pp_step(pm, opt, latents, tokens)
+    torch.cuda.synchronize()
+    wire.clear()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        lm_demo._pp_step(pm, opt, latents, tokens)
+    torch.cuda.synchronize()
+    out["eager"] = {"step_ms": (time.perf_counter() - t0) / n * 1e3,
+                    "wire": _group_bytes(wire, "pipe") // n,
+                    "flash": _kernels.LAUNCHES["flash_fwd"] / n}
+    want = _state(pm, opt)
+    pm, opt, latents, wire = build()
+    for _ in range(WARMUP):      # the same warm-up steps, eagerly
+        lm_demo._pp_step(pm, opt, latents, tokens)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    saved = _state(pm, opt)
+    with torch.cuda.stream(side):   # load kernels and workspaces
+        lm_demo._pp_step(pm, opt, latents, tokens)
+    torch.cuda.current_stream(device).wait_stream(side)
+    with torch.no_grad():   # the warm-up step is not a step
+        sd = pm.state_dict()
+        for k, v in saved.items():
+            if k.startswith("model/"):
+                sd[k[6:]].copy_(v)
+        ts = [t for st in opt.state.values() for t in st.values()
+              if torch.is_tensor(t)]
+        for i, t in enumerate(ts):
+            t.copy_(saved[f"opt/{i}"])
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    wire.clear()
+    _kernels.reset_launches()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(s):
+            lm_demo._pp_step(pm, opt, latents, tokens)
+    recorded_wire = _group_bytes(wire, "pipe")
+    recorded_flash = _kernels.LAUNCHES["flash_fwd"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n // s):
+        graph.replay()
+    torch.cuda.synchronize()
+    out["scan"] = {"step_ms": (time.perf_counter() - t0) / n * 1e3,
+                   "wire": recorded_wire // s, "flash": recorded_flash / s}
+    bad = _equal(want, _state(pm, opt))
+    if bad or out["eager"]["wire"] != out["scan"]["wire"] \
+            or out["eager"]["flash"] != out["scan"]["flash"]:
+        raise AssertionError(f"pp{n_ranks} captured: differs from eager in "
+                             f"{bad[:4]}; {out}")
+    return {"stage": pm.sched.stage, "scan_steps": s, "steps": n,
+            "bitwise": True, "eager_step_ms": out["eager"]["step_ms"],
+            "scan_step_ms": out["scan"]["step_ms"],
+            "wire_per_step": out["scan"]["wire"],
+            "flash_fwd_per_step": out["scan"]["flash"],
+            "tokens_per_s": PP["batch"] * PP["seq"]
+            / out["scan"]["step_ms"] * 1e3}
 
 
 def _pp_plan(stage: int, n: int, n_micro: int, act: int, out: int,
@@ -254,7 +447,8 @@ def _tpp_run(device, steps: int) -> dict:
             "loss": float(loss)}
 
 
-def _rank(rank: int, world: int, device, steps: int, runs: list) -> dict:
+def _rank(rank: int, world: int, device, steps: int, runs: list,
+          scan_steps: int = 1) -> dict:
     from distributed_mnist_bnns_tpu_torch.ops import _kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -262,6 +456,15 @@ def _rank(rank: int, world: int, device, steps: int, runs: list) -> dict:
     _kernels.build(sources=SOURCES)
     out = {}
     for name in runs:
+        if scan_steps > 1:
+            if name == "tp4":
+                out[name] = _tp_scan_run(device, 1, world, steps, scan_steps)
+            elif name == "dp2tp2":
+                out[name] = _tp_scan_run(device, world // 2, 2, steps,
+                                         scan_steps)
+            elif name == "pp4":
+                out[name] = _pp_scan_run(device, steps, scan_steps)
+            continue
         if name == "tp4":
             out[name] = _tp_run(device, 1, world, steps)
         elif name == "dp2tp2":
@@ -279,7 +482,13 @@ def main() -> int:
     p.add_argument("--runs", nargs="+",
                    default=["tp4", "dp2tp2", "pp4", "tpp"])
     p.add_argument("--phase14", action="store_true")
+    p.add_argument("--scan-steps", type=int, default=1,
+                   help="time the steps captured as CUDA graphs of this "
+                        "many steps (tp4, dp2tp2, pp4), held bitwise to "
+                        "the eager steps")
     a = p.parse_args()
+    if a.scan_steps > 1:
+        a.runs = [r for r in a.runs if r != "tpp"]
     if not torch.cuda.is_available():
         print("torch_mp_timing: no CUDA device available", file=sys.stderr)
         return 1
@@ -307,10 +516,11 @@ def main() -> int:
         raise SystemExit(f"the runs are laid out for 4 cards, have {world}")
     t0 = time.perf_counter()
     res = spawn(_rank, world, backend="nccl", device="cuda",
-                args=(a.steps, a.runs))
+                args=(a.steps, a.runs, a.scan_steps))
     for name in a.runs:
         rows = [r[name] for r in res]
-        if name in ("tp4", "dp2tp2") and len({r["loss"] for r in rows}) != 1:
+        if a.scan_steps == 1 and name in ("tp4", "dp2tp2") and len(
+                {r["loss"] for r in rows}) != 1:
             raise AssertionError(f"{name}: the ranks' losses differ")
         for rank, row in enumerate(rows):
             print(json.dumps({"run": name, "rank": rank, **row}), flush=True)

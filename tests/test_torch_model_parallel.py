@@ -215,10 +215,12 @@ RAISES = [
     (dict(tensor_parallel=4, model="fp32-mlp-large"),
      dict(tensor_parallel=4, model="fp32-mlp-large"), "ValueError",
      "no TP rule table"),
-    (dict(tensor_parallel=4, model="bnn-vit-tiny", model_kwargs={}), None,
-     "NotImplementedError", "ROADMAP queue 1 item 7"),
-    (dict(tensor_parallel=2, data_parallel=2, scan_steps=2), None,
-     "NotImplementedError", "ROADMAP queue 1 item 7"),
+    (dict(tensor_parallel=4, model="bnn-vit-tiny",
+          model_kwargs={"num_heads": 2}), None,
+     "ValueError", "num_heads 2 not divisible by tensor_parallel=4"),
+    (dict(tensor_parallel=2, data_parallel=2, grad_accum=3),
+     dict(tensor_parallel=2, data_parallel=2, grad_accum=3), "ValueError",
+     "not divisible by grad_accum=3"),
     (dict(tensor_parallel=3), None, "ValueError", "holds 4"),
 ]
 FORWARD_BACKENDS = ("int8", "xnor", "pallas_xnor")

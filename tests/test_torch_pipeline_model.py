@@ -143,8 +143,9 @@ RAISES = [
     (dict(pipeline_parallel=2, tensor_parallel=2),
      dict(pipeline_parallel=2, tensor_parallel=2), "ValueError",
      "does not compose with tensor_parallel"),
-    (dict(pipeline_parallel=2, scan_steps=2), None, "NotImplementedError",
-     "ROADMAP queue 1 item 7"),
+    (dict(pipeline_parallel=2, grad_accum=3),
+     dict(pipeline_parallel=2, grad_accum=3), "ValueError",
+     "not divisible by grad_accum=3"),
     (dict(pipeline_parallel=4), None, "ValueError", "needs 4 devices"),
 ]
 RAISES4 = [

@@ -429,3 +429,31 @@ def pipeline_gauges_run(rank, world, device, cases):
             "pipeline_stages", "pipeline_microbatches",
             "pipeline_bubble_fraction", "pipeline_calls_total")})
     return out
+
+
+def dispatch_fit_run(rank, world, device, cfg_kw, variables, n, epochs=1):
+    """``Trainer.fit`` on ``n`` numpy-seeded examples (the JAX
+    tests/test_compositions.py ``_data(n)``) from ``variables`` (None:
+    the trainer's own init): the history, the gathered state (rank 0),
+    the launches the step ran in graphs or chunks and whether the model
+    stayed sharded."""
+    from distributed_mnist_bnns_tpu_torch.data.common import ImageClassData
+
+    rng = np.random.RandomState(0)
+    data = ImageClassData(
+        train_images=rng.rand(n, 28, 28, 1).astype(np.float32),
+        train_labels=rng.randint(0, 10, n).astype(np.int32),
+        test_images=rng.rand(16, 28, 28, 1).astype(np.float32),
+        test_labels=rng.randint(0, 10, 16).astype(np.int32))
+    t = _trainer(dict(cfg_kw, epochs=epochs))
+    if variables is not None:
+        load_variables(t, variables)
+    history = t.fit(data)
+    state = _full_state(t)
+    return {"history": history, "state": state if rank == 0 else None,
+            "step": t.step, "mp": t.mp,
+            "shapes": {k: tuple(v.shape)
+                       for k, v in t.model.named_parameters()},
+            "optimizer": type(t.optimizer).__name__,
+            "refuse": (t._train_scan.refuse if t._train_scan is not None
+                       else None)}
