@@ -270,6 +270,35 @@ Phases, each fatal on failure:
      servers under ``infer_error`` (the breaker opens and closes; the
      LM engine retries). K1-K3, K7 and K8 enter the kernels line as
      ``launches_resilience_path``.
+ 18. transformer serving finished and ring attention
+     (``transformer_phase``): first K1 at the ViT's projections (M =
+     1,568: 32 images of 49 tokens) and K4-K6 at the ring's per-rank
+     shapes (8, 4, 512, 512, 64), causal and full, against their plain
+     versions and timed (``vit_shapes`` in K1's row, ``ring_shapes`` in
+     K4-K6's); then, while (d) runs in the background: (a)
+     ``bnn-vit-small`` with drawn biases and LayerNorm parameters
+     frozen, exported and served over HTTP at micro-batch 32, every
+     answer against the CPU plain predictor and the live eval forward
+     (argmax equal, log-probs within ``VIT_LOGPROB_ATOL``, example by
+     example), K1 24 times a batch; (b) the verifier's bf16 GEMM bitwise
+     K1 at K = 999 (sums of +-999), then the LM of phase 5 with
+     ``spec_k = 4`` on ``LM_PROMPTS`` token for token the ``spec_k = 1``
+     engine, every decoder call's kernels counted, K8's verify launches
+     > 0, the acceptance rate printed; (c) requests behind a shared
+     two-page prefix through the prefix cache and a cold engine: tokens
+     equal, K7 and K8 down by the shared pages, an undersized pool
+     evicting LRU entries, spec decoding with the cache equal to it
+     without; (e) ``cli lm --load --sample 32`` in this process, greedy
+     at temperature 0, one seed's two draws at 0.8 equal. (d): 2 gloo
+     ranks sharing the card run the ring at the LM training width
+     (batch 8, 4 heads, D 64, L 1,024): the flash local step's forward
+     and backward (its K4-K6 launches counted) against ``flash_attention``
+     over the whole sequence, the dense one against
+     ``attention_reference``, and one ``lm_demo.ring_train_step``
+     against a plain step on the same parameters. K1, K7, K8 and K4-K6
+     enter the kernels line as ``launches_vit_path``,
+     ``launches_spec_path``, ``launches_prefix_path`` and
+     ``launches_ring_path``, and K8's row carries ``launches_verify``.
  15. observability (``obs/``; the trainer's and both servers'
      telemetry), run last, ~14 min into the process: (a)
      ``bnn-mlp-large`` on pallas_xnor, batch 64, a 50-step epoch through ``Trainer.fit`` with ``telemetry_dir``,
@@ -289,7 +318,7 @@ Phases, each fatal on failure:
      showing K7 and K8, /metrics, ``lm_decode`` events. The kernels'
      launches there enter the kernels line as ``launches_obs_path``.
 
-Phases 16 and 17 run after 14, phase 15 last. Checks that wait on
+Phases 16, 17 and 18 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -298,7 +327,8 @@ print then share the host's cores, and are read as such: phase
 beside its data-parallel ranks, phase 11's two nodes beside its CLI
 runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
 13's CLI beside its elastic ranks, phase 14's (c) beside (a)
-and (d) beside (b), phase 17's (b) beside (c). Every ``parallel.spawn``
+and (d) beside (b), phase 17's (b) beside (c), phase 18's ring ranks
+beside its in-process checks (after its timings). Every ``parallel.spawn``
 and CLI process prints its seconds, every phase its ``phase_s``, and the
 summary line before the card's name gives them all and ``total_s``.
 
@@ -1443,19 +1473,20 @@ def _flash_bound(name: str, b: int, h: int, lq: int, lk: int, d: int,
     return _roofline(4 * words, per_pair * d * pairs, FP32_RATES)
 
 
-def _library_bwd(q, k, v, g_out):
-    """A call of the kernel SDPA's autograd runs for an fp32 causal
-    backward (PyTorch's memory-efficient attention, CUTLASS) on
-    (B, L, H, D) q, k, v, from its own forward's out and lse; it returns
-    (dq, dk, dv). Called directly so that a CUDA graph captures it."""
+def _library_bwd(q, k, v, g_out, causal: bool = True):
+    """A call of the kernel SDPA's autograd runs for an fp32 backward
+    (PyTorch's memory-efficient attention, CUTLASS) on (B, L, H, D) q, k,
+    v, from its own forward's out and lse; it returns (dq, dk, dv).
+    Called directly so that a CUDA graph captures it."""
     ops = torch.ops.aten
     lq, lk = q.shape[1], k.shape[1]
-    causal_top_left = 1  # equal to bottom-right alignment at Lq == Lk
+    # causal top-left, equal to bottom-right alignment at Lq == Lk
+    mask_type = 1 if causal else 0
     out, lse, seed, offset, _, _ = ops._efficient_attention_forward(
-        q, k, v, None, None, None, None, None, 0.0, causal_top_left, True)
+        q, k, v, None, None, None, None, None, 0.0, mask_type, True)
     return lambda: ops._efficient_attention_backward(
         g_out, q, k, v, None, out, None, None, lq, lk, lse, 0.0, seed,
-        offset, causal_top_left, False)[:3]
+        offset, mask_type, False)[:3]
 
 
 def _sdpa_kernels(qs, ks, vs) -> list:
@@ -5513,6 +5544,661 @@ def resilience_phase(device: torch.device, gen: torch.Generator, smi: str):
     return launches
 
 
+# Phase 18: transformer serving finished (ViT, speculative decoding, the
+# prefix cache, sampling) and sequence-parallel ring attention.
+VIT_BATCH = MAIN_M            # the classifier server's micro-batch
+VIT_TOKENS = 49               # bnn-vit-small on 28 x 28 images: patch 4
+VIT_M = VIT_BATCH * VIT_TOKENS  # K1's rows a projection: 1,568
+VIT_PROJ = ((256, 256), (256, 512), (512, 256))   # (K, N): q/k/v/out, mlp
+VIT_REQUESTS = (32, 5, 1)     # images a request, one micro-batch each
+# The frozen ViT against the CPU plain predictor and the live eval
+# forward: both sides' projections are exact integer sums, and the fp32
+# rest (patch embedding, LayerNorm, softmax, head) sums at most 512
+# products of O(1) terms in another order, within 512 * 2^-24 = 3e-5 of
+# the sum of their magnitudes; 1e-4 on a log-prob, every example, and
+# the argmax equal (measured on an H100: at most 7.2e-7).
+VIT_LOGPROB_ATOL = 1e-4
+VIT_TAIL_M = (5 * VIT_TOKENS, VIT_TOKENS)   # K1 on 5 and 1 unpadded images
+SPEC_K = 4                    # the speculative window
+SPEC_K999 = (16, 999, 256)    # (M, K, N) of the verifier GEMM's check:
+                              # M = LM_SLOTS x SPEC_K, K7's route
+PREFIX_SUFFIXES = (8, 17, 40)  # behind a shared prefix of two pages
+PREFIX_POOL_PAGES = 8         # 7 allocatable: the undersized pool
+SAMPLE_N, SAMPLE_SEED = 32, 3
+# The ring at the LM training width: B 8, H 4, D 64, L 1,024 (512 a rank)
+RING_RANKS = 2
+RING_SHAPE = (8, 4, 1024, 64)
+RING_OUT_TOL = dict(atol=2e-5, rtol=2e-5)   # phase 6's K4 tolerance
+RING_LM_LOSS_RTOL = 1e-4                    # phase 7's step tolerance
+
+
+def _k1_vit_rows(device, gen) -> list:
+    """K1 at the ViT's projections, M = 1,568 rows (a micro-batch of 32
+    images of 49 tokens), real x packed x >= 0 on chip (the frozen
+    projections' entry): ``torch.equal`` to its plain version there and
+    at ``VIT_TAIL_M`` (a predictor called on a partial batch; the server
+    pads to 32), then its time, the entry's, the plain version's, bf16
+    ``torch.matmul``'s and the bound."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.binarize import _sign_pm1
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+
+    rows = []
+    for k, n in VIT_PROJ:
+        x = torch.randn(VIT_M, k, generator=gen).to(device)
+        wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+        for m in (VIT_M, *VIT_TAIL_M):
+            got = xg._xnor_matmul_binarize(x[:m], wp, k, n)
+            want = xg.xnor_gemm_plain(pack_bits(_sign_pm1(x[:m])), wp,
+                                      k)[:, :n]
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 at the ViT's ({m}, {k}, {n}) "
+                                     "differs from its plain version")
+        xb = _sign_pm1(x).to(torch.bfloat16)
+        wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
+        row = {
+            "kernel": "xnor", "m": VIT_M, "k": k, "n": n,
+            "kernel_ms": _graph_ms(lambda: _kernels.xnor_gemm(
+                "xnor", x, wp, k, n, rule=_kernels.PACK_GE0)),
+            "entry_ms": _graph_ms(
+                lambda: xg._xnor_matmul_binarize(x, wp, k, n)),
+            "plain_ms": _graph_ms(lambda: xg.xnor_gemm_plain(
+                pack_bits(_sign_pm1(x)), wp, k)),
+            "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+            "library": "bf16 torch.matmul",
+        }
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            "xnor", VIT_M, k, n)
+        rows.append(row)
+        print(json.dumps({"phase": 18, "vit_k1": row}), flush=True)
+    return rows
+
+
+def _flash_ring_rows(device, gen):
+    """K4, K5 and K6 at the ring's per-rank shapes (the causal diagonal
+    step and a full off-diagonal one): against their plain versions, then
+    timed beside them, the library's and the bound. Returns (rows,
+    {kernel: largest |diff|})."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import flash_attention as fa
+
+    b, h, length, d = RING_SHAPE
+    lq = length // RING_RANKS
+    lib = torch.nn.functional.scaled_dot_product_attention
+    rows, max_err = [], dict.fromkeys(FLASH, 0.0)
+    for causal in (True, False):
+        q, k, v, g_out = (torch.randn(b, lq, h, d, generator=gen).to(device)
+                          for _ in range(4))
+        g_lse = (0.5 * torch.randn(b, lq, h, generator=gen)).to(device)
+        out, lse = _kernels.flash_fwd(q, k, v, causal)
+        coeff = (g_lse - (g_out * out).sum(dim=-1)).contiguous()
+        args = (q, k, v, g_out, lse, coeff, causal)
+        pairs = {
+            "flash_fwd": ((out, lse), fa.flash_fwd_plain(q, k, v, causal),
+                          RING_OUT_TOL),
+            "flash_bwd_dq": ((_kernels.flash_bwd_dq(*args),),
+                             (fa.flash_bwd_dq_plain(*args),),
+                             FLASH_GRAD_TOL),
+            "flash_bwd_dkv": (_kernels.flash_bwd_dkv(*args),
+                              fa.flash_bwd_dkv_plain(*args), FLASH_GRAD_TOL),
+        }
+        for name, (got, want, tol) in pairs.items():
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            max_err[name] = max(max_err[name], err)
+            if not all(torch.allclose(g, w, **tol) for g, w in zip(got,
+                                                                   want)):
+                raise AssertionError(f"{name} at the ring's shape, causal "
+                                     f"{causal}: max |diff| {err}")
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_bwd_ms = _graph_ms(_library_bwd(q, k, v, g_out, causal),
+                               iters=20, reps=10)
+        kernel = {
+            "flash_fwd": lambda: _kernels.flash_fwd(q, k, v, causal),
+            "flash_bwd_dq": lambda: _kernels.flash_bwd_dq(*args),
+            "flash_bwd_dkv": lambda: _kernels.flash_bwd_dkv(*args),
+        }
+        plain = {
+            "flash_fwd": lambda: fa.flash_fwd_plain(q, k, v, causal),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_plain(*args),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_plain(*args),
+        }
+        for name in FLASH:
+            row = {
+                "kernel": name, "b": b, "h": h, "lq": lq, "lk": lq, "d": d,
+                "causal": causal,
+                "kernel_ms": _graph_ms(kernel[name], iters=20, reps=10),
+                "plain_ms": _graph_ms(plain[name], iters=5, reps=5),
+                "library_ms": (_graph_ms(
+                    lambda: lib(qs, ks, vs, is_causal=causal), iters=20,
+                    reps=10) if name == "flash_fwd" else lib_bwd_ms),
+            }
+            row["bound_ms"], row["bound_by"], row["bound_peak"] = (
+                _flash_bound(name, b, h, lq, lq, d, causal))
+            rows.append(row)
+            print(json.dumps({"phase": 18, "ring_shape": row}), flush=True)
+    return rows, max_err
+
+
+def _ring_lm_step(device, seed: int) -> dict:
+    """One ``lm_demo.ring_train_step`` (dense local step, as ``run(ring=
+    True)``) against one ``train_step`` of the same parameters with the
+    exact softmax, at phase 7's width: the loss within
+    ``RING_LM_LOSS_RTOL``, each gradient within ``LM_GRAD_RTOL`` in
+    relative L2 (the key bias's, exactly 0 in exact arithmetic, only
+    printed)."""
+    from distributed_mnist_bnns_tpu_torch.examples import lm_demo
+    from distributed_mnist_bnns_tpu_torch.models import (
+        BinarizedLM,
+        latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.parallel import make_ring_attention
+
+    gen = torch.Generator().manual_seed(seed)
+    plain = BinarizedLM(**LM_TRAIN, max_len=RING_SHAPE[2], generator=gen)
+    _random_lm_params(plain, gen)
+    ring = BinarizedLM(**LM_TRAIN, max_len=RING_SHAPE[2],
+                       attention_fn=make_ring_attention(causal=True))
+    ring.load_state_dict(plain.state_dict())
+    _, draw = lm_demo.token_stream(RING_SHAPE[2], RING_SHAPE[0],
+                                   LM_TRAIN["vocab"], seed=seed)
+    toks = torch.from_numpy(draw()).to(device)
+    losses, grads = {}, {}
+    for name, m in (("ring", ring.to(device)), ("plain", plain.to(device))):
+        opt = lm_demo.make_optimizer(m, LM_TRAIN_LR)
+        latents = list(latent_clamp_mask(m).values())
+        step = (lm_demo.ring_train_step if name == "ring"
+                else lm_demo.train_step)
+        losses[name] = float(step(m, opt, latents, toks))
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    rel = {n: ((grads["ring"][n] - g).norm() / g.norm()).item()
+           for n, g in grads["plain"].items()}
+    held = {n: r for n, r in rel.items() if not n.endswith("attn.k.bias")}
+    worst = max(held, key=held.get)
+    return {"losses": losses,
+            "loss_rel_diff": abs(losses["ring"] - losses["plain"])
+            / abs(losses["plain"]),
+            "grad_rel_l2_worst": [worst, held[worst]],
+            "key_bias_rel_l2": {n: r for n, r in rel.items()
+                                if n.endswith("attn.k.bias")}}
+
+
+def _ring_rank(rank: int, world: int, device, seed: int) -> dict:
+    """A rank of phase 18 (d): the ring's flash local step, causal and
+    full, forward and backward (the path; its K4-K6 launches counted),
+    then held against ``flash_attention`` over the whole sequence on
+    this rank; the dense local step against ``attention_reference``;
+    one ``lm_demo`` ring step against a plain one."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import flash_attention as fa
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        attention_reference,
+        make_ring_attention,
+    )
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed)
+    b, h, length, d = RING_SHAPE
+    lo, hi = rank * length // world, (rank + 1) * length // world
+    q, k, v, g = (torch.randn(b, length, h, d, generator=gen).to(device)
+                  for _ in range(4))
+
+    def ring_run(local, causal):
+        ring = make_ring_attention(causal=causal, local=local)
+        shards = [t[:, lo:hi].clone().requires_grad_() for t in (q, k, v)]
+        out = ring(*shards)
+        out.backward(g[:, lo:hi])
+        return [out.detach()] + [s.grad for s in shards]
+
+    _kernels.reset_launches()
+    got = {causal: ring_run("flash", causal) for causal in (True, False)}
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    errs = {}
+
+    def hold(what, ring_out, full_fn, tol):
+        full = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = full_fn(*full)
+        out.backward(g)
+        want = [out.detach()] + [t.grad for t in full]
+        for name, a, w in zip(("out", "dq", "dk", "dv"), ring_out, want):
+            w = w[:, lo:hi]
+            errs[f"{what} {name}"] = (a - w).abs().max().item()
+            if not torch.allclose(a, w, **(tol if name == "out"
+                                            else FLASH_GRAD_TOL)):
+                raise AssertionError(
+                    f"rank {rank}: ring {what} {name} differs by "
+                    f"{errs[f'{what} {name}']}")
+
+    for causal in (True, False):
+        hold(f"flash causal={causal}", got[causal],
+             lambda *t, c=causal: fa.flash_attention(*t, causal=c),
+             RING_OUT_TOL)
+        hold(f"dense causal={causal}", ring_run("dense", causal),
+             lambda *t, c=causal: attention_reference(*t, causal=c),
+             RING_OUT_TOL)
+    return {"rank": rank, "launches": counts, "max_abs_err": errs,
+            "lm": _ring_lm_step(device, seed),
+            "s": time.perf_counter() - t0}
+
+
+def _lm_artifact(gen, tmp: str):
+    """The LM at ``LM_WIDTH`` with random biases and LayerNorm
+    parameters, exported; (path, frozen dict)."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_frozen,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import BinarizedLM
+
+    model = BinarizedLM(**LM_WIDTH, generator=gen).eval()
+    _random_lm_params(model, gen)
+    path = os.path.join(tmp, "lm18.msgpack")
+    export_packed(model, path)
+    return path, load_frozen(path)
+
+
+def _counted_decoder(frozen, device, **kw):
+    """The paged decoder at the LM path's geometry, its calls counted,
+    and the K8 launches of its verify calls (delta of the counters
+    around each: the engine's thread is the one launching)."""
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        make_paged_lm_decoder,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    dec = make_paged_lm_decoder(frozen, slots=LM_SLOTS, page_size=LM_PAGE,
+                                prefill_chunk=LM_CHUNK, device=device, **kw)
+    calls = {"prefill": 0, "decode": 0, "verify": 0, "verify_k8": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            before = _kernels.LAUNCHES["paged_attn"]
+            out = fn(*args)
+            calls[name] += 1
+            if name == "verify":
+                calls["verify_k8"] += _kernels.LAUNCHES["paged_attn"] - before
+            return out
+        return call
+
+    wrapped = {n: counted(n, getattr(dec, n))
+               for n in ("prefill", "decode", "verify")
+               if getattr(dec, n) is not None}
+    return dec._replace(**wrapped), calls
+
+
+def _run_engine(dec, calls, device, requests, *, sequential=False,
+                **kw):
+    """Start an ``LMEngine`` over ``dec`` (the warm-up runs first), zero
+    the counters and ``calls``, serve ``requests`` ((prompt, n) pairs: at
+    once, or one after another), stop. Returns (tokens of each, launch
+    counts, the engine)."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve.lm import LMEngine
+
+    eng = LMEngine(dec, queue_depth=16, device=device, **kw).start()
+
+    def drain(req):
+        toks = []
+        while True:
+            ev = req.events.get(timeout=300)
+            if ev["kind"] == "done":
+                if ev["status"] != "ok":
+                    raise AssertionError(f"stream ended {ev}")
+                return toks
+            toks.append(ev["token"])
+
+    try:
+        for key in calls:
+            calls[key] = 0
+        _kernels.reset_launches()
+        deadline = time.monotonic() + 600
+        if sequential:
+            out = [drain(eng.submit(np.asarray(p, np.int32), n, deadline))
+                   for p, n in requests]
+        else:
+            reqs = [eng.submit(np.asarray(p, np.int32), n, deadline)
+                    for p, n in requests]
+            out = [drain(r) for r in reqs]
+        torch.cuda.synchronize()
+        counts = dict(_kernels.LAUNCHES)
+    finally:
+        eng.stop()
+    return out, counts, eng
+
+
+def _spec_check(device, gen, frozen) -> dict:
+    """Phase 18 (b): the verifier GEMM bitwise K1 at K = 999; the LM at
+    ``LM_WIDTH`` with ``spec_k = 4`` on the staggered ``LM_PROMPTS``,
+    token for token the ``spec_k = 1`` engine's, every call's kernels
+    counted; the plain engine (``spec_k = 0``) run beside for its round
+    time (its tokens may part from the verifier's: not held). The three
+    engines run twice, in the order 4, 1, 0, 0, 1, 4, before the ring's
+    ranks start, so nothing else runs on the card or the host's cores;
+    each engine's second run repeats its first's tokens, and its median
+    is over both runs' iterations."""
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        FUSED_UNPACK_MIN_M,
+        _packed_dense_fn,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+
+    m, k, n = SPEC_K999
+    w = _pm1(gen, k, n)
+    x = torch.randn(m, k, generator=gen)
+    x[0], x[1] = w[:, 0], -w[:, 1]          # sums of +-999: odd, > 256
+    wp, _, _ = xg.prepack_weights(w.to(device))
+    layer = {"wp": wp, "k": k, "n": n,
+             "bias": torch.zeros(n, device=device)}
+    before = _kernels.LAUNCHES["xnor_unpack"]
+    got = _packed_dense_fn(layer, fused=True)(x.to(device))   # K7: verify's
+    k7 = _kernels.LAUNCHES["xnor_unpack"] - before
+    want = _packed_dense_fn(layer)(x.to(device))              # K1
+    exact = torch.where(x >= 0, 1.0, -1.0).double() @ w.double()
+    gemm = {"shape": list(SPEC_K999), "k7_launches": k7,
+            "bitwise_k1": torch.equal(got, want),
+            "sums_exact": bool((want.double().cpu() == exact).all()),
+            "largest_sum": float(want.abs().max())}
+    print(json.dumps({"phase": 18, "verifier_gemm": gemm}), flush=True)
+    if not (k7 == 1 and gemm["bitwise_k1"] and gemm["sums_exact"]
+            and gemm["largest_sum"] == k):
+        raise AssertionError(f"the verifier's GEMM is not K1's: {gemm}")
+
+    vocab = LM_WIDTH["vocab"]
+    requests = [(torch.randint(0, vocab, (p,), generator=gen).tolist(),
+                 LM_NEW_TOKENS) for p in LM_PROMPTS]
+    runs = {}
+    for spec_k in (SPEC_K, 1, 0, 0, 1, SPEC_K):
+        dec, calls = _counted_decoder(frozen, device, spec_k=spec_k)
+        t0 = time.perf_counter()
+        toks, counts, eng = _run_engine(dec, calls, device, requests)
+        runs.setdefault(spec_k, []).append(dict(
+            toks=toks, counts=counts, calls=dict(calls), eng=eng,
+            s=time.perf_counter() - t0))
+    if any(r[0]["toks"] != r[1]["toks"] for r in runs.values()):
+        raise AssertionError("an engine's two runs differ")
+    spec, alone, plain = runs[SPEC_K][0], runs[1][0], runs[0][0]
+    if spec["toks"] != alone["toks"]:
+        raise AssertionError("spec_k = 4 differs from the verifier alone")
+    eng, calls, counts = spec["eng"], spec["calls"], spec["counts"]
+    depth = LM_WIDTH["depth"]
+    # verify's projections take LM_SLOTS x SPEC_K rows: K7 from 16 on
+    k7 = calls["verify"] if LM_SLOTS * SPEC_K >= FUSED_UNPACK_MIN_M else 0
+    want = {"xnor": 6 * depth * (calls["decode"] + calls["verify"] - k7),
+            "xnor_unpack": 6 * depth * (calls["prefill"] + k7),
+            "paged_attn": depth * (calls["decode"] + calls["prefill"]
+                                   + calls["verify"])}
+    if any(counts[key] != v for key, v in want.items()) \
+            or calls["verify_k8"] != depth * eng.spec_rounds \
+            or calls["verify_k8"] == 0:
+        raise AssertionError(f"spec path launches {counts}, calls {calls}, "
+                             f"want {want}, rounds {eng.spec_rounds}")
+    rate = eng.spec_acceptance_rate
+
+    def median_ms(spec_k):
+        return statistics.median(t for r in runs[spec_k]
+                                 for t in r["eng"].iter_ms)
+
+    def seconds(spec_k):
+        return [r["s"] for r in runs[spec_k]]
+
+    info = {"spec_k": SPEC_K, "acceptance_rate": rate,
+            "tokens_per_slot_round": 1 + rate * (SPEC_K - 1),
+            "spec_rounds": eng.spec_rounds, "calls": calls,
+            "k8_verify_launches": calls["verify_k8"],
+            "round_ms_median": median_ms(SPEC_K),
+            "verifier_alone_round_ms_median": median_ms(1),
+            "plain_round_ms_median": median_ms(0),
+            "engine_s": seconds(SPEC_K), "verifier_alone_s": seconds(1),
+            "plain_s": seconds(0),
+            "plain_tokens_equal": plain["toks"] == spec["toks"],
+            "launches": counts}
+    print(json.dumps({"phase": 18, "spec": info}), flush=True)
+    return info
+
+
+def _prefix_check(device, gen, frozen) -> dict:
+    """Phase 18 (c): requests behind a shared two-page prefix, one after
+    another, through the cache and through a cold engine: tokens equal,
+    K7/K8's prefill launches down by the shared pages; an undersized pool
+    evicts LRU entries and admits; spec decoding with the cache equals
+    spec decoding alone."""
+    from distributed_mnist_bnns_tpu_torch.serve.core import labeled
+
+    vocab, depth = LM_WIDTH["vocab"], LM_WIDTH["depth"]
+    shared = torch.randint(0, vocab, (2 * LM_PAGE,), generator=gen).tolist()
+    requests = [(shared + torch.randint(0, vocab, (s,),
+                                        generator=gen).tolist(),
+                 LM_NEW_TOKENS) for s in PREFIX_SUFFIXES]
+    runs = {}
+    for cache in (True, False):
+        dec, calls = _counted_decoder(frozen, device)
+        toks, counts, eng = _run_engine(dec, calls, device, requests,
+                                        sequential=True, prefix_cache=cache)
+        runs[cache] = dict(toks=toks, counts=counts, calls=dict(calls),
+                           eng=eng)
+    hit, cold = runs[True], runs[False]
+    if hit["toks"] != cold["toks"]:
+        raise AssertionError("prefix-cache hits differ from a cold engine")
+    hits = labeled(hit["eng"].prefix_hits_ctr).get("result=hit", 0)
+    chunks = {c: sum(-(-(len(p) - (2 * LM_PAGE if c and i else 0))
+                        // LM_CHUNK) for i, (p, _) in enumerate(requests))
+              for c in (True, False)}
+    saved = chunks[False] - chunks[True]
+    if not (hits == len(requests) - 1 and saved > 0
+            and hit["calls"]["prefill"] == chunks[True]
+            and cold["counts"]["xnor_unpack"] - hit["counts"]["xnor_unpack"]
+            == 6 * depth * saved
+            and cold["counts"]["paged_attn"] - hit["counts"]["paged_attn"]
+            == depth * saved):
+        raise AssertionError(
+            f"prefix cache: hits {hits}, chunks {chunks}, launches "
+            f"{hit['counts']} against cold {cold['counts']}")
+    launches = dict(hit["counts"])
+
+    # An undersized pool: the first request's published pages must be
+    # evicted for the next (another prompt, more pages) to be admitted.
+    other = torch.randint(0, vocab, (60,), generator=gen).tolist()
+    small = [(requests[2][0], LM_NEW_TOKENS), (other, LM_NEW_TOKENS)]
+    outs = {}
+    for cache in (True, False):
+        dec, calls = _counted_decoder(frozen, device,
+                                      num_pages=PREFIX_POOL_PAGES)
+        toks, counts, eng = _run_engine(dec, calls, device, small,
+                                        sequential=True, prefix_cache=cache)
+        outs[cache] = toks
+        if cache:
+            for key, v in counts.items():
+                launches[key] += v
+    if outs[True] != outs[False]:
+        raise AssertionError("the undersized pool's streams differ")
+
+    # Speculative decoding with the cache against without it.
+    spec = {}
+    for cache in (True, False):
+        dec, calls = _counted_decoder(frozen, device, spec_k=SPEC_K)
+        toks, counts, eng = _run_engine(dec, calls, device, requests,
+                                        sequential=True, prefix_cache=cache)
+        spec[cache] = toks
+        if cache:
+            for key, v in counts.items():
+                launches[key] += v
+    if spec[True] != spec[False]:
+        raise AssertionError("spec decoding with the prefix cache differs "
+                             "from spec decoding alone")
+    info = {"hits": hits, "prefill_chunks": chunks, "saved_chunks": saved,
+            "k7_launches_hit_cold": [hit["counts"]["xnor_unpack"],
+                                     cold["counts"]["xnor_unpack"]],
+            "k8_launches_hit_cold": [hit["counts"]["paged_attn"],
+                                     cold["counts"]["paged_attn"]],
+            "launches": launches}
+    print(json.dumps({"phase": 18, "prefix": info}), flush=True)
+    return info
+
+
+def _vit_check(device, gen, smi: str) -> dict:
+    """Phase 18 (a): ``bnn-vit-small`` with drawn biases and LayerNorm
+    parameters frozen, exported, served over HTTP at micro-batch 32 (K1
+    at M = 1,568): every answer against the CPU plain predictor and the
+    live eval forward."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import bnn_vit_small
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve import client as sc
+
+    model = bnn_vit_small(backend="xla", generator=gen).eval()
+    _random_lm_params(model, gen)
+    images = [torch.rand(n, 28, 28, 1, generator=gen) for n in VIT_REQUESTS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vit.msgpack")
+        info = export_packed(model, path)
+        srv = PackedInferenceServer(ServeConfig(
+            artifact=path, device=str(device), port=0, batch_size=VIT_BATCH,
+            queue_depth=8, default_deadline_ms=60000.0,
+            input_shape=(28, 28, 1)))
+        host, port = srv.start()
+        answers = []
+        try:
+            _kernels.reset_launches()
+            for x in images:
+                answers.append(sc.predict(f"http://{host}:{port}",
+                                          x.tolist()))
+            torch.cuda.synchronize()
+            counts = dict(_kernels.LAUNCHES)
+        finally:
+            srv.request_stop("smoke over")
+            srv.drain_and_stop()
+        plain, _ = load_packed(path, device="cpu")
+    live = model.to(device)
+    worst, far, n_ex = 0.0, 0, 0
+    for x, (code, body) in zip(images, answers):
+        if code != 200:
+            raise AssertionError(f"/predict: {code} {body[:200]!r}")
+        got = torch.tensor(json.loads(body)["log_probs"])
+        with torch.no_grad():
+            refs = (plain(x), live(x.to(device)).cpu())
+        for ref in refs:
+            diff = (got - ref).abs().amax(dim=-1)
+            worst = max(worst, diff.max().item())
+            far += int((diff > VIT_LOGPROB_ATOL).sum())
+            n_ex += len(diff)
+            if not torch.equal(got.argmax(-1), ref.argmax(-1)):
+                raise AssertionError("the served ViT's argmax differs")
+    batches = len(VIT_REQUESTS)
+    if counts["xnor"] != 6 * 4 * batches or far:
+        raise AssertionError(f"ViT: K1 {counts['xnor']} launches (want "
+                             f"{24 * batches}), {far} of {n_ex} examples "
+                             f"beyond {VIT_LOGPROB_ATOL} (worst {worst})")
+    out = {"compression": info["compression"], "requests": len(images),
+           "max_abs_logprob_diff": worst, "examples_beyond_tol": far,
+           "compared": n_ex, "launches": counts}
+    print(json.dumps({"phase": 18, "vit": out}), flush=True)
+    return out
+
+
+def _sample_check(device, path: str, frozen) -> dict:
+    """Phase 18 (e): ``cli lm --load --sample 32`` in this process: at
+    temperature 0 the greedy ``generate``'s tokens, at 0.8 one seed's
+    two runs equal."""
+    import contextlib
+    import io
+
+    from distributed_mnist_bnns_tpu_torch import cli
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        generate,
+        make_lm_decoder,
+    )
+
+    def sample(*flags):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["lm", "--load", path, "--sample", str(SAMPLE_N),
+                           "--device", str(device), "--prompt", LM_TEXT,
+                           *flags])
+        if rc != 0:
+            raise AssertionError(f"cli lm --load: exit {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])["tokens"]
+
+    prompt = [b % LM_WIDTH["vocab"] for b in LM_TEXT.encode("utf-8")]
+    greedy = sample("--temperature", "0")
+    want = generate(frozen, [prompt], SAMPLE_N,
+                    decoder=make_lm_decoder(frozen, device=device))
+    a = sample("--temperature", "0.8", "--seed", str(SAMPLE_SEED))
+    b = sample("--temperature", "0.8", "--seed", str(SAMPLE_SEED))
+    out = {"greedy_equal": greedy == want[0, len(prompt):].tolist(),
+           "seeded_equal": a == b, "sampled_differs_from_greedy": a != greedy}
+    print(json.dumps({"phase": 18, "sampling": out}), flush=True)
+    if not (out["greedy_equal"] and out["seeded_equal"]):
+        raise AssertionError(f"sampling: {out}")
+    return out
+
+
+def transformer_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 18: the timings at the ViT's and the ring's shapes and (b)
+    speculative decoding, whose engines are timed, first; then the ring's
+    2 gloo ranks in the background beside the in-process checks (a) ViT
+    serving, (c) the prefix cache, (e) sampling. Returns ({path: launch counts}, K1's ViT rows,
+    the flash rows at the ring's shapes, K8's verify launches)."""
+    import distributed_mnist_bnns_tpu_torch.parallel as par
+
+    t0 = time.perf_counter()
+    marks = {}
+    vit_rows = _k1_vit_rows(device, gen)
+    ring_rows, _ = _flash_ring_rows(device, gen)
+    marks["timings"] = round(time.perf_counter() - t0, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, frozen = _lm_artifact(gen, tmp)
+        spec = _spec_check(device, gen, frozen)    # timed: nothing beside
+        marks["b"] = round(time.perf_counter() - t0, 1)
+        ring_join = _background(lambda: par.spawn(
+            _ring_rank, RING_RANKS, backend="gloo", device=device.type,
+            args=(18,)))
+        try:
+            vit = _vit_check(device, gen, smi)
+            marks["a"] = round(time.perf_counter() - t0, 1)
+            prefix = _prefix_check(device, gen, frozen)
+            marks["c"] = round(time.perf_counter() - t0, 1)
+            _sample_check(device, path, frozen)
+            marks["e"] = round(time.perf_counter() - t0, 1)
+        finally:
+            ranks = ring_join()
+    marks["d"] = round(time.perf_counter() - t0, 1)
+    ring = dict.fromkeys(KERNEL_ROWS, 0)
+    for r in ranks:
+        for key, v in r["launches"].items():
+            ring[key] += v
+    # each rank runs its diagonal step and the earlier ranks' shards
+    # causal, every shard full: one K4, K5 and K6 each
+    want = sum(r + 1 for r in range(RING_RANKS)) + RING_RANKS ** 2
+    lm = ranks[0]["lm"]
+    print(json.dumps({"phase": 18, "ring": {
+        "ranks": RING_RANKS, "shape": list(RING_SHAPE), "launches": ring,
+        "max_abs_err": {k: max(r["max_abs_err"][k] for r in ranks)
+                        for k in ranks[0]["max_abs_err"]},
+        "lm_step": lm, "rank_s": [round(r["s"], 1) for r in ranks]}}),
+        flush=True)
+    if any(ring[name] != want for name in FLASH):
+        raise AssertionError(f"ring launches {ring}, want {want} each")
+    if not (lm["loss_rel_diff"] <= RING_LM_LOSS_RTOL
+            and lm["grad_rel_l2_worst"][1] <= LM_GRAD_RTOL):
+        raise AssertionError(f"ring LM step against the plain one: {lm}")
+    paths = {"vit": vit["launches"], "spec": spec["launches"],
+             "prefix": prefix["launches"], "ring": ring}
+    print(json.dumps({"phase": 18, "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return paths, vit_rows, ring_rows, spec["k8_verify_launches"]
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -5672,6 +6358,17 @@ def main() -> int:
     mp2_counts = _timed("16", mp2_phase, device, smi)
     rs_counts = _timed("17", resilience_phase, device,
                        torch.Generator().manual_seed(17), smi)
+    tf_paths, vit_rows, ring_rows, verify_k8 = _timed(
+        "18", transformer_phase, device, torch.Generator().manual_seed(18),
+        smi)
+    for name, paths in (("xnor", ("vit", "spec")),
+                        ("xnor_unpack", ("spec", "prefix")),
+                        ("paged_attn", ("spec", "prefix")),
+                        *((n, ("ring",)) for n in FLASH)):
+        for path in paths:
+            if tf_paths[path][name] == 0:
+                raise AssertionError(f"phase 18: the {path} path never "
+                                     f"launched {name}")
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,
@@ -5696,7 +6393,8 @@ def main() -> int:
                          + rt_counts[name] + scan_counts[name]
                          + dpc_counts[name] + mp_counts[name]
                          + mp2_counts[name] + rs_counts[name]
-                         + obs_counts[name]),
+                         + obs_counts[name]
+                         + sum(c[name] for c in tf_paths.values())),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -5712,6 +6410,10 @@ def main() -> int:
             "launches_mp2_path": mp2_counts[name],
             "launches_resilience_path": rs_counts[name],
             "launches_obs_path": obs_counts[name],
+            "launches_spec_path": tf_paths["spec"][name],
+            "launches_prefix_path": tf_paths["prefix"][name],
+            "launches_vit_path": tf_paths["vit"][name],
+            "launches_ring_path": tf_paths["ring"][name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,
@@ -5724,6 +6426,12 @@ def main() -> int:
         if name == "xnor":   # K1 at the conv path's shapes (phase 10)
             entry["conv_shapes"] = conv_rows
             entry["mp_shapes"] = mp_k1_rows   # and the TP shards' (14)
+            entry["vit_shapes"] = vit_rows    # and the ViT's (18)
+        elif name in FLASH:  # K4-K6 at the ring's per-rank shapes (18)
+            entry["ring_shapes"] = [r for r in ring_rows
+                                    if r["kernel"] == name]
+        elif name == "paged_attn":   # K8's verify entry on the spec path
+            entry["launches_verify"] = verify_k8
         print(json.dumps({"kernel": name, "kernel_ms": entry["ms"],
                           "plain_ms": entry["plain_ms"],
                           "library_ms": entry["library_ms"],

@@ -36,7 +36,13 @@
   python -m distributed_mnist_bnns_tpu_torch.cli lm --export lm.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --export lm.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --lm --artifact lm.msgpack \
+      --spec-decode 4 --prefix-cache
   python -m distributed_mnist_bnns_tpu_torch.cli lm --load lm.msgpack --sample 32
+  python -m distributed_mnist_bnns_tpu_torch.cli lm --steps 200 --ring \
+      --sample 32 --temperature 0
+  python -m distributed_mnist_bnns_tpu_torch.cli export --model bnn-vit-small \
+      --checkpoint-dir ckpt --out vit.msgpack
   python -m distributed_mnist_bnns_tpu_torch.cli train --telemetry-dir tel \
       --trace --profile-steps 10:20
   python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack \
@@ -81,19 +87,22 @@ each epoch's time; ``--results`` a CSV (and HTML plot) a row an epoch.
 ``eval`` evaluates the
 latest (``--best``: the best) checkpoint of a ``train --checkpoint-dir``
 run (with the optimizer flags of the run). ``export`` freezes
-a ``bnn-mlp`` or ``bnn-cnn`` model (a trained checkpoint with
+a ``bnn-mlp``, ``bnn-cnn`` or ``bnn-vit`` model (a trained checkpoint with
 ``--checkpoint-dir``, a seeded init, or weights carried across from the
 JAX package with ``--jax-variables``) into the packed artifact (the JAX package's msgpack);
 ``infer`` evaluates an artifact on the MNIST test split (synthetic data
 when no idx files are found); ``serve`` runs the HTTP
-server (``--lm``: the continuous-batching LM server; ``--chaos``: the
-serving faults ``infer_error`` and ``infer_slow``); ``lm --export``
-freezes a BinarizedLM (seeded init, or JAX weights with
-``--jax-variables``) into a packed LM artifact, ``lm --steps N`` first
-trains it N steps (``examples/lm_demo.py::run``; flash attention by
-default) and exports the trained model, and ``lm --load --sample``
-generates from one greedily. ``--device`` defaults to ``cuda`` and never
-falls back to the CPU: pass ``--device cpu`` to run there.
+server (``--lm``: the continuous-batching LM server, with
+``--prefix-cache`` and ``--spec-decode K``; ``--chaos``: the serving
+faults ``infer_error`` and ``infer_slow``); ``lm --export`` freezes a
+BinarizedLM (seeded init, or JAX weights with ``--jax-variables``) into
+a packed LM artifact, ``lm --steps N`` first trains it N steps
+(``examples/lm_demo.py::run``; flash attention by default; ``--ring``:
+sequence-parallel ring attention; ``--sample N``: N tokens drawn after
+training) and exports the trained model, and ``lm --load --sample``
+generates from one at ``--temperature`` (0.8; 0 is greedy), drawing from
+a generator seeded with ``--seed``. ``--device`` defaults to ``cuda`` and
+never falls back to the CPU: pass ``--device cpu`` to run there.
 
 Telemetry (``obs/``, the JAX package's flags and readers): ``train`` and
 ``eval`` take ``--telemetry-dir`` (JSONL events and heartbeats),
@@ -121,7 +130,8 @@ import time
 log = logging.getLogger(__name__)
 
 #: the models ``export`` freezes
-FREEZABLE = ("bnn-mlp-large", "bnn-mlp-small", "bnn-cnn")
+FREEZABLE = ("bnn-mlp-large", "bnn-mlp-small", "bnn-cnn", "bnn-vit-tiny",
+             "bnn-vit-small")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -134,8 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
         _train_flags(sub.add_parser(cmd, help=what))
 
     x = sub.add_parser(
-        "export", help="freeze a bnn-mlp or bnn-cnn model into a packed "
-                       "artifact",
+        "export", help="freeze a bnn-mlp, bnn-cnn or bnn-vit model into a "
+                       "packed artifact",
     )
     x.add_argument("--model", default="bnn-mlp-large",
                    choices=list(FREEZABLE))
@@ -188,6 +198,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--lm: prompt positions per prefill call")
     sv.add_argument("--max-len", type=int, default=None,
                     help="--lm: cap sequences below the artifact's window")
+    sv.add_argument("--prefix-cache", action="store_true",
+                    help="--lm: copy-on-write prompt-prefix sharing over "
+                         "the paged KV pool: full pages of a cached prefix "
+                         "fork refcounted into a new sequence, which "
+                         "prefills only its suffix; finished sequences "
+                         "publish their pages, LRU-evicted under pool "
+                         "pressure")
+    sv.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="--lm: self-speculative decoding: per round K-1 "
+                         "tokens drafted through the packed decode call "
+                         "and the K-token window verified in one call "
+                         "through the same packed weights; greedy tokens "
+                         "equal the verifier alone's. 0 = off")
     sv.add_argument("--device", default="cuda")
     sv.add_argument("--host", default="127.0.0.1")
     sv.add_argument("--port", type=int, default=8000,
@@ -234,8 +257,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default=[28, 28, 1])
 
     lm = sub.add_parser(
-        "lm", help="train and/or export a packed BinarizedLM artifact, or "
-                   "sample from one",
+        "lm", help="train (--ring: sequence-parallel ring attention) and/or "
+                   "export a packed BinarizedLM artifact, or sample from "
+                   "one",
     )
     lm.add_argument("--export", default=None, metavar="PATH",
                     help="freeze a BinarizedLM (seeded init, or "
@@ -268,11 +292,22 @@ def build_parser() -> argparse.ArgumentParser:
     lm.add_argument("--scale", action="store_true",
                     help="XNOR-Net per-output alpha on the projections")
     lm.add_argument("--seed", type=int, default=0,
-                    help="seed of the torch.Generator of the weights")
+                    help="seed of the torch.Generators of the weights and "
+                         "of the sampling")
     lm.add_argument("--load", default=None, metavar="PATH",
-                    help="load a packed LM artifact and greedily generate "
-                         "--sample tokens through the KV-cache decoder")
-    lm.add_argument("--sample", type=int, default=64)
+                    help="load a packed LM artifact and generate --sample "
+                         "tokens through the KV-cache decoder")
+    lm.add_argument("--sample", type=int, default=0,
+                    help="with --steps: draw N tokens from the trained "
+                         "model (sliding window); with --load: generate N "
+                         "(0: 64)")
+    lm.add_argument("--temperature", type=float, default=0.8,
+                    help="sampling temperature (0 = greedy); the draws "
+                         "come from a torch.Generator seeded from --seed")
+    lm.add_argument("--ring", action="store_true",
+                    help="with --steps: sequence-parallel causal ring "
+                         "attention, one rank per visible card (two gloo "
+                         "processes with --device cpu)")
     lm.add_argument("--prompt", default="\n",
                     help="with --load: text prompt (UTF-8 bytes mod vocab)")
     lm.add_argument("--pp", type=int, default=1,
@@ -846,6 +881,7 @@ def _serve(args) -> int:
             telemetry_dir=args.telemetry_dir, trace=args.trace,
             costs=args.costs, events_max_bytes=args.events_max_bytes,
             chaos=args.chaos, seed=args.seed,
+            prefix_cache=args.prefix_cache, spec_decode=args.spec_decode,
         )).run()
     from .serve import PackedInferenceServer, ServeConfig
 
@@ -886,6 +922,13 @@ def _lm(args) -> int:
                          "neither --load nor --jax-variables")
     if args.pp > 1 and not args.steps:
         raise SystemExit("lm: --pp pipelines the training; give --steps")
+    if args.ring and not args.steps:
+        raise SystemExit("lm: --ring is a training topology; give --steps")
+    if args.sample < 0:
+        raise SystemExit(f"lm: --sample must be >= 0, got {args.sample}")
+    if args.temperature < 0:
+        raise SystemExit(f"lm: --temperature must be >= 0 (0 = greedy), "
+                         f"got {args.temperature}")
     if args.steps:
         from .examples.lm_demo import run
 
@@ -896,8 +939,11 @@ def _lm(args) -> int:
             scale=args.scale, lr=args.lr, seed=args.seed,
             attention=args.attention, corpus=args.corpus,
             export=args.export, device=args.device, pp=args.pp,
+            ring=args.ring, sample=args.sample,
+            temperature=args.temperature,
         )
         print(json.dumps({"steps": args.steps, "loss_history": res.history,
+                          **({"sample": res.sample} if args.sample else {}),
                           **({"artifact": args.export, **res.export}
                              if args.export else {})}))
         return 0
@@ -925,15 +971,16 @@ def _lm(args) -> int:
     frozen = load_frozen(args.load)
     if frozen.get("kind") != "lm":
         raise SystemExit(f"lm: {args.load} is not a packed LM artifact")
-    if args.sample < 1:
-        raise SystemExit(f"lm: --sample must be >= 1, got {args.sample}")
     vocab = int(frozen["tok_embed"].shape[0])
     max_len = int(frozen["pos_embed"].shape[1])
     prompt = [b % vocab for b in args.prompt.encode("utf-8")]
     if len(prompt) >= max_len:
         raise SystemExit(f"lm: the prompt fills the window ({max_len})")
-    n = min(args.sample, max_len - len(prompt))
-    toks = generate(frozen, [prompt], n,
+    # --sample keeps its training default of 0 ("none"): here 0 means a
+    # demo length of 64, clamped to the artifact's window
+    n = min(args.sample or 64, max_len - len(prompt))
+    toks = generate(frozen, [prompt], n, temperature=args.temperature,
+                    generator=torch.Generator().manual_seed(args.seed),
                     decoder=make_lm_decoder(frozen, device=args.device))
     out = [int(t) for t in toks[0, len(prompt):]]
     print(json.dumps({

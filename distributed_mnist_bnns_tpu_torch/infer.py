@@ -1,8 +1,9 @@
 """Frozen-model inference for the binarized MLP: the packed-bitplane
 serving path. ``export_packed`` and ``load_packed`` also take the
 binarized CNN (``family="bnn-cnn"``, ``infer_conv``) and the binarized
-LM (``family="bnn-transformer"``, ``kind="lm"``, ``infer_transformer``),
-dispatched on the family as the JAX ``_freeze_any`` / ``_build_any``.
+transformers (``family="bnn-transformer"``, ``kind="lm"`` or ``"vit"``,
+``infer_transformer``), dispatched on the family as the JAX
+``_freeze_any`` / ``_build_any``.
 
 Counterpart of the JAX package's ``infer.py`` for the ``bnn-mlp`` family.
 Once training ends the fp32 latent weights are dead weight: serving needs
@@ -235,18 +236,27 @@ def _to_cpu(tree):
 
 def _freeze_any(model) -> Dict[str, Any]:
     """The frozen dict of any freezable model (the JAX ``_freeze_any``):
-    a binarized BnnMLP, a BinarizedCNN or a BinarizedLM."""
+    a binarized BnnMLP, a BinarizedCNN, a BinarizedTransformer (the ViT)
+    or a BinarizedLM."""
     from .infer_conv import BinarizedCNN, _freeze_cnn_tensors
-    from .infer_transformer import BinarizedLM, _freeze_lm_tensors
+    from .infer_transformer import (
+        BinarizedLM,
+        BinarizedTransformer,
+        _freeze_lm_tensors,
+        _freeze_vit_tensors,
+    )
 
     if isinstance(model, BnnMLP):
         return _freeze_tensors(model)
     if isinstance(model, BinarizedCNN):
         return _freeze_cnn_tensors(model)
+    if isinstance(model, BinarizedTransformer):
+        return _freeze_vit_tensors(model)
     if isinstance(model, BinarizedLM):
         return _freeze_lm_tensors(model)
     raise ValueError(f"no packed freeze for {type(model).__name__} "
-                     "(freezable: BnnMLP, BinarizedCNN, BinarizedLM)")
+                     "(freezable: BnnMLP, BinarizedCNN, "
+                     "BinarizedTransformer, BinarizedLM)")
 
 
 def _build_any(frozen: Dict[str, Any], device: torch.device):
@@ -267,16 +277,17 @@ def _build_any(frozen: Dict[str, Any], device: torch.device):
 
 
 def export_packed(model, path: str) -> Dict[str, Any]:
-    """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN
-    or a BinarizedLM to ``path``, as the JAX ``export_packed`` writes it
-    (msgpack). The ±1 first layer (the MLP's ``w1``, the CNN's
-    ``conv1_w``) goes as int8 (4x smaller); the predictor casts it back
-    to fp32. Returns the size-info dict."""
+    """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN,
+    a BinarizedTransformer or a BinarizedLM to ``path``, as the JAX
+    ``export_packed`` writes it (msgpack). The ±1 first layer (the MLP's
+    ``w1``, the CNN's ``conv1_w``, the ViT's ``w_embed``) goes as int8
+    (4x smaller); the predictor casts it back to fp32. Returns the
+    size-info dict."""
     from .interop import frozen_to_jax
     from .utils import msgpack
 
     frozen = _to_cpu(_freeze_any(model))
-    for key in ("w1", "conv1_w"):
+    for key in ("w1", "conv1_w", "w_embed"):
         if key in frozen:
             frozen[key] = frozen[key].to(torch.int8)
     with open(path, "wb") as f:
@@ -299,7 +310,8 @@ def load_packed(path: str, *, device="cuda"):
     ``device`` (None: "cuda"; raises without a card): a FrozenMLP for a
     ``bnn-mlp`` artifact, a ``FrozenCNN`` for a ``bnn-cnn`` one (flat
     (B, 784) or (B, 28, 28, 1) input), the LM's full-window ``FrozenLM``
-    for a ``bnn-transformer`` one. Returns (predictor, info)."""
+    or the ``FrozenViT`` classifier for a ``bnn-transformer`` one.
+    Returns (predictor, info)."""
     dev = resolve_device(device)
     frozen = load_frozen(path)
     return _build_any(frozen, dev), dict(frozen["info"])

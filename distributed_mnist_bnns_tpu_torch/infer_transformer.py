@@ -1,12 +1,15 @@
-"""Packed 1-bit serving for the binarized LM: freezing, the full forward,
-contiguous KV-cache decoding and the paged decoder of the LM server.
+"""Packed 1-bit serving for the transformer families: freezing the
+binarized LM and ViT, their full forwards, contiguous KV-cache decoding
+and the paged decoder (with its speculative verify call) of the LM server.
 
-Counterpart of the LM half of the JAX package's ``infer_transformer.py``.
+Counterpart of the JAX package's ``infer_transformer.py``.
 Every binarized projection (q/k/v/out and the MLP) drops its fp32 latent
 and keeps its ±1 weights packed to bitplanes (``ops.prepack_weights``);
 LayerNorm, the softmax attention core, residuals, embeddings and the head
 stay fp32 as in the live eval forward. Activations are binarized on the
-fly with the same deterministic sign (``sign(0) = +1``).
+fly with the same deterministic sign (``sign(0) = +1``). The ViT's patch
+embedding keeps ±1 weights on raw pixels (fp32 in memory, int8 on disk)
+and no alpha, as the live model.
 
 Which kernel runs a packed projection depends on its row count M, as in
 the JAX package: below ``FUSED_UNPACK_MIN_M`` rows (the decode step, one
@@ -24,10 +27,13 @@ attention projections; kernels (in, out)). Decoders here are plain Python
 callables over tensors: PyTorch runs eagerly, so there is no compile step
 and no program to warm. The paged pools are updated in place.
 
+Speculative decoding's verify call runs the packed projections the
+drafts and the prefills run (K7 at ``FUSED_UNPACK_MIN_M`` rows or more,
+K1 below: on ±1 inputs both give the exact integer sums) and K8's verify
+entry.
+
 Entry points take a ``device``, default ``"cuda"``; with no CUDA device
-they raise unless the caller asks for ``device="cpu"``. Left for later:
-speculative decoding (``spec_k > 0`` and the verify program), and the
-vit half of the JAX module.
+they raise unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,12 @@ import torch
 
 from .infer import resolve_device
 from .models.layers import BinarizedDense
-from .models.transformer import BinarizedLM, _attend_xla, layer_norm
+from .models.transformer import (
+    BinarizedLM,
+    BinarizedTransformer,
+    _attend_xla,
+    layer_norm,
+)
 from .ops import paged_kv
 from .ops.binarize import binarize_ste
 from .ops.xnor_gemm import (
@@ -86,9 +97,26 @@ def _freeze_dense_fp32(lin: torch.nn.Linear) -> Dict[str, Any]:
             "bias": lin.bias.detach()}
 
 
-def _check_freezable(model) -> None:
-    if not isinstance(model, BinarizedLM):
-        raise ValueError(f"freeze_bnn_lm needs a BinarizedLM, got {type(model)}")
+def _check_freezable(model, cls) -> None:
+    """The JAX package's refusals: only binarized, deterministic models
+    of the plain single-device topology freeze."""
+    if not isinstance(model, cls):
+        raise ValueError(f"need a {cls.__name__}, got {type(model)}")
+    if not getattr(model, "binarized", True):
+        raise ValueError(
+            "packed freezing needs binarized weights; the fp32 twins have "
+            "none to pack (serve them as live models)"
+        )
+    if any(getattr(m, "stochastic", False) for m in model.modules()):
+        raise ValueError(
+            "stochastic activation binarization is a train-time feature; "
+            "freeze the deterministic eval path"
+        )
+    if any(blk.attn.attention_fn is not None for blk in model.blocks):
+        raise ValueError(
+            "attention_fn (ring/SP) is a training-topology override; "
+            "freeze the plain single-device model"
+        )
 
 
 def _ln_dict(ln) -> Dict[str, torch.Tensor]:
@@ -114,10 +142,12 @@ def _freeze_blocks(model: BinarizedLM) -> list:
     return blocks
 
 
-def _freeze_info(model: BinarizedLM, blocks: list) -> Dict[str, Any]:
+def _freeze_info(model, blocks: list, kind: str,
+                 embed_w: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Size accounting, the JAX package's: fp32 latents of every
-    binarized projection against the packed words; fp32-carried kernels
-    weigh the same on both sides."""
+    binarized projection against the packed words (and the ViT's ±1
+    patch embedding at 4 bytes a weight); fp32-carried kernels weigh the
+    same on both sides."""
     latent = sum(
         m.weight.numel() * 4 for m in model.modules()
         if isinstance(m, BinarizedDense)
@@ -130,9 +160,11 @@ def _freeze_info(model: BinarizedLM, blocks: list) -> Dict[str, Any]:
         b[key].get("wp", b[key].get("kernel")).numel() * 4
         for b in blocks for key in _PROJ
     )
+    if embed_w is not None:
+        packed += embed_w.numel() * 4
     return {
         "family": FAMILY,
-        "kind": "lm",
+        "kind": kind,
         "latent_fp32_weight_bytes": latent + dense,
         "frozen_weight_bytes": packed,
         "compression": round((latent + dense) / packed, 2),
@@ -147,7 +179,7 @@ def _freeze_info(model: BinarizedLM, blocks: list) -> Dict[str, Any]:
 def _freeze_lm_tensors(model: BinarizedLM) -> Dict[str, Any]:
     """The frozen LM artifact from a BinarizedLM's weights, under the
     JAX package's ``_freeze_lm_tensors`` keys and layouts."""
-    _check_freezable(model)
+    _check_freezable(model, BinarizedLM)
     blocks = _freeze_blocks(model)
     return {
         "family": FAMILY,
@@ -160,7 +192,33 @@ def _freeze_lm_tensors(model: BinarizedLM) -> Dict[str, Any]:
         "ln_head": _ln_dict(model.ln_head),
         "head_w": model.head.weight.detach().t().contiguous(),
         "head_b": model.head.bias.detach(),
-        "info": _freeze_info(model, blocks),
+        "info": _freeze_info(model, blocks, "lm"),
+    }
+
+
+@torch.no_grad()
+def _freeze_vit_tensors(model: BinarizedTransformer) -> Dict[str, Any]:
+    """The frozen ViT artifact, under the JAX package's
+    ``_freeze_vit_tensors`` keys: the patch embedding's ±1 weights (in,
+    out) on raw pixels with its bias (no alpha: the live model passes
+    none), ``pos_embed``, the blocks, ``ln_head`` and the fp32 head."""
+    _check_freezable(model, BinarizedTransformer)
+    blocks = _freeze_blocks(model)
+    w_embed = binarize_ste(model.patch_embed.weight.detach()).t().contiguous()
+    return {
+        "family": FAMILY,
+        "kind": "vit",
+        "patch_size": model.patch_size,
+        "num_heads": model.num_heads,
+        "causal": False,
+        "w_embed": w_embed,
+        "b_embed": model.patch_embed.bias.detach(),
+        "pos_embed": model.pos_embed.detach(),
+        "blocks": blocks,
+        "ln_head": _ln_dict(model.ln_head),
+        "head_w": model.head.weight.detach().t().contiguous(),
+        "head_b": model.head.bias.detach(),
+        "info": _freeze_info(model, blocks, "vit", embed_w=w_embed),
     }
 
 
@@ -330,15 +388,84 @@ class FrozenLM:
         return self.f.head(x)
 
 
-def _build_transformer_apply(frozen: Dict[str, Any], device) -> FrozenLM:
+class FrozenViT:
+    """Packed ViT classifier: ``fn(images) -> (B, classes)`` log-probs on
+    the predictor's device, for (B, H, W, C) images or (B, H*W*C) flat
+    ones (numpy or torch). Patches are cut in flax's (row, col, (py, px,
+    c)) order, embedded by the ±1 patch weights on raw pixels, and the
+    tokens are mean-pooled after ``ln_head``. Every packed projection
+    runs K1 (the JAX package builds them unfused); the attention core is
+    the exact softmax."""
+
+    def __init__(self, frozen: Dict[str, Any], device):
+        if frozen.get("kind", "vit") != "vit":
+            raise ValueError(
+                f"need a kind='vit' artifact, got {frozen.get('kind')!r}"
+            )
+        self.device = resolve_device(device)
+        _exact_fp32()
+        self.num_heads = int(frozen["num_heads"])
+        self.patch = int(frozen["patch_size"])
+        self.w_embed = _on(frozen["w_embed"], self.device)   # disk: int8
+        self.b_embed = _on(frozen["b_embed"], self.device)
+        self.pos = _on(frozen["pos_embed"], self.device)    # (1, T, E)
+        self.ln_head = _ln_fn(_on(frozen["ln_head"], self.device))
+        self.head_w = _on(frozen["head_w"], self.device)
+        self.head_b = _on(frozen["head_b"], self.device)
+        self.n_tokens = self.pos.shape[1]
+        self.channels = self.w_embed.shape[0] // (self.patch * self.patch)
+        self.blocks = [
+            _block_fn(blk, self.num_heads, bool(frozen["causal"]))
+            for blk in _on(frozen["blocks"], self.device)
+        ]
+
+    @torch.no_grad()
+    def __call__(self, images) -> torch.Tensor:
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.asarray(images, np.float32))
+        x = images.to(device=self.device, dtype=torch.float32)
+        p = self.patch
+        if x.dim() == 2:
+            side = int(round(self.n_tokens ** 0.5)) * p
+            x = x.reshape(x.shape[0], side, side, self.channels)
+        b, h, w, c = x.shape
+        if h % p or w % p:
+            raise ValueError(f"input {h}x{w} not divisible by patch size {p}")
+        nh, nw = h // p, w // p
+        if nh * nw != self.n_tokens:
+            raise ValueError(
+                f"input {h}x{w} yields {nh * nw} patch tokens but the "
+                f"artifact's pos_embed was trained for {self.n_tokens}"
+            )
+        x = x.reshape(b, nh, p, nw, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, nh * nw, p * p * c) @ self.w_embed
+        x = x + self.b_embed + self.pos
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.ln_head(x).mean(dim=1)
+        return torch.log_softmax(x @ self.head_w + self.head_b, dim=-1)
+
+
+def _build_transformer_apply(frozen: Dict[str, Any], device):
     """Frozen forward from a ``bnn-transformer`` artifact (in memory or
-    loaded from disk). Only ``kind == "lm"`` is ported."""
-    if frozen.get("kind") != "lm":
-        raise NotImplementedError(
-            f"packed {frozen.get('kind')!r} artifacts are not ported yet "
-            "(only the LM)"
-        )
-    return FrozenLM(frozen, device)
+    loaded from disk): ``FrozenLM`` for ``kind == "lm"``, ``FrozenViT``
+    for ``"vit"`` (the JAX package's default when the key is absent)."""
+    kind = frozen.get("kind", "vit")
+    if kind == "lm":
+        return FrozenLM(frozen, device)
+    if kind == "vit":
+        return FrozenViT(frozen, device)
+    raise ValueError(f"unknown bnn-transformer kind {kind!r}")
+
+
+def freeze_bnn_vit(
+    model: BinarizedTransformer, *, device="cuda"
+) -> Tuple[FrozenViT, Dict[str, Any]]:
+    """Freeze a binarized ViT into a packed classifier on ``device``,
+    computing what ``model.eval()(images)`` computes. Returns (fn, size
+    info)."""
+    frozen = _freeze_vit_tensors(model)
+    return _build_transformer_apply(frozen, device), frozen["info"]
 
 
 def freeze_bnn_lm(
@@ -538,9 +665,17 @@ class PagedLMDecoder(NamedTuple):
         all S slots; inactive slots carry all-null tables and their rows
         are ignored.
 
+      * ``verify(pools, tokens (S, K), page_tables (S, P), positions
+        (S,))`` -> ``(pools, log_probs (S, K, vocab))``, with ``spec_k =
+        K > 0``: the speculative scorer. K consecutive tokens a slot from
+        its base position, their K/V written over what the drafts wrote,
+        causal log-probs at every position, the projections those of
+        ``decode`` and ``prefill`` (S x K rows) and the attention through
+        K8's verify entry. K is fixed at build time; acceptance is the
+        engine's, on the host.
+
     Arguments may be numpy arrays, ints or tensors; the pools are
-    updated in place and returned. ``verify`` is None and ``spec_k`` 0:
-    speculative decoding is not ported yet."""
+    updated in place and returned."""
 
     init_pools: Callable
     prefill: Callable
@@ -554,7 +689,7 @@ class PagedLMDecoder(NamedTuple):
     vocab: int
     num_blocks: int
     verify: Optional[Callable] = None
-    spec_k: int = 0
+    spec_k: int = 0         # verify window (0: no speculative decoding)
     kernels: bool = True    # K8 attention + K7 prefill projections
 
 
@@ -578,12 +713,13 @@ def make_paged_lm_decoder(
     the page table in K8, and every packed projection of M >=
     ``FUSED_UNPACK_MIN_M`` rows runs K7 (K1 below). ``kernels=False``
     runs the gather path and K1 everywhere: the plain versions, for the
-    CPU only; on a CUDA device it raises. ``spec_k > 0`` raises: the
-    verify program of speculative decoding is not ported yet."""
-    if int(spec_k) != 0:
-        raise NotImplementedError(
-            "speculative decoding (spec_k > 0) is not ported yet"
-        )
+    CPU only; on a CUDA device it raises. ``spec_k > 0`` also builds
+    ``verify``: the engine drafts ``spec_k - 1`` tokens through
+    ``decode`` and scores the window in one ``verify`` call; ``spec_k ==
+    1`` is the verifier alone (no drafts), the reference engine."""
+    spec_k = int(spec_k)
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {spec_k}")
     kernels = bool(kernels)
     dev = resolve_device(device)
     if not kernels and dev.type == "cuda":
@@ -596,9 +732,11 @@ def make_paged_lm_decoder(
     if kernels:
         attn = paged_kv.paged_attention_kernel
         attn_prefill = paged_kv.paged_prefill_attention_kernel
+        attn_verify = paged_kv.paged_verify_attention_kernel
     else:
         attn = paged_kv.paged_attention
         attn_prefill = paged_kv.paged_prefill_attention
+        attn_verify = paged_kv.paged_verify_attention
     max_len = f.pos_len if max_len is None else int(max_len)
     if not 1 <= max_len <= f.pos_len:
         raise ValueError(
@@ -661,6 +799,28 @@ def make_paged_lm_decoder(
             x = _mlp(lay, x + lay["out"](core.reshape(s, e)))
         return pools, f.head(x)
 
+    verify = None
+    if spec_k:
+        @torch.no_grad()
+        def verify(pools, tokens, page_tables, positions):
+            tokens, tables = f.long(tokens), f.int32(page_tables)
+            positions = f.int32(positions)
+            s, kw = tokens.shape
+            qpos = positions[:, None] + torch.arange(
+                kw, dtype=torch.int32, device=f.device)[None, :]
+            idx = paged_kv.flat_write_indices(
+                tables[:, None, :].expand(s, kw, tables.shape[-1]), qpos,
+                page_size)
+            x = _embed(tokens, qpos)
+            for lay, (kp, vp) in zip(layers, pools):
+                y = lay["ln_attn"](x)
+                paged_kv.write_kv(kp, idx, lay["k"](y).reshape(s, kw, h, d))
+                paged_kv.write_kv(vp, idx, lay["v"](y).reshape(s, kw, h, d))
+                core = attn_verify(lay["q"](y).reshape(s, kw, h, d), kp, vp,
+                                   tables, positions)
+                x = _mlp(lay, x + lay["out"](core.reshape(s, kw, e)))
+            return pools, f.head(x)
+
     return PagedLMDecoder(
         init_pools=init_pools,
         prefill=prefill,
@@ -673,5 +833,7 @@ def make_paged_lm_decoder(
         prefill_chunk=prefill_chunk,
         vocab=f.vocab,
         num_blocks=len(layers),
+        verify=verify,
+        spec_k=spec_k,
         kernels=kernels,
     )

@@ -38,7 +38,7 @@ the module with ``.to(device)``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -140,12 +140,19 @@ def _fp32_linear(fan_in: int, fan_out: int,
 
 class BinarizedSelfAttention(nn.Module):
     """Multi-head self-attention with binarized q/k/v/out projections
-    (fp32 ``nn.Linear``s with ``binarized=False``)."""
+    (fp32 ``nn.Linear``s with ``binarized=False``).
+
+    ``attention_fn`` replaces the core with any (q, k, v) -> out callable
+    over (B, T, H, D), e.g. ``parallel.make_ring_attention(group,
+    causal=True)`` over this rank's sequence shard; it owns its masking.
+    The projections are per token, so the ring carries all of sequence
+    parallelism's traffic."""
 
     def __init__(
         self, embed_dim: int, num_heads: int, *, attention: str = "xla",
         causal: bool = False, ste: STEMode = "identity", scale: bool = False,
         backend: str = "bf16", binarized: bool = True,
+        attention_fn: Optional[Callable] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -158,6 +165,7 @@ class BinarizedSelfAttention(nn.Module):
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.attention = attention
+        self.attention_fn = attention_fn
         self.causal = causal
 
         def dense():
@@ -177,7 +185,9 @@ class BinarizedSelfAttention(nn.Module):
         q = self.q(x).reshape(b, t, -1, d)
         k = self.k(x).reshape(b, t, -1, d)
         v = self.v(x).reshape(b, t, -1, d)
-        if self.attention == "flash":
+        if self.attention_fn is not None:
+            core = self.attention_fn(q, k, v)
+        elif self.attention == "flash":
             core = flash_attention(q, k, v, causal=self.causal)
         else:
             core = _attend_xla(q, k, v, causal=self.causal)
@@ -196,7 +206,7 @@ class TransformerBlock(nn.Module):
         dropout: float = 0.0, attention: str = "xla", causal: bool = False,
         ste: STEMode = "identity", scale: bool = False,
         backend: str = "bf16", binarized_attention: bool = True,
-        binarized: bool = True,
+        binarized: bool = True, attention_fn: Optional[Callable] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -206,7 +216,8 @@ class TransformerBlock(nn.Module):
         self.attn = BinarizedSelfAttention(
             embed_dim, num_heads, attention=attention, causal=causal,
             ste=ste, scale=scale, backend=backend,
-            binarized=binarized_attention, generator=generator,
+            binarized=binarized_attention, attention_fn=attention_fn,
+            generator=generator,
         )
         self.ln_mlp = LayerNorm(embed_dim)
 
@@ -255,6 +266,7 @@ class BinarizedLM(SeededTrainRNG, nn.Module):
         dropout: float = 0.0, attention: str = "xla",
         ste: STEMode = "identity", scale: bool = False,
         backend: str = "bf16", binarized_attention: bool = True,
+        attention_fn: Optional[Callable] = None,
         rng_seed: int = 0, generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -279,7 +291,7 @@ class BinarizedLM(SeededTrainRNG, nn.Module):
                 embed_dim, num_heads, mlp_ratio=mlp_ratio, dropout=dropout,
                 attention=attention, causal=True, ste=ste, scale=scale,
                 backend=backend, binarized_attention=binarized_attention,
-                generator=generator,
+                attention_fn=attention_fn, generator=generator,
             )
             for _ in range(depth)
         )
@@ -333,7 +345,8 @@ class BinarizedTransformer(SeededTrainRNG, nn.Module):
         ste: STEMode = "identity", scale: bool = False,
         backend: str = "bf16", binarized: bool = True,
         binarized_attention: Optional[bool] = None,
-        image_size: int = 28, in_channels: int = 1, rng_seed: int = 0,
+        image_size: int = 28, in_channels: int = 1,
+        attention_fn: Optional[Callable] = None, rng_seed: int = 0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -347,6 +360,7 @@ class BinarizedTransformer(SeededTrainRNG, nn.Module):
         self.embed_dim = embed_dim
         self.depth = depth
         self.num_heads = num_heads
+        self.scale = scale
         self.binarized = binarized
         self.image_size = image_size
         self.in_channels = in_channels
@@ -368,7 +382,7 @@ class BinarizedTransformer(SeededTrainRNG, nn.Module):
                 embed_dim, num_heads, mlp_ratio=mlp_ratio, dropout=dropout,
                 attention=attention, ste=ste, scale=scale, backend=backend,
                 binarized_attention=attn_bin, binarized=binarized,
-                generator=generator,
+                attention_fn=attention_fn, generator=generator,
             )
             for _ in range(depth)
         )

@@ -3,16 +3,27 @@ KV cache.
 
 Counterpart of the JAX package's ``serve/lm/engine.py``, with its
 telemetry: the registry's ``lm_*`` metrics; the ``lm_warmup``,
-``lm_admit``, ``lm_evict``, ``lm_decode`` (every ``decode_event_every``
-iterations) and ``lm_decode_error`` events; each stream's span tree
-(``lm.request`` with ``lm.queue``, ``lm.page_alloc``, ``lm.prefill`` and
-``lm.decode``, one ``lm.decode_iter`` span an iteration); the cost
-ledger's ``lm_prefill`` and ``lm_decode`` rows (the warm-up calls) and
-dispatch times (CUDA events); the ``jg_step`` profiler region while a
-capture is live; the chaos hook before each decode iteration
-(``resilience/chaos``, ``infer_error`` / ``infer_slow``). Without its
-recompile fence, the prefix cache and speculative decoding (later slices
-of the port).
+``lm_admit``, ``lm_prefix_hit``, ``lm_evict``, ``lm_decode`` and
+``lm_spec_round`` (every ``decode_event_every`` iterations) and
+``lm_decode_error`` events; each stream's span tree (``lm.request`` with
+``lm.queue``, ``lm.page_alloc``, ``lm.prefill`` and ``lm.decode``, one
+``lm.decode_iter`` span an iteration, with ``lm.draft`` and
+``lm.verify`` in a speculative one); the cost ledger's ``lm_prefill``,
+``lm_decode`` and ``lm_verify`` rows (the warm-up calls) and dispatch
+times (CUDA events); the ``jg_step`` profiler region while a capture is
+live; the chaos hook before each decode iteration (``resilience/chaos``,
+``infer_error`` / ``infer_slow``). Without its recompile fence (PyTorch
+compiles nothing per shape).
+
+``prefix_cache=True`` shares prompt prefixes copy-on-write
+(``prefix_cache.PrefixCache``): admission forks the longest cached
+full-page prefix and prefills only the suffix, eviction publishes the
+sequence's full pages back, and a dispatch failure drops the index.
+A decoder with a ``verify`` call (``make_paged_lm_decoder(spec_k=K)``)
+arms self-speculative decoding: each round drafts ``K - 1`` tokens
+through ``decode``, scores the window in one ``verify`` call and accepts
+on the host the longest draft prefix the verifier agrees with, emitting
+``a + 1`` tokens a slot; a round with any sampling slot runs plain.
 Every decode iteration runs ALL active batch slots through one call of
 the paged decoder; between iterations the scheduler admits queued
 requests into freed slots, so sequences join and leave the batch
@@ -39,6 +50,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ...obs.costs import get_ledger
 from ...obs.profile import get_profiler, step_annotation
@@ -48,6 +60,7 @@ from ...obs.telemetry import StepClock
 from ...obs.trace import NULL_SPAN, NULL_TRACER, TraceContext, next_request_id
 from ...ops.paged_kv import PageAllocator, pages_needed
 from ..core import labeled
+from .prefix_cache import PrefixCache
 
 log = logging.getLogger(__name__)
 
@@ -59,6 +72,13 @@ DECODE_ITERATION_SECONDS = "lm_decode_iteration_seconds"
 REQUESTS_TOTAL = "lm_requests_total"
 SHED_TOTAL = "lm_shed_total"
 DECODE_ERRORS_TOTAL = "lm_decode_errors_total"
+PREFIX_HITS_TOTAL = "lm_prefix_cache_hits_total"
+SPEC_TOKENS_TOTAL = "lm_spec_tokens_total"
+
+# Final statuses whose KV contents can be trusted at eviction, so that
+# its pages may enter the prefix index. "error" evictions never publish:
+# the pools may have been rebuilt under them.
+_PUBLISHABLE_STATUSES = ("ok", "deadline", "cancelled")
 
 # Millisecond buckets for the prefill histogram (the default registry
 # buckets are seconds-scaled; prefill is a handful of chunk calls).
@@ -152,12 +172,16 @@ class LMEngine:
     an injected error there touches no pool, so the iteration is retried,
     up to ``max_consecutive_failures`` in a row, past which every active
     stream fails (the JAX engine's fence).
+
+    ``prefix_cache`` arms the copy-on-write prefix index; a decoder with
+    a ``verify`` call arms speculative rounds (module docstring).
     """
 
     def __init__(self, decoder, *, queue_depth: int = 16,
                  telemetry: Any = None, device: Any = None,
                  decode_event_every: int = 50, chaos: Any = None,
-                 max_consecutive_failures: int = 4):
+                 max_consecutive_failures: int = 4,
+                 prefix_cache: bool = False):
         self.decoder = decoder
         self.chaos = chaos
         self.max_consecutive_failures = int(max_consecutive_failures)
@@ -167,6 +191,12 @@ class LMEngine:
         self.decode_event_every = max(int(decode_event_every), 1)
         self.queue_depth = int(queue_depth)
         self.allocator = PageAllocator(decoder.num_pages)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, decoder.page_size)
+            if prefix_cache else None
+        )
+        self.spec_k = (int(decoder.spec_k)
+                       if getattr(decoder, "verify", None) is not None else 0)
         self.max_len = int(decoder.max_len)
         s, p = int(decoder.slots), int(decoder.max_pages)
         self._page_tables = np.zeros((s, p), np.int32)
@@ -220,6 +250,17 @@ class LMEngine:
         self.errors_ctr = reg.counter(
             DECODE_ERRORS_TOTAL, "decode dispatch failures"
         )
+        self.prefix_hits_ctr = reg.counter(
+            PREFIX_HITS_TOTAL,
+            "prefix-cache admission lookups (result=hit|miss)",
+        )
+        self.spec_tokens_ctr = reg.counter(
+            SPEC_TOKENS_TOTAL,
+            "draft tokens by verify outcome (outcome=accepted|rejected)",
+        )
+        self._spec_drafted = 0         # drafts proposed, lifetime
+        self._spec_accepted = 0        # drafts accepted, lifetime
+        self._spec_rounds = 0          # verify calls, lifetime
         # host-clock times of the latest admissions' prefills and of the
         # latest decode iterations (each ends in a device sync)
         self.prefill_ms: deque[float] = deque(maxlen=1024)
@@ -243,6 +284,19 @@ class LMEngine:
             return None
         return self._tracker.count - self._compile_baseline
 
+    @property
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """Accepted / drafted over the engine's lifetime (None until a
+        speculative round drafted anything)."""
+        if self._spec_drafted == 0:
+            return None
+        return self._spec_accepted / self._spec_drafted
+
+    @property
+    def spec_rounds(self) -> int:
+        """Speculative rounds run (one ``verify`` call each)."""
+        return self._spec_rounds
+
     def metrics(self) -> Dict[str, Any]:
         """Counter and gauge view under their metric names (counters as
         ``{"k=v": value}``)."""
@@ -250,9 +304,22 @@ class LMEngine:
             TOKENS_TOTAL: labeled(self.tokens_ctr),
             REQUESTS_TOTAL: labeled(self.requests_ctr),
             SHED_TOTAL: labeled(self.shed_ctr),
+            PREFIX_HITS_TOTAL: labeled(self.prefix_hits_ctr),
+            SPEC_TOKENS_TOTAL: labeled(self.spec_tokens_ctr),
             ACTIVE_STREAMS: self.active_gauge.value() or 0.0,
             PAGE_OCCUPANCY: self.occupancy_gauge.value() or 0.0,
         }
+
+    def prefix_cache_stats(self) -> Optional[Dict[str, Any]]:
+        """Entry count and shared-page occupancy for ``/healthz``, or
+        None when the cache is off."""
+        if self.prefix_cache is None:
+            return None
+        stats = self.prefix_cache.stats()
+        stats["page_occupancy"] = round(
+            stats["pages"] / max(self.allocator.capacity, 1), 4
+        )
+        return stats
 
     def kv_pool_stats(self) -> Dict[str, Any]:
         """The paged pool's memory: its fixed reservation against the
@@ -277,10 +344,11 @@ class LMEngine:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "LMEngine":
-        """Run one prefill and one decode against the null page (the
-        kernels are built and loaded before the first request; with the
-        cost ledger armed they are the ``lm_prefill`` and ``lm_decode``
-        rows' runs), pin the build baseline, start the scheduler."""
+        """Run one prefill, one decode and, with speculative decoding, one
+        verify against the null page (the kernels are built and loaded
+        before the first request; with the cost ledger armed they are the
+        ``lm_prefill``, ``lm_decode`` and ``lm_verify`` rows' runs), pin
+        the build baseline, start the scheduler."""
         dec = self.decoder
         pools = dec.init_pools()
         measure, tel = self._ledger.measure, self.telemetry
@@ -295,6 +363,13 @@ class LMEngine:
             self._page_tables, self._positions,
             device=self.device, telemetry=tel,
         )
+        if self.spec_k:
+            pools, lp = measure(
+                "lm_verify", dec.verify, pools,
+                np.zeros((dec.slots, self.spec_k), np.int32),
+                self._page_tables, self._positions,
+                device=self.device, telemetry=tel,
+            )
         lp.cpu()
         self._pools = pools
         self.pool_reserved_bytes = int(sum(
@@ -302,9 +377,12 @@ class LMEngine:
         self.page_bytes = self.pool_reserved_bytes // max(dec.num_pages, 1)
         self._compile_baseline = self._tracker.mark()
         kernels = bool(dec.kernels)
+        programs = 3 if self.spec_k else 2
         if tel is not None:
-            tel.emit("lm_warmup", programs=2, kernels=kernels, spec_k=0)
-        log.info("lm engine warm: kernels=%s", kernels)
+            tel.emit("lm_warmup", programs=programs, kernels=kernels,
+                     spec_k=self.spec_k)
+        log.info("lm engine warm: %d programs, kernels=%s", programs,
+                 kernels)
         self._thread = threading.Thread(
             target=self._run, name="lm-engine", daemon=True
         )
@@ -332,6 +410,11 @@ class LMEngine:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
+        if self.prefix_cache is not None:
+            # every cache-held reference goes back, so pages_in_use
+            # drains to 0 (a live fork keeps its own reference)
+            self.prefix_cache.clear()
+            self.occupancy_gauge.set(self.allocator.occupancy())
 
     # -- admission (transport threads) --------------------------------------
 
@@ -460,22 +543,44 @@ class LMEngine:
                                        "cancelled while queued")
                 continue
             total = min(len(req.prompt) + req.max_new_tokens, self.max_len)
-            need = pages_needed(total, self.decoder.page_size)
-            if need > self.allocator.capacity:
+            need_total = pages_needed(total, self.decoder.page_size)
+            if need_total > self.allocator.capacity:
                 self._finish_unslotted(
                     req, "error",
-                    f"request needs {need} pages, pool holds "
+                    f"request needs {need_total} pages, pool holds "
                     f"{self.allocator.capacity}",
                 )
                 continue
             alloc_t0 = time.monotonic()
+            cached_tokens, forked = 0, []
+            if self.prefix_cache is not None:
+                # the longest cached full-page prefix, capped so that at
+                # least one prompt token prefills (admission samples the
+                # first token from the suffix's log-probs)
+                cached_tokens, forked = self.prefix_cache.lookup(
+                    req.prompt, len(req.prompt) - 1)
+            need = need_total - len(forked)
             pages = self.allocator.alloc(need)
+            if pages is None and self.prefix_cache is not None:
+                # pool pressure: drop LRU cache-only entries and retry
+                if self.prefix_cache.evict(
+                        need - self.allocator.free_count()) > 0:
+                    pages = self.allocator.alloc(need)
             if pages is None:
-                # not enough KV memory: back to the head of the queue;
+                # not enough KV memory: back to the head of the queue
+                # (with the forked references: the next try forks again);
                 # running sequences free pages as they finish
+                if forked:
+                    self.allocator.free(forked)
                 with self._cond:
                     self._queue.appendleft(req)
                 return
+            if self.prefix_cache is not None:
+                # counted for admissions that proceed only: a requeue
+                # looks up again on every scheduler pass
+                self.prefix_cache.note_result(bool(forked))
+                self.prefix_hits_ctr.inc(result="hit" if forked else "miss")
+            pages = forked + pages     # table order: the prefix first
             if self.tracer.enabled:
                 # queue wait ends when the scheduler takes the request up
                 # (= alloc start); sequential children, no overlap
@@ -486,10 +591,11 @@ class LMEngine:
                 self.tracer.record(
                     "lm.page_alloc", kind="page_alloc", parent=req.span,
                     t0=alloc_t0, t1=time.monotonic(), pages=len(pages),
-                    need=need, forked=0,
+                    need=need, forked=len(forked),
                 )
             try:
-                self._prefill_into_slot(req, slot, pages, total)
+                self._prefill_into_slot(req, slot, pages, total,
+                                        cached_tokens)
             except Exception as e:
                 log.exception("lm-engine prefill for request %s failed",
                               req.id)
@@ -505,18 +611,24 @@ class LMEngine:
                     self._dispatch_failure(cause)
 
     def _prefill_into_slot(
-        self, req: LMRequest, slot: int, pages: List[int], total: int
+        self, req: LMRequest, slot: int, pages: List[int], total: int,
+        cached_tokens: int = 0,
     ) -> None:
+        """Prefill the prompt past its ``cached_tokens`` (a prefix-cache
+        hit: their K/V sit in the forked pages, page-aligned) in
+        ``prefill_chunk`` calls that attend through the shared pages,
+        then take the slot and emit the first token."""
         dec = self.decoder
         admitted_at = time.monotonic()
         t0 = time.perf_counter()
         table = np.zeros(dec.max_pages, np.int32)
         table[: len(pages)] = pages
         plen = len(req.prompt)
+        suffix = plen - cached_tokens      # >= 1: the lookup is capped
         chunk = dec.prefill_chunk
-        padded = -(-plen // chunk) * chunk
+        padded = -(-suffix // chunk) * chunk
         prompt = np.zeros(padded, np.int32)
-        prompt[:plen] = req.prompt
+        prompt[:suffix] = req.prompt[cached_tokens:]
         timed = self._ledger.enabled
         try:
             with (step_annotation("lm_prefill",
@@ -525,10 +637,10 @@ class LMEngine:
                 if timed:
                     self._clock.restart()
                     token = self._clock.start()
-                for start in range(0, padded, chunk):
+                for off in range(0, padded, chunk):
                     self._pools, clp = dec.prefill(
-                        self._pools, prompt[start:start + chunk], table,
-                        start, plen,
+                        self._pools, prompt[off:off + chunk], table,
+                        cached_tokens + off, plen,
                     )
                 if timed:
                     self._clock.stop(token)
@@ -543,22 +655,23 @@ class LMEngine:
         if timed:
             for seconds, _ in self._clock.ready():
                 self._ledger.observe("lm_prefill", seconds, n=padded // chunk)
-        self.tokens_ctr.inc(plen, phase="prefill")
+        # the tokens prefilled: a hit's skipped prefix does not count
+        self.tokens_ctr.inc(suffix, phase="prefill")
         st = _Slot(req, pages, total, admitted_at)
         if self.tracer.enabled:
             self.tracer.record(
                 "lm.prefill", kind="prefill", parent=req.span,
                 t0=admitted_at, t1=admitted_at + prefill_ms / 1e3,
                 prompt_tokens=plen, chunks=padded // chunk, slot=slot,
-                cached_tokens=0,
+                cached_tokens=cached_tokens,
             )
             # the decode window: first token out of prefill -> evict
             st.decode_span = self.tracer.start(
                 "lm.decode", kind="decode", parent=req.span, slot=slot,
             )
         # The prompt's last position predicts position plen.
-        first = self._sample_token(req, lp_host[plen - 1 - (padded - chunk)],
-                                   st.rng)
+        first = self._sample_token(
+            req, lp_host[plen - 1 - (cached_tokens + padded - chunk)], st.rng)
         self._slots[slot] = st
         req.slot = slot
         self._page_tables[slot] = table
@@ -570,13 +683,22 @@ class LMEngine:
             self.telemetry.emit(
                 "lm_admit",
                 id=req.id, slot=slot, prompt_tokens=plen,
-                prefill_tokens=plen, cached_tokens=0,
+                prefill_tokens=suffix, cached_tokens=cached_tokens,
                 max_new_tokens=req.max_new_tokens, pages=len(pages),
                 iteration=self.batch_seq,
                 queue_ms=round((admitted_at - req.enqueued_at) * 1e3, 3),
                 prefill_ms=round(prefill_ms, 3),
                 page_occupancy=round(self.allocator.occupancy(), 4),
             )
+            if cached_tokens:
+                self.telemetry.emit(
+                    "lm_prefix_hit",
+                    id=req.id, slot=slot, prompt_tokens=plen,
+                    cached_tokens=cached_tokens,
+                    pages_forked=pages_needed(cached_tokens, dec.page_size),
+                    prefill_tokens=suffix,
+                    prefill_ms=round(prefill_ms, 3),
+                )
         self._emit_token(req, first)
         self._maybe_finish(slot)
 
@@ -601,26 +723,41 @@ class LMEngine:
 
     def _decode_once(self) -> None:
         """One iteration for every active slot, in one ``lm.decode_iter``
-        span."""
+        span: a speculative round when every active slot is greedy
+        (acceptance is an argmax identity, and a sampling slot's RNG must
+        draw once per emitted token), else a plain one."""
         self.batch_seq += 1
         self._expire_active()
         if self.active_streams == 0:
             return
+        if self.spec_k and all(st is None or st.rng is None
+                               for st in self._slots):
+            self._spec_round()
+        else:
+            self._plain_round()
+
+    def _chaos_before_dispatch(self, iter_span) -> bool:
+        """Fire the chaos hook before a round's first dispatch; False
+        (the round is retried) when it raised. Nothing touched a pool."""
+        if self.chaos is None or not self.chaos.active:
+            return True
+        try:
+            self.chaos.on_infer(step=self.batch_seq)
+        except Exception as e:
+            iter_span.end("error", error=type(e).__name__)
+            self._record_predispatch_failure(e)
+            return False
+        return True
+
+    def _plain_round(self) -> None:
         iter_span = self.tracer.start(
             "lm.decode_iter", kind="decode_iter",
             iteration=self.batch_seq, active=self.active_streams,
         )
         timed = self._ledger.enabled
         with iter_span:
-            if self.chaos is not None and self.chaos.active:
-                try:
-                    self.chaos.on_infer(step=self.batch_seq)
-                except Exception as e:
-                    # before the dispatch: the pools are intact and the
-                    # iteration is retried
-                    iter_span.end("error", error=type(e).__name__)
-                    self._record_predispatch_failure(e)
-                    return
+            if not self._chaos_before_dispatch(iter_span):
+                return
             t0 = time.perf_counter()
             try:
                 with (step_annotation(
@@ -670,6 +807,129 @@ class LMEngine:
                 recompiles_post_warmup=self.recompiles_post_warmup,
             )
 
+    def _spec_round(self) -> None:
+        """One self-speculative round for every active (greedy) slot:
+        ``spec_k - 1`` drafts through ``decode``, one ``verify`` call
+        over the window, acceptance on the host. Each slot emits the
+        accepted drafts and the verifier's correction (or, when all were
+        accepted, its next token): every emitted token is a verifier
+        argmax, so the tokens equal the ``spec_k == 1`` engine's. The
+        call shapes never depend on how many drafts a round accepts."""
+        dec, k_win = self.decoder, self.spec_k
+        iter_span = self.tracer.start(
+            "lm.decode_iter", kind="decode_iter",
+            iteration=self.batch_seq, active=self.active_streams,
+            spec_k=k_win,
+        )
+        timed = self._ledger.enabled
+        with iter_span:
+            if not self._chaos_before_dispatch(iter_span):
+                return
+            t0 = time.perf_counter()
+            try:
+                with (step_annotation(
+                        "lm_spec_round",
+                        iter_span.trace_id or self.tracer.run_trace)
+                        if self._profiler.active
+                        else contextlib.nullcontext()):
+                    if timed:
+                        self._clock.restart()
+                        token = self._clock.start()
+                    # the drafts stay on the device and advance local
+                    # positions: the engine's arrays move only with what
+                    # the host accepts
+                    draft_t0 = time.monotonic()
+                    window = [torch.from_numpy(self._tokens.copy())]
+                    d_positions = self._positions.copy()
+                    for _ in range(1, k_win):
+                        self._pools, lp = dec.decode(
+                            self._pools, window[-1], self._page_tables,
+                            d_positions,
+                        )
+                        window.append(lp.argmax(dim=-1))
+                        d_positions = d_positions + 1
+                    device = window[-1].device
+                    window = torch.stack([w.to(device) for w in window], 1)
+                    draft_t1 = time.monotonic()
+                    if timed and k_win > 1:
+                        self._clock.stop(token, "lm_decode")
+                        token = self._clock.start()
+                    # one call scores every window position and writes
+                    # the verifier's K/V over the drafts'
+                    self._pools, vlp = dec.verify(
+                        self._pools, window, self._page_tables,
+                        self._positions,
+                    )
+                    if timed:
+                        self._clock.stop(token, "lm_verify")
+                greedy = vlp.argmax(dim=-1).cpu().numpy()   # (S, K): sync
+                window = window.cpu().numpy()
+                verify_t1 = time.monotonic()
+            except Exception as e:
+                iter_span.end("error", error=type(e).__name__)
+                self._dispatch_failure(e)
+                return
+            dt = time.perf_counter() - t0
+            if self.tracer.enabled:
+                self.tracer.record(
+                    "lm.draft", kind="draft", parent=iter_span,
+                    t0=draft_t0, t1=draft_t1, drafts=k_win - 1,
+                )
+                self.tracer.record(
+                    "lm.verify", kind="verify", parent=iter_span,
+                    t0=draft_t1, t1=verify_t1, window=k_win,
+                )
+            iter_span.end("ok", iter_ms=round(dt * 1e3, 3))
+        self._consecutive_failures = 0
+        self.iter_ms.append(dt * 1e3)
+        self.iter_hist.observe(dt)
+        if timed:
+            for seconds, name in self._clock.ready():
+                self._ledger.observe(
+                    name, seconds, n=k_win - 1 if name == "lm_decode" else 1)
+        round_accepted = round_drafted = 0
+        for slot, st in enumerate(self._slots):
+            if st is None:
+                continue
+            # window[a + 1] (a draft) against greedy[a] (the verifier's
+            # choice after window[a])
+            a = 0
+            while a < k_win - 1 and window[slot, a + 1] == greedy[slot, a]:
+                a += 1
+            round_drafted += k_win - 1
+            round_accepted += a
+            self._positions[slot] += a + 1
+            self._tokens[slot] = int(greedy[slot, a])
+            for tok in [*window[slot, 1:a + 1], greedy[slot, a]]:
+                self._emit_token(st.req, int(tok))
+                self._maybe_finish(slot)
+                if self._slots[slot] is None:
+                    break                  # finished inside the window
+        self._spec_rounds += 1
+        self._spec_drafted += round_drafted
+        self._spec_accepted += round_accepted
+        if round_accepted:
+            self.spec_tokens_ctr.inc(round_accepted, outcome="accepted")
+        if round_drafted - round_accepted:
+            self.spec_tokens_ctr.inc(round_drafted - round_accepted,
+                                     outcome="rejected")
+        if (self.batch_seq % self.decode_event_every == 0
+                and self.telemetry is not None):
+            rate = self.spec_acceptance_rate
+            self.telemetry.emit(
+                "lm_spec_round",
+                iteration=self.batch_seq,
+                active=self.active_streams,
+                spec_k=k_win,
+                accepted=round_accepted,
+                drafted=round_drafted,
+                acceptance_rate=(round(rate, 4) if rate is not None
+                                 else None),
+                iter_ms=round(dt * 1e3, 3),
+                page_occupancy=round(self.allocator.occupancy(), 4),
+                recompiles_post_warmup=self.recompiles_post_warmup,
+            )
+
     def _record_predispatch_failure(self, e: Exception) -> None:
         """A fault before the dispatch (chaos ``infer_error``): counted and
         retried; ``max_consecutive_failures`` in a row fail every active
@@ -712,6 +972,13 @@ class LMEngine:
             "error",
             f"decode dispatch failed, KV state lost ({type(e).__name__}: {e})",
         )
+        if self.prefix_cache is not None:
+            # fresh pools make every cached page's contents garbage
+            # (the error evictions above published nothing)
+            dropped = self.prefix_cache.clear()
+            if dropped:
+                log.warning("prefix cache invalidated after a dispatch "
+                            "failure (%d entries dropped)", dropped)
         self._pools = self.decoder.init_pools()
 
     def _expire_active(self) -> None:
@@ -744,13 +1011,26 @@ class LMEngine:
         self._page_tables[slot] = 0
         self._positions[slot] = 0
         self._tokens[slot] = 0
-        self.allocator.free(st.pages)
         req = st.req
+        published = 0
+        if (self.prefix_cache is not None
+                and status in _PUBLISHABLE_STATUSES and req.n_emitted >= 1):
+            # publish instead of free: the written K/V (the prompt and
+            # every emitted token but the pending last one) enters the
+            # index; full pages move their reference to the cache,
+            # duplicates and the partial tail are released
+            written = len(req.prompt) + req.n_emitted - 1
+            seq = np.concatenate([
+                req.prompt, np.asarray(req.tokens[:req.n_emitted - 1],
+                                       np.int32)])[:written]
+            published = self.prefix_cache.insert(seq, st.pages)
+        else:
+            self.allocator.free(st.pages)
         req.slot = None
         st.decode_span.end(status, tokens=req.n_emitted,
                            iteration=self.batch_seq)
         self._finish(req, status, detail, slot=slot,
-                     pages_freed=len(st.pages),
+                     pages_freed=len(st.pages), pages_published=published,
                      wall_ms=round(
                          (time.monotonic() - st.admitted_at) * 1e3, 3))
         self.active_gauge.set(self.active_streams)
@@ -791,6 +1071,7 @@ class LMEngine:
     def _finish(
         self, req: LMRequest, status: str, detail: str, *,
         slot: Optional[int], pages_freed: int, wall_ms: float,
+        pages_published: int = 0,
     ) -> None:
         req.status = status
         self.requests_ctr.inc(status=status)
@@ -803,6 +1084,8 @@ class LMEngine:
                 "pages_freed": pages_freed, "wall_ms": wall_ms,
                 "iteration": self.batch_seq,
             }
+            if pages_published:
+                fields["pages_published"] = pages_published
             if detail:
                 fields["detail"] = detail[:500]
             try:

@@ -22,7 +22,9 @@ transfer encoding, one JSON object per line (ndjson).
                       ``"text"`` is tokenized as its UTF-8 bytes mod vocab.
   GET  /healthz       status, active_streams, queue_depth, page occupancy,
                       the engine's counters, the KV pool's bytes (+
-                      per-program costs and the cards' memory with
+                      the prefix cache's entries and shared-page
+                      occupancy, the speculative window and acceptance
+                      rate, per-program costs and the cards' memory with
                       --costs)
   GET  /metrics       the obs registry: JSON, or Prometheus text under
                       ``Accept: text/plain``
@@ -30,9 +32,14 @@ transfer encoding, one JSON object per line (ndjson).
                       capture, off the serving path; 409 while another
                       capture runs
 
+``prefix_cache`` shares prompt prefixes copy-on-write over the paged
+pool; ``spec_decode = K`` arms self-speculative decoding with a K-token
+verify window (``serve/lm/engine.py``).
+
 With ``telemetry_dir`` the server writes the JAX package's events
-(``run_manifest``, ``lm_warmup``, ``lm_admit``, ``lm_evict``,
-``lm_decode``, ``lm_decode_error``, ``shed``, ``drain``,
+(``run_manifest``, ``lm_warmup``, ``lm_admit``, ``lm_prefix_hit``,
+``lm_evict``, ``lm_decode``, ``lm_spec_round``, ``lm_decode_error``,
+``shed``, ``drain``,
 ``program_cost``, ``profile_capture``, ``metrics``, ``run_end``);
 ``trace`` adds each stream's span tree, rooted under the client's
 ``x-jg-trace`` header when it sends one (echoed in the reply).
@@ -40,8 +47,8 @@ With ``telemetry_dir`` the server writes the JAX package's events
 Lifecycle: SIGTERM stops admission (shed ``draining``), lets the active
 streams run out within the drain budget, emits ``drain`` and exits 0.
 
-Chaos, the AOT boot, the prefix cache and speculative decoding are not
-in this package yet.
+The AOT boot is not in this package (PyTorch compiles nothing per
+shape).
 """
 
 from __future__ import annotations
@@ -105,6 +112,8 @@ class LMServeConfig:
                                         # (resilience/chaos; None:
                                         # JG_CHAOS)
     seed: int = 0                       # the chaos rules' draws
+    prefix_cache: bool = False          # COW prompt-prefix sharing
+    spec_decode: int = 0                # speculative window K (0: off)
 
 
 class LMServer:
@@ -143,7 +152,7 @@ class LMServer:
         decoder = make_paged_lm_decoder(
             frozen, slots=cfg.slots, page_size=cfg.page_size,
             num_pages=cfg.num_pages, prefill_chunk=cfg.prefill_chunk,
-            max_len=cfg.max_len, device=device,
+            max_len=cfg.max_len, spec_k=cfg.spec_decode, device=device,
         )
         self.vocab = decoder.vocab
         # the manifest opens the log, before the engine's warm-up events
@@ -159,12 +168,16 @@ class LMServer:
                 "queue_depth": cfg.queue_depth,
                 "default_deadline_ms": cfg.default_deadline_ms,
                 "kernels": bool(decoder.kernels),
+                "chaos": self.chaos.spec or None,
+                "prefix_cache": cfg.prefix_cache,
+                "spec_decode": cfg.spec_decode,
             },
             device=device, artifact_info=self.artifact_info,
         )
         self.engine = LMEngine(
             decoder, queue_depth=cfg.queue_depth, telemetry=self.telemetry,
             device=device, chaos=self.chaos if self.chaos.active else None,
+            prefix_cache=cfg.prefix_cache,
         ).start()
         server = self
 
@@ -205,6 +218,17 @@ class LMServer:
             "kv_pool": eng.kv_pool_stats(),
             "uptime_s": round(time.time() - self._started_at, 3),
         }
+        cache_stats = eng.prefix_cache_stats()
+        if cache_stats is not None:
+            # how much of pages_in_use is the cache's (reclaimable under
+            # pressure), not live streams'
+            health["prefix_cache_entries"] = cache_stats["entries"]
+            health["shared_page_occupancy"] = cache_stats["page_occupancy"]
+        if eng.spec_k:
+            rate = eng.spec_acceptance_rate
+            health["spec_k"] = eng.spec_k
+            health["spec_acceptance_rate"] = (
+                round(rate, 4) if rate is not None else None)
         if self._ledger.enabled:
             from ...obs import device_memory_stats
 
@@ -244,9 +268,18 @@ class LMServer:
             "shed_total": int(self.engine.shed_ctr.total()),
             "iterations_total": self.engine.batch_seq,
             "recompiles_post_warmup": self.engine.recompiles_post_warmup,
+            # after stop() the prefix cache is clear: every page is back
             "pages_in_use": self.engine.allocator.used_count(),
+            "prefix_cache_entries": (
+                self.engine.prefix_cache.entries
+                if self.engine.prefix_cache is not None else None
+            ),
             "wall_s": round(time.monotonic() - t0, 3),
         }
+        if self.engine.spec_k:
+            rate = self.engine.spec_acceptance_rate
+            stats["spec_acceptance_rate"] = (
+                round(rate, 4) if rate is not None else None)
         self.telemetry.emit("drain", engine="lm", **stats)
         self.telemetry.close()
         log.info("lm server drained and stopped: %s", stats)

@@ -117,7 +117,7 @@ def test_lm_export_then_sample_on_cpu(tmp_path, capsys):
     info = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert info["kind"] == "lm" and info["family"] == "bnn-transformer"
     assert cli.main(["lm", "--load", out, "--sample", "6", "--prompt", "ab",
-                     "--device", "cpu"]) == 0
+                     "--temperature", "0", "--device", "cpu"]) == 0
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     want = generate(load_frozen(out), [[97 % 32, 98 % 32]], 6, device="cpu")
     assert res["tokens"] == want[0, 2:].tolist()
@@ -172,7 +172,7 @@ def test_lm_train_then_export_then_sample_on_cpu(tmp_path, capsys):
     assert not torch.equal(load_frozen(untrained)["head_w"],
                            frozen["head_w"])
     assert cli.main(["lm", "--load", out, "--sample", "4", "--prompt", "ab",
-                     "--device", "cpu"]) == 0
+                     "--temperature", "0", "--device", "cpu"]) == 0
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     want = generate(frozen, [[97 % 32, 98 % 32]], 4, device="cpu")
     assert got["tokens"] == want[0, 2:].tolist()

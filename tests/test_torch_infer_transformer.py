@@ -179,10 +179,14 @@ def test_entry_points_raise_without_a_card_and_on_bad_options(pair,
                   lambda: T._build_transformer_apply(tf, None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        T.make_paged_lm_decoder(tf, slots=2, spec_k=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T._build_transformer_apply({**tf, "kind": "vit"}, "cpu")
+    # speculative decoding and the vit kind are ported: what stays
+    # refused is a negative window and an unknown kind
+    with pytest.raises(ValueError, match="spec_k must be >= 0"):
+        T.make_paged_lm_decoder(tf, slots=2, spec_k=-1, device="cpu")
+    with pytest.raises(ValueError, match="unknown bnn-transformer kind"):
+        T._build_transformer_apply({**tf, "kind": "moe"}, "cpu")
+    with pytest.raises(ValueError, match="kind='vit'"):
+        T.FrozenViT(tf, "cpu")
     # kernels=False is refused on a CUDA device before any weight moves
     monkeypatch.setattr(T, "resolve_device", lambda d: torch.device("cuda"))
     with pytest.raises(ValueError, match="kernels=False"):

@@ -181,10 +181,12 @@ def test_run_trains_and_exports_on_cpu(tmp_path):
 
 
 def test_run_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        lm_demo.run(steps=1, ring=True, device="cpu")
-    # the pipeline (pp > 1) is ported; what JAX refuses with it, the port
-    # refuses with JAX's messages
+    # the ring and the pipeline (pp > 1) are ported; what JAX refuses
+    # with them, the port refuses with JAX's messages
+    with pytest.raises(ValueError, match="--export requires the plain"):
+        lm_demo.run(steps=1, ring=True, export="lm.msgpack", device="cpu")
+    with pytest.raises(ValueError, match="divisible by 2 ranks"):
+        lm_demo.run(steps=1, ring=True, seq_len=15, device="cpu")
     with pytest.raises(ValueError, match="--export requires the plain"):
         lm_demo.run(steps=1, pp=2, export="lm.msgpack", device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
