@@ -318,7 +318,36 @@ Phases, each fatal on failure:
      showing K7 and K8, /metrics, ``lm_decode`` events. The kernels'
      launches there enter the kernels line as ``launches_obs_path``.
 
-Phases 16, 17 and 18 run after 14, phase 15 last. Checks that wait on
+ 19. the QNN and MoE families: K1 at the served MoE's shapes (the
+     experts' (10, 512, 512), capacity ceil(1.25 * 32 * 2 / 8), and the
+     head's (32, 512, 10)) ``torch.equal`` its plain version and timed
+     against bf16 ``torch.matmul``; the QNN's int8 GEMM (cuBLASLt, a
+     library GEMM) at (784, 3072), (3072, 1536), (1536, 768), M = 32 and
+     1, its int32 sums equal to the float64 product of the same integers
+     (sums past 2^24), timed against a bf16 GEMM; (a) ``qnn-mlp-large``
+     trained 8 steps, exported, served over HTTP at micro-batch 32, every
+     answer against the CPU plain predictor stage by stage (its two fp32
+     GEMMs within fp32's a-priori error bounds, the integer layers
+     bitwise from the same levels, the argmax equal; the log-prob
+     differences and the flipped levels printed); (b) ``bnn-moe-mlp`` on
+     pallas_xnor: a step's logged loss bitwise CE plus the recorded aux
+     loss, 8 steps eager (K1 9 a step, every kernel counted from 0)
+     against ``scan_steps=4`` bitwise, exported and served over HTTP (K1
+     9 a served batch: 8 experts and the head), every answer
+     ``torch.equal`` to the frozen path with K1's plain version on the
+     card; (c) 2 gloo ranks in the background under (a)'s and (b)'s
+     checks, whose timings (the served batches, the eager and the
+     captured MoE step) run once the ranks have ended: the
+     expert-parallel MoE at full width against
+     ``moe_reference`` (output 1e-5, gradients 1e-4 relative), the
+     sharded predictor of both families ``torch.equal`` the per-shard
+     forwards, and one MoE step at dp 2 (global routing) and tp 2
+     (experts sharded) within atol and rtol 1e-5 of the unsharded step
+     on the same parameters. The kernels line's K1 row carries
+     ``launches_moe_path``, ``launches_moe_train_path`` and
+     ``moe_shapes``.
+
+Phases 16, 17, 18 and 19 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -328,7 +357,8 @@ beside its data-parallel ranks, phase 11's two nodes beside its CLI
 runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
 13's CLI beside its elastic ranks, phase 14's (c) beside (a)
 and (d) beside (b), phase 17's (b) beside (c), phase 18's ring ranks
-beside its in-process checks (after its timings). Every ``parallel.spawn``
+beside its in-process checks (after its timings), phase 19's ranks
+beside its (a) and (b) (after its timings). Every ``parallel.spawn``
 and CLI process prints its seconds, every phase its ``phase_s``, and the
 summary line before the card's name gives them all and ``total_s``.
 
@@ -1060,8 +1090,13 @@ def _random_bn_stats(model, gen) -> None:
     scale of each layer's pre-activations, scales with negative and
     exactly-zero entries, non-zero biases."""
     fan_in = (784, model.hidden[0], model.hidden[1])
+    _draw_bn_stats(zip((model.bn1, model.bn2, model.bn3), fan_in), gen)
+
+
+def _draw_bn_stats(bns_fan_in, gen) -> None:
+    """``_random_bn_stats`` for each (BatchNorm, fan-in of its producer)."""
     with torch.no_grad():
-        for bn, fi in zip((model.bn1, model.bn2, model.bn3), fan_in):
+        for bn, fi in bns_fan_in:
             c = bn.num_features
             bn.running_mean.copy_(torch.randn(c, generator=gen) * fi ** 0.5 / 4)
             bn.running_var.copy_((torch.rand(c, generator=gen) + 0.5) * fi / 4)
@@ -2211,7 +2246,7 @@ def _cli_dp_row() -> dict:
             "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
             "--optimizer", MLP_TRAIN["optimizer"],
             "--lr", str(MLP_TRAIN["learning_rate"]),
-            "--seed", str(MLP_TRAIN["seed"]), "--dropout", "0",
+            "--seed", str(MLP_TRAIN["seed"]),
             "--dp", "auto", "--grad-compress", "sign_ef",
             "--synthetic-sizes", *map(str, DP_CLI_SYNTH)]
     out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -5377,7 +5412,7 @@ def _rs_multihost(tmp: str) -> dict:
                 "--synthetic-sizes",
                 *RS_HOSTS_SYNTH, "--data-dir", "/nonexistent-mnist-dir",
                 "--grad-compress", "sign_ef", "--elastic", "--resume",
-                "--dropout", "0", "--no-preemption",
+                "--no-preemption",
                 "--checkpoint-dir", ck]
         return argv + (["--chaos", chaos] if chaos else [])
 
@@ -6199,6 +6234,583 @@ def transformer_phase(device: torch.device, gen: torch.Generator, smi: str):
     return paths, vit_rows, ring_rows, spec["k8_verify_launches"]
 
 
+# -- phase 19: the QNN and MoE families -------------------------------------------
+
+FAM_SYNTH = (512, 256)        # 8 training steps of 64; a test split of 256
+FAM_TRAIN = dict(batch_size=64, optimizer="adam", learning_rate=0.01,
+                 seed=0, log_interval=1)
+QNN_MODEL = "qnn-mlp-large"   # 784-3072-1536-768-10, 8 bits
+MOE_MODEL = "bnn-moe-mlp"     # hidden 512, 8 experts of 512, top-2, cf 1.25
+FAM_REQUESTS = (32, 5, 1)     # images a request, one micro-batch each
+MOE_E, MOE_D = 8, 512
+MOE_CAP = 10                  # ceil(1.25 * 32 * 2 / 8): the served capacity
+MOE_K1 = ((MOE_CAP, MOE_D, MOE_D), (MAIN_M, MOE_D, 10))   # experts, head
+QNN_GEMMS = ((784, 3072), (3072, 1536), (1536, 768))      # (K, N)
+FP32_U = 2.0 ** -24           # fp32's unit roundoff
+MOE_SCAN_STEPS = 4
+FAM_RANKS = 2
+FAM_RANK_ATOL = 1e-5
+
+
+def _k1_moe_rows(device, gen) -> list:
+    """K1 at the served MoE's shapes, the experts' (10, 512, 512) and the
+    head's (32, 512, 10), on ±1 x: ``torch.equal`` to its plain version,
+    then its time, the entry's, the plain version's, bf16
+    ``torch.matmul``'s and the bound."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+
+    rows = []
+    for m, k, n in MOE_K1:
+        x = _pm1(gen, m, k).to(device)
+        wp, _, _ = xg.prepack_weights(_pm1(gen, k, n).to(device))
+        got = xg.xnor_matmul_packed(x, wp, k, n)
+        want = xg.xnor_gemm_plain(pack_bits(x), wp, k)[:, :n]
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 at the MoE's ({m}, {k}, {n}) differs "
+                                 "from its plain version")
+        xb = x.to(torch.bfloat16)
+        wb = xg.unpacked_pm1(wp, k, n, torch.bfloat16).contiguous()
+        row = {
+            "kernel": "xnor", "m": m, "k": k, "n": n,
+            "kernel_ms": _graph_ms(lambda: _kernels.xnor_gemm(
+                "xnor", x, wp, k, n)),
+            "entry_ms": _graph_ms(lambda: xg.xnor_matmul_packed(x, wp, k,
+                                                                n)),
+            "plain_ms": _graph_ms(lambda: xg.xnor_gemm_plain(
+                pack_bits(x), wp, k)),
+            "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+            "library": "bf16 torch.matmul",
+        }
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            "xnor", m, k, n)
+        rows.append(row)
+        print(json.dumps({"phase": 19, "moe_k1": row}), flush=True)
+    return rows
+
+
+def _qnn_gemm_rows(device, gen) -> list:
+    """The QNN's int8 GEMM (``ops.xnor_gemm.int8_matmul``, cuBLASLt's
+    ``torch._int_mm``: a library GEMM, not a port of a TPU kernel) at
+    its three weight shapes: its int32 sums against the float64 product
+    of the same integers on the card (every partial sum an integer below
+    2^53: exact), at M = 32 and M = 1, with sums past 2^24; then its time
+    and a bf16 GEMM's at M = 32."""
+    from distributed_mnist_bnns_tpu_torch.ops.xnor_gemm import int8_matmul
+
+    rows = []
+    for k, n in QNN_GEMMS:
+        def draw(*shape):
+            # mostly +127: sums up to K * 127^2, past fp32's 2^24 at K=3,072
+            r = torch.rand(*shape, generator=gen)
+            v = torch.where(r < 0.9, 127.0, torch.where(r < 0.95, -128.0,
+                                                        3.0))
+            return v.to(torch.int8).to(device)
+
+        a, wt = draw(MAIN_M, k), draw(n, k)
+        worst = 0
+        for m in (MAIN_M, 1):
+            got = int8_matmul(a[:m], wt)
+            want = a[:m].double() @ wt.double().t()
+            if got.dtype != torch.int32 or not torch.equal(got.double(),
+                                                           want):
+                raise AssertionError(f"int8 GEMM at ({m}, {k}, {n}): not "
+                                     "the exact integer sums")
+            worst = max(worst, int(want.abs().max().item()))
+        ab = a.to(torch.bfloat16)
+        wb = wt.t().to(torch.bfloat16).contiguous()
+        row = {"m": MAIN_M, "k": k, "n": n, "max_abs_sum": worst,
+               "int8_ms": _events_ms(lambda: int8_matmul(a, wt)),
+               "bf16_ms": _events_ms(lambda: torch.matmul(ab, wb))}
+        rows.append(row)
+        print(json.dumps({"phase": 19, "qnn_int8_gemm": row}), flush=True)
+    return rows
+
+
+def _fam_trainer(device, model, **kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(FAM_TRAIN, model=model, epochs=1, device=str(device))
+    cfg.update(kw)
+    return Trainer(TrainConfig(**cfg))
+
+
+def _moe_plain(fn, images) -> torch.Tensor:
+    """A ``FrozenMoE``'s forward with K1's plain version for each expert
+    and the head, on the predictor's device."""
+    from distributed_mnist_bnns_tpu_torch.ops.binarize import binarize_ste
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+    from distributed_mnist_bnns_tpu_torch.ops.xnor_gemm import (
+        xnor_gemm_plain,
+    )
+
+    x, dispatch, combine = fn.route(images)
+    xb = binarize_ste(torch.einsum("tec,td->ecd", dispatch, x))
+    ex_out = torch.stack([
+        xnor_gemm_plain(pack_bits(xb[e]), fn.experts_wp[e], fn.ek)[:, :fn.en]
+        + fn.experts_b[e] for e in range(fn.num_experts)])
+    y = torch.einsum("tec,ecd->td", combine, ex_out)
+    bits = torch.where(fn.a1 * y >= fn.t1, 1.0, -1.0)
+    logits = xnor_gemm_plain(pack_bits(bits), fn.head_wp,
+                             fn.hk)[:, :fn.hn] + fn.head_b
+    return torch.log_softmax(logits, dim=-1)
+
+
+def _serve_answers(path: str, device, images) -> tuple:
+    """``images`` (a list of (n, 28, 28, 1) batches) through the classifier
+    server at micro-batch 32, one request each: (answers, the kernels'
+    launches while they were served)."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve import client as sc
+
+    srv = PackedInferenceServer(ServeConfig(
+        artifact=path, device=str(device), port=0, batch_size=MAIN_M,
+        queue_depth=8, default_deadline_ms=60000.0,
+        input_shape=(28, 28, 1)))
+    host, port = srv.start()
+    answers = []
+    try:
+        _kernels.reset_launches()
+        for x in images:
+            code, body = sc.predict(f"http://{host}:{port}", x.tolist())
+            if code != 200:
+                raise AssertionError(f"/predict: {code} {body[:200]!r}")
+            answers.append(torch.tensor(json.loads(body)["log_probs"]))
+        torch.cuda.synchronize()
+        counts = dict(_kernels.LAUNCHES)
+    finally:
+        srv.request_stop("smoke over")
+        srv.drain_and_stop()
+    return answers, counts
+
+
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """A request's images as the server's micro-batch: zero rows to 32."""
+    return torch.cat([x, torch.zeros(MAIN_M - len(x), *x.shape[1:])])
+
+
+def _gamma(k: int) -> float:
+    """The a-priori relative error bound of an fp32 sum of ``k`` products
+    in any order: k·u / (1 - k·u)."""
+    return k * FP32_U / (1 - k * FP32_U)
+
+
+def _qnn_walk(fn, x: torch.Tensor, levels=None) -> dict:
+    """``FrozenQNN.__call__``'s stages on (n, 28, 28, 1) images: the first
+    layer's output ``y1``; ``v``, 2^(b-1)·hardtanh of the first BN's
+    affine of it (the value ``quantize`` rounds); ``levels``, the first
+    hidden GEMM's int8 inputs; the head's input ``h``; ``logits`` and
+    ``logp``. Given ``levels`` (another device's), the walk goes on from
+    those."""
+    from distributed_mnist_bnns_tpu_torch.models.layers import hard_tanh
+    from distributed_mnist_bnns_tpu_torch.ops.xnor_gemm import (
+        _fma_f32,
+        int8_matmul,
+    )
+
+    x = x.to(fn.device).reshape(len(x), -1)
+    y1 = (x @ fn.w0) / fn.scale + fn.b0
+    a, c = fn.bns[0]
+    out = {"y1": y1, "v": hard_tanh(_fma_f32(a, y1, c)) * fn.scale,
+           "levels": (fn.int_inputs(y1, 0) if levels is None
+                      else levels.to(fn.device))}
+    q, y = out["levels"], y1
+    for i, (wt, b) in enumerate(fn.hidden):
+        if i:
+            q = fn.int_inputs(y, i)
+        y = int8_matmul(q, wt).to(torch.float32) / (fn.scale ** 2) + b
+    a, c = fn.bns[2]
+    out["h"] = hard_tanh(_fma_f32(a, y, c))
+    out["logits"] = out["h"] @ fn.wh + fn.bh
+    out["logp"] = torch.log_softmax(out["logits"], dim=-1)
+    return out
+
+
+def _qnn_against_cpu(fn, plain, images, answers) -> dict:
+    """The served QNN answers against the CPU plain predictor of the same
+    artifact, stage by stage. Only the two fp32 GEMMs (the first layer,
+    the head) may differ by summation order; everything between is
+    integer or elementwise IEEE arithmetic, the same on both devices.
+    So: (1) each served answer is ``torch.equal`` to the card's walk of
+    its padded micro-batch; (2) the card's and the CPU's ``v`` agree
+    within twice the first layer's error bound carried through the BN
+    affine, so a level may flip only where ``v`` lies that close to a
+    rounding boundary; (3) the CPU walk from the card's first levels
+    gives the card's head input bitwise; (4) the logits then agree within
+    twice the head's bound; (5) the argmax agrees with the CPU's own
+    answer. Returns what the run measured: the log-prob differences
+    against the CPU's own answer, the flipped levels, and the worst
+    differences as fractions of the bounds."""
+    out = {"max_abs_logprob_diff_vs_cpu": 0.0, "examples_beyond_1e-5": 0,
+           "levels_flipped": 0, "examples_with_a_flip": 0,
+           "max_abs_logprob_diff_with_a_flip": 0.0,
+           "max_abs_logprob_diff_without": 0.0,
+           "v_diff_over_bound": 0.0, "logit_diff_over_bound": 0.0,
+           "compared": 0}
+    a, c = (t.cpu().double() for t in plain.bns[0])
+    w0 = plain.w0.double().abs()
+    wh = plain.wh.double().abs()
+    for x, got in zip(images, answers):
+        n = len(x)
+        card = _qnn_walk(fn, _padded(x))
+        if not torch.equal(got, card["logp"][:n].cpu()):
+            raise AssertionError("a served QNN answer differs from the "
+                                 "card's predictor on its micro-batch")
+        cpu = _qnn_walk(plain, x)
+        ey1 = _gamma(w0.shape[0] + 1) * (
+            x.reshape(n, -1).double().abs() @ w0 / plain.scale
+            + plain.b0.double().abs())
+        y1 = cpu["y1"].double()
+        v_bound = plain.scale * ((1 + FP32_U) * a.abs() * 2 * ey1
+                                 + 2 * FP32_U * (a.abs() * y1.abs()
+                                                 + c.abs()))
+        dv = (card["v"][:n].cpu().double() - cpu["v"].double()).abs()
+        if not bool((dv <= v_bound).all()):
+            raise AssertionError("the QNN's first layer on the card is "
+                                 "beyond fp32's error bound of the CPU's")
+        mid = _qnn_walk(plain, x, levels=card["levels"][:n].cpu())
+        if not torch.equal(mid["h"], card["h"][:n].cpu()):
+            raise AssertionError("the QNN's integer layers differ between "
+                                 "the card and the CPU on the same levels")
+        z_bound = 2 * _gamma(wh.shape[0] + 1) * (
+            mid["h"].double().abs() @ wh + plain.bh.double().abs())
+        dz = (card["logits"][:n].cpu().double()
+              - mid["logits"].double()).abs()
+        if not bool((dz <= z_bound).all()):
+            raise AssertionError("the QNN's head on the card is beyond "
+                                 "fp32's error bound of the CPU's")
+        want = cpu["logp"]
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError("served QNN: the argmax differs from the "
+                                 "CPU plain path's")
+        diff = (got - want).abs().amax(dim=-1)
+        flips = (card["levels"][:n].cpu() != cpu["levels"]).sum(dim=-1)
+        out["compared"] += n
+        out["levels_flipped"] += int(flips.sum())
+        out["examples_with_a_flip"] += int((flips > 0).sum())
+        out["examples_beyond_1e-5"] += int((diff > 1e-5).sum())
+        for key, sel in (("max_abs_logprob_diff_vs_cpu", diff),
+                         ("max_abs_logprob_diff_with_a_flip",
+                          diff[flips > 0]),
+                         ("max_abs_logprob_diff_without", diff[flips == 0]),
+                         ("v_diff_over_bound", dv / v_bound),
+                         ("logit_diff_over_bound", dz / z_bound)):
+            if sel.numel():
+                out[key] = max(out[key], sel.max().item())
+    return out
+
+
+def _qnn_check(device, gen, data, tmp: str):
+    """Phase 19 (a): ``qnn-mlp-large`` trained 8 steps, frozen, exported,
+    loaded and served over HTTP; every answer against the CPU plain
+    predictor of the same artifact (``_qnn_against_cpu``). Returns (the
+    results, {name: what times the served batch})."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+
+    t = _fam_trainer(device, QNN_MODEL)
+    row = t.train_epoch(data, 0)
+    if not np.isfinite(row["train_loss"]):
+        raise AssertionError(f"qnn training: {row}")
+    path = os.path.join(tmp, "qnn.msgpack")
+    info = export_packed(t.model, path)
+    images = [torch.rand(n, 28, 28, 1, generator=gen) for n in FAM_REQUESTS]
+    answers, counts = _serve_answers(path, device, images)
+    fn, _ = load_packed(path, device=device)
+    plain, _ = load_packed(path, device="cpu")
+    out = {"train": {k: row[k] for k in ("train_loss", "steps")},
+           "compression": info["compression"],
+           **_qnn_against_cpu(fn, plain, images, answers),
+           "launches": counts}
+    print(json.dumps({"phase": 19, "qnn": out}), flush=True)
+    xpad = _padded(images[0]).to(device)
+    return out, {"served_batch_ms": lambda: _events_ms(lambda: fn(xpad),
+                                                       iters=20)}
+
+
+def _epoch_step_ms(t, data) -> float:
+    """Wall-clock ms a step of one more eager epoch of trainer ``t``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = t.train_epoch(data, 1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / row["steps"] * 1e3
+
+
+def _moe_check(device, gen, data, tmp: str) -> dict:
+    """Phase 19 (b): ``bnn-moe-mlp`` on pallas_xnor: one step's logged
+    loss is its CE plus the recorded aux loss (bitwise a twin's forward);
+    8 steps eager against ``scan_steps=4`` (two captured graphs)
+    bitwise, K1 9 times an eager step (8 experts and the head); then
+    frozen, exported, loaded and served over HTTP, every answer
+    ``torch.equal`` to the frozen path with K1's plain version on the
+    card (padded batches: the padded rows take capacity slots), K1 9
+    times a served batch. Returns (the results with the launch counts
+    of the served and the eager training path, {name: what times the
+    eager step, the captured step and the served batch})."""
+    import copy
+
+    from distributed_mnist_bnns_tpu_torch.data import batch_iterator
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops.losses import (
+        cross_entropy_loss,
+    )
+
+    kw = dict(backend="pallas_xnor")
+    t_aux = _fam_trainer(device, MOE_MODEL, **kw)
+    xb, yb = next(iter(batch_iterator(data.train_images, data.train_labels,
+                                      FAM_TRAIN["batch_size"])))
+    xb = torch.from_numpy(np.ascontiguousarray(xb)).to(device)
+    yb = torch.from_numpy(np.asarray(yb, np.int64)).to(device)
+    twin = copy.deepcopy(t_aux.model).train()
+    want = cross_entropy_loss(twin(xb), yb) + twin.aux_loss
+    loss, _ = t_aux.train_step(t_aux.model, t_aux.optimizer, xb, yb)
+    if not torch.equal(loss, want) or twin.aux_loss.item() <= 0:
+        raise AssertionError(f"logged loss {loss.item()} against CE + aux "
+                             f"{want.item()}")
+
+    t_e = _fam_trainer(device, MOE_MODEL, **kw)
+    t_s = _fam_trainer(device, MOE_MODEL, scan_steps=MOE_SCAN_STEPS, **kw)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    row = t_e.train_epoch(data, 0)
+    torch.cuda.synchronize()
+    train_counts = {name: _kernels.LAUNCHES[name] for name in KERNEL_ROWS}
+    t_s.train_epoch(data, 0)
+    _same_run("MoE scan_steps=4 against eager", t_e, t_s)
+    steps = row["steps"]
+    if train_counts["xnor"] != (MOE_E + 1) * steps:
+        raise AssertionError(f"MoE training launched K1 "
+                             f"{train_counts['xnor']} times in {steps} "
+                             "eager steps, want 9 a step")
+    scan = t_s._train_scan
+    xs, ys = _chunk(data, 0, MOE_SCAN_STEPS, device,
+                    FAM_TRAIN["batch_size"])
+    xs, ys = xs.to(device), ys.to(device)
+
+    path = os.path.join(tmp, "moe.msgpack")
+    info = export_packed(t_e.model, path)
+    images = [torch.rand(n, 28, 28, 1, generator=gen) for n in FAM_REQUESTS]
+    answers, counts = _serve_answers(path, device, images)
+    fn, _ = load_packed(path, device=device)
+    for x, got in zip(images, answers):
+        with torch.no_grad():
+            want = _moe_plain(fn, _padded(x).to(device))[:len(x)].cpu()
+        if not torch.equal(got, want):
+            raise AssertionError("served MoE differs from the plain frozen "
+                                 "path on the card")
+    batches = len(FAM_REQUESTS)
+    if counts["xnor"] != (MOE_E + 1) * batches:
+        raise AssertionError(f"served MoE: K1 {counts['xnor']} launches, "
+                             f"want {(MOE_E + 1) * batches}")
+    out = {"train": {k: row[k] for k in ("train_loss", "steps")},
+           "aux_loss": twin.aux_loss.item(),
+           "compression": info["compression"],
+           "capture": _graph_stats(t_s),
+           "served_launches": counts, "train_launches": train_counts,
+           "requests": batches}
+    print(json.dumps({"phase": 19, "moe": out}), flush=True)
+    xpad = _padded(images[0]).to(device)
+    return out, {
+        "eager_step_ms": lambda: _epoch_step_ms(t_e, data),
+        "captured_step_ms": lambda: _events_ms(
+            lambda: scan(t_s.model, t_s.optimizer, xs, ys),
+            iters=5) / MOE_SCAN_STEPS,
+        "served_batch_ms": lambda: _events_ms(lambda: fn(xpad), iters=20)}
+
+
+def _fam_rank(rank: int, world: int, device, frozen: dict, seed: int):
+    """Phase 19 (c) in each of 2 gloo ranks sharing the card: the
+    expert-parallel MoE at full width against ``moe_reference`` (output
+    and gradients), ``make_sharded_predictor`` of both frozen families
+    against the per-shard forwards, and one step of the MoE at dp 2
+    (global routing) and at tp 2 (experts sharded) against the unsharded
+    step on the same parameters (rank 0 runs the references)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        _build_any,
+        make_sharded_predictor,
+    )
+    from distributed_mnist_bnns_tpu_torch.interop import (
+        frozen_from_jax,
+        params_from_jax,
+        train_state_to_jax,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import (
+        get_model,
+        latent_clamp_mask,
+    )
+    from distributed_mnist_bnns_tpu_torch.parallel import (
+        init_expert_params,
+        make_expert_parallel_moe,
+        moe_reference,
+    )
+    from distributed_mnist_bnns_tpu_torch.train import (
+        TrainConfig,
+        Trainer,
+        make_optimizer,
+        make_step_body,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    # expert parallelism: 64 tokens, 8 experts of 512 -> 512, top-2
+    params = {k: v.to(device).requires_grad_(True) for k, v in
+              init_expert_params(gen, MOE_E, MOE_D, MOE_D).items()}
+    gate_w = (torch.randn(MOE_D, MOE_E, generator=gen) * 0.05).to(
+        device).requires_grad_(True)
+    x = torch.randn(64, MOE_D, generator=gen).to(device)
+    cap = 16
+    y = make_expert_parallel_moe(None, capacity=cap, k=2)(params, gate_w, x)
+    (y ** 2).sum().backward()
+    grads = [params["w"].grad, params["b"].grad, gate_w.grad]
+    for g in grads:
+        dist.all_reduce(g)
+    rows = [torch.empty(y.shape) for _ in range(world)]
+    dist.all_gather(rows, y.detach().cpu())
+    if rank == 0:
+        ref_p = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+        ref_g = gate_w.detach().clone().requires_grad_(True)
+        want = moe_reference(ref_p, ref_g, x, capacity=cap, n_shards=world,
+                             k=2)
+        (want ** 2).sum().backward()
+        out["ep_out_err"] = (torch.cat(rows).to(device)
+                             - want).abs().max().item()
+        out["ep_grad_err"] = max(
+            ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            for g, w in zip(grads, (ref_p["w"].grad, ref_p["b"].grad,
+                                    ref_g.grad)))
+    # the sharded predictor of both families
+    images = torch.rand(world * MAIN_M, 28, 28, 1, generator=gen)
+    for name, fz in frozen.items():
+        fz = frozen_from_jax(fz)
+        got = make_sharded_predictor(fz, device=device)(images.to(device))
+        single = _build_any(fz, device)
+        per = [single(images[i * MAIN_M:(i + 1) * MAIN_M].to(device))
+               for i in range(world)]
+        out[f"sharded_{name}_equal"] = bool(torch.equal(got, torch.cat(per)))
+    # one step at dp 2 and at tp 2 against the unsharded step
+    xs = torch.rand(64, 28, 28, 1, generator=gen)
+    ys = torch.randint(0, 10, (64,), generator=gen)
+    for mode, kw in (("dp", dict(data_parallel=2)),
+                     ("tp", dict(tensor_parallel=2))):
+        t = Trainer(TrainConfig(model=MOE_MODEL, batch_size=64,
+                                optimizer="sgd", learning_rate=0.05,
+                                backend="pallas_xnor", seed=0,
+                                device=str(device), **kw))
+        start = copy.deepcopy(train_state_to_jax(t))   # leaves alias
+        xb, yb = (v.to(device) for v in (t._shard(xs), t._shard(ys)))
+        loss, _ = t.train_step(t.model, t.optimizer, xb, yb)
+        after = train_state_to_jax(t)
+        if rank != 0:
+            continue
+        ref = params_from_jax(
+            {k: start[k] for k in ("params", "batch_stats")},
+            get_model(MOE_MODEL, backend="pallas_xnor")).to(device)
+        opt = make_optimizer("sgd", ref.parameters(), 0.05)
+        want_loss, _ = make_step_body(latent_clamp_mask(ref))(
+            ref, opt, xs.to(device), ys.to(device))
+        want = params_from_jax(
+            {k: after[k] for k in ("params", "batch_stats")},
+            get_model(MOE_MODEL)).to(device).state_dict()
+        got = {k: v for k, v in ref.state_dict().items()
+               if "num_batches" not in k}
+        out[f"{mode}_state_err"] = max((want[k] - v).abs().max().item()
+                                       for k, v in got.items())
+        # the running variances reach ~1e2: an fp32 ulp there is 1.5e-5
+        out[f"{mode}_state_close"] = all(
+            torch.allclose(v, want[k], atol=FAM_RANK_ATOL,
+                           rtol=FAM_RANK_ATOL) for k, v in got.items())
+        out[f"{mode}_loss_err"] = abs(loss.item() - want_loss.item())
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _fam_frozen(gen) -> dict:
+    """Seeded full-width QNN and MoE with drawn BN statistics, frozen (the
+    numpy artifacts the ranks serve)."""
+    from distributed_mnist_bnns_tpu_torch.infer import _freeze_any, _to_cpu
+    from distributed_mnist_bnns_tpu_torch.interop import frozen_to_jax
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+
+    out = {}
+    qnn = get_model(QNN_MODEL, generator=gen).eval()
+    _random_bn_stats(qnn, gen)
+    moe = get_model(MOE_MODEL, generator=gen).eval()
+    _draw_bn_stats(((moe.bn1, 784), (moe.bn2, MOE_D)), gen)
+    for name, model in ((QNN_MODEL, qnn), (MOE_MODEL, moe)):
+        out[name] = frozen_to_jax(_to_cpu(_freeze_any(model)))
+    return out
+
+
+def families_phase(device: torch.device, gen: torch.Generator):
+    """Phase 19: K1 at the served MoE's shapes and the QNN's int8 GEMM
+    (timed first), then 2 gloo ranks in the background under the
+    in-process checks (a) the QNN and (b) the MoE, and (a)'s and (b)'s
+    timings once the ranks have ended. Returns ({path: launch counts},
+    K1's MoE rows)."""
+    import distributed_mnist_bnns_tpu_torch.parallel as par
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    t0 = time.perf_counter()
+    marks = {}
+    k1_rows = _k1_moe_rows(device, gen)
+    gemm_rows = _qnn_gemm_rows(device, gen)
+    marks["timings"] = round(time.perf_counter() - t0, 1)
+    frozen = _fam_frozen(gen)
+    rank_join = _background(lambda: par.spawn(
+        _fam_rank, FAM_RANKS, backend="gloo", device=device.type,
+        args=(frozen, 19)))
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            data = load_mnist(os.path.join(tmp, "no-idx-files"),
+                              synthetic_sizes=FAM_SYNTH, seed=0)
+            qnn, qnn_timers = _qnn_check(device, gen, data, tmp)
+            marks["a"] = round(time.perf_counter() - t0, 1)
+            moe, moe_timers = _moe_check(device, gen, data, tmp)
+            marks["b"] = round(time.perf_counter() - t0, 1)
+        finally:
+            ranks = rank_join()
+        marks["c"] = round(time.perf_counter() - t0, 1)
+        # timed alone: no rank shares the card or the host's cores
+        timed = {"qnn": {k: f() for k, f in qnn_timers.items()},
+                 "moe": {k: f() for k, f in moe_timers.items()}}
+    marks["timed_alone"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"phase": 19, "timed_alone": timed}), flush=True)
+    r0 = ranks[0]
+    print(json.dumps({"phase": 19, "ranks": r0,
+                      "rank_s": [round(r["s"], 1) for r in ranks]}),
+          flush=True)
+    bad = [k for k, v in r0.items()
+           if k.endswith(("_equal", "_close")) and not v]
+    bad += [k for k in ("ep_out_err", "dp_loss_err", "tp_loss_err")
+            if not r0[k] <= FAM_RANK_ATOL]
+    if bad or not r0["ep_grad_err"] <= 1e-4:
+        raise AssertionError(f"phase 19 ranks: {bad} {r0}")
+    paths = {"moe": moe["served_launches"], "qnn": qnn["launches"],
+             "moe_train": moe["train_launches"]}
+    print(json.dumps({"phase": 19, "int8_gemm": gemm_rows,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return paths, k1_rows
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -6369,6 +6981,12 @@ def main() -> int:
             if tf_paths[path][name] == 0:
                 raise AssertionError(f"phase 18: the {path} path never "
                                      f"launched {name}")
+    fam_paths, moe_rows = _timed("19", families_phase, device,
+                                 torch.Generator().manual_seed(19))
+    for path in ("moe", "moe_train"):
+        if fam_paths[path]["xnor"] == 0:
+            raise AssertionError(f"phase 19: the {path} path never launched "
+                                 "xnor")
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,
@@ -6394,7 +7012,8 @@ def main() -> int:
                          + dpc_counts[name] + mp_counts[name]
                          + mp2_counts[name] + rs_counts[name]
                          + obs_counts[name]
-                         + sum(c[name] for c in tf_paths.values())),
+                         + sum(c[name] for c in tf_paths.values())
+                         + sum(c[name] for c in fam_paths.values())),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -6414,6 +7033,9 @@ def main() -> int:
             "launches_prefix_path": tf_paths["prefix"][name],
             "launches_vit_path": tf_paths["vit"][name],
             "launches_ring_path": tf_paths["ring"][name],
+            "launches_moe_path": fam_paths["moe"][name],
+            "launches_moe_train_path": fam_paths["moe_train"][name],
+            "launches_qnn_path": fam_paths["qnn"][name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,
@@ -6427,6 +7049,7 @@ def main() -> int:
             entry["conv_shapes"] = conv_rows
             entry["mp_shapes"] = mp_k1_rows   # and the TP shards' (14)
             entry["vit_shapes"] = vit_rows    # and the ViT's (18)
+            entry["moe_shapes"] = moe_rows    # and the MoE's (19)
         elif name in FLASH:  # K4-K6 at the ring's per-rank shapes (18)
             entry["ring_shapes"] = [r for r in ring_rows
                                     if r["kernel"] == name]

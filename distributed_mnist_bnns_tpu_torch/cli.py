@@ -131,7 +131,7 @@ log = logging.getLogger(__name__)
 
 #: the models ``export`` freezes
 FREEZABLE = ("bnn-mlp-large", "bnn-mlp-small", "bnn-cnn", "bnn-vit-tiny",
-             "bnn-vit-small")
+             "bnn-vit-small", "qnn-mlp-large", "bnn-moe-mlp")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,8 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
         _train_flags(sub.add_parser(cmd, help=what))
 
     x = sub.add_parser(
-        "export", help="freeze a bnn-mlp, bnn-cnn or bnn-vit model into a "
-                       "packed artifact",
+        "export", help="freeze a bnn-mlp, bnn-cnn, bnn-vit, qnn-mlp or "
+                       "bnn-moe-mlp model into a packed artifact",
     )
     x.add_argument("--model", default="bnn-mlp-large",
                    choices=list(FREEZABLE))
@@ -398,8 +398,9 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "binarized GEMMs (models that support it: the "
                          "transformer families)")
     sp.add_argument("--dropout", type=float, default=None,
-                    help="dropout rate (the MLPs': before the third "
-                         "BatchNorm, default 0.3; deep-cnn's: 0.5)")
+                    help="dropout rate for the transformer families "
+                         "(bnn-vit*; the MLP topologies carry their "
+                         "reference-fixed rates); composes with --pp")
     sp.add_argument("--loss", default="ce", choices=list(LOSSES))
     sp.add_argument("--label-smoothing", type=float, default=0.0,
                     help="uniform target mixing for the ce loss")
@@ -558,17 +559,26 @@ def _local_ranks(args) -> int:
 
 
 def _model_kwargs(args) -> dict:
-    """The model kwargs of the flags, as the JAX CLI passes them:
-    ``infl_ratio`` to the MLPs only, the others when given."""
+    """The model kwargs of the flags, by the JAX CLI's rule
+    (``_make_trainer``): ``infl_ratio`` to the bnn-mlp family only (the
+    other MLPs keep their widths), ``stochastic`` and ``scale`` when
+    given, and ``--dropout`` as ``dropout``, the transformer families'
+    rate. The other models keep their reference-fixed rates: a
+    ``--dropout`` for one of them exits with a message."""
     mk = {}
-    if "-mlp-" in args.model:
+    if args.model.startswith("bnn-mlp"):
         mk["infl_ratio"] = args.infl_ratio
     if getattr(args, "stochastic", False):
         mk["stochastic"] = True
     if getattr(args, "xnor_scale", False):
         mk["scale"] = True
     if getattr(args, "dropout", None) is not None:
-        mk["dropout_rate"] = args.dropout
+        if "vit" not in args.model:
+            raise SystemExit(
+                f"--dropout sets the transformer families' rate (bnn-vit*, "
+                f"fp32-vit*); {args.model!r} keeps its reference-fixed "
+                "rate")
+        mk["dropout"] = args.dropout
     return mk
 
 

@@ -1,9 +1,11 @@
 """Frozen-model inference for the binarized MLP: the packed-bitplane
 serving path. ``export_packed`` and ``load_packed`` also take the
-binarized CNN (``family="bnn-cnn"``, ``infer_conv``) and the binarized
+binarized CNN (``family="bnn-cnn"``, ``infer_conv``), the binarized
 transformers (``family="bnn-transformer"``, ``kind="lm"`` or ``"vit"``,
-``infer_transformer``), dispatched on the family as the JAX
-``_freeze_any`` / ``_build_any``.
+``infer_transformer``), the MoE (``family="bnn-moe-mlp"``, ``infer_moe``)
+and the k-bit QNN (``family="qnn-mlp"``, ``infer_qnn``), dispatched on
+the family as the JAX ``_freeze_any`` / ``_build_any``;
+``make_sharded_predictor`` splits a batch over a process group.
 
 Counterpart of the JAX package's ``infer.py`` for the ``bnn-mlp`` family.
 Once training ends the fp32 latent weights are dead weight: serving needs
@@ -236,8 +238,9 @@ def _to_cpu(tree):
 
 def _freeze_any(model) -> Dict[str, Any]:
     """The frozen dict of any freezable model (the JAX ``_freeze_any``):
-    a binarized BnnMLP, a BinarizedCNN, a BinarizedTransformer (the ViT)
-    or a BinarizedLM."""
+    a binarized BnnMLP, a BinarizedCNN, a BinarizedTransformer (the ViT),
+    a BinarizedLM, a BnnMoEMLP (``infer_moe``) or a QnnMLP
+    (``infer_qnn``)."""
     from .infer_conv import BinarizedCNN, _freeze_cnn_tensors
     from .infer_transformer import (
         BinarizedLM,
@@ -254,9 +257,17 @@ def _freeze_any(model) -> Dict[str, Any]:
         return _freeze_vit_tensors(model)
     if isinstance(model, BinarizedLM):
         return _freeze_lm_tensors(model)
+    from .infer_moe import BnnMoEMLP, _freeze_moe_tensors
+    from .infer_qnn import QnnMLP, _freeze_qnn_tensors
+
+    if isinstance(model, BnnMoEMLP):
+        return _freeze_moe_tensors(model)
+    if isinstance(model, QnnMLP):
+        return _freeze_qnn_tensors(model)
     raise ValueError(f"no packed freeze for {type(model).__name__} "
                      "(freezable: BnnMLP, BinarizedCNN, "
-                     "BinarizedTransformer, BinarizedLM)")
+                     "BinarizedTransformer, BinarizedLM, BnnMoEMLP, "
+                     "QnnMLP)")
 
 
 def _build_any(frozen: Dict[str, Any], device: torch.device):
@@ -273,12 +284,21 @@ def _build_any(frozen: Dict[str, Any], device: torch.device):
         from .infer_transformer import _build_transformer_apply
 
         return _build_transformer_apply(frozen, device)
+    if family == "bnn-moe-mlp":
+        from .infer_moe import _build_moe_apply
+
+        return _build_moe_apply(frozen, device)
+    if family == "qnn-mlp":
+        from .infer_qnn import _build_qnn_apply
+
+        return _build_qnn_apply(frozen, device)
     raise ValueError(f"unknown packed-artifact family {family!r}")
 
 
 def export_packed(model, path: str) -> Dict[str, Any]:
     """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN,
-    a BinarizedTransformer or a BinarizedLM to ``path``, as the JAX
+    a BinarizedTransformer, a BinarizedLM, a BnnMoEMLP or a QnnMLP to
+    ``path``, as the JAX
     ``export_packed`` writes it (msgpack). The ±1 first layer (the MLP's
     ``w1``, the CNN's ``conv1_w``, the ViT's ``w_embed``) goes as int8
     (4x smaller); the predictor casts it back to fp32. Returns the
@@ -310,8 +330,43 @@ def load_packed(path: str, *, device="cuda"):
     ``device`` (None: "cuda"; raises without a card): a FrozenMLP for a
     ``bnn-mlp`` artifact, a ``FrozenCNN`` for a ``bnn-cnn`` one (flat
     (B, 784) or (B, 28, 28, 1) input), the LM's full-window ``FrozenLM``
-    or the ``FrozenViT`` classifier for a ``bnn-transformer`` one.
+    or the ``FrozenViT`` classifier for a ``bnn-transformer`` one, a
+    ``FrozenMoE`` for ``bnn-moe-mlp``, a ``FrozenQNN`` for ``qnn-mlp``.
     Returns (predictor, info)."""
     dev = resolve_device(device)
     frozen = load_frozen(path)
     return _build_any(frozen, dev), dict(frozen["info"])
+
+
+def make_sharded_predictor(frozen: Dict[str, Any], group=None, *,
+                           device=None):
+    """Batch-shard a frozen predictor over a process group (None: the
+    world), the JAX ``make_sharded_predictor`` with one rank a device:
+    each rank runs the family's predictor on its rows ``[r B/n, (r+1)
+    B/n)`` of the global batch and the outputs are gathered in rank
+    order, so every rank returns the (B, C) log-probs. ``frozen`` is a
+    frozen dict (``load_frozen``'s, or ``_freeze_any``'s); ``device`` as
+    ``load_packed``'s. A batch the group does not divide raises.
+
+    Equal to the single-device forward for every family but
+    ``bnn-moe-mlp``: MoE capacity comes from the rows the router sees,
+    here each rank's shard, so the sharded output equals the per-shard
+    forwards concatenated, not the global batch's routing (as in JAX)."""
+    import torch.distributed as dist
+
+    from .ops.comm_compress import all_gather
+
+    predict = _build_any(frozen, resolve_device(device))
+
+    def fn(images) -> torch.Tensor:
+        n = dist.get_world_size(group)
+        b = images.shape[0]
+        if b % n:
+            raise ValueError(f"batch of {b} not divisible by the group's "
+                             f"{n} ranks")
+        per = b // n
+        r = dist.get_rank(group)
+        out = predict(images[r * per:(r + 1) * per])
+        return all_gather(out, group).reshape(b, *out.shape[1:])
+
+    return fn

@@ -5,7 +5,9 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
 
   params_from_jax(variables)  {"params", "batch_stats"} -> the port's
                               model of that family (BnnMLP, binarized or
-                              fp32; ConvNet, DeepCNN, BinarizedCNN)
+                              fp32; QnnMLP; BnnMoEMLP; ConvNet, DeepCNN,
+                              BinarizedCNN; the ViT)
+  params_to_jax(model)        the inverse (numpy leaves)
   frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
                               port's frozen artifact (same keys)
   frozen_to_jax(frozen)       the inverse: numpy leaves, as the JAX
@@ -25,8 +27,11 @@ Each model's ``flax_names()`` maps its submodules to flax's module names
 (e.g. BinarizedDense_0..2 -> fc1..fc3, BatchNorm_0..2 -> bn1..bn3,
 Dense_0 -> head for the MLP, the names the JAX ``infer.py`` reads), each
 of a kind: "dense" (flax (in, out) kernel, the port's (out, in)
-weight), "conv" (flax HWIO, the port's OIHW) or "bn" (scale/bias ->
-weight/bias, mean/var -> the running statistics). For the LM:
+weight), "conv" (flax HWIO, the port's OIHW), "bn" (scale/bias ->
+weight/bias, mean/var -> the running statistics) or "experts" (the
+MoE's stacked ``w`` (E, D, Do) and ``b`` (E, Do), the same layout on
+both sides). The QNN's QuantizedDense_0..2 map to fc1..fc3; the MoE's
+router is a "dense" ``router``. For the LM:
 tok_embed/embedding -> tok_embed, pos_embed, TransformerBlock_i ->
 blocks.i (ln_attn/ln_mlp scale -> weight; BinarizedSelfAttention_0/
 BinarizedDense_0..3, or Dense_0..3 for fp32 attention, -> attn.q, k, v,
@@ -91,6 +96,7 @@ _LEAVES = {
     "ln": (("weight", "params", "scale"), ("bias", "params", "bias")),
     "embed": (("weight", "params", "embedding"),),
     "param": (("", "params", ""),),
+    "experts": (("w", "params", "w"), ("b", "params", "b")),
 }
 
 
@@ -140,14 +146,32 @@ def flax_params(model: torch.nn.Module) -> Dict[str, Any]:
 
 def _model_from_tree(p, **model_kw) -> torch.nn.Module:
     """A model of the family and widths of a JAX model's params:
-    BinarizedCNN (BinarizedConv_0, 1), DeepCNN (Conv_0..2), ConvNet
-    (Conv_0, 1) or BnnMLP, binarized (BinarizedDense_0..2, Dense_0) or
-    fp32 (Dense_0..3)."""
+    BnnMoEMLP (BinarizedExperts_0; ``router_k``, ``capacity_factor`` and
+    ``aux_coef`` are not in the tree: pass them), QnnMLP
+    (QuantizedDense_0..2; ``num_bits`` likewise), BinarizedCNN
+    (BinarizedConv_0, 1), DeepCNN (Conv_0..2), ConvNet (Conv_0, 1) or
+    BnnMLP, binarized (BinarizedDense_0..2, Dense_0) or fp32
+    (Dense_0..3)."""
     from .models import BinarizedCNN, ConvNet, DeepCNN
 
     def shape(name):
         return np.asarray(p[name]["kernel"]).shape
 
+    if "BinarizedExperts_0" in p:
+        from .models import BnnMoEMLP
+
+        e, d, do = np.asarray(p["BinarizedExperts_0"]["w"]).shape
+        fan_in, hidden = shape("BinarizedDense_0")
+        return BnnMoEMLP(hidden=hidden, num_experts=e, expert_features=do,
+                         num_classes=shape("BinarizedDense_1")[1],
+                         in_features=fan_in, **model_kw)
+    if "QuantizedDense_0" in p:
+        from .models import QnnMLP
+
+        kernels = [shape(f"QuantizedDense_{i}") for i in range(3)]
+        return QnnMLP(hidden=tuple(k[1] for k in kernels),
+                      num_classes=shape("Dense_0")[1],
+                      in_features=kernels[0][0], **model_kw)
     if "TransformerBlock_0" in p and "pos_embed" in p and (
             "tok_embed" not in p):
         from .models import BinarizedTransformer
@@ -212,6 +236,16 @@ def params_from_jax(
             state[f"{sub}.num_batches_tracked"] = torch.tensor(0)
     model.load_state_dict(state, strict=True)
     return model.eval()
+
+
+def params_to_jax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: ``model``'s ``{"params",
+    "batch_stats"}`` in flax's layout and names, numpy leaves in sorted
+    order, as the JAX model's ``apply`` takes them."""
+    layout = Layout(model)
+    return {coll: frozen_to_jax(_layout_tree(layout, coll,
+                                             torch.Tensor.detach))
+            for coll in ("params", "batch_stats")}
 
 
 def lm_params_from_jax(

@@ -1,8 +1,16 @@
 from .bnn_cnn import BinarizedCNN
 from .cnn import DeepCNN
 from .convnet import ConvNet
-from .layers import BatchNorm, BinarizedConv, BinarizedDense
-from .mlp import BnnMLP, bnn_mlp_large, bnn_mlp_small, fp32_mlp_large
+from .layers import BatchNorm, BinarizedConv, BinarizedDense, QuantizedDense
+from .mlp import (
+    BnnMLP,
+    QnnMLP,
+    bnn_mlp_large,
+    bnn_mlp_small,
+    fp32_mlp_large,
+    qnn_mlp_large,
+)
+from .moe import BinarizedExperts, BnnMoEMLP, bnn_moe_mlp
 from .registry import get_model, latent_clamp_mask, list_models
 from .transformer import (
     BinarizedLM,
@@ -19,13 +27,18 @@ __all__ = [
     "BinarizedCNN",
     "BinarizedConv",
     "BinarizedDense",
+    "BinarizedExperts",
     "BinarizedLM",
     "BinarizedTransformer",
     "BnnMLP",
+    "BnnMoEMLP",
     "ConvNet",
     "DeepCNN",
+    "QnnMLP",
+    "QuantizedDense",
     "bnn_mlp_large",
     "bnn_mlp_small",
+    "bnn_moe_mlp",
     "bnn_vit_small",
     "bnn_vit_tiny",
     "fp32_mlp_large",
@@ -35,4 +48,5 @@ __all__ = [
     "latent_clamp_mask",
     "list_models",
     "lm_loss",
+    "qnn_mlp_large",
 ]

@@ -36,7 +36,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..ops import remat
-from ..ops.binarize import STEMode, binarize, binarize_ste
+from ..ops.binarize import STEMode, binarize, binarize_ste, quantize
 from ..ops.comm_compress import all_reduce_sum
 from ..ops.xnor_gemm import (
     BACKENDS,
@@ -173,6 +173,53 @@ class BinarizedDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+class QuantizedDense(nn.Module):
+    """y = Q_k(x) @ Q_k(W_latent).T + b_fp32, the JAX ``QuantizedDense``:
+    k-bit fixed point (``ops.binarize.quantize``, identity STE) in place
+    of the sign. The fp32 latents are not clamped to [-1, 1]
+    (``latent_clamp_mask`` leaves this layer out; the quantizer clamps
+    to its own 2^(b-1) grid). ``quant_input=False`` passes raw
+    activations through (the first layer). With ``stochastic`` the input
+    rounds stochastically whenever the forward is given a generator. The
+    product is an fp32 GEMM of the quantized values, as JAX's
+    ``jnp.dot(..., preferred_element_type=float32)``."""
+
+    def __init__(
+        self, in_features: int, out_features: int, *, num_bits: int = 8,
+        quant_input: bool = True, use_bias: bool = True,
+        stochastic: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.num_bits = num_bits
+        self.quant_input = quant_input
+        self.stochastic = stochastic
+        bound = min(1.0, 1.0 / in_features ** 0.5)   # JAX _latent_init
+        w = torch.empty(out_features, in_features)
+        w.uniform_(-bound, bound, generator=generator)
+        self.weight = nn.Parameter(w)
+        self.bias = (nn.Parameter(torch.zeros(out_features))
+                     if use_bias else None)
+
+    def quantize_input(self, x: torch.Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+        if not self.quant_input:
+            return x
+        if self.stochastic and generator is not None:
+            return quantize(x, self.num_bits, quant_mode="stoch",
+                            generator=generator)
+        return quantize(x, self.num_bits)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.quantize_input(x, generator)
+        y = x @ quantize(self.weight, self.num_bits).t()
+        return y if self.bias is None else y + self.bias
 
 
 class BinarizedConv(nn.Module):

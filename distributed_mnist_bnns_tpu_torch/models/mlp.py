@@ -1,7 +1,8 @@
 """BNN MLP family, the source paper's flagship model.
 
 Counterpart of the JAX package's ``models/mlp.py`` (``BnnMLP``,
-``bnn_mlp_large``, ``bnn_mlp_small``, ``fp32_mlp_large``): 784 ->
+``bnn_mlp_large``, ``bnn_mlp_small``, ``fp32_mlp_large``, and the k-bit
+twin ``QnnMLP`` / ``qnn_mlp_large``): 784 ->
 BinarizedDense h1 -> BN -> Hardtanh -> BinarizedDense h2 -> BN ->
 Hardtanh -> BinarizedDense h3 -> Dropout -> BN -> Hardtanh -> fp32
 Linear -> log_softmax. ``binarized=False`` (``fp32-mlp-large``) puts
@@ -38,6 +39,7 @@ from .layers import (
     BatchNorm,
     BinarizedDense,
     Dropout,
+    QuantizedDense,
     SeededTrainRNG,
     dense,
     hard_tanh,
@@ -117,6 +119,78 @@ class BnnMLP(SeededTrainRNG, nn.Module):
         x = self.dropout(x, gen)  # reference order: dropout THEN bn3
         x = hard_tanh(self.bn3(x))
         return nn.functional.log_softmax(self.head(x), dim=-1)
+
+
+class QnnMLP(SeededTrainRNG, nn.Module):
+    """The k-bit quantized twin of the flagship (the JAX ``QnnMLP``):
+    ``QuantizedDense`` in place of each BinarizedDense, the same
+    BN / Hardtanh / dropout-before-bn3 order and fp32 head. fc1..fc3 <->
+    QuantizedDense_0..2, bn1..bn3 <-> BatchNorm_0..2, head <-> Dense_0.
+    ``stochastic``: stochastic rounding of the inputs of layers 2 and 3
+    in train mode, from the model's generator (JAX draws from its
+    'binarize' stream: other bits, the same distribution)."""
+
+    def __init__(
+        self,
+        hidden: Sequence[int] = (3072, 1536, 768),
+        num_classes: int = 10,
+        dropout_rate: float = 0.3,
+        *,
+        num_bits: int = 8,
+        in_features: int = 784,
+        stochastic: bool = False,
+        rng_seed: int = 0,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        h1, h2, h3 = hidden
+        self.hidden = (h1, h2, h3)
+        self.num_classes = num_classes
+        self.num_bits = num_bits
+        self.stochastic = stochastic
+        self.rng_seed = rng_seed
+        self._train_gen: Optional[torch.Generator] = None
+
+        def fc(i, o, first=False):
+            return QuantizedDense(
+                i, o, num_bits=num_bits, quant_input=not first,
+                stochastic=stochastic and not first, generator=generator)
+
+        def bn(c):
+            return BatchNorm(c, eps=1e-5, momentum=0.1)
+
+        self.fc1 = fc(in_features, h1, first=True)
+        self.bn1 = bn(h1)
+        self.fc2 = fc(h1, h2)
+        self.bn2 = bn(h2)
+        self.fc3 = fc(h2, h3)
+        self.dropout = Dropout(dropout_rate)
+        self.bn3 = bn(h3)
+        self.head = dense(h3, num_classes, generator=generator)
+
+    def flax_names(self):
+        """(submodule, flax module, kind) of every parametrised layer."""
+        return ([(f"fc{i + 1}", f"QuantizedDense_{i}", "dense")
+                 for i in range(3)]
+                + [(f"bn{i + 1}", f"BatchNorm_{i}", "bn") for i in range(3)]
+                + [("head", "Dense_0", "dense")])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        gen = self.train_generator(x.device) if self.training else None
+        x = hard_tanh(self.bn1(self.fc1(x)))
+        x = hard_tanh(self.bn2(self.fc2(x, gen)))
+        x = self.fc3(x, gen)
+        x = self.dropout(x, gen)  # reference order: dropout THEN bn3
+        x = hard_tanh(self.bn3(x))
+        return nn.functional.log_softmax(self.head(x), dim=-1)
+
+
+def qnn_mlp_large(infl_ratio: int = 3, **kw) -> QnnMLP:
+    """784 -> 1024r -> 512r -> 256r -> 10, k-bit (r=3: 3072, 1536, 768)."""
+    return QnnMLP(
+        hidden=(1024 * infl_ratio, 512 * infl_ratio, 256 * infl_ratio), **kw
+    )
 
 
 def bnn_mlp_large(infl_ratio: int = 3, **kw) -> BnnMLP:

@@ -1,6 +1,7 @@
 """Model registry: the names the CLI accepts, as in the JAX package's
 ``models/registry.py`` (the bnn-mlp family, its fp32 twin and the conv
-families and the ViT family, so far), and ``latent_clamp_mask``."""
+families, the ViT family, the k-bit QNN and the binarized MoE; the
+ResNets are not ported yet), and ``latent_clamp_mask``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from .bnn_cnn import BinarizedCNN
 from .cnn import DeepCNN
 from .convnet import ConvNet
 from .layers import BinarizedConv, BinarizedDense
-from .mlp import bnn_mlp_large, bnn_mlp_small, fp32_mlp_large
+from .mlp import bnn_mlp_large, bnn_mlp_small, fp32_mlp_large, qnn_mlp_large
+from .moe import BinarizedExperts, bnn_moe_mlp
 from .transformer import (
     bnn_vit_small,
     bnn_vit_tiny,
@@ -26,6 +28,8 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "bnn-mlp-small": bnn_mlp_small,
     # the flagship's fp32 twin
     "fp32-mlp-large": fp32_mlp_large,
+    # the k-bit quantized twin (the reference's Quantize op, made live)
+    "qnn-mlp-large": qnn_mlp_large,
     # fp32 baselines (mnist-dist.py:31-51, mnist-cnn server.py:7-52)
     "convnet": ConvNet,
     "deep-cnn": DeepCNN,
@@ -36,6 +40,8 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "bnn-vit-small": bnn_vit_small,
     "fp32-vit-tiny": fp32_vit_tiny,
     "fp32-vit-small": fp32_vit_small,
+    # the binarized MoE: top-2 routing and the load-balance aux loss
+    "bnn-moe-mlp": bnn_moe_mlp,
 }
 
 
@@ -54,15 +60,18 @@ def get_model(name: str, **kwargs: Any) -> nn.Module:
 
 def latent_clamp_mask(model: nn.Module) -> Dict[str, nn.Parameter]:
     """The latent parameters that training clamps to [-1, 1]: those whose
-    immediate owner is a ``BinarizedDense`` or a ``BinarizedConv``, its
-    weight and its bias, by qualified name. The JAX package's rule
+    immediate owner is a ``BinarizedDense``, a ``BinarizedConv`` or the
+    MoE's ``BinarizedExperts`` (its stacked ``w`` and ``b``), by
+    qualified name. The JAX package's rule
     (registry.py:75-98) selects the same set from the flax tree.
     Embeddings, BatchNorm, LayerNorm, the head, fp32 convs and the fp32
     ``nn.Linear`` projections of ``binarized_attention=False`` stay
-    out."""
+    out, and so do ``QuantizedDense`` latents and the MoE's fp32
+    router."""
     return {
         f"{owner}.{name}" if owner else name: p
         for owner, mod in model.named_modules()
-        if isinstance(mod, (BinarizedDense, BinarizedConv))
+        if isinstance(mod, (BinarizedDense, BinarizedConv,
+                            BinarizedExperts))
         for name, p in mod.named_parameters(recurse=False)
     }

@@ -69,19 +69,29 @@ def prepack_weights(
 
 BACKENDS = ("xla", "bf16", "int8", "xnor", "pallas_xnor")
 
+def int8_matmul(a: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K).T int8 -> (M, N) int32 with int32
+    accumulation: exact, as XLA's ``preferred_element_type=int32`` dot
+    (|sum| <= K * 128^2 < 2^31). A library GEMM, not a hand-written
+    kernel: cuBLASLt's int8 GEMM (``torch._int_mm``) on a card, which
+    takes M > 16 and K, N multiples of 8, so operands that miss them are
+    padded with zero rows and columns (they add nothing) and the result
+    sliced; the CPU's ``_int_mm`` otherwise."""
+    m, k = a.shape
+    n = wt.shape[0]
+    if a.is_cuda:
+        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+        if kp != k or m <= 16:
+            a = torch.nn.functional.pad(a, (0, kp - k, 0, max(m, 17) - m))
+        if kp != k or np_ != n:
+            wt = torch.nn.functional.pad(wt, (0, kp - k, 0, np_ - n))
+    return torch._int_mm(a, wt.t())[:m, :n]
+
+
 def _int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ w.T for ±1 operands as int8 with int32 accumulation,
-    then fp32 (the JAX "int8" backend). On a card ``torch._int_mm`` (cuBLAS)
-    takes M > 16 and K, N multiples of 8: the operands are padded with
-    zero rows and columns, which add nothing, and the result sliced."""
-    m, k = x.shape
-    n = w.shape[0]
-    a, b = x.to(torch.int8), w.to(torch.int8)
-    if x.is_cuda:
-        kp = -(-k // 8) * 8
-        a = torch.nn.functional.pad(a, (0, kp - k, 0, max(m, 17) - m))
-        b = torch.nn.functional.pad(b, (0, kp - k, 0, -(-n // 8) * 8 - n))
-    return torch._int_mm(a, b.t())[:m, :n].to(torch.float32)
+    then fp32 (the JAX "int8" backend; ``int8_matmul``)."""
+    return int8_matmul(x.to(torch.int8), w.to(torch.int8)).to(torch.float32)
 
 
 def _xnor_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,18 @@ all-reduces and one backward all-reduce over the model group; the data
 group carries the gradients (``data_parallel.all_reduce_grads``).
 Replicated leaves (BatchNorm_1, the row biases) get the same gradient on
 every model rank and stay bitwise equal there.
+
+The k-bit QNN (``QNN_MLP_TP_TABLE``) has the flagship's layout under
+QuantizedDense names, with the same two operators; its row-parallel
+fp32 partial products are exact sums of quantized values, but a column
+shard of the first layer sums raw pixels in another order, which can
+move a value across a rounding boundary of the next quantizer. The MoE
+(``BNN_MOE_TP_TABLE``) shards the stacked expert bank on its leading
+dim (``ShardedExperts``): each rank computes its E/tp experts' slot
+outputs from the replicated dispatch and its share of the combine, the
+model group sums the shares, and the replicated input and combine
+weights take ``copy_to_model``; the router, the dense layers and the
+BatchNorms are replicated.
 """
 
 from __future__ import annotations
@@ -67,11 +79,17 @@ from torch import nn
 
 from ..interop import _LEAVES, _nest, flax_params, port_dim
 from ..ops import remat
-from ..ops.binarize import binarize_stoch, binarize_ste
+from ..ops.binarize import (
+    binarize_ste,
+    binarize_stoch,
+    quantize,
+    quantize_stoch,
+)
 from ..ops.comm_compress import WireBytes, _count
 from ..ops.losses import cross_entropy_loss
 from ..ops.xnor_gemm import binary_matmul
-from ..models.layers import BatchNorm, BinarizedDense, Dropout
+from ..models.layers import BatchNorm, BinarizedDense, Dropout, QuantizedDense
+from ..models.moe import BinarizedExperts
 from .mesh import Mesh, P, comm_span
 
 # Megatron-style roles a module can play in a TP layout:
@@ -197,17 +215,13 @@ BNN_MOE_TP_TABLE: Dict[str, str] = {
 def tp_table_for(model_name: str) -> Dict[str, str]:
     """The rule table of a registry model family."""
     if model_name.startswith("qnn"):
-        raise NotImplementedError(
-            f"{model_name!r}: the qnn family is not ported yet (ROADMAP "
-            "queue 1 item 12); its table is QNN_MLP_TP_TABLE")
+        return QNN_MLP_TP_TABLE
     if model_name.startswith("bnn-mlp"):
         return BNN_MLP_TP_TABLE
     if "vit" in model_name:
         return BNN_VIT_TP_TABLE
     if "moe" in model_name:
-        raise NotImplementedError(
-            f"{model_name!r}: the moe family is not ported yet (ROADMAP "
-            "queue 1 item 15); its table is BNN_MOE_TP_TABLE")
+        return BNN_MOE_TP_TABLE
     # fp32-mlp-large deliberately not matched: its all-Dense topology
     # (Dense_0..3) would collide with the head rule and mis-shard.
     raise ValueError(
@@ -375,6 +389,86 @@ class RowBinarizedDense(BinarizedDense):
         return y if self.bias is None else y + self.bias
 
 
+class ColumnQuantizedDense(QuantizedDense):
+    """A ``QuantizedDense`` holding this rank's output features; its input
+    is replicated (quantized, stochastically too, the same on every
+    rank)."""
+
+    def __init__(self, full: QuantizedDense, ctx: TpContext):
+        nn.Module.__init__(self)
+        self.__dict__.update({k: v for k, v in full.__dict__.items()
+                              if not k.startswith("_")})
+        self.ctx = ctx
+        self.out_features = full.out_features // ctx.tp
+        self.weight = _param(ctx.cut(full.weight, 0), full.weight)
+        self.bias = (None if full.bias is None
+                     else _param(ctx.cut(full.bias, 0), full.bias))
+
+    def forward(self, x, generator=None):
+        return super().forward(
+            copy_to_model(x, self.ctx.group, self.ctx.wire), generator)
+
+
+class RowQuantizedDense(QuantizedDense):
+    """A ``QuantizedDense`` holding this rank's input features: its input
+    quantized (stochastic rounding draws the full-width noise and keeps
+    this rank's columns), the fp32 partial product all-reduced (sums in
+    another order than the unsharded product's), then the replicated
+    bias added once."""
+
+    def __init__(self, full: QuantizedDense, ctx: TpContext):
+        nn.Module.__init__(self)
+        self.__dict__.update({k: v for k, v in full.__dict__.items()
+                              if not k.startswith("_")})
+        self.ctx = ctx
+        self.full_in = full.in_features
+        self.in_features = full.in_features // ctx.tp
+        self.weight = _param(ctx.cut(full.weight, 1), full.weight)
+        self.bias = (None if full.bias is None
+                     else _param(full.bias.detach(), full.bias))
+
+    def forward(self, x, generator=None):
+        if self.quant_input and self.stochastic and generator is not None:
+            lo = self.ctx.rank * self.in_features
+            noise = remat.rand((*x.shape[:-1], self.full_in),
+                               generator=generator, dtype=x.dtype,
+                               device=x.device) - 0.5
+            x = quantize_stoch(x, noise[..., lo:lo + self.in_features],
+                               self.num_bits)
+        else:
+            x = self.quantize_input(x)
+        y = x @ quantize(self.weight, self.num_bits).t()
+        y = reduce_from_model(y, self.ctx.group, self.ctx.wire)
+        return y if self.bias is None else y + self.bias
+
+
+class ShardedExperts(BinarizedExperts):
+    """The expert_stack role: this rank's ``E / tp`` experts of a
+    ``BinarizedExperts`` (their ``w`` and ``b`` rows). From the
+    replicated dispatch it computes its experts' slot outputs and their
+    share of the combine; the model group sums the shares
+    (``reduce_from_model``). The input and the combine weights are
+    replicated and feed only this rank's experts here, so their
+    cotangents are all-reduced in backward (``copy_to_model``), or the
+    router and the first layer would learn from one rank's experts."""
+
+    def __init__(self, full: BinarizedExperts, ctx: TpContext):
+        nn.Module.__init__(self)
+        self.__dict__.update({k: v for k, v in full.__dict__.items()
+                              if not k.startswith("_")})
+        self.ctx = ctx
+        self.w = _param(ctx.cut(full.w, 0), full.w)
+        self.b = _param(ctx.cut(full.b, 0), full.b)
+        self.lo = ctx.rank * self.w.shape[0]
+
+    def forward(self, x, dispatch, combine, group=None):
+        held = slice(self.lo, self.lo + self.w.shape[0])
+        x = copy_to_model(x, self.ctx.group, self.ctx.wire)
+        combine = copy_to_model(combine, self.ctx.group, self.ctx.wire)
+        y = super().forward(x, dispatch[:, held], combine[:, held], group)
+        return reduce_from_model(y, self.ctx.group, self.ctx.wire)
+
+
 class ColumnLinear(nn.Linear):
     """flax ``Dense`` (``nn.Linear``) holding this rank's output
     features; its input is replicated."""
@@ -452,7 +546,8 @@ class ShardedDropout(Dropout):
 
 
 def _check_tp_model(model: nn.Module, model_name: str, tp: int) -> None:
-    from ..models.mlp import BnnMLP
+    from ..models.mlp import BnnMLP, QnnMLP
+    from ..models.moe import BnnMoEMLP
     from ..models.transformer import BinarizedTransformer
 
     table = tp_table_for(model_name)
@@ -464,6 +559,19 @@ def _check_tp_model(model: nn.Module, model_name: str, tp: int) -> None:
                 f"num_heads {model.num_heads} not divisible by "
                 f"tensor_parallel={tp}: each rank holds num_heads/tp "
                 "heads of every attention")
+        return
+    if table is BNN_MOE_TP_TABLE:
+        if not isinstance(model, BnnMoEMLP):
+            raise ValueError(f"no TP rule table for model {model_name!r}")
+        if model.num_experts % tp:
+            raise ValueError(
+                f"num_experts {model.num_experts} not divisible by "
+                f"tensor_parallel={tp}: each rank holds num_experts/tp "
+                "experts")
+        return
+    if table is QNN_MLP_TP_TABLE:
+        if not isinstance(model, QnnMLP):
+            raise ValueError(f"no TP rule table for model {model_name!r}")
         return
     if not (isinstance(model, BnnMLP) and model.binarized):
         raise ValueError(f"no TP rule table for model {model_name!r}")
@@ -530,15 +638,21 @@ class TpShards:
 
     def _part(self, full: nn.Module, role: Optional[str]) -> nn.Module:
         if role == "col":
-            return (ColumnBinarizedDense(full, self.ctx)
-                    if isinstance(full, BinarizedDense)
-                    else ColumnLinear(full, self.ctx))
+            if isinstance(full, BinarizedDense):
+                return ColumnBinarizedDense(full, self.ctx)
+            if isinstance(full, QuantizedDense):
+                return ColumnQuantizedDense(full, self.ctx)
+            return ColumnLinear(full, self.ctx)
         if role == "row":
-            return (RowBinarizedDense(full, self.ctx)
-                    if isinstance(full, BinarizedDense)
-                    else RowLinear(full, self.ctx))
+            if isinstance(full, BinarizedDense):
+                return RowBinarizedDense(full, self.ctx)
+            if isinstance(full, QuantizedDense):
+                return RowQuantizedDense(full, self.ctx)
+            return RowLinear(full, self.ctx)
         if role == "feat":
             return _feature_batchnorm(full, self.ctx)
+        if role == "expert_stack":
+            return ShardedExperts(full, self.ctx)
         return full
 
     # -- the optimizer's whole-leaf norms -----------------------------------

@@ -84,7 +84,8 @@ S (or ``DEVICE_DATA_CHUNK``) steps with one host sync, and evaluation
 sums float32 totals on the device; a resumed part of an epoch streams,
 and a stop waits for the epoch boundary. Every mode is bitwise the
 per-step path. ``grad_accum`` and ``remat`` are the JAX step body's
-(``forward_backward``). All four run under data parallelism too: the
+(``forward_backward``), which also adds every auxiliary loss the model
+recorded (the MoE's load-balancing term) to the loss it logs. All four run under data parallelism too: the
 data-parallel step is captured with its collectives (NCCL) inside the
 graph, and ``device_data`` gives each rank its columns of the epoch's
 index matrix (FSDP over more than one rank streams, as JAX's does).
@@ -288,6 +289,15 @@ def build_model(name: str, mk: Dict[str, Any]) -> torch.nn.Module:
                 log.warning("model %r does not take %r; ignored", name, bad)
 
 
+def recorded_aux_loss(model: torch.nn.Module) -> Optional[torch.Tensor]:
+    """The sum of the auxiliary losses the model's modules recorded in
+    their last forward (a tensor ``aux_loss`` attribute, set by a
+    train-mode forward: ``models.moe.BnnMoEMLP``), or None."""
+    terms = [m.aux_loss for m in model.modules()
+             if torch.is_tensor(getattr(m, "aux_loss", None))]
+    return sum(terms[1:], terms[0]) if terms else None
+
+
 def forward_backward(model: torch.nn.Module, images: torch.Tensor,
                      labels: torch.Tensor, *,
                      loss_fn: Callable = cross_entropy_loss,
@@ -301,10 +311,23 @@ def forward_backward(model: torch.nn.Module, images: torch.Tensor,
     each microbatch moves the BatchNorm statistics once (as a torch
     accumulation loop does), and the loss and accuracy are the
     microbatch means. ``remat``: each forward is an activation
-    checkpoint (``ops.remat.checkpoint``; bitwise the plain step)."""
+    checkpoint (``ops.remat.checkpoint``; bitwise the plain step).
+
+    Every auxiliary loss the model recorded in the forward
+    (``recorded_aux_loss``: the MoE's load-balancing term, already
+    scaled by the model) joins the loss, as the JAX body adds each sown
+    ``*aux_loss``; the loss returned includes it. Under ``remat`` the
+    checkpoint returns the term with the output, so the recompute's
+    record is never read."""
+    def forward(x):
+        outs = model(x)
+        return outs, recorded_aux_loss(model)
+
     def loss_and_acc(x, y):
-        outs = remat_checkpoint(model, x) if remat else model(x)
+        outs, aux = remat_checkpoint(forward, x) if remat else forward(x)
         loss = loss_fn(outs, y)
+        if aux is not None:
+            loss = loss + aux
         loss.backward()
         outs = outs.detach()
         acc = (outs.argmax(-1) == y).to(outs.dtype).mean() * 100.0

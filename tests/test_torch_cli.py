@@ -308,3 +308,82 @@ def test_train_dispatch_flags_on_cpu(tmp_path, capsys):
     assert np.isfinite(rows["accum"]["train_loss"])
     with pytest.raises(SystemExit, match="not divisible by --grad-accum"):
         cli.main(base + ["--batch-size", "30", "--grad-accum", "4"])
+
+
+def _jax_model_kwargs(argv, monkeypatch):
+    """The model kwargs the JAX CLI's ``_make_trainer`` builds for
+    ``argv`` (its Trainer replaced by a stub that keeps the config)."""
+    import distributed_mnist_bnns_tpu.train as jtrain
+    from distributed_mnist_bnns_tpu import cli as jcli
+
+    class Stub:
+        def __init__(self, config, input_shape=None):
+            self.config = config
+
+    monkeypatch.setattr(jtrain, "Trainer", Stub)
+    return jcli._make_trainer(jcli.build_parser().parse_args(argv)
+                              ).config.model_kwargs
+
+
+@pytest.mark.parametrize("name", ["bnn-cnn", "bnn-mlp-large",
+                                  "bnn-mlp-small", "bnn-moe-mlp",
+                                  "bnn-vit-small", "bnn-vit-tiny", "convnet",
+                                  "deep-cnn", "fp32-mlp-large",
+                                  "fp32-vit-small", "fp32-vit-tiny",
+                                  "qnn-mlp-large"])
+def test_model_kwargs_are_jax_rule(name, monkeypatch):
+    """For every registry model the flags give the JAX CLI's kwargs:
+    ``--infl-ratio`` reaches the bnn-mlp family only, ``--dropout`` the
+    transformers as ``dropout``; for any other model it exits (the JAX
+    builder drops it)."""
+    from distributed_mnist_bnns_tpu.models import get_model as jget
+
+    for extra in (["--infl-ratio", "1"], ["--dropout", "0.1"]):
+        argv = ["train", "--model", name, *extra]
+        want = _jax_model_kwargs(argv, monkeypatch)
+        args = cli.build_parser().parse_args(argv)
+        if "dropout" in want:
+            try:
+                jget(name, dropout=0.1)
+            except TypeError:
+                with pytest.raises(SystemExit, match="reference-fixed"):
+                    cli._model_kwargs(args)
+                continue
+        assert cli._model_kwargs(args) == want
+
+
+def _registry():
+    from distributed_mnist_bnns_tpu_torch.models import list_models
+
+    return list_models()
+
+
+def test_registry_is_covered_by_the_kwargs_test():
+    names = test_model_kwargs_are_jax_rule.pytestmark[0].args[1]
+    assert sorted(names) == _registry()
+
+
+def test_cli_train_vit_with_dropout(tmp_path, capsys):
+    """``--dropout 0.1`` trains bnn-vit-tiny (the JAX CLI's rate); on an
+    MLP it exits with a message."""
+    common = ["--epochs", "1", "--batch-size", "16", "--synthetic-sizes",
+              "32", "16", "--device", "cpu", "--data-dir",
+              str(tmp_path / "none")]
+    assert cli.main(["train", "--model", "bnn-vit-tiny", "--dropout", "0.1",
+                     *common]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["model"] == "bnn-vit-tiny" and np.isfinite(row["train_loss"])
+    with pytest.raises(SystemExit, match="reference-fixed"):
+        cli.main(["train", "--model", "bnn-mlp-small", "--dropout", "0.1",
+                  *common])
+
+
+def test_fp32_mlp_keeps_jax_widths_under_infl_ratio():
+    """``--infl-ratio 1`` does not reach fp32-mlp-large: 784 -> 3072 ->
+    1536 -> 768 -> 10, as the JAX CLI builds it."""
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+
+    args = cli.build_parser().parse_args(
+        ["train", "--model", "fp32-mlp-large", "--infl-ratio", "1"])
+    model = get_model("fp32-mlp-large", **cli._model_kwargs(args))
+    assert model.hidden == (3072, 1536, 768)

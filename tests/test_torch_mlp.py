@@ -129,9 +129,10 @@ def test_structure_follows_the_reference():
     assert model.fc1.weight.abs().max() <= bound
     assert bnn_mlp_large().hidden == (3072, 1536, 768)
     assert list_models() == ["bnn-cnn", "bnn-mlp-large", "bnn-mlp-small",
-                             "bnn-vit-small", "bnn-vit-tiny", "convnet",
-                             "deep-cnn", "fp32-mlp-large", "fp32-vit-small",
-                             "fp32-vit-tiny"]
+                             "bnn-moe-mlp", "bnn-vit-small", "bnn-vit-tiny",
+                             "convnet", "deep-cnn", "fp32-mlp-large",
+                             "fp32-vit-small", "fp32-vit-tiny",
+                             "qnn-mlp-large"]
     assert get_model("bnn-mlp-small", infl_ratio=1).hidden == (64, 64, 64)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("xnor-resnet18")

@@ -117,14 +117,14 @@ def test_mlp_table_matches_megatron_layout():
 @pytest.mark.parametrize("name,table", [("qnn-mlp-large", "QNN_MLP_TP_TABLE"),
                                         ("bnn-moe-mlp", "BNN_MOE_TP_TABLE")])
 def test_unported_families_tables_on_jax_trees(name, table):
-    """The qnn and moe tables over the JAX models' trees give JAX's specs;
-    ``tp_rules_for`` names the ROADMAP items that port the families."""
+    """The qnn and moe tables over the JAX models' trees give JAX's specs,
+    and ``tp_rules_for`` returns them (the families are ported: ROADMAP
+    items 12 and 15)."""
     jp = np_tree(jax.tree_util.tree_map(np.zeros_like, _jax_params(name)))
     got = tp_rules_by_path(jp, getattr(pmp, table))
-    assert _specs(got) == _specs(jmp.tp_rules_for(name, _jax_params(name)))
-    item = "12" if name.startswith("qnn") else "15"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tp_rules_for(name, jp)
+    want = _specs(jmp.tp_rules_for(name, _jax_params(name)))
+    assert _specs(got) == want
+    assert _specs(tp_rules_for(name, jp)) == want
 
 
 def test_unknown_module_fails_loudly():

@@ -480,7 +480,7 @@ def _cmd(ck, epochs, chaos=None):
            "--epochs", str(epochs), "--synthetic-sizes", "256", "64",
            "--batch-size", "64", "--device", "cpu", "--backend", "xla",
            "--grad-compress", "sign_ef", "--elastic", "--resume",
-           "--dropout", "0", "--checkpoint-dir", ck,
+           "--checkpoint-dir", ck,
            "--data-dir", os.path.join(ck, "none"), "--log-interval", "1",
            "--no-preemption"]
     return cmd + (["--chaos", chaos] if chaos else [])
