@@ -88,7 +88,7 @@ Phases, each fatal on failure:
      ``torch.profiler``;
   8. MLP training: ``train.Trainer`` trains ``bnn-mlp-large`` (Adam
      0.01, batch 64, seed 0, backend bf16, dropout 0.3) one epoch of the
-     synthetic 60,000/10,000 split (937 steps), evaluated before and
+     synthetic 19,200/10,000 split (300 steps), evaluated before and
      after: every logged loss finite, the epoch's train loss below the
      first logged one, test accuracy above 55 and up by 20 points (the
      JAX package's convergence test). The trained model is checkpointed,
@@ -211,7 +211,7 @@ Phases, each fatal on failure:
      in-process after 5 dispatches checkpoints at batch 40 and resumes
      to the uninterrupted state; (e) ``bnn-cnn`` on bf16 captured
      (``scan_steps=4``, its convs in ``conv_precision``) bitwise eager;
-     (f) ``cli train --scan-steps 8 --device-data`` one 60,000-example
+     (f) ``cli train --scan-steps 8 --device-data`` one 19,200-example
      epoch in a process of its own, converging. Then the host step time,
      examples/s, device time a step and busy share (``torch.profiler``)
      of eager, scan and device-data, replays, capture seconds and each
@@ -346,8 +346,37 @@ Phases, each fatal on failure:
      on the same parameters. The kernels line's K1 row carries
      ``launches_moe_path``, ``launches_moe_train_path`` and
      ``moe_shapes``.
+ 20. the XNOR-ResNet family: (e) K1 at each stage's 3x3 conv of
+     xnor-resnet18 at batch 64 and at resnet50's widest M (100,352
+     rows), K2 at resnet50's stage-1 and stage-4 conv0, ``torch.equal``
+     to their plain versions, then timed against them, bf16
+     ``torch.matmul`` and the bound; then ``cli train --dataset cifar10
+     --augment`` in the background under: (a) ``xnor-resnet18`` at full
+     width on synthetic CIFAR-10, batch 64, ``augment``, pallas_xnor:
+     20 eager steps twice from one seed, bitwise equal (K1 16 a step,
+     counted from 0), the same steps at ``scan_steps=4`` bitwise the
+     eager run, one bf16 step, one ``fp32-resnet18`` step; (b) (a)
+     exported and served over HTTP at a micro-batch of 32, 3 batches
+     (K1 16 a batch, the warm-up's too), each answer ``torch.equal`` to
+     the predictor, held stage by stage to the live eval model on the
+     card (each threshold against the live BatchNorm's sign: a flip
+     must be a tie within ``TIE_ULPS`` ulps; the packed convs bitwise on
+     the live bits; stem, shortcuts and head within fp32's a-priori
+     bounds; the argmax equal) and, on 8 of its images, to the CPU's
+     plain predictor (the thresholds, K1, K2 and the block sums bitwise
+     from the card's inputs, the fp32 stages within their bounds); (c) ``xnor-resnet50``
+     (ImageNet stem, 1000 classes) on synthetic ImageNet at 224 x 224:
+     2 steps at batch 8, frozen, a micro-batch of 8 through the
+     predictor (K1 32 and K2 16 a batch, counted from 0) held to the
+     live model as (b), the export's bytes equal to a fresh export's
+     and to its load re-serialized; (d) ``Trainer.fit_stream`` over a
+     folder of PNGs written here, if PIL imports (else a line says
+     where the stream is held). The served batches and an eager step
+     are timed once the CLI process has ended. The kernels line's K1 and
+     K2 rows carry ``launches_resnet_path``,
+     ``launches_resnet_train_path`` and ``resnet_shapes``.
 
-Phases 16, 17, 18 and 19 run after 14, phase 15 last. Checks that wait on
+Phases 16, 17, 18, 19 and 20 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -358,7 +387,8 @@ runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
 13's CLI beside its elastic ranks, phase 14's (c) beside (a)
 and (d) beside (b), phase 17's (b) beside (c), phase 18's ring ranks
 beside its in-process checks (after its timings), phase 19's ranks
-beside its (a) and (b) (after its timings). Every ``parallel.spawn``
+beside its (a) and (b) (after its timings), phase 20's CLI run beside
+its (a)-(d) (after its timings). Every ``parallel.spawn``
 and CLI process prints its seconds, every phase its ``phase_s``, and the
 summary line before the card's name gives them all and ``total_s``.
 
@@ -434,11 +464,13 @@ LM_GRAD_RTOL = 1e-3
 # bench.py --lm-bench (_bench_lm, bench.py:840-909; widths :1739-1743)
 LM_TRAIN = dict(vocab=256, embed_dim=256, depth=4, num_heads=4, mlp_ratio=2)
 LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STEPS = 1024, 8, 1e-3, 20
-# MLP training: the flagship's MIGRATION.md recipe, one epoch of the
-# synthetic 60,000/10,000 split (937 steps of 64).
+# MLP training: the flagship's MIGRATION.md recipe, one epoch of a
+# synthetic 19,200/10,000 split (300 steps of 64; cut from the 60,000
+# examples' 937 steps for phase 20's time: 300 steps reached 100% test
+# accuracy against phase 8's thresholds, 55 and a 20-point gain).
 MLP_TRAIN = dict(model="bnn-mlp-large", batch_size=64, optimizer="adam",
                  learning_rate=0.01, seed=0)
-MLP_SYNTH = (60000, 10000)
+MLP_SYNTH = (19200, 10000)
 MLP_DET_STEPS = 50          # two runs from one seed, dropout on
 MLP_BACKEND_STEPS = 20      # per backend, dropout 0, deterministic signs
 MLP_TRAIN_BACKENDS = ("xla", "int8", "xnor", "pallas_xnor")
@@ -3207,7 +3239,7 @@ def _chunk(data, start: int, n: int, device, bs: int):
 
 def _cli_scan_row() -> dict:
     """``cli train --scan-steps 8 --device-data``: the flagship's epoch
-    (``MLP_TRAIN``, synthetic 60,000/10,000) in a process of its own."""
+    (``MLP_TRAIN``, synthetic 19,200/10,000) in a process of its own."""
     argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
             "--log-level", "WARNING", "train", "--model", MLP_TRAIN["model"],
             "--epochs", "1", "--batch-size", str(MLP_TRAIN["batch_size"]),
@@ -3244,7 +3276,7 @@ def scan_phase(device: torch.device, smi: str):
     ``scan_steps=8`` ends on the uninterrupted run's state; (e)
     ``bnn-cnn`` on bf16, 20 steps, ``scan_steps=4`` bitwise eager (its
     convs captured inside ``conv_precision``); (f) ``cli train
-    --scan-steps 8 --device-data`` one 60,000-example epoch in a process
+    --scan-steps 8 --device-data`` one 19,200-example epoch in a process
     of its own, converging to phase 8's thresholds. Then step times and
     examples/s on the host clock, device time a step and busy share
     (``torch.profiler``), replays, capture seconds and pool bytes.
@@ -6811,6 +6843,665 @@ def families_phase(device: torch.device, gen: torch.Generator):
     return paths, k1_rows
 
 
+RN_BATCH = 64                 # (a) xnor-resnet18 on CIFAR-10-shaped data
+RN_STEPS = 20                 # eager steps a run; two runs, then captured
+RN_SYNTH = (RN_STEPS * RN_BATCH, 256)
+RN_SCAN = 4                   # steps a CUDA graph of the captured run
+RN_MODEL_KW: dict = {}        # full width: stem 64, widths 64-512
+RN_TRAIN = dict(model="xnor-resnet18", batch_size=RN_BATCH,
+                optimizer="adam", learning_rate=0.01, seed=0,
+                log_interval=RN_STEPS, backend="pallas_xnor", augment=True)
+RN_SERVE_REQUESTS = 3         # (b) full micro-batches of MAIN_M images
+RN_CIFAR = (32, 32, 3)
+RN50_BATCH = 8                # (c) xnor-resnet50 on synthetic ImageNet
+RN50_SIZE = 224
+RN50_CLASSES = 1000
+RN50_MODEL_KW: dict = {}      # full width: stem 64, widths 64-2048
+RN_CLI_SYNTH = (256, 64)      # the CLI run: 4 steps of 64
+# K1 at each stage's 3x3 conv of (a) at batch 64: (M, K, N); and at
+# resnet50's stage-1 3x3 at a micro-batch of 32 (M = 100,352, the
+# widest M the family gives K1)
+RN18_K1 = ((64 * 32 * 32, 576, 64), (64 * 16 * 16, 1152, 128),
+           (64 * 8 * 8, 2304, 256), (64 * 4 * 4, 4608, 512))
+RN50_K1_WIDE = (32 * 56 * 56, 576, 64)
+# K2 at resnet50's stage-1 and stage-4 conv0 (a block after the first:
+# K = 4 x width) at the served micro-batch of 8
+RN50_K2 = ((8 * 56 * 56, 256, 64), (8 * 7 * 7, 2048, 512))
+TIE_ULPS = 8.0                # a threshold flip's allowance, in fp32 ulps
+RN_CPU_IMAGES = 8             # (b)'s images walked on the CPU's plain path
+
+
+def _rn_gemm_rows(device, gen) -> list:
+    """(e) K1 at ``RN18_K1`` and ``RN50_K1_WIDE``, K2 at ``RN50_K2``, on ±1
+    patches with zero taps (packed as -1) and drawn BN thresholds with
+    exact ties: ``torch.equal`` to the plain versions, two runs equal;
+    then CUDA-graph times of the kernel, its plain version and bf16
+    ``torch.matmul``, with the bound. Timed first, with nothing else on
+    the card or the host."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.ops import xnor_gemm as xg
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits
+
+    cases = ([("xnor", s) for s in RN18_K1] + [("xnor", RN50_K1_WIDE)]
+             + [("xnor_sign", s) for s in RN50_K2])
+    rows = []
+    for name, (m, k, n) in cases:
+        w = _pm1(gen, k, n).to(device)
+        wp, _, _ = xg.prepack_weights(w)
+        x = (_pm1(gen, m, k) * (torch.rand(m, k, generator=gen) > 0.05)
+             ).to(device)
+        vecs = ()
+        if name == "xnor":
+            def entry():
+                return xg.xnor_matmul_packed(x, wp, k, n)
+
+            def plain():
+                return xg.xnor_gemm_plain(pack_bits(x), wp, k)[:, :n]
+        else:
+            o_row = xg.xnor_gemm_plain(pack_bits(x[:1]), wp, k)[0, :n]
+            vecs = tuple(v.to(device) for v in _sign_vectors(gen, n, o_row))
+
+            def entry():
+                return xg.xnor_matmul_packed_sign(x, wp, k, n, *vecs)
+
+            def plain():
+                return xg.xnor_sign_plain(pack_bits(x), wp, k,
+                                          *vecs)[:, :n]
+        got, again, want = entry(), entry(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(
+                f"{name} at the resnet shape ({m}, {k}, {n}): max |diff| "
+                f"{(got - want).abs().max().item()} from its plain version, "
+                "or two runs differ")
+        xb = x.to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        row = {"kernel": name, "path": "resnet", "m": m, "k": k, "n": n,
+               "tiling": list(_kernels.xnor_tiling(m, k, n)),
+               "kernel_ms": _graph_ms(lambda: _kernels.xnor_gemm(
+                   name, x, wp, k, n, *vecs)),
+               "plain_ms": _graph_ms(plain, iters=3, reps=3),
+               "library_ms": _graph_ms(lambda: torch.matmul(xb, wb)),
+               "library": "bf16 torch.matmul", "max_abs_err": 0.0}
+        row["bound_ms"], row["bound_by"], row["bound_peak"] = _bound(
+            name, m, k, n)
+        print(json.dumps({"phase": 20, "gemm": row}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def _rn_trainer(device, **kw):
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(RN_TRAIN, epochs=1, device=str(device),
+               model_kwargs=dict(RN_MODEL_KW))
+    cfg.update(kw)
+    return Trainer(TrainConfig(**cfg), input_shape=RN_CIFAR)
+
+
+def _cli_resnet_row(tmp: str) -> dict:
+    """``cli train --model xnor-resnet18 --dataset cifar10 --augment`` on
+    ``pallas_xnor`` (synthetic CIFAR-10, 4 steps) in a process of its
+    own: its JSON line."""
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", "xnor-resnet18",
+            "--dataset", "cifar10", "--augment", "--backend", "pallas_xnor",
+            "--epochs", "1", "--batch-size", str(RN_BATCH),
+            "--log-interval", "1", "--seed", "0",
+            "--data-dir", os.path.join(tmp, "no-cifar-files"),
+            "--synthetic-sizes", *map(str, RN_CLI_SYNTH)]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"cli train --dataset cifar10 --augment exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    if not (row["steps"] == RN_CLI_SYNTH[0] // RN_BATCH
+            and np.isfinite(row["train_loss"])):
+        raise AssertionError(f"cli train --dataset cifar10: {row}")
+    return row
+
+
+def _rn_train(device, data) -> dict:
+    """(a) xnor-resnet18 on ``pallas_xnor`` with ``augment``: an eager
+    epoch of ``RN_STEPS`` twice from one seed (bitwise equal; K1 16
+    times a step), the same steps at ``scan_steps=RN_SCAN`` (bitwise the
+    eager run), one ``bf16`` step, one step of ``fp32-resnet18``."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    out = {}
+    _kernels.reset_launches()
+    t1 = _rn_trainer(device)
+    row = t1.train_epoch(data, 0)
+    torch.cuda.synchronize()
+    out["train_launches"] = dict(_kernels.LAUNCHES)
+    if out["train_launches"]["xnor"] != 16 * RN_STEPS or any(
+            c for k, c in out["train_launches"].items() if k != "xnor"):
+        raise AssertionError(f"xnor-resnet18 training launched "
+                             f"{out['train_launches']} in {RN_STEPS} steps")
+    if not np.isfinite(row["train_loss"]):
+        raise AssertionError(f"xnor-resnet18 training: {row}")
+    t2 = _rn_trainer(device)
+    t2.train_epoch(data, 0)
+    if not _states_equal(_state(t1), _state(t2)):
+        raise AssertionError("two augmented xnor-resnet18 runs from one "
+                             "seed differ")
+    t3 = _rn_trainer(device, scan_steps=RN_SCAN)
+    t3.train_epoch(data, 0)
+    scan = t3._train_scan
+    if not _states_equal(_state(t1), _state(t3)):
+        raise AssertionError("the captured augmented xnor-resnet18 run "
+                             "differs from the eager one")
+    one = _first_steps(data, 1, RN_BATCH)
+    for model, backend in (("xnor-resnet18", "bf16"),
+                           ("fp32-resnet18", "bf16")):
+        t = _rn_trainer(device, model=model, backend=backend)
+        r = t.train_epoch(one, 0)
+        if r["steps"] != 1 or not np.isfinite(r["train_loss"]):
+            raise AssertionError(f"{model} on {backend}: {r}")
+        out[f"{model}_{backend}_loss"] = r["train_loss"]
+    out.update({"train_loss": row["train_loss"], "steps": row["steps"],
+                "eager_step_ms": row["batch_time_s"] * 1e3,
+                "captured_k1_recorded": scan.recorded.get("xnor", 0),
+                "captured_k1_ran": scan.ran.get("xnor", 0),
+                "captures": scan.captures})
+    return {"trainer": t1, "row": out}
+
+
+def _frozen_walk(fn, x: torch.Tensor, given=None) -> dict:
+    """``FrozenResNet.__call__``'s stages on (B, H, W, C) images: the stem
+    (after the ImageNet stem's pool), and per block its input, the ±1
+    bits at each BN threshold, each packed conv's output (a fused 1x1's
+    is its next bits), the shortcut and the output; then the head's
+    input and the logits. With ``given`` (another device's walk), each
+    stage starts from that walk's inputs to it, so only the stage itself
+    is compared."""
+    from distributed_mnist_bnns_tpu_torch.infer_conv import (
+        _fp32_conv_nhwc,
+        _PackedConv1x1Sign,
+    )
+    from distributed_mnist_bnns_tpu_torch.models.resnet import max_pool_same
+
+    dev = fn.device
+
+    def src(key, mine):
+        return mine if given is None else given[key].to(dev)
+
+    with torch.no_grad():
+        x = x.to(dev, torch.float32)
+        h = _fp32_conv_nhwc(x, fn.stem_w, fn.stem_strides)
+        if not fn.cifar_stem:
+            h = max_pool_same(h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        out = {"stem": h}
+        h = src("stem", h)
+        for i, (pairs, shortcut) in enumerate(fn.blocks):
+            y = h
+            for j, (sign, conv) in enumerate(pairs):
+                if sign is not None:
+                    a, t = sign
+                    bits = torch.where(a * y >= t, 1.0, -1.0)
+                    out[f"b{i}.bits{j}"] = bits
+                    y = src(f"b{i}.bits{j}", bits)
+                y = conv(y)
+                key = (f"b{i}.bits{j + 1}"
+                       if isinstance(conv, _PackedConv1x1Sign)
+                       else f"b{i}.conv{j}")
+                out[key] = y
+                y = src(key, y)
+            s = h if shortcut is None else _fp32_conv_nhwc(h, *shortcut)
+            out[f"b{i}.short"] = s
+            h = y + src(f"b{i}.short", s)
+            out[f"b{i}.out"] = h
+            h = src(f"b{i}.out", h)
+        head = torch.relu(fn.a_fin * h + fn.c_fin).mean(dim=(1, 2))
+        out["head"] = head
+        out["logits"] = src("head", head) @ fn.wh + fn.bh
+    return out
+
+
+def _conv_bound(x: torch.Tensor, w: torch.Tensor, strides) -> torch.Tensor:
+    """The a-priori error bound of an fp32 SAME conv of x (B, H, W, C) by
+    w (OIHW) summed in any order: gamma_K times the conv of |x| by |w|
+    (in float64 on the CPU), (B, Ho, Wo, F)."""
+    from distributed_mnist_bnns_tpu_torch.ops.xnor_gemm import (
+        conv_pads,
+        _pad_hw,
+    )
+
+    xa = x.detach().cpu().double().abs().permute(0, 3, 1, 2)
+    wa = w.detach().cpu().double().abs()
+    k = wa.shape[1] * wa.shape[2] * wa.shape[3]
+    xp, pad = _pad_hw(xa, conv_pads("SAME", xa.shape[2:], wa.shape[2:],
+                                    strides))
+    return _gamma(k) * torch.nn.functional.conv2d(
+        xp, wa, None, tuple(strides), pad).permute(0, 2, 3, 1)
+
+
+def _head_bound(fn, h: torch.Tensor) -> torch.Tensor:
+    """Twice the bound of the head's fp32 GEMM on inputs ``h`` (B, C):
+    either side's sum in any order; (B, classes), float64 on the CPU."""
+    wh = fn.wh.detach().cpu().double().abs()
+    return 2 * _gamma(wh.shape[0] + 1) * (
+        h.detach().cpu().double().abs() @ wh
+        + fn.bh.detach().cpu().double().abs())
+
+
+def _pool_bound(fn, last: torch.Tensor, mu=None) -> torch.Tensor:
+    """The bound of the head's input (B, C) of two computations of
+    ``relu(BN(last)).mean(H, W)`` from the same (B, H, W, C) ``last``:
+    each BN within ``2 * TIE_ULPS`` ulps of |a x| + |a mu| + |c| (the
+    live model's ``batch_norm`` and the frozen ``a x + c`` round
+    differently; ``mu`` None: both are ``a x + c``, 4 ulps), relu
+    1-Lipschitz, each mean within gamma_HW of its sum; float64 on the
+    CPU."""
+    x = last.detach().cpu().double()
+    a, c = fn.a_fin.cpu().double(), fn.c_fin.cpu().double()
+    terms = a.abs() * x.abs() + c.abs()
+    if mu is not None:
+        terms = terms + (a * mu.cpu().double()).abs()
+    ulps = 4 if mu is None else 2 * TIE_ULPS
+    hw = x.shape[1] * x.shape[2]
+    return ((ulps * FP32_U * terms).mean(dim=(1, 2))
+            + 2 * _gamma(hw) * torch.relu(a * x + c).mean(dim=(1, 2)))
+
+
+def _final_bound(fn, last, head, mu=None) -> torch.Tensor:
+    """The logits' bound from the last block's output on: the head input's
+    (``_pool_bound``) through |W| plus the head GEMM's."""
+    wh = fn.wh.detach().cpu().double().abs()
+    return _pool_bound(fn, last, mu) @ wh + _head_bound(fn, head)
+
+
+def _resnet_against_cpu(fn, plain, x: torch.Tensor) -> dict:
+    """The card's frozen resnet against the CPU's plain predictor of the
+    same artifact, stage by stage from the card's inputs: the thresholds,
+    the packed convs (K1, K2 against their plain versions) and the block
+    sums are exact given the same inputs, so bitwise; the stem and the
+    shortcuts (fp32 convs) within gamma_K of |x|*|w|; the head's input
+    within the final BN's, ReLU's and mean's rounding, the logits within
+    the head GEMM's bound. Returns the worst fractions of the bounds."""
+    from distributed_mnist_bnns_tpu_torch.models.resnet import max_pool_same
+
+    card = _frozen_walk(fn, x)
+    cpu = _frozen_walk(plain, x.cpu(), given={k: v.cpu()
+                                              for k, v in card.items()})
+    worst = {"stem": 0.0, "short": 0.0, "head": 0.0, "logits": 0.0}
+    for key, got in card.items():
+        want = cpu[key]
+        if ".bits" in key or ".conv" in key or key.endswith(".out"):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"frozen resnet stage {key}: the card "
+                                     "and the CPU differ on the same input")
+            continue
+        diff = (got.cpu().double() - want.double()).abs()
+        if key == "stem":
+            bound = _conv_bound(x, plain.stem_w, plain.stem_strides)
+            if not plain.cifar_stem:   # |max a - max b| <= max |a - b|
+                bound = max_pool_same(bound.permute(0, 3, 1, 2)).permute(
+                    0, 2, 3, 1)
+            slot = "stem"
+        elif key.endswith(".short"):
+            i = int(key[1:key.index(".")])
+            sc = plain.blocks[i][1]
+            if sc is None:   # the identity: the same tensor
+                bound = torch.zeros_like(diff)
+            else:
+                src = card["stem"] if i == 0 else card[f"b{i - 1}.out"]
+                bound = _conv_bound(src, *sc)
+            slot = "short"
+        elif key == "head":
+            bound = _pool_bound(plain, card[f"b{len(plain.blocks) - 1}.out"])
+            slot = "head"
+        else:   # the logits
+            bound = _head_bound(plain, card["head"])
+            slot = "logits"
+        worst[slot] = max(worst[slot], (diff / bound.clamp_min(
+            1e-300)).max().item())
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"frozen resnet {key}: the card's beyond "
+                                 "fp32's bound of the CPU's")
+    return {"stages": len(card), "bound_fraction": worst}
+
+
+def _resnet_against_live(fn, live, x: torch.Tensor) -> dict:
+    """The frozen resnet against the live model's eval forward on the
+    same card, stage by stage on the live model's activations: each BN
+    -> sign of the live model (``binarize_ste`` of its BatchNorm)
+    against the frozen threshold compare on the same pre-activation (a
+    flip must be a tie: |BN(y)| within ``TIE_ULPS`` ulps of its terms),
+    the packed convs bitwise given the live model's bits, the stem and
+    the shortcuts (fp32 convs) within twice gamma_K of |x|*|w|, the head
+    stage within its fp32 bound. Then end to end: the argmax equal.
+    Returns the flips, the worst fractions of the bounds and the largest
+    logit difference."""
+    from distributed_mnist_bnns_tpu_torch.infer_conv import (
+        _fp32_conv_nhwc,
+        _PackedConv1x1Sign,
+    )
+    from distributed_mnist_bnns_tpu_torch.models.layers import nhwc_input
+    from distributed_mnist_bnns_tpu_torch.models.resnet import max_pool_same
+    from distributed_mnist_bnns_tpu_torch.ops.binarize import binarize_ste
+
+    live = live.eval()
+    flips, tie_frac, blocks_equal = 0, 0.0, 0
+    conv_frac = 0.0
+
+    def fp32_conv(got_nhwc, want_nchw, src_nhwc, w, strides):
+        nonlocal conv_frac
+        d = (got_nhwc.cpu().double()
+             - want_nchw.permute(0, 2, 3, 1).cpu().double()).abs()
+        bound = 2 * _conv_bound(src_nhwc, w, strides)
+        conv_frac = max(conv_frac, (d / bound.clamp_min(1e-300)).max().item())
+        if not bool((d <= bound).all()):
+            raise AssertionError("a frozen resnet fp32 conv beyond fp32's "
+                                 "bound of the live one")
+
+    with torch.no_grad():
+        h = live.stem(nhwc_input(x))
+        fp32_conv(_fp32_conv_nhwc(x, fn.stem_w, fn.stem_strides), h, x,
+                  fn.stem_w, fn.stem_strides)
+        if not live.cifar_stem:
+            h = max_pool_same(h)
+        for blk, (pairs, shortcut) in zip(live.blocks, fn.blocks):
+            xin = h
+            if shortcut is not None:
+                xn = xin.permute(0, 2, 3, 1)
+                fp32_conv(_fp32_conv_nhwc(xn, *shortcut), blk.shortcut(xin),
+                          xn, *shortcut)
+            y = h
+            block_flips = 0
+            nxt = None     # a fused conv's bits, checked at the next pair
+            for j, (sign, conv) in enumerate(pairs):
+                bn = getattr(blk, f"bn{j}")
+                z = bn(y)
+                want = binarize_ste(z)
+                if nxt is not None:   # the previous conv's K2 bits
+                    got = nxt
+                else:
+                    a, t = sign
+                    got = torch.where(a * y.permute(0, 2, 3, 1) >= t,
+                                      1.0, -1.0)
+                wrong = got != want.permute(0, 2, 3, 1)
+                if bool(wrong.any()):
+                    g = bn.weight.abs()[None, :, None, None]
+                    s = torch.sqrt(bn.running_var + bn.eps)[None, :, None,
+                                                            None]
+                    tie = TIE_ULPS * FP32_U * (
+                        (y.abs() + bn.running_mean.abs()[None, :, None, None])
+                        * g / s + bn.bias.abs()[None, :, None, None])
+                    zz = z.abs().permute(0, 2, 3, 1)[wrong]
+                    tt = tie.permute(0, 2, 3, 1)[wrong]
+                    tie_frac = max(tie_frac, (zz / tt).max().item())
+                    if not bool((zz <= tt).all()):
+                        raise AssertionError(
+                            "a frozen resnet threshold disagrees with the "
+                            "live BatchNorm's sign beyond a tie")
+                    block_flips += int(wrong.sum())
+                conv_live = getattr(blk, f"conv{j}")
+                y_live = conv_live(want)
+                if isinstance(conv, _PackedConv1x1Sign):
+                    nxt = conv(want.permute(0, 2, 3, 1))
+                else:
+                    nxt = None
+                    y_frz = conv(want.permute(0, 2, 3, 1))
+                    if not torch.equal(y_frz, y_live.permute(0, 2, 3, 1)):
+                        raise AssertionError("a frozen resnet conv differs "
+                                             "from the live one on the same "
+                                             "bits")
+                y = y_live
+            h = blk(xin)
+            if block_flips == 0:
+                blocks_equal += 1
+            flips += block_flips
+        head_live = torch.relu(live.bn(h)).mean(dim=(2, 3))
+        hn = h.permute(0, 2, 3, 1)
+        head_frz = torch.relu(fn.a_fin * hn + fn.c_fin).mean(dim=(1, 2))
+        bound = _final_bound(fn, hn, head_live, mu=live.bn.running_mean)
+        d = (live.head(head_live) - (head_frz @ fn.wh + fn.bh)).abs()
+        head_frac = (d.cpu().double() / bound).max().item()
+        if head_frac > 1.0:
+            raise AssertionError("frozen resnet's head stage beyond its "
+                                 "fp32 bound of the live model's")
+        e2e_live = live(x)
+        e2e_frz = fn(x)
+    diff = (e2e_live - e2e_frz).abs().max().item()
+    if not torch.equal(e2e_live.argmax(-1), e2e_frz.argmax(-1)):
+        raise AssertionError(f"frozen resnet vs live: argmax differs "
+                             f"({flips} threshold flips)")
+    return {"threshold_flips": flips, "blocks_without_flip": blocks_equal,
+            "flip_over_tie_bound": tie_frac,
+            "fp32_conv_over_bound": conv_frac,
+            "head_stage_over_bound": head_frac,
+            "max_abs_logit_diff": diff}
+
+
+def _rn_serve(device, trainer, data, tmp: str) -> dict:
+    """(b) The trained xnor-resnet18 exported, loaded and served over
+    HTTP at a micro-batch of ``MAIN_M``, ``RN_SERVE_REQUESTS`` full
+    batches: K1 16 times a batch (the warm-up's included), each answer
+    ``torch.equal`` to the predictor on its batch, held to the live eval
+    model (``_resnet_against_live``) and to the CPU
+    (``_resnet_against_cpu``)."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve import client as sc
+
+    path = os.path.join(tmp, "resnet18.msgpack")
+    info = export_packed(trainer.model, path, input_shape=RN_CIFAR)
+    batches = [torch.from_numpy(data.test_images[i * MAIN_M:(i + 1) * MAIN_M])
+               for i in range(RN_SERVE_REQUESTS)]
+    srv = PackedInferenceServer(ServeConfig(
+        artifact=path, device=str(device), port=0, batch_size=MAIN_M,
+        queue_depth=8, default_deadline_ms=60000.0, input_shape=RN_CIFAR))
+    _kernels.reset_launches()
+    host, port = srv.start()
+    answers = []
+    try:
+        for xb in batches:
+            code, body = sc.predict(f"http://{host}:{port}", xb.tolist())
+            if code != 200:
+                raise AssertionError(f"/predict: {code} {body[:200]!r}")
+            answers.append(torch.tensor(json.loads(body)["log_probs"]))
+        torch.cuda.synchronize()
+        served = dict(_kernels.LAUNCHES)
+    finally:
+        srv.request_stop("smoke over")
+        stats = srv.drain_and_stop()
+    n_batches = stats["batches_total"] + 1   # + the warm-up call
+    if served["xnor"] != 16 * n_batches or any(
+            c for k, c in served.items() if k != "xnor"):
+        raise AssertionError(f"served xnor-resnet18: {served} for "
+                             f"{n_batches} batches")
+    fn, _ = load_packed(path, device=device)
+    plain, _ = load_packed(path, device="cpu")
+    for xb, got in zip(batches, answers):
+        if not torch.equal(got, fn(xb).cpu()):
+            raise AssertionError("a served resnet answer differs from the "
+                                 "predictor on its batch")
+    live = _resnet_against_live(fn, trainer.model,
+                                torch.cat(batches).to(device))
+    cpu = _resnet_against_cpu(fn, plain, batches[0][:RN_CPU_IMAGES])
+    xpad = batches[0].to(device)
+    return {"served_launches": served, "served_batches": n_batches,
+            "compression": info["compression"], "vs_live": live,
+            "vs_cpu": cpu, "predictor": fn, "x": xpad}
+
+
+def _rn50_check(device, gen, tmp: str) -> dict:
+    """(c) xnor-resnet50 (ImageNet stem, stages (3, 4, 6, 3)) on
+    synthetic ImageNet at ``RN50_SIZE``: 2 steps at batch
+    ``RN50_BATCH`` on ``pallas_xnor``; frozen; a served micro-batch of 8
+    through the predictor: 16 K2 and 32 K1 launches, from counters set
+    to 0 before; held to the live eval model; the export's bytes equal a
+    fresh export's and survive a load and re-serialization."""
+    from distributed_mnist_bnns_tpu_torch.data import load_imagenet
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_frozen,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.interop import frozen_to_jax
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.utils import msgpack
+
+    shape = (RN50_SIZE, RN50_SIZE, 3)
+    data = load_imagenet(os.path.join(tmp, "no-imagenet"),
+                         image_size=RN50_SIZE,
+                         synthetic_sizes=(2 * RN50_BATCH, RN50_BATCH),
+                         synthetic_classes=RN50_CLASSES, seed=0)
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    t = Trainer(TrainConfig(**dict(
+        RN_TRAIN, model="xnor-resnet50", batch_size=RN50_BATCH, epochs=1,
+        device=str(device), log_interval=1,
+        model_kwargs=dict(RN50_MODEL_KW, num_classes=RN50_CLASSES))),
+        input_shape=shape)
+    _kernels.reset_launches()
+    row = t.train_epoch(data, 0)
+    torch.cuda.synchronize()
+    train_launches = dict(_kernels.LAUNCHES)
+    n_binconv = 16 * 3
+    if row["steps"] != 2 or not np.isfinite(row["train_loss"]) or (
+            train_launches["xnor"] != n_binconv * 2):
+        raise AssertionError(f"xnor-resnet50 training: {row} "
+                             f"{train_launches}")
+    p1, p2 = (os.path.join(tmp, f"r50_{i}.msgpack") for i in (1, 2))
+    info = export_packed(t.model, p1, input_shape=shape)
+    export_packed(t.model, p2, input_shape=shape)
+    with open(p1, "rb") as f1, open(p2, "rb") as f2:
+        b1, b2 = f1.read(), f2.read()
+    again = msgpack.msgpack_serialize(frozen_to_jax(load_frozen(p1)))
+    if not (b1 == b2 == again):
+        raise AssertionError("xnor-resnet50 artifact bytes differ between "
+                             "exports or after a load")
+    fn, _ = load_packed(p1, device=device)
+    x = torch.from_numpy(data.test_images[:RN50_BATCH]).to(device)
+    fn(x)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    served = dict(_kernels.LAUNCHES)
+    if (served["xnor"], served["xnor_sign"]) != (32, 16) or any(
+            c for k, c in served.items() if k not in ("xnor", "xnor_sign")):
+        raise AssertionError(f"a resnet50 batch of {RN50_BATCH} launched "
+                             f"{served}")
+    if not bool(torch.isfinite(out).all()) or out.shape != (
+            RN50_BATCH, RN50_CLASSES):
+        raise AssertionError(f"resnet50 predictor output {out.shape}")
+    live = _resnet_against_live(fn, t.model, x)
+    return {"train": {"loss": row["train_loss"], "steps": row["steps"],
+                      "step_ms": row["batch_time_s"] * 1e3},
+            "train_launches": train_launches, "served_launches": served,
+            "compression": info["compression"], "artifact_bytes": len(b1),
+            "vs_live": live, "predictor": fn, "x": x}
+
+
+def _rn_stream(device, tmp: str) -> dict:
+    """(d) ``Trainer.fit_stream`` over a folder of 16 PNGs in 4 classes
+    (train) and 8 (val), written here, decoded at 32 x 32; or, without
+    PIL on this host, where the stream is held instead."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return {"pil": False, "held_in": "tests/test_torch_imagenet.py "
+                                         "(CPU; PIL there)"}
+    from distributed_mnist_bnns_tpu_torch.data import (
+        ImageClassData,
+        open_imagenet_stream,
+    )
+
+    root = os.path.join(tmp, "imagenet-folder")
+    rng = np.random.RandomState(20)
+    for split, n in (("train", 4), ("val", 2)):
+        for c in range(4):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d)
+            for i in range(n):
+                Image.fromarray(rng.randint(0, 256, (40, 48, 3), np.uint8)
+                                ).save(os.path.join(d, f"{i}.png"))
+    stream = open_imagenet_stream(root, "train", image_size=32, workers=2)
+    val = open_imagenet_stream(root, "val", image_size=32, workers=2,
+                               wnids=stream.index.wnids)
+    vx, vy = val.materialize(None)
+    eval_data = ImageClassData(np.zeros((1, 32, 32, 3), np.float32),
+                               np.zeros(1, np.int32), vx, vy,
+                               n_classes=stream.n_classes)
+    t = _rn_trainer(device, batch_size=8, log_interval=1,
+                    model_kwargs=dict(RN_MODEL_KW, num_classes=4))
+    hist = t.fit_stream(stream, eval_data=eval_data)
+    if len(hist) != 1 or hist[0]["steps"] != 2 or not np.isfinite(
+            hist[0]["train_loss"]):
+        raise AssertionError(f"fit_stream: {hist}")
+    return {"pil": True, "train_images": len(stream),
+            "history": {k: hist[0][k] for k in ("train_loss", "steps",
+                                                "test_acc")}}
+
+
+def resnet_phase(device: torch.device, gen: torch.Generator):
+    """Phase 20: the XNOR-ResNet family. (e) K1 and K2 at the family's
+    shapes, timed first; then ``cli train --dataset cifar10 --augment``
+    in the background under (a) xnor-resnet18 trained (eager twice,
+    captured, bf16, fp32 twin), (b) frozen and served, (c) xnor-resnet50
+    trained two steps, frozen, a micro-batch served, (d) ``fit_stream``;
+    the served batches and the steps are timed once the CLI process has
+    ended. Returns ({path: launch counts}, the GEMM rows)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_cifar10
+
+    t0 = time.perf_counter()
+    marks = {}
+    rows = _rn_gemm_rows(device, gen)
+    marks["e"] = round(time.perf_counter() - t0, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_join = _background(lambda: _cli_resnet_row(tmp))
+        try:
+            data = load_cifar10(os.path.join(tmp, "no-cifar-files"),
+                                synthetic_sizes=RN_SYNTH, seed=0)
+            trained = _rn_train(device, data)
+            marks["a"] = round(time.perf_counter() - t0, 1)
+            serve = _rn_serve(device, trained["trainer"], data, tmp)
+            marks["b"] = round(time.perf_counter() - t0, 1)
+            r50 = _rn50_check(device, gen, tmp)
+            marks["c"] = round(time.perf_counter() - t0, 1)
+            stream = _rn_stream(device, tmp)
+            marks["d"] = round(time.perf_counter() - t0, 1)
+        finally:
+            cli = cli_join()
+        marks["cli"] = round(time.perf_counter() - t0, 1)
+        # timed alone: the CLI process has ended
+        fn18, x18 = serve.pop("predictor"), serve.pop("x")
+        fn50, x50 = r50.pop("predictor"), r50.pop("x")
+        timed = {"served_resnet18_batch_ms": _events_ms(lambda: fn18(x18),
+                                                        iters=10),
+                 "served_resnet50_batch_ms": _events_ms(lambda: fn50(x50),
+                                                        iters=10),
+                 "eager_step_ms": _epoch_step_ms(trained["trainer"], data)}
+    marks["timed_alone"] = round(time.perf_counter() - t0, 1)
+    train_row = trained["row"]
+    print(json.dumps({"phase": 20, "train": train_row, "serve": serve,
+                      "resnet50": r50, "stream": stream,
+                      "cli": {k: cli[k] for k in ("train_loss", "steps",
+                                                  "data_source")},
+                      "timed_alone": timed}, default=str), flush=True)
+    paths = {"resnet": {k: serve["served_launches"][k]
+                        + r50["served_launches"][k]
+                        for k in serve["served_launches"]},
+             "resnet_train": {k: train_row["train_launches"][k]
+                              + r50["train_launches"][k]
+                              for k in train_row["train_launches"]}}
+    print(json.dumps({"phase": 20, "launches": paths,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return paths, rows
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -6987,6 +7678,14 @@ def main() -> int:
         if fam_paths[path]["xnor"] == 0:
             raise AssertionError(f"phase 19: the {path} path never launched "
                                  "xnor")
+    rn_paths, rn_rows = _timed("20", resnet_phase, device,
+                               torch.Generator().manual_seed(20))
+    for path, names in (("resnet", ("xnor", "xnor_sign")),
+                        ("resnet_train", ("xnor",))):
+        for name in names:
+            if rn_paths[path][name] == 0:
+                raise AssertionError(f"phase 20: the {path} path never "
+                                     f"launched {name}")
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,
@@ -7013,7 +7712,8 @@ def main() -> int:
                          + mp2_counts[name] + rs_counts[name]
                          + obs_counts[name]
                          + sum(c[name] for c in tf_paths.values())
-                         + sum(c[name] for c in fam_paths.values())),
+                         + sum(c[name] for c in fam_paths.values())
+                         + sum(c[name] for c in rn_paths.values())),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -7036,6 +7736,8 @@ def main() -> int:
             "launches_moe_path": fam_paths["moe"][name],
             "launches_moe_train_path": fam_paths["moe_train"][name],
             "launches_qnn_path": fam_paths["qnn"][name],
+            "launches_resnet_path": rn_paths["resnet"][name],
+            "launches_resnet_train_path": rn_paths["resnet_train"][name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,
@@ -7050,6 +7752,9 @@ def main() -> int:
             entry["mp_shapes"] = mp_k1_rows   # and the TP shards' (14)
             entry["vit_shapes"] = vit_rows    # and the ViT's (18)
             entry["moe_shapes"] = moe_rows    # and the MoE's (19)
+        if name in ("xnor", "xnor_sign"):   # the ResNets' shapes (20)
+            entry["resnet_shapes"] = [r for r in rn_rows
+                                      if r["kernel"] == name]
         elif name in FLASH:  # K4-K6 at the ring's per-rank shapes (18)
             entry["ring_shapes"] = [r for r in ring_rows
                                     if r["kernel"] == name]

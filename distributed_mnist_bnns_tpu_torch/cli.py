@@ -27,6 +27,16 @@
       --backend pallas_xnor --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli export --model bnn-cnn \
       --checkpoint-dir ckpt --out cnn.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model xnor-resnet18 \
+      --dataset cifar10 --augment --backend pallas_xnor --checkpoint-dir ckpt
+  python -m distributed_mnist_bnns_tpu_torch.cli export --model xnor-resnet18 \
+      --dataset cifar10 --checkpoint-dir ckpt --out r18.msgpack
+  python -m distributed_mnist_bnns_tpu_torch.cli infer --artifact r18.msgpack \
+      --dataset cifar10
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact r18.msgpack \
+      --input-shape 32 32 3
+  python -m distributed_mnist_bnns_tpu_torch.cli train --model xnor-resnet50 \
+      --dataset imagenet --data-dir /data --stream --augment
   python -m distributed_mnist_bnns_tpu_torch.cli eval --checkpoint-dir ckpt
   python -m distributed_mnist_bnns_tpu_torch.cli export --checkpoint-dir ckpt \
       --out m.msgpack
@@ -53,9 +63,14 @@
 
 ``train`` trains a registered model (``models.list_models()``: the
 bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
-``bnn-cnn``, the bnn-vit family; ``train.Trainer``; MNIST, or synthetic
-data when no idx
-files are found; ``--precision bf16`` computes in bf16 over fp32
+``bnn-cnn``, the bnn-vit family, ``qnn-mlp-large``, ``bnn-moe-mlp``, the
+xnor-resnet family; ``train.Trainer``) on ``--dataset`` mnist, cifar10
+or imagenet (``data.load_dataset``; synthetic data of the dataset's
+shape when no files are found; ``--norm`` the dataset's statistics by
+default; ``--image-size`` imagenet's resolution; ``--stream`` trains on
+an on-disk ImageNet decoded per batch, ``Trainer.fit_stream``);
+``--augment`` crops and flips each batch on the device inside the step;
+``--precision bf16`` computes in bf16 over fp32
 parameters where the model takes a dtype) and prints its final
 metrics as one JSON line; with ``--dp N`` (or ``auto``: one rank a card)
 it starts N ranks itself, over NCCL on the cards or over gloo with
@@ -87,11 +102,13 @@ each epoch's time; ``--results`` a CSV (and HTML plot) a row an epoch.
 ``eval`` evaluates the
 latest (``--best``: the best) checkpoint of a ``train --checkpoint-dir``
 run (with the optimizer flags of the run). ``export`` freezes
-a ``bnn-mlp``, ``bnn-cnn`` or ``bnn-vit`` model (a trained checkpoint with
-``--checkpoint-dir``, a seeded init, or weights carried across from the
-JAX package with ``--jax-variables``) into the packed artifact (the JAX package's msgpack);
-``infer`` evaluates an artifact on the MNIST test split (synthetic data
-when no idx files are found); ``serve`` runs the HTTP
+a ``bnn-mlp``, ``bnn-cnn``, ``bnn-vit``, ``qnn-mlp``, ``bnn-moe-mlp`` or
+``xnor-resnet`` model (a trained checkpoint with ``--checkpoint-dir``, a
+seeded init, or weights carried across from the JAX package with
+``--jax-variables``) into the packed artifact (the JAX package's
+msgpack; a conv artifact at ``--dataset``'s resolution); ``infer``
+evaluates an artifact on ``--dataset``'s test split (synthetic data when
+no files are found); ``serve`` runs the HTTP
 server (``--lm``: the continuous-batching LM server, with
 ``--prefix-cache`` and ``--spec-decode K``; ``--chaos``: the serving
 faults ``infer_error`` and ``infer_slow``); ``lm --export`` freezes a
@@ -131,7 +148,10 @@ log = logging.getLogger(__name__)
 
 #: the models ``export`` freezes
 FREEZABLE = ("bnn-mlp-large", "bnn-mlp-small", "bnn-cnn", "bnn-vit-tiny",
-             "bnn-vit-small", "qnn-mlp-large", "bnn-moe-mlp")
+             "bnn-vit-small", "qnn-mlp-large", "bnn-moe-mlp",
+             "xnor-resnet18", "xnor-resnet50")
+DATASETS = ("mnist", "cifar10", "imagenet")
+NORMS = ("mnist", "cifar", "imagenet", "half", "none")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -144,8 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
         _train_flags(sub.add_parser(cmd, help=what))
 
     x = sub.add_parser(
-        "export", help="freeze a bnn-mlp, bnn-cnn, bnn-vit, qnn-mlp or "
-                       "bnn-moe-mlp model into a packed artifact",
+        "export", help="freeze a bnn-mlp, bnn-cnn, bnn-vit, qnn-mlp, "
+                       "bnn-moe-mlp or xnor-resnet model into a packed "
+                       "artifact",
     )
     x.add_argument("--model", default="bnn-mlp-large",
                    choices=list(FREEZABLE))
@@ -163,21 +184,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "from an .npz with '/'-joined keys instead of a "
                         "seeded init (interop.variables_from_npz)")
     x.add_argument("--out", default="model_packed.msgpack")
+    x.add_argument("--dataset", default="mnist", choices=list(DATASETS),
+                   help="a conv artifact is frozen for this dataset's "
+                        "resolution (xnor-resnet: cifar10 32x32, imagenet "
+                        "--image-size)")
+    x.add_argument("--image-size", type=int, default=224)
 
     inf = sub.add_parser(
-        "infer", help="evaluate a packed artifact on the MNIST test split",
+        "infer", help="evaluate a packed artifact on a dataset's test split",
     )
     inf.add_argument("--artifact", required=True)
     inf.add_argument("--device", default="cuda")
     inf.add_argument("--batch-size", type=int, default=64)
-    inf.add_argument("--data-dir", default=None)
-    inf.add_argument("--norm", default="mnist",
-                     choices=["mnist", "half", "none"])
+    _data_flags(inf)
     inf.add_argument("--seed", type=int, default=0,
                      help="seed of the synthetic fallback data")
-    inf.add_argument("--synthetic-sizes", type=int, nargs=2,
-                     default=[60000, 10000], metavar=("TRAIN", "TEST"),
-                     help="sizes of the synthetic fallback dataset")
 
     sv = sub.add_parser(
         "serve", help="long-running HTTP server over a packed artifact",
@@ -404,12 +425,16 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--loss", default="ce", choices=list(LOSSES))
     sp.add_argument("--label-smoothing", type=float, default=0.0,
                     help="uniform target mixing for the ce loss")
-    sp.add_argument("--data-dir", default=None)
-    sp.add_argument("--norm", default="mnist",
-                    choices=["mnist", "half", "none"])
-    sp.add_argument("--synthetic-sizes", type=int, nargs=2,
-                    default=[60000, 10000], metavar=("TRAIN", "TEST"),
-                    help="sizes of the synthetic fallback dataset")
+    _data_flags(sp)
+    sp.add_argument("--augment", action="store_true",
+                    help="device-side random crop + flip of each batch "
+                         "inside the train step (the CIFAR recipe; "
+                         "ops/augment)")
+    sp.add_argument("--stream", action="store_true",
+                    help="train --dataset imagenet on the streaming "
+                         "pipeline (decoded per batch, never materialized; "
+                         "Trainer.fit_stream), evaluated on the "
+                         "materialized val subset")
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--best", action="store_true",
                     help="eval: the best checkpoint instead of the latest")
@@ -530,6 +555,29 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                          "timed out; a rank collision fails at once)")
 
 
+def _data_flags(sp: argparse.ArgumentParser) -> None:
+    """The dataset flags of ``train``, ``eval``, ``export`` and ``infer``
+    (the JAX CLI's)."""
+    sp.add_argument("--dataset", default="mnist", choices=list(DATASETS))
+    sp.add_argument("--data-dir", default=None)
+    sp.add_argument("--norm", default=None, choices=list(NORMS),
+                    help="default: the dataset's own statistics")
+    sp.add_argument("--image-size", type=int, default=224,
+                    help="imagenet decode / synthetic resolution")
+    sp.add_argument("--synthetic-sizes", type=int, nargs=2, default=None,
+                    metavar=("TRAIN", "TEST"),
+                    help="sizes of the synthetic fallback dataset (default: "
+                         "the loader's)")
+
+
+def _check_norm(args) -> None:
+    from .data import DATASET_NORM
+
+    if args.norm not in (None, "half", "none", DATASET_NORM[args.dataset]):
+        raise SystemExit(f"--norm {args.norm} is not valid for --dataset "
+                         f"{args.dataset}")
+
+
 def _mp(args) -> int:
     """Ranks a data row holds: ``--tp`` or ``--pp`` (1 without)."""
     return max(args.tp, 1) * max(args.pp, 1)
@@ -558,16 +606,19 @@ def _local_ranks(args) -> int:
     return world // args.nodes
 
 
-def _model_kwargs(args) -> dict:
+def _model_kwargs(args, num_classes: int = 10) -> dict:
     """The model kwargs of the flags, by the JAX CLI's rule
     (``_make_trainer``): ``infl_ratio`` to the bnn-mlp family only (the
-    other MLPs keep their widths), ``stochastic`` and ``scale`` when
-    given, and ``--dropout`` as ``dropout``, the transformer families'
-    rate. The other models keep their reference-fixed rates: a
-    ``--dropout`` for one of them exits with a message."""
+    other MLPs keep their widths), ``num_classes`` when the dataset's is
+    not 10, ``stochastic`` and ``scale`` when given, and ``--dropout``
+    as ``dropout``, the transformer families' rate. The other models
+    keep their reference-fixed rates: a ``--dropout`` for one of them
+    exits with a message."""
     mk = {}
     if args.model.startswith("bnn-mlp"):
         mk["infl_ratio"] = args.infl_ratio
+    if num_classes != 10:
+        mk["num_classes"] = num_classes
     if getattr(args, "stochastic", False):
         mk["stochastic"] = True
     if getattr(args, "xnor_scale", False):
@@ -585,13 +636,14 @@ def _model_kwargs(args) -> dict:
 def _trainer(args, data_parallel=None, device=None, resume=None):
     from .train import TrainConfig, Trainer
 
+    input_shape, num_classes = _data_spec(args)
     return Trainer(TrainConfig(
         chaos=args.chaos, elastic=args.elastic,
         data_parallel=data_parallel, dp_mode=args.dp_mode,
         grad_compress=args.grad_compress, dp_hosts=args.dp_hosts,
         compress_bucket_size=args.compress_bucket_size,
         compress_chunks=args.compress_chunks,
-        model=args.model, model_kwargs=_model_kwargs(args),
+        model=args.model, model_kwargs=_model_kwargs(args, num_classes),
         precision=args.precision, epochs=args.epochs,
         batch_size=args.batch_size, optimizer=args.optimizer,
         learning_rate=args.lr, lr_schedule=args.lr_schedule,
@@ -599,7 +651,7 @@ def _trainer(args, data_parallel=None, device=None, resume=None):
         seed=args.seed, log_interval=args.log_interval, loss=args.loss,
         label_smoothing=args.label_smoothing, backend=args.backend,
         scan_steps=args.scan_steps, device_data=args.device_data,
-        grad_accum=args.grad_accum, remat=args.remat,
+        grad_accum=args.grad_accum, remat=args.remat, augment=args.augment,
         checkpoint_dir=args.checkpoint_dir, save_all_epochs=args.save_all,
         async_checkpoint=args.async_checkpoint,
         checkpoint_keep=args.checkpoint_keep,
@@ -611,16 +663,82 @@ def _trainer(args, data_parallel=None, device=None, resume=None):
         device=args.device if device is None else device,
         telemetry_dir=args.telemetry_dir, trace=args.trace,
         profile_dir=args.profile_dir, profile_step_window=args.profile_steps,
-    ))
+    ), input_shape=input_shape)
+
+
+def _load_kwargs(args) -> dict:
+    """``load_dataset``'s keyword arguments from the dataset flags."""
+    kw = {}
+    if args.norm is not None:
+        kw["norm"] = args.norm
+    if args.synthetic_sizes is not None:
+        kw["synthetic_sizes"] = tuple(args.synthetic_sizes)
+    if args.dataset == "imagenet":
+        kw["image_size"] = args.image_size
+    return kw
 
 
 def _train_data(args):
-    from .data import load_mnist
+    """The run's dataset (``--dataset``), loaded once a process. The
+    synthetic fallback is seed 0's whatever --seed says, as in the JAX
+    CLI, so train, eval and infer see the same data."""
+    data = getattr(args, "_data", None)
+    if data is None:
+        from .data import load_dataset
 
-    # The synthetic fallback is seed 0's whatever --seed says, as in the
-    # JAX CLI, so train, eval and infer see the same data.
-    return load_mnist(args.data_dir, norm=args.norm,
-                      synthetic_sizes=tuple(args.synthetic_sizes))
+        data = args._data = load_dataset(args.dataset, args.data_dir,
+                                         **_load_kwargs(args))
+    return data
+
+
+def _stream_data(args):
+    """``train --stream``: the on-disk ImageNet train split as a stream
+    and the materialized val subset (2,048 images, indexed against the
+    train split's wnids) as the eval data, or None without a val split;
+    opened once a process. Exits 2 without an on-disk layout, as the JAX
+    CLI does."""
+    held = getattr(args, "_stream", None)
+    if held is not None:
+        return held
+    import numpy as np
+
+    from .data import ImageClassData, open_imagenet_stream
+
+    if args.dataset != "imagenet":
+        log.error("--stream is for `train --dataset imagenet`")
+        raise SystemExit(2)
+    norm_kw = {"norm": args.norm} if args.norm else {}
+    stream = open_imagenet_stream(args.data_dir, "train",
+                                  image_size=args.image_size, **norm_kw)
+    if stream is None:
+        log.error("--stream needs an on-disk ImageNet layout under %s "
+                  "(train/<wnid>/ dirs or <wnid>.tar files)", args.data_dir)
+        raise SystemExit(2)
+    val = open_imagenet_stream(args.data_dir, "val",
+                               image_size=args.image_size,
+                               wnids=stream.index.wnids, **norm_kw)
+    eval_data = None
+    if val is None:
+        log.warning("no val/ split under %s: training without eval (no "
+                    "best-checkpoint tracking)", args.data_dir)
+    else:
+        vx, vy = val.materialize(2048)
+        eval_data = ImageClassData(
+            np.zeros((1, *vx.shape[1:]), np.float32), np.zeros(1, np.int32),
+            vx, vy, source="imagenet", name="imagenet",
+            n_classes=stream.n_classes)
+    args._stream = (stream, eval_data)
+    return args._stream
+
+
+def _data_spec(args):
+    """(one example's input shape, the label space's size) of the run's
+    data: the trainer's input shape and the model's ``num_classes``."""
+    if getattr(args, "stream", False):
+        stream, _ = _stream_data(args)
+        return (args.image_size, args.image_size, 3), stream.n_classes
+    data = _train_data(args)
+    return data.input_shape, getattr(data, "n_classes", 10)
 
 
 def _fit(args, data_parallel=None, device=None) -> dict:
@@ -638,15 +756,22 @@ def _fit(args, data_parallel=None, device=None) -> dict:
 
 
 def _fit_row(args, trainer) -> dict:
-    """Fit ``trainer`` on the run's data; its final row."""
-    data = _train_data(args)
-    history = trainer.fit(data)
+    """Fit ``trainer`` on the run's data (``--stream``: the stream); its
+    final row."""
+    if getattr(args, "stream", False):
+        stream, eval_data = _stream_data(args)
+        history = trainer.fit_stream(stream, eval_data=eval_data)
+        source = "imagenet-stream"
+    else:
+        data = _train_data(args)
+        history = trainer.fit(data)
+        source = data.source
     if not history:   # resumed a finished run
         return {"model": args.model, "total_steps": trainer.step,
                 "best_acc": trainer.best_acc}
     return {
         "model": args.model, "device": str(trainer.device),
-        "data_source": data.source, **history[-1],
+        "data_source": source, **history[-1],
         "total_steps": trainer.step, "best_acc": trainer.best_acc,
         "checkpoint_dir": args.checkpoint_dir,
         "data_parallel": trainer.dp_n, "grad_compress": args.grad_compress,
@@ -735,6 +860,10 @@ def _eval_rank(rank: int, world: int, device, args) -> dict:
 
 
 def _train(args) -> int:
+    _check_norm(args)
+    if args.stream:
+        _stream_data(args)   # exits 2 here without an on-disk layout
+        args._stream = None  # each process opens its own (threads inside)
     if args.grad_accum < 1 or args.batch_size % args.grad_accum:
         raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
                          f"--grad-accum {args.grad_accum}")
@@ -784,6 +913,7 @@ def _eval_row(args, data_parallel=None, device=None) -> dict:
 
 
 def _eval(args) -> int:
+    _check_norm(args)
     if not args.checkpoint_dir:
         raise SystemExit("eval requires --checkpoint-dir")
     if _mp(args) > 1:
@@ -800,6 +930,7 @@ def _eval(args) -> int:
 
 
 def _export(args) -> int:
+    import numpy as np
     import torch
 
     from .infer import export_packed
@@ -808,6 +939,10 @@ def _export(args) -> int:
     if args.checkpoint_dir and args.jax_variables:
         raise SystemExit("export: give at most one of --checkpoint-dir and "
                          "--jax-variables")
+    side = args.image_size if args.dataset == "imagenet" else None
+    input_shape = {"mnist": (28, 28, 1), "cifar10": (32, 32, 3),
+                   "imagenet": (side, side, 3)}[args.dataset]
+    num_classes = 1000 if args.dataset == "imagenet" else 10
     if args.checkpoint_dir:
         from .interop import params_from_jax
         from .train import load_checkpoint
@@ -815,8 +950,11 @@ def _export(args) -> int:
         try:
             state = load_checkpoint(args.checkpoint_dir, best=args.best,
                                     model=args.model)["state"]
-            model = params_from_jax(state, get_model(args.model,
-                                                     **_model_kwargs(args)))
+            if "resnet" in args.model:   # the label space the run had
+                num_classes = int(np.asarray(
+                    state["params"]["Dense_0"]["kernel"]).shape[1])
+            model = params_from_jax(state, get_model(
+                args.model, **_model_kwargs(args, num_classes)))
         except (ValueError, RuntimeError, KeyError) as e:
             raise SystemExit(f"export: {e}") from None
     elif args.jax_variables:
@@ -826,8 +964,8 @@ def _export(args) -> int:
     else:
         gen = torch.Generator().manual_seed(args.seed)
         model = get_model(args.model, generator=gen,
-                          **_model_kwargs(args)).eval()
-    info = export_packed(model, args.out)
+                          **_model_kwargs(args, num_classes)).eval()
+    info = export_packed(model, args.out, input_shape=input_shape)
     print(json.dumps({"artifact": args.out, **info}))
     return 0
 
@@ -835,12 +973,13 @@ def _export(args) -> int:
 def _infer(args) -> int:
     import numpy as np
 
-    from .data import load_mnist
+    from .data import load_dataset
     from .infer import load_packed
 
+    _check_norm(args)
     fn, info = load_packed(args.artifact, device=args.device)
-    data = load_mnist(args.data_dir, norm=args.norm, seed=args.seed,
-                      synthetic_sizes=tuple(args.synthetic_sizes))
+    data = load_dataset(args.dataset, args.data_dir, seed=args.seed,
+                        **_load_kwargs(args))
     bs = args.batch_size
     fn(data.test_images[:bs]).cpu()  # build + load the kernels first
     correct = total = full_batches = 0

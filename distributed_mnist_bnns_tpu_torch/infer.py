@@ -1,6 +1,7 @@
 """Frozen-model inference for the binarized MLP: the packed-bitplane
 serving path. ``export_packed`` and ``load_packed`` also take the
-binarized CNN (``family="bnn-cnn"``, ``infer_conv``), the binarized
+binarized CNN (``family="bnn-cnn"``, ``infer_conv``), the XNOR-ResNets
+(``family="xnor-resnet"``, ``infer_conv``), the binarized
 transformers (``family="bnn-transformer"``, ``kind="lm"`` or ``"vit"``,
 ``infer_transformer``), the MoE (``family="bnn-moe-mlp"``, ``infer_moe``)
 and the k-bit QNN (``family="qnn-mlp"``, ``infer_qnn``), dispatched on
@@ -236,12 +237,19 @@ def _to_cpu(tree):
     return tree
 
 
-def _freeze_any(model) -> Dict[str, Any]:
+def _freeze_any(model, input_shape=None) -> Dict[str, Any]:
     """The frozen dict of any freezable model (the JAX ``_freeze_any``):
-    a binarized BnnMLP, a BinarizedCNN, a BinarizedTransformer (the ViT),
-    a BinarizedLM, a BnnMoEMLP (``infer_moe``) or a QnnMLP
+    a binarized BnnMLP, a BinarizedCNN, an XnorResNet (at
+    ``input_shape``, default (32, 32, 3): a frozen conv is
+    resolution-specific), a BinarizedTransformer (the ViT), a
+    BinarizedLM, a BnnMoEMLP (``infer_moe``) or a QnnMLP
     (``infer_qnn``)."""
-    from .infer_conv import BinarizedCNN, _freeze_cnn_tensors
+    from .infer_conv import (
+        BinarizedCNN,
+        XnorResNet,
+        _freeze_cnn_tensors,
+        _freeze_resnet_tensors,
+    )
     from .infer_transformer import (
         BinarizedLM,
         BinarizedTransformer,
@@ -253,6 +261,8 @@ def _freeze_any(model) -> Dict[str, Any]:
         return _freeze_tensors(model)
     if isinstance(model, BinarizedCNN):
         return _freeze_cnn_tensors(model)
+    if isinstance(model, XnorResNet):
+        return _freeze_resnet_tensors(model, input_shape or (32, 32, 3))
     if isinstance(model, BinarizedTransformer):
         return _freeze_vit_tensors(model)
     if isinstance(model, BinarizedLM):
@@ -265,7 +275,7 @@ def _freeze_any(model) -> Dict[str, Any]:
     if isinstance(model, QnnMLP):
         return _freeze_qnn_tensors(model)
     raise ValueError(f"no packed freeze for {type(model).__name__} "
-                     "(freezable: BnnMLP, BinarizedCNN, "
+                     "(freezable: BnnMLP, BinarizedCNN, XnorResNet, "
                      "BinarizedTransformer, BinarizedLM, BnnMoEMLP, "
                      "QnnMLP)")
 
@@ -280,6 +290,10 @@ def _build_any(frozen: Dict[str, Any], device: torch.device):
         from .infer_conv import FrozenCNN
 
         return FrozenCNN(frozen, device)
+    if family == "xnor-resnet":
+        from .infer_conv import FrozenResNet
+
+        return FrozenResNet(frozen, device)
     if family == "bnn-transformer":
         from .infer_transformer import _build_transformer_apply
 
@@ -295,18 +309,19 @@ def _build_any(frozen: Dict[str, Any], device: torch.device):
     raise ValueError(f"unknown packed-artifact family {family!r}")
 
 
-def export_packed(model, path: str) -> Dict[str, Any]:
+def export_packed(model, path: str, *, input_shape=None) -> Dict[str, Any]:
     """Write the frozen artifact of a binarized BnnMLP, a BinarizedCNN,
-    a BinarizedTransformer, a BinarizedLM, a BnnMoEMLP or a QnnMLP to
-    ``path``, as the JAX
-    ``export_packed`` writes it (msgpack). The ±1 first layer (the MLP's
-    ``w1``, the CNN's ``conv1_w``, the ViT's ``w_embed``) goes as int8
-    (4x smaller); the predictor casts it back to fp32. Returns the
-    size-info dict."""
+    an XnorResNet, a BinarizedTransformer, a BinarizedLM, a BnnMoEMLP or
+    a QnnMLP to ``path``, as the JAX ``export_packed`` writes it
+    (msgpack). ``input_shape`` (H, W, C): the resolution a conv artifact
+    is frozen for (a resnet's default (32, 32, 3)). The ±1 first layer
+    (the MLP's ``w1``, the CNN's ``conv1_w``, the ViT's ``w_embed``) goes
+    as int8 (4x smaller); the predictor casts it back to fp32. Returns
+    the size-info dict."""
     from .interop import frozen_to_jax
     from .utils import msgpack
 
-    frozen = _to_cpu(_freeze_any(model))
+    frozen = _to_cpu(_freeze_any(model, input_shape))
     for key in ("w1", "conv1_w", "w_embed"):
         if key in frozen:
             frozen[key] = frozen[key].to(torch.int8)
@@ -329,7 +344,8 @@ def load_packed(path: str, *, device="cuda"):
     """Restore an ``export_packed`` artifact into a predictor on
     ``device`` (None: "cuda"; raises without a card): a FrozenMLP for a
     ``bnn-mlp`` artifact, a ``FrozenCNN`` for a ``bnn-cnn`` one (flat
-    (B, 784) or (B, 28, 28, 1) input), the LM's full-window ``FrozenLM``
+    (B, 784) or (B, 28, 28, 1) input), a ``FrozenResNet`` for an
+    ``xnor-resnet`` one (its frozen (H, W, 3) input), the LM's full-window ``FrozenLM``
     or the ``FrozenViT`` classifier for a ``bnn-transformer`` one, a
     ``FrozenMoE`` for ``bnn-moe-mlp``, a ``FrozenQNN`` for ``qnn-mlp``.
     Returns (predictor, info)."""

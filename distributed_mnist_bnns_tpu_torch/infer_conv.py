@@ -1,10 +1,11 @@
-"""Packed-bitplane serving of the binarized CNN (``bnn-cnn``).
+"""Packed-bitplane serving of the binarized conv families: the binarized
+CNN (``bnn-cnn``, ``FrozenCNN``) and the XNOR-ResNets (``xnor-resnet``,
+``FrozenResNet``).
 
-Counterpart of the ``bnn-cnn`` half of the JAX package's
-``infer_conv.py`` (the xnor-resnet half is not ported yet). After
-training, the fp32 latents are dead weight: the hidden conv and the
-dense layer pack to 1 bit per weight and run on K1
-(``xnor_matmul_packed``), twice a batch:
+Counterpart of the JAX package's ``infer_conv.py``. After training, the
+fp32 latents are dead weight: the hidden conv and the dense layer of
+bnn-cnn pack to 1 bit per weight and run on K1 (``xnor_matmul_packed``),
+twice a batch:
 
   * conv2 as a patch GEMM: ``im2col`` (the training layer's lowering)
     then K1 on the pre-packed (cin*kh*kw, F) bitplanes (M = B*14*14,
@@ -27,6 +28,21 @@ The artifact keeps the JAX package's keys and layouts: the ±1 first
 kernel HWIO (int8 on disk), packed K-major words, ``tap_sums`` (kh, kw,
 F), raw BN moments, the head (in, out). It is resolution-specific (the
 padding correction bakes in Ho x Wo): the predictor checks the input's.
+
+An XNOR-ResNet (basic blocks and the CIFAR stem, or bottlenecks and the
+ImageNet stem) freezes block by block: each BN -> sign -> BinarizedConv
+pair becomes the threshold compare and the packed conv, a 3x3 or
+strided conv as ``im2col`` + K1 + the padding correction (from SAME at
+its stride) + bias. A bottleneck's interior 1x1/stride-1 conv0 has no
+padding taps and its patches are its input, so its GEMM takes the next
+BN's threshold in its epilogue: K2 (``xnor_matmul_packed_sign``) emits
+conv1's ±1 input directly (``_resnet_block_pairs``, JAX's fusion gate).
+The residual stream (channels last, as JAX's), the stem (and the
+ImageNet stem's 3x3/2 SAME max-pool), the projection shortcuts and the
+final BN affine + relu + mean + head stay fp32, the convs in
+``conv_precision``. A served resnet18 batch launches K1 16 times, a
+resnet50 batch K1 32 times and K2 16 times. ``scale=True`` (XNOR-Net
+alpha) is not folded and is refused, as JAX refuses it.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ import torch
 
 from .models.bnn_cnn import BinarizedCNN
 from .models.layers import BinarizedConv, BinarizedDense
+from .models.resnet import XnorResNet, max_pool_same
 from .ops.binarize import binarize_ste
 from .ops.xnor_gemm import (
     conv2d,
@@ -46,6 +63,7 @@ from .ops.xnor_gemm import (
     im2col,
     prepack_weights,
     xnor_matmul_packed,
+    xnor_matmul_packed_sign,
 )
 
 FAMILY = "bnn-cnn"
@@ -215,3 +233,249 @@ def freeze_bnn_cnn(model: BinarizedCNN, *, device="cuda") -> Tuple[FrozenCNN, Di
 
     frozen = _freeze_cnn_tensors(model)
     return FrozenCNN(frozen, resolve_device(device)), frozen["info"]
+
+
+# ---------------------------------------------------------------------------
+# xnor-resnet (basic and bottleneck blocks, CIFAR or ImageNet stem)
+
+RESNET = "xnor-resnet"
+
+
+def _hwio(conv) -> torch.Tensor:
+    """An OIHW conv weight as flax's HWIO kernel."""
+    return conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+
+
+@torch.no_grad()
+def _freeze_resnet_tensors(model: XnorResNet, input_shape) -> Dict[str, Any]:
+    """The frozen artifact of an XnorResNet at ``input_shape`` (H, W, C)
+    (the JAX ``_freeze_resnet_tensors``: the same keys, layouts and key
+    order). Per block, each BN -> sign -> conv pair: the BN's raw moments
+    and the packed conv at its input resolution; the fp32 stem and
+    shortcut kernels (HWIO), the final BN and the head."""
+    from .infer import _bn_dict
+
+    if not isinstance(model, XnorResNet):
+        raise ValueError(f"freeze_xnor_resnet needs an XnorResNet, got "
+                         f"{type(model).__name__}")
+    if model.scale:
+        raise ValueError(
+            "XNOR-Net alpha scaling (scale=True) rescales each conv's "
+            "output by mean|W_latent| before bias: the packed freeze does "
+            "not fold it and would serve wrong logits; freeze an unscaled "
+            "model")
+    if not model.binarized:
+        raise ValueError("freeze_xnor_resnet needs a binarized XnorResNet "
+                         "(the fp32 twin has no packed form)")
+    h, w, _ = (int(d) for d in input_shape)
+    block_name = ("XnorBottleneckBlock_{}" if model.bottleneck
+                  else "XnorBasicBlock_{}")
+    hw = (h, w) if model.cifar_stem else _out_hw(_out_hw((h, w), (2, 2)),
+                                                 (2, 2))
+    blocks, latent, packed_bytes = [], 0, 0
+    for blk in model.blocks:
+        s = blk.strides
+        out_hw = _out_hw(hw, (s, s))
+        # (conv strides, conv input hw) of each BN -> sign -> conv pair
+        if model.bottleneck:
+            plan = [((1, 1), hw), ((s, s), hw), ((1, 1), out_hw)]
+        else:
+            plan = [((s, s), hw), ((1, 1), out_hw)]
+        convs = []
+        for ci, (cs, c_hw) in enumerate(plan):
+            conv = getattr(blk, f"conv{ci}")
+            convs.append({
+                "bn": _bn_dict(getattr(blk, f"bn{ci}")),
+                "conv": _freeze_conv(conv.weight, conv.bias, c_hw, cs),
+            })
+            latent += conv.weight.numel() * 4
+            packed_bytes += convs[-1]["conv"]["wp"].numel() * 4
+        frozen_blk = {"convs": convs, "strides": s}
+        if blk.shortcut is not None:
+            frozen_blk["shortcut_w"] = _hwio(blk.shortcut)
+        blocks.append(frozen_blk)
+        hw = out_hw
+    n = len(model.blocks)
+    frozen = {
+        "family": RESNET,
+        "arch": {"input_shape": [h, w, int(input_shape[2])],
+                 "stage_sizes": list(model.stage_sizes),
+                 "cifar_stem": bool(model.cifar_stem)},
+        "stem_w": _hwio(model.stem),
+        "blocks": blocks,
+        "bn_final": _bn_dict(model.bn),
+        "head_w": model.head.weight.detach().t().contiguous(),
+        "head_b": model.head.bias.detach(),
+    }
+    n_convs = 3 if model.bottleneck else 2
+    frozen["info"] = {
+        "family": RESNET,
+        "latent_fp32_weight_bytes": latent,
+        "frozen_weight_bytes": packed_bytes,
+        "compression": round(latent / max(packed_bytes, 1), 2),
+        "packed_layers": [f"{block_name.format(i)}/BinarizedConv_{j}"
+                          for i in range(n) for j in range(n_convs)],
+    }
+    return frozen
+
+
+class _PackedConv:
+    """One frozen hidden conv on (B, H, W, C) ±1 bits: ``im2col`` + K1 +
+    the padding correction at its resolution + bias (the JAX
+    ``_packed_conv_fn``)."""
+
+    def __init__(self, layer: Dict[str, Any], device: torch.device):
+        self.wp = layer["wp"].to(device).contiguous()
+        self.k, self.n = int(layer["k"]), int(layer["n"])
+        self.kernel = (int(layer["kh"]), int(layer["kw"]))
+        self.strides = tuple(int(s) for s in layer["strides"])
+        self.in_hw = tuple(int(d) for d in layer["in_hw"])
+        self.bias = layer["bias"].to(device=device, dtype=torch.float32)
+        self.corr = conv_padding_correction(
+            layer["tap_sums"].to(device=device, dtype=torch.float32),
+            self.in_hw, self.strides, "SAME")
+
+    def check(self, bits: torch.Tensor) -> None:
+        if tuple(bits.shape[1:3]) != self.in_hw:
+            raise ValueError(
+                f"frozen conv was packed for {self.in_hw} inputs, got "
+                f"{tuple(bits.shape[1:3])} (the padding correction is "
+                "resolution-specific; re-freeze for this input size)")
+
+    def __call__(self, bits: torch.Tensor) -> torch.Tensor:
+        self.check(bits)
+        patches = im2col(bits.permute(0, 3, 1, 2), self.kernel,
+                         self.strides, "SAME")
+        b, ho, wo, _ = patches.shape
+        y = xnor_matmul_packed(patches.reshape(-1, self.k), self.wp, self.k,
+                               self.n).reshape(b, ho, wo, self.n)
+        return y + self.corr + self.bias
+
+
+class _PackedConv1x1Sign(_PackedConv):
+    """A 1x1/stride-1 frozen conv fused with the next BN's threshold: its
+    patches are its input and its padding correction is 0, so K2 takes
+    the bits as they are and emits the next pair's ±1 input (the JAX
+    ``_packed_conv1x1_sign_fn``)."""
+
+    def __init__(self, layer, avec, tvec, device):
+        super().__init__(layer, device)
+        self.avec, self.tvec = avec, tvec
+
+    def __call__(self, bits: torch.Tensor) -> torch.Tensor:
+        self.check(bits)
+        b, h, w, _ = bits.shape
+        return xnor_matmul_packed_sign(
+            bits.reshape(-1, self.k), self.wp, self.k, self.n, self.avec,
+            self.tvec, self.bias).reshape(b, h, w, self.n)
+
+
+def _resnet_block_pairs(convs: list, device: torch.device) -> list:
+    """One block's (sign, conv) pairs (the JAX ``_resnet_block_pairs``):
+    ``sign`` the (a, t) threshold of the pair's BN, or None where the
+    previous conv already emitted the bits. A 1x1/stride-1 conv followed
+    by another pair fuses that pair's threshold (``_PackedConv1x1Sign``,
+    K2): a bottleneck's conv0; a basic block has no 1x1."""
+    from .infer import _bn_sign_epilogue, _on
+
+    def threshold(bn):
+        return _bn_sign_epilogue(_on(bn["params"], device),
+                                 _on(bn["stats"], device))
+
+    pairs, skip_sign = [], False
+    for idx, c in enumerate(convs):
+        sign = None if skip_sign else threshold(c["bn"])
+        skip_sign = False
+        layer = c["conv"]
+        if (idx + 1 < len(convs) and int(layer["kh"]) == 1
+                and int(layer["kw"]) == 1
+                and tuple(int(x) for x in layer["strides"]) == (1, 1)):
+            a, t = threshold(convs[idx + 1]["bn"])
+            pairs.append((sign, _PackedConv1x1Sign(layer, a, t, device)))
+            skip_sign = True
+        else:
+            pairs.append((sign, _PackedConv(layer, device)))
+    return pairs
+
+
+def _fp32_conv_nhwc(x: torch.Tensor, w: torch.Tensor, strides
+                    ) -> torch.Tensor:
+    """An fp32 SAME conv of (B, H, W, C) maps with an OIHW kernel, in
+    ``conv_precision``; (B, Ho, Wo, F) out."""
+    return conv2d(x.permute(0, 3, 1, 2), w, strides).permute(0, 2, 3, 1)
+
+
+class FrozenResNet:
+    """Packed ``xnor-resnet`` predictor: ``predictor(images) -> logits``
+    (raw, as the live model's) for (B, H, W, C) images at the artifact's
+    resolution, numpy or torch."""
+
+    def __init__(self, frozen: Dict[str, Any], device: torch.device):
+        from .infer import _bn_affine_params, _on
+
+        if frozen.get("family") != RESNET:
+            raise ValueError(f"not a {RESNET} artifact: family "
+                             f"{frozen.get('family')!r}")
+        arch = frozen["arch"]
+        self.device = device
+        self.ishape = tuple(int(d) for d in arch["input_shape"])
+        self.cifar_stem = bool(arch["cifar_stem"])
+
+        def oihw(hwio):
+            return hwio.to(device=device, dtype=torch.float32).permute(
+                3, 2, 0, 1).contiguous()
+
+        self.stem_w = oihw(frozen["stem_w"])
+        self.stem_strides = (1, 1) if self.cifar_stem else (2, 2)
+        self.blocks = []
+        for blk in frozen["blocks"]:
+            if "convs" not in blk:
+                raise ValueError(
+                    "stale xnor-resnet artifact schema (pre-bottleneck "
+                    "per-block layout); re-export the checkpoint")
+            s = int(blk["strides"])
+            self.blocks.append((
+                _resnet_block_pairs(blk["convs"], device),
+                (oihw(blk["shortcut_w"]), (s, s)) if "shortcut_w" in blk
+                else None))
+        bn = frozen["bn_final"]
+        self.a_fin, self.c_fin = _bn_affine_params(
+            _on(bn["params"], device), _on(bn["stats"], device))
+        self.wh = frozen["head_w"].to(device=device, dtype=torch.float32)
+        self.bh = frozen["head_b"].to(device=device, dtype=torch.float32)
+
+    @torch.no_grad()
+    def __call__(self, images) -> torch.Tensor:
+        if not torch.is_tensor(images):
+            images = torch.from_numpy(np.asarray(images, np.float32))
+        x = images.to(device=self.device, dtype=torch.float32)
+        if tuple(x.shape[1:]) != self.ishape:
+            raise ValueError(f"frozen resnet expects {self.ishape} inputs, "
+                             f"got {tuple(x.shape[1:])}")
+        x = _fp32_conv_nhwc(x, self.stem_w, self.stem_strides)
+        if not self.cifar_stem:   # the ImageNet stem's 3x3/2 SAME max-pool
+            x = max_pool_same(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        for pairs, shortcut in self.blocks:
+            y = x
+            for sign, conv in pairs:
+                if sign is not None:
+                    a, t = sign
+                    y = torch.where(a * y >= t, 1.0, -1.0)
+                y = conv(y)
+            x = y + (x if shortcut is None else _fp32_conv_nhwc(x, *shortcut))
+        x = torch.relu(self.a_fin * x + self.c_fin).mean(dim=(1, 2))
+        return x @ self.wh + self.bh
+
+
+def freeze_xnor_resnet(model: XnorResNet, *, input_shape=(32, 32, 3),
+                       device="cuda") -> Tuple[FrozenResNet, Dict[str, Any]]:
+    """Freeze a trained XnorResNet (basic blocks and the CIFAR stem, or
+    bottlenecks and the ImageNet stem) for ``input_shape`` (the training
+    resolution: (224, 224, 3) for resnet50 on ImageNet) into a packed
+    predictor on ``device`` (None: "cuda"; raises without a card). It
+    computes the live model's eval logits up to threshold ties of the
+    fp32 residual stream."""
+    from .infer import resolve_device
+
+    frozen = _freeze_resnet_tensors(model, input_shape)
+    return FrozenResNet(frozen, resolve_device(device)), frozen["info"]

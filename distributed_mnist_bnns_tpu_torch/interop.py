@@ -6,7 +6,7 @@ leaf, or an ``.npz`` of the flattened tree), so nothing here imports JAX.
   params_from_jax(variables)  {"params", "batch_stats"} -> the port's
                               model of that family (BnnMLP, binarized or
                               fp32; QnnMLP; BnnMoEMLP; ConvNet, DeepCNN,
-                              BinarizedCNN; the ViT)
+                              BinarizedCNN; XnorResNet; the ViT)
   params_to_jax(model)        the inverse (numpy leaves)
   frozen_from_jax(frozen)     JAX ``infer._freeze_tensors`` dict -> the
                               port's frozen artifact (same keys)
@@ -35,7 +35,11 @@ router is a "dense" ``router``. For the LM:
 tok_embed/embedding -> tok_embed, pos_embed, TransformerBlock_i ->
 blocks.i (ln_attn/ln_mlp scale -> weight; BinarizedSelfAttention_0/
 BinarizedDense_0..3, or Dense_0..3 for fp32 attention, -> attn.q, k, v,
-out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head.
+out; BinarizedDense_0/1 -> mlp1/mlp2), ln_head and head. An XnorResNet's
+Conv_0 -> stem, XnorBasicBlock_i / XnorBottleneckBlock_i -> blocks.i
+(BatchNorm_j -> bn_j, BinarizedConv_j -> conv_j, the block's fp32
+shortcut Conv_0 -> shortcut), BatchNorm_0 -> bn, Dense_0 -> head; the
+stem and shortcut kernels have no bias, on either side.
 """
 
 from __future__ import annotations
@@ -103,9 +107,14 @@ _LEAVES = {
 def _paths(model: torch.nn.Module, collection: Optional[str] = None):
     """(flax path, port name, collection, kind) of every leaf of
     ``model.flax_names()`` (of ``collection`` only, when given). A flax
-    module path may be nested ('TransformerBlock_0/ln_attn')."""
+    module path may be nested ('TransformerBlock_0/ln_attn'). A leaf the
+    port module does not hold (the bias of a conv without one) is not in
+    the flax tree either."""
     for sub, flax_name, kind in model.flax_names():
+        mod = model.get_submodule(sub) if kind != "param" else None
         for port, coll, leaf in _LEAVES[kind]:
+            if mod is not None and getattr(mod, port, None) is None:
+                continue
             if collection is None or coll == collection:
                 path = tuple(flax_name.split("/")) + ((leaf,) if leaf
                                                       else ())
@@ -193,6 +202,10 @@ def _model_from_tree(p, **model_kw) -> torch.nn.Module:
             mlp_ratio=np.asarray(mlp["kernel"]).shape[1] // embed,
             binarized=binarized, binarized_attention=attn_bin,
             in_channels=fan_in // (patch * patch), **model_kw)
+    resnet = [k for k in p if k.startswith(("XnorBasicBlock_",
+                                            "XnorBottleneckBlock_"))]
+    if resnet:
+        return _resnet_from_tree(p, resnet, **model_kw)
     if "BinarizedConv_0" in p:
         return BinarizedCNN(
             num_classes=shape("Dense_0")[1],
@@ -211,6 +224,35 @@ def _model_from_tree(p, **model_kw) -> torch.nn.Module:
         num_classes=shape("Dense_0" if binarized else "Dense_3")[1],
         in_features=kernels[0][0], binarized=binarized, **model_kw,
     )
+
+
+def _resnet_from_tree(p, blocks, **model_kw) -> torch.nn.Module:
+    """An XnorResNet of a JAX tree's blocks: the stage sizes from where
+    the width doubles, the stem from its kernel (3x3: CIFAR's, 7x7:
+    ImageNet's), binarized unless its blocks hold fp32 ``Conv_0``
+    twins."""
+    from .models import XnorResNet
+
+    bottleneck = blocks[0].startswith("XnorBottleneck")
+    name = blocks[0].rsplit("_", 1)[0]
+    binarized = "BinarizedConv_0" in p[f"{name}_0"]
+    # the block's width: conv0's out channels (conv1's in a bottleneck,
+    # whose conv2 expands by 4)
+    conv = ("BinarizedConv" if binarized else "Conv") + (
+        "_1" if bottleneck else "_0")
+    widths = [np.asarray(p[f"{name}_{i}"][conv]["kernel"]).shape[3]
+              for i in range(len(blocks))]
+    stages = []
+    for i, w in enumerate(widths):
+        if i and w == widths[i - 1]:
+            stages[-1] += 1
+        else:
+            stages.append(1)
+    kh, _, cin, stem = np.asarray(p["Conv_0"]["kernel"]).shape
+    return XnorResNet(stage_sizes=tuple(stages), bottleneck=bottleneck,
+                      num_classes=np.asarray(p["Dense_0"]["kernel"]).shape[1],
+                      stem_features=stem, cifar_stem=kh == 3,
+                      in_channels=cin, binarized=binarized, **model_kw)
 
 
 def params_from_jax(

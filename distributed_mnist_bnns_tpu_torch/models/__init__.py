@@ -12,6 +12,14 @@ from .mlp import (
 )
 from .moe import BinarizedExperts, BnnMoEMLP, bnn_moe_mlp
 from .registry import get_model, latent_clamp_mask, list_models
+from .resnet import (
+    XnorBasicBlock,
+    XnorBottleneckBlock,
+    XnorResNet,
+    fp32_resnet18,
+    xnor_resnet18,
+    xnor_resnet50,
+)
 from .transformer import (
     BinarizedLM,
     BinarizedTransformer,
@@ -36,12 +44,16 @@ __all__ = [
     "DeepCNN",
     "QnnMLP",
     "QuantizedDense",
+    "XnorBasicBlock",
+    "XnorBottleneckBlock",
+    "XnorResNet",
     "bnn_mlp_large",
     "bnn_mlp_small",
     "bnn_moe_mlp",
     "bnn_vit_small",
     "bnn_vit_tiny",
     "fp32_mlp_large",
+    "fp32_resnet18",
     "fp32_vit_small",
     "fp32_vit_tiny",
     "get_model",
@@ -49,4 +61,6 @@ __all__ = [
     "list_models",
     "lm_loss",
     "qnn_mlp_large",
+    "xnor_resnet18",
+    "xnor_resnet50",
 ]

@@ -96,14 +96,34 @@ class SeededTrainRNG:
     rng_seed: int = 0
     _train_gen: Optional[torch.Generator] = None
 
-    def train_generator(self, device: torch.device) -> torch.Generator:
+    #: the seed of a generator of the augmentation's own (None: the
+    #: crops draw from ``train_generator``)
+    augment_seed: Optional[int] = None
+    _augment_gen: Optional[torch.Generator] = None
+
+    def _seeded(self, attr: str, seed: int,
+                device: torch.device) -> torch.Generator:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        if self._train_gen is None or self._train_gen.device != device:
-            self._train_gen = torch.Generator(device=device).manual_seed(
-                self.rng_seed)
-        return self._train_gen
+        gen = getattr(self, attr)
+        if gen is None or gen.device != device:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            setattr(self, attr, gen)
+        return gen
+
+    def train_generator(self, device: torch.device) -> torch.Generator:
+        return self._seeded("_train_gen", self.rng_seed, device)
+
+    def augment_generator(self, device: torch.device) -> torch.Generator:
+        """The generator of the train step's crop and flip draws
+        (``ops.augment``): ``train_generator(device)``, unless
+        ``augment_seed`` is set, which gives one of its own (the GSPMD
+        data-parallel step's, seeded alike on every rank, which draws the
+        global batch's crops)."""
+        if self.augment_seed is None:
+            return self.train_generator(device)
+        return self._seeded("_augment_gen", self.augment_seed, device)
 
 
 def _layer_backend(backend: str, binarize_input: bool) -> str:
@@ -408,30 +428,35 @@ def dense(in_features: int, out_features: int, *, init: str = "lecun",
 
 
 class Conv(nn.Module):
-    """flax's ``nn.Conv(features, kernel_size, padding, dtype)`` on NCHW
-    maps: input, kernel and bias cast to ``dtype`` (None: fp32), the conv
-    in that dtype (``ops.xnor_gemm.conv2d``: cuDNN without TF32,
-    deterministic), then the bias added. The kernel is flax's
-    lecun-normal over kh * kw * cin, the bias zero."""
+    """flax's ``nn.Conv(features, kernel_size, strides, padding, use_bias,
+    dtype)`` on NCHW maps: input, kernel and bias cast to ``dtype``
+    (None: fp32), the conv in that dtype (``ops.xnor_gemm.conv2d``: cuDNN
+    without TF32, deterministic), then the bias added. The kernel is
+    flax's lecun-normal over kh * kw * cin, the bias zero (None without
+    ``use_bias``)."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Sequence[int] = (3, 3), *,
+                 strides: Sequence[int] = (1, 1),
                  padding: Union[str, int, Sequence] = "SAME",
+                 use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kh, kw = kernel_size
+        self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
         w = torch.empty(features, in_channels, kh, kw)
         lecun_normal_(w, kh * kw * in_channels, generator)
         self.weight = nn.Parameter(w)
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.float32
-        y = conv2d(x.to(dt), self.weight.to(dt), (1, 1), self.padding)
-        return y + self.bias.to(dt)[:, None, None]
+        y = conv2d(x.to(dt), self.weight.to(dt), self.strides, self.padding)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
 def nhwc_input(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Model registry: the names the CLI accepts, as in the JAX package's
 ``models/registry.py`` (the bnn-mlp family, its fp32 twin and the conv
-families, the ViT family, the k-bit QNN and the binarized MoE; the
-ResNets are not ported yet), and ``latent_clamp_mask``."""
+families, the ViT family, the k-bit QNN, the binarized MoE and the
+XNOR-ResNets), and ``latent_clamp_mask``."""
 
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from .convnet import ConvNet
 from .layers import BinarizedConv, BinarizedDense
 from .mlp import bnn_mlp_large, bnn_mlp_small, fp32_mlp_large, qnn_mlp_large
 from .moe import BinarizedExperts, bnn_moe_mlp
+from .resnet import fp32_resnet18, xnor_resnet18, xnor_resnet50
 from .transformer import (
     bnn_vit_small,
     bnn_vit_tiny,
@@ -42,6 +43,11 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "fp32-vit-small": fp32_vit_small,
     # the binarized MoE: top-2 routing and the load-balance aux loss
     "bnn-moe-mlp": bnn_moe_mlp,
+    # the binarized ResNets (BASELINE.json's stretch configs) and the
+    # fp32 twin of resnet18
+    "xnor-resnet18": xnor_resnet18,
+    "xnor-resnet50": xnor_resnet50,
+    "fp32-resnet18": fp32_resnet18,
 }
 
 
@@ -66,8 +72,8 @@ def latent_clamp_mask(model: nn.Module) -> Dict[str, nn.Parameter]:
     (registry.py:75-98) selects the same set from the flax tree.
     Embeddings, BatchNorm, LayerNorm, the head, fp32 convs and the fp32
     ``nn.Linear`` projections of ``binarized_attention=False`` stay
-    out, and so do ``QuantizedDense`` latents and the MoE's fp32
-    router."""
+    out, and so do ``QuantizedDense`` latents, the MoE's fp32 router and
+    the ResNets' stem and projection shortcuts (fp32 ``Conv``s)."""
     return {
         f"{owner}.{name}" if owner else name: p
         for owner, mod in model.named_modules()

@@ -115,11 +115,18 @@ def module_macs_per_example(model: Any, input_shape) -> int:
     its matmuls and convolutions) on a CPU copy of ``model`` in eval mode
     — the conv-family counterpart of ``dense_macs_per_example`` (the JAX
     package walks the jaxpr for the same primitives). ``input_shape`` is
-    one example's (e.g. (28, 28, 1))."""
+    one example's (e.g. (28, 28, 1)). The copy's binarized layers run
+    the "xla" backend: a ±1 product has the same MACs on every backend,
+    and the packed ones (xnor, pallas_xnor, int8) count as no matmul."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
+    from ..models.layers import BinarizedConv, BinarizedDense
+
     twin = copy.deepcopy(model).to("cpu").eval()
+    for m in twin.modules():
+        if isinstance(m, (BinarizedConv, BinarizedDense)):
+            m.backend = "xla"
     x = torch.zeros((1, *input_shape), dtype=torch.float32)
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         twin(x)

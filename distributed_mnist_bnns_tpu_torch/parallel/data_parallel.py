@@ -8,7 +8,9 @@ group, in the same order. The steps keep the single-device step's call,
 rank's rows of the global batch (``shard_batch``), and return the loss
 and accuracy averaged over the ranks (0-d tensors, no host sync). Each
 takes ``scalars`` (the optimizer's row of a captured step), and
-``grad_accum`` and ``remat`` as the single-device step body does.
+``grad_accum``, ``remat`` and ``augment`` as the single-device step body
+does (the GSPMD steps crop the global batch, the others each rank's
+rows).
 
   make_dp_train_step            the JAX GSPMD step: BatchNorm over the
                                 global batch, gradients averaged in
@@ -145,8 +147,8 @@ def make_dp_train_step(clamp_mask: Dict[str, torch.Tensor],
                        model: torch.nn.Module, *, group=None,
                        loss_fn: Callable = cross_entropy_loss,
                        wire: Optional[WireBytes] = None,
-                       grad_accum: int = 1, remat: bool = False
-                       ) -> Callable:
+                       grad_accum: int = 1, remat: bool = False,
+                       augment: bool = False) -> Callable:
     """The JAX GSPMD step (``make_dp_train_step``, :107): ``model``'s
     BatchNorms normalise over the global batch (at world 1 the global
     batch is this rank's), and each rank's gradients of its local mean
@@ -160,8 +162,12 @@ def make_dp_train_step(clamp_mask: Dict[str, torch.Tensor],
     ``grad_accum`` and ``remat`` are the single-device body's
     (``train.trainer.forward_backward``); under ``grad_accum`` each
     microbatch is a slice of the global batch, so this rank's rows are
-    ``shard_batch(..., microbatches=grad_accum)``'s."""
+    ``shard_batch(..., microbatches=grad_accum)``'s. ``augment``: the
+    crops of the global batch, as the JAX GSPMD body draws them, every
+    rank from its alike-seeded ``augment_generator`` keeping its rows
+    (``train.trainer.augment_batch``)."""
     from ..train.trainer import (
+        augment_batch,
         check_step_options,
         clamp_latent,
         forward_backward,
@@ -179,6 +185,9 @@ def make_dp_train_step(clamp_mask: Dict[str, torch.Tensor],
         if m is not model:
             raise ValueError("the DP step was built for another model")
         m.train()
+        if augment:
+            images = augment_batch(m, images, group=group,
+                                   microbatches=grad_accum)
         optimizer.zero_grad(set_to_none=True)
         loss, acc = forward_backward(m, images, labels, loss_fn=loss_fn,
                                      grad_accum=grad_accum, remat=remat)
@@ -194,14 +203,16 @@ def make_shardmap_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                 group=None,
                                 loss_fn: Callable = cross_entropy_loss,
                                 wire: Optional[WireBytes] = None,
-                                grad_accum: int = 1, remat: bool = False
-                                ) -> Callable:
+                                grad_accum: int = 1, remat: bool = False,
+                                augment: bool = False) -> Callable:
     """The JAX shard_map step (``make_shardmap_dp_train_step``, :137):
     BatchNorm over each rank's rows, the gradients laid end to end and
     averaged in one fp32 all-reduce (summed, then divided), the
     running statistics averaged after the step. ``grad_accum`` splits
-    this rank's rows; ``remat`` as the single-device body's."""
+    this rank's rows; ``remat`` as the single-device body's;
+    ``augment`` crops this rank's rows from its own generator."""
     from ..train.trainer import (
+        augment_batch,
         check_step_options,
         clamp_latent,
         forward_backward,
@@ -216,6 +227,8 @@ def make_shardmap_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                       images: torch.Tensor, labels: torch.Tensor,
                       scalars: Optional[torch.Tensor] = None):
         model.train()
+        if augment:
+            images = augment_batch(model, images)
         optimizer.zero_grad(set_to_none=True)
         loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
                                      grad_accum=grad_accum, remat=remat)
@@ -236,19 +249,22 @@ def make_shardmap_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
 def make_compressed_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                   group=None,
                                   loss_fn: Callable = cross_entropy_loss,
-                                  grad_accum: int = 1, remat: bool = False
-                                  ) -> Callable:
+                                  grad_accum: int = 1, remat: bool = False,
+                                  augment: bool = False) -> Callable:
     """The JAX compressed step (``make_compressed_dp_train_step``,
     :274): the single-device step body on each rank's rows, with no
     gradient all-reduce: the optimizer's ``sign_compress`` transform
     runs the 1-bit exchange, and it is the reduction. Metrics and
     running statistics take the plain fp32 mean over ``group``.
     ``grad_accum`` splits this rank's rows (the JAX body runs inside the
-    shard_map); ``remat`` as the single-device body's.
+    shard_map); ``remat`` as the single-device body's. ``augment`` crops
+    this rank's rows from its own generator, as the JAX body inside the
+    shard_map draws its shard's from the key folded with the axis index.
 
     The same step runs the compressed FSDP exchange
     (``make_compressed_fsdp_train_step``): only the optimizer differs."""
     from ..train.trainer import (
+        augment_batch,
         check_step_options,
         clamp_latent,
         forward_backward,
@@ -267,6 +283,8 @@ def make_compressed_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                              "a sign_compress grad_transform or a "
                              "sign_compress_fsdp exchange")
         model.train()
+        if augment:
+            images = augment_batch(model, images)
         optimizer.zero_grad(set_to_none=True)
         loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
                                      grad_accum=grad_accum, remat=remat)
@@ -282,8 +300,8 @@ def make_compressed_dp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
 def make_compressed_hier_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                     group=None,
                                     loss_fn: Callable = cross_entropy_loss,
-                                    grad_accum: int = 1, remat: bool = False
-                                    ) -> Callable:
+                                    grad_accum: int = 1, remat: bool = False,
+                                    augment: bool = False) -> Callable:
     """The JAX two-level step (``make_compressed_hier_train_step``,
     :313): as ``make_compressed_dp_train_step`` over every rank of
     ``group`` (hosts x local), the optimizer's transform built with the
@@ -291,14 +309,15 @@ def make_compressed_hier_train_step(clamp_mask: Dict[str, torch.Tensor], *,
     ``group``. The step itself holds no gradient collective."""
     return make_compressed_dp_train_step(clamp_mask, group=group,
                                          loss_fn=loss_fn,
-                                         grad_accum=grad_accum, remat=remat)
+                                         grad_accum=grad_accum, remat=remat,
+                                         augment=augment)
 
 
 def make_compressed_fsdp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
                                     group=None,
                                     loss_fn: Callable = cross_entropy_loss,
-                                    grad_accum: int = 1, remat: bool = False
-                                    ) -> Callable:
+                                    grad_accum: int = 1, remat: bool = False,
+                                    augment: bool = False) -> Callable:
     """The JAX compressed FSDP step (``make_compressed_fsdp_train_step``,
     :397): the compressed step's shape; the ZeRO part lives in the
     optimizer (``train.optim.SignCompressFsdp``: the 1-bit
@@ -306,7 +325,8 @@ def make_compressed_fsdp_train_step(clamp_mask: Dict[str, torch.Tensor], *,
     segment and moment rows, the 1-bit all-gather of the update)."""
     return make_compressed_dp_train_step(clamp_mask, group=group,
                                          loss_fn=loss_fn,
-                                         grad_accum=grad_accum, remat=remat)
+                                         grad_accum=grad_accum, remat=remat,
+                                         augment=augment)
 
 
 def rank_seed(seed: int, rank: int) -> int:

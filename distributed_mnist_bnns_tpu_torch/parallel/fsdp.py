@@ -232,16 +232,21 @@ class FsdpShards:
 def make_fsdp_train_step(clamp_mask: Dict[str, torch.Tensor],
                          model: torch.nn.Module, shards: FsdpShards, *,
                          loss_fn: Callable = cross_entropy_loss,
-                         grad_accum: int = 1, remat: bool = False
-                         ) -> Callable:
+                         grad_accum: int = 1, remat: bool = False,
+                         augment: bool = False) -> Callable:
     """The JAX ``make_fsdp_train_step`` over ``shards`` (the ZeRO-3
     schedule, see the module docstring): ``step(model, optimizer, images,
     labels, scalars=None) -> (loss, accuracy)`` on this rank's rows, the
     optimizer built over ``shards.tensors`` (``Trainer`` with
     ``dp_mode="fsdp"``). BatchNorm normalises over the global batch, as
     GSPMD's step does; ``grad_accum`` and ``remat`` are the single-device
-    body's."""
-    from ..train.trainer import check_step_options, forward_backward
+    body's; ``augment`` crops the global batch, as the GSPMD step's
+    (``train.trainer.augment_batch``)."""
+    from ..train.trainer import (
+        augment_batch,
+        check_step_options,
+        forward_backward,
+    )
     from .data_parallel import _mean_metrics, set_batchnorm_group
 
     check_step_options(grad_accum)
@@ -259,6 +264,9 @@ def make_fsdp_train_step(clamp_mask: Dict[str, torch.Tensor],
         if m is not model:
             raise ValueError("the FSDP step was built for another model")
         m.train()
+        if augment:
+            images = augment_batch(m, images, group=group,
+                                   microbatches=grad_accum)
         optimizer.zero_grad(set_to_none=True)
         loss, acc = forward_backward(m, images, labels, loss_fn=loss_fn,
                                      grad_accum=grad_accum, remat=remat)

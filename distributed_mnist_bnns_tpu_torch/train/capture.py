@@ -22,7 +22,8 @@ it keeps one graph, with its own memory pool, per ``(n, batch shape)``:
   whole-network recipe has it. The model's generator is registered with
   the graph (``register_generator_state``) when the warm-up step drew
   from it, so a replay draws what the eager steps would and advances the
-  generator as they would.
+  generator as they would; so is the augmentation's own generator where
+  it has one (``augment_seed``: the GSPMD step's global crops).
 - **Replay.** The inputs are copied into the static buffers (from pinned
   host memory or, for the device-resident epoch, from the device), the
   graph is replayed, and the counters advance on the host. Nothing
@@ -115,9 +116,17 @@ def check_capturable(groups) -> None:
                 "set scan_steps=1 and device_data=False")
 
 
-def train_generator(model, device) -> Optional[torch.Generator]:
+def train_generators(model, device) -> list:
+    """The model's train generator (none for a model that draws nothing)
+    and, where the augmentation has one of its own (``augment_seed``),
+    that one too."""
     gen_fn = getattr(model, "train_generator", None)
-    return None if gen_fn is None else gen_fn(device)
+    if gen_fn is None:
+        return []
+    gens = [gen_fn(device)]
+    if getattr(model, "augment_seed", None) is not None:
+        gens.append(model.augment_generator(device))
+    return gens
 
 
 class _Graph:
@@ -211,10 +220,10 @@ class TrainScan:
         wire_before = None if self.wire is None else dict(self.wire)
         device = images.device
         g = _Graph(images, labels, rows.shape[1])
-        gen = train_generator(model, device)
+        gens = train_generators(model, device)
         tensors = _state_tensors(model, optimizer)
         saved = [t.detach().clone() for t in tensors]
-        saved_gen = None if gen is None else gen.get_state()
+        saved_gens = [gen.get_state() for gen in gens]
         # Warm-up: one step on a side stream, then the state put back.
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -228,10 +237,12 @@ class TrainScan:
         if self.wire is not None:    # the warm-up step is not a step
             self.wire.clear()
             self.wire.update(wire_before)
-        if gen is not None and not torch.equal(gen.get_state(), saved_gen):
-            # a step that draws (dropout, stochastic signs): the graph
-            # takes the generator over. One that never draws leaves it
-            # alone (registering a CUDA generator that has never drawn
+        for gen, saved_gen in zip(gens, saved_gens):
+            if torch.equal(gen.get_state(), saved_gen):
+                continue
+            # a step that draws (dropout, stochastic signs, crops): the
+            # graph takes the generator over. One that never draws leaves
+            # it alone (registering a CUDA generator that has never drawn
             # crashed the process on an H100, PyTorch 2.11)
             gen.set_state(saved_gen)
             g.graph.register_generator_state(gen)

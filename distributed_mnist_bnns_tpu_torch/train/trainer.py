@@ -22,9 +22,12 @@ of an epoch average the logged steps), and the eval sums ``loss_sum``,
 step's accuracy takes the first, as ``jnp.argmax`` does).
 
 Randomness is explicit: the weights come from ``torch.Generator()
-.manual_seed(seed)``, the dropout masks and stochastic signs from the
-model's own generator on the trainer's device (seeded with ``seed + 1``,
-a stream apart from the init's), the data order from numpy.
+.manual_seed(seed)``, the dropout masks, stochastic signs and
+``augment``'s crops and flips (``ops.augment``, before the forward) from
+the model's own generator on the trainer's device (seeded with ``seed +
+1``, a stream apart from the init's), the data order from numpy.
+``fit_stream`` trains on a streaming dataset (``data.ImageNetStream``)
+in the same seeded order.
 
 The device goes through ``infer.resolve_device``: "cuda" unless the
 caller asks for the CPU, and no card raises. The step's fp32 products
@@ -114,7 +117,10 @@ them in JAX's ``(world, padded)`` / ``(world, seg)`` layout (``(hosts,
 too, and handed back by ``restore``; at another world with
 ``elastic``, re-placed first (``parallel.remesh``). ``evaluate`` runs
 on rank 0 and its result is broadcast. Each rank's dropout generator is
-seeded from ``(seed + 1, rank)``.
+seeded from ``(seed + 1, rank)``; the GSPMD and fp32 FSDP steps draw
+``augment``'s crops of the global batch from one generator seeded ``seed
++ 1`` on every rank (``augment_batch``), the compressed steps each
+rank's from its own.
 
 Model parallelism (the JAX ``_setup_tensor_parallel`` and
 ``_setup_pipeline_parallel``, with their errors): ``tensor_parallel``
@@ -346,6 +352,33 @@ def forward_backward(model: torch.nn.Module, images: torch.Tensor,
     return loss, acc
 
 
+def augment_batch(model: torch.nn.Module, images: torch.Tensor, *,
+                  group=None, microbatches: int = 1) -> torch.Tensor:
+    """The train step's random crop and flip of ``images`` (``ops.augment``,
+    the JAX body's ``random_crop_flip`` on the key it splits off the step
+    key), drawn from the model's ``augment_generator``. With a process
+    ``group`` the draws are the global batch's (the world's rows, as the
+    JAX GSPMD step draws them over its global batch), and this rank keeps
+    its own rows of them (``shard_batch``, with the step's
+    ``microbatches``): every rank's generator must then be seeded alike."""
+    from ..ops.augment import crop_flip, draw_crop_flip, random_crop_flip
+
+    gen_fn = getattr(model, "augment_generator", None)
+    if gen_fn is None:
+        raise ValueError(f"augment draws its crops from the model's own "
+                         f"generator; {type(model).__name__} has none")
+    gen = gen_fn(images.device)
+    if group is None:
+        return random_crop_flip(images, gen)
+    from ..parallel import shard_batch   # parallel imports this module
+
+    world = dist.get_world_size(group)
+    draws = draw_crop_flip(images.shape[0] * world, gen)
+    return crop_flip(images, *(shard_batch(t, group,
+                                           microbatches=microbatches)
+                               for t in draws))
+
+
 def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
                    loss_fn: Callable = cross_entropy_loss,
                    grad_accum: int = 1, remat: bool = False,
@@ -359,15 +392,18 @@ def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
     percent): nothing syncs with the host. ``scalars``: the step's row
     of the optimizer's scalars, on the device (a captured step's; None:
     the optimizer makes its own and advances its counters).
-    ``grad_accum`` and ``remat``: ``forward_backward``'s. ``augment``
-    (the device-side crop and flip) is not ported."""
-    check_step_options(grad_accum, augment)
+    ``grad_accum`` and ``remat``: ``forward_backward``'s. ``augment``:
+    the device-side random crop and flip of the images first
+    (``augment_batch``), drawn from the model's generator."""
+    check_step_options(grad_accum)
     latents = list(clamp_mask.values())
 
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    images: torch.Tensor, labels: torch.Tensor,
                    scalars: Optional[torch.Tensor] = None):
         model.train()
+        if augment:
+            images = augment_batch(model, images)
         optimizer.zero_grad(set_to_none=True)
         loss, acc = forward_backward(model, images, labels, loss_fn=loss_fn,
                                      grad_accum=grad_accum, remat=remat)
@@ -378,12 +414,8 @@ def make_step_body(clamp_mask: Dict[str, torch.Tensor], *,
     return train_step
 
 
-def check_step_options(grad_accum: int, augment: bool = False) -> None:
+def check_step_options(grad_accum: int) -> None:
     """The step options that no train step takes."""
-    if augment:
-        raise NotImplementedError(
-            "augment (ops/augment.py, the device-side random crop and "
-            "flip) is not ported yet (ROADMAP.md queue 1 item 13)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -558,6 +590,8 @@ class TrainConfig:
                                    # grad_compress != none
     remat: bool = False            # activation checkpoint of the forward
     grad_accum: int = 1            # >1: N sequential microbatches a step
+    augment: bool = False          # device-side random crop + flip of each
+                                   # batch inside the step (ops/augment)
     scan_steps: int = 1            # >1: S steps a dispatch (a CUDA graph
                                    # on a card; make_train_scan)
     device_data: bool = False      # the dataset on the device, each epoch
@@ -660,6 +694,16 @@ class Trainer:
         self._model_kwargs = dict(mk)   # the unsharded model's (FLOPs)
         mk["generator"] = torch.Generator().manual_seed(config.seed)
         self.model = build_model(config.model, mk).to(self.device)
+        if config.augment and self.mp is not None:
+            raise ValueError("augment runs in the single-device and data-"
+                             "parallel steps (the JAX package's TP and PP "
+                             "steps take none); set tensor_parallel=1 and "
+                             "pipeline_parallel=1")
+        if (config.augment and self.dp_n > 1
+                and config.grad_compress == "none"):
+            # the GSPMD and fp32 FSDP steps draw the global batch's crops:
+            # every rank from one seed (augment_batch keeps its rows)
+            self.model.augment_seed = config.seed + 1
         self.regime = RegimeSchedule(config.regime)
         self.wire = WireBytes()   # bytes this rank's collectives moved
         self._setup_grad_compress()
@@ -1289,7 +1333,7 @@ class Trainer:
     def _make_train_step(self) -> Callable:
         cfg = self.config
         kw = dict(loss_fn=self._loss_fn, grad_accum=cfg.grad_accum,
-                  remat=cfg.remat)
+                  remat=cfg.remat, augment=cfg.augment)
         if self.mp == "tp":
             return self._set_tp_step()
         if self.mp == "pp":
@@ -1474,8 +1518,8 @@ class Trainer:
         for images, labels in buf:
             yield images, labels, 1
 
-    def train_epoch(self, data, epoch: int,
-                    start_batch: int = 0) -> Dict[str, float]:
+    def train_epoch(self, data, epoch: int, start_batch: int = 0, *,
+                    batches=None) -> Dict[str, float]:
         """One epoch over ``data.train_images`` in the seeded order of
         ``batch_iterator``, from batch ``start_batch`` on (the resume of a
         stopped epoch). Returns the train loss and accuracy (the logged
@@ -1488,17 +1532,21 @@ class Trainer:
         logging, the stop poll and the timing CSVs work per dispatch, a
         dispatch's time spread over its steps. ``device_data``: the
         whole epoch on the device (``_train_epoch_device``), but for a
-        resumed part of an epoch, which streams as JAX's does."""
+        resumed part of an epoch, which streams as JAX's does.
+        ``batches``: the epoch's (images, labels) batches from elsewhere
+        (a streaming dataset's: ``fit_stream``), in place of ``data``'s."""
         cfg = self.config
         self._apply_epoch_regime(epoch)
         self.epoch = epoch
-        if not start_batch and self._device_data_active():
+        if batches is None and not start_batch and (
+                self._device_data_active()):
             return self._train_epoch_device(data, epoch)
         if start_batch:
             log.info("resuming epoch %d mid-epoch at batch %d", epoch,
                      start_batch)
-        it = batch_iterator(data.train_images, data.train_labels,
-                            cfg.batch_size, epoch=epoch, seed=cfg.seed)
+        it = batches if batches is not None else batch_iterator(
+            data.train_images, data.train_labels, cfg.batch_size,
+            epoch=epoch, seed=cfg.seed)
         if start_batch:
             it = itertools.islice(it, start_batch, None)
         scan_steps = max(int(cfg.scan_steps), 1)
@@ -1784,6 +1832,31 @@ class Trainer:
         ``Preempted`` after a graceful stop. The run's telemetry is
         sealed at the end (``metrics`` and ``run_end`` events), after an
         ``error`` event on a crash."""
+        return self._fit_loop(
+            lambda epoch, start: self.train_epoch(data, epoch, start),
+            lambda: self.evaluate(data), eval_every)
+
+    def fit_stream(self, stream, eval_data=None,
+                   eval_every: int = 1) -> List[Dict[str, float]]:
+        """``fit`` over a streaming dataset (``data.open_imagenet_stream``;
+        the JAX ``fit_stream``): each epoch's batches come from the
+        stream's ``batches`` in ``batch_iterator``'s seeded order, so a
+        stream and the same images in memory train alike; a data-parallel
+        rank takes its rows of each. ``device_data`` does not apply (the
+        stream does not fit). ``eval_data``: an in-memory dataset (the
+        materialized val subset) to evaluate on; None: no eval, and so no
+        best checkpoint."""
+        cfg = self.config
+
+        def train(epoch: int, start: int) -> Dict[str, float]:
+            it = stream.batches(cfg.batch_size, epoch=epoch, seed=cfg.seed)
+            return self.train_epoch(None, epoch, start, batches=it)
+
+        return self._fit_loop(
+            train, (lambda: self.evaluate(eval_data))
+            if eval_data is not None else None, eval_every)
+
+    def _fit_loop(self, train_fn, eval_fn, eval_every: int) -> list:
         history = []
         start_epoch, start_batch = (self.try_resume() if self.config.resume
                                     else (0, 0))
@@ -1795,11 +1868,11 @@ class Trainer:
             try:
                 for epoch in range(start_epoch, self.config.epochs):
                     row: Dict[str, float] = {"epoch": epoch}
-                    row.update(self.train_epoch(
-                        data, epoch,
-                        start_batch if epoch == start_epoch else 0))
-                    if eval_every and (epoch + 1) % eval_every == 0:
-                        eval_row = self.evaluate(data)
+                    row.update(train_fn(
+                        epoch, start_batch if epoch == start_epoch else 0))
+                    if eval_fn is not None and eval_every and (
+                            (epoch + 1) % eval_every == 0):
+                        eval_row = eval_fn()
                         row.update(eval_row)
                         self.telemetry.emit("eval", epoch=epoch, **eval_row)
                     history.append(row)
@@ -1987,38 +2060,53 @@ class Trainer:
         tx.load_state_dict({k: _to_tensor(np.asarray(v)[self._ef_row])
                             for k, v in rows.items()})
 
+    def _generators(self) -> Dict[str, torch.Generator]:
+        """The model's train-time generators by their meta key: "ranks"
+        (dropout masks, stochastic signs, and the crops) and, where the
+        augmentation has its own (the GSPMD step's global draws),
+        "augment_ranks"."""
+        from .capture import train_generators
+
+        return dict(zip(("ranks", "augment_ranks"),
+                        train_generators(self.model, self.device)))
+
     def _rng_state(self) -> Optional[Dict[str, Any]]:
-        """Every rank's train-time generator state (hex), collective in a
+        """Every rank's train-time generator states (hex), collective in a
         data-parallel run; None for a model that draws nothing."""
-        gen_fn = getattr(self.model, "train_generator", None)
-        if gen_fn is None:
+        gens = self._generators()
+        if not gens:
             return None
-        mine = gen_fn(self.device).get_state().numpy().tobytes().hex()
-        ranks = [mine]
-        if self.world > 1:
-            ranks = [None] * self.world
-            dist.all_gather_object(ranks, mine)
-        return {"device": self.device.type, "ranks": ranks}
+        out = {"device": self.device.type}
+        for key, gen in gens.items():
+            mine = gen.get_state().numpy().tobytes().hex()
+            ranks = [mine]
+            if self.world > 1:
+                ranks = [None] * self.world
+                dist.all_gather_object(ranks, mine)
+            out[key] = ranks
+        return out
 
     def _restore_rng(self, meta: Dict[str, Any]) -> None:
         """Set the train-time generator from the meta's ``torch_rng_state``
         when it is this run's device type and world; else keep the
         seed-derived one (a JAX checkpoint's ``rng_key`` is a JAX key)."""
-        gen_fn = getattr(self.model, "train_generator", None)
+        gens = self._generators()
         saved = meta.get(RNG_META_KEY)
-        if gen_fn is None:
+        if not gens:
             return
         if (not saved or saved.get("device") != self.device.type
-                or len(saved.get("ranks") or []) != self.world):
+                or any(len(saved.get(k) or []) != self.world
+                       for k in gens)):
             log.info("the checkpoint holds no %s generator state for %d "
                      "rank(s)%s; keeping the seed-derived generator",
                      self.device.type, self.world,
                      " (its rng_key is a JAX PRNG key)"
                      if meta.get("rng_key") else "")
             return
-        state = bytes.fromhex(saved["ranks"][self.rank])
-        gen_fn(self.device).set_state(
-            torch.frombuffer(bytearray(state), dtype=torch.uint8))
+        for key, gen in gens.items():
+            state = bytes.fromhex(saved[key][self.rank])
+            gen.set_state(torch.frombuffer(bytearray(state),
+                                           dtype=torch.uint8))
 
     def _saver(self) -> Callable:
         return (self._checkpointer.save if self._checkpointer is not None

@@ -329,8 +329,9 @@ def _jax_model_kwargs(argv, monkeypatch):
                                   "bnn-mlp-small", "bnn-moe-mlp",
                                   "bnn-vit-small", "bnn-vit-tiny", "convnet",
                                   "deep-cnn", "fp32-mlp-large",
-                                  "fp32-vit-small", "fp32-vit-tiny",
-                                  "qnn-mlp-large"])
+                                  "fp32-resnet18", "fp32-vit-small",
+                                  "fp32-vit-tiny", "qnn-mlp-large",
+                                  "xnor-resnet18", "xnor-resnet50"])
 def test_model_kwargs_are_jax_rule(name, monkeypatch):
     """For every registry model the flags give the JAX CLI's kwargs:
     ``--infl-ratio`` reaches the bnn-mlp family only, ``--dropout`` the

@@ -121,7 +121,7 @@ def test_rejections():
     with pytest.raises(ValueError, match="binarized"):
         tinfer._freeze_tensors(get_model("fp32-mlp-large", infl_ratio=1))
     with pytest.raises(ValueError, match="family"):
-        tinfer._build_any({"family": "xnor-resnet"}, torch.device("cpu"))
+        tinfer._build_any({"family": "xnor-resnet34"}, torch.device("cpu"))
 
 
 def test_freeze_without_a_card_raises():

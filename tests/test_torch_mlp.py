@@ -131,11 +131,12 @@ def test_structure_follows_the_reference():
     assert list_models() == ["bnn-cnn", "bnn-mlp-large", "bnn-mlp-small",
                              "bnn-moe-mlp", "bnn-vit-small", "bnn-vit-tiny",
                              "convnet", "deep-cnn", "fp32-mlp-large",
-                             "fp32-vit-small", "fp32-vit-tiny",
-                             "qnn-mlp-large"]
+                             "fp32-resnet18", "fp32-vit-small",
+                             "fp32-vit-tiny", "qnn-mlp-large",
+                             "xnor-resnet18", "xnor-resnet50"]
     assert get_model("bnn-mlp-small", infl_ratio=1).hidden == (64, 64, 64)
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("xnor-resnet18")
+        get_model("xnor-resnet34")
 
 
 def test_seeded_init_is_reproducible():

@@ -301,10 +301,21 @@ def test_grad_compress_dispatch_is_not_ported(kw):
     _assert_bitwise(scan, step)
 
 
-def test_augment_is_not_ported():
-    model = Trainer(TrainConfig(**DROPOUT)).model
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_step_body(latent_clamp_mask(model), augment=True)
+@pytest.mark.parametrize("kw", [dict(scan_steps=2), dict(device_data=True)],
+                         ids=["scan", "device_data"])
+def test_augment_dispatch_is_bitwise_the_per_step_path(kw):
+    """``augment`` (the crop and flip drawn from the model's generator
+    before the forward) in the dispatch modes: bitwise the per-step path
+    (parameters, statistics, Adam state, generator), and not the path
+    without augment."""
+    data = _data()
+    scan = Trainer(TrainConfig(**DROPOUT, augment=True, **kw))
+    step = Trainer(TrainConfig(**DROPOUT, augment=True))
+    plain = Trainer(TrainConfig(**DROPOUT))
+    for t in (scan, step, plain):
+        t.fit(data, eval_every=0)
+    _assert_bitwise(scan, step)
+    assert not torch.equal(step.model.fc1.weight, plain.model.fc1.weight)
 
 
 def test_per_epoch_learning_rates_keep_the_captured_step():
