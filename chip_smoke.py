@@ -375,8 +375,31 @@ Phases, each fatal on failure:
      are timed once the CLI process has ended. The kernels line's K1 and
      K2 rows carry ``launches_resnet_path``,
      ``launches_resnet_train_path`` and ``resnet_shapes``.
+ 21. the native loaders, the sanitizers and the serving fleet: (a) the
+     native library (``native/``) built by ``g++`` from the checkout and
+     loaded, no fallback; a BatchPool epoch bitwise the numpy iterator's
+     batches in order, ``pack_bits_native`` bitwise ``pack_bits_np``,
+     an idx file and a CIFAR-10 batch decoded natively; (b) ``cli train
+     --sanitize recompile,nan --scan-steps 8 --native-loader`` on
+     ``pallas_xnor`` (32 captured steps; no fence trips) and a run with
+     a NaN learning rate stopped by the NaN fence with its
+     ``sanitizer_trip`` event; (c) ``cli fleet`` over 2 ``cli serve``
+     replicas of the frozen ``bnn-mlp-large`` on the card: full
+     micro-batches through the router bitwise the in-process
+     predictor's, one replica SIGKILLed under traffic (every request
+     answered 200, the supervisor's replacement live), a bad artifact
+     rolled out and rolled back, the router's latency against a direct
+     replica's, a SIGTERM drain (rc 0, every replica's rc 0); (d) a
+     2-replica ``cli fleet --lm`` whose greedy streams equal one
+     in-process engine's; (e) ``convnet`` and ``bnn-moe-mlp`` with
+     ``--augment``, eager and captured at ``scan_steps=4``, bitwise.
+     (b)'s CLI run, (c) and (d) are processes of their own and run
+     together beside (a), (b)'s trip and (e). The
+     replicas' K2/K3 (classifier) and K1/K7/K8 (LM) launches come from
+     their ``/metrics`` (``kernel_launches_total``): the kernels line's
+     ``launches_fleet_path``.
 
-Phases 16, 17, 18, 19 and 20 run after 14, phase 15 last. Checks that wait on
+Phases 16, 17, 18, 19, 20 and 21 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -388,7 +411,8 @@ runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
 and (d) beside (b), phase 17's (b) beside (c), phase 18's ring ranks
 beside its in-process checks (after its timings), phase 19's ranks
 beside its (a) and (b) (after its timings), phase 20's CLI run beside
-its (a)-(d) (after its timings). Every ``parallel.spawn``
+its (a)-(d) (after its timings), phase 21's fleets and CLI run
+beside its (a) and (b). Every ``parallel.spawn``
 and CLI process prints its seconds, every phase its ``phase_s``, and the
 summary line before the card's name gives them all and ``total_s``.
 
@@ -7502,6 +7526,575 @@ def resnet_phase(device: torch.device, gen: torch.Generator):
     return paths, rows
 
 
+NATIVE_SYNTH = (4096, 512)    # (a) a BatchPool epoch over 64 batches
+NATIVE_PACK = (4096, 784)     # (a) pack_bits_native's (rows, K)
+SAN_SYNTH = (2048, 256)       # (b) 32 steps of 64: 4 captured chunks of 8
+SAN_SCAN = 8
+FLEET_REPLICAS = 2            # (c), (d): replicas on the one card
+FLEET_FULL = 4                # (c) full micro-batches, each held bitwise
+FLEET_KILL_REQUESTS = 24      # (c) requests in flight while one dies
+FLEET_LATENCY_N = 20          # (c) 1-image requests: router, then direct
+FLEET_LM_REQUESTS = ((5, 12), (17, 12), (40, 8), (16, 8), (100, 6))
+FLEET_BOOT_S = 300.0          # a fleet's replicas live, at most
+AUG_STEPS = 8                 # (e) augmented steps of 64, eager and in
+AUG_SCAN = 4                  # graphs of 4 steps
+PROC_DEVICE = "cuda"          # --device of phase 21's processes
+
+
+def _native_check(tmp: str) -> dict:
+    """Phase 21 (a): the native library builds from the checkout's
+    sources with ``g++`` and loads (no fallback); a BatchPool epoch is
+    the numpy iterator's batches bitwise, in order; ``pack_bits_native``
+    is ``pack_bits_np`` bitwise; an idx file and a CIFAR-10 binary batch
+    decode natively to their bytes."""
+    import struct
+
+    from distributed_mnist_bnns_tpu_torch import native
+    from distributed_mnist_bnns_tpu_torch.data import (
+        batch_iterator,
+        load_mnist,
+        native_batch_iterator,
+        shard_indices,
+    )
+    from distributed_mnist_bnns_tpu_torch.ops.bitpack import pack_bits_np
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("phase 21: the native library did not build "
+                             "or load (g++ on this machine?)")
+    build_s = time.perf_counter() - t0
+    data = load_mnist(os.path.join(tmp, "no-mnist-files"),
+                      synthetic_sizes=NATIVE_SYNTH, seed=0)
+    x, y = data.train_images, data.train_labels
+    idx = shard_indices(len(y), epoch=1, seed=42)
+    t0 = time.perf_counter()
+    pool = native.BatchPool.create(x, y, idx, 64, n_threads=4, n_slots=8)
+    if pool is None:
+        raise AssertionError("phase 21: BatchPool.create fell back")
+    with pool:
+        got = list(pool)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = list(batch_iterator(x, y, 64, epoch=1, seed=42))
+    numpy_s = time.perf_counter() - t0
+    through = list(native_batch_iterator(x, y, 64, epoch=1, seed=42))
+    if not (len(got) == len(want) == len(through) == len(y) // 64):
+        raise AssertionError(f"phase 21: {len(got)} pool batches, "
+                             f"{len(want)} numpy ones")
+    for (gi, gl), (ti, tl), (wi, wl) in zip(got, through, want):
+        if not (gi.tobytes() == ti.tobytes() == wi.tobytes()
+                and gl.tobytes() == tl.tobytes() == wl.tobytes()):
+            raise AssertionError("phase 21: a BatchPool batch differs from "
+                                 "the numpy iterator's")
+    rng = np.random.RandomState(21)
+    pm1 = np.where(rng.rand(*NATIVE_PACK) > 0.5, 1.0, -1.0).astype(
+        np.float32)
+    if native.pack_bits_native(pm1).tobytes() != pack_bits_np(pm1).tobytes():
+        raise AssertionError("phase 21: pack_bits_native differs from "
+                             "pack_bits_np")
+    u8 = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
+    path = os.path.join(tmp, "t-idx3-ubyte")
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x803) + struct.pack(">3I", *u8.shape)
+                + u8.tobytes())
+    rec = rng.randint(0, 256, (6, 3073)).astype(np.uint8)
+    rec[:, 0] %= 10
+    rec.tofile(os.path.join(tmp, "data_batch_1.bin"))
+    images, labels = native.cifar_bin_decode_native(
+        os.path.join(tmp, "data_batch_1.bin"), 6)
+    if (native.load_idx_native(path).tobytes() != u8.tobytes()
+            or images.tobytes() != rec[:, 1:].reshape(-1, 3, 32, 32)
+            .transpose(0, 2, 3, 1).tobytes()
+            or labels.tolist() != rec[:, 0].tolist()):
+        raise AssertionError("phase 21: a native decode differs")
+    log(f"native: built and loaded in {build_s:.2f} s; a {len(got)}-batch "
+        "epoch, packed bits and decodes bitwise numpy's")
+    return {"available": True, "library": os.path.basename(native.lib_path()),
+            "build_load_s": build_s, "pool_epoch_s": native_s,
+            "numpy_epoch_s": numpy_s, "batches": len(got)}
+
+
+def _sanitized_cli(tmp: str) -> dict:
+    """Phase 21 (b), a process of its own: ``cli train --sanitize
+    recompile,nan`` captured (``--scan-steps 8``, K1 on ``pallas_xnor``)
+    over the native loader; no fence trips, and no trip in its log."""
+    tel = os.path.join(tmp, "sanitized")
+    argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+            "--log-level", "WARNING", "train", "--model", "bnn-mlp-large",
+            "--epochs", "1", "--batch-size", "64", "--lr", "0.01",
+            "--backend", "pallas_xnor", "--synthetic-sizes",
+            *map(str, SAN_SYNTH), "--scan-steps", str(SAN_SCAN),
+            "--native-loader", "--sanitize", "recompile,nan",
+            "--nan-check-every", str(SAN_SCAN), "--telemetry-dir", tel,
+            "--device", PROC_DEVICE]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"sanitized cli train exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    with open(os.path.join(tel, "events.jsonl")) as f:
+        kinds = [json.loads(line)["kind"] for line in f if line.strip()]
+    if "sanitizer_trip" in kinds or row["total_steps"] != SAN_SYNTH[0] // 64:
+        raise AssertionError(f"phase 21: the sanitized run tripped or cut "
+                             f"short: {row}, {kinds.count('sanitizer_trip')} "
+                             "trips")
+    return {k: row[k] for k in ("train_loss", "total_steps", "data_source")}
+
+
+def _nan_trip(device, tmp: str) -> dict:
+    """Phase 21 (b): a poisoned run (a NaN learning rate: NaN parameters,
+    a NaN loss on the next step) is stopped by the NaN fence, with the
+    ``sanitizer_trip`` event in its log."""
+    from distributed_mnist_bnns_tpu_torch.analysis import NaNFenceError
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    tel = os.path.join(tmp, "poisoned")
+    data = load_mnist(os.path.join(tmp, "no-mnist-files"),
+                      synthetic_sizes=(512, 64), seed=0)
+    t = Trainer(TrainConfig(
+        model="bnn-mlp-small", model_kwargs={"infl_ratio": 1}, epochs=1,
+        batch_size=64, learning_rate=float("nan"), sanitize="nan",
+        nan_check_every=1, telemetry_dir=tel, log_interval=1,
+        backend="pallas_xnor", device=str(device)))
+    try:
+        t.fit(data, eval_every=0)
+    except NaNFenceError as e:
+        error = str(e)
+    else:
+        raise AssertionError("phase 21: the NaN fence let a NaN loss pass")
+    with open(os.path.join(tel, "events.jsonl")) as f:
+        trips = [e for e in map(json.loads, f) if e["kind"] ==
+                 "sanitizer_trip"]
+    if len(trips) != 1 or trips[0]["fence"] != "nan":
+        raise AssertionError(f"phase 21: trip events {trips}")
+    return {"tripped_at_step": trips[0]["step"], "error": error[:80]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get_json(url: str, timeout: float = 10.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _post_json(url: str, body: dict, timeout: float = 120.0):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+class _Fleet:
+    """A ``cli fleet`` process on a free port, its log in ``tmp``; the
+    replicas it runs are its children."""
+
+    def __init__(self, tmp: str, name: str, artifact: str, extra):
+        self.port = _free_port()
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.tel = os.path.join(tmp, name)
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        argv = [sys.executable, "-m", "distributed_mnist_bnns_tpu_torch.cli",
+                "fleet", "--artifact", artifact,
+                "--replicas", str(FLEET_REPLICAS),
+                "--min-replicas", str(FLEET_REPLICAS),
+                "--max-replicas", str(FLEET_REPLICAS), "--no-autoscale",
+                "--port", str(self.port), "--device", PROC_DEVICE,
+                "--telemetry-dir", self.tel, "--boot-timeout-s",
+                str(FLEET_BOOT_S), "--drain-timeout-s", "120", *extra]
+        self.t0 = time.perf_counter()
+        self.log_file = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=self.log_file, stderr=subprocess.STDOUT)
+
+    def health(self) -> dict:
+        return _get_json(self.base + "/healthz")
+
+    def wait_live(self, n: int, exclude=()) -> tuple:
+        """Wait until ``n`` replicas are live, none of them in
+        ``exclude``; (seconds waited, the healthz)."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < FLEET_BOOT_S:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"cli fleet exited {self.proc.returncode}"
+                                     f": {self.tail()}")
+            try:
+                h = self.health()
+            except OSError:
+                h = None
+            if h is not None:
+                live = [r for r in h["replicas"] if r["healthy"]]
+                if (len(live) >= n and not
+                        {r["id"] for r in live} & set(exclude)):
+                    return time.perf_counter() - t0, h
+            time.sleep(0.5)
+        raise AssertionError(f"phase 21: {n} replicas never went live: "
+                             f"{self.tail()}")
+
+    def replica_pid(self, url: str) -> int:
+        """The pid of the replica serving ``url`` (a child of the fleet
+        process, found through /proc)."""
+        port = url.rsplit(":", 1)[1].strip("/")
+        task = f"/proc/{self.proc.pid}/task"
+        for tid in os.listdir(task):
+            with open(f"{task}/{tid}/children") as f:
+                for pid in f.read().split():
+                    with open(f"/proc/{pid}/cmdline", "rb") as c:
+                        argv = c.read().split(b"\0")
+                    if b"serve" in argv and port.encode() in argv:
+                        return int(pid)
+        raise AssertionError(f"phase 21: no replica process for {url}")
+
+    def launches(self) -> dict:
+        """Every live replica's kernel launches, from its /metrics."""
+        from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+        total = {name: 0 for name in _kernels.LAUNCHES}
+        for row in self.health()["replicas"]:
+            snap = _get_json(row["url"] + "/metrics")
+            for s in snap.get("kernel_launches_total", {}).get("series", []):
+                total[s["labels"]["kernel"]] += int(s["value"])
+        return total
+
+    def drain(self) -> dict:
+        """SIGTERM: the fleet drains every replica and exits 0."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=240)
+        self.log_file.close()
+        with open(os.path.join(self.tel, "events.jsonl")) as f:
+            drains = [e for e in map(json.loads, f) if e["kind"] == "drain"]
+        if rc != 0 or len(drains) != 1 or any(
+                v != 0 for v in drains[0]["replica_rcs"].values()):
+            raise AssertionError(f"phase 21: the fleet's drain: rc {rc}, "
+                                 f"{drains}: {self.tail()}")
+        print(json.dumps({"process": f"cli fleet {os.path.basename(self.tel)}",
+                          "s": round(time.perf_counter() - self.t0, 1)}),
+              flush=True)
+        return {"rc": rc, "drain_s": time.perf_counter() - t0,
+                "replica_rcs": drains[0]["replica_rcs"]}
+
+    def stop(self) -> None:
+        """On a failure: end the fleet and any replica it leaves."""
+        if self.proc.poll() is None:
+            kids = []
+            try:
+                task = f"/proc/{self.proc.pid}/task"
+                for tid in os.listdir(task):
+                    with open(f"{task}/{tid}/children") as f:
+                        kids += [int(p) for p in f.read().split()]
+            except OSError:
+                pass
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            for pid in kids:
+                try:
+                    os.kill(pid, 9)
+                except OSError:
+                    pass
+        if not self.log_file.closed:
+            self.log_file.close()
+
+    def tail(self) -> str:
+        self.log_file.flush()
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+
+def _classifier_fleet(device, gen, tmp: str) -> dict:
+    """Phase 21 (c): ``cli fleet`` over 2 ``cli serve`` replicas of the
+    frozen ``bnn-mlp-large`` on the one card. Full micro-batches through
+    the router, bitwise the in-process predictor's; one replica killed
+    under traffic, every request answered 200 and the supervisor's
+    replacement live; a bad artifact rolled out and rolled back, answers
+    unchanged; the router's latency over a direct replica; the replicas'
+    kernel launches from their /metrics; a SIGTERM drain."""
+    import signal
+
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+    from distributed_mnist_bnns_tpu_torch.serve import client
+
+    model = get_model("bnn-mlp-large", generator=gen)
+    _random_bn_stats(model, gen)
+    path = os.path.join(tmp, "fleet_model.msgpack")
+    export_packed(model.eval(), path)
+    bad = os.path.join(tmp, "bad.msgpack")
+    with open(bad, "wb") as f:
+        f.write(b"not an artifact" * 64)
+    fn, _ = load_packed(path, device=device)
+    xs = [(torch.randint(0, 256, (MAIN_M, 28, 28, 1), generator=gen)
+           / 256.0).numpy() for _ in range(FLEET_FULL)]
+    want = [fn(x).cpu().numpy().tobytes() for x in xs]
+    marks = {}
+    fleet = _Fleet(tmp, "fleet", path, ["--deadline-ms", "30000",
+                                        "--replica-arg=--stall-timeout-s",
+                                        "--replica-arg=30"])
+
+    def predict(x, base=None):
+        code, body = client.predict(base or fleet.base, x.tolist(),
+                                    deadline_ms=30000.0, timeout=120.0)
+        if code != 200:
+            raise AssertionError(f"phase 21: /predict {code} {body[:300]!r}")
+        return np.asarray(json.loads(body)["log_probs"], np.float32)
+
+    def check_bitwise(what):
+        for i, x in enumerate(xs):
+            if predict(x).tobytes() != want[i]:
+                raise AssertionError(f"phase 21: {what}: a routed batch "
+                                     "differs from the predictor")
+
+    try:
+        marks["boot_s"], h = fleet.wait_live(FLEET_REPLICAS)
+        check_bitwise("first answers")
+        one = xs[0][:1]
+        lat = {"router": [], "direct": []}
+        direct = h["replicas"][0]["url"]
+        for _ in range(FLEET_LATENCY_N):
+            for key, base in (("router", fleet.base), ("direct", direct)):
+                t0 = time.perf_counter()
+                predict(one, base)
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+        # kill one replica while requests are in flight
+        victim = h["replicas"][0]
+        pid = fleet.replica_pid(victim["url"])
+        codes = []
+
+        def traffic():
+            for i in range(FLEET_KILL_REQUESTS):
+                codes.append(client.predict(
+                    fleet.base, xs[i % FLEET_FULL][:4].tolist(),
+                    deadline_ms=30000.0, timeout=120.0)[0])
+                time.sleep(0.05)
+
+        sender = threading.Thread(target=traffic)
+        sender.start()
+        time.sleep(0.3)
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        sender.join()
+        if codes != [200] * FLEET_KILL_REQUESTS:
+            raise AssertionError(f"phase 21: requests lost around the kill: "
+                                 f"{codes}")
+        marks["respawn_s"], h = fleet.wait_live(FLEET_REPLICAS,
+                                                exclude=(victim["id"],))
+        marks["respawn_s"] = time.perf_counter() - t_kill
+        check_bitwise("after the respawn")
+        code, rollout = _post_json(fleet.base + "/admin/rollout",
+                                   {"artifact": bad})
+        if code != 200 or rollout.get("status") != "rolled_back":
+            raise AssertionError(f"phase 21: the bad rollout: {code} "
+                                 f"{rollout}")
+        check_bitwise("after the rollback")
+        time.sleep(2.5)   # a scrape after the last request
+        launches = fleet.launches()
+        merged = _get_json(fleet.base + "/metrics").get(
+            "kernel_launches_total", {}).get("series", [])
+        health = fleet.health()
+        drained = fleet.drain()
+    finally:
+        fleet.stop()
+    for name in ("xnor_sign", "xnor_affine"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 21: the classifier replicas never "
+                                 f"launched {name}")
+    med = {k: statistics.median(v) for k, v in lat.items()}
+    log(f"classifier fleet: booted in {marks['boot_s']:.1f} s, a killed "
+        f"replica replaced in {marks['respawn_s']:.1f} s with "
+        f"{FLEET_KILL_REQUESTS} of {FLEET_KILL_REQUESTS} requests "
+        f"answered, a bad rollout rolled back; router {med['router']:.2f} "
+        f"ms against direct {med['direct']:.2f} ms")
+    return {"launches": launches, "marks": marks,
+            "latency_ms": {"router_median": med["router"],
+                           "direct_median": med["direct"],
+                           "router_added_median": med["router"]
+                           - med["direct"],
+                           "router_p90": float(np.percentile(lat["router"],
+                                                             90)),
+                           "direct_p90": float(np.percentile(lat["direct"],
+                                                             90))},
+            "rollout": {k: rollout.get(k) for k in ("status", "tripped",
+                                                    "reason")},
+            "merged_launches": {s["labels"]["kernel"]: s["value"]
+                                for s in merged},
+            "replicas_live_end": health["live"], "drain": drained}
+
+
+def _lm_fleet(device, gen, tmp: str) -> dict:
+    """Phase 21 (d): a 2-replica ``cli fleet --lm`` on the one card:
+    greedy streams through the router equal to one in-process engine's
+    at the replicas' geometry; the replicas' K1, K7 and K8 launches from
+    their /metrics; a SIGTERM drain."""
+    from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+
+    path, frozen = _lm_artifact(gen, os.path.join(tmp))
+    prompts = [(torch.randint(0, LM_WIDTH["vocab"], (n,), generator=gen)
+                .tolist(), k) for n, k in FLEET_LM_REQUESTS]
+    fleet = _Fleet(tmp, "lm_fleet", path, [
+        "--lm", "--page-size", str(LM_PAGE), "--deadline-ms", "120000",
+        f"--replica-arg=--slots", f"--replica-arg={LM_SLOTS}",
+        "--replica-arg=--prefill-chunk", f"--replica-arg={LM_CHUNK}"])
+    try:
+        boot_s, _ = fleet.wait_live(FLEET_REPLICAS)
+        got = []
+        for prompt, n in prompts:
+            code, events = lc.generate(fleet.base, prompt, max_new_tokens=n,
+                                       temperature=0.0, deadline_ms=120000.0)
+            if code != 200 or events[-1].get("status") != "ok":
+                raise AssertionError(f"phase 21: /generate {code} "
+                                     f"{events[-1:]}")
+            got.append([e["token"] for e in events[:-1]])
+        launches = fleet.launches()
+        drained = fleet.drain()
+    finally:
+        fleet.stop()
+    want = _lm_reference(frozen, device, prompts)
+    if got != want:
+        raise AssertionError(f"phase 21: the LM fleet's greedy streams "
+                             f"differ from one engine's: {got} vs {want}")
+    for name in ("xnor", "xnor_unpack", "paged_attn"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 21: the LM replicas never launched "
+                                 f"{name}")
+    log(f"LM fleet: booted in {boot_s:.1f} s; {len(got)} greedy streams "
+        "equal to one engine's")
+    return {"launches": launches, "boot_s": boot_s,
+            "tokens": sum(map(len, got)), "drain": drained}
+
+
+def _lm_reference(frozen, device, prompts) -> list:
+    """Greedy tokens of ``prompts`` ((tokens, n) pairs) from one
+    in-process engine at the replicas' geometry, one after another. Its
+    fence is off: this process captures graphs beside it ((e))."""
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        make_paged_lm_decoder,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import LMEngine
+
+    dec = make_paged_lm_decoder(frozen, slots=LM_SLOTS, page_size=LM_PAGE,
+                                prefill_chunk=LM_CHUNK, device=device)
+    eng = LMEngine(dec, queue_depth=16, device=device,
+                   recompile_fence=False).start()
+    out = []
+    try:
+        for prompt, n in prompts:
+            req = eng.submit(np.asarray(prompt, np.int32), n,
+                             time.monotonic() + 600)
+            toks = []
+            while True:
+                ev = req.events.get(timeout=300)
+                if ev["kind"] == "done":
+                    if ev["status"] != "ok":
+                        raise AssertionError(f"reference stream {ev}")
+                    break
+                toks.append(ev["token"])
+            out.append(toks)
+    finally:
+        eng.stop()
+    return out
+
+
+def _augment_no_draw(device, tmp: str) -> dict:
+    """Phase 21 (e): ``convnet`` (fp32) and ``bnn-moe-mlp`` (at its
+    defaults, on ``pallas_xnor``) train with ``augment``, their crops
+    drawn from a generator of their own: ``AUG_STEPS`` eager steps, and
+    the same steps captured at ``scan_steps=AUG_SCAN``, bitwise equal
+    (parameters, statistics, generator)."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    data = load_mnist(os.path.join(tmp, "no-mnist-files"),
+                      synthetic_sizes=(AUG_STEPS * 64, 64), seed=0)
+    out = {}
+    for model, backend in (("convnet", None), ("bnn-moe-mlp",
+                                                "pallas_xnor")):
+        runs = []
+        for scan in (1, AUG_SCAN):
+            t = Trainer(TrainConfig(
+                model=model, backend=backend, batch_size=64, epochs=1,
+                optimizer="adam", learning_rate=0.01, seed=21,
+                augment=True, scan_steps=scan, device=str(device)))
+            row = t.train_epoch(data, 0)
+            torch.cuda.synchronize()
+            runs.append((t, row))
+        (t1, r1), (t2, _) = runs
+        gens = [t.model.train_generator(device).get_state() for t, _ in runs]
+        if not (_states_equal(_state(t1), _state(t2))
+                and torch.equal(gens[0], gens[1])
+                and np.isfinite(r1["train_loss"])):
+            raise AssertionError(f"phase 21: {model} augmented, captured "
+                                 "differs from eager")
+        out[model] = {"train_loss": r1["train_loss"],
+                      "captures": t2._train_scan.captures}
+    log("augment: convnet and bnn-moe-mlp captured bitwise eager")
+    return out
+
+
+def fleet_phase(device: torch.device, gen: torch.Generator):
+    """Phase 21: the native loaders, the sanitizers and the serving
+    fleet. (c) the classifier fleet, (d) the LM fleet and (b)'s
+    sanitized ``cli train`` run as processes of their own, together,
+    while (a) the native library's checks, (b)'s NaN-fence trip and (e)
+    the augmented steps of the two models that draw nothing run here. Returns ({path: the replicas' launch counts}, the rows)."""
+    t0 = time.perf_counter()
+    marks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_gen = torch.Generator().manual_seed(int(
+            torch.randint(0, 2 ** 31, (1,), generator=gen)))
+        lm_gen = torch.Generator().manual_seed(int(
+            torch.randint(0, 2 ** 31, (1,), generator=gen)))
+        joins = {
+            "classifier": _background(lambda: _classifier_fleet(
+                device, fleet_gen, tmp)),
+            "lm": _background(lambda: _lm_fleet(device, lm_gen, tmp)),
+            "cli": _background(lambda: _sanitized_cli(tmp)),
+        }
+        out = {}
+        try:
+            out["native"] = _native_check(tmp)
+            marks["a"] = round(time.perf_counter() - t0, 1)
+            out["nan_trip"] = _nan_trip(device, tmp)
+            marks["b"] = round(time.perf_counter() - t0, 1)
+            out["augment"] = _augment_no_draw(device, tmp)
+            marks["e"] = round(time.perf_counter() - t0, 1)
+        finally:
+            for name, join in joins.items():
+                out[name] = join()
+                marks[name] = round(time.perf_counter() - t0, 1)
+    paths = {"fleet_classifier": out["classifier"].pop("launches"),
+             "fleet_lm": out["lm"].pop("launches")}
+    print(json.dumps({"phase": 21, **out}, default=str), flush=True)
+    print(json.dumps({"phase": 21, "launches": paths,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    return paths, out
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -7686,6 +8279,14 @@ def main() -> int:
             if rn_paths[path][name] == 0:
                 raise AssertionError(f"phase 20: the {path} path never "
                                      f"launched {name}")
+    fleet_paths, _ = _timed("21", fleet_phase, device,
+                            torch.Generator().manual_seed(21))
+    for path, names in (("fleet_classifier", ("xnor_sign", "xnor_affine")),
+                        ("fleet_lm", ("xnor", "xnor_unpack", "paged_attn"))):
+        for name in names:
+            if fleet_paths[path][name] == 0:
+                raise AssertionError(f"phase 21: the {path} path never "
+                                     f"launched {name}")
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,
@@ -7713,7 +8314,8 @@ def main() -> int:
                          + obs_counts[name]
                          + sum(c[name] for c in tf_paths.values())
                          + sum(c[name] for c in fam_paths.values())
-                         + sum(c[name] for c in rn_paths.values())),
+                         + sum(c[name] for c in rn_paths.values())
+                         + sum(c[name] for c in fleet_paths.values())),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -7738,6 +8340,12 @@ def main() -> int:
             "launches_qnn_path": fam_paths["qnn"][name],
             "launches_resnet_path": rn_paths["resnet"][name],
             "launches_resnet_train_path": rn_paths["resnet_train"][name],
+            # read from the replicas' /metrics, not this process (21)
+            "launches_fleet_path": sum(c[name]
+                                       for c in fleet_paths.values()),
+            "launches_fleet_classifier_path":
+                fleet_paths["fleet_classifier"][name],
+            "launches_fleet_lm_path": fleet_paths["fleet_lm"][name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,

@@ -276,6 +276,137 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seeds the chaos rules' draws")
     sv.add_argument("--input-shape", type=int, nargs="+",
                     default=[28, 28, 1])
+    sv.add_argument("--log-file", default=None,
+                    help="also log (DEBUG) to this file (a fleet's "
+                         "replicas log to <telemetry-dir>/<id>.log)")
+
+    fl = sub.add_parser(
+        "fleet",
+        help="multi-replica serving fleet: a deadline-aware least-loaded "
+             "router over N `cli serve` replica processes with per-"
+             "replica health probing and circuit breakers, retry on "
+             "another replica, autoscaling between --min/--max-replicas, "
+             "rolling artifact deploys with canary gates and automatic "
+             "fleet-wide rollback (POST /admin/rollout), SIGTERM whole-"
+             "fleet drain. `fleet explain DIR` replays a fleet telemetry "
+             "dir's control-plane decision timeline instead of serving",
+    )
+    fl.add_argument("action", nargs="*", default=[], metavar="explain DIR",
+                    help="'explain DIR': render the control-plane decision "
+                         "timeline (autoscaler scale/holds, breaker "
+                         "transitions, ejections, respawns, rollout gates) "
+                         "joined against SLO alert open/close from DIR's "
+                         "event log; with no action, run the fleet")
+    fl.add_argument("--artifact", default=None,
+                    help="packed artifact every replica serves (from "
+                         "`export` / `lm --export`); required unless "
+                         "running `fleet explain`")
+    fl.add_argument("--lm", action="store_true",
+                    help="LM fleet: `cli serve --lm` replicas behind POST "
+                         "/generate with prefix affinity (requests sharing "
+                         "the first page-size prompt block land on the "
+                         "replica whose prefix cache is warm)")
+    fl.add_argument("--device", default="cuda",
+                    help="the replicas' --device (all on one card by "
+                         "default; `cpu` without one)")
+    fl.add_argument("--host", default="127.0.0.1")
+    fl.add_argument("--port", type=int, default=8100,
+                    help="router port (0 = ephemeral, logged)")
+    fl.add_argument("--replicas", type=int, default=2,
+                    help="initial replica count")
+    fl.add_argument("--min-replicas", type=int, default=1)
+    fl.add_argument("--max-replicas", type=int, default=4)
+    fl.add_argument("--deadline-ms", type=float, default=1000.0,
+                    help="default client deadline at the router; an "
+                         "expired deadline fails fast with no dispatch")
+    fl.add_argument("--max-attempts", type=int, default=3,
+                    help="dispatch attempts per request (failover to "
+                         "another replica on error or shed)")
+    fl.add_argument("--probe-interval-s", type=float, default=0.25,
+                    help="replica /healthz poll cadence (ejection on "
+                         "failed/draining/fence_error)")
+    fl.add_argument("--breaker-threshold", type=int, default=3,
+                    help="per-replica router breaker: consecutive "
+                         "failures to eject")
+    fl.add_argument("--breaker-reset-s", type=float, default=1.0)
+    fl.add_argument("--boot-timeout-s", type=float, default=180.0,
+                    help="replica spawn -> healthy budget before the "
+                         "supervisor kills and respawns it")
+    fl.add_argument("--autoscale", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="scale replicas between --min/--max off sustained "
+                         "mean queue depth and shed rate")
+    fl.add_argument("--queue-high", type=float, default=4.0,
+                    help="mean replica queue depth that (sustained) "
+                         "scales up")
+    fl.add_argument("--queue-low", type=float, default=0.5,
+                    help="mean queue depth below which (sustained, zero "
+                         "sheds) the fleet scales down")
+    fl.add_argument("--sustain-s", type=float, default=1.0,
+                    help="how long an autoscale signal must hold")
+    fl.add_argument("--cooldown-s", type=float, default=3.0,
+                    help="minimum gap between autoscale decisions")
+    fl.add_argument("--scrape-interval-s", type=float, default=1.0,
+                    help="replica /metrics scrape cadence feeding the "
+                         "fleet-merged GET /metrics (counters sum, gauges "
+                         "fan out per replica, histograms merge le-"
+                         "exactly); 0 disables scraping")
+    fl.add_argument("--slo", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="multiwindow burn-rate SLO alerting over routed "
+                         "availability and request p99 (+ LM inter-token "
+                         "p99): slo_alert events, slo_burn_rate/"
+                         "slo_budget_remaining gauges, open alerts in "
+                         "/healthz")
+    fl.add_argument("--slo-fast-window-s", type=float, default=60.0,
+                    help="SLO fast burn window")
+    fl.add_argument("--slo-slow-window-s", type=float, default=300.0,
+                    help="SLO slow burn window")
+    fl.add_argument("--drain-timeout-s", type=float, default=60.0,
+                    help="SIGTERM whole-fleet drain budget")
+    fl.add_argument("--staging-dir", default=None,
+                    help="rollout artifact staging dir (artifacts ship "
+                         "here over utils/transfer, digest-verified; "
+                         "default: <telemetry-dir>/staging)")
+    fl.add_argument("--input-shape", type=int, nargs="+",
+                    default=[28, 28, 1],
+                    help="per-example input shape (the rollout canary's "
+                         "probe request)")
+    fl.add_argument("--page-size", type=int, default=16,
+                    help="--lm: tokens per KV page, also the prefix-"
+                         "affinity block size (passed to the replicas)")
+    fl.add_argument("--telemetry-dir", default=None,
+                    help="fleet events here; each replica logs under "
+                         "<dir>/replica-N/ (ids are nonce-prefixed so the "
+                         "logs merge)")
+    fl.add_argument("--trace", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="router span trees (fleet.request/dispatch) in "
+                         "the event log; the x-jg-trace header is "
+                         "forwarded unchanged so replica spans join the "
+                         "same trace. Default: the JG_TRACE env var; "
+                         "needs --telemetry-dir")
+    fl.add_argument("--events-max-bytes", type=int, default=None)
+    fl.add_argument("--seed", type=int, default=0)
+    fl.add_argument("--batch-size", type=int, default=None,
+                    help="replica micro-batch size (passed through)")
+    fl.add_argument("--queue-depth", type=int, default=None,
+                    help="replica admission bound (passed through)")
+    fl.add_argument("--stall-timeout-s", type=float, default=None,
+                    help="replica stall budget (passed through)")
+    fl.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="replica fault injection (passed through to "
+                         "every replica)")
+    fl.add_argument("--replica-arg", action="append", default=None,
+                    metavar="ARG",
+                    help="extra raw `cli serve` argv token passed to "
+                         "every replica; repeatable (e.g. "
+                         "--replica-arg=--slots --replica-arg=8)")
+    fl.add_argument("--json", action="store_true",
+                    help="`fleet explain`: the decision timeline as JSON "
+                         "rows instead of the table")
+    fl.add_argument("--log-file", default=None,
+                    help="also log (DEBUG) to this file")
 
     lm = sub.add_parser(
         "lm", help="train (--ring: sequence-parallel ring attention) and/or "
@@ -341,6 +472,10 @@ def build_parser() -> argparse.ArgumentParser:
         "telemetry", help="summarize a run's telemetry event log")
     tm.add_argument("log", help="an events.jsonl, or the telemetry "
                                 "directory holding one")
+    tm.add_argument("--fleet", action="store_true",
+                    help="LOG is a fleet telemetry directory: the router "
+                         "log and every replica subdirectory's in one "
+                         "combined report (rotated segments per log)")
     tm.add_argument("--json", action="store_true",
                     help="one JSON object instead of the table")
     tc = sub.add_parser(
@@ -491,6 +626,24 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                     help="capture cumulative optimizer steps A to B into "
                          "--profile-dir (or <telemetry-dir>/profile); "
                          "summarize with `profile`")
+    sp.add_argument("--native-loader", action="store_true",
+                    help="gather batches on C++ worker threads (the "
+                         "native BatchPool, built by g++ at first use; "
+                         "the numpy iterator without the toolchain)")
+    sp.add_argument("--sanitize", default=None, metavar="FENCES",
+                    help="runtime fences (analysis/guards), a comma list "
+                         "of recompile (CUDA-graph captures and kernel "
+                         "builds after warm-up over --recompile-budget "
+                         "raise), transfer (a numpy array or an off-"
+                         "device tensor at the step's dispatch raises), "
+                         "nan (a NaN/inf loss raises). Default: the "
+                         "JG_SANITIZE env var")
+    sp.add_argument("--recompile-budget", type=int, default=None,
+                    help="post-warmup builds allowed under --sanitize "
+                         "recompile (default 16)")
+    sp.add_argument("--nan-check-every", type=int, default=None,
+                    help="NaN-fence stride in steps under --sanitize nan "
+                         "(each check reads the loss back; default 50)")
     # parallelism
     sp.add_argument("--dp", default="1",
                     help="'auto' = all devices, or an integer")
@@ -663,6 +816,9 @@ def _trainer(args, data_parallel=None, device=None, resume=None):
         device=args.device if device is None else device,
         telemetry_dir=args.telemetry_dir, trace=args.trace,
         profile_dir=args.profile_dir, profile_step_window=args.profile_steps,
+        native_loader=args.native_loader, sanitize=args.sanitize,
+        recompile_budget=args.recompile_budget,
+        nan_check_every=args.nan_check_every,
     ), input_shape=input_shape)
 
 
@@ -1010,6 +1166,8 @@ def _infer(args) -> int:
 
 
 def _serve(args) -> int:
+    if args.log_file:
+        _setup_logging(args)
     if args.lm:
         from .serve.lm import LMServeConfig, LMServer
 
@@ -1055,6 +1213,70 @@ def _serve(args) -> int:
         chaos=args.chaos, seed=args.seed,
     ))
     return server.run()
+
+
+def _fleet(args) -> int:
+    """``fleet explain DIR``: the control plane's decision timeline from
+    a fleet telemetry dir; else the fleet: router, supervisor and
+    rollout over ``--replicas`` processes of ``cli serve``."""
+    if args.action:
+        if args.action[0] != "explain" or len(args.action) != 2:
+            raise SystemExit("fleet: unknown action %r (only `fleet "
+                             "explain DIR` is supported)"
+                             % " ".join(args.action))
+        from .obs import (
+            decision_timeline,
+            read_events,
+            render_decision_timeline,
+        )
+
+        path = _events_path(args.action[1])
+        try:
+            events = list(read_events(path))
+        except FileNotFoundError:
+            print(f"no event log at {path}", file=sys.stderr)
+            return 2
+        rows = decision_timeline(events)
+        print(json.dumps(rows) if args.json else render_decision_timeline(
+            rows, title=f"fleet decision timeline: {path}"))
+        return 0
+    if not args.artifact:
+        raise SystemExit("fleet: --artifact is required to serve (or use "
+                         "`fleet explain DIR`)")
+    if args.log_file:
+        _setup_logging(args)
+    from .serve.fleet import FleetConfig, FleetServer
+
+    rflags = []
+    for flag, value in (("--batch-size", args.batch_size),
+                        ("--queue-depth", args.queue_depth),
+                        ("--stall-timeout-s", args.stall_timeout_s),
+                        ("--chaos", args.chaos)):
+        if value is not None:
+            rflags += [flag, str(value)]
+    if args.seed:
+        rflags += ["--seed", str(args.seed)]
+    rflags += args.replica_arg or []
+    return FleetServer(FleetConfig(
+        artifact=args.artifact, host=args.host, port=args.port,
+        replicas=args.replicas, min_replicas=args.min_replicas,
+        max_replicas=args.max_replicas, lm=args.lm, device=args.device,
+        page_size=args.page_size, input_shape=tuple(args.input_shape),
+        default_deadline_ms=args.deadline_ms, max_attempts=args.max_attempts,
+        probe_interval_s=args.probe_interval_s,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        boot_timeout_s=args.boot_timeout_s, autoscale=args.autoscale,
+        queue_high=args.queue_high, queue_low=args.queue_low,
+        sustain_s=args.sustain_s, cooldown_s=args.cooldown_s,
+        drain_timeout_s=args.drain_timeout_s, staging_dir=args.staging_dir,
+        telemetry_dir=args.telemetry_dir, trace=args.trace,
+        events_max_bytes=args.events_max_bytes,
+        scrape_interval_s=args.scrape_interval_s, slo=args.slo,
+        slo_fast_window_s=args.slo_fast_window_s,
+        slo_slow_window_s=args.slo_slow_window_s, seed=args.seed,
+        replica_flags=rflags,
+    )).run()
 
 
 def _lm(args) -> int:
@@ -1148,9 +1370,29 @@ def _events_path(given: str) -> str:
 
 
 def _telemetry(args) -> int:
-    """The run log's summary: the table, or ``--json``."""
+    """The run log's summary: the table, or ``--json``; ``--fleet``: a
+    fleet telemetry directory's combined report."""
+    import os
+
     from .obs import render_table, summarize
 
+    if args.fleet:
+        from .obs import render_fleet_table, summarize_fleet
+        from .obs.telemetry import EVENTS_FILE
+
+        root = args.log
+        if os.path.isfile(root):
+            root = os.path.dirname(root) or "."
+        try:
+            fleet_summary = summarize_fleet(root)
+        except FileNotFoundError:
+            print(f"no fleet event log under {root} (expected "
+                  f"{EVENTS_FILE} plus replica subdirectories)",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps(fleet_summary) if args.json
+              else render_fleet_table(fleet_summary))
+        return 0
     path = _events_path(args.log)
     try:
         summary = summarize(path)
@@ -1252,7 +1494,7 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
     return {"train": _train, "eval": _eval, "export": _export,
-            "infer": _infer, "serve": _serve, "lm": _lm,
+            "infer": _infer, "serve": _serve, "fleet": _fleet, "lm": _lm,
             "telemetry": _telemetry, "trace": _trace,
             "profile": _profile}[args.cmd](args)
 

@@ -13,6 +13,7 @@ from .mnist import (
     batch_iterator,
     load_idx,
     load_mnist,
+    native_batch_iterator,
     shard_indices,
 )
 
@@ -50,6 +51,7 @@ __all__ = [
     "load_idx",
     "load_imagenet",
     "load_mnist",
+    "native_batch_iterator",
     "normalize_u8",
     "open_imagenet_stream",
     "shard_indices",

@@ -13,8 +13,10 @@ framework-free numpy. Either layout is found under the data dir:
 
 Rows are CHW (1024 red, 1024 green, 1024 blue bytes) and come out as
 (N, 32, 32, 3) HWC images, normalized with CIFAR-10's train-split mean
-and std. The JAX package first tries its native decoder for the binary
-layout; here the numpy reader is the only one (the same arrays).
+and std. The binary layout goes through the native decoder
+(``native.cifar_bin_decode_native``, the CHW -> HWC transpose fused into
+the read) when the library is built, else the numpy reader (the same
+arrays), as in the JAX package.
 Without files, ``synthetic_blobs`` at (32, 32, 3), equal to the JAX
 package's for the same seed.
 """
@@ -81,6 +83,15 @@ def _load_bin_batches(d: str) -> Tuple[np.ndarray, ...] | None:
         size = os.path.getsize(path)
         if size == 0 or size % 3073:
             return None  # truncated or corrupt: the layout counts as absent
+        from .. import native
+
+        try:
+            decoded = native.cifar_bin_decode_native(path, size // 3073)
+        except ValueError as e:
+            log.debug("native cifar decode failed (%s); numpy reader", e)
+            decoded = None
+        if decoded is not None:
+            return decoded
         rec = np.fromfile(path, np.uint8).reshape(-1, 3073)
         return _rows_to_nhwc(rec[:, 1:]), rec[:, 0].astype(np.int32)
 

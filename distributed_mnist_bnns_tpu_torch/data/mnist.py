@@ -1,11 +1,13 @@
 """MNIST loading: idx parsing, normalization, synthetic fallback.
 
 Counterpart of the JAX package's ``data/mnist.py`` (``load_idx``,
-``load_mnist``, ``shard_indices``, ``batch_iterator``). idx ubyte files
-(optionally gzipped) are parsed in pure Python/numpy; the native C++
-decoder and batch gather are not part of this package yet. The batch
-order is the JAX package's: the same seed and epoch give the same
-batches in the same order.
+``load_mnist``, ``shard_indices``, ``batch_iterator``,
+``native_batch_iterator``). Raw idx ubyte files go through the native
+C++ decoder (``native/``) when it builds; gzipped ones, and every file
+without the library, through the numpy parser (the same arrays). The
+batch order is the JAX package's: the same seed and epoch give the same
+batches in the same order, from the numpy iterator or the native
+threaded gather alike.
 """
 
 from __future__ import annotations
@@ -32,7 +34,19 @@ _DEFAULT_DIRS = (
 
 
 def load_idx(path: str) -> np.ndarray:
-    """Parse an idx ubyte file (magic 0x0801 labels / 0x0803 images), gz ok."""
+    """Parse an idx ubyte file (magic 0x0801 labels / 0x0803 images), gz
+    ok: the native decoder for a raw file when the library is built, the
+    numpy parser otherwise."""
+    if not path.endswith(".gz"):
+        from .. import native
+
+        try:
+            arr = native.load_idx_native(path)
+        except ValueError as e:   # the numpy parser names the fault
+            log.debug("native idx decode failed (%s); numpy parser", e)
+            arr = None
+        if arr is not None:
+            return arr
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         magic = struct.unpack(">I", f.read(4))[0]
@@ -154,3 +168,46 @@ def batch_iterator(
     if not drop_last and len(idx) % batch_size:
         sel = idx[n_full * batch_size:]
         yield images[sel], labels[sel]
+
+
+def native_batch_iterator(
+    images: np.ndarray,
+    labels: np.ndarray,
+    batch_size: int,
+    *,
+    epoch: int = 0,
+    seed: int = 0,
+    host_id: int = 0,
+    num_hosts: int = 1,
+    shuffle: bool = True,
+    n_threads: int = 2,
+    n_slots: int = 4,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """``batch_iterator`` (``drop_last``) served by the native threaded
+    ``BatchPool``: the per-batch row gathers run on C++ worker threads
+    ahead of the consumer. The same ``shard_indices`` order and the same
+    arrays; the numpy iterator when the library is unavailable or the
+    images are not float32."""
+    from .. import native
+
+    idx = shard_indices(
+        len(images), epoch=epoch, seed=seed, host_id=host_id,
+        num_hosts=num_hosts, shuffle=shuffle,
+    )
+    pool = None
+    if images.dtype == np.float32:
+        try:
+            pool = native.BatchPool.create(
+                images, labels, idx, batch_size,
+                n_threads=n_threads, n_slots=n_slots,
+            )
+        except (RuntimeError, IndexError) as e:
+            log.warning("native BatchPool unavailable (%s); numpy path", e)
+    if pool is None:
+        n_full = len(idx) // batch_size
+        for b in range(n_full):
+            sel = idx[b * batch_size:(b + 1) * batch_size]
+            yield images[sel], labels[sel]
+        return
+    with pool:
+        yield from pool

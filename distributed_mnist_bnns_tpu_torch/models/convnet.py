@@ -13,7 +13,9 @@ and the BatchNorms' outputs in bf16 over fp32 parameters (the BatchNorm
 statistics in fp32, as flax's), the head in fp32. It returns logits, as
 the JAX model does. Submodules map to the flax names as conv1, conv2
 <-> Conv_0, Conv_1, bn1, bn2 <-> BatchNorm_0, BatchNorm_1 and head <->
-Dense_0 (``flax_names``).
+Dense_0 (``flax_names``). The model draws nothing itself; its
+generator (``SeededTrainRNG``, seeded by ``rng_seed``) gives the train
+step's crops under ``augment``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import BatchNorm, Conv, dense, flatten_nhwc, nhwc_input
+from .layers import (
+    BatchNorm,
+    Conv,
+    SeededTrainRNG,
+    dense,
+    flatten_nhwc,
+    nhwc_input,
+)
 
 
 def _bn(c: int, dtype: Optional[torch.dtype]) -> BatchNorm:
@@ -32,12 +41,13 @@ def _bn(c: int, dtype: Optional[torch.dtype]) -> BatchNorm:
     return bn
 
 
-class ConvNet(nn.Module):
+class ConvNet(SeededTrainRNG, nn.Module):
     def __init__(self, num_classes: int = 10, *,
-                 dtype: Optional[torch.dtype] = None,
+                 dtype: Optional[torch.dtype] = None, rng_seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
+        self.rng_seed = rng_seed
         self.dtype = dtype
         self.conv1 = Conv(1, 16, (5, 5), padding=2, dtype=dtype,
                           generator=generator)

@@ -49,7 +49,14 @@ from ..ops.binarize import binarize_ste
 from ..ops.comm_compress import all_gather, all_reduce_sum
 from ..ops.routing import load_balance_loss, topk_dispatch
 from ..ops.xnor_gemm import BACKENDS, binary_matmul
-from .layers import BatchNorm, BinarizedDense, _AllReduceSum, dense, hard_tanh
+from .layers import (
+    BatchNorm,
+    BinarizedDense,
+    SeededTrainRNG,
+    _AllReduceSum,
+    dense,
+    hard_tanh,
+)
 
 
 class _AllGatherRows(torch.autograd.Function):
@@ -113,21 +120,24 @@ class BinarizedExperts(nn.Module):
         return torch.einsum("tec,ecd->td", combine, ex_out)
 
 
-class BnnMoEMLP(nn.Module):
+class BnnMoEMLP(SeededTrainRNG, nn.Module):
     """Binarized MLP with a top-k MoE middle layer. Submodules map to the
     flax names as fc1 <-> BinarizedDense_0, bn1 <-> BatchNorm_0, router
     <-> router, experts <-> BinarizedExperts_0, bn2 <-> BatchNorm_1,
-    head <-> BinarizedDense_1 (``flax_names``)."""
+    head <-> BinarizedDense_1 (``flax_names``). It draws nothing itself;
+    its generator (``rng_seed``) gives the train step's crops under
+    ``augment``."""
 
     def __init__(
         self, hidden: int = 512, num_experts: int = 8,
         expert_features: int = 512, num_classes: int = 10,
         router_k: int = 2, capacity_factor: float = 1.25,
         aux_coef: float = 0.01, *, in_features: int = 784,
-        backend: str = "bf16", ste: str = "identity",
+        backend: str = "bf16", ste: str = "identity", rng_seed: int = 0,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        self.rng_seed = rng_seed
         self.hidden = hidden
         self.num_experts = num_experts
         self.expert_features = expert_features

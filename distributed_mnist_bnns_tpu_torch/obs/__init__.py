@@ -1,5 +1,4 @@
-"""obs — the port's telemetry subsystem (the JAX package's ``obs/``,
-less ``aggregate`` and ``slo``, which belong to the serving fleet).
+"""obs — the port's telemetry subsystem (the JAX package's ``obs/``).
 
 One layer answering "how fast is this step, what did it build, and
 which rank is unhealthy" across the trainer, both servers and the
@@ -22,8 +21,20 @@ pipeline, with the JAX package's metric names and event schema:
   trace      per-request span trees + x-jg-trace propagation, run-scoped
              request ids, Perfetto export and p99 tail attribution
              (the `trace` CLI)
+  aggregate  fleet-wide registry-snapshot merging (counters sum,
+             gauges fan out per replica, histograms merge le-exactly)
+             behind the fleet /metrics + /healthz rollup
+  slo        declarative SLOs with multiwindow burn-rate alerting
+             (slo_alert events, slo_burn_rate/slo_budget_remaining)
 """
 
+from .aggregate import (
+    FleetMetricsStore,
+    FleetMetricsView,
+    FleetSnapshot,
+    healthz_rollup,
+    merge_snapshots,
+)
 from .costs import CostLedger, extract_costs, get_ledger
 from .events import (
     EventLog,
@@ -62,7 +73,15 @@ from .registry import (
     default_registry,
     render_prometheus,
 )
-from .summary import render_table, summarize
+from .slo import SLOMonitor, SLOSpec, default_fleet_slos
+from .summary import (
+    decision_timeline,
+    render_decision_timeline,
+    render_fleet_table,
+    render_table,
+    summarize,
+    summarize_fleet,
+)
 from .telemetry import StepClock, Telemetry, peak_for_default_device
 from .trace import (
     TRACE_HEADER,
@@ -83,6 +102,9 @@ __all__ = [
     "Counter",
     "DEFAULT_TIME_BUCKETS",
     "EventLog",
+    "FleetMetricsStore",
+    "FleetMetricsView",
+    "FleetSnapshot",
     "Gauge",
     "Heartbeat",
     "Histogram",
@@ -92,6 +114,8 @@ __all__ = [
     "ProfileManager",
     "RecompileTracker",
     "SCHEMA_VERSION",
+    "SLOMonitor",
+    "SLOSpec",
     "StepClock",
     "TRACE_HEADER",
     "Telemetry",
@@ -99,6 +123,8 @@ __all__ = [
     "Tracer",
     "chip_peak",
     "chip_peak_bf16",
+    "decision_timeline",
+    "default_fleet_slos",
     "default_registry",
     "dense_macs_per_example",
     "device_memory_stats",
@@ -109,8 +135,10 @@ __all__ = [
     "get_profiler",
     "get_tracker",
     "git_rev",
+    "healthz_rollup",
     "load_events",
     "load_spans",
+    "merge_snapshots",
     "mfu",
     "mint_context",
     "module_macs_per_example",
@@ -120,11 +148,14 @@ __all__ = [
     "read_events",
     "read_heartbeats",
     "render_capture_summary",
+    "render_decision_timeline",
+    "render_fleet_table",
     "render_prometheus",
     "render_table",
     "stitch_spans",
     "summarize",
     "summarize_capture",
+    "summarize_fleet",
     "tail_attribution",
     "to_chrome_trace",
     "train_step_flops",

@@ -1,5 +1,5 @@
 """Run-log summarization — the read side of the telemetry subsystem
-(the JAX package's ``obs/summary.py``, less its fleet functions).
+(the JAX package's ``obs/summary.py``).
 
 ``summarize(path)`` folds a JSONL event log (obs/events.py schema) into
 one plain dict; ``render_table`` formats it for humans (the ``cli
@@ -8,6 +8,13 @@ per-step latencies recorded in the events, not the registry's bucketed
 estimates. A log of either package reads the same, but for the
 manifest's versions: the port records ``torch_version`` and
 ``cuda_version`` where the JAX package records ``jax_version``.
+
+The fleet's read side: ``summarize_fleet(root)`` folds the router's log
+and each replica's (``root/<rid>/``) into one summary
+(``render_fleet_table``, the ``cli telemetry --fleet`` report), and
+``decision_timeline`` joins the control plane's ``decision`` events with
+the ``slo_alert`` transitions (``render_decision_timeline``, ``cli fleet
+explain``).
 """
 
 from __future__ import annotations
@@ -331,5 +338,145 @@ def render_table(summary: Dict[str, Any]) -> str:
     for err in summary.get("errors", [])[:5]:
         lines.append(
             f"  ! {err.get('ts')} {err.get('type')}: {err.get('error')}"
+        )
+    return "\n".join(lines)
+
+
+# -- fleet read side ---------------------------------------------------------
+
+
+def summarize_fleet(root: str) -> Dict[str, Any]:
+    """Fold a fleet telemetry tree — the router's events.jsonl at
+    ``root`` plus each replica's under ``root/<rid>/`` — into one
+    combined summary. Each log is read through :func:`summarize` (so
+    rotated segments are spanned per log); replica subdirectories
+    without an event log (e.g. ``staging/``) are skipped. Raises
+    FileNotFoundError when the ROUTER log is missing — a fleet dir
+    without its control-plane log is the wrong directory."""
+    from .telemetry import EVENTS_FILE
+
+    router_log = os.path.join(root, EVENTS_FILE)
+    out: Dict[str, Any] = {
+        "path": root,
+        "router": summarize(router_log),
+        "replicas": {},
+    }
+    for name in sorted(os.listdir(root)):
+        sub = os.path.join(root, name, EVENTS_FILE)
+        if os.path.isfile(sub):
+            out["replicas"][name] = summarize(sub)
+    combined: Dict[str, int] = dict(out["router"]["event_counts"])
+    errors = len(out["router"].get("errors", []))
+    for rep in out["replicas"].values():
+        for k, v in rep["event_counts"].items():
+            combined[k] = combined.get(k, 0) + v
+        errors += len(rep.get("errors", []))
+    out["fleet"] = {
+        "replica_logs": len(out["replicas"]),
+        "event_counts": combined,
+        "events_total": sum(combined.values()),
+        "decisions": combined.get("decision", 0),
+        "slo_alerts": combined.get("slo_alert", 0),
+        "errors_total": errors,
+    }
+    return out
+
+
+def render_fleet_table(summary: Dict[str, Any]) -> str:
+    """Human-readable fleet summary (`cli telemetry --fleet`): one line
+    per process log plus the combined rollup."""
+
+    def counts(ec: Dict[str, int]) -> str:
+        top = sorted(ec.items(), key=lambda kv: (-kv[1], kv[0]))[:8]
+        rest = len(ec) - len(top)
+        s = "  ".join(f"{k} x{v}" for k, v in top)
+        return s + (f"  (+{rest} kinds)" if rest > 0 else "")
+
+    lines = [f"fleet telemetry: {summary['path']}"]
+    names = ["router", "combined"] + sorted(summary["replicas"])
+    width = max(len(n) for n in names)
+    lines.append(
+        f"  {'router'.ljust(width)}  "
+        f"{counts(summary['router']['event_counts'])}"
+    )
+    for name in sorted(summary["replicas"]):
+        rep = summary["replicas"][name]
+        lines.append(
+            f"  {name.ljust(width)}  {counts(rep['event_counts'])}"
+        )
+    fl = summary["fleet"]
+    lines.append(
+        f"  {'combined'.ljust(width)}  {fl['events_total']} event(s) "
+        f"across {1 + fl['replica_logs']} log(s); "
+        f"{fl['decisions']} decision(s), {fl['slo_alerts']} slo "
+        f"alert(s), {fl['errors_total']} error(s)"
+    )
+    for err in summary["router"].get("errors", [])[:5]:
+        lines.append(
+            f"  ! router {err.get('ts')} {err.get('type')}: "
+            f"{err.get('error')}"
+        )
+    return "\n".join(lines)
+
+
+def decision_timeline(events) -> List[Dict[str, Any]]:
+    """The control-plane audit trail: every ``decision`` event (router
+    ejections/readmits/breaker transitions, supervisor scale/hold/
+    respawn/retire, rollout gate verdicts, operator overrides) joined
+    against the ``slo_alert`` open/close transitions, in log order.
+    Accepts raw event dicts (from ``read_events`` or the in-memory
+    fleet-harness capture)."""
+    rows: List[Dict[str, Any]] = []
+    for ev in events:
+        kind = ev.get("kind")
+        if kind == "decision":
+            rows.append({
+                "ts": ev.get("ts"),
+                "actor": ev.get("actor") or "?",
+                "action": ev.get("action") or "?",
+                "replica": ev.get("replica"),
+                "inputs": dict(ev.get("inputs") or {}),
+            })
+        elif kind == "slo_alert":
+            rows.append({
+                "ts": ev.get("ts"),
+                "actor": "slo",
+                "action": f"{ev.get('state', '?')} {ev.get('slo', '?')}",
+                "replica": None,
+                "inputs": {
+                    k: ev[k] for k in (
+                        "burn_fast", "burn_slow", "events_fast",
+                        "budget_remaining", "severity",
+                    ) if ev.get(k) is not None
+                },
+            })
+    return rows
+
+
+def render_decision_timeline(
+    rows: List[Dict[str, Any]], *, title: Optional[str] = None,
+) -> str:
+    """The `cli fleet explain` rendering: one line per decision, its
+    inputs inline, so "why did the fleet do that" reads top to
+    bottom."""
+    lines = [title or f"fleet decision timeline ({len(rows)} entries)"]
+    if not rows:
+        lines.append(
+            "  (no decision/slo_alert events — pre-observability log, "
+            "or nothing happened)"
+        )
+        return "\n".join(lines)
+    for r in rows:
+        ts = r.get("ts") or ""
+        if isinstance(ts, str) and "T" in ts:
+            ts = ts.split("T", 1)[1].rstrip("Z")[:12]
+        who = f"[{r['actor']}]"
+        target = f" {r['replica']}" if r.get("replica") else ""
+        inputs = "  ".join(
+            f"{k}={_fmt(v)}" for k, v in r["inputs"].items()
+        )
+        lines.append(
+            f"  {str(ts):<13} {who:<12} {r['action']}{target}"
+            + (f"  {inputs}" if inputs else "")
         )
     return "\n".join(lines)

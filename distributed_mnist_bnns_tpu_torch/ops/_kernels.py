@@ -11,7 +11,9 @@ module must import on a machine that has no ``nvcc``.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made. It is
 incremented where a kernel is launched and nowhere else, so a run can
-show that its main path went through the kernels. Each ``nvcc`` build
+show that its main path went through the kernels; ``export_launches``
+copies it into a registry's ``kernel_launches_total`` (both servers'
+``/metrics``). Each ``nvcc`` build
 and each library load is reported to the build counter of ``obs``
 (``RecompileTracker``, kinds ``kernel_build`` and ``kernel_load``).
 """
@@ -100,6 +102,29 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+#: the registry counter that carries ``LAUNCHES`` out of a process
+LAUNCHES_TOTAL = "kernel_launches_total"
+_export_lock = threading.Lock()
+
+
+def export_launches(registry) -> None:
+    """Bring ``registry``'s ``kernel_launches_total{kernel}`` counter up
+    to this process's ``LAUNCHES``: a server calls it before each
+    ``/metrics`` reply, so a scrape (a fleet's router, a smoke) reads a
+    replica's launches from outside the process. A count that went down
+    (``reset_launches``) adds nothing."""
+    ctr = registry.counter(
+        LAUNCHES_TOTAL, "hand-written kernel launches of this process, "
+        "by kernel (ops._kernels.LAUNCHES)")
+    with _count_lock:
+        now = dict(LAUNCHES)
+    with _export_lock:
+        for name, n in now.items():
+            delta = n - ctr.value(kernel=name)
+            if delta > 0:
+                ctr.inc(delta, kernel=name)
 
 
 def _nvcc() -> str:

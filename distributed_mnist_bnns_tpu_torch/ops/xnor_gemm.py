@@ -35,6 +35,8 @@ and the JAX Pallas kernels run in interpret mode agree bitwise.
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Tuple
 
 import torch
@@ -380,6 +382,26 @@ def conv_precision():
                                       deterministic=True, allow_tf32=False)
 
 
+@contextlib.contextmanager
+def _cpu_conv_backward(device: torch.device):
+    """Scope of a conv backward on the CPU: oneDNN off, so ATen's own
+    (thnn) kernels compute it. PyTorch 2.13.0+cpu's oneDNN weight
+    gradient of a channels-last 1x1 stride-2 conv (x (4, 4, 16, 16), w
+    (8, 4, 1, 1): a ResNet's projection shortcut) corrupts the heap now
+    and then ("corrupted size vs. prev_size", "double free or
+    corruption"), which killed gloo ranks of the CPU tests with SIGABRT.
+    A no-op off the CPU."""
+    if device.type != "cpu":
+        yield
+        return
+    previous = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = previous
+
+
 def same_padding(in_hw, kernel, strides):
     """XLA's "SAME" padding: ((lo, hi), (lo, hi)) with out = ceil(in/s)
     and the odd pixel of an uneven total on the high side."""
@@ -434,7 +456,7 @@ class _Conv2d(torch.autograd.Function):
     def backward(ctx, g):
         stride, padding = ctx.conf
         x, w = ctx.saved_tensors
-        with conv_precision():
+        with conv_precision(), _cpu_conv_backward(x.device):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 g.to(x.dtype), x, w, None, list(stride), list(padding),
                 [1, 1], False, [0, 0], 1,

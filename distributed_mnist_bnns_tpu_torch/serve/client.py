@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``serve/client.py`` (``predict`` with
 the ``x-jg-trace`` header, ``healthz``, ``metrics``,
-``reload_artifact``), without its retrying wrapper. Every helper returns
-``(status_code, body_bytes)``: raw bytes on purpose, so callers can
+``reload_artifact``, ``predict_with_retries``: retries inside one
+overall deadline, the client half a fleet router expects). Every helper
+returns ``(status_code, body_bytes)``: raw bytes on purpose, so callers can
 compare response bodies bitwise (the hot-reload check does);
 ``request_full`` also returns the reply's headers.
 """
@@ -11,11 +12,24 @@ compare response bodies bitwise (the hot-reload check does);
 from __future__ import annotations
 
 import json
+import time
 import urllib.error
 import urllib.request
 from typing import Any, Dict, Optional, Tuple
 
 from ..obs.trace import TRACE_HEADER, format_header, mint_context
+
+
+def parse_retry_after(value: Optional[str]) -> Optional[float]:
+    """The servers' fractional delta-seconds ``Retry-After``; an absent,
+    malformed or negative value gives None."""
+    if not value:
+        return None
+    try:
+        after = float(value)
+    except ValueError:
+        return None
+    return after if after >= 0 else None
 
 
 def request_full(
@@ -77,6 +91,61 @@ def predict(
         base_url + "/predict", data=json.dumps(body).encode(),
         timeout=timeout, headers=trace_headers(trace),
     )
+
+
+def predict_with_retries(
+    base_url: str, images: Any, *,
+    deadline_ms: float = 2000.0,
+    max_attempts: int = 6,
+    backoff_s: float = 0.05,
+    timeout: float = 30.0,
+    trace: Any = None,
+    tier: Optional[str] = None,
+    seed: Optional[int] = 0,
+    sleep=time.sleep,
+) -> Tuple[int, bytes]:
+    """``predict`` with retries on 503 and 502 inside ONE overall
+    deadline, the client half a fleet router expects. A 503 shed waits
+    the server's ``Retry-After`` hint (capped by the remaining budget);
+    502s and transport errors back off jittered exponentially
+    (``resilience.policy.RetryPolicy``); 200 and 4xx return at once, and
+    so does a 504 (the budget died server-side). Each attempt's body
+    carries the REMAINING deadline, never the original."""
+    from ..resilience.policy import RetryPolicy
+
+    policy = RetryPolicy(base_backoff_s=backoff_s, max_backoff_s=1.0,
+                         seed=seed)
+    overall = time.monotonic() + deadline_ms / 1e3
+    last: Tuple[int, bytes] = (599, b'{"error": "no attempt made"}')
+    if trace is True:   # one trace for every attempt
+        trace = mint_context()
+    for attempt in range(1, max_attempts + 1):
+        remaining_ms = (overall - time.monotonic()) * 1e3
+        if remaining_ms <= 0:
+            return last
+        body: Dict[str, Any] = {"images": images,
+                                "deadline_ms": remaining_ms}
+        if tier is not None:
+            body["tier"] = tier
+        try:
+            status, payload, rheaders = request_full(
+                base_url + "/predict", data=json.dumps(body).encode(),
+                timeout=min(timeout, remaining_ms / 1e3 + 1.0),
+                headers=trace_headers(trace))
+        except OSError as e:
+            status, payload, rheaders = (
+                -1, f'{{"error": "{type(e).__name__}"}}'.encode(), {})
+        last = (status, payload)
+        if status == 200 or (400 <= status < 500) or status == 504:
+            return last
+        if attempt >= max_attempts:
+            return last          # decided: sleep no dead delay
+        delay = (parse_retry_after(rheaders.get("Retry-After"))
+                 if status == 503 else None)
+        if delay is None:
+            delay = policy.backoff(attempt)
+        sleep(min(delay, max(overall - time.monotonic(), 0.0)))
+    return last
 
 
 def healthz(base_url: str, timeout: float = 10.0) -> Tuple[int, bytes]:

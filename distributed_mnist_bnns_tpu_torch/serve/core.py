@@ -7,8 +7,13 @@ per-request span trees: ``serve.request`` with its ``queue``,
 ledger's ``classifier_predict`` dispatch times (CUDA events) and the
 ``jg_step`` profiler region while a capture is live, and its chaos hook
 before the predictor call (``resilience/chaos``: ``infer_slow`` stalls
-the batch, ``infer_error`` fails it, and either trips the breaker);
-without its recompile fence. The Tail-at-Scale mechanics are the same:
+the batch, ``infer_error`` fails it, and either trips the breaker), and
+its recompile fence: a ``sanitizer`` (``analysis.guards.Sanitizer``) is
+fed each delivered batch, and a ``RecompileFenceError`` ends the worker
+(``fence_error`` set, ``submit`` sheds ``engine_failed``). As in the JAX
+package, the server arms it only on a boot from the AOT store, which
+the port does not have yet, so the classifier server runs unfenced. The
+Tail-at-Scale mechanics are the same:
 
   * every request carries a **deadline**; work whose deadline has
     passed is cancelled when the batcher pops it (never computed), and
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from ..obs.costs import get_ledger
+from ..analysis.guards import RecompileFenceError
 from ..obs.profile import get_profiler, step_annotation
 from ..obs.registry import MetricsRegistry
 from ..obs.telemetry import StepClock
@@ -256,9 +262,13 @@ class ServeEngine:
         stall_timeout_s: float = 1.0,
         linger_s: float = 0.002,
         chaos: Any = None,
+        sanitizer: Any = None,
     ):
         self.predict_fn = predict_fn
         self.chaos = chaos
+        # the recompile fence (None: unfenced); fed after each delivery
+        self.sanitizer = sanitizer
+        self.fence_error: Optional[str] = None
         self.batch_size = int(batch_size)
         self.queue = queue
         self.breaker = breaker
@@ -304,11 +314,16 @@ class ServeEngine:
         ctx: Optional[TraceContext] = None, tier: str = DEFAULT_TIER,
     ):
         """Admit or shed. Returns a :class:`Request`, or a shed-reason
-        string (``draining`` | ``breaker_open`` | ``queue_full``).
+        string (``draining`` | ``engine_failed`` | ``breaker_open`` |
+        ``queue_full``).
         ``ctx`` is an adopted ``x-jg-trace`` context: the request's root
         span joins the client's trace; None mints a fresh trace."""
         if self.draining or self._stop.is_set():
             return self._shed("draining", ctx=ctx, tier=tier)
+        if self.fence_error is not None:
+            # the fence ended the worker: a queued request would wait
+            # out its deadline (the LM engine's engine_failed contract)
+            return self._shed("engine_failed", ctx=ctx, tier=tier)
         if not self.breaker.admits():
             return self._shed("breaker_open", ctx=ctx, tier=tier)
         req = Request(images, deadline, tier=tier)
@@ -385,6 +400,12 @@ class ServeEngine:
                 continue
             try:
                 self._process(reqs)
+            except RecompileFenceError as e:
+                # the batch was delivered before the check: fail the
+                # engine loudly (healthz "failed", submit sheds)
+                self.fence_error = str(e)
+                log.error("serve-engine recompile fence tripped: %s", e)
+                return
             except Exception:
                 # The worker must outlive ANY per-batch failure (e.g. a
                 # full disk erroring the telemetry write): a dead worker
@@ -495,6 +516,9 @@ class ServeEngine:
             self._trace_phases(r, m_pop, m_asm, m_end)
             self._finish(r, "ok", log_probs=rows, infer_s=dt,
                          queue_s=waits[r.id])
+        if self.sanitizer is not None:
+            # after delivery: a trip never strands this batch's clients
+            self.sanitizer.after_step(step=self.batch_seq)
 
     def _trace_phases(
         self, req: Request, pop_m: float, asm_m: float, end_m: float,

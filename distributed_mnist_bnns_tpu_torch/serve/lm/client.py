@@ -17,22 +17,10 @@ import urllib.request
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from ...resilience.policy import RetryPolicy
-from ..client import metrics, profile, trace_headers
+from ..client import metrics, parse_retry_after, profile, trace_headers
 
 __all__ = ["generate", "generate_with_retries", "healthz", "iter_lines",
            "metrics", "open_stream", "parse_retry_after", "profile"]
-
-
-def parse_retry_after(value: Optional[str]) -> Optional[float]:
-    """The servers' fractional delta-seconds ``Retry-After``; an absent,
-    malformed or negative value gives None."""
-    if not value:
-        return None
-    try:
-        after = float(value)
-    except ValueError:
-        return None
-    return after if after >= 0 else None
 
 
 def open_stream(

@@ -12,8 +12,12 @@ telemetry: the registry's ``lm_*`` metrics; the ``lm_warmup``,
 ``lm_decode`` and ``lm_verify`` rows (the warm-up calls) and dispatch
 times (CUDA events); the ``jg_step`` profiler region while a capture is
 live; the chaos hook before each decode iteration (``resilience/chaos``,
-``infer_error`` / ``infer_slow``). Without its recompile fence (PyTorch
-compiles nothing per shape).
+``infer_error`` / ``infer_slow``). Its recompile fence
+(``analysis.guards``) is armed at budget 0 after the warm-up, as the JAX
+engine's: a CUDA-graph capture or a kernel build during serving means a
+shape or option leaked into the hot loop, and fails the engine (every
+stream ends, ``submit`` sheds ``engine_failed``, ``fence_error`` is set
+and ``/healthz`` reports it) rather than stalling requests.
 
 ``prefix_cache=True`` shares prompt prefixes copy-on-write
 (``prefix_cache.PrefixCache``): admission forks the longest cached
@@ -52,6 +56,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ...analysis.guards import (
+    RecompileFenceError,
+    Sanitizer,
+    SanitizerConfig,
+)
 from ...obs.costs import get_ledger
 from ...obs.profile import get_profiler, step_annotation
 from ...obs.recompile import get_tracker
@@ -181,7 +190,7 @@ class LMEngine:
                  telemetry: Any = None, device: Any = None,
                  decode_event_every: int = 50, chaos: Any = None,
                  max_consecutive_failures: int = 4,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, recompile_fence: bool = True):
         self.decoder = decoder
         self.chaos = chaos
         self.max_consecutive_failures = int(max_consecutive_failures)
@@ -213,6 +222,7 @@ class LMEngine:
         self._thread: Optional[threading.Thread] = None
         self._tracker = get_tracker()
         self._compile_baseline: Optional[int] = None
+        self.fence_error: Optional[str] = None
         # off by default: one attribute check each a dispatch
         self._ledger = get_ledger()
         self._profiler = get_profiler()
@@ -258,6 +268,11 @@ class LMEngine:
             SPEC_TOKENS_TOTAL,
             "draft tokens by verify outcome (outcome=accepted|rejected)",
         )
+        self._sanitizer = Sanitizer(
+            SanitizerConfig(recompile_fence=True, recompile_budget=0,
+                            warmup_steps=0),
+            telemetry=telemetry, registry=reg,
+        ) if recompile_fence else None
         self._spec_drafted = 0         # drafts proposed, lifetime
         self._spec_accepted = 0        # drafts accepted, lifetime
         self._spec_rounds = 0          # verify calls, lifetime
@@ -376,6 +391,10 @@ class LMEngine:
             int(k.nbytes) + int(v.nbytes) for k, v in pools))
         self.page_bytes = self.pool_reserved_bytes // max(dec.num_pages, 1)
         self._compile_baseline = self._tracker.mark()
+        if self._sanitizer is not None:
+            # budget 0 from here: every later capture or kernel build
+            # trips the fence at the next iteration's end
+            self._sanitizer.pin_baseline(self._sanitizer.build_count())
         kernels = bool(dec.kernels)
         programs = 3 if self.spec_k else 2
         if tel is not None:
@@ -430,7 +449,10 @@ class LMEngine:
         client's trace."""
         if self.draining or self._stop.is_set():
             return self._shed("draining", ctx=ctx)
-        if self._thread is not None and not self._thread.is_alive():
+        if self.fence_error is not None or (
+                self._thread is not None and not self._thread.is_alive()):
+            # the scheduler is dead (the fence or a fatal crash): a
+            # queued request would wait out its deadline
             return self._shed("engine_failed", ctx=ctx)
         req = LMRequest(prompt, max_new_tokens, deadline,
                         temperature=temperature, seed=seed)
@@ -490,6 +512,14 @@ class LMEngine:
                     self._cancel_all("engine stopped")
                     return
                 self._decode_once()
+            except RecompileFenceError as e:
+                # budget 0: a build after the warm-up broke the one-shape
+                # contract; fail loudly and visibly
+                self.fence_error = str(e)
+                log.error("lm-engine recompile fence tripped: %s", e)
+                self._evict_all("error", f"recompile fence: {e}")
+                self._cancel_all(f"recompile fence: {e}")
+                return
             except Exception:
                 log.exception(
                     "lm-engine iteration %d failed; scheduler continues",
@@ -784,6 +814,8 @@ class LMEngine:
         self._consecutive_failures = 0
         self.iter_ms.append(dt * 1e3)
         self.iter_hist.observe(dt)
+        if self._sanitizer is not None:
+            self._sanitizer.after_step(step=self.batch_seq)
         if timed:
             for seconds, _ in self._clock.ready():
                 self._ledger.observe("lm_decode", seconds)
@@ -883,6 +915,8 @@ class LMEngine:
         self._consecutive_failures = 0
         self.iter_ms.append(dt * 1e3)
         self.iter_hist.observe(dt)
+        if self._sanitizer is not None:
+            self._sanitizer.after_step(step=self.batch_seq)
         if timed:
             for seconds, name in self._clock.ready():
                 self._ledger.observe(

@@ -20,14 +20,17 @@ transfer encoding, one JSON object per line (ndjson).
                       already-sent 200: the stream ends with
                       {"done": true, "status": "deadline"} instead.
                       ``"text"`` is tokenized as its UTF-8 bytes mod vocab.
-  GET  /healthz       status, active_streams, queue_depth, page occupancy,
+  GET  /healthz       status (ok|draining|failed: the engine's recompile
+                      fence tripped, its fence_error), active_streams,
+                      queue_depth, page occupancy,
                       the engine's counters, the KV pool's bytes (+
                       the prefix cache's entries and shared-page
                       occupancy, the speculative window and acceptance
                       rate, per-program costs and the cards' memory with
                       --costs)
-  GET  /metrics       the obs registry: JSON, or Prometheus text under
-                      ``Accept: text/plain``
+  GET  /metrics       the obs registry (with the process's kernel
+                      launches, ``kernel_launches_total{kernel}``): JSON,
+                      or Prometheus text under ``Accept: text/plain``
   POST /admin/profile {"duration_ms": N} — an on-demand torch.profiler
                       capture, off the serving path; 409 while another
                       capture runs
@@ -201,8 +204,14 @@ class LMServer:
 
     def health(self) -> Dict[str, Any]:
         eng = self.engine
+        if eng.fence_error is not None:
+            status = "failed"          # load balancers must route away
+        elif eng.draining:
+            status = "draining"
+        else:
+            status = "ok"
         health = {
-            "status": "draining" if eng.draining else "ok",
+            "status": status,
             "engine": "lm",
             "device": self.config.device,
             "slots": eng.decoder.slots,
@@ -214,6 +223,7 @@ class LMServer:
             "kernels": bool(eng.decoder.kernels),
             "iterations_total": eng.batch_seq,
             "recompiles_post_warmup": eng.recompiles_post_warmup,
+            "fence_error": eng.fence_error,
             "metrics": eng.metrics(),
             "kv_pool": eng.kv_pool_stats(),
             "uptime_s": round(time.time() - self._started_at, 3),
@@ -333,6 +343,10 @@ class _LMHandler(JsonHandler):
         if self.path == "/healthz":
             self._reply(200, self.srv.health())
         elif self.path == "/metrics":
+            from ...ops._kernels import export_launches
+
+            # the process's kernel launches, read from outside (a fleet)
+            export_launches(self.srv.telemetry.registry)
             self._reply_metrics(self.srv.telemetry.registry)
         else:
             self._reply(404, {"error": f"no route {self.path}"})

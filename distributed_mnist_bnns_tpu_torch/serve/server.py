@@ -11,11 +11,13 @@ micro-batcher, serving ``infer.load_packed`` artifacts on a ``device``
                        200 ok | 503 shed (queue_full/breaker_open/
                        draining) | 504 deadline | 502 backend error |
                        400 bad input | 413 batch too large
-  GET  /healthz        status (ok|draining), breaker state, queue depth,
+  GET  /healthz        status (ok|draining|failed), breaker state, queue
+                       depth, the engine's fence_error,
                        request/shed/batch counts (+ per-program costs
                        and the cards' memory with --costs)
-  GET  /metrics        the obs registry: JSON, or Prometheus text under
-                       ``Accept: text/plain``
+  GET  /metrics        the obs registry (with the process's kernel
+                       launches, ``kernel_launches_total{kernel}``): JSON,
+                       or Prometheus text under ``Accept: text/plain``
   POST /admin/reload   {"artifact": path} — hot swap: the new artifact
                        is loaded AND warmed off-path, then swapped in
                        atomically; unchanged weights give bitwise-
@@ -265,8 +267,14 @@ class PackedInferenceServer:
 
     def health(self) -> Dict[str, Any]:
         eng = self.engine
+        if eng is not None and eng.fence_error is not None:
+            status = "failed"          # load balancers must route away
+        elif eng is not None and eng.draining:
+            status = "draining"
+        else:
+            status = "ok"
         health = {
-            "status": "draining" if eng is not None and eng.draining else "ok",
+            "status": status,
             "breaker": self.breaker.state,
             "queue_depth": len(self.queue),
             "batch_size": self.config.batch_size,
@@ -275,6 +283,7 @@ class PackedInferenceServer:
             "requests": labeled(eng.requests_ctr) if eng else {},
             "sheds": labeled(eng.shed_ctr) if eng else {},
             "batches_total": int(eng.batches_ctr.total()) if eng else 0,
+            "fence_error": eng.fence_error if eng is not None else None,
             "uptime_s": round(time.time() - self._started_at, 3),
         }
         if self._ledger.enabled:
@@ -360,6 +369,10 @@ class _Handler(JsonHandler):
             self._reply(200, self.srv.health())
         elif self.path == "/metrics":
             # JSON by default, Prometheus text under Accept: text/plain
+            from ..ops._kernels import export_launches
+
+            # the process's kernel launches, read from outside (a fleet)
+            export_launches(self.srv.telemetry.registry)
             self._reply_metrics(self.srv.telemetry.registry)
         else:
             self._reply(404, {"error": f"no route {self.path}"})

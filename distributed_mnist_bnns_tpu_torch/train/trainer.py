@@ -202,7 +202,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..data import batch_iterator, shard_indices
+from ..data import batch_iterator, native_batch_iterator, shard_indices
 from ..infer import resolve_device
 from ..models import get_model, latent_clamp_mask
 from ..ops.comm_compress import (
@@ -627,6 +627,22 @@ class TrainConfig:
     trace: Optional[bool] = None   # train.step / checkpoint / restore spans
                                    # in the event log (obs/trace); None: the
                                    # JG_TRACE env var; needs telemetry_dir
+    native_loader: bool = False    # the native threaded batch gather
+                                   # (native.BatchPool; the numpy iterator
+                                   # without the library)
+    sanitize: Optional[str] = None  # runtime fences (analysis/guards): a
+                                   # comma list of "recompile" (CUDA-graph
+                                   # captures and kernel builds after
+                                   # warm-up over a budget raise),
+                                   # "transfer" (a numpy array or an
+                                   # off-device tensor at the dispatch
+                                   # raises), "nan" (the loss NaN/inf
+                                   # fence); None: the JG_SANITIZE env var
+    recompile_budget: Optional[int] = None  # post-warmup builds allowed
+                                   # before the recompile fence trips
+                                   # (None: the sanitizer's default)
+    nan_check_every: Optional[int] = None  # NaN-fence stride in steps
+                                   # (each check reads the loss back)
 
 
 def _dataset_ref(data):
@@ -738,7 +754,28 @@ class Trainer:
         self._checkpointer = (AsyncCheckpointer() if config.async_checkpoint
                               else None)
         self._setup_telemetry(input_shape)
+        self._setup_sanitizer()
         self._setup_chaos()
+
+    def _setup_sanitizer(self) -> None:
+        """The run's fences (``analysis.guards``, the JAX
+        ``_setup_sanitizer``): the config's ``sanitize`` wins; with None the
+        ``JG_SANITIZE`` env var decides, and an explicit
+        ``recompile_budget`` / ``nan_check_every`` still applies."""
+        from ..analysis import Sanitizer, SanitizerConfig
+
+        cfg = self.config
+        if cfg.sanitize is not None:
+            san = SanitizerConfig.from_spec(
+                cfg.sanitize, recompile_budget=cfg.recompile_budget,
+                nan_check_every=cfg.nan_check_every)
+        else:
+            san = SanitizerConfig.from_env()
+            if cfg.recompile_budget is not None:
+                san.recompile_budget = int(cfg.recompile_budget)
+            if cfg.nan_check_every is not None:
+                san.nan_check_every = max(int(cfg.nan_check_every), 1)
+        self.sanitizer = Sanitizer(san, telemetry=self.telemetry)
 
     def _setup_chaos(self) -> None:
         """The run's ``ChaosController`` (the JAX trainer's): a ``preempt``
@@ -1544,7 +1581,8 @@ class Trainer:
         if start_batch:
             log.info("resuming epoch %d mid-epoch at batch %d", epoch,
                      start_batch)
-        it = batches if batches is not None else batch_iterator(
+        it_fn = native_batch_iterator if cfg.native_loader else batch_iterator
+        it = batches if batches is not None else it_fn(
             data.train_images, data.train_labels, cfg.batch_size,
             epoch=epoch, seed=cfg.seed)
         if start_batch:
@@ -1595,25 +1633,30 @@ class Trainer:
                     if scan_steps > 1:
                         if n == 1:   # a leftover batch: a 1-step dispatch
                             images, labels = images[None], labels[None]
-                        loss, acc = self._get_train_scan()(
-                            self.model, self.optimizer,
-                            pinned(self._shard(images, 1), np.float32,
-                                   self.device),
-                            pinned(self._shard(labels, 1), np.int64,
-                                   self.device))
+                        # placed before the fenced dispatch, whose
+                        # replay copies them into the graph's inputs
+                        x, y = self._to_device(self._shard(images, 1),
+                                               self._shard(labels, 1))
+                        with self.sanitizer.guard_transfers(
+                                x, y, device=self.device):
+                            loss, acc = self._get_train_scan()(
+                                self.model, self.optimizer, x, y)
                     else:
                         x, y = self._to_device(self._shard(images),
                                                self._shard(labels))
-                        if self._ledger.enabled and (
-                                self._ledger.costs(program) is None):
-                            loss, acc = self._ledger.measure(
-                                program, self.train_step, self.model,
-                                self.optimizer, x, y, device=self.device,
-                                telemetry=self.telemetry,
-                                extra={"model": cfg.model})
-                        else:
-                            loss, acc = self.train_step(
-                                self.model, self.optimizer, x, y)
+                        with self.sanitizer.guard_transfers(
+                                x, y, device=self.device):
+                            if self._ledger.enabled and (
+                                    self._ledger.costs(program) is None):
+                                loss, acc = self._ledger.measure(
+                                    program, self.train_step, self.model,
+                                    self.optimizer, x, y,
+                                    device=self.device,
+                                    telemetry=self.telemetry,
+                                    extra={"model": cfg.model})
+                            else:
+                                loss, acc = self.train_step(
+                                    self.model, self.optimizer, x, y)
                 payload = {"n": n, "step": self.step + n, "metrics": None,
                            "program": program}
                 if clock is not None:
@@ -1646,6 +1689,10 @@ class Trainer:
                                       payload["metrics"], program)
                 else:
                     self._drain_clock()
+                # the fences: the build budget and the NaN stride (a
+                # chunk of n steps is checked when it crosses the stride)
+                self.sanitizer.after_step(
+                    self.step, {"loss": loss, "accuracy": acc}, n_steps=n)
                 if profiling and seen >= cfg.profile_steps:
                     self._profiler.stop(telemetry=self.telemetry)
                     profiling = False
@@ -1723,8 +1770,10 @@ class Trainer:
             clock.restart()
         t0 = time.perf_counter()
         token = clock.start() if clock is not None else None
-        loss, acc, dispatches = self._get_epoch_fn()(
-            self.model, self.optimizer, images_all, labels_all, idx)
+        with self.sanitizer.guard_transfers(images_all, labels_all, idx,
+                                            device=self.device):
+            loss, acc, dispatches = self._get_epoch_fn()(
+                self.model, self.optimizer, images_all, labels_all, idx)
         payload = {"n": n_batches, "step": self.step + n_batches,
                    "metrics": None, "program": "train_epoch"}
         if clock is not None:
@@ -1732,6 +1781,11 @@ class Trainer:
         loss_f, acc_f = torch.stack([loss, acc]).tolist()   # the one sync
         epoch_time = time.perf_counter() - t0
         self.step += n_batches
+        # the epoch is one dispatch of n_batches steps: the build budget
+        # counts them all, and its means are NaN-checked every epoch
+        metrics = {"loss": loss_f, "accuracy": acc_f}
+        self.sanitizer.after_step(self.step, n_steps=n_batches)
+        self.sanitizer.check_finite(metrics, step=self.step)
         # One dispatch = the whole epoch (JAX's): its step event has the
         # epoch's time amortized over its steps.
         payload["metrics"] = {"loss": loss_f, "accuracy": acc_f}

@@ -127,11 +127,84 @@ def test_augmented_step_is_the_plain_step_on_the_crops():
                        gen.get_state())
 
 
-def test_augment_needs_a_model_generator():
-    from distributed_mnist_bnns_tpu_torch.train.trainer import augment_batch
+# the two registered models that draw nothing themselves: their crops come
+# from the generator of their own that ``rng_seed`` seeds
+NO_DRAW_MODELS = {
+    "convnet": ((8, 28, 28, 1), {}),
+    "bnn-moe-mlp": ((8, 28, 28, 1),
+                    {"hidden": 32, "num_experts": 4, "expert_features": 32,
+                     "backend": "xla"}),
+}
 
-    with pytest.raises(ValueError, match="own generator"):
-        augment_batch(get_model("convnet"), torch.zeros(2, 28, 28, 1))
+
+@pytest.mark.parametrize("name", sorted(NO_DRAW_MODELS))
+def test_augmented_step_of_a_model_that_draws_nothing_is_the_plain_step(
+        name):
+    """``convnet`` and ``bnn-moe-mlp`` augment as every other model does:
+    the augmented step is the plain step on ``random_crop_flip``'s crops
+    from the model's own generator (``rng_seed``), bitwise, loss, every
+    parameter and statistic and the generator's state."""
+    shape, kw = NO_DRAW_MODELS[name]
+    x = torch.from_numpy(np.random.RandomState(2).rand(*shape)
+                         .astype(np.float32))
+    y = torch.arange(shape[0]) % 10
+
+    def model():
+        return get_model(name, rng_seed=7,
+                         generator=torch.Generator().manual_seed(0), **kw)
+
+    a, b, c = model(), model(), model()
+    steps = {m: (make_step_body(latent_clamp_mask(m), augment=aug),
+                 make_optimizer("sgd", m.parameters(), 0.05))
+             for m, aug in ((a, True), (b, False), (c, False))}
+    gen = torch.Generator().manual_seed(7)   # model a's train generator
+    for _ in range(2):
+        la, _ = steps[a][0](a, steps[a][1], x, y)
+        lb, _ = steps[b][0](b, steps[b][1], random_crop_flip(x, gen), y)
+        steps[c][0](c, steps[c][1], x, y)
+        assert torch.equal(la, lb)
+    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(va, vb), k
+    assert any(not torch.equal(va, vc) for va, vc in
+               zip(a.state_dict().values(), c.state_dict().values()))
+    assert torch.equal(a.train_generator(torch.device("cpu")).get_state(),
+                       gen.get_state())
+
+
+@pytest.mark.parametrize("mode", [dict(scan_steps=2), dict(device_data=True)],
+                         ids=["scan", "device_data"])
+@pytest.mark.parametrize("name", sorted(NO_DRAW_MODELS))
+def test_augmented_dispatch_of_a_model_that_draws_nothing(name, mode):
+    """The captured dispatch (``scan_steps``, ``device_data``) of
+    ``convnet`` and ``bnn-moe-mlp`` under ``augment``: bitwise the
+    per-step path (parameters, statistics, generator), and not the path
+    without ``augment``."""
+    from distributed_mnist_bnns_tpu_torch.data import ImageClassData
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    _, kw = NO_DRAW_MODELS[name]
+    rng = np.random.RandomState(3)
+    data = ImageClassData(rng.rand(24, 28, 28, 1).astype(np.float32),
+                          rng.randint(0, 10, 24).astype(np.int32),
+                          rng.rand(16, 28, 28, 1).astype(np.float32),
+                          rng.randint(0, 10, 16).astype(np.int32),
+                          source="synthetic")
+    common = dict(model=name, model_kwargs=dict(kw), batch_size=8, epochs=1,
+                  optimizer="sgd", learning_rate=0.05, seed=5,
+                  device="cpu")
+    runs = [Trainer(TrainConfig(**common, augment=True, **mode)),
+            Trainer(TrainConfig(**common, augment=True)),
+            Trainer(TrainConfig(**common))]
+    for t in runs:
+        t.fit(data, eval_every=0)
+    captured, step, plain = (t.model.state_dict() for t in runs)
+    for k in step:
+        assert torch.equal(captured[k], step[k]), k
+    assert any(not torch.equal(step[k], plain[k]) for k in step)
+    gens = [t.model.train_generator(torch.device("cpu")).get_state()
+            for t in runs]
+    assert torch.equal(gens[0], gens[1])
+    assert not torch.equal(gens[1], gens[2])
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,8 +212,12 @@ def _dp_run():
     rng = np.random.RandomState(5)
     images = rng.rand(8, 16, 16, 3).astype(np.float32)
     labels = rng.randint(0, 10, 8).astype(np.int32)
+    mnist = rng.rand(8, 28, 28, 1).astype(np.float32)
+    mnist_labels = rng.randint(0, 10, 8).astype(np.int32)
     return images, labels, spawn(util.augment_rank, 2, backend="gloo",
-                                 device="cpu", args=(images, labels, 43))
+                                 device="cpu",
+                                 args=(images, labels, 43, mnist,
+                                       mnist_labels))
 
 
 def test_gspmd_draws_the_global_batch_and_compressed_each_shard():
@@ -170,3 +247,20 @@ def test_the_trainer_picks_each_exchange_its_draws():
     for gc in ("none", "sign_ef"):
         assert np.isfinite(ranks[0][gc]["loss"])
         assert ranks[0][gc]["loss"] == ranks[1][gc]["loss"]
+
+
+@pytest.mark.parametrize("name", sorted(NO_DRAW_MODELS))
+def test_the_trainer_picks_each_exchange_its_draws_for_models_that_draw_nothing(
+        name):
+    """``convnet`` and ``bnn-moe-mlp`` under ``augment`` at dp 2, as the
+    resnet: the GSPMD step draws from ``seed + 1`` on every rank, the
+    compressed step from each rank's own generator; one augmented step
+    of each runs to a finite loss, the same on both ranks."""
+    _, _, ranks = _dp_run()
+    for r, out in enumerate(ranks):
+        assert out[name]["none"]["augment_seed"] == 43
+        assert out[name]["sign_ef"]["augment_seed"] is None
+        assert out[name]["sign_ef"]["rng_seed"] == rank_seed(43, r)
+    for gc in ("none", "sign_ef"):
+        assert np.isfinite(ranks[0][name][gc]["loss"])
+        assert ranks[0][name][gc]["loss"] == ranks[1][name][gc]["loss"]

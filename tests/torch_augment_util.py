@@ -15,23 +15,20 @@ from distributed_mnist_bnns_tpu_torch.train.trainer import augment_batch
 MODEL_KW = {"stem_features": 4}
 
 
-def augment_rank(rank, world, device, images, labels, seed):
-    """This rank's crops of its rows of ``images``: drawn over the global
-    batch from one shared seed (the GSPMD step's), and from the rank's own
-    generator (the compressed steps'); then, for each exchange, the
-    trainer's own choice of generator and one augmented step."""
-    group = dist.group.WORLD
-    local = shard_batch(torch.from_numpy(images), group)
-    model = get_model("xnor-resnet18", rng_seed=rank_seed(seed, rank),
-                      **MODEL_KW)
-    per_shard = augment_batch(model, local)
-    model.augment_seed = seed
-    global_ = augment_batch(model, local, group=group)
-    out = {"global": global_.numpy(), "per_shard": per_shard.numpy()}
+# the registered models that draw nothing themselves, at test widths
+NO_DRAW_KW = {"convnet": {},
+              "bnn-moe-mlp": {"hidden": 32, "num_experts": 4,
+                              "expert_features": 32}}
+
+
+def _trainer_runs(name, model_kw, images, labels, world, seed):
+    """For each exchange, the trainer's choice of generator and one
+    augmented step of ``name``."""
+    out = {}
     data = ImageClassData(images, labels, images, labels)
     for gc in ("none", "sign_ef"):
         t = Trainer(TrainConfig(
-            model="xnor-resnet18", model_kwargs=dict(MODEL_KW),
+            model=name, model_kwargs=dict(model_kw),
             batch_size=len(images), epochs=1, optimizer="sgd",
             learning_rate=0.01, seed=seed - 1, backend="xla",
             augment=True, data_parallel=world, grad_compress=gc,
@@ -41,4 +38,28 @@ def augment_rank(rank, world, device, images, labels, seed):
         out[gc] = {"augment_seed": t.model.augment_seed,
                    "rng_seed": t.model.rng_seed,
                    "loss": row["train_loss"]}
+    return out
+
+
+def augment_rank(rank, world, device, images, labels, seed, mnist_images,
+                 mnist_labels):
+    """This rank's crops of its rows of ``images``: drawn over the global
+    batch from one shared seed (the GSPMD step's), and from the rank's own
+    generator (the compressed steps'); then, for each exchange, the
+    trainer's own choice of generator and one augmented step, of the
+    resnet on ``images`` and of each model that draws nothing itself on
+    ``mnist_images``."""
+    group = dist.group.WORLD
+    local = shard_batch(torch.from_numpy(images), group)
+    model = get_model("xnor-resnet18", rng_seed=rank_seed(seed, rank),
+                      **MODEL_KW)
+    per_shard = augment_batch(model, local)
+    model.augment_seed = seed
+    global_ = augment_batch(model, local, group=group)
+    out = {"global": global_.numpy(), "per_shard": per_shard.numpy()}
+    out.update(_trainer_runs("xnor-resnet18", MODEL_KW, images, labels,
+                             world, seed))
+    for name, kw in NO_DRAW_KW.items():
+        out[name] = _trainer_runs(name, kw, mnist_images, mnist_labels,
+                                  world, seed)
     return out
