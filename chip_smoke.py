@@ -125,12 +125,13 @@ Phases, each fatal on failure:
      ``sign_ef``, each passing phase 8's
      convergence thresholds (which 100 steps in one process meet too,
      checked beside), ``sign_ef`` within 2 points of the uncompressed
-     run, then 20 steps of ``sign`` (majority vote, lr 0.001); (c) 20
+     run, then 10 steps of ``sign`` (majority vote, lr 0.001); (c) 10
      steps of (b)'s ``sign_ef`` on pallas_xnor and on xla (bf16 rounds
      layer 1's raw pixels, which the ±1 backends take in fp32), bitwise
-     equal, K1 launched exactly 2 x 20 times in every rank (counted in
-     each rank, zeroed just before the run); (d) 20 steps of the
-     two-level exchange (2 hosts x 2). In every run the ranks end
+     equal, K1 launched exactly 2 x 10 times in every rank (counted in
+     each rank, zeroed just before the run); (d) 10 steps of the
+     two-level exchange (2 hosts x 2). The ranks also run the three
+     demos (``examples/demos.py``), which phase 22 checks. In every run the ranks end
      bitwise equal, every logged loss is finite, and each rank's wire
      bytes per step, measured from the buffers its collectives were
      handed, equal ``CommPlan.wire_bytes_per_step`` (the fp32 plan
@@ -398,8 +399,32 @@ Phases, each fatal on failure:
      replicas' K2/K3 (classifier) and K1/K7/K8 (LM) launches come from
      their ``/metrics`` (``kernel_launches_total``): the kernels line's
      ``launches_fleet_path``.
+ 22. the AOT store of kernel libraries (``aot/``): (a) ``cli aot build``
+     banks the classifier (``bnn-mlp-large`` at micro-batch 32), the LM
+     of phase 5 with its verify program (``--spec-decode 4``) and the
+     ``pallas_xnor`` train step into an empty store, ``nvcc`` into an
+     empty build directory, the seconds of each source printed; (b)-(d)
+     one process that cannot find ``nvcc`` (``CUDA_HOME`` at nothing, no
+     ``nvcc`` on ``PATH``) boots the classifier server, the LM server
+     and the trainer from the store: each a hit, zero ``kernel_build``
+     records, both servers' budget-0 fences armed and never tripped,
+     answers bitwise this process's predictor, greedy streams equal to
+     an engine built here, the train steps bitwise the online steps; K2
+     and K3, K1, K7 and K8 read from each server's ``/metrics``, K1
+     from the trainer's counts (the kernels line's
+     ``launches_aot_path``); (e) one byte of the classifier's banked
+     library flipped and the train step's truncated, in a copy of the
+     store: quarantined before any ``dlopen`` (``ctypes.CDLL`` sees only
+     the rebuilt library), re-banked, answers and steps bitwise; (f) the
+     cold-start worker's serve boot against an empty store and build
+     directory (alone) and, as the first thing (b)-(d)'s process does,
+     against the full store (alone): ``boot_s``, ``first_s``,
+     ``compiles`` and the split of the process start; (g) the three
+     demos (``examples/demos.py``, run in phase 9's 4 gloo ranks, held
+     to the same in this process) and a one-epoch accuracy report on a
+     small synthetic split.
 
-Phases 16, 17, 18, 19, 20 and 21 run after 14, phase 15 last. Checks that wait on
+Phases 16, 17, 18, 19, 20, 21 and 22 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -408,11 +433,13 @@ print then share the host's cores, and are read as such: phase
 beside its data-parallel ranks, phase 11's two nodes beside its CLI
 runs, phase 12's CLI beside its checks (b)-(e) (after its times), phase
 13's CLI beside its elastic ranks, phase 14's (c) beside (a)
-and (d) beside (b), phase 17's (b) beside (c), phase 18's ring ranks
+and (d) beside (b), phase 17's (b) and (c) beside phase 16 and its own
+(a), phase 18's ring ranks
 beside its in-process checks (after its timings), phase 19's ranks
 beside its (a) and (b) (after its timings), phase 20's CLI run beside
 its (a)-(d) (after its timings), phase 21's fleets and CLI run
-beside its (a) and (b). Every ``parallel.spawn``
+beside its (a) and (b), phase 22's bank beside its references and (g),
+its warm process's checks beside (e). Every ``parallel.spawn``
 and CLI process prints its seconds, every phase its ``phase_s``, and the
 summary line before the card's name gives them all and ``total_s``.
 
@@ -431,6 +458,23 @@ import sys
 import tempfile
 import threading
 import time
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--aot-child"]:
+    # Phase 22's fresh processes. The cold-start worker boots first,
+    # before this file imports torch, so that its split sees the import;
+    # then this file's helpers run, imported as a module.
+    from distributed_mnist_bnns_tpu_torch.aot import coldstart
+
+    _SPEC = json.loads(sys.argv[3])
+    if coldstart.main(_SPEC["coldstart"]) != 0:
+        sys.exit(1)
+    import chip_smoke
+
+    _RC = chip_smoke.aot_child(sys.argv[2], _SPEC)
+    # its line is out: exit without the interpreter's and CUDA's teardown
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(_RC)
 
 import numpy as np
 import torch
@@ -510,14 +554,17 @@ DP_GLOO_RANKS = 4           # (b)-(d) gloo ranks sharing card 0: 16 rows each
 # steps must meet them too (checked beside). Cut from 300 steps
 # for phase 15's time (300 reached 100% test accuracy on the synthetic
 # split, against the thresholds' 55 and a 20-point gain).
-DP_EPOCH_STEPS = 100        # cut from 150 for phases 16 and 17
+DP_EPOCH_STEPS = 100        # cut from 150 for phases 16 and 17 (at 50
+# the epoch's mean loss stays above its first step's: the check fails)
 # (a) cli train --dp auto: 100 steps of 64 (cut from the whole 937 for
 # phases 16 and 17; phase 13's CLI converges in as many)
 DP_CLI_SYNTH = (6400, 1024)
 # (b) majority vote (JAX's lr): ranks equal and the plan's bytes, no
 # convergence threshold; cut from 200 steps in PR 15 for phase 14's time
-DP_SIGN_STEPS, DP_SIGN_LR = 20, 0.001   # 50 before phases 16 and 17
-DP_SHORT_STEPS = 20         # (c) K1 under DP, (d) two-level
+DP_SIGN_STEPS, DP_SIGN_LR = 10, 0.001   # 50 before phases 16 and 17,
+# 20 before phase 22
+DP_SHORT_STEPS = 10         # (c) K1 under DP, (d) two-level (20 before
+# phase 22)
 DP_HOSTS = 2                # (d) 2 hosts x 2 local ranks
 # Conv families (phase 10): bnn-cnn at its defaults (widths 64, 128,
 # hidden 1024); K1 at its serving (batch 32) and training (batch 64)
@@ -2252,10 +2299,15 @@ def _dp_nccl_rank(rank: int, world: int, device, steps: int) -> dict:
 
 
 def _dp_gloo_rank(rank: int, world: int, device, epoch_steps) -> dict:
-    """Phase 9 (b)-(d) in one of the gloo ranks sharing a card."""
+    """Phase 9 (b)-(d) in one of the gloo ranks sharing a card, and the
+    three demos (``examples/demos.py``; checked in phase 22 (g))."""
+    from distributed_mnist_bnns_tpu_torch.examples import demos
+
     with tempfile.TemporaryDirectory() as tmp:
         epoch = _dp_data(tmp, epoch_steps)
         return {
+            "demos": demos.run_all(rank, world, device, 0,
+                                   model_kwargs=DEMO_KW),
             "gspmd": _dp_run(device, epoch, evaluate=True),
             "sign_ef": _dp_run(device, epoch, evaluate=True,
                                grad_compress="sign_ef"),
@@ -2320,8 +2372,9 @@ def dp_train_phase(device: torch.device, smi: str):
     card 0: ``DP_EPOCH_STEPS`` steps uncompressed (global-batch
     BatchNorm) and of sign_ef (convergence, sign_ef within 2 points),
     ``DP_SIGN_STEPS`` steps of sign;
-    (c) 20 steps of sign_ef on pallas_xnor and on xla (equal; K1 2 x 20
-    a rank); (d) 20 steps two-level (2 x 2). Every run: ranks bitwise
+    (c) ``DP_SHORT_STEPS`` steps of sign_ef on pallas_xnor and on xla
+    (equal; K1 2 x ``DP_SHORT_STEPS`` a rank); (d) ``DP_SHORT_STEPS``
+    steps two-level (2 x 2); the three demos in the same ranks. Every run: ranks bitwise
     equal, wire bytes per step equal to the plan's. Returns (each
     kernel's launches summed over every run and every rank, the rows)."""
     from distributed_mnist_bnns_tpu_torch.parallel import spawn
@@ -2387,6 +2440,7 @@ def dp_train_phase(device: torch.device, smi: str):
 
     gloo = gloo_ranks()
     wall = time.perf_counter() - t0
+    DEMO_LOSSES[:] = [g.pop("demos") for g in gloo]
     for name in gloo[0]:
         ranks = [g[name] for g in gloo]
         _check_ranks(name, ranks)
@@ -5384,27 +5438,21 @@ def _rs_chaos(tmp: str) -> dict:
 
 
 def _rs_elastic(tmp: str) -> dict:
-    """(b): elastic DP 2 -> 1 -> 2 on gloo ranks sharing the card; the
-    world-1 and final world-2 states bitwise fresh resumes of the
-    generations they resumed from."""
+    """(b), its processes: elastic DP 2 -> 1 -> 2 on gloo ranks sharing
+    the card, and the final world-2 state bitwise a fresh resume of the
+    generation it resumed from. It starts no process group, capture or
+    launch in this process, so it may run in a thread beside other
+    phases; ``_rs_elastic_world1`` checks the world-1 generation after
+    it, in the main thread."""
     import functools
 
-    import torch.distributed as dist
-
     from distributed_mnist_bnns_tpu_torch.obs import Telemetry
-    from distributed_mnist_bnns_tpu_torch.parallel import init_world, spawn
     from distributed_mnist_bnns_tpu_torch.resilience import (
         RetryPolicy,
         run_elastic,
     )
-    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import (
-        LATEST,
-        read_meta,
-    )
 
-    ck = os.path.join(tmp, "elastic")
-    kw = {"checkpoint_dir": ck, "chaos": RS_ELASTIC, "elastic": True,
-          "grad_compress": "sign_ef", "epochs": 1, **RS_SGD}
+    kw = _rs_elastic_kw(tmp)
     tel = Telemetry(os.path.join(tmp, "elastic_tel"), heartbeat=False)
     out = run_elastic(functools.partial(_rs_elastic_trainer, kw), _rs_fit,
                       world=2, backend="gloo", device="cuda",
@@ -5418,30 +5466,57 @@ def _rs_elastic(tmp: str) -> dict:
     if out != {"step": 8, "world": 2} or remesh != [("shrink", 2, 1),
                                                     ("grow", 1, 2)]:
         raise AssertionError(f"phase 17 (b): {out}, remesh {remesh}")
-    gens = {g["generation"]: g for g in read_meta(ck)["generations"]}
     # generation 0: world 2 stopped at step 2; 1: world 1 at step 5;
     # 2: world 2 at the epoch's end
-    base = {k: v for k, v in kw.items() if k != "checkpoint_dir"}
-    for world, gen, stop in ((1, 0, "preempt@step=5"), (2, 1, None)):
-        ref = os.path.join(tmp, f"elastic_ref{gen}")
-        _generation_dir(ck, gens[gen], ref)
-        args = (dict(base, checkpoint_dir=ref, chaos=stop),)
-        if world == 1:
-            # a world-1 gloo group in this process: the spawned world-1
-            # generation's trainer, without a process start
-            init_world(0, 1, backend="gloo",
-                       init_file=os.path.join(tmp, "world1"))
-            try:
-                _rs_resume_rank(0, 1, torch.device("cuda", 0), *args)
-            finally:
-                dist.destroy_process_group()
-        else:
-            spawn(_rs_resume_rank, world, backend="gloo", device="cuda",
-                  args=args)
-        _same_tree(f"phase 17 (b) world {world} from generation {gen}",
-                   _ckpt_leaves(os.path.join(ck, gens[gen + 1]["file"])),
-                   _ckpt_leaves(os.path.join(ref, LATEST)))
+    _rs_elastic_resume(tmp, 2, 1, None)
     return {"remesh": remesh, "steps": out["step"]}
+
+
+def _rs_elastic_kw(tmp: str) -> dict:
+    return {"checkpoint_dir": os.path.join(tmp, "elastic"),
+            "chaos": RS_ELASTIC, "elastic": True, "grad_compress": "sign_ef",
+            "epochs": 1, **RS_SGD}
+
+
+def _rs_elastic_resume(tmp: str, world: int, gen: int, stop) -> None:
+    """Generation ``gen + 1`` of (b)'s run bitwise a fresh resume at
+    ``world`` from generation ``gen``, stopped by the chaos ``stop``;
+    world 1 runs in this process (a world-1 gloo group, the spawned
+    generation's trainer without a process start)."""
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch.parallel import init_world, spawn
+    from distributed_mnist_bnns_tpu_torch.utils.checkpoint import (
+        LATEST,
+        read_meta,
+    )
+
+    kw = _rs_elastic_kw(tmp)
+    ck = kw.pop("checkpoint_dir")
+    gens = {g["generation"]: g for g in read_meta(ck)["generations"]}
+    ref = os.path.join(tmp, f"elastic_ref{gen}")
+    _generation_dir(ck, gens[gen], ref)
+    args = (dict(kw, checkpoint_dir=ref, chaos=stop),)
+    if world == 1:
+        init_world(0, 1, backend="gloo",
+                   init_file=os.path.join(tmp, "world1"))
+        try:
+            _rs_resume_rank(0, 1, torch.device("cuda", 0), *args)
+        finally:
+            dist.destroy_process_group()
+    else:
+        spawn(_rs_resume_rank, world, backend="gloo", device="cuda",
+              args=args)
+    _same_tree(f"phase 17 (b) world {world} from generation {gen}",
+               _ckpt_leaves(os.path.join(ck, gens[gen + 1]["file"])),
+               _ckpt_leaves(os.path.join(ref, LATEST)))
+
+
+def _rs_elastic_world1(tmp: str) -> None:
+    """(b)'s world-1 generation bitwise a fresh world-1 resume from
+    generation 0; in the main thread, after ``_rs_elastic`` has joined,
+    since it holds a process group and launches K1 in this process."""
+    _rs_elastic_resume(tmp, 1, 0, "preempt@step=5")
 
 
 def _rs_multihost(tmp: str) -> dict:
@@ -5582,7 +5657,18 @@ def _rs_serve(device, gen, tmp: str) -> dict:
             "lm_launches": lm_launches, "lm_errors": errors}
 
 
-def resilience_phase(device: torch.device, gen: torch.Generator, smi: str):
+def resilience_processes(tmp: str) -> dict:
+    """Phase 17's process-bound checks, (b)'s ranks and (c)'s host
+    processes, started in ``tmp``: {name: join}. ``main`` starts them
+    beside phase 16, whose spawn holds no timing either: neither starts a
+    process group, a capture or a launch in this process (``resilience_
+    phase`` runs (b)'s in-process world-1 check after the join)."""
+    return {"elastic": _background(lambda: _rs_elastic(tmp)),
+            "multihost": _background(lambda: _rs_multihost(tmp))}
+
+
+def resilience_phase(device: torch.device, gen: torch.Generator, smi: str,
+                     tmp: str = None, started: dict = None):
     """Phase 17, the fault-tolerant runtime (``resilience/chaos``,
     ``elastic``, ``multihost``, ``parallel/hostcomm``):
 
@@ -5601,27 +5687,35 @@ def resilience_phase(device: torch.device, gen: torch.Generator, smi: str):
     (d) both servers under ``infer_error``: the classifier's breaker
     opens and closes (K2/K3 counted), the LM engine retries and its
     stream equals the decoder alone (K1, K7, K8 counted).
+    (b) and (c) run at once; ``started`` holds them when ``main``
+    started them in ``tmp`` already (``resilience_processes``).
     Returns {kernel: launches on this path}."""
-    import tempfile
+    import shutil
 
     t0 = time.perf_counter()
     marks = {}
     launches = {name: 0 for name in KERNEL_ROWS}
-    with tempfile.TemporaryDirectory(prefix="resilience_") as tmp:
+    if tmp is None:
+        tmp = tempfile.mkdtemp(prefix="resilience_")
+    try:
         a = _rs_chaos(tmp)
         marks["a"] = round(time.perf_counter() - t0, 1)
         print(json.dumps({"phase": 17, "chaos": a}), flush=True)
         # (b)'s ranks and (c)'s host processes at once
-        elastic = _background(lambda: _rs_elastic(tmp))
-        c = _rs_multihost(tmp)
+        if started is None:
+            started = resilience_processes(tmp)
+        c = started["multihost"]()
         marks["c"] = round(time.perf_counter() - t0, 1)
-        b = elastic()
+        b = started["elastic"]()
+        _rs_elastic_world1(tmp)
         marks["b"] = round(time.perf_counter() - t0, 1)
         print(json.dumps({"phase": 17, "elastic": b}), flush=True)
         print(json.dumps({"phase": 17, "multihost": c}), flush=True)
         d = _rs_serve(device, gen, tmp)
         marks["d"] = round(time.perf_counter() - t0, 1)
         print(json.dumps({"phase": 17, "serve": d}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for counts in (a["launches"], d["mlp_launches"], d["lm_launches"]):
         for k, v in counts.items():
             launches[k] += v
@@ -8095,6 +8189,544 @@ def fleet_phase(device: torch.device, gen: torch.Generator):
     return paths, out
 
 
+# -- phase 22: the AOT store, the cold-start worker, the examples -----------
+
+AOT_BATCH = MAIN_M           # the classifier server's micro-batch
+AOT_SPEC_K = 4               # the LM server's speculative window
+AOT_LM_REQUESTS = ((5, 12), (17, 12), (40, 8))   # (prompt, new tokens)
+AOT_TRAIN_STEPS = 3          # steps of the train step from the store
+AOT_TRAIN = dict(MLP_TRAIN, backend="pallas_xnor",
+                 model_kwargs={"infl_ratio": 3})
+AOT_REPORT_SIZES = (1280, 256)   # the accuracy report's synthetic split
+DEMO_LOSSES: list = []       # the demos' losses in phase 9's gloo ranks
+DEMO_KW = {"dropout_rate": 0.0}   # the demos' model: no dropout draws, so
+#                                   that every world draws alike
+
+
+def _no_nvcc_env(kernel_dir: str) -> dict:
+    """The environment of a process that cannot find ``nvcc``: CUDA_HOME
+    at nothing, and no PATH entry holding an ``nvcc``."""
+    env = dict(os.environ, JG_KERNEL_DIR=kernel_dir,
+               CUDA_HOME=os.path.join(kernel_dir, "no-cuda-home"))
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    return env
+
+
+def _aot_train_data(tmp: str):
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+
+    return load_mnist(os.path.join(tmp, "no-mnist-files"), synthetic_sizes=(
+        AOT_TRAIN_STEPS * AOT_TRAIN["batch_size"], 64), seed=0)
+
+
+def _aot_train_steps(device, tmp: str, **kw) -> dict:
+    """``AOT_TRAIN_STEPS`` steps of ``AOT_TRAIN`` (pallas_xnor): losses,
+    the state's digest, the AOT status, K1's launches."""
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.train import TrainConfig, Trainer
+
+    data = _aot_train_data(tmp)
+    t = Trainer(TrainConfig(**AOT_TRAIN, epochs=1, device=str(device),
+                            log_interval=10 ** 9, handle_preemption=False,
+                            **kw))
+    bs = AOT_TRAIN["batch_size"]
+    _kernels.reset_launches()
+    losses = []
+    for s in range(AOT_TRAIN_STEPS):
+        xb = torch.from_numpy(data.train_images[s * bs:(s + 1) * bs])
+        yb = torch.from_numpy(data.train_labels[s * bs:(s + 1) * bs].astype(
+            np.int64))
+        loss, _ = t.train_step(t.model, t.optimizer, xb.to(device),
+                               yb.to(device))
+        losses.append(float(loss))
+    return {"losses": losses, "digest": _digest(t.model),
+            "aot_status": t.aot_status,
+            "launches": dict(_kernels.LAUNCHES)}
+
+
+def _metrics_launches(base: str) -> dict:
+    """``kernel_launches_total{kernel}`` from a server's /metrics text."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/metrics",
+                                 headers={"Accept": "text/plain"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        text = r.read().decode()
+    return {name: int(_prom(text, f'kernel_launches_total{{kernel="{name}"}}'))
+            if f'kernel="{name}"' in text else 0 for name in KERNEL_ROWS}
+
+
+def _aot_bank(spec: dict) -> dict:
+    """(a) the classifier, the LM (with its verify program) and the
+    pallas_xnor train step banked through ``cli aot build`` into the
+    empty store, in the cold process after its boot: their libraries
+    built by ``nvcc`` into that process's build directory (its
+    ``JG_KERNEL_DIR``, empty at its start). Its JSON line."""
+    import contextlib
+    import io
+
+    from distributed_mnist_bnns_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--log-level", "WARNING", "aot", "build",
+                       "--store", spec["store"],
+                       "--device", spec["device"],
+                       "--artifact", spec["cls"],
+                       "--batch-size", str(AOT_BATCH),
+                       "--lm-artifact", spec["lm"],
+                       "--slots", str(LM_SLOTS), "--page-size", str(LM_PAGE),
+                       "--prefill-chunk", str(LM_CHUNK),
+                       "--spec-decode", str(AOT_SPEC_K), "--train",
+                       "--model", AOT_TRAIN["model"], "--backend",
+                       AOT_TRAIN["backend"], "--train-batch-size",
+                       str(AOT_TRAIN["batch_size"])])
+    if rc != 0:
+        raise AssertionError(f"cli aot build exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _aot_child_warm(spec: dict) -> dict:
+    """(b)-(d) in a process that cannot find ``nvcc``: the classifier
+    server, the LM server and the train step, each from the store."""
+    import shutil
+
+    from distributed_mnist_bnns_tpu_torch.obs import get_tracker
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+    from distributed_mnist_bnns_tpu_torch.serve import (
+        PackedInferenceServer,
+        ServeConfig,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import (
+        LMServeConfig,
+        LMServer,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import client as lc
+
+    try:
+        _kernels._nvcc()
+        nvcc = "found"
+    except RuntimeError:
+        nvcc = "unreachable"
+    out = {"nvcc": nvcc, "which_nvcc": shutil.which("nvcc")}
+    device = torch.device(spec["device"])
+    # (b) the classifier server
+    images = np.load(spec["images"])
+    _kernels.reset_launches()
+    srv = PackedInferenceServer(ServeConfig(
+        artifact=spec["cls"], device=spec["device"], port=0,
+        batch_size=AOT_BATCH,
+        aot=True, aot_dir=spec["store"]))
+    host, port = srv.start()
+    base = f"http://{host}:{port}"
+    try:
+        code, body = _post_json(base + "/predict", {
+            "images": images.tolist(), "deadline_ms": 60000.0})
+        out["classifier"] = {"code": code,
+                             "log_probs": body.get("log_probs"),
+                             "health": _get_json(base + "/healthz"),
+                             "launches": _metrics_launches(base)}
+    finally:
+        srv.request_stop()
+        srv.drain_and_stop()
+    # (c) the LM server, speculative
+    _kernels.reset_launches()
+    lm = LMServer(LMServeConfig(
+        artifact=spec["lm"], device=spec["device"], port=0, slots=LM_SLOTS,
+        page_size=LM_PAGE, prefill_chunk=LM_CHUNK, spec_decode=AOT_SPEC_K,
+        aot=True, aot_dir=spec["store"]))
+    host, port = lm.start()
+    base = f"http://{host}:{port}"
+    try:
+        streams = []
+        for prompt, n in spec["prompts"]:
+            code, events = lc.generate(base, prompt, max_new_tokens=n,
+                                       temperature=0.0,
+                                       deadline_ms=120000.0)
+            if code != 200 or events[-1].get("status") != "ok":
+                raise AssertionError(f"/generate {code} {events[-1:]}")
+            streams.append([e["token"] for e in events[:-1]])
+        out["lm"] = {"streams": streams,
+                     "health": _get_json(base + "/healthz"),
+                     "launches": _metrics_launches(base)}
+    finally:
+        lm.request_stop()
+        lm.drain_and_stop()
+    # (d) the train step from the store (the smoke's process runs it
+    # online)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = _aot_train_steps(device, tmp, aot=True,
+                                        aot_dir=spec["store"])
+    out["kernel_builds"] = get_tracker().kind_count("kernel_build")
+    return out
+
+
+def aot_child(mode: str, spec: dict) -> int:
+    """Phase 22's processes after their cold-start boots: the bank (a)
+    in the cold one, (b)-(d) in the warm one. One ``{"aot_child": ...}``
+    line."""
+    t0 = time.perf_counter()
+    out = ({"bank": _aot_bank(spec)} if mode == "cold"
+           else _aot_child_warm(spec))
+    print(json.dumps({"aot_child": mode, "s": time.perf_counter() - t0,
+                      **out}), flush=True)
+    return 0
+
+
+def _aot_process(mode: str, spec: dict, env: dict,
+                 booted: threading.Event = None) -> dict:
+    """``chip_smoke.py --aot-child mode`` in a fresh process: the
+    cold-start worker, then ``aot_child``'s part for ``mode``. Its lines
+    parsed: the split, the worker's record, the child's. ``booted`` is
+    set when the worker's record arrives (its boot and first answer are
+    done)."""
+    t0 = time.perf_counter()
+    argv = [sys.executable, os.path.abspath(__file__), "--aot-child", mode,
+            json.dumps(spec)]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    err = _background(proc.stderr.read)
+    rec = {}
+    try:
+        for ln in proc.stdout:
+            if not ln.startswith("{"):
+                continue
+            row = json.loads(ln)
+            if "coldstart_split" in row:
+                rec["split"] = row["coldstart_split"]
+            elif "aot_child" in row:
+                rec["child"] = row
+            elif "boot_s" in row:
+                rec["coldstart"] = row
+                if booted is not None:
+                    booted.set()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        if booted is not None:
+            booted.set()   # a failed process must not hold its waiter
+    rec["process_s"] = time.perf_counter() - t0
+    print(json.dumps({"process": f"aot {mode}",
+                      "s": round(rec["process_s"], 1)}), flush=True)
+    if rc != 0:
+        raise AssertionError(f"phase 22: the {mode} process exited {rc}: "
+                             f"{err()[-3000:]}")
+    err()
+    return rec
+
+
+def _aot_lm_reference(frozen, device, prompts) -> list:
+    """Greedy tokens of ``prompts`` from one engine at the LM server's
+    geometry and speculative window, built without the store."""
+    from distributed_mnist_bnns_tpu_torch.infer_transformer import (
+        make_paged_lm_decoder,
+    )
+    from distributed_mnist_bnns_tpu_torch.serve.lm import LMEngine
+
+    dec = make_paged_lm_decoder(frozen, slots=LM_SLOTS, page_size=LM_PAGE,
+                                prefill_chunk=LM_CHUNK, spec_k=AOT_SPEC_K,
+                                device=device)
+    eng = LMEngine(dec, queue_depth=16, device=device,
+                   recompile_fence=False).start()
+    out = []
+    try:
+        for prompt, n in prompts:
+            req = eng.submit(np.asarray(prompt, np.int32), n,
+                             time.monotonic() + 600)
+            toks = []
+            while True:
+                ev = req.events.get(timeout=300)
+                if ev["kind"] == "done":
+                    if ev["status"] != "ok":
+                        raise AssertionError(f"reference stream {ev}")
+                    break
+                toks.append(ev["token"])
+            out.append(toks)
+    finally:
+        eng.stop()
+    return out
+
+
+def _aot_corrupt(device, tmp: str, store: str, cls_path: str, images,
+                 want, train_want) -> dict:
+    """(e): in a copy of the store, one byte of the classifier's banked
+    library flipped and the train step's library cut in half. Each load
+    quarantines its entry (``aot_fallback``, the ``.quarantined`` files)
+    and rebuilds it through the builder, in a build directory of its own
+    that holds only this process's built library (so the rebuild runs no
+    ``nvcc``, and its install is a file no process has loaded): no
+    library reaches ``ctypes.CDLL`` but the rebuilt one, and the answers
+    and the steps stay bitwise."""
+    import ctypes
+    import glob
+    import hashlib
+    import shutil
+
+    from distributed_mnist_bnns_tpu_torch.aot import AotStore, load_packed_aot
+    from distributed_mnist_bnns_tpu_torch.aot.store import DeferredEvents
+    from distributed_mnist_bnns_tpu_torch.ops import _kernels
+
+    copy = os.path.join(tmp, "store_e")
+    shutil.copytree(store, copy)
+    (cls_bin,) = glob.glob(os.path.join(copy, "classifier_predict", "*.bin"))
+    (train_bin,) = glob.glob(os.path.join(copy, "train_step", "*.bin"))
+    with open(cls_bin, "r+b") as f:
+        blob = bytearray(f.read())
+        blob[len(blob) // 2] ^= 0x01
+        f.seek(0)
+        f.write(blob)
+    bad = {hashlib.sha256(bytes(blob)).hexdigest()}
+    with open(train_bin, "r+b") as f:
+        f.truncate(os.path.getsize(train_bin) // 2)
+    loaded = []
+    real_cdll, real_dir = ctypes.CDLL, _kernels.BUILD_DIR
+    source = "xnor_gemm.cu"
+    kernels_e = os.path.join(tmp, "kernels_e")
+    os.makedirs(kernels_e)
+    shutil.copy(_kernels._lib_path(source), kernels_e)
+    handle = _kernels._libs.pop(source)
+
+    def cdll(path, *a, **kw):
+        with open(path, "rb") as f:
+            loaded.append(hashlib.sha256(f.read()).hexdigest())
+        return real_cdll(path, *a, **kw)
+
+    events = DeferredEvents()   # holds the store's events, never flushed
+    ctypes.CDLL, _kernels.BUILD_DIR = cdll, kernels_e
+    try:
+        fn, _, meta = load_packed_aot(
+            cls_path, batch_size=AOT_BATCH, input_shape=(28, 28, 1),
+            device=device, store=AotStore(copy, telemetry=events))
+        got = fn(images).cpu().numpy()
+        _kernels._libs.pop(source)   # the train step's load, from nothing
+        train = _aot_train_steps(device, tmp, aot=True, aot_dir=copy)
+    finally:
+        ctypes.CDLL, _kernels.BUILD_DIR = real_cdll, real_dir
+        _kernels._libs[source] = handle
+    rebuilt = [f for k, f in events.events if k == "aot_bank"]
+    fallbacks = [f for k, f in events.events if k == "aot_fallback"]
+    quarantined = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(copy, "*", "*.quarantined")))
+    banked = set()
+    for man in glob.glob(os.path.join(copy, "*", "*.json")):
+        with open(man) as f:
+            banked |= {r["sha256"] for r in json.load(f)["libraries"]}
+    row = {"fallbacks": [e["reason"] for e in fallbacks],
+           "classifier_status": meta["status"],
+           "train_status": train["aot_status"],
+           "quarantined": len(quarantined), "cdll_calls": len(loaded)}
+    if meta["status"] != "miss" or train["aot_status"] != "miss":
+        raise AssertionError(f"phase 22 (e): a corrupt entry loaded: {row}")
+    # each entry's payload and manifest set aside: 2 entries, 4 files
+    if row["fallbacks"] != ["payload_digest_mismatch"] or len(
+            quarantined) != 4:
+        raise AssertionError(f"phase 22 (e): not quarantined: {row}, "
+                             f"{quarantined}")
+    if not rebuilt or not loaded or any(h in bad or h not in banked
+                                        for h in loaded):
+        raise AssertionError(f"phase 22 (e): a library that was not "
+                             f"rebuilt and banked reached dlopen: {row}")
+    if not np.array_equal(got, want):
+        raise AssertionError("phase 22 (e): the rebuilt classifier's "
+                             "answers differ")
+    if (train["losses"], train["digest"]) != (train_want["losses"],
+                                              train_want["digest"]):
+        raise AssertionError("phase 22 (e): the rebuilt train step's steps "
+                             "differ")
+    return row
+
+
+def _demos_check(device) -> dict:
+    """(g) the demos: phase 9's gloo ranks ran them at world
+    ``DP_GLOO_RANKS``; the same in this process at world 1 (the DP
+    demos' losses to rtol 1e-5, the TP demo's to atol 1e-4, the DP and
+    TP parity tests' tolerances)."""
+    from distributed_mnist_bnns_tpu_torch.examples import demos
+
+    alone = demos.run_all(0, 1, str(device), 0, model_kwargs=DEMO_KW)
+    if not DEMO_LOSSES:
+        raise AssertionError("phase 22: phase 9's ranks ran no demos")
+    for ranks in DEMO_LOSSES:
+        for name, loss in ranks.items():
+            tol = (dict(atol=1e-4, rtol=0) if name == "demo_model_parallel"
+                   else dict(rtol=1e-5, atol=0))
+            if not np.isclose(loss, alone[name], **tol):
+                raise AssertionError(f"phase 22: {name} at world "
+                                     f"{DP_GLOO_RANKS}: {loss}, alone "
+                                     f"{alone[name]}")
+    return {"world": DP_GLOO_RANKS, "ranks": DEMO_LOSSES[0], "alone": alone}
+
+
+def _report_check(device, tmp: str) -> dict:
+    """(g) the accuracy report: one epoch of bnn-mlp-large on a small
+    synthetic split, written to a file of its own."""
+    from distributed_mnist_bnns_tpu_torch.data import load_mnist
+    from distributed_mnist_bnns_tpu_torch.examples import accuracy_report
+
+    data = load_mnist(os.path.join(tmp, "no-mnist-files"),
+                      synthetic_sizes=AOT_REPORT_SIZES, seed=0)
+    out = os.path.join(tmp, "report.md")
+    rows = accuracy_report.run(["bnn-mlp-large"], 1, 64, 0.01, [0], out,
+                               device=str(device), data=data)
+    with open(out) as f:
+        text = f.read()
+    r = rows[0]
+    if not (np.isfinite(r["test_loss"]) and 0 <= r["test_acc"] <= 100
+            and "`synthetic`" in text and len(r["epoch_times_s"]) == 1):
+        raise AssertionError(f"phase 22: the accuracy report: {r}")
+    return {"test_acc": r["test_acc"], "epoch_s": r["epoch_times_s"][0]}
+
+
+def aot_phase(device: torch.device, gen: torch.Generator, smi: str):
+    """Phase 22: the AOT store. (f) the cold-start worker's cold boot
+    (an empty store and build directory, alone); (a) in the same process
+    after it, ``cli aot build`` banks the classifier, the LM with its
+    verify program and the pallas_xnor train step into an empty store,
+    ``nvcc`` into that build directory, beside the references built here
+    without the store; (b)-(d) a
+    process that cannot find ``nvcc`` boots the classifier server
+    (answers bitwise the predictor built here, K2 and K3 from its
+    /metrics), the LM server (greedy streams equal to an engine built
+    here, K1, K7, K8) and the train step (bitwise the online steps run
+    here, K1),
+    each a hit with zero kernel builds and a budget-0 fence that never
+    tripped; (e) a flipped and a truncated library quarantined and
+    rebuilt; (f) the warm boot (the first thing (b)-(d)'s process does,
+    alone); (g) the demos (run in phase 9's ranks) and the accuracy
+    report, here beside (a); (e) here beside (b)-(d). Returns
+    ({path: launches}, the rows)."""
+    from distributed_mnist_bnns_tpu_torch.infer import (
+        export_packed,
+        load_packed,
+    )
+    from distributed_mnist_bnns_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    marks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        cls_path = os.path.join(tmp, "cls.msgpack")
+        model = get_model("bnn-mlp-large", backend="xla", generator=gen)
+        _random_bn_stats(model, gen)
+        export_packed(model.eval(), cls_path)
+        lm_path, frozen = _lm_artifact(gen, tmp)
+        images = torch.randn(AOT_BATCH, 28, 28, 1, generator=gen).numpy()
+        np.save(os.path.join(tmp, "images.npy"), images)
+        prompts = [(torch.randint(0, LM_WIDTH["vocab"], (n,), generator=gen)
+                    .tolist(), k) for n, k in AOT_LM_REQUESTS]
+        spec = {"store": store, "cls": cls_path, "lm": lm_path,
+                "images": os.path.join(tmp, "images.npy"),
+                "prompts": prompts, "device": device.type}
+        boot = ["--mode", "serve", "--artifact", cls_path, "--store", store,
+                "--batch-size", str(AOT_BATCH), "--device", device.type]
+        cold_dir, warm_dir = (os.path.join(tmp, d) for d in ("k_cold",
+                                                             "k_warm"))
+        # (f) the cold boot alone, against an empty store of its own;
+        # then (a), the bank, in the same process beside the references
+        # built here without the store and (g)
+        cold_booted = threading.Event()
+        cold_join = _background(lambda: _aot_process(
+            "cold", {**spec, "coldstart": [
+                *boot[:boot.index("--store") + 1],
+                os.path.join(tmp, "cold_store"),
+                *boot[boot.index("--store") + 2:]]},
+            dict(os.environ, JG_KERNEL_DIR=cold_dir), cold_booted))
+        cold_booted.wait()     # its record is out: it banks now
+        marks["cold"] = round(time.perf_counter() - t0, 1)
+        fn, _ = load_packed(cls_path, device=device)
+        want = fn(images).cpu().numpy()
+        lm_want = _aot_lm_reference(frozen, device, prompts)
+        train_want = _aot_train_steps(device, tmp)
+        marks["references"] = round(time.perf_counter() - t0, 1)
+        demos = _demos_check(device)
+        report = _report_check(device, tmp)
+        marks["g"] = round(time.perf_counter() - t0, 1)
+        cold = cold_join()
+        bank = cold["child"]["bank"]
+        marks["bank"] = round(time.perf_counter() - t0, 1)
+        # the warm process's boot alone; (e) beside its checks
+        booted = threading.Event()
+        warm_join = _background(lambda: _aot_process(
+            "warm", {**spec, "coldstart": boot}, _no_nvcc_env(warm_dir),
+            booted))
+        booted.wait()
+        marks["warm_boot"] = round(time.perf_counter() - t0, 1)
+        corrupt = _aot_corrupt(device, tmp, store, cls_path, images, want,
+                               train_want)
+        marks["e"] = round(time.perf_counter() - t0, 1)
+        warm = warm_join()
+        marks["warm"] = round(time.perf_counter() - t0, 1)
+    w = warm["child"]
+    built = {b["program"]: b for b in bank["built"]}
+    banked_cls = built.pop("classifier_predict")
+    # nvcc seconds per source: the cold boot's (K1-K3's source), then the
+    # bank's (the LM's others) in the same build directory
+    bank_nvcc = {**cold["coldstart"]["nvcc_s"], **bank["nvcc_s"]}
+    checks = {
+        "cold_miss": cold["coldstart"]["aot_status"] == "miss"
+        and cold["coldstart"]["compiles"] > 0,
+        # an empty store and build directory: all banked, nvcc ran
+        "banked": len(built) == 2 and banked_cls["status"] == "miss"
+        and all(b.get("status") == "miss" for b in built.values())
+        and set(bank_nvcc) >= {"xnor_gemm.cu", "xnor_unpack.cu",
+                               "paged_attn.cu"},
+        "warm_hit": warm["coldstart"]["aot_status"] == "hit"
+        and warm["coldstart"]["compiles"] == 0,
+        "nvcc_unreachable": w["nvcc"] == "unreachable"
+        and w["which_nvcc"] is None,
+        "zero_kernel_builds": w["kernel_builds"] == 0,
+    }
+    for name, part in (("classifier", w["classifier"]), ("lm", w["lm"])):
+        h = part["health"]
+        checks[f"{name}_fenced"] = (
+            h["aot"] == "hit" and h["fence_budget"] == 0
+            and h["fence_error"] is None and h["status"] == "ok")
+    checks["classifier_bitwise"] = (
+        w["classifier"]["code"] == 200 and np.array_equal(
+            np.asarray(w["classifier"]["log_probs"], np.float32), want))
+    checks["lm_tokens"] = w["lm"]["streams"] == lm_want
+    checks["train_hit_bitwise"] = (
+        w["train"]["aot_status"] == "hit"
+        and (w["train"]["losses"], w["train"]["digest"])
+        == (train_want["losses"], train_want["digest"]))
+    paths = {"aot_classifier": w["classifier"]["launches"],
+             "aot_lm": w["lm"]["launches"],
+             "aot_train": w["train"]["launches"]}
+    for path, names in (("aot_classifier", ("xnor_sign", "xnor_affine")),
+                        ("aot_lm", ("xnor", "xnor_unpack", "paged_attn")),
+                        ("aot_train", ("xnor",))):
+        for name in names:
+            checks[f"{path}_{name}"] = paths[path][name] > 0
+    bad = [k for k, ok in checks.items() if not ok]
+    row = {
+        "phase": 22, "card": smi,
+        "cold": {"process_s": cold["process_s"], **cold["coldstart"],
+                 "split": cold["split"]},
+        "bank": {"s": marks["bank"], "nvcc_s": bank_nvcc, "built": {
+            "classifier_predict": banked_cls, **built}},
+        "warm": {"process_s": warm["process_s"], **warm["coldstart"],
+                 "split": warm["split"], "checks_s": w["s"]},
+        "corrupt": corrupt, "demos": demos, "report": report,
+        "train": {"hit": w["train"]["losses"],
+                  "online": train_want["losses"]},
+        "checks": checks,
+    }
+    print(json.dumps(row, default=str), flush=True)
+    if bad:
+        raise AssertionError(f"phase 22: failed {bad}")
+    print(json.dumps({"phase": 22, "launches": paths,
+                      "phase_s": time.perf_counter() - t0,
+                      "elapsed_s_after": marks}), flush=True)
+    log(f"AOT store: cold boot {cold['coldstart']['boot_s']:.1f} s (miss), "
+        f"warm boot {warm['coldstart']['boot_s']:.1f} s (hit, no nvcc); "
+        "both servers and the train step from the store, bitwise")
+    return paths, row
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -8251,9 +8883,14 @@ def main() -> int:
         if mp_counts[name] == 0:
             raise AssertionError(f"the model-parallel path never launched "
                                  f"{name}")
+    # phase 17's process-bound checks start beside phase 16's spawn:
+    # neither holds a timing
+    rs_tmp = tempfile.mkdtemp(prefix="resilience_")
+    rs_started = resilience_processes(rs_tmp)
     mp2_counts = _timed("16", mp2_phase, device, smi)
     rs_counts = _timed("17", resilience_phase, device,
-                       torch.Generator().manual_seed(17), smi)
+                       torch.Generator().manual_seed(17), smi, rs_tmp,
+                       rs_started)
     tf_paths, vit_rows, ring_rows, verify_k8 = _timed(
         "18", transformer_phase, device, torch.Generator().manual_seed(18),
         smi)
@@ -8287,6 +8924,8 @@ def main() -> int:
             if fleet_paths[path][name] == 0:
                 raise AssertionError(f"phase 21: the {path} path never "
                                      f"launched {name}")
+    aot_paths, _ = _timed("22", aot_phase, device,
+                          torch.Generator().manual_seed(22), smi)
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,
@@ -8315,7 +8954,8 @@ def main() -> int:
                          + sum(c[name] for c in tf_paths.values())
                          + sum(c[name] for c in fam_paths.values())
                          + sum(c[name] for c in rn_paths.values())
-                         + sum(c[name] for c in fleet_paths.values())),
+                         + sum(c[name] for c in fleet_paths.values())
+                         + sum(c[name] for c in aot_paths.values())),
             "launches_mlp_path": mlp_counts[name],
             "launches_lm_path": lm_counts[name],
             "launches_train_path": (train_counts[name]
@@ -8346,6 +8986,12 @@ def main() -> int:
             "launches_fleet_classifier_path":
                 fleet_paths["fleet_classifier"][name],
             "launches_fleet_lm_path": fleet_paths["fleet_lm"][name],
+            # a process that booted from the AOT store (22)
+            "launches_aot_path": sum(c[name] for c in aot_paths.values()),
+            "launches_aot_classifier_path":
+                aot_paths["aot_classifier"][name],
+            "launches_aot_lm_path": aot_paths["aot_lm"][name],
+            "launches_aot_train_path": aot_paths["aot_train"][name],
             "launches_in_graphs": (in_graphs.get(name, 0)
                                    + dpc_in_graphs.get(name, 0)),
             "max_abs_err": max_err,

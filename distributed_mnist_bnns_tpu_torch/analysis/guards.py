@@ -50,6 +50,15 @@ _ENV_NAN_EVERY = "JG_NAN_EVERY"      # int, NaN-fence stride
 FENCED_KINDS = ("capture", "kernel_build")
 
 
+def fenced_build_count() -> int:
+    """The process's fenced builds so far (``FENCED_KINDS``): a boot mark
+    that a budget-0 fence pins before the AOT store's libraries load."""
+    from ..obs import get_tracker
+
+    tracker = get_tracker()
+    return sum(tracker.kind_count(k) for k in FENCED_KINDS)
+
+
 class SanitizerError(RuntimeError):
     """Base class for sanitizer trips."""
 
@@ -166,7 +175,7 @@ class Sanitizer:
         builds (``FENCED_KINDS``); 0 without the recompile fence."""
         if self._tracker is None:
             return 0
-        return sum(self._tracker.kind_count(k) for k in FENCED_KINDS)
+        return fenced_build_count()
 
     # -- transfer guard -----------------------------------------------------
 

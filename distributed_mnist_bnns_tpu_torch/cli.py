@@ -1,6 +1,6 @@
 """Command line for the port: ``train``, ``eval``, ``export``, ``infer``,
-``serve``, ``lm``, and the readers ``telemetry``, ``trace`` and
-``profile``.
+``serve``, ``fleet``, ``lm``, ``aot``, and the readers ``telemetry``,
+``trace`` and ``profile``.
 
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-mlp-large \
       --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
@@ -57,6 +57,11 @@
       --trace --profile-steps 10:20
   python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack \
       --telemetry-dir tel --trace --costs
+  python -m distributed_mnist_bnns_tpu_torch.cli aot build --artifact m.msgpack \
+      --lm-artifact lm.msgpack --spec-decode 4 --train --backend pallas_xnor
+  python -m distributed_mnist_bnns_tpu_torch.cli serve --artifact m.msgpack --aot
+  python -m distributed_mnist_bnns_tpu_torch.cli aot ls
+  python -m distributed_mnist_bnns_tpu_torch.cli aot gc --dry-run
   python -m distributed_mnist_bnns_tpu_torch.cli telemetry tel
   python -m distributed_mnist_bnns_tpu_torch.cli trace tel --export trace.json
   python -m distributed_mnist_bnns_tpu_torch.cli profile tel/profile
@@ -279,6 +284,15 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--log-file", default=None,
                     help="also log (DEBUG) to this file (a fleet's "
                          "replicas log to <telemetry-dir>/<id>.log)")
+    sv.add_argument("--aot", action="store_true",
+                    help="boot from the AOT store (aot/): a hit installs "
+                         "the banked kernel libraries with no nvcc and "
+                         "arms the recompile fence at budget 0 from the "
+                         "boot; a miss builds and re-banks. Build the "
+                         "store with `aot build`")
+    sv.add_argument("--aot-dir", default=None,
+                    help="AOT store root (default: JG_TORCH_AOT_STORE or "
+                         "<repo>/.torch_aot)")
 
     fl = sub.add_parser(
         "fleet",
@@ -397,6 +411,10 @@ def build_parser() -> argparse.ArgumentParser:
     fl.add_argument("--chaos", default=None, metavar="SPEC",
                     help="replica fault injection (passed through to "
                          "every replica)")
+    fl.add_argument("--aot", action="store_true",
+                    help="replicas boot from the AOT store (`serve --aot`: "
+                         "no nvcc on a hit); build it with `aot build`")
+    fl.add_argument("--aot-dir", default=None)
     fl.add_argument("--replica-arg", action="append", default=None,
                     metavar="ARG",
                     help="extra raw `cli serve` argv token passed to "
@@ -496,7 +514,78 @@ def build_parser() -> argparse.ArgumentParser:
                                 "`dir`, or --profile-dir)")
     pf.add_argument("--top", type=int, default=15)
     pf.add_argument("--json", action="store_true")
+    _aot_parser(sub)
     return p
+
+
+def _aot_parser(sub) -> None:
+    """``aot build|ls|gc``: the store of the kernel libraries (aot/)."""
+    from .ops.xnor_gemm import BACKENDS
+
+    ao = sub.add_parser(
+        "aot",
+        help="the AOT store of the kernel libraries (aot/): build banks "
+             "the libraries the known programs launch, so `serve --aot`, "
+             "`serve --lm --aot` and `train --aot` boot with no nvcc run; "
+             "ls/gc manage it")
+    asub = ao.add_subparsers(dest="aot_cmd", required=True)
+    ab = asub.add_parser(
+        "build",
+        help="build and bank the known programs: a packed classifier "
+             "artifact (--artifact, at the serving batch shape), a packed "
+             "LM artifact (--lm-artifact, the prefill+decode pair at the "
+             "engine geometry) and the single-device train step "
+             "(--train). The keys are the boots' own: the same loaders "
+             "run on both sides")
+    ab.add_argument("--store", default=None,
+                    help="store root (default: JG_TORCH_AOT_STORE or "
+                         "<repo>/.torch_aot)")
+    ab.add_argument("--device", default="cuda")
+    ab.add_argument("--artifact", default=None,
+                    help="packed classifier artifact (from `export`)")
+    ab.add_argument("--batch-size", type=int, default=32,
+                    help="the server's ONE micro-batch shape")
+    ab.add_argument("--input-shape", type=int, nargs="+",
+                    default=[28, 28, 1])
+    ab.add_argument("--lm-artifact", default=None,
+                    help="packed LM artifact (from `lm --export`)")
+    ab.add_argument("--slots", type=int, default=4)
+    ab.add_argument("--page-size", type=int, default=16)
+    ab.add_argument("--num-pages", type=int, default=None)
+    ab.add_argument("--prefill-chunk", type=int, default=16)
+    ab.add_argument("--max-len", type=int, default=None)
+    ab.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="also bank the verify program, so `serve --lm "
+                         "--aot --spec-decode K` boots with no build (the "
+                         "pair's all-or-nothing rule extends to the "
+                         "triple)")
+    ab.add_argument("--train", action="store_true",
+                    help="also bank the single-device train step of the "
+                         "--model/--train-batch-size/--backend config")
+    ab.add_argument("--model", default="bnn-mlp-large")
+    ab.add_argument("--infl-ratio", type=int, default=3)
+    ab.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="the train step's GEMM backend (pallas_xnor "
+                         "launches K1)")
+    ab.add_argument("--train-batch-size", type=int, default=64)
+    ab.add_argument("--train-input-shape", type=int, nargs="+",
+                    default=[28, 28, 1])
+    ab.add_argument("--optimizer", default="adam")
+    ab.add_argument("--lr", type=float, default=0.01)
+    ab.add_argument("--loss", default="ce",
+                    choices=["ce", "hinge", "sqrt_hinge"])
+    ab.add_argument("--seed", type=int, default=42)
+    al = asub.add_parser("ls", help="list store entries (key, size, age)")
+    al.add_argument("--store", default=None)
+    al.add_argument("--json", action="store_true")
+    ag = asub.add_parser(
+        "gc",
+        help="prune entries that can never hit again: a code revision no "
+             "longer matching the current tree, another runtime or "
+             "device, unknown programs, orphans, quarantined bytes")
+    ag.add_argument("--store", default=None)
+    ag.add_argument("--dry-run", action="store_true")
+    ag.add_argument("--json", action="store_true")
 
 
 def _train_flags(sp: argparse.ArgumentParser) -> None:
@@ -644,6 +733,13 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--nan-check-every", type=int, default=None,
                     help="NaN-fence stride in steps under --sanitize nan "
                          "(each check reads the loss back; default 50)")
+    sp.add_argument("--aot", action="store_true",
+                    help="install the train step's kernel libraries from "
+                         "the AOT store (aot/; no nvcc on a hit), or build "
+                         "and bank them. Single-device step only")
+    sp.add_argument("--aot-dir", default=None,
+                    help="AOT store root (default: JG_TORCH_AOT_STORE or "
+                         "<repo>/.torch_aot)")
     # parallelism
     sp.add_argument("--dp", default="1",
                     help="'auto' = all devices, or an integer")
@@ -819,6 +915,7 @@ def _trainer(args, data_parallel=None, device=None, resume=None):
         native_loader=args.native_loader, sanitize=args.sanitize,
         recompile_budget=args.recompile_budget,
         nan_check_every=args.nan_check_every,
+        aot=args.aot, aot_dir=args.aot_dir,
     ), input_shape=input_shape)
 
 
@@ -1189,6 +1286,7 @@ def _serve(args) -> int:
             costs=args.costs, events_max_bytes=args.events_max_bytes,
             chaos=args.chaos, seed=args.seed,
             prefix_cache=args.prefix_cache, spec_decode=args.spec_decode,
+            aot=args.aot, aot_dir=args.aot_dir,
         )).run()
     from .serve import PackedInferenceServer, ServeConfig
 
@@ -1211,8 +1309,27 @@ def _serve(args) -> int:
         telemetry_dir=args.telemetry_dir, trace=args.trace,
         costs=args.costs, events_max_bytes=args.events_max_bytes,
         chaos=args.chaos, seed=args.seed,
+        aot=args.aot, aot_dir=args.aot_dir,
     ))
     return server.run()
+
+
+def _replica_flags(args) -> list:
+    """The `cli serve` flags a fleet passes on to each of its replicas."""
+    rflags = []
+    for flag, value in (("--batch-size", args.batch_size),
+                        ("--queue-depth", args.queue_depth),
+                        ("--stall-timeout-s", args.stall_timeout_s),
+                        ("--chaos", args.chaos)):
+        if value is not None:
+            rflags += [flag, str(value)]
+    if args.seed:
+        rflags += ["--seed", str(args.seed)]
+    if args.aot:
+        rflags += ["--aot"]
+    if args.aot_dir:
+        rflags += ["--aot-dir", args.aot_dir]
+    return rflags + (args.replica_arg or [])
 
 
 def _fleet(args) -> int:
@@ -1247,16 +1364,7 @@ def _fleet(args) -> int:
         _setup_logging(args)
     from .serve.fleet import FleetConfig, FleetServer
 
-    rflags = []
-    for flag, value in (("--batch-size", args.batch_size),
-                        ("--queue-depth", args.queue_depth),
-                        ("--stall-timeout-s", args.stall_timeout_s),
-                        ("--chaos", args.chaos)):
-        if value is not None:
-            rflags += [flag, str(value)]
-    if args.seed:
-        rflags += ["--seed", str(args.seed)]
-    rflags += args.replica_arg or []
+    rflags = _replica_flags(args)
     return FleetServer(FleetConfig(
         artifact=args.artifact, host=args.host, port=args.port,
         replicas=args.replicas, min_replicas=args.min_replicas,
@@ -1487,6 +1595,113 @@ def _profile(args) -> int:
     return 0
 
 
+def _aot(args) -> int:
+    """``aot build|ls|gc``: manage the AOT store (aot/). build runs the
+    loaders the servers' and the trainer's boots run, so a banked key
+    cannot drift from the key a boot looks up."""
+    from .aot import AotStore
+
+    if args.aot_cmd == "ls":
+        store = AotStore(args.store)
+        rows = store.entries()
+        if args.json:
+            print(json.dumps(rows, default=str))
+            return 0
+        print(f"aot store {store.root}: {len(rows)} entr"
+              f"{'y' if len(rows) == 1 else 'ies'}")
+        for r in rows:
+            if r.get("digest") is None:
+                print(f"  {r['name']}: {r['quarantined']} quarantined "
+                      "file(s) (run `aot gc`)")
+                continue
+            key = r.get("key", {})
+            age = r.get("age_s")
+            age_s = f"{age / 3600:.1f}h" if age is not None else "?"
+            size = r.get("bytes")
+            size_s = f"{size / 1024:.0f}KiB" if size else "0KiB"
+            flag = "  ORPHAN" if r.get("orphan") else ""
+            print(f"  {r['name']}/{r['digest'][:12]}  {size_s:>8}  "
+                  f"age {age_s:>6}  rev {key.get('code_rev', '?')[:12]}"
+                  f"  {key.get('backend', '?')}  "
+                  f"{key.get('runtime_version', '?')}  "
+                  f"avals {key.get('avals', '?')[:60]}{flag}")
+        return 0
+    if args.aot_cmd == "gc":
+        store = AotStore(args.store)
+        res = store.gc(dry_run=args.dry_run)
+        if args.json:
+            print(json.dumps(res))
+            return 0
+        verb = "would remove" if args.dry_run else "removed"
+        print(f"aot gc {store.root}: {verb} {len(res['removed'])} "
+              f"file(s), kept {res['kept']}")
+        for r in res["removed"]:
+            print(f"  {r['name']}/{r['file']}  ({r['reason']})")
+        return 0
+    # build
+    if not (args.artifact or args.lm_artifact or args.train):
+        print("aot build: nothing to build; pass --artifact, "
+              "--lm-artifact and/or --train", file=sys.stderr)
+        return 2
+    from .aot import load_packed_aot, load_paged_lm_decoder_aot
+    from .aot.programs import program_sources
+    from .ops import _kernels
+
+    store = AotStore(args.store)
+    # every source the requested programs may launch, one nvcc each, all
+    # started together (each program's own build then finds them built)
+    sources = set()
+    if args.artifact:
+        sources.update(program_sources("classifier_predict", args.device,
+                                       family="transformer"))
+    if args.lm_artifact:
+        sources.update(program_sources("lm_decode", args.device))
+    if args.train:
+        sources.update(program_sources("train_step", args.device,
+                                       backend=args.backend))
+    nvcc_s = _kernels.build(sorted(sources)) if sources else {}
+    built = []
+    if args.artifact:
+        _, info, meta = load_packed_aot(
+            args.artifact, batch_size=args.batch_size,
+            input_shape=tuple(args.input_shape), device=args.device,
+            store=store)
+        built.append({"program": "classifier_predict",
+                      "artifact": args.artifact,
+                      "family": info.get("family"), **meta})
+    if args.lm_artifact:
+        _, info, meta = load_paged_lm_decoder_aot(
+            args.lm_artifact, slots=args.slots, page_size=args.page_size,
+            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
+            max_len=args.max_len, spec_k=args.spec_decode,
+            device=args.device, store=store)
+        built.append({"program": "lm_prefill+lm_decode"
+                      + ("+lm_verify" if args.spec_decode else ""),
+                      "artifact": args.lm_artifact, **meta})
+    if args.train:
+        from .train import TrainConfig, Trainer
+
+        trainer = Trainer(TrainConfig(
+            model=args.model,
+            model_kwargs=({"infl_ratio": args.infl_ratio}
+                          if args.model.startswith("bnn-mlp") else {}),
+            batch_size=args.train_batch_size, optimizer=args.optimizer,
+            learning_rate=args.lr, loss=args.loss, seed=args.seed,
+            backend=args.backend, device=args.device,
+            handle_preemption=False,
+        ), input_shape=tuple(args.train_input_shape))
+        status = trainer.load_aot_train_step(
+            tuple(args.train_input_shape), store_dir=store.root)
+        built.append({"program": "train_step", "model": args.model,
+                      "backend": args.backend, "status": status,
+                      "nvcc_s": trainer.aot_nvcc_s})
+    # "hit": the entry was banked already and verified; build is
+    # idempotent
+    print(json.dumps({"store": store.root, "nvcc_s": nvcc_s,
+                      "built": built}))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -1496,7 +1711,7 @@ def main(argv=None) -> int:
     return {"train": _train, "eval": _eval, "export": _export,
             "infer": _infer, "serve": _serve, "fleet": _fleet, "lm": _lm,
             "telemetry": _telemetry, "trace": _trace,
-            "profile": _profile}[args.cmd](args)
+            "profile": _profile, "aot": _aot}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,11 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+#: where the libraries are built and installed; ``JG_KERNEL_DIR`` points
+#: one process at another directory (a cold start measured with an empty
+#: one, aot/coldstart.py)
+BUILD_DIR = (os.environ.get("JG_KERNEL_DIR")
+             or os.path.join(_PKG_DIR, "_build"))
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -158,8 +162,9 @@ def _lib_path(source: str) -> str:
 
 
 def _compile(source: str, out: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    # a name of this thread's own: two threads may build one source
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -226,6 +231,41 @@ def _library(source: str) -> ctypes.CDLL:
 
         get_tracker().record("kernel_load", time.perf_counter() - t0)
         return lib
+
+
+def library_bytes(sources) -> Dict[str, bytes]:
+    """{source: its library's bytes} for ``sources``, each built first if
+    it is not yet (what the AOT store banks)."""
+    if not sources:
+        return {}
+    build(list(sources))
+    out = {}
+    for source in sources:
+        with open(_lib_path(source), "rb") as f:
+            out[source] = f.read()
+    return out
+
+
+def install(libs: Dict[str, bytes]) -> list:
+    """Write each verified library of ``libs`` ({source: bytes}, from the
+    AOT store) to its place in ``BUILD_DIR`` and load it: the kernels of
+    those sources then launch with no ``nvcc`` run. A source already
+    loaded in this process is left as it is. Returns the sources
+    loaded. Raises ``OSError`` if a library does not load."""
+    loaded = []
+    for source in sorted(libs):
+        with _lock:
+            if source in _libs:
+                continue
+            path = _lib_path(source)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(libs[source])
+            os.replace(tmp, path)
+        _library(source)
+        loaded.append(source)
+    return loaded
 
 
 def _check(t: torch.Tensor, device: torch.device, dtype: torch.dtype,

@@ -11,9 +11,8 @@ the batch, ``infer_error`` fails it, and either trips the breaker), and
 its recompile fence: a ``sanitizer`` (``analysis.guards.Sanitizer``) is
 fed each delivered batch, and a ``RecompileFenceError`` ends the worker
 (``fence_error`` set, ``submit`` sheds ``engine_failed``). As in the JAX
-package, the server arms it only on a boot from the AOT store, which
-the port does not have yet, so the classifier server runs unfenced. The
-Tail-at-Scale mechanics are the same:
+package, the server arms it, at budget 0 from the boot, only on a boot
+from the AOT store (``aot/``). The Tail-at-Scale mechanics are the same:
 
   * every request carries a **deadline**; work whose deadline has
     passed is cancelled when the batcher pops it (never computed), and

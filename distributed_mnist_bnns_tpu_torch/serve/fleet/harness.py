@@ -38,6 +38,9 @@ from .router import RouterCore
 
 # The engine-side wait slack (mirrors serve/server.py._WAIT_SLACK_S).
 _WAIT_SLACK_S = 0.05
+# Failed requests the section lists (send time from the window's start,
+# latency, status and the router's reply), so a trip names its cause.
+_MAX_FAILED_LISTED = 50
 
 
 class EngineReplicaTransport:
@@ -218,6 +221,7 @@ def fleet_availability_section(
     ok = 0
     total = 0
     outcomes: Dict[str, int] = {}
+    failed: List[Dict[str, Any]] = []
     lock = threading.Lock()
     stop_at = time.monotonic() + duration_s
 
@@ -231,14 +235,23 @@ def fleet_availability_section(
             "deadline_ms": deadline_ms,
         }).encode()
         while time.monotonic() < stop_at:
-            status, _, _ = router.dispatch_predict(
-                body, deadline=time.monotonic() + deadline_ms / 1e3,
+            sent = time.monotonic()
+            status, rbody, _ = router.dispatch_predict(
+                body, deadline=sent + deadline_ms / 1e3,
             )
+            done = time.monotonic()
             with lock:
                 total += 1
                 outcomes[str(status)] = outcomes.get(str(status), 0) + 1
                 if status == 200:
                     ok += 1
+                elif len(failed) < _MAX_FAILED_LISTED:
+                    failed.append({
+                        "sent_s": round(sent - t0, 3),
+                        "latency_s": round(done - sent, 3),
+                        "status": status,
+                        "body": rbody[:200].decode("utf-8", "replace"),
+                    })
 
     threads = [
         threading.Thread(target=hammer, args=(i,), daemon=True)
@@ -271,6 +284,7 @@ def fleet_availability_section(
         "requests_ok": ok,
         "availability": round(ok / total, 5) if total else None,
         "outcomes": outcomes,
+        "failed_requests": failed,
         "retries_total": int(router.retries_ctr.total()),
         "replica_transitions": {
             r.rid: r.transitions for r in sorted(

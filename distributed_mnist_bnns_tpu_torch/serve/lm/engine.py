@@ -190,7 +190,8 @@ class LMEngine:
                  telemetry: Any = None, device: Any = None,
                  decode_event_every: int = 50, chaos: Any = None,
                  max_consecutive_failures: int = 4,
-                 prefix_cache: bool = False, recompile_fence: bool = True):
+                 prefix_cache: bool = False, recompile_fence: bool = True,
+                 boot_fence_baseline: Optional[int] = None):
         self.decoder = decoder
         self.chaos = chaos
         self.max_consecutive_failures = int(max_consecutive_failures)
@@ -222,6 +223,10 @@ class LMEngine:
         self._thread: Optional[threading.Thread] = None
         self._tracker = get_tracker()
         self._compile_baseline: Optional[int] = None
+        # a boot from the AOT store passes the fenced-build count it took
+        # BEFORE the decoder's libraries loaded: budget 0 counts from the
+        # boot then, the warm-up included; None: from the warm-up's end
+        self._boot_fence_baseline = boot_fence_baseline
         self.fence_error: Optional[str] = None
         # off by default: one attribute check each a dispatch
         self._ledger = get_ledger()
@@ -392,9 +397,13 @@ class LMEngine:
         self.page_bytes = self.pool_reserved_bytes // max(dec.num_pages, 1)
         self._compile_baseline = self._tracker.mark()
         if self._sanitizer is not None:
-            # budget 0 from here: every later capture or kernel build
-            # trips the fence at the next iteration's end
-            self._sanitizer.pin_baseline(self._sanitizer.build_count())
+            # budget 0 from here (from the boot after an AOT hit): every
+            # later capture or kernel build trips the fence at the next
+            # iteration's end
+            self._sanitizer.pin_baseline(
+                self._sanitizer.build_count()
+                if self._boot_fence_baseline is None
+                else self._boot_fence_baseline)
         kernels = bool(dec.kernels)
         programs = 3 if self.spec_k else 2
         if tel is not None:

@@ -21,7 +21,8 @@ transfer encoding, one JSON object per line (ndjson).
                       {"done": true, "status": "deadline"} instead.
                       ``"text"`` is tokenized as its UTF-8 bytes mod vocab.
   GET  /healthz       status (ok|draining|failed: the engine's recompile
-                      fence tripped, its fence_error), active_streams,
+                      fence tripped, its fence_error), the AOT boot's
+                      status (aot), active_streams,
                       queue_depth, page occupancy,
                       the engine's counters, the KV pool's bytes (+
                       the prefix cache's entries and shared-page
@@ -50,8 +51,11 @@ With ``telemetry_dir`` the server writes the JAX package's events
 Lifecycle: SIGTERM stops admission (shed ``draining``), lets the active
 streams run out within the drain budget, emits ``drain`` and exits 0.
 
-The AOT boot is not in this package (PyTorch compiles nothing per
-shape).
+With ``aot`` the boot consults the AOT store (``aot/``): a hit installs
+the decoder's banked kernel libraries (K1, K7, K8; the verify program's
+too with ``spec_decode``) with no ``nvcc``, and the engine's budget-0
+fence counts from the boot mark, taken before the artifact loads, not
+from the end of the warm-up; a miss builds and re-banks them.
 """
 
 from __future__ import annotations
@@ -117,6 +121,12 @@ class LMServeConfig:
     seed: int = 0                       # the chaos rules' draws
     prefix_cache: bool = False          # COW prompt-prefix sharing
     spec_decode: int = 0                # speculative window K (0: off)
+    aot: bool = False                   # consult the AOT store (aot/):
+                                        # hit = the banked libraries, no
+                                        # nvcc, fence budget 0 from the
+                                        # boot; miss = build + re-bank
+    aot_dir: Optional[str] = None       # store root (JG_TORCH_AOT_STORE
+                                        # / <repo>/.torch_aot default)
 
 
 class LMServer:
@@ -139,24 +149,50 @@ class LMServer:
         self._started_at = time.time()
         self.engine: Optional[LMEngine] = None
         self.artifact_info: Dict[str, Any] = {}
+        self.aot_status: Optional[str] = None
+        self.aot_meta: Dict[str, Any] = {}     # the boot's AOT load
         self.vocab = 0
 
     def start(self) -> Tuple[str, int]:
         """Load the artifact, build the paged decoder, warm and start the
         engine and the HTTP front end. Returns the bound (host, port)."""
+        from ...analysis.guards import fenced_build_count
         from ...infer_transformer import make_paged_lm_decoder
 
         cfg = self.config
         device = resolve_device(cfg.device)
-        frozen = load_frozen(cfg.artifact)
-        if frozen.get("kind") != "lm":
-            raise ValueError(f"{cfg.artifact} is not a packed LM artifact")
-        self.artifact_info = dict(frozen.get("info", {}))
-        decoder = make_paged_lm_decoder(
-            frozen, slots=cfg.slots, page_size=cfg.page_size,
-            num_pages=cfg.num_pages, prefill_chunk=cfg.prefill_chunk,
-            max_len=cfg.max_len, spec_k=cfg.spec_decode, device=device,
-        )
+        # the boot mark BEFORE the artifact loads: after a hit, the fence
+        # holds zero builds from here
+        boot_mark = fenced_build_count()
+        deferred = None
+        if cfg.aot:
+            from ...aot import load_paged_lm_decoder_aot
+            from ...aot.store import AotStore, DeferredEvents
+
+            # the store's events wait for the manifest below
+            deferred = DeferredEvents()
+            decoder, info, aot_meta = load_paged_lm_decoder_aot(
+                cfg.artifact, slots=cfg.slots, page_size=cfg.page_size,
+                num_pages=cfg.num_pages, prefill_chunk=cfg.prefill_chunk,
+                max_len=cfg.max_len, spec_k=cfg.spec_decode, device=device,
+                store=AotStore(cfg.aot_dir, telemetry=deferred,
+                               registry=self.telemetry.registry),
+            )
+            self.artifact_info = info
+            self.aot_meta = aot_meta
+            self.aot_status = aot_meta["status"]
+        else:
+            frozen = load_frozen(cfg.artifact)
+            if frozen.get("kind") != "lm":
+                raise ValueError(
+                    f"{cfg.artifact} is not a packed LM artifact")
+            self.artifact_info = dict(frozen.get("info", {}))
+            decoder = make_paged_lm_decoder(
+                frozen, slots=cfg.slots, page_size=cfg.page_size,
+                num_pages=cfg.num_pages, prefill_chunk=cfg.prefill_chunk,
+                max_len=cfg.max_len, spec_k=cfg.spec_decode, device=device,
+            )
+            self.aot_status = "disabled"
         self.vocab = decoder.vocab
         # the manifest opens the log, before the engine's warm-up events
         self.telemetry.manifest(
@@ -174,13 +210,18 @@ class LMServer:
                 "chaos": self.chaos.spec or None,
                 "prefix_cache": cfg.prefix_cache,
                 "spec_decode": cfg.spec_decode,
+                "aot": self.aot_status,
             },
             device=device, artifact_info=self.artifact_info,
         )
+        if deferred is not None:
+            deferred.flush(self.telemetry)
         self.engine = LMEngine(
             decoder, queue_depth=cfg.queue_depth, telemetry=self.telemetry,
             device=device, chaos=self.chaos if self.chaos.active else None,
             prefix_cache=cfg.prefix_cache,
+            boot_fence_baseline=(boot_mark if self.aot_status == "hit"
+                                 else None),
         ).start()
         server = self
 
@@ -224,6 +265,8 @@ class LMServer:
             "iterations_total": eng.batch_seq,
             "recompiles_post_warmup": eng.recompiles_post_warmup,
             "fence_error": eng.fence_error,
+            "aot": self.aot_status,
+            "fence_budget": 0 if eng._sanitizer is not None else None,
             "metrics": eng.metrics(),
             "kv_pool": eng.kv_pool_stats(),
             "uptime_s": round(time.time() - self._started_at, 3),

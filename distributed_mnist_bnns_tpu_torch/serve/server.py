@@ -12,7 +12,9 @@ micro-batcher, serving ``infer.load_packed`` artifacts on a ``device``
                        draining) | 504 deadline | 502 backend error |
                        400 bad input | 413 batch too large
   GET  /healthz        status (ok|draining|failed), breaker state, queue
-                       depth, the engine's fence_error,
+                       depth, the engine's fence_error, the AOT boot's
+                       status (aot: hit|miss|disabled), the fence's
+                       budget and the fenced builds since the boot,
                        request/shed/batch counts (+ per-program costs
                        and the cards' memory with --costs)
   GET  /metrics        the obs registry (with the process's kernel
@@ -37,7 +39,11 @@ Lifecycle: SIGTERM/SIGINT set a :class:`~..resilience.preempt.
 StopRequest` flag — stop admitting (new work is shed with reason
 ``draining``), flush everything in flight, emit ``drain``, exit 0.
 
-Chaos and the AOT boot are not in this package yet.
+With ``aot`` the boot consults the AOT store first (``aot/``): a hit
+installs the banked kernel libraries (no ``nvcc``) and arms the
+recompile fence at budget 0 from the boot mark, taken before the
+artifact loads; a miss builds the libraries, banks them and serves
+unfenced, as JAX's server does.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ..analysis.guards import Sanitizer, SanitizerConfig, fenced_build_count
 from ..infer import load_packed
 from ..obs import Telemetry
 from ..obs.costs import arm_ledger
@@ -115,6 +122,14 @@ class ServeConfig:
     chaos: Optional[str] = None      # serving fault injection
                                      # (resilience/chaos; None: JG_CHAOS)
     seed: int = 0                    # the chaos rules' draws
+    aot: bool = False                # consult the AOT store (aot/): hit =
+                                     # the banked kernel libraries, no
+                                     # nvcc, and the recompile fence at
+                                     # budget 0 from the boot; miss =
+                                     # build, re-bank, serve unfenced
+    aot_dir: Optional[str] = None    # store root (default:
+                                     # JG_TORCH_AOT_STORE or
+                                     # <repo>/.torch_aot)
 
 
 class PackedInferenceServer:
@@ -152,6 +167,18 @@ class PackedInferenceServer:
         self._started_at = time.time()
         self.engine: Optional[ServeEngine] = None
         self.artifact_info: Dict[str, Any] = {}
+        self._aot_store = None
+        if config.aot:
+            from ..aot.store import AotStore, DeferredEvents
+
+            # the boot's store events wait for the manifest (start)
+            self._aot_store = AotStore(config.aot_dir,
+                                       telemetry=DeferredEvents(),
+                                       registry=self.telemetry.registry)
+        self.aot_status: Optional[str] = None
+        self.aot_meta: Dict[str, Any] = {}     # the boot's load_packed_aot
+        self._boot_mark: Optional[int] = None   # fenced builds at boot
+        self._engine_sanitizer = None
         # Request-body cap: a full micro-batch of JSON floats (~32
         # chars/value incl. separators) plus headroom, floored at 1 MiB,
         # enforced BEFORE the body is read.
@@ -174,10 +201,23 @@ class PackedInferenceServer:
             "classifier_predict", fn, warm, device=self.config.device,
             telemetry=self.telemetry, extra={"artifact": path}).cpu()
 
+    def _load(self, path: str):
+        """(fn, info, aot_meta): through the AOT store with ``aot`` (a
+        hit installs the banked libraries), else ``load_packed``."""
+        cfg = self.config
+        if self._aot_store is None:
+            fn, info = load_packed(path, device=cfg.device)
+            return fn, info, {"status": "disabled"}
+        from ..aot import load_packed_aot
+
+        return load_packed_aot(
+            path, batch_size=cfg.batch_size, input_shape=cfg.input_shape,
+            device=cfg.device, store=self._aot_store)
+
     def _load_and_warm(self, path: str):
-        fn, info = load_packed(path, device=self.config.device)
+        fn, info, meta = self._load(path)
         self._warm(fn, path)
-        return fn, info
+        return fn, info, meta
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -185,7 +225,19 @@ class PackedInferenceServer:
         """Load + warm the artifact, start the engine and the HTTP
         front end. Returns the bound (host, port)."""
         cfg = self.config
-        fn, info = load_packed(cfg.artifact, device=cfg.device)
+        # the boot mark BEFORE the artifact loads: after a hit, "zero
+        # builds" counts from here, not from the end of the warm-up
+        self._boot_mark = fenced_build_count()
+        fn, info, aot_meta = self._load(cfg.artifact)
+        self.aot_meta = aot_meta
+        self.aot_status = aot_meta.get("status")
+        if self.aot_status == "hit":
+            # every library came from the store: nothing is left to build
+            self._engine_sanitizer = Sanitizer(
+                SanitizerConfig(recompile_fence=True, recompile_budget=0,
+                                warmup_steps=0),
+                telemetry=self.telemetry, registry=self.telemetry.registry)
+            self._engine_sanitizer.pin_baseline(self._boot_mark)
         self.artifact_info = dict(info)
         # the manifest opens the log, before the warm-up's cost row
         self.telemetry.manifest(
@@ -197,9 +249,13 @@ class PackedInferenceServer:
                 "stall_timeout_s": cfg.stall_timeout_s,
                 "breaker_threshold": cfg.breaker_threshold,
                 "breaker_reset_s": cfg.breaker_reset_s,
+                "aot": self.aot_status,
             },
             device=cfg.device, artifact_info=self.artifact_info,
         )
+        if self._aot_store is not None:
+            self._aot_store.telemetry.flush(self.telemetry)
+            self._aot_store.telemetry = self.telemetry
         self._warm(fn, cfg.artifact)
         self.engine = ServeEngine(
             fn,
@@ -211,6 +267,7 @@ class PackedInferenceServer:
             stall_timeout_s=cfg.stall_timeout_s,
             linger_s=cfg.linger_ms / 1e3,
             chaos=self.chaos if self.chaos.active else None,
+            sanitizer=self._engine_sanitizer,
         ).start()
         server = self
 
@@ -254,14 +311,27 @@ class PackedInferenceServer:
         one."""
         path = path or self.config.artifact
         with self._reload_lock:   # one admin reload at a time
-            fn, info = self._load_and_warm(path)
-            if self.engine is None:
-                raise RuntimeError("reload before start")
-            self.engine.swap_predictor(fn)
-            self.artifact_info = dict(info)
+            if self._engine_sanitizer is not None:
+                # a reload that misses the store builds off-path, rightly:
+                # park the budget-0 fence for its duration, then re-pin
+                # it to the count after the reload
+                self._engine_sanitizer.pin_baseline(1 << 62)
+            try:
+                fn, info, aot_meta = self._load_and_warm(path)
+                if self.engine is None:
+                    raise RuntimeError("reload before start")
+                self.engine.swap_predictor(fn)
+                self.artifact_info = dict(info)
+                # /healthz describes the serving artifact's load
+                self.aot_status = aot_meta.get("status")
+            finally:
+                if self._engine_sanitizer is not None:
+                    self._engine_sanitizer.pin_baseline(
+                        fenced_build_count())
         # info nests under its own field: an artifact's "kind" would
         # clobber the event envelope's
-        self.telemetry.emit("reload", artifact=path, info=dict(info))
+        self.telemetry.emit("reload", artifact=path, info=dict(info),
+                            aot=aot_meta.get("status"))
         log.info("hot-reloaded artifact %s (%s)", path, info.get("family"))
         return dict(info)
 
@@ -284,6 +354,12 @@ class PackedInferenceServer:
             "sheds": labeled(eng.shed_ctr) if eng else {},
             "batches_total": int(eng.batches_ctr.total()) if eng else 0,
             "fence_error": eng.fence_error if eng is not None else None,
+            "aot": self.aot_status,
+            "fence_budget": (0 if self._engine_sanitizer is not None
+                             else None),
+            "recompiles_post_boot": (
+                fenced_build_count() - self._boot_mark
+                if self._boot_mark is not None else None),
             "uptime_s": round(time.time() - self._started_at, 3),
         }
         if self._ledger.enabled:

@@ -158,6 +158,16 @@ def _adam_row(group: Dict[str, Any], count: int) -> List[float]:
             _bias_correction(group["b2"], count)]
 
 
+def _unwrapped(fn):
+    """``fn`` without the ``torch._disable_dynamo`` wrapper around it."""
+    return getattr(fn, "__wrapped__", fn)
+
+
+_ZERO_GRAD = _unwrapped(torch.optim.Optimizer.zero_grad)
+_STATE_DICT = _unwrapped(torch.optim.Optimizer.state_dict)
+_LOAD_STATE_DICT = _unwrapped(torch.optim.Optimizer.load_state_dict)
+
+
 class OptaxOptimizer(torch.optim.Optimizer):
     """Base: ``step()`` clips the gradients by global norm (if set), runs
     ``grad_transform`` on them (if set), asks ``_update`` for each
@@ -170,6 +180,13 @@ class OptaxOptimizer(torch.optim.Optimizer):
     ``_row`` computes for the step whose count is ``count``."""
 
     SCALARS: Tuple[str, ...] = ("neg_lr",)
+
+    # torch.optim.Optimizer wraps add_param_group, zero_grad, state_dict
+    # and load_state_dict in torch._disable_dynamo, whose first call
+    # imports torch._dynamo (and with it sympy and DTensor): seconds of
+    # every process that builds an optimizer. The port never compiles,
+    # so it calls the functions under the wrapper.
+    add_param_group = _unwrapped(torch.optim.Optimizer.add_param_group)
 
     def __init__(self, params: Iterable, defaults: Dict[str, Any],
                  clip_grad_norm: Optional[float] = None):
@@ -307,7 +324,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         return torch.sqrt(sq[0]), torch.sqrt(sq[1])
 
     def zero_grad(self, set_to_none: bool = True) -> None:
-        super().zero_grad(set_to_none=set_to_none)
+        _ZERO_GRAD(self, set_to_none=set_to_none)
         for p in self.grad_params:
             if set_to_none:
                 p.grad = None
@@ -332,7 +349,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         return self.grad_transform or self.fsdp_compress
 
     def state_dict(self) -> Dict[str, Any]:
-        sd = super().state_dict()
+        sd = _STATE_DICT(self)
         if self.comm_transform() is not None:
             sd["grad_transform"] = self.comm_transform().state_dict()
         return sd
@@ -340,7 +357,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
         state_dict = dict(state_dict)
         transform = state_dict.pop("grad_transform", None)
-        super().load_state_dict(state_dict)
+        _LOAD_STATE_DICT(self, state_dict)
         if self.comm_transform() is not None and transform is not None:
             self.comm_transform().load_state_dict(transform)
 

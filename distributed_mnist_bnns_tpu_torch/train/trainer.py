@@ -643,6 +643,16 @@ class TrainConfig:
                                    # (None: the sanitizer's default)
     nan_check_every: Optional[int] = None  # NaN-fence stride in steps
                                    # (each check reads the loss back)
+    aot: bool = False              # consult the AOT store (aot/) for the
+                                   # train step's kernel libraries: hit =
+                                   # installed with no nvcc; miss = built
+                                   # and banked. The single-device step
+                                   # only (every other dispatch:
+                                   # "unsupported_dispatch"). False also
+                                   # consults the JG_AOT env var
+    aot_dir: Optional[str] = None  # store root (default:
+                                   # JG_TORCH_AOT_STORE or
+                                   # <repo>/.torch_aot)
 
 
 def _dataset_ref(data):
@@ -756,6 +766,66 @@ class Trainer:
         self._setup_telemetry(input_shape)
         self._setup_sanitizer()
         self._setup_chaos()
+        self.aot_status = "disabled"
+        self.aot_nvcc_s: Dict[str, float] = {}
+        self._maybe_aot_train_step(input_shape)
+
+    def _maybe_aot_train_step(self, input_shape) -> None:
+        """The AOT store for the single-device train step (the JAX
+        ``_maybe_aot_train_step``), with ``aot`` or ``JG_AOT``: see
+        ``load_aot_train_step``."""
+        cfg = self.config
+        if cfg.aot or os.environ.get("JG_AOT"):
+            self.load_aot_train_step(input_shape, store_dir=cfg.aot_dir)
+
+    def load_aot_train_step(self, input_shape, *,
+                            store_dir: Optional[str] = None) -> str:
+        """The single-device train step's kernel libraries from the AOT
+        store under ``store_dir``: installed with no ``nvcc`` on a hit, or
+        built and banked on a miss. The step is the trainer's own either way, so a
+        hit changes where its libraries come from, never what runs. A step
+        captured into a CUDA graph still captures after a hit: captures
+        are not banked. Sets and returns ``aot_status``: ``hit``,
+        ``miss``, ``unsupported_dispatch`` (a process group, a mesh, a
+        scan or device-resident epoch, a compressed exchange) or
+        ``error`` (the store failed; training goes on with the libraries
+        built as usual)."""
+        cfg = self.config
+        if (self.distributed or self.mp is not None
+                or int(cfg.scan_steps) > 1 or cfg.device_data
+                or cfg.grad_compress != "none"):
+            self.aot_status = "unsupported_dispatch"
+            log.info("aot: the train-step store covers the single-device "
+                     "step only; this run's dispatch stays online")
+            return self.aot_status
+        from ..aot import AotStore, TensorSpec, load_or_build_train_step
+
+        # the caller's model kwargs, as JAX's key: the run's seeds are no
+        # part of the program
+        mk = {k: str(v) for k, v in sorted(cfg.model_kwargs.items())}
+        extra = {
+            "model": cfg.model, "model_kwargs": mk,
+            "optimizer": cfg.optimizer, "loss": cfg.loss,
+            "label_smoothing": cfg.label_smoothing,
+            "augment": cfg.augment, "precision": cfg.precision,
+            "grad_accum": cfg.grad_accum, "remat": cfg.remat,
+            "clip_grad_norm": cfg.clip_grad_norm,
+            "backend": self._model_kwargs.get("backend"),
+        }
+        try:
+            self.aot_status, self.aot_nvcc_s = load_or_build_train_step(
+                AotStore(store_dir, telemetry=self.telemetry),
+                model=self.model,
+                images=TensorSpec((cfg.batch_size, *input_shape),
+                                  torch.float32),
+                labels=TensorSpec((cfg.batch_size,), torch.int32),
+                device=self.device, extra=extra,
+                attention=self._model_kwargs.get("attention"))
+        except Exception:
+            # the store is an optimisation: training never fails over it
+            log.exception("aot train-step load failed; online path")
+            self.aot_status = "error"
+        return self.aot_status
 
     def _setup_sanitizer(self) -> None:
         """The run's fences (``analysis.guards``, the JAX

@@ -5,8 +5,9 @@ captured TP and PP steps only).
     python3 scripts/torch_resilience_phase.py [--phases 16 17]
     python3 scripts/torch_resilience_phase.py --phases 16c
 
-Builds every kernel, runs the phases in the order given, prints their
-rows, each phase's seconds and the card's name and power limit; exits 1
+Builds every kernel, runs the phases in the order given (with 16 and
+17 both, 17's process-bound checks start beside 16, as in the smoke),
+prints their rows, each phase's seconds and the card's name and power limit; exits 1
 without CUDA and fails as a phase fails.
 """
 
@@ -17,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -47,14 +49,19 @@ def main() -> int:
     _kernels.build()
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
     device = torch.device("cuda", 0)
+    tmp = started = None
     for phase in args.phases:
         if phase == "16":
+            if "17" in args.phases:
+                tmp = tempfile.mkdtemp(prefix="resilience_")
+                started = cs.resilience_processes(tmp)
             out = cs._timed("16", cs.mp2_phase, device, smi)
         elif phase == "16c":
             out = cs._timed("16c", cs._mp2_captured, device)
         else:
             out = cs._timed("17", cs.resilience_phase, device,
-                            torch.Generator().manual_seed(17), smi)
+                            torch.Generator().manual_seed(17), smi, tmp,
+                            started)
         print(json.dumps({"phase": phase, "launches": out}), flush=True)
     print(smi)
     return 0

@@ -704,7 +704,8 @@ def test_fleet_survives_replica_kill_at_saturation():
         duration_s=2.0, kill_after_s=0.7, device="cpu",
     )
     assert section["requests_total"] > 50
-    assert section["availability"] >= 0.99, section
+    # the whole section as text: pytest cuts a dict's repr short
+    assert section["availability"] >= 0.99, json.dumps(section, default=str)
     transitions = section["replica_transitions"][
         section["killed_replica"]
     ]
