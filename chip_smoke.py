@@ -424,7 +424,17 @@ Phases, each fatal on failure:
      to the same in this process) and a one-epoch accuracy report on a
      small synthetic split.
 
-Phases 16, 17, 18, 19, 20, 21 and 22 run after 14, phase 15 last. Checks that wait on
+ 23. the analyses (``analysis/``), in this process's main thread with
+     no background check alive: (a) ``cli lint --format json`` over the
+     package as it stands on the card's host, 0 unsuppressed findings;
+     (b) the lockstep check of the collective exchanges
+     (``analysis/spmd.verify_shipped``) with the recorder's tensors on
+     ``cuda:0``: the DP, FSDP and remesh exchanges at worlds 2, 4, 8 and
+     the hierarchical one at 2x2, 2x4, 4x2 in lockstep, and a seeded
+     divergence mutant (a collective issued on rank 0 only) caught at
+     its index. It launches no kernel.
+
+Phases 16 to 23 run after 14, phase 15 last. Checks that wait on
 processes of their own (spawned ranks, CLI runs, host processes) run two
 at a time (``_background``), never beside a kernel timing or a
 ``torch.profiler`` device time; the host step times those processes
@@ -707,6 +717,9 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
 
 
+BACKGROUND = "smoke-background"   # the name of _background's threads
+
+
 def _background(fn):
     """Start ``fn()`` in a thread; returns what joins it and gives its
     result (or raises its exception). For checks that wait on processes
@@ -720,7 +733,7 @@ def _background(fn):
         except BaseException as e:   # re-raised by the join
             box["error"] = e
 
-    thread = threading.Thread(target=run)
+    thread = threading.Thread(target=run, name=BACKGROUND)
     thread.start()
 
     def join():
@@ -8727,6 +8740,92 @@ def aot_phase(device: torch.device, gen: torch.Generator, smi: str):
     return paths, row
 
 
+# -- phase 23: the analyses ---------------------------------------------------
+
+def analysis_phase(device: torch.device, smi: str):
+    """Phase 23: ``cli lint`` over the package and the lockstep check of
+    the collective exchanges with their tensors on ``device``, in the
+    main thread with no ``_background`` check alive (the lockstep
+    simulation replaces ``torch.distributed``'s functions process-wide).
+    Returns the phase's row."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from distributed_mnist_bnns_tpu_torch import cli
+    from distributed_mnist_bnns_tpu_torch.analysis import spmd
+
+    t0 = time.perf_counter()
+    if threading.current_thread() is not threading.main_thread():
+        raise AssertionError("phase 23 must run in the main thread")
+    alive = [t.name for t in threading.enumerate()
+             if t.name == BACKGROUND and t.is_alive()]
+    if alive:
+        raise AssertionError(f"phase 23: background checks alive: {alive}")
+    # (a) the lint, as `cli lint --format json` prints it
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["lint", "--format", "json"])
+    lint = json.loads(out.getvalue())
+    lint_row = {"rc": rc, "unsuppressed": lint["unsuppressed"],
+                "suppressed": lint["suppressed"],
+                "s": round(time.perf_counter() - t0, 3)}
+    if rc != 0 or lint["unsuppressed"]:
+        bad = [f for f in lint["findings"] if not f["suppressed"]]
+        raise AssertionError(f"phase 23 (a): cli lint rc {rc}: {bad}")
+    # (b) every shipped exchange in lockstep, tensors on the card
+    t1 = time.perf_counter()
+    report = spmd.verify_shipped(device=str(device))
+    places = []
+
+    def probe(pid, world):
+        fn, args = spmd.SHIPPED_PROGRAMS["dp_exchange"](world, device)(
+            pid, world)
+        places.append(args[1][0].device.type)
+        return fn, args
+
+    spmd.run_lockstep(probe, 2)
+    if places != ["cuda", "cuda"]:
+        raise AssertionError(f"phase 23 (b): the exchange ran on {places}")
+
+    def mutant(pid, world):
+        x = torch.ones(4, device=device)
+
+        def exchange():
+            g = spmd.sim_group("data")
+            dist.broadcast(x, 0, group=g)
+            if pid == 0:          # the divergence: rank 0 only
+                dist.all_reduce(x, group=g)
+            dist.all_gather_into_tensor(
+                torch.empty(world * 4, device=device), x, group=g)
+
+        return exchange, ()
+
+    try:
+        spmd.run_lockstep(mutant, 4)
+    except spmd.LockstepError as e:
+        caught = e.divergence_index
+    else:
+        raise AssertionError("phase 23 (b): the divergence mutant passed")
+    if caught != 1:
+        raise AssertionError(f"phase 23 (b): the mutant diverged at {caught}, "
+                             "not at its index 1")
+    row = {"phase": 23, "card": smi, "lint": lint_row,
+           "spmd": [{k: r[k] for k in ("program", "world", "n_collectives")}
+                    for r in report],
+           "spmd_s": round(time.perf_counter() - t1, 3),
+           "mutant_divergence_index": caught,
+           "phase_s": round(time.perf_counter() - t0, 3)}
+    if not all(r["ok"] for r in report) or len(report) != 12:
+        raise AssertionError(f"phase 23 (b): {report}")
+    print(json.dumps(row), flush=True)
+    log(f"analyses: lint clean ({lint['suppressed']} reasoned suppressions), "
+        f"{len(report)} exchanges in lockstep on {device}, the mutant "
+        "caught at index 1")
+    return row
+
+
 PHASE_S: dict = {}   # phase -> seconds of command time, for the summary
 
 
@@ -8926,6 +9025,7 @@ def main() -> int:
                                      f"launched {name}")
     aot_paths, _ = _timed("22", aot_phase, device,
                           torch.Generator().manual_seed(22), smi)
+    _timed("23", analysis_phase, device, smi)
     # Phase 15 runs last, in the oldest process the smoke has: its
     # profile windows are held to the launch counters there.
     obs_counts, _ = _timed("15", obs_phase, device,

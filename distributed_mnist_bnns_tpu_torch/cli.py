@@ -1,6 +1,6 @@
 """Command line for the port: ``train``, ``eval``, ``export``, ``infer``,
-``serve``, ``fleet``, ``lm``, ``aot``, and the readers ``telemetry``,
-``trace`` and ``profile``.
+``serve``, ``fleet``, ``lm``, ``aot``, the readers ``telemetry``,
+``trace`` and ``profile``, and ``lint``.
 
   python -m distributed_mnist_bnns_tpu_torch.cli train --model bnn-mlp-large \
       --epochs 5 --batch-size 64 --lr 0.01 --checkpoint-dir ckpt
@@ -65,6 +65,8 @@
   python -m distributed_mnist_bnns_tpu_torch.cli telemetry tel
   python -m distributed_mnist_bnns_tpu_torch.cli trace tel --export trace.json
   python -m distributed_mnist_bnns_tpu_torch.cli profile tel/profile
+  python -m distributed_mnist_bnns_tpu_torch.cli lint --format sarif
+  python -m distributed_mnist_bnns_tpu_torch.cli lint --spmd --device cpu
 
 ``train`` trains a registered model (``models.list_models()``: the
 bnn-mlp family, ``fp32-mlp-large``, ``convnet``, ``deep-cnn``,
@@ -139,6 +141,13 @@ per-program cost ledger in /healthz) and ``--events-max-bytes``.
 per-kind totals for a training run) and ``--export``s Chrome-trace JSON
 for Perfetto, ``profile DIR`` summarizes a capture: top ops, the card's
 kernels, the package's kernels inside ``jg_step`` regions.
+
+``lint [PATHS]`` runs the port's linter (``analysis/lint``: the JAX
+package's rule IDs, each carried over, given a torch counterpart, or
+registered as not applicable) over the package or PATHS and exits 1 on
+an unsuppressed finding; ``--rule`` of a rule that is not applicable
+exits 2 with the reason. ``--spmd`` adds the lockstep check of the
+port's collective exchanges (``analysis/spmd.py``) on ``--device``.
 """
 
 from __future__ import annotations
@@ -515,7 +524,56 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--top", type=int, default=15)
     pf.add_argument("--json", action="store_true")
     _aot_parser(sub)
+    _lint_parser(sub)
     return p
+
+
+def _lint_parser(sub) -> None:
+    """``lint``: the JAX CLI's subcommand and flags, plus ``--device``
+    for ``--spmd``."""
+    ln = sub.add_parser(
+        "lint",
+        help="run the port's linter (analysis/lint: JG001-JG018, each "
+             "carried over from the JAX package, given a torch "
+             "counterpart, or not applicable) over the package (or given "
+             "paths); exit 1 on any unsuppressed finding, 2 for a rule "
+             "that is not applicable; --spmd adds the lockstep check of "
+             "the collective exchanges")
+    ln.add_argument("paths", nargs="*", default=None,
+                    help="files/directories to lint (default: the "
+                         "port's package source)")
+    ln.add_argument("--rule", action="append", default=None,
+                    metavar="JGXXX",
+                    help="restrict to the given rule id(s); repeatable")
+    ln.add_argument("--format", default="human",
+                    choices=["human", "json", "sarif"])
+    ln.add_argument("--changed-only", action="store_true",
+                    help="lint only .py files git reports changed vs "
+                         "--base (plus untracked); overrides positional "
+                         "paths")
+    ln.add_argument("--base", default="HEAD", metavar="REF",
+                    help="git ref --changed-only diffs against "
+                         "(default: HEAD)")
+    ln.add_argument("--show-suppressed", action="store_true",
+                    help="also print suppressed findings (with their "
+                         "reasons)")
+    ln.add_argument("--fix-suppressions", action="store_true",
+                    help="append a TODO suppression comment to every "
+                         "unsuppressed finding line (reasons still have "
+                         "to be written by hand)")
+    ln.add_argument("--spmd", action="store_true",
+                    help="also run the lockstep checker "
+                         "(analysis/spmd.py): record each shipped "
+                         "collective exchange's per-rank schedule at "
+                         "every --spmd-world (and the hierarchical one "
+                         "at 2x2, 2x4, 4x2) and fail with the first "
+                         "divergent index if any two disagree")
+    ln.add_argument("--spmd-world", action="append", type=int,
+                    default=None, metavar="N",
+                    help="world size(s) for --spmd (repeatable; "
+                         "default 2 4 8)")
+    ln.add_argument("--device", default="cuda",
+                    help="where --spmd's tensors live")
 
 
 def _aot_parser(sub) -> None:
@@ -1702,6 +1760,71 @@ def _aot(args) -> int:
     return 0
 
 
+def _lint(args) -> int:
+    """Static AST analysis (no card, no CUDA state); ``--spmd`` adds the
+    runtime lockstep check on ``--device``."""
+    import os
+
+    from .analysis.lint import (
+        RuleNotApplicable,
+        changed_py_files,
+        check_rule_ids,
+        fix_suppressions,
+        format_human,
+        format_json,
+        format_sarif,
+        run_paths,
+    )
+
+    if args.rule:
+        try:
+            check_rule_ids(args.rule)
+        except RuleNotApplicable as e:
+            print(f"lint: {e}", file=sys.stderr)
+            return 2
+    if args.changed_only:
+        try:
+            paths = changed_py_files(args.base)
+        except RuntimeError as e:
+            print(f"lint --changed-only: {e}", file=sys.stderr)
+            return 2
+        if not paths:
+            print("lint --changed-only: no changed .py files",
+                  file=sys.stderr)
+            print(format_json([]) if args.format == "json"
+                  else format_sarif([]) if args.format == "sarif"
+                  else "0 finding(s), 0 suppressed")
+            return 0
+    else:
+        paths = args.paths or [os.path.dirname(os.path.abspath(__file__))]
+    findings = run_paths(paths, rule_ids=args.rule)
+    if args.fix_suppressions:
+        edited = fix_suppressions(findings)
+        print(f"annotated {edited} line(s) with TODO suppressions",
+              file=sys.stderr)
+        findings = run_paths(paths, rule_ids=args.rule)
+    if args.format == "json":
+        print(format_json(findings))
+    elif args.format == "sarif":
+        print(format_sarif(findings))
+    else:
+        print(format_human(findings, show_suppressed=args.show_suppressed))
+    rc = 1 if any(not f.suppressed for f in findings) else 0
+    if args.spmd:
+        from .analysis.spmd import LockstepError, verify_shipped
+
+        worlds = tuple(args.spmd_world or (2, 4, 8))
+        try:
+            report = verify_shipped(worlds=worlds, device=args.device)
+        except LockstepError as e:
+            print(f"spmd-lockstep: FAIL\n{e}", file=sys.stderr)
+            return 1
+        for row in report:
+            print(f"spmd-lockstep: {row['program']} world {row['world']}: "
+                  f"{row['n_collectives']} collectives in lockstep")
+    return rc
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -1711,7 +1834,7 @@ def main(argv=None) -> int:
     return {"train": _train, "eval": _eval, "export": _export,
             "infer": _infer, "serve": _serve, "fleet": _fleet, "lm": _lm,
             "telemetry": _telemetry, "trace": _trace,
-            "profile": _profile, "aot": _aot}[args.cmd](args)
+            "profile": _profile, "aot": _aot, "lint": _lint}[args.cmd](args)
 
 
 if __name__ == "__main__":

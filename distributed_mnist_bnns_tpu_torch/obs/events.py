@@ -234,6 +234,7 @@ class EventLog:
         return self._active
 
     def emit(self, kind: str, **fields: Any) -> None:
+        # jg: disable=JG007 -- lock-free fast path; the None check is re-done under the lock below, this read only skips the json encode and never acts on the handle
         if not self._active or self._fh is None:
             return
         record = {"v": SCHEMA_VERSION, "kind": kind, "ts": utc_now()}
@@ -248,11 +249,13 @@ class EventLog:
         with self._lock:
             if self._fh is None:  # closed concurrently
                 return
+            # jg: disable=JG009 -- serializing THIS write is the lock's whole job (interleaved TextIOWrapper writes mangle lines); the json encode already ran outside it
             self._fh.write(line)
             self._size += len(line)
             self._unflushed += 1
             if (kind not in self.BUFFERED_KINDS
                     or self._unflushed >= self._flush_every):
+                # jg: disable=JG009 -- same critical section: the flush must pair with the write it flushes; the buffered-kind policy bounds how often hot paths hit it
                 self._fh.flush()
                 self._unflushed = 0
                 if (self._max_bytes is not None
@@ -262,6 +265,7 @@ class EventLog:
         if rotated and self.on_rotate is not None:
             try:
                 self.on_rotate()
+            # jg: disable=JG005 -- a rotation-counter hook must never fail the write that triggered it
             except Exception:
                 pass
 
@@ -283,6 +287,7 @@ class EventLog:
                     os.remove(seg_path)
                 except OSError:
                     pass
+        # jg: disable=JG009 -- the reopen must happen under the same lock every writer serializes on (a writer observing _fh=None mid-rotation would drop its record); rotation is a rare flush-boundary event, not the per-record path
         self._fh = open(self.path, "a")
         self._size = 0
         if self._manifest_record is not None:
@@ -293,6 +298,7 @@ class EventLog:
             line = json.dumps(
                 {**self._manifest_record, "rotated_copy": True}
             ) + "\n"
+            # jg: disable=JG009 -- same critical section as the reopen above: the copy must land before any writer's next record, and rotation only runs at rare flush boundaries
             self._fh.write(line)
             self._size = len(line)
         self.rotations += 1

@@ -214,8 +214,7 @@ class MetricsRegistry:
         with self._lock:
             inst = self._instruments.get(name)
             if inst is None:
-                # the factory is one of the lambdas below: get-or-create
-                # stays atomic, so a name maps to ONE instrument
+                # jg: disable=JG010 -- factories are this module's own instrument constructors (the counter/gauge/histogram lambdas below), never user code: they cannot re-enter the registry, and get-or-create must stay atomic so a name maps to ONE instrument
                 inst = self._instruments[name] = factory()
             elif not isinstance(inst, cls):
                 raise ValueError(

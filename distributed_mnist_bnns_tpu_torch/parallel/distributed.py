@@ -52,11 +52,13 @@ group, and the inter-host exchange travels over the host collective
 from __future__ import annotations
 
 import datetime
+import gc
 import logging
 import os
 import pickle
 import signal
 import socket
+import sys
 import tempfile
 import time
 from dataclasses import dataclass
@@ -356,8 +358,39 @@ def init_world(rank: int, world: int, *, backend: str,
                             rank=rank, world_size=world)
 
 
+def _release_world() -> None:
+    """Destroy the default process group and every group this module and
+    ``parallel.mesh`` cached from it, then collect the garbage, so that
+    each process group is destructed (and its gloo threads joined) while
+    the interpreter is whole.
+
+    ``destroy_process_group`` alone frees no group that Python still
+    holds: ``make_groups``' and the mesh's caches hold theirs, and a
+    trainer in a reference cycle holds the default group until a
+    collection. Such a group outlived the rank's function into the
+    interpreter's exit with its gloo threads running, and the rank then
+    aborted now and then after its result was sent ("terminate called
+    without an active exception", SIGABRT), failing the spawn."""
+    from . import mesh
+
+    dist.destroy_process_group()
+    _GROUPS.clear()
+    mesh._GROUPS.clear()
+    gc.collect()
+
+
+#: the last bytes of a rank's stderr that a failure reports
+STDERR_TAIL_BYTES = 4096
+
+
 def _entry(local: int, fn: Callable, world: int, backend: str, device: str,
            meet: Dict[str, Any], results, args: tuple) -> None:
+    # this rank's stderr goes to a file the parent copies to its own
+    # stderr as it grows, and whose tail it reports if the rank fails
+    fd = os.open(os.path.join(meet["stderr_dir"], f"{local}.stderr"),
+                 os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o600)
+    os.dup2(fd, 2)
+    os.close(fd)
     rank = meet.get("node_rank", 0) * meet.get("local", 0) + local
     init_world(rank, world, backend=backend, init_file=meet.get("init_file"),
                coordinator=meet.get("coordinator"),
@@ -369,10 +402,82 @@ def _entry(local: int, fn: Callable, world: int, backend: str, device: str,
             torch.cuda.set_device(dev)
         out = fn(rank, world, dev, *args)
     finally:
-        dist.destroy_process_group()
+        _release_world()
     # by value: a tensor shared through a file descriptor would vanish
     # with this process
     results.put((rank, pickle.dumps(out)))
+
+
+class _StderrTee:
+    """The parent's side of the ranks' stderr files: ``pump`` copies what
+    they gained to this process's stderr and keeps each file's last
+    ``STDERR_TAIL_BYTES``."""
+
+    def __init__(self, directory: str, world: int):
+        self.paths = [os.path.join(directory, f"{i}.stderr")
+                      for i in range(world)]
+        self.offsets = [0] * world
+        self.tails = [b""] * world
+
+    def pump(self) -> None:
+        for i, path in enumerate(self.paths):
+            try:
+                with open(path, "rb") as f:
+                    f.seek(self.offsets[i])
+                    data = f.read()
+            except FileNotFoundError:
+                continue
+            if not data:
+                continue
+            self.offsets[i] += len(data)
+            self.tails[i] = (self.tails[i] + data)[-STDERR_TAIL_BYTES:]
+            sys.stderr.write(data.decode("utf-8", "replace"))
+        sys.stderr.flush()
+
+    def tail(self, local: int) -> str:
+        return self.tails[local].decode("utf-8", "replace").rstrip()
+
+
+class RankFailed(RuntimeError):
+    """A spawned world failed: ``exits`` maps each rank at fault to its
+    process's exit code (negative: the signal that ended it; None: still
+    running); the message carries, for each, how it ended (a raising
+    rank's traceback comes first) and the last lines of its stderr."""
+
+    def __init__(self, message: str, exits: Dict[int, Optional[int]]):
+        super().__init__(message)
+        self.exits = exits
+
+
+def _how_it_ended(code: Optional[int]) -> str:
+    """How a rank's process ended, from its exit code (a timeout, or a
+    rank whose result never came)."""
+    if code is None:
+        return "still running (stopped by spawn)"
+    if code < 0:
+        try:
+            return f"killed by signal {signal.Signals(-code).name}"
+        except ValueError:
+            return f"killed by signal {-code}"
+    return f"exited with code {code}"
+
+
+def _failure(what: str, ranks: List[int], procs, tee: _StderrTee,
+             focus: List[int], ended: Optional[str] = None) -> RankFailed:
+    """``what`` happened: each rank of ``focus`` (of this node's
+    ``ranks``) with how its process ended (``ended`` where the caller
+    knows it, else read from its exit code) and its stderr tail."""
+    codes = {r: p.exitcode for r, p in zip(ranks, procs.processes)}
+    lines = [what]
+    for r in focus:
+        local = ranks.index(r)
+        lines.append(f"rank {r} (pid {procs.processes[local].pid}) "
+                     f"{ended or _how_it_ended(codes[r])}; "
+                     "the end of its stderr:")
+        tail = tee.tail(local)
+        lines.append("\n".join("    " + ln for ln in tail.splitlines())
+                     if tail else "    (empty)")
+    return RankFailed("\n".join(lines), {r: codes[r] for r in focus})
 
 
 def _forward_sigterm(processes) -> Callable[[], Any]:
@@ -414,9 +519,12 @@ def spawn(fn: Callable, world: int, *, backend: str,
     graceful stop into ``KeyboardInterrupt``.
 
     ``fn`` must be importable (it is pickled by name) and its result
-    picklable (move tensors to the CPU). A rank that raises fails the
-    call with its traceback, and the other ranks are stopped; so are all
-    of them at ``timeout_s``."""
+    picklable (move tensors to the CPU). A rank that raises or dies
+    fails the call with ``RankFailed``, which names how each failed rank
+    ended (its traceback, exit code or signal) beside the end of its
+    stderr, and the other ranks are stopped; so are all of them at
+    ``timeout_s`` (a ``TimeoutError`` with the same report). Each rank's
+    stderr is copied to this process's stderr as the ranks run."""
     device = "cuda" if device is None else device
     check_world(world, backend=backend, device=device)
     if coordinator is None and nodes != 1:
@@ -434,6 +542,8 @@ def spawn(fn: Callable, world: int, *, backend: str,
             {"coordinator": coordinator, "node_rank": node_rank,
              "local": world, "init_timeout": init_timeout,
              "init_retries": init_retries})
+        meet["stderr_dir"] = tmp
+        tee = _StderrTee(tmp, world)
         procs = mp.start_processes(
             _entry, args=(fn, nodes * world, backend, device, meet, results,
                           args),
@@ -445,23 +555,39 @@ def spawn(fn: Callable, world: int, *, backend: str,
                 while not results.empty():
                     rank, out = results.get()
                     got[rank] = pickle.loads(out)
-                if procs.join(timeout=0.05):
-                    break
+                tee.pump()
+                try:
+                    if procs.join(timeout=0.05):
+                        break
+                except (mp.ProcessRaisedException,
+                        mp.ProcessExitedException) as e:
+                    tee.pump()
+                    ended = ("raised (its traceback above)"
+                             if isinstance(e, mp.ProcessRaisedException)
+                             else f"killed by signal {e.signal_name}"
+                             if e.signal_name
+                             else f"exited with code {e.exit_code}")
+                    raise _failure(f"{world} ranks: {e}", ranks, procs,
+                                   tee, [ranks[e.error_index]], ended) from e
                 if time.monotonic() > deadline:
-                    raise TimeoutError(f"{world} ranks still running after "
-                                       f"{timeout_s} s")
+                    tee.pump()
+                    raise TimeoutError(str(_failure(
+                        f"{world} ranks still running after {timeout_s} s",
+                        ranks, procs, tee, ranks)))
         finally:
             restore_sigterm()
             for p in procs.processes:
                 if p.is_alive():
                     p.terminate()
                 p.join(timeout=10)
+            tee.pump()
         while not results.empty():
             rank, out = results.get()
             got[rank] = pickle.loads(out)
-    missing = sorted(set(ranks) - set(got))
-    if missing:
-        raise RuntimeError(f"ranks {missing} returned no result")
+        missing = sorted(set(ranks) - set(got))
+        if missing:
+            raise _failure(f"ranks {missing} returned no result", ranks,
+                           procs, tee, focus=missing)
     return [got[r] for r in ranks]
 
 

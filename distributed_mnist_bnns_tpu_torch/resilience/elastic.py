@@ -109,6 +109,7 @@ def _picklable(e: BaseException) -> BaseException:
     try:
         pickle.loads(pickle.dumps(e))
         return e
+    # jg: disable=JG005 -- not swallowed: the rank's exception travels on as a RuntimeError carrying its type and message; only the pickling error, which says nothing of the rank's failure, is dropped
     except Exception:
         return RuntimeError(f"{type(e).__name__}: {e}")
 

@@ -175,7 +175,7 @@ class AdmissionQueue:
                     return True, victim
             return False, None
 
-    def _best_index_locked(self) -> int:
+    def _best_index_locked(self) -> int:  # holds-lock: _cond
         """Index of the pop head: oldest request of the highest queued
         tier (lock held, queue non-empty)."""
         best, best_rank = 0, None
@@ -228,6 +228,7 @@ class AdmissionQueue:
                 out.append(req)
                 total += req.n
             if out and claim is not None:
+                # jg: disable=JG010 -- holding the lock IS the point (the drain-race fix): claim flips the engine's busy flag under the queue lock so "queue empty AND worker idle" is never observable with a popped batch pending; it sets one bool and never re-enters the queue
                 claim()
             return out
 

@@ -21,10 +21,21 @@ the failure explains itself (which replica flapped, when, why).
 Chaos composes the same way as the single-server smoke: the doomed
 replica also takes scripted ``infer_slow`` stalls before dying, so the
 failover path is exercised against a straggler, not only a corpse.
+
+The window runs with the caller's heap frozen out of the garbage
+collector (``gc.freeze``). The in-process fleet shares one interpreter,
+and a full collection stops every thread while it walks the whole heap:
+in a long-lived test worker under load that walk stopped the replicas,
+the router and the clients together for 1.7 s, and requests in flight
+outlived their 1.5 s deadlines. Replicas and a router in processes of
+their own pause only for their own heaps. The section lists each full
+collection's pause in the window (``gc_full_pauses_s``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import threading
 import time
@@ -140,6 +151,31 @@ class _CaptureTelemetry:
             return [e for e in self.events if e["kind"] == kind]
 
 
+@contextlib.contextmanager
+def _own_heap(pauses: List[float]):
+    """Freeze what the caller's heap holds now, so that the window's full
+    collections walk only what the window allocates, and unfreeze it all
+    after; append each full collection's pause to ``pauses``."""
+    started: List[float] = []
+
+    def timed(phase: str, info: Dict[str, Any]) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            started.append(time.monotonic())
+        elif started:
+            pauses.append(round(time.monotonic() - started.pop(), 3))
+
+    gc.collect()
+    gc.freeze()
+    gc.callbacks.append(timed)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(timed)
+        gc.unfreeze()
+
+
 def _make_engine(
     predict_fn, *, batch_size: int, chaos: Any = None,
 ) -> ServeEngine:
@@ -218,54 +254,56 @@ def fleet_availability_section(
         router.add_replica(transport.rid, transport)
     router.start_prober(0.05)
 
-    ok = 0
-    total = 0
-    outcomes: Dict[str, int] = {}
-    failed: List[Dict[str, Any]] = []
-    lock = threading.Lock()
-    stop_at = time.monotonic() + duration_s
+    gc_pauses: List[float] = []
+    with _own_heap(gc_pauses):
+        ok = 0
+        total = 0
+        outcomes: Dict[str, int] = {}
+        failed: List[Dict[str, Any]] = []
+        lock = threading.Lock()
+        stop_at = time.monotonic() + duration_s
 
-    def hammer(tid: int) -> None:
-        nonlocal ok, total
-        rng = np.random.RandomState(tid)
-        body = json.dumps({
-            "images": rng.randn(1, *input_shape).astype(
-                np.float32
-            ).tolist(),
-            "deadline_ms": deadline_ms,
-        }).encode()
-        while time.monotonic() < stop_at:
-            sent = time.monotonic()
-            status, rbody, _ = router.dispatch_predict(
-                body, deadline=sent + deadline_ms / 1e3,
-            )
-            done = time.monotonic()
-            with lock:
-                total += 1
-                outcomes[str(status)] = outcomes.get(str(status), 0) + 1
-                if status == 200:
-                    ok += 1
-                elif len(failed) < _MAX_FAILED_LISTED:
-                    failed.append({
-                        "sent_s": round(sent - t0, 3),
-                        "latency_s": round(done - sent, 3),
-                        "status": status,
-                        "body": rbody[:200].decode("utf-8", "replace"),
-                    })
+        def hammer(tid: int) -> None:
+            nonlocal ok, total
+            rng = np.random.RandomState(tid)
+            body = json.dumps({
+                "images": rng.randn(1, *input_shape).astype(
+                    np.float32
+                ).tolist(),
+                "deadline_ms": deadline_ms,
+            }).encode()
+            while time.monotonic() < stop_at:
+                sent = time.monotonic()
+                status, rbody, _ = router.dispatch_predict(
+                    body, deadline=sent + deadline_ms / 1e3,
+                )
+                done = time.monotonic()
+                with lock:
+                    total += 1
+                    outcomes[str(status)] = outcomes.get(str(status), 0) + 1
+                    if status == 200:
+                        ok += 1
+                    elif len(failed) < _MAX_FAILED_LISTED:
+                        failed.append({
+                            "sent_s": round(sent - t0, 3),
+                            "latency_s": round(done - sent, 3),
+                            "status": status,
+                            "body": rbody[:200].decode("utf-8", "replace"),
+                        })
 
-    threads = [
-        threading.Thread(target=hammer, args=(i,), daemon=True)
-        for i in range(n_threads)
-    ]
-    t0 = time.monotonic()
-    for t in threads:
-        t.start()
-    time.sleep(min(kill_after_s, duration_s))
-    transports[0].kill()
-    killed_at = time.monotonic() - t0
-    for t in threads:
-        t.join(timeout=duration_s + deadline_ms / 1e3 + 30.0)
-    wall = time.monotonic() - t0
+        threads = [
+            threading.Thread(target=hammer, args=(i,), daemon=True)
+            for i in range(n_threads)
+        ]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        time.sleep(min(kill_after_s, duration_s))
+        transports[0].kill()
+        killed_at = time.monotonic() - t0
+        for t in threads:
+            t.join(timeout=duration_s + deadline_ms / 1e3 + 30.0)
+        wall = time.monotonic() - t0
     router.stop_prober()
     slo.evaluate()      # final pass so a still-open burn is visible
     for transport in transports[1:]:
@@ -286,6 +324,7 @@ def fleet_availability_section(
         "outcomes": outcomes,
         "failed_requests": failed,
         "retries_total": int(router.retries_ctr.total()),
+        "gc_full_pauses_s": gc_pauses,
         "replica_transitions": {
             r.rid: r.transitions for r in sorted(
                 router.replicas() or [], key=lambda r: r.seq

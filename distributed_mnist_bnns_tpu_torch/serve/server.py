@@ -166,7 +166,10 @@ class PackedInferenceServer:
         self._handling_cond = threading.Condition()
         self._started_at = time.time()
         self.engine: Optional[ServeEngine] = None
-        self.artifact_info: Dict[str, Any] = {}
+        # (artifact info, AOT status) of the serving artifact: ONE tuple
+        # swapped in one store, so that /healthz never reads one
+        # artifact's family beside another's load status
+        self._artifact: Tuple[Dict[str, Any], Optional[str]] = ({}, None)
         self._aot_store = None
         if config.aot:
             from ..aot.store import AotStore, DeferredEvents
@@ -175,7 +178,6 @@ class PackedInferenceServer:
             self._aot_store = AotStore(config.aot_dir,
                                        telemetry=DeferredEvents(),
                                        registry=self.telemetry.registry)
-        self.aot_status: Optional[str] = None
         self.aot_meta: Dict[str, Any] = {}     # the boot's load_packed_aot
         self._boot_mark: Optional[int] = None   # fenced builds at boot
         self._engine_sanitizer = None
@@ -230,15 +232,16 @@ class PackedInferenceServer:
         self._boot_mark = fenced_build_count()
         fn, info, aot_meta = self._load(cfg.artifact)
         self.aot_meta = aot_meta
-        self.aot_status = aot_meta.get("status")
-        if self.aot_status == "hit":
+        info, status = dict(info), aot_meta.get("status")
+        # jg: disable=JG007 -- single-threaded startup: the HTTP front end (the only other reader, and the admin reload, the only other writer) starts below; later writes happen inside reload_artifact under _reload_lock
+        self._artifact = (info, status)
+        if status == "hit":
             # every library came from the store: nothing is left to build
             self._engine_sanitizer = Sanitizer(
                 SanitizerConfig(recompile_fence=True, recompile_budget=0,
                                 warmup_steps=0),
                 telemetry=self.telemetry, registry=self.telemetry.registry)
             self._engine_sanitizer.pin_baseline(self._boot_mark)
-        self.artifact_info = dict(info)
         # the manifest opens the log, before the warm-up's cost row
         self.telemetry.manifest(
             config={
@@ -249,9 +252,9 @@ class PackedInferenceServer:
                 "stall_timeout_s": cfg.stall_timeout_s,
                 "breaker_threshold": cfg.breaker_threshold,
                 "breaker_reset_s": cfg.breaker_reset_s,
-                "aot": self.aot_status,
+                "aot": status,
             },
-            device=cfg.device, artifact_info=self.artifact_info,
+            device=cfg.device, artifact_info=info,
         )
         if self._aot_store is not None:
             self._aot_store.telemetry.flush(self.telemetry)
@@ -321,9 +324,8 @@ class PackedInferenceServer:
                 if self.engine is None:
                     raise RuntimeError("reload before start")
                 self.engine.swap_predictor(fn)
-                self.artifact_info = dict(info)
-                # /healthz describes the serving artifact's load
-                self.aot_status = aot_meta.get("status")
+                # /healthz describes the serving artifact and its load
+                self._artifact = (dict(info), aot_meta.get("status"))
             finally:
                 if self._engine_sanitizer is not None:
                     self._engine_sanitizer.pin_baseline(
@@ -335,8 +337,24 @@ class PackedInferenceServer:
         log.info("hot-reloaded artifact %s (%s)", path, info.get("family"))
         return dict(info)
 
+    @property
+    def artifact_info(self) -> Dict[str, Any]:
+        """The serving artifact's info."""
+        # jg: disable=JG007 -- one read of a tuple swapped in one store (reload_artifact, under _reload_lock): the old or the new pair, never a torn one
+        return self._artifact[0]
+
+    @property
+    def aot_status(self) -> Optional[str]:
+        """How the serving artifact loaded: ``hit``, ``miss``,
+        ``disabled`` (no ``aot``), ..."""
+        # jg: disable=JG007 -- one read of a tuple swapped in one store (reload_artifact, under _reload_lock): the old or the new pair, never a torn one
+        return self._artifact[1]
+
     def health(self) -> Dict[str, Any]:
         eng = self.engine
+        # ONE read: the family and the load status of the same artifact.
+        # jg: disable=JG007 -- benign racy read of a tuple swapped in one store; taking _reload_lock here would stall /healthz behind a reload's load and warm-up (a JG009 shape)
+        info, aot = self._artifact
         if eng is not None and eng.fence_error is not None:
             status = "failed"          # load balancers must route away
         elif eng is not None and eng.draining:
@@ -349,12 +367,12 @@ class PackedInferenceServer:
             "queue_depth": len(self.queue),
             "batch_size": self.config.batch_size,
             "device": self.config.device,
-            "family": self.artifact_info.get("family"),
+            "family": info.get("family"),
             "requests": labeled(eng.requests_ctr) if eng else {},
             "sheds": labeled(eng.shed_ctr) if eng else {},
             "batches_total": int(eng.batches_ctr.total()) if eng else 0,
             "fence_error": eng.fence_error if eng is not None else None,
-            "aot": self.aot_status,
+            "aot": aot,
             "fence_budget": (0 if self._engine_sanitizer is not None
                              else None),
             "recompiles_post_boot": (

@@ -718,6 +718,38 @@ def test_fleet_survives_replica_kill_at_saturation():
             assert trs == [], (rid, trs)
 
 
+def test_probe_window_runs_with_the_callers_heap_frozen():
+    """The kill probe's fleet shares its caller's interpreter, and a full
+    collection over a test worker's heap stopped replicas, router and
+    clients together for 1.7 s under load (4 requests 504). In the
+    window the heap the caller held is frozen out of the collector, and
+    it is given back unfrozen."""
+    import gc
+
+    from distributed_mnist_bnns_tpu_torch.serve.fleet.harness import (
+        fleet_availability_section,
+    )
+
+    held = [[i] for i in range(100_000)]
+    frozen_seen = []
+
+    def seen(phase, info):
+        if phase == "start":
+            frozen_seen.append(gc.get_freeze_count())
+
+    gc.callbacks.append(seen)
+    try:
+        section = fleet_availability_section(
+            duration_s=0.5, kill_after_s=0.2, device="cpu",
+        )
+    finally:
+        gc.callbacks.remove(seen)
+    assert section["requests_total"] > 0
+    assert max(frozen_seen) >= len(held), max(frozen_seen)
+    assert gc.get_freeze_count() == 0
+    assert all(p >= 0 for p in section["gc_full_pauses_s"])
+
+
 def test_replicas_are_the_ports_cli_serve_on_the_fleet_device(tmp_path):
     """The supervisor spawns ``python -m distributed_mnist_bnns_tpu_torch.
     cli serve`` at the fleet's ``--device`` (the card by default), with

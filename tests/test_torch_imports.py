@@ -42,6 +42,13 @@ def _sources():
         "__init__", "registry", "events", "heartbeat", "flops",
         "recompile", "trace", "telemetry", "costs", "profile",
         "summary")} <= set(files)
+    # and the analyses: the linter, the concurrency pack, the scheduler
+    # and the lockstep checker (their framework-free lines are the
+    # port's own copies)
+    assert {PORT / "analysis" / m for m in (
+        "__init__.py", "sched.py", "spmd.py", "lint/__init__.py",
+        "lint/core.py", "lint/rules.py", "concurrency/__init__.py",
+        "concurrency/rules.py")} <= set(files)
     return files
 
 

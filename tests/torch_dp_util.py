@@ -460,3 +460,58 @@ def topology_run(rank, world, device):
     from distributed_mnist_bnns_tpu_torch.parallel import mesh_topology
 
     return mesh_topology()
+
+
+def _native_gloo_threads() -> int:
+    """This process's native gloo threads (``pt_gloo_runloop``,
+    ``gloo_tcp_loop``), from the thread names the kernel keeps."""
+    n = 0
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                n += "gloo" in f.read()
+        except OSError:
+            pass
+    return n
+
+
+def teardown_threads_run(rank, world, device, out_dir):
+    """A rank that leaves its groups where a trainer leaves them: a mesh
+    and the hierarchical layout (cached per default group) and the
+    default group in a reference cycle. At the interpreter's exit it
+    writes the number of native gloo threads still running to
+    ``out_dir/<rank>``."""
+    import atexit
+
+    from distributed_mnist_bnns_tpu_torch.parallel import make_mesh
+
+    def report():
+        with open(os.path.join(out_dir, str(rank)), "w") as f:
+            f.write(str(_native_gloo_threads()))
+
+    atexit.register(report)
+    make_mesh(data=1, model=world)
+    groups = make_groups(hosts=world, local=1)
+    x = torch.ones(2)
+    dist.all_reduce(x, group=groups.inter)
+    cycle = {"group": dist.group.WORLD}
+    cycle["self"] = cycle
+    return float(x.sum())
+
+
+def dies_run(rank, world, device, how):
+    """After a barrier (every rank through its rendezvous: a rank that
+    returned at once could close its side of the mesh while a slower
+    peer still connects), rank 1 writes a line to its stderr, then exits
+    with code 3 (``how="exit"``) or aborts (``how="abort"``); the others
+    return."""
+    import signal
+    import sys
+
+    dist.barrier()
+    if rank == 1:
+        print(f"rank 1 about to {how}", file=sys.stderr, flush=True)
+        if how == "exit":
+            os._exit(3)
+        os.kill(os.getpid(), signal.SIGABRT)
+    return rank
